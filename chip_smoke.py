@@ -1,0 +1,477 @@
+#!/usr/bin/env python3
+"""On-card check of the PyTorch port (``src/repro_torch``) on one CUDA GPU.
+
+    python3 chip_smoke.py
+
+It takes no arguments. Phases, in order; any failure raises and the script
+exits non-zero:
+
+  env       the card, its power limit, and the parallel nvcc build of every
+            kernel (one nvcc per source, all started together);
+  kernels   each CUDA kernel against its plain PyTorch version on the card,
+            at the main path's shapes and at ragged ones, f32 and bf16;
+  reference the port on the card (kernels) against the port on the CPU
+            (plain versions) on a small CNN run with the same draws;
+  main_path ``Simulator.run`` on CNN-FEMNIST at the paper's full width
+            (246,590 params x 100 clients): fedp2p, fedp2p with
+            sync_period=2, fedavg, fedp2p on mix_path="dense", and fedp2p
+            with the JAX package's Table-1 participation (10 of 100), each
+            driven with the launch counters set to 0 just before it and
+            read just after;
+  timing    each kernel's mean time at the main path's shape beside its
+            plain version, its bound and its library yardstick, and the
+            round's split between local training and mixing.
+
+Each phase prints one JSON line. The run ends with the kernel summary
+line, the ``nvidia-smi`` name/power-limit line, and then
+``{"ok": true, "device": {...}}`` as the last line. Needs the repository's
+``src/`` beside this file and a CUDA device; without either it exits
+non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+SEGMENT_SOURCE = "src/repro_torch/kernels/csrc/fed_mix_segment.cu"
+DENSE_SOURCE = "src/repro_torch/kernels/csrc/fed_mix.cu"
+SEGMENT_REPLACES = "src/repro/kernels/fed_mix_sparse.py:85"
+DENSE_REPLACES = "src/repro/kernels/fed_mix.py:66"
+
+# the main path's mix: 100 participants x the FEMNIST CNN's 246,590 params
+MAIN_D, MAIN_P = 100, 246_590
+# max |kernel - plain| <= ATOL + RTOL * |plain|, elementwise. f32: the two
+# sum in different orders (row order vs atomics / cuBLAS), a few ulp of
+# O(1) values. bf16: one bf16 rounding step of O(1) outputs (2^-6 at
+# [2, 4)), as the JAX package's tests allow (3e-2).
+TOL = {"float32": (1e-5, 1e-5), "bfloat16": (3e-2, 3e-2)}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# inputs
+# ---------------------------------------------------------------------------
+
+def segment_inputs(torch, d, p, num_segments, dtype, seed):
+    """A fedp2p-like segment mix: random clusters, straggler mask and
+    integer sample counts; within each segment the w_new weights of the
+    survivors sum to 1, dead segments keep their old rows' mean."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(device="cuda", generator=g)
+    ids = torch.randint(0, num_segments, (d,), dtype=torch.int32, **kw)
+    survive = (torch.rand(d, **kw) > 0.3).float()
+    counts = torch.randint(12, 121, (d,), **kw).float()
+    w = survive * counts
+    seg_tot = torch.zeros(num_segments, device="cuda").index_add_(
+        0, ids.long(), w)
+    seg_n = torch.zeros(num_segments, device="cuda").index_add_(
+        0, ids.long(), torch.ones(d, device="cuda"))
+    w_new = w / torch.clamp_min(seg_tot[ids.long()], 1e-12)
+    w_old = (seg_tot[ids.long()] == 0).float() / torch.clamp_min(
+        seg_n[ids.long()], 1.0)
+    x_new = torch.randn((d, p), **kw).to(dtype)
+    x_old = torch.randn((d, p), **kw).to(dtype)
+    return ids, w_new, w_old, x_new, x_old
+
+
+def dense_inputs(torch, d, p, dtype, seed):
+    """Random convex (M_new, M_old): the rows of M_new + M_old sum to 1."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(device="cuda", generator=g)
+    mn = torch.rand((d, d), **kw)
+    mo = torch.rand((d, d), **kw)
+    tot = (mn + mo).sum(dim=1, keepdim=True)
+    x_new = torch.randn((d, p), **kw).to(dtype)
+    x_old = torch.randn((d, p), **kw).to(dtype)
+    return mn / tot, mo / tot, x_new, x_old
+
+
+def compare(torch, got, want):
+    """(max abs err, tolerance at that element, ok) in the output dtype."""
+    atol, rtol = TOL[str(want.dtype).replace("torch.", "")]
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    bound = atol + rtol * w.abs()
+    ok = bool((err <= bound).all()) and bool(torch.isfinite(g).all())
+    return float(err.max()) if err.numel() else 0.0, atol, rtol, ok
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_env(torch, backend, state):
+    t0 = time.perf_counter()
+    seconds = backend.build()
+    wall = time.perf_counter() - t0
+    state["smi"] = nvidia_smi()
+    emit({"phase": "env", "device": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "nvidia_smi": state["smi"],
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "build_seconds": seconds, "build_wall_seconds": round(wall, 3)})
+
+
+def phase_kernels(torch, state):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fed_mix import fed_mix
+    from repro_torch.kernels.fed_mix_sparse import fed_mix_segment
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows, failed = [], []
+    seg_cases = [(MAIN_D, MAIN_P, 1, f32), (MAIN_D, MAIN_P, 10, f32),
+                 (MAIN_D, MAIN_P, 1, bf16), (MAIN_D, MAIN_P, 10, bf16),
+                 (37, 1000, 37, f32), (37, 1000, 37, bf16),
+                 (37, 1001, 37, bf16),       # odd P: one column a thread
+                 (7, 130, 3, f32), (1, 1, 1, f32), (100, 1000, 100, f32),
+                 (2048, 999, 2048, f32),     # [L, P] device-memory path
+                 (1000, 130, 1000, f32),     # the same, two columns a thread
+                 (4096, 257, 7, bf16)]
+    for i, (d, p, nseg, dt) in enumerate(seg_cases):
+        ids, wn, wo, xn, xo = segment_inputs(torch, d, p, nseg, dt, seed=i)
+        got = fed_mix_segment(ids, wn, wo, xn, xo, num_segments=nseg)
+        torch.cuda.synchronize()
+        want = ref.fed_mix_segment_ref(ids, wn, wo, xn, xo,
+                                       num_segments=nseg)
+        err, atol, rtol, ok = compare(torch, got, want)
+        ok = ok and got.dtype == xn.dtype and got.shape == xn.shape
+        rows.append({"kernel": "fed_mix_segment", "D": d, "P": p, "L": nseg,
+                     "dtype": str(dt)[6:], "max_abs_err": err,
+                     "atol": atol, "rtol": rtol, "ok": ok})
+        failed += [] if ok else [rows[-1]]
+    dense_cases = [(MAIN_D, MAIN_P, f32), (MAIN_D, MAIN_P, bf16),
+                   (37, 1000, f32), (37, 1000, bf16), (7, 130, f32),
+                   (1, 1, f32), (300, 5001, f32)]
+    for i, (d, p, dt) in enumerate(dense_cases):
+        mn, mo, xn, xo = dense_inputs(torch, d, p, dt, seed=100 + i)
+        got = fed_mix(mn, mo, xn, xo)
+        torch.cuda.synchronize()
+        want = ref.fed_mix_ref(mn, mo, xn, xo)
+        err, atol, rtol, ok = compare(torch, got, want)
+        ok = ok and got.dtype == xn.dtype and got.shape == xn.shape
+        rows.append({"kernel": "fed_mix", "D": d, "P": p,
+                     "dtype": str(dt)[6:], "max_abs_err": err,
+                     "atol": atol, "rtol": rtol, "ok": ok})
+        failed += [] if ok else [rows[-1]]
+    # the summary line's error: the main path's shape, f32
+    for name in ("fed_mix_segment", "fed_mix"):
+        state.setdefault("max_abs_err", {})[name] = max(
+            r["max_abs_err"] for r in rows if r["kernel"] == name
+            and (r["D"], r["P"], r["dtype"]) == (MAIN_D, MAIN_P, "float32"))
+    emit({"phase": "kernels", "cases": rows})
+    if failed:
+        raise AssertionError(f"kernel disagrees with its plain version: "
+                             f"{failed}")
+
+
+def femnist_setup(full: bool):
+    from repro_torch.config import FLConfig
+    from repro_torch.configs.paper_models import CNN_FEMNIST, PaperNetConfig
+    from repro_torch.data.federated import pseudo_femnist_federated
+    if full:
+        data = pseudo_femnist_federated(100, num_classes=62, seed=0)
+        return CNN_FEMNIST, data, dict(lr=0.05)
+    net = PaperNetConfig(name="cnn-small", kind="cnn", image_size=28,
+                         channels=1, hidden=8, num_classes=10)
+    data = pseudo_femnist_federated(12, per_client=20, num_classes=10, seed=1)
+    return net, data, dict(num_clients=12, num_clusters=2,
+                           devices_per_cluster=4, participation=4,
+                           local_epochs=2, lr=0.05, straggler_rate=0.25)
+
+
+def phase_reference(torch, state):
+    """The port on the card against the port on the CPU: same data, same
+    initial weights, same draws. Tolerance: train_loss rtol 1e-4 (cuDNN
+    and the kernels sum in other orders than the CPU over a few dozen SGD
+    steps); accuracy within one test sample."""
+    from repro_torch.config import FLConfig
+    from repro_torch.core.simulator import Simulator
+    net, data, kw = femnist_setup(full=False)
+    rows = []
+    n_test = float(data.test_mask.sum())
+    for algo, mix_path, sync in (("fedp2p", "auto", 2), ("fedavg", "auto", 1),
+                                 ("fedp2p", "dense", 1)):
+        fl = FLConfig(sync_period=sync, mix_path=mix_path, **kw)
+        out = {}
+        sims = {dev: Simulator(net, data, fl, device=dev)
+                for dev in ("cpu", "cuda")}
+        eng = {dev: s.engine(algo) for dev, s in sims.items()}
+        gen = torch.Generator(device="cpu").manual_seed(7)
+        draws = [eng["cpu"].draw_round(gen) for _ in range(2)]
+        for dev, e in eng.items():   # the engine moves the draws over
+            _, m = e.run_rounds(sims[dev].init_params(0), None, 2,
+                                draws=draws)
+            out[dev] = {k: v.cpu().tolist() for k, v in m.items()}
+        lc, lg = out["cpu"]["train_loss"], out["cuda"]["train_loss"]
+        ac, ag = out["cpu"]["acc"], out["cuda"]["acc"]
+        ok = (all(abs(a - b) <= 1e-4 * abs(a) + 1e-6 for a, b in zip(lc, lg))
+              and all(abs(a - b) <= 1.0 / n_test + 1e-6
+                      for a, b in zip(ac, ag))
+              and all(math.isfinite(v) for v in lg + ag))
+        rows.append({"algorithm": algo, "mix_path": mix_path,
+                     "sync_period": sync, "loss_cpu": lc, "loss_cuda": lg,
+                     "acc_cpu": ac, "acc_cuda": ag, "ok": ok})
+        if not ok:
+            emit({"phase": "reference", "runs": rows})
+            raise AssertionError(f"port on the card disagrees with the CPU "
+                                 f"reference: {rows[-1]}")
+    emit({"phase": "reference", "runs": rows})
+
+
+def phase_main_path(torch, state):
+    from repro_torch.config import FLConfig
+    from repro_torch.core.simulator import Simulator
+    from repro_torch.kernels.fed_mix import fed_mix
+    from repro_torch.kernels.fed_mix_sparse import fed_mix_segment
+    net, data, kw = femnist_setup(full=True)
+    runs = [  # (label, FLConfig overrides, run kwargs, expected launches)
+        ("fedp2p", {}, dict(rounds=3, algorithm="fedp2p"),
+         {"fed_mix_segment": 3, "fed_mix": 0}),
+        ("fedp2p_sync2", {"sync_period": 2},
+         dict(rounds=3, algorithm="fedp2p"),
+         {"fed_mix_segment": 6, "fed_mix": 0}),
+        ("fedavg", {}, dict(rounds=2, algorithm="fedavg"),
+         {"fed_mix_segment": 2, "fed_mix": 0}),
+        ("fedp2p_dense", {}, dict(rounds=2, algorithm="fedp2p",
+                                  mix_path="dense"),
+         {"fed_mix_segment": 0, "fed_mix": 2}),
+        # the JAX package's Table-1 participation for this net
+        # (benchmarks/accuracy.py: L=5, Q=2, 10 participants)
+        ("fedp2p_table1", {"num_clusters": 5, "devices_per_cluster": 2,
+                           "participation": 10},
+         dict(rounds=5, algorithm="fedp2p"),
+         {"fed_mix_segment": 5, "fed_mix": 0}),
+    ]
+    totals = {"fed_mix_segment": 0, "fed_mix": 0}
+    results = []
+    n_params = None
+    for label, over, run_kw, expect in runs:
+        fl = FLConfig(**{**kw, **over})
+        sim = Simulator(net, data, fl)
+        if n_params is None:
+            n_params = sum(v.numel() for v in sim.init_params(0).values())
+        torch.cuda.synchronize()
+        fed_mix_segment.launches = 0
+        fed_mix.launches = 0
+        t0 = time.perf_counter()
+        hist = sim.run(**run_kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {"fed_mix_segment": fed_mix_segment.launches,
+               "fed_mix": fed_mix.launches}
+        for k in totals:
+            totals[k] += got[k]
+        finite = all(math.isfinite(v) for v in
+                     hist.train_loss + hist.acc + hist.acc_client_mean)
+        row = {"run": label, "rounds": run_kw["rounds"],
+               "participants": sim.engine(run_kw["algorithm"]).proto
+               .num_participants(fl),
+               "sync_period": fl.sync_period,
+               "mix_path": run_kw.get("mix_path", fl.mix_path),
+               "train_loss": hist.train_loss, "acc": hist.acc,
+               "acc_client_mean": hist.acc_client_mean,
+               "seconds": round(secs, 3),
+               "seconds_per_round": round(secs / run_kw["rounds"], 3),
+               "launches": got, "expected_launches": expect,
+               "finite": finite}
+        results.append(row)
+        if not finite or got != expect:
+            emit({"phase": "main_path", "params_per_client": n_params,
+                  "runs": results})
+            raise AssertionError(f"main path run {label!r} failed: {row}")
+    state["launches"] = totals
+    emit({"phase": "main_path", "params_per_client": n_params,
+          "runs": results})
+
+
+def device_ms(torch, fn, reps=20, warmup=3):
+    """Call ``fn`` ``warmup`` times, then ``reps`` times under
+    torch.profiler; returns {kernel name: device ms per call}. Only the
+    device's own kernel events are read: a CPU op's "self device time"
+    repeats its kernels'."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and evt.device_time_total > 0:
+            per[evt.key] = per.get(evt.key, 0.0) + (
+                evt.device_time_total / 1e3 / reps)
+    if not per:
+        raise RuntimeError("torch.profiler recorded no device kernels")
+    return per
+
+
+def named_ms(per, name):
+    """Device ms of the kernels in ``per`` whose name contains ``name``."""
+    hits = [v for k, v in per.items() if name in k]
+    if not hits:
+        raise RuntimeError(f"no device kernel named like {name!r}: "
+                           f"{sorted(per)[:8]}")
+    return sum(hits)
+
+
+def bound(byts, flops):
+    t_bytes, t_ops = byts / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_timing(torch, state):
+    """Kernel times are device times from torch.profiler (the kernel's
+    own launches, mean over 20 calls); plain and library times are the
+    device time of every kernel they launch. Inputs (296 MB) exceed the
+    50 MB L2, so every call reads from device memory."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fed_mix import fed_mix
+    from repro_torch.kernels.fed_mix_sparse import fed_mix_segment
+    d, p = MAIN_D, MAIN_P
+    rows = []
+    for nseg in (1, 10):
+        ids, wn, wo, xn, xo = segment_inputs(torch, d, p, nseg,
+                                             torch.float32, seed=1)
+        byts = 3 * d * p * 4 + 3 * d * 4
+        flops = 4 * d * p
+        b_ms, b_by = bound(byts, flops)
+
+        def call():
+            return fed_mix_segment(ids, wn, wo, xn, xo, num_segments=nseg)
+
+        def plain():
+            return ref.fed_mix_segment_ref(ids, wn, wo, xn, xo,
+                                           num_segments=nseg)
+
+        rows.append({
+            "name": "fed_mix_segment", "L": nseg,
+            "ms": named_ms(device_ms(torch, call), "segment_mix_kernel"),
+            "plain_ms": sum(device_ms(torch, plain).values()),
+            "bytes": byts, "flops": flops, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "library": "none: no single PyTorch call computes a segment "
+                       "sum gathered back to the rows"})
+    mn, mo, xn, xo = dense_inputs(torch, d, p, torch.float32, seed=2)
+    m_cat = torch.cat([mn, mo], dim=1).contiguous()
+    x_cat = torch.cat([xn, xo], dim=0).contiguous()
+    byts = 3 * d * p * 4 + 2 * d * d * 4
+    flops = 4 * d * d * p
+    b_ms, b_by = bound(byts, flops)
+    rows.append({
+        "name": "fed_mix",
+        "ms": named_ms(device_ms(torch, lambda: fed_mix(mn, mo, xn, xo)),
+                       "dense_mix_kernel"),
+        "plain_ms": sum(device_ms(
+            torch, lambda: ref.fed_mix_ref(mn, mo, xn, xo)).values()),
+        "bytes": byts, "flops": flops, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": sum(device_ms(
+            torch, lambda: torch.mm(m_cat, x_cat)).values()),
+        "library": "torch.mm([D, 2D] @ [2D, P]) on pre-stacked operands, "
+                   "TF32 off"})
+    state["timing"] = rows
+    emit({"phase": "timing", "kernels": rows,
+          "round_split": round_split(torch),
+          "nvidia_smi": state["smi"]})
+
+
+def round_split(torch):
+    """One full-width fedp2p round under torch.profiler: the summed device
+    time of its kernels, split into the mix kernel, the convolution
+    kernels (local training's bulk) and the rest."""
+    from repro_torch.config import FLConfig
+    from repro_torch.core.simulator import Simulator
+    net, data, kw = femnist_setup(full=True)
+    sim = Simulator(net, data, FLConfig(**kw))
+    eng = sim.engine("fedp2p")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = sim.init_params(0)
+    per = device_ms(torch, lambda: eng.run_rounds(params, gen, 1), reps=1,
+                    warmup=1)                            # warm up cuDNN
+    total = sum(per.values())
+    mix = sum(v for k, v in per.items() if "segment_mix_kernel" in k)
+    conv = sum(v for k, v in per.items()
+               if any(w in k.lower() for w in ("conv", "xmma", "winograd",
+                                               "cudnn", "implicit")))
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+    return {"device_ms": total, "mix_kernel_ms": mix,
+            "mix_share_of_device": mix / total,
+            "convolution_ms": conv,
+            "convolution_share_of_device": conv / total,
+            "top_kernels_ms": [[k[:90], v] for k, v in top]}
+
+
+def kernel_summary(state):
+    timing = {(r["name"], r.get("L", 1)): r for r in state["timing"]}
+    launches, errs = state["launches"], state["max_abs_err"]
+    out = []
+    for name, src, rep, key in (
+            ("fed_mix_segment", SEGMENT_SOURCE, SEGMENT_REPLACES,
+             ("fed_mix_segment", 1)),
+            ("fed_mix", DENSE_SOURCE, DENSE_REPLACES, ("fed_mix", 1))):
+        t = timing[key]
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": rep, "launches": launches[name],
+                    "max_abs_err": errs[name], "ms": t["ms"],
+                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                    "bound_by": t["bound_by"],
+                    "library_ms": t["library_ms"]})
+    return {"kernels": out}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        from repro_torch.kernels import backend
+    except ImportError as exc:
+        print(f"chip_smoke: the port is missing beside this script "
+              f"({exc}); run it from a checkout of the repository",
+              file=sys.stderr)
+        return 1
+    backend.use_full_f32()
+
+    state = {}
+    phase_env(torch, backend, state)
+    phase_kernels(torch, state)
+    phase_reference(torch, state)
+    phase_main_path(torch, state)
+    phase_timing(torch, state)
+    emit(kernel_summary(state))
+    print(state["smi"], flush=True)
+    emit({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,180 @@
+"""Device rule and build for the port's hand-written CUDA kernels.
+
+The device rule (the counterpart of ``repro.kernels.backend``): a kernel
+wrapper looks at the device of the tensors it is given. CPU tensors take
+the kernel's plain PyTorch version (``kernels/ref.py``); CUDA tensors
+launch the hand-written kernel, or the call raises. Nothing falls back to
+the plain version on the card, and a failed build raises.
+
+The build: each ``csrc/<name>.cu`` has a plain C interface and is compiled
+on first use with ``nvcc`` for ``sm_90a`` into a shared library that
+``ctypes`` loads. The library's file name carries a digest of its source
+and flags, so an edited source is never served by a stale library.
+``build()`` starts one ``nvcc`` per source, all at once, and waits for
+them.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional, Sequence
+
+import torch
+
+#: every kernel source under ``csrc/`` (one shared library each)
+KERNELS = ("fed_mix_segment", "fed_mix")
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+# The libraries go to <repo>/build/repro_torch/, which .gitignore lists
+# (``build/``): they are made at first use inside the checkout and never
+# committed.
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+# ---------------------------------------------------------------------------
+# device rule
+# ---------------------------------------------------------------------------
+
+def resolve_device(device=None) -> torch.device:
+    """The entry points' device: ``None`` means the card. A CUDA device
+    with no card raises — the CPU is used only when the caller asks for
+    it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on a CUDA device by default and none is "
+                "available; pass device='cpu' to run the plain PyTorch "
+                "versions on the CPU")
+        use_full_f32()
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
+    return dev
+
+
+def use_full_f32() -> None:
+    """Turn TF32 off for matmuls and cuDNN convolutions. The reference
+    accumulates in full f32 (``preferred_element_type=f32``); cuDNN's
+    default TF32 convolutions keep ~3 decimal digits and would break every
+    f32 tolerance the port is held to."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def kernel_device(name: str, *tensors: torch.Tensor) -> str:
+    """'cpu' (take the plain version) or 'cuda' (launch the kernel) for a
+    wrapper's tensors; mixed or other devices raise ``ValueError``."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: inputs on several devices: "
+                         f"{sorted(str(d) for d in devs)}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev.type
+
+
+def check_contiguous(name: str, **tensors: torch.Tensor) -> None:
+    for arg, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous (got "
+                             f"strides {tuple(t.stride())} for shape "
+                             f"{tuple(t.shape)})")
+
+
+# ---------------------------------------------------------------------------
+# build + load
+# ---------------------------------------------------------------------------
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([str(Path(home) / "bin" / "nvcc")] if home else []) + [
+            "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""]:
+        if cand and Path(cand).is_file():
+            return cand
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin and PATH); the CUDA kernels "
+                       "cannot be built")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
+    """Compile every named kernel whose library is missing, one ``nvcc``
+    per source, all started together. Returns the seconds each build took
+    (0.0 for a library already built); raises with nvcc's output on
+    failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs, seconds = {}, {}
+    for name in names:
+        lib = library_path(name)
+        if lib.exists():
+            seconds[name] = 0.0
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, lib, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, lib, t0) in procs.items():
+        out, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n"
+                          f"{out}")
+            Path(tmp).unlink(missing_ok=True)
+        else:
+            os.replace(tmp, lib)            # atomic: readers never see half
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return seconds
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel's shared library, built on first use."""
+    with _lock:
+        if name not in _libs:
+            lib = library_path(name)
+            if not lib.exists():
+                build([name])
+            _libs[name] = ctypes.CDLL(str(lib))
+        return _libs[name]
+
+
+def c_function(name: str, symbol: str, argtypes: Sequence,
+               restype=ctypes.c_int):
+    fn = getattr(load(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = restype
+    return fn
+
+
+def raise_on_error(name: str, rc: int) -> None:
+    """A C entry point returns ``cudaGetLastError()`` after its launch: a
+    launch the card refused never runs, and a later synchronize would not
+    report it."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with "
+                           f"cudaError {rc}")
+
+
+def stream_ptr(device: Optional[torch.device] = None) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,182 @@
+"""The flat-param packing seam and the mixing dispatchers (the counterpart
+of ``repro.kernels.ops``).
+
+A stacked tree of parameters (leaves [N, ...]) is flattened ONCE into a
+single [N, sum(sizes)] buffer, the mixing kernels run over it, and the
+result is unflattened. The packed columns follow JAX's leaf order — a
+dict's keys sorted at every level, not its insertion order — so a packed
+row lines up column for column with the JAX package's.
+
+Dispatch goes by the tensor's device inside each kernel wrapper: CPU
+tensors take the plain PyTorch version, CUDA tensors the hand-written
+kernel (``fed_mix_segment``, ``fed_mix``).
+"""
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Tuple
+
+import torch
+
+from repro_torch.kernels.fed_mix import fed_mix  # noqa: F401 — dispatcher
+from repro_torch.kernels.fed_mix_sparse import (  # noqa: F401 — dispatcher
+    fed_mix_segment,
+)
+
+_LOW_PRECISION = (torch.float16, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# tree flattening in JAX's leaf order
+# ---------------------------------------------------------------------------
+
+def tree_flatten(tree):
+    """(leaves, treedef): dicts in sorted-key order, lists/tuples in order,
+    anything else a leaf — ``jax.tree_util.tree_flatten``'s order for these
+    containers. ``treedef`` is a nested tuple, comparable with ``==``."""
+    if isinstance(tree, dict):
+        keys = tuple(sorted(tree))
+        leaves, defs = [], []
+        for k in keys:
+            sub, d = tree_flatten(tree[k])
+            leaves += sub
+            defs.append(d)
+        return leaves, ("dict", keys, tuple(defs))
+    if isinstance(tree, (list, tuple)):
+        leaves, defs = [], []
+        for v in tree:
+            sub, d = tree_flatten(v)
+            leaves += sub
+            defs.append(d)
+        return leaves, (type(tree).__name__, len(tree), tuple(defs))
+    return [tree], None
+
+
+def tree_unflatten(treedef, leaves):
+    it = iter(leaves)
+
+    def build(d):
+        if d is None:
+            return next(it)
+        kind, keys, defs = d
+        if kind == "dict":
+            return {k: build(sub) for k, sub in zip(keys, defs)}
+        vals = [build(sub) for sub in defs]
+        return tuple(vals) if kind == "tuple" else vals
+
+    return build(treedef)
+
+
+# ---------------------------------------------------------------------------
+# flat-param packing
+# ---------------------------------------------------------------------------
+
+class TreeSpec(NamedTuple):
+    """Recipe to undo ``pack_tree``: per-leaf trailing shapes/dtypes/sizes."""
+    treedef: object
+    shapes: Tuple[Tuple[int, ...], ...]
+    dtypes: Tuple[torch.dtype, ...]
+    sizes: Tuple[int, ...]
+
+
+def pack_tree(tree) -> Tuple[torch.Tensor, TreeSpec]:
+    """Flatten a stacked tree (leaves [N, ...]) into one [N, sum(sizes)]
+    buffer + the spec to unpack it. Leaf dtypes are kept per leaf in the
+    spec; the buffer takes the promoted common dtype. Raises ValueError on
+    an empty tree, scalar leaves, or leaves whose leading (client) axes
+    disagree."""
+    leaves, treedef = tree_flatten(tree)
+    if not leaves:
+        raise ValueError("pack_tree: empty tree (no tensor leaves) — "
+                         "nothing to pack")
+    for i, leaf in enumerate(leaves):
+        if leaf.dim() < 1:
+            raise ValueError(
+                f"pack_tree: leaf {i} is a scalar (shape "
+                f"{tuple(leaf.shape)}); every leaf needs a leading [N] "
+                "client axis")
+    n = leaves[0].shape[0]
+    bad = {leaf.shape[0] for leaf in leaves if leaf.shape[0] != n}
+    if bad:
+        raise ValueError(
+            f"pack_tree: leaves disagree on the leading client axis — got "
+            f"N={n} and {sorted(bad)}; all leaves must share one [N, ...] "
+            "stacking")
+    spec = TreeSpec(treedef,
+                    tuple(tuple(leaf.shape[1:]) for leaf in leaves),
+                    tuple(leaf.dtype for leaf in leaves),
+                    tuple(int(leaf[0].numel()) for leaf in leaves))
+    dtype = functools.reduce(torch.promote_types, spec.dtypes)
+    return torch.cat([leaf.reshape(n, -1).to(dtype) for leaf in leaves],
+                     dim=1), spec
+
+
+def _mean0(x: torch.Tensor) -> torch.Tensor:
+    """Mean over axis 0 as XLA:CPU takes ``jnp.mean`` over a few rows: a
+    running sum over the rows in order, times the reciprocal of N (XLA
+    rewrites the divide), with f16/bf16 accumulated in f32 and cast back.
+    That order makes the result bit-for-bit the reference's at the tests'
+    sizes; it costs N - 1 row adds, which is negligible beside a round."""
+    acc = torch.float32 if x.dtype in _LOW_PRECISION else x.dtype
+    total = x[0].to(acc, copy=True)
+    for row in x[1:]:
+        total += row.to(acc)
+    return (total * (1.0 / x.shape[0])).to(x.dtype)
+
+
+def mean_packed(flat: torch.Tensor, spec: TreeSpec) -> torch.Tensor:
+    """Mean over the leading (client) axis of a packed [N, sum(sizes)]
+    buffer, RESPECTING per-leaf dtypes: each leaf's columns are reduced in
+    that leaf's own dtype (what a per-leaf mean of ``unpack_tree`` gives)
+    and the result is re-promoted to the buffer dtype. Uniform trees take
+    the single whole-buffer reduction."""
+    if all(dt == flat.dtype for dt in spec.dtypes):
+        return _mean0(flat)
+    outs, off = [], 0
+    for dtype, sz in zip(spec.dtypes, spec.sizes):
+        seg = flat[:, off:off + sz].to(dtype)
+        outs.append(_mean0(seg).to(flat.dtype))
+        off += sz
+    return torch.cat(outs)
+
+
+def unpack_tree(flat: torch.Tensor, spec: TreeSpec):
+    """Undo ``pack_tree`` over the last axis: flat [..., sum(sizes)] ->
+    tree with leaves [..., *leaf_shape] cast back to their original dtypes
+    (views of ``flat`` where the dtype already matches)."""
+    lead = tuple(flat.shape[:-1])
+    outs, off = [], 0
+    for shape, dtype, sz in zip(spec.shapes, spec.dtypes, spec.sizes):
+        outs.append(flat[..., off:off + sz].reshape(lead + shape).to(dtype))
+        off += sz
+    return tree_unflatten(spec.treedef, outs)
+
+
+def pack_tree_pair(f_new, f_old, caller: str = "fed_mix_tree"):
+    """Pack two same-structure [D, ...] trees into flat buffers with ONE
+    shared TreeSpec; mismatched structures raise instead of silently mixing
+    misaligned columns."""
+    flat_new, spec = pack_tree(f_new)
+    flat_old, spec_old = pack_tree(f_old)
+    if spec_old.treedef != spec.treedef or spec_old.shapes != spec.shapes:
+        raise ValueError(
+            f"{caller}: f_new/f_old tree structures differ "
+            f"(new={spec.treedef} shapes={spec.shapes}, "
+            f"old={spec_old.treedef} shapes={spec_old.shapes})")
+    return flat_new, flat_old, spec
+
+
+# ---------------------------------------------------------------------------
+# dense mixing on packed buffers
+# ---------------------------------------------------------------------------
+
+def fed_mix_flat(m_new, m_old, flat_new, flat_old, *, codec=None):
+    """The dense mixing pass on already-packed [D, sum(sizes)] buffers —
+    the seam the packed-state ``DenseEngine`` carry drives on
+    ``mix_path="dense"``. The quantized-exchange ``codec`` wire is not
+    ported yet (ROADMAP module item 9)."""
+    if codec is not None:
+        raise NotImplementedError(
+            "fed_mix_flat: codecs are not ported yet (ROADMAP module item 9, "
+            "compression)")
+    return fed_mix(m_new, m_old, flat_new, flat_old)

@@ -1,0 +1,65 @@
+"""RoundContext — the single per-round record every Protocol method reads
+(the counterpart of ``repro.protocols.context``).
+
+  tensor fields
+    * ``survive``      — [D] 0/1 straggler mask (f32),
+    * ``counts``       — [D] per-client data weights |D_i|,
+    * ``cluster_ids``  — [D] cluster assignment (int).
+
+  plain fields
+    * ``round_index``    — the round counter ``t``,
+    * ``num_clusters``   — L, the segment count behind ``cluster_ids``,
+    * ``do_global_sync`` — whether this round runs the server/global step.
+
+The JAX record's ``key`` has no counterpart: the port's round randomness is
+drawn up front into an explicit record (``protocols.engine.RoundDraws``).
+Its mesh, codec, fault and sampled-window fields arrive with the slices
+that use them (ROADMAP).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+
+@dataclass(frozen=True)
+class RoundContext:
+    survive: torch.Tensor         # [D] 0/1 straggler mask
+    counts: torch.Tensor          # [D] per-client data weights |D_i|
+    cluster_ids: torch.Tensor     # [D] cluster assignment
+    round_index: int = 0
+    num_clusters: int = 1
+    do_global_sync: bool = True
+
+
+def make_context(*, round_index=0, survive=None, counts=None,
+                 cluster_ids=None, num_clusters: Optional[int] = None,
+                 do_global_sync: bool = True,
+                 num_clients: Optional[int] = None) -> RoundContext:
+    """Build a RoundContext, defaulting every unspecified field.
+
+    D is inferred from (in order) ``survive``, ``counts``, ``cluster_ids``,
+    or ``num_clients`` (default 1); defaults are made on the device of the
+    given tensors (else the CPU). ``num_clusters`` defaults to
+    ``max(cluster_ids) + 1``, which reads the ids back to the host —
+    engines pass it explicitly."""
+    given = [a for a in (survive, counts, cluster_ids) if a is not None]
+    device = given[0].device if given else torch.device("cpu")
+    D = num_clients
+    if D is None:
+        D = int(given[0].shape[0]) if given else 1
+    if survive is None:
+        survive = torch.ones((D,), dtype=torch.float32, device=device)
+    if counts is None:
+        counts = torch.ones((D,), dtype=torch.float32, device=device)
+    if cluster_ids is None:
+        cluster_ids = torch.zeros((D,), dtype=torch.int32, device=device)
+    if num_clusters is None:
+        num_clusters = (int(cluster_ids.max()) + 1
+                        if cluster_ids.numel() else 1)
+    return RoundContext(survive=survive, counts=counts,
+                        cluster_ids=cluster_ids, round_index=int(round_index),
+                        num_clusters=int(num_clusters),
+                        do_global_sync=bool(do_global_sync))

@@ -1,0 +1,308 @@
+"""The dense round engine of the port (the counterpart of ``mix_flat``,
+``make_local_trainer`` and ``DenseEngine`` in ``repro.protocols.engine``).
+
+One round (``DenseEngine._round_rows`` + the consensus collapse):
+
+  1. partition  — the protocol picks P participants and their clusters;
+  2. stragglers — a survive mask;
+  3. local SGD  — all P clients at once (a hand-batched forward, autograd
+     over the sum of the per-client losses, which gives each client's own
+     gradient);
+  4. mixing     — the protocol's ``SegmentSpec`` through the
+     ``fed_mix_segment`` kernel, or on ``mix_path="dense"`` its
+     ``(M_new, M_old)`` through the ``fed_mix`` kernel; with
+     ``sync_period > 1`` the intermediate sub-rounds mix WITHOUT the
+     global step;
+  5. collapse   — the reported global model is ``mean_packed`` over the
+     mixed client rows;
+  6. evaluation.
+
+The federated state is one packed [P, sum(sizes)] buffer for the whole
+round (``kernels.ops.pack_tree`` layout). A round's randomness is drawn up
+front into a ``RoundDraws`` record from a ``torch.Generator`` on the
+engine's device; a caller may hand the records in instead, which is how
+the parity tests give this engine and the JAX one the same draws. Metrics
+stay on the device as [T] tensors for the whole ``run_rounds``: nothing in
+the round loop reads a value back to the host.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+import torch
+
+from repro_torch.config import FLConfig
+from repro_torch.configs.paper_models import PaperNetConfig
+from repro_torch.core.straggler import straggler_mask
+from repro_torch.kernels import backend
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models.paper_nets import (
+    paper_net_correct, paper_net_loss_batched,
+)
+from repro_torch.protocols.base import Protocol
+from repro_torch.protocols.context import make_context
+from repro_torch.protocols.spec import apply_spec_flat
+
+MIX_PATHS = ("dense", "sparse", "auto")
+
+
+def _check_mix_path(mix_path: str) -> str:
+    if mix_path not in MIX_PATHS:
+        raise ValueError(f"unknown mix_path {mix_path!r}; expected one of "
+                         f"{', '.join(MIX_PATHS)}")
+    return mix_path
+
+
+def _resolve_spec(proto: Protocol, ctx, mix_path: str):
+    """The protocol's structured MixingSpec unless the path is 'dense';
+    'sparse' refuses to fall back when no spec exists."""
+    if mix_path == "dense":
+        return None
+    spec = proto.mixing_spec(ctx)
+    if spec is None and mix_path == "sparse":
+        raise ValueError(
+            f"protocol {proto.name!r} provides no mixing_spec; "
+            "mix_path='sparse' is unavailable (use 'auto' or 'dense')")
+    return spec
+
+
+def mix_flat(proto: Protocol, flat_new, flat_old, ctx, *, mix_path: str):
+    """One mixing application on a packed [P, sum(sizes)] buffer: the
+    structured-spec kernel on the sparse path, the dense (M_new, M_old)
+    kernel otherwise."""
+    spec = _resolve_spec(proto, ctx, mix_path)
+    if spec is not None:
+        return apply_spec_flat(spec, flat_new, flat_old)
+    M_new, M_old = proto.mixing_matrix(ctx)
+    return kernel_ops.fed_mix_flat(M_new, M_old, flat_new, flat_old)
+
+
+# ---------------------------------------------------------------------------
+# Client-local training, batched over the round's participants
+# ---------------------------------------------------------------------------
+
+def make_local_trainer(net: PaperNetConfig, fl: FLConfig):
+    """Returns f(params, cx, cy, cmask, perms) -> (params', mean_loss) for P
+    clients at once: ``params`` leaves [P, ...] (not modified), ``cx``
+    [P, n_max, ...], ``cy``/``cmask`` [P, n_max], ``perms`` [P, E, n_max]
+    each epoch's sample order. Each client runs E epochs of
+    ceil(n_max / bs) SGD steps over its padded block, batch s of an epoch
+    being ``perm[(arange(bs) + s·bs) % n_max]``; the loss is the masked
+    mean, averaged over the steps."""
+    bs = fl.batch_size
+
+    def local_train(params, cx, cy, cmask, perms):
+        P, n_max = cy.shape
+        steps = max(1, -(-n_max // bs))               # ceil
+        dev = cy.device
+        rows = torch.arange(P, device=dev)[:, None]
+        offsets = torch.arange(steps * bs, device=dev).reshape(steps, bs)
+        offsets = offsets % n_max
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in params.items()}
+        leaves = list(params.values())
+        loss_sum = torch.zeros((P,), dtype=torch.float32, device=dev)
+        cnt = 0
+        for e in range(perms.shape[1]):
+            perm = perms[:, e]
+            for s in range(steps):
+                idx = perm[:, offsets[s]]                     # [P, bs]
+                batch = {"x": cx[rows, idx], "y": cy[rows, idx],
+                         "mask": cmask[rows, idx]}
+                loss = paper_net_loss_batched(params, batch, net)   # [P]
+                # per-client losses are independent, so the gradient of
+                # their sum is every client's own gradient
+                grads = torch.autograd.grad(loss.sum(), leaves)
+                with torch.no_grad():
+                    for p, g in zip(leaves, grads):
+                        p.sub_(fl.lr * g.to(p.dtype))
+                loss_sum = loss_sum + loss.detach()
+                cnt += 1
+        return ({k: v.detach() for k, v in params.items()},
+                loss_sum / max(cnt, 1))
+
+    return local_train
+
+
+# ---------------------------------------------------------------------------
+# One round's randomness
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class RoundDraws:
+    """Every random draw of one round: ``sel`` [P] int64 participants,
+    ``cluster_ids`` [P] int32, ``survive`` [P] f32 straggler mask,
+    ``batch_perm`` [sub_rounds, P, E, n_max] int64 — the sample order of
+    every client's every epoch in every sub-round. The engine moves them to
+    its device."""
+    sel: torch.Tensor
+    cluster_ids: torch.Tensor
+    survive: torch.Tensor
+    batch_perm: torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# Dense engine
+# ---------------------------------------------------------------------------
+
+class DenseEngine:
+    """Drives one protocol's rounds on the paper's own model classes
+    (§4.2) on a PACKED federated state (see the module docstring).
+
+    ``device=None`` means the card (and raises where there is none);
+    ``device="cpu"`` runs the kernels' plain versions. ``codec`` and
+    ``faults`` other than ``None`` raise ``NotImplementedError``: they wait
+    for ROADMAP module items 9 and 10."""
+
+    def __init__(self, net: PaperNetConfig, data_dev: Dict, fl: FLConfig,
+                 proto: Protocol, topology=None, *, codec=None,
+                 mix_path: Optional[str] = None, faults=None, device=None):
+        if codec not in (None, "none"):
+            raise NotImplementedError(
+                f"DenseEngine: codec {codec!r} is not ported yet (ROADMAP "
+                "module item 9, compression)")
+        if faults is not None:
+            raise NotImplementedError(
+                "DenseEngine: fault plans are not ported yet (ROADMAP module "
+                "item 10, faults on DenseEngine)")
+        if topology is not None:
+            raise NotImplementedError(
+                "DenseEngine: topologies are not ported yet (ROADMAP module "
+                "item 7, topology_aware)")
+        self.net, self.fl, self.proto = net, fl, proto
+        self.device = backend.resolve_device(device)
+        self.data_dev = {k: v.to(self.device) for k, v in data_dev.items()}
+        self.mix_path = _check_mix_path(mix_path or fl.mix_path)
+        self._train = make_local_trainer(net, fl)
+
+    # -- randomness --------------------------------------------------------
+    def draw_round(self, gen: torch.Generator) -> RoundDraws:
+        """One round's draws from ``gen`` (on the engine's device)."""
+        fl = self.fl
+        P = self.proto.num_participants(fl)
+        sel, cids = self.proto.partition(gen, fl)
+        survive = straggler_mask(gen, P, fl.straggler_rate)
+        n_max = self.data_dev["y"].shape[1]
+        u = torch.rand((max(1, fl.sync_period), P, fl.local_epochs, n_max),
+                       generator=gen, device=gen.device)
+        return RoundDraws(sel=sel, cluster_ids=cids, survive=survive,
+                          batch_perm=u.argsort(dim=-1))
+
+    # -- evaluation --------------------------------------------------------
+    def evaluate(self, params):
+        """(sample-weighted acc, client-mean acc) of one global model over
+        every client's test split, as two 0-d device tensors."""
+        tx, ty = self.data_dev["test_x"], self.data_dev["test_y"]
+        tm = self.data_dev["test_mask"]
+        N, n_te = ty.shape
+        # one model over all N clients' samples: the P = 1 batched call
+        batch = {"x": tx.reshape((1, N * n_te) + tuple(tx.shape[2:])),
+                 "y": ty.reshape(1, N * n_te),
+                 "mask": tm.reshape(1, N * n_te)}
+        with torch.no_grad():
+            correct = paper_net_correct({k: v[None] for k, v in
+                                         params.items()}, batch, self.net)
+        m = tm.to(torch.float32)
+        ns = m.sum(dim=-1)
+        accs = ((correct.reshape(N, n_te) * m).sum(dim=-1)
+                / torch.clamp_min(ns, 1.0))
+        sample_weighted = (accs * ns).sum() / torch.clamp_min(ns.sum(), 1.0)
+        return sample_weighted, accs.mean()
+
+    # -- packed-state helpers ----------------------------------------------
+    def _pack_params(self, params):
+        """Pack ONE global model into its flat [sum(sizes)] row + the
+        TreeSpec that unpacks any [..., sum(sizes)] buffer."""
+        flat, spec = kernel_ops.pack_tree({k: v[None] for k, v in
+                                           params.items()})
+        return flat[0], spec
+
+    def _mix_flat(self, flat_new, flat_old, ctx):
+        return mix_flat(self.proto, flat_new, flat_old, ctx,
+                        mix_path=self.mix_path)
+
+    # -- one round -----------------------------------------------------------
+    def _round_rows(self, spec, flat_params, draws: RoundDraws,
+                    round_index: int = 0):
+        """One protocol round on the packed carry, stopping BEFORE the
+        consensus collapse: ``flat_params`` is the flat [sum(sizes)] global
+        model, ``spec`` its TreeSpec. Returns the mixed PER-CLIENT rows
+        ``(flat_mixed [P, sum(sizes)], losses [P])``; ``losses`` are the
+        last sub-round's."""
+        proto, fl, data = self.proto, self.fl, self.data_dev
+        P = proto.num_participants(fl)
+        L = proto.num_clusters(fl)
+        sel, cids, survive, perms = (t.to(self.device) for t in (
+            draws.sel, draws.cluster_ids, draws.survive, draws.batch_perm))
+        # gathered ONCE per round: the selection is fixed across sub-rounds
+        cx, cy, cm = data["x"][sel], data["y"][sel], data["mask"][sel]
+        counts = data["counts"][sel]
+        # the round-start state of every participant (contiguous: the
+        # kernels take dense [P, sum(sizes)] buffers)
+        flat_old = flat_params[None].expand(P, -1).contiguous()
+
+        def ctx_for(sync: bool):
+            return make_context(round_index=round_index, survive=survive,
+                                counts=counts, cluster_ids=cids,
+                                num_clusters=L, do_global_sync=sync)
+
+        flat_cp = losses = None
+        for r in range(max(1, fl.sync_period)):
+            if flat_cp is None:
+                start = flat_old
+            else:
+                start = self._mix_flat(flat_cp, flat_old, ctx_for(False))
+            cp, losses = self._train(kernel_ops.unpack_tree(start, spec),
+                                     cx, cy, cm, perms[r])
+            flat_cp = kernel_ops.pack_tree(cp)[0]
+        flat_mixed = self._mix_flat(flat_cp, flat_old, ctx_for(True))
+        return flat_mixed, losses
+
+    def _round_flat(self, spec, flat_params, draws: RoundDraws,
+                    round_index: int = 0):
+        """``_round_rows`` + the consensus collapse: the global model is
+        the mean over the mixed client rows, each leaf in its own dtype
+        (``mean_packed``). Returns ``(flat', mean_loss)``."""
+        flat_mixed, losses = self._round_rows(spec, flat_params, draws,
+                                              round_index)
+        return kernel_ops.mean_packed(flat_mixed, spec), losses.mean()
+
+    # -- the training loop ---------------------------------------------------
+    def run_rounds(self, params, gen: Optional[torch.Generator], T: int,
+                   eval_every: int = 1, *,
+                   draws: Optional[Sequence[RoundDraws]] = None):
+        """Run T rounds over the PACKED carry: the global model is packed
+        once, every round works on flat buffers, and the final model is
+        unpacked once. Round t's randomness is ``draws[t]`` when given,
+        else drawn from ``gen``. Returns (final_params, metrics) with
+        metrics = {'train_loss', 'acc', 'acc_client_mean'}, each a [T]
+        tensor on the engine's device — nothing is read back to the host.
+        With ``eval_every > 1`` the accuracy entries are computed only at
+        rounds where (t+1) % eval_every == 0 and at the last round; the
+        other slots are zeros the caller must not read."""
+        T, eval_every = int(T), max(1, int(eval_every))
+        if draws is None and gen is None:
+            raise ValueError("run_rounds needs a generator or explicit "
+                             "draws")
+        if draws is not None and len(draws) < T:
+            raise ValueError(f"run_rounds: {len(draws)} RoundDraws for "
+                             f"T={T} rounds")
+        flat, spec = self._pack_params(params)
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        loss: List[torch.Tensor] = []
+        acc_w: List[torch.Tensor] = []
+        acc_m: List[torch.Tensor] = []
+        for t in range(T):
+            d = draws[t] if draws is not None else self.draw_round(gen)
+            flat, round_loss = self._round_flat(spec, flat, d, t)
+            loss.append(round_loss)
+            if (t + 1) % eval_every == 0 or t == T - 1:
+                a_w, a_m = self.evaluate(kernel_ops.unpack_tree(flat, spec))
+            else:
+                a_w, a_m = zero, zero
+            acc_w.append(a_w)
+            acc_m.append(a_m)
+        return kernel_ops.unpack_tree(flat, spec), {
+            "train_loss": torch.stack(loss), "acc": torch.stack(acc_w),
+            "acc_client_mean": torch.stack(acc_m)}

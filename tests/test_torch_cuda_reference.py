@@ -1,0 +1,74 @@
+"""The port on the card against the JAX package at the main path's full
+configuration: CNN-FEMNIST at its published widths (246,590 params),
+``pseudo_femnist_federated(100, num_classes=62, seed=0)``, the default
+``FLConfig`` (100 participants, E=20, batch 10) at lr 0.05, fedp2p, three
+rounds. Both packages get the same initial weights and the same draws
+(the JAX key tree, handed to the port as ``RoundDraws``).
+
+It needs a card and JAX with a GPU backend: the JAX reference runs on the
+card too, at "highest" matmul precision (full f32, no TF32); on a CPU one
+of its rounds takes tens of minutes. Run it on the card with
+
+    python -m pytest -q -s -m cuda tests/test_torch_cuda_reference.py
+
+Tolerance: per round, train_loss within 5 % and accuracies within 0.02.
+Each round is 200 SGD steps at a learning rate that overshoots from the
+first steps at these widths, so the two packages' f32 summation orders
+drift apart far more than in the short parity runs of
+``test_torch_engine.py`` (rtol 1e-4). The values are printed as one JSON
+line.
+"""
+import json
+import os
+
+# JAX must not take most of the card's memory before PyTorch runs
+os.environ.setdefault("XLA_PYTHON_CLIENT_PREALLOCATE", "false")
+
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+jax = pytest.importorskip("jax")
+
+ROUNDS = 3
+
+
+def test_full_configuration_tracks_jax_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    try:
+        gpu = jax.devices("gpu")[0]
+    except RuntimeError:
+        pytest.skip("needs JAX with a GPU backend for the full-size "
+                    "reference")
+    from repro import protocols as jprotocols
+    from repro.config import FLConfig as JFLConfig
+    from repro.configs.paper_models import CNN_FEMNIST as J_CNN
+    from repro.core.simulator import Simulator as JSimulator
+    from repro.data.federated import pseudo_femnist_federated
+    from repro_torch.config import FLConfig
+    from repro_torch.configs.paper_models import CNN_FEMNIST
+    from repro_torch.convert import params_from_jax
+    from repro_torch.core.simulator import Simulator
+    from test_torch_engine import run_draws
+
+    data = pseudo_femnist_federated(100, num_classes=62, seed=0)
+    jfl = JFLConfig(lr=0.05)
+    with jax.default_device(gpu), jax.default_matmul_precision("highest"):
+        jsim = JSimulator(J_CNN, data, jfl)
+        hist = jsim.run(rounds=ROUNDS, algorithm="fedp2p", seed=0)
+        jparams = jax.tree.map(np.asarray, jsim.init_params(0))
+        draws = run_draws(jprotocols.get("fedp2p"), jfl, 0, ROUNDS,
+                          data.y.shape[1])
+    sim = Simulator(CNN_FEMNIST, data, FLConfig(lr=0.05), device="cuda")
+    _, m = sim.engine("fedp2p").run_rounds(
+        params_from_jax(jparams, "cuda"), None, ROUNDS, draws=draws)
+    got = {k: v.cpu().tolist() for k, v in m.items()}
+    want = {"train_loss": hist.train_loss, "acc": hist.acc,
+            "acc_client_mean": hist.acc_client_mean}
+    print(json.dumps({"jax": want, "port_on_card": got}))
+    np.testing.assert_allclose(got["train_loss"], want["train_loss"],
+                               rtol=0.05, err_msg="train_loss")
+    for k in ("acc", "acc_client_mean"):
+        np.testing.assert_allclose(got[k], want[k], atol=0.02, err_msg=k)
