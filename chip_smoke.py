@@ -9,18 +9,23 @@ exits non-zero:
   env       the card, its power limit, and the parallel nvcc build of every
             kernel (one nvcc per source, all started together);
   kernels   each CUDA kernel against its plain PyTorch version on the card,
-            at the main path's shapes and at ragged ones, f32 and bf16;
+            at the main path's shapes and at ragged ones, f32 and bf16
+            (fed_mix_matching bit for bit);
   reference the port on the card (kernels) against the port on the CPU
-            (plain versions) on a small CNN run with the same draws;
+            (plain versions) on a small CNN run with the same draws,
+            gossip, gossip_async and the int8/topk wire included;
   main_path ``Simulator.run`` on CNN-FEMNIST at the paper's full width
             (246,590 params x 100 clients): fedp2p, fedp2p with
-            sync_period=2, fedavg, fedp2p on mix_path="dense", and fedp2p
-            with the JAX package's Table-1 participation (10 of 100), each
-            driven with the launch counters set to 0 just before it and
-            read just after;
+            sync_period=2, fedavg, fedp2p on mix_path="dense", fedp2p
+            with the JAX package's Table-1 participation (10 of 100),
+            gossip, gossip_async with sync_period=2, gossip on
+            mix_path="dense", fedp2p with the int8 wire on "dense" and on
+            "auto", gossip with the topk wire, and ``ops.fed_aggregate_tree``
+            over one fedp2p round's client models, each driven with the
+            launch counters set to 0 just before it and read just after;
   timing    each kernel's mean time at the main path's shape beside its
-            plain version, its bound and its library yardstick, and the
-            round's split between local training and mixing.
+            plain version, its bound and its library yardstick, and two
+            rounds' split between local training, mixing and the wire.
 
 Each phase prints one JSON line. The run ends with the kernel summary
 line, the ``nvidia-smi`` name/power-limit line, and then
@@ -43,13 +48,25 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
-SEGMENT_SOURCE = "src/repro_torch/kernels/csrc/fed_mix_segment.cu"
-DENSE_SOURCE = "src/repro_torch/kernels/csrc/fed_mix.cu"
-SEGMENT_REPLACES = "src/repro/kernels/fed_mix_sparse.py:85"
-DENSE_REPLACES = "src/repro/kernels/fed_mix.py:66"
+# (name, source, TPU kernel it replaces), in the summary line's order
+KERNELS = (
+    ("fed_mix_segment", "src/repro_torch/kernels/csrc/fed_mix_segment.cu",
+     "src/repro/kernels/fed_mix_sparse.py:85"),
+    ("fed_mix", "src/repro_torch/kernels/csrc/fed_mix.cu",
+     "src/repro/kernels/fed_mix.py:66"),
+    ("fed_mix_matching", "src/repro_torch/kernels/csrc/fed_mix_matching.cu",
+     "src/repro/kernels/fed_mix_sparse.py:156"),
+    ("fed_mix_q", "src/repro_torch/kernels/csrc/fed_mix_q.cu",
+     "src/repro/kernels/fed_mix_q.py:72"),
+    ("fed_aggregate", "src/repro_torch/kernels/csrc/fed_aggregate.cu",
+     "src/repro/kernels/fed_aggregate.py:36"),
+)
 
 # the main path's mix: 100 participants x the FEMNIST CNN's 246,590 params
 MAIN_D, MAIN_P = 100, 246_590
+# the int8 record of that buffer: P rounded up to whole chunks of 256
+CHUNK = 256
+MAIN_PQ = MAIN_P + (-MAIN_P) % CHUNK
 # max |kernel - plain| <= ATOL + RTOL * |plain|, elementwise. f32: the two
 # sum in different orders (row order vs atomics / cuBLAS), a few ulp of
 # O(1) values. bf16: one bf16 rounding step of O(1) outputs (2^-6 at
@@ -107,6 +124,43 @@ def dense_inputs(torch, d, p, dtype, seed):
     return mn / tot, mo / tot, x_new, x_old
 
 
+def matching_inputs(torch, d, p, stages, dtype, seed):
+    """Gossip's two ring phases (stages=2) or random round-robin matchings
+    of gossip_async (stages=1), a straggler mask, random rows."""
+    from repro_torch.protocols.async_gossip import matching_perm_stack
+    from repro_torch.protocols.gossip import _phase_perm_stack
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(device="cuda", generator=g)
+    if stages == 2:
+        perms = torch.from_numpy(_phase_perm_stack(d)).cuda()
+    else:
+        stack = torch.from_numpy(matching_perm_stack(d)).cuda()
+        perms = stack[torch.randint(0, stack.shape[0], (stages,), **kw)]
+    survive = (torch.rand(d, **kw) > 0.3).float()
+    return (perms.contiguous(), survive, torch.randn((d, p), **kw).to(dtype),
+            torch.randn((d, p), **kw).to(dtype))
+
+
+def quant_inputs(torch, d, p, chunk, x_dtype, seed):
+    """A convex (M_new, M_old) pair, the int8 record (stochastic rounding)
+    of a round delta of a few 1e-2, and an X_old of O(1)."""
+    from repro_torch.compression import Int8Codec
+    mn, mo, _, xo = dense_inputs(torch, d, p, torch.float32, seed)
+    codec = Int8Codec(chunk=chunk)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    delta = 0.01 * torch.randn((d, p), device="cuda", generator=g)
+    u = torch.rand((d, codec.padded(p)), device="cuda", generator=g)
+    enc = codec.encode(delta, u=u)
+    return mn, mo, enc.values, enc.scales, xo.to(x_dtype)
+
+
+def aggregate_inputs(torch, n, d, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.rand(n, device="cuda", generator=g)
+    return (torch.randn((n, d), device="cuda", generator=g).to(dtype),
+            w / w.sum())
+
+
 def compare(torch, got, want):
     """(max abs err, tolerance at that element, ok) in the output dtype."""
     atol, rtol = TOL[str(want.dtype).replace("torch.", "")]
@@ -134,8 +188,12 @@ def phase_env(torch, backend, state):
 
 def phase_kernels(torch, state):
     from repro_torch.kernels import ref
+    from repro_torch.kernels.fed_aggregate import fed_aggregate
     from repro_torch.kernels.fed_mix import fed_mix
-    from repro_torch.kernels.fed_mix_sparse import fed_mix_segment
+    from repro_torch.kernels.fed_mix_q import fed_mix_q
+    from repro_torch.kernels.fed_mix_sparse import (
+        fed_mix_matching, fed_mix_segment,
+    )
 
     f32, bf16 = torch.float32, torch.bfloat16
     rows, failed = [], []
@@ -173,8 +231,58 @@ def phase_kernels(torch, state):
                      "dtype": str(dt)[6:], "max_abs_err": err,
                      "atol": atol, "rtol": rtol, "ok": ok})
         failed += [] if ok else [rows[-1]]
+    # bit for bit: every operation is one rounding in the plain order
+    match_cases = [(MAIN_D, MAIN_P, 2, f32), (MAIN_D, MAIN_P, 2, bf16),
+                   (MAIN_D, MAIN_P, 1, f32),
+                   (9, 1001, 2, f32),            # odd D: byes
+                   (1, 1, 1, f32), (17, 513, 2, bf16),
+                   (2048, 999, 2, f32),          # device-memory path
+                   (4096, 257, 1, f32)]
+    for i, (d, p, stages, dt) in enumerate(match_cases):
+        args = matching_inputs(torch, d, p, stages, dt, seed=200 + i)
+        got = fed_mix_matching(*args)
+        torch.cuda.synchronize()
+        want = ref.fed_mix_matching_ref(*args)
+        ok = (torch.equal(got, want) and got.dtype == dt
+              and got.shape == (d, p))
+        err = float((got.float() - want.float()).abs().max())
+        rows.append({"kernel": "fed_mix_matching", "D": d, "P": p,
+                     "S": stages, "dtype": str(dt)[6:], "max_abs_err": err,
+                     "atol": 0.0, "rtol": 0.0, "bitwise": ok, "ok": ok})
+        failed += [] if ok else [rows[-1]]
+    # (D, P, chunk, x_old dtype): the main path, the JAX kernel tests'
+    # cases (tests/test_compression.py), a bf16 X_old
+    q_cases = [(MAIN_D, MAIN_P, CHUNK, f32), (6, 700, 256, f32),
+               (16, 4096, 256, f32), (17, 513, 128, f32), (1, 129, 64, f32),
+               (40, 300, 128, f32), (17, 513, 128, bf16)]
+    for i, (d, p, chunk, dt) in enumerate(q_cases):
+        args = quant_inputs(torch, d, p, chunk, dt, seed=300 + i)
+        got = fed_mix_q(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        want = ref.fed_mix_q_ref(*args, chunk=chunk)
+        err, atol, rtol, ok = compare(torch, got, want)
+        ok = ok and got.dtype == dt and got.shape == (d, p)
+        rows.append({"kernel": "fed_mix_q", "D": d, "P": p,
+                     "Pq": args[2].shape[1], "chunk": chunk,
+                     "dtype": str(dt)[6:], "max_abs_err": err,
+                     "atol": atol, "rtol": rtol, "ok": ok})
+        failed += [] if ok else [rows[-1]]
+    agg_cases = [(MAIN_D, MAIN_P, f32), (MAIN_D, MAIN_P, bf16),
+                 (3, 1000, f32), (3, 1000, bf16), (8, 4096, f32),
+                 (8, 4096, bf16), (1, 1, f32)]
+    for i, (n, d, dt) in enumerate(agg_cases):
+        x, w = aggregate_inputs(torch, n, d, dt, seed=400 + i)
+        got = fed_aggregate(x, w)
+        torch.cuda.synchronize()
+        want = ref.fed_aggregate_ref(x, w)
+        err, atol, rtol, ok = compare(torch, got, want)
+        ok = ok and got.dtype == dt and got.shape == (d,)
+        rows.append({"kernel": "fed_aggregate", "D": n, "P": d,
+                     "dtype": str(dt)[6:], "max_abs_err": err,
+                     "atol": atol, "rtol": rtol, "ok": ok})
+        failed += [] if ok else [rows[-1]]
     # the summary line's error: the main path's shape, f32
-    for name in ("fed_mix_segment", "fed_mix"):
+    for name, _, _ in KERNELS:
         state.setdefault("max_abs_err", {})[name] = max(
             r["max_abs_err"] for r in rows if r["kernel"] == name
             and (r["D"], r["P"], r["dtype"]) == (MAIN_D, MAIN_P, "float32"))
@@ -201,21 +309,25 @@ def femnist_setup(full: bool):
 
 def phase_reference(torch, state):
     """The port on the card against the port on the CPU: same data, same
-    initial weights, same draws. Tolerance: train_loss rtol 1e-4 (cuDNN
-    and the kernels sum in other orders than the CPU over a few dozen SGD
-    steps); accuracy within one test sample."""
+    initial weights, same draws (gossip_async's matchings and the int8
+    wire's rounding noise included). Tolerance: train_loss rtol 1e-4
+    (cuDNN and the kernels sum in other orders than the CPU over a few
+    dozen SGD steps); accuracy within one test sample."""
     from repro_torch.config import FLConfig
     from repro_torch.core.simulator import Simulator
     net, data, kw = femnist_setup(full=False)
     rows = []
     n_test = float(data.test_mask.sum())
-    for algo, mix_path, sync in (("fedp2p", "auto", 2), ("fedavg", "auto", 1),
-                                 ("fedp2p", "dense", 1)):
+    for algo, mix_path, sync, codec in (
+            ("fedp2p", "auto", 2, None), ("fedavg", "auto", 1, None),
+            ("fedp2p", "dense", 1, None), ("gossip", "auto", 2, None),
+            ("gossip_async", "auto", 1, None), ("fedp2p", "dense", 1, "int8"),
+            ("gossip", "auto", 1, "topk")):
         fl = FLConfig(sync_period=sync, mix_path=mix_path, **kw)
         out = {}
         sims = {dev: Simulator(net, data, fl, device=dev)
                 for dev in ("cpu", "cuda")}
-        eng = {dev: s.engine(algo) for dev, s in sims.items()}
+        eng = {dev: s.engine(algo, codec=codec) for dev, s in sims.items()}
         gen = torch.Generator(device="cpu").manual_seed(7)
         draws = [eng["cpu"].draw_round(gen) for _ in range(2)]
         for dev, e in eng.items():   # the engine moves the draws over
@@ -229,7 +341,8 @@ def phase_reference(torch, state):
                       for a, b in zip(ac, ag))
               and all(math.isfinite(v) for v in lg + ag))
         rows.append({"algorithm": algo, "mix_path": mix_path,
-                     "sync_period": sync, "loss_cpu": lc, "loss_cuda": lg,
+                     "sync_period": sync, "codec": codec,
+                     "loss_cpu": lc, "loss_cuda": lg,
                      "acc_cpu": ac, "acc_cuda": ag, "ok": ok})
         if not ok:
             emit({"phase": "reference", "runs": rows})
@@ -238,31 +351,94 @@ def phase_reference(torch, state):
     emit({"phase": "reference", "runs": rows})
 
 
+def launch_counters():
+    """{kernel name: its wrapper}, each wrapper carrying ``.launches``."""
+    from repro_torch.kernels.fed_aggregate import fed_aggregate
+    from repro_torch.kernels.fed_mix import fed_mix
+    from repro_torch.kernels.fed_mix_q import fed_mix_q
+    from repro_torch.kernels.fed_mix_sparse import (
+        fed_mix_matching, fed_mix_segment,
+    )
+    return {"fed_mix_segment": fed_mix_segment, "fed_mix": fed_mix,
+            "fed_mix_matching": fed_mix_matching, "fed_mix_q": fed_mix_q,
+            "fed_aggregate": fed_aggregate}
+
+
+def expected(**counts):
+    """An expected-launch dict naming every kernel (0 unless given)."""
+    return {name: counts.get(name, 0) for name, _, _ in KERNELS}
+
+
+def aggregate_run(torch, sim):
+    """``ops.fed_aggregate_tree`` over the [P, ...] client models of one
+    fedp2p round (``_round_rows``, made before the counters are reset),
+    weighted by the participants' sample counts / their sum. Returns
+    (drive, check): the call to count, and the comparison of its result
+    with the plain version on the card."""
+    from repro_torch.kernels import ops, ref
+    eng = sim.engine("fedp2p")
+    flat, spec = eng._pack_params(sim.init_params(0))
+    draws = eng.draw_round(torch.Generator(device="cuda").manual_seed(5))
+    rows, _, _ = eng._round_rows(spec, flat, draws)
+    counts = sim.data_dev["counts"][draws.sel]
+    w = counts / counts.sum()
+    tree = ops.unpack_tree(rows, spec)
+    out = {}
+
+    def drive():
+        out["tree"] = ops.fed_aggregate_tree(tree, w)
+
+    def check():
+        got = ops.pack_tree({k: v[None] for k, v in out["tree"].items()})[0]
+        err, atol, rtol, ok = compare(torch, got[0],
+                                      ref.fed_aggregate_ref(rows, w))
+        return {"max_abs_err": err, "atol": atol, "rtol": rtol,
+                "ok": ok and got.shape == (1, rows.shape[1])}
+
+    return drive, check
+
+
 def phase_main_path(torch, state):
     from repro_torch.config import FLConfig
     from repro_torch.core.simulator import Simulator
-    from repro_torch.kernels.fed_mix import fed_mix
-    from repro_torch.kernels.fed_mix_sparse import fed_mix_segment
     net, data, kw = femnist_setup(full=True)
+    # gossip's participants: FLConfig.participation (default 10); 100 here,
+    # the width of the fedp2p runs' mix
+    g100 = {"participation": 100}
     runs = [  # (label, FLConfig overrides, run kwargs, expected launches)
         ("fedp2p", {}, dict(rounds=3, algorithm="fedp2p"),
-         {"fed_mix_segment": 3, "fed_mix": 0}),
+         expected(fed_mix_segment=3)),
         ("fedp2p_sync2", {"sync_period": 2},
-         dict(rounds=3, algorithm="fedp2p"),
-         {"fed_mix_segment": 6, "fed_mix": 0}),
+         dict(rounds=3, algorithm="fedp2p"), expected(fed_mix_segment=6)),
         ("fedavg", {}, dict(rounds=2, algorithm="fedavg"),
-         {"fed_mix_segment": 2, "fed_mix": 0}),
+         expected(fed_mix_segment=2)),
         ("fedp2p_dense", {}, dict(rounds=2, algorithm="fedp2p",
-                                  mix_path="dense"),
-         {"fed_mix_segment": 0, "fed_mix": 2}),
+                                  mix_path="dense"), expected(fed_mix=2)),
         # the JAX package's Table-1 participation for this net
         # (benchmarks/accuracy.py: L=5, Q=2, 10 participants)
         ("fedp2p_table1", {"num_clusters": 5, "devices_per_cluster": 2,
                            "participation": 10},
-         dict(rounds=5, algorithm="fedp2p"),
-         {"fed_mix_segment": 5, "fed_mix": 0}),
+         dict(rounds=5, algorithm="fedp2p"), expected(fed_mix_segment=5)),
+        ("gossip", g100, dict(rounds=2, algorithm="gossip"),
+         expected(fed_mix_matching=2)),
+        ("gossip_async_sync2", {**g100, "sync_period": 2},
+         dict(rounds=2, algorithm="gossip_async"),
+         expected(fed_mix_matching=4)),
+        ("gossip_dense", g100, dict(rounds=1, algorithm="gossip",
+                                    mix_path="dense"), expected(fed_mix=1)),
+        ("fedp2p_int8_dense", {}, dict(rounds=2, algorithm="fedp2p",
+                                       codec="int8", mix_path="dense"),
+         expected(fed_mix_q=2)),
+        ("fedp2p_int8", {}, dict(rounds=2, algorithm="fedp2p",
+                                 codec="int8"),
+         expected(fed_mix_segment=2)),
+        ("gossip_topk", g100, dict(rounds=2, algorithm="gossip",
+                                   codec="topk"),
+         expected(fed_mix_matching=2)),
+        ("aggregate", {}, None, expected(fed_aggregate=1)),
     ]
-    totals = {"fed_mix_segment": 0, "fed_mix": 0}
+    counters = launch_counters()
+    totals = expected()
     results = []
     n_params = None
     for label, over, run_kw, expect in runs:
@@ -270,30 +446,41 @@ def phase_main_path(torch, state):
         sim = Simulator(net, data, fl)
         if n_params is None:
             n_params = sum(v.numel() for v in sim.init_params(0).values())
+        if run_kw is None:
+            drive, check = aggregate_run(torch, sim)
         torch.cuda.synchronize()
-        fed_mix_segment.launches = 0
-        fed_mix.launches = 0
+        for fn in counters.values():
+            fn.launches = 0
         t0 = time.perf_counter()
-        hist = sim.run(**run_kw)
+        if run_kw is None:
+            drive()
+        else:
+            hist = sim.run(**run_kw)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        got = {"fed_mix_segment": fed_mix_segment.launches,
-               "fed_mix": fed_mix.launches}
+        got = {k: fn.launches for k, fn in counters.items()}
         for k in totals:
             totals[k] += got[k]
-        finite = all(math.isfinite(v) for v in
-                     hist.train_loss + hist.acc + hist.acc_client_mean)
-        row = {"run": label, "rounds": run_kw["rounds"],
-               "participants": sim.engine(run_kw["algorithm"]).proto
-               .num_participants(fl),
-               "sync_period": fl.sync_period,
-               "mix_path": run_kw.get("mix_path", fl.mix_path),
-               "train_loss": hist.train_loss, "acc": hist.acc,
-               "acc_client_mean": hist.acc_client_mean,
-               "seconds": round(secs, 3),
-               "seconds_per_round": round(secs / run_kw["rounds"], 3),
-               "launches": got, "expected_launches": expect,
-               "finite": finite}
+        if run_kw is None:
+            row = {"run": label, "participants": fl.num_clusters
+                   * fl.devices_per_cluster, "seconds": round(secs, 4),
+                   **check(), "launches": got, "expected_launches": expect}
+            finite = row["ok"]
+        else:
+            finite = all(math.isfinite(v) for v in
+                         hist.train_loss + hist.acc + hist.acc_client_mean)
+            row = {"run": label, "rounds": run_kw["rounds"],
+                   "participants": sim.engine(run_kw["algorithm"]).proto
+                   .num_participants(fl),
+                   "sync_period": fl.sync_period,
+                   "mix_path": run_kw.get("mix_path", fl.mix_path),
+                   "codec": run_kw.get("codec", fl.codec),
+                   "train_loss": hist.train_loss, "acc": hist.acc,
+                   "acc_client_mean": hist.acc_client_mean,
+                   "seconds": round(secs, 3),
+                   "seconds_per_round": round(secs / run_kw["rounds"], 3),
+                   "launches": got, "expected_launches": expect,
+                   "finite": finite}
         results.append(row)
         if not finite or got != expect:
             emit({"phase": "main_path", "params_per_client": n_params,
@@ -350,8 +537,12 @@ def phase_timing(torch, state):
     device time of every kernel they launch. Inputs (296 MB) exceed the
     50 MB L2, so every call reads from device memory."""
     from repro_torch.kernels import ref
+    from repro_torch.kernels.fed_aggregate import fed_aggregate
     from repro_torch.kernels.fed_mix import fed_mix
-    from repro_torch.kernels.fed_mix_sparse import fed_mix_segment
+    from repro_torch.kernels.fed_mix_q import fed_mix_q
+    from repro_torch.kernels.fed_mix_sparse import (
+        fed_mix_matching, fed_mix_segment,
+    )
     d, p = MAIN_D, MAIN_P
     rows = []
     for nseg in (1, 10):
@@ -393,9 +584,58 @@ def phase_timing(torch, state):
             torch, lambda: torch.mm(m_cat, x_cat)).values()),
         "library": "torch.mm([D, 2D] @ [2D, P]) on pre-stacked operands, "
                    "TF32 off"})
+    for stages in (2, 1):
+        perms, sv, xn, xo = matching_inputs(torch, d, p, stages,
+                                            torch.float32, seed=3)
+        byts = 3 * d * p * 4 + (stages + 1) * d * 4
+        flops = (3 + 2 * stages) * d * p
+        b_ms, b_by = bound(byts, flops)
+        rows.append({
+            "name": "fed_mix_matching", "S": stages,
+            "ms": named_ms(device_ms(
+                torch, lambda: fed_mix_matching(perms, sv, xn, xo)),
+                "matching_mix_kernel"),
+            "plain_ms": sum(device_ms(
+                torch, lambda: ref.fed_mix_matching_ref(perms, sv, xn,
+                                                        xo)).values()),
+            "bytes": byts, "flops": flops, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "library": "none: no single PyTorch call substitutes stragglers "
+                       "and averages rows with their partners"})
+    mn, mo, q, sc, xo = quant_inputs(torch, d, p, CHUNK, torch.float32,
+                                     seed=4)
+    byts = q.numel() + sc.numel() * 4 + 2 * d * p * 4 + 2 * d * d * 4
+    flops = 4 * d * d * p + q.numel()        # the products + the dequant
+    b_ms, b_by = bound(byts, flops)
+    rows.append({
+        "name": "fed_mix_q", "Pq": q.shape[1],
+        "ms": named_ms(device_ms(
+            torch, lambda: fed_mix_q(mn, mo, q, sc, xo, chunk=CHUNK)),
+            "quant_mix_kernel"),
+        "plain_ms": sum(device_ms(
+            torch, lambda: ref.fed_mix_q_ref(mn, mo, q, sc, xo,
+                                             chunk=CHUNK)).values()),
+        "bytes": byts, "flops": flops, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+        "library": "none: no single PyTorch call dequantizes an int8 "
+                   "record inside a matrix product"})
+    x, w = aggregate_inputs(torch, d, p, torch.float32, seed=5)
+    byts = d * p * 4 + d * 4 + p * 4
+    flops = 2 * d * p
+    b_ms, b_by = bound(byts, flops)
+    rows.append({
+        "name": "fed_aggregate",
+        "ms": named_ms(device_ms(torch, lambda: fed_aggregate(x, w)),
+                       "aggregate_kernel"),
+        "plain_ms": sum(device_ms(
+            torch, lambda: ref.fed_aggregate_ref(x, w)).values()),
+        "bytes": byts, "flops": flops, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": sum(device_ms(torch, lambda: w @ x).values()),
+        "library": "w @ x ([N] @ [N, D], one cuBLAS GEMV), TF32 off"})
     state["timing"] = rows
     emit({"phase": "timing", "kernels": rows,
           "round_split": round_split(torch),
+          "round_split_int8_dense": round_split_int8_dense(torch),
           "nvidia_smi": state["smi"]})
 
 
@@ -425,15 +665,71 @@ def round_split(torch):
             "top_kernels_ms": [[k[:90], v] for k, v in top]}
 
 
+def round_split_int8_dense(torch):
+    """One full-width fedp2p round with the int8 wire on mix_path="dense"
+    under torch.profiler: the summed device time of its kernels, split
+    into the fed_mix_q kernel, the codec's own elementwise kernels (every
+    kernel launched inside ``ops.wire_flat``: the delta, the absmax
+    scales, the stochastic rounding, the residual split), the convolution
+    kernels and the rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.config import FLConfig
+    from repro_torch.core.simulator import Simulator
+    from repro_torch.kernels import ops
+    net, data, kw = femnist_setup(full=True)
+    sim = Simulator(net, data, FLConfig(mix_path="dense", **kw))
+    eng = sim.engine("fedp2p", codec="int8")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = sim.init_params(0)
+    wire = ops.wire_flat
+
+    def traced_wire(*args, **kwargs):
+        with record_function("codec_wire"):
+            return wire(*args, **kwargs)
+
+    eng.run_rounds(params, gen, 1)                       # warm up cuDNN
+    torch.cuda.synchronize()
+    ops.wire_flat = traced_wire
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.run_rounds(params, gen, 1)
+            torch.cuda.synchronize()
+    finally:
+        ops.wire_flat = wire
+    per = {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and evt.device_time_total > 0:
+            per[evt.key] = per.get(evt.key, 0.0) + evt.device_time_total / 1e3
+    wire_ms = sum(e.device_time_total for e in prof.events()
+                  if e.name == "codec_wire") / 1e3
+    total = sum(per.values())
+    mix = sum(v for k, v in per.items() if "quant_mix_kernel" in k)
+    conv = sum(v for k, v in per.items()
+               if any(w in k.lower() for w in ("conv", "xmma", "winograd",
+                                               "cudnn", "implicit")))
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+    return {"device_ms": total, "fed_mix_q_ms": mix,
+            "fed_mix_q_share_of_device": mix / total,
+            "codec_wire_ms": wire_ms,
+            "codec_wire_share_of_device": wire_ms / total,
+            "convolution_ms": conv,
+            "convolution_share_of_device": conv / total,
+            "top_kernels_ms": [[k[:90], v] for k, v in top]}
+
+
 def kernel_summary(state):
-    timing = {(r["name"], r.get("L", 1)): r for r in state["timing"]}
+    # each kernel's summary row: the first timing row of its name
+    # (fed_mix_segment at L = 1, fed_mix_matching at S = 2)
+    timing = {}
+    for r in state["timing"]:
+        timing.setdefault(r["name"], r)
     launches, errs = state["launches"], state["max_abs_err"]
     out = []
-    for name, src, rep, key in (
-            ("fed_mix_segment", SEGMENT_SOURCE, SEGMENT_REPLACES,
-             ("fed_mix_segment", 1)),
-            ("fed_mix", DENSE_SOURCE, DENSE_REPLACES, ("fed_mix", 1))):
-        t = timing[key]
+    for name, src, rep in KERNELS:
+        t = timing[name]
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": rep, "launches": launches[name],
                     "max_abs_err": errs[name], "ms": t["ms"],

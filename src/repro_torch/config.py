@@ -1,7 +1,7 @@
 """``FLConfig`` — the port's copy of ``repro.config.FLConfig``: the same
 fields, defaults and validation, so one configuration means the same run in
-both packages. Options the port has not reached yet (codecs, faults,
-sampled participation) keep their fields; the engines raise
+both packages. Options the port has not reached yet (faults, sampled
+participation) keep their fields; the engines raise
 ``NotImplementedError`` when a run asks for them.
 """
 from __future__ import annotations
@@ -29,7 +29,8 @@ class FLConfig:
     algorithm: str = "fedp2p"
     # §5: upgrade the algorithm to its "_topo" hop-aware variant
     topology_aware: bool = False
-    # the lossy wire format of exchanged updates; the port runs "none" only
+    # the lossy wire format of exchanged updates (a repro_torch.compression
+    # name: none | bf16 | int8 | topk)
     codec: str = "none"
     # which mixing lowering the engines run (dense | sparse | auto):
     # "dense" = the [D, D] mixing-matrix form (the fed_mix kernel),

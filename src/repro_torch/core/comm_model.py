@@ -11,11 +11,13 @@ where M = wire bytes, P = sampled devices/round, B_s = server uplink
 bandwidth, B_d = device-device bandwidth, alpha = server down/up asymmetry,
 gamma = B_s / B_d. H_p2p is convex in L, so the constrained optimum sits at
 the clamped boundary when L* falls outside [1, P]. ``bits_per_param``
-(default 32, full precision) scales the model to its wire bytes; re-pricing
-for a codec waits for the compression slice.
+(default 32, full precision) scales the model to its wire bytes;
+``CommParams.with_codec`` re-prices it for a ``repro_torch.compression``
+codec.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -36,6 +38,13 @@ class CommParams:
     def wire_bytes(self) -> float:
         """Bytes one model actually puts on the link under the codec."""
         return self.model_bytes * self.bits_per_param / 32.0
+
+    def with_codec(self, codec) -> "CommParams":
+        """Re-price for a ``repro_torch.compression`` codec (name or Codec):
+        every H(·) then reports codec-adjusted bytes."""
+        from repro_torch.compression import as_codec
+        return dataclasses.replace(
+            self, bits_per_param=as_codec(codec).bits_per_param())
 
 
 def h_fedavg(p: CommParams, P: int) -> float:

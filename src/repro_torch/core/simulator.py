@@ -75,8 +75,9 @@ class Simulator:
     def engine(self, algorithm: str, codec=None,
                mix_path: Optional[str] = None) -> DenseEngine:
         """Registry dispatch — unknown or not-yet-ported names raise
-        ValueError listing the registered protocols. Engines are cached per
-        (protocol, codec, mix_path)."""
+        ValueError listing the registered protocols (unknown codecs list
+        the registered codecs). Engines are cached per (protocol, codec,
+        mix_path)."""
         proto = protocols.resolve(algorithm,
                                   topology_aware=self.fl.topology_aware)
         codec = codec if codec is not None else self.fl.codec

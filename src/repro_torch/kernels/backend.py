@@ -29,7 +29,8 @@ from typing import Dict, Iterable, Optional, Sequence
 import torch
 
 #: every kernel source under ``csrc/`` (one shared library each)
-KERNELS = ("fed_mix_segment", "fed_mix")
+KERNELS = ("fed_mix_segment", "fed_mix", "fed_mix_matching", "fed_mix_q",
+           "fed_aggregate")
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # The libraries go to <repo>/build/repro_torch/, which .gitignore lists

@@ -1,13 +1,21 @@
-"""``fed_mix_segment`` — the structured-sparse mixing kernel of the
-cluster-segment ``SegmentSpec`` (FedAvg, FedP2P; the global server step is
-its L=1 case):
+"""The structured-sparse mixing kernels, on packed [D, P] buffers with no
+[D, D] operator:
 
-    out_i = sum_{j: c(j)=c(i)} (w_new_j x_new_j + w_old_j x_old_j)
+* ``fed_mix_segment`` — the cluster-segment ``SegmentSpec`` (FedAvg,
+  FedP2P; the global server step is its L=1 case),
 
-on packed [D, P] buffers, in O(D·P) work with no [D, D] operator. The
-kernel is ``csrc/fed_mix_segment.cu`` (one fused pass, replacing the two
-Pallas calls of ``repro.kernels.fed_mix_sparse.fed_mix_segment``); CPU
-tensors take ``ref.fed_mix_segment_ref``.
+      out_i = sum_{j: c(j)=c(i)} (w_new_j x_new_j + w_old_j x_old_j)
+
+  in O(D·P) work. The kernel is ``csrc/fed_mix_segment.cu`` (one fused
+  pass, replacing the two Pallas calls of
+  ``repro.kernels.fed_mix_sparse.fed_mix_segment``); CPU tensors take
+  ``ref.fed_mix_segment_ref``.
+* ``fed_mix_matching`` — the pairwise-matching ``MatchingSpec`` (gossip,
+  gossip_async): straggler substitution, then S stages of averaging every
+  row with its partner, in O(S·D·P) work. The kernel is
+  ``csrc/fed_mix_matching.cu`` (replacing
+  ``repro.kernels.fed_mix_sparse.fed_mix_matching``); CPU tensors take
+  ``ref.fed_mix_matching_ref``.
 
 Bad cluster ids: on the TPU an id outside [0, L) silently drops out of the
 one-hot. Here it raises ``ValueError``. On CPU tensors the wrapper raises
@@ -140,3 +148,87 @@ def fed_mix_segment(cluster_ids: torch.Tensor, w_new: torch.Tensor,
 
 #: kernel launches since the last reset (CPU calls do not count)
 fed_mix_segment.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# fed_mix_matching
+# ---------------------------------------------------------------------------
+
+def _check_matching(perms, survive, x_new, x_old) -> str:
+    name = "fed_mix_matching"
+    if x_new.dim() != 2:
+        raise ValueError(f"{name}: x_new must be [D, P], got shape "
+                         f"{tuple(x_new.shape)}")
+    if x_new.shape != x_old.shape:
+        raise ValueError(f"{name}: x_new {tuple(x_new.shape)} and x_old "
+                         f"{tuple(x_old.shape)} differ in shape")
+    if x_new.dtype != x_old.dtype:
+        raise ValueError(f"{name}: x_new ({x_new.dtype}) and x_old "
+                         f"({x_old.dtype}) differ in dtype")
+    if x_new.dtype not in _DTYPES:
+        raise ValueError(f"{name}: x dtype must be float32 or bfloat16, got "
+                         f"{x_new.dtype}")
+    d = x_new.shape[0]
+    if perms.dim() != 2 or perms.shape[1] != d:
+        raise ValueError(f"{name}: perms must be [S, D]=[S, {d}], got shape "
+                         f"{tuple(perms.shape)}")
+    if perms.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{name}: perms must be int32 or int64, got "
+                         f"{perms.dtype}")
+    if tuple(survive.shape) != (d,):
+        raise ValueError(f"{name}: survive must be [D]=[{d}], got shape "
+                         f"{tuple(survive.shape)}")
+    device = backend.kernel_device(name, perms, survive, x_new, x_old)
+    backend.check_contiguous(name, perms=perms, survive=survive,
+                             x_new=x_new, x_old=x_old)
+    if device == "cpu" and perms.numel():
+        lo, hi = torch.aminmax(perms)
+        lo, hi = int(lo), int(hi)
+        if lo < 0 or hi >= d:
+            raise ValueError(f"{name}: partner indices must lie in [0, D="
+                             f"{d}), got values in [{lo}, {hi}]")
+    return device
+
+
+def fed_mix_matching(perms: torch.Tensor, survive: torch.Tensor,
+                     x_new: torch.Tensor, x_old: torch.Tensor
+                     ) -> torch.Tensor:
+    """perms [S, D] int (stage partner maps, perm[i] = i for byes);
+    survive [D] 0/1; x_new/x_old [D, P] f32 or bf16, contiguous -> [D, P]
+    in x_new.dtype, f32 in between.
+
+    CPU tensors: the plain version. CUDA tensors: the hand-written kernel
+    (``fed_mix_matching.launches`` counts its calls); there a partner
+    index outside [0, D) gives a NaN row instead of an error, as the
+    indices are not read back."""
+    if _check_matching(perms, survive, x_new, x_old) == "cpu":
+        return ref.fed_mix_matching_ref(perms, survive, x_new, x_old)
+    d, p = x_new.shape
+    out = torch.empty_like(x_new)
+    if out.numel() == 0:
+        return out
+    stages = perms.shape[0]
+    pm = perms.to(torch.int32)
+    sv = survive.to(torch.float32)
+    n_scratch = backend.c_function(
+        "fed_mix_matching", "fed_mix_matching_scratch_buffers",
+        [ctypes.c_int, ctypes.c_int])(d, stages)
+    scratch = (torch.empty((n_scratch, d, p), dtype=torch.float32,
+                           device=x_new.device) if n_scratch else None)
+    launch = backend.c_function(
+        "fed_mix_matching", "fed_mix_matching_launch",
+        [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong,
+                                 ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p])
+    rc = launch(pm.data_ptr(), sv.data_ptr(), x_new.data_ptr(),
+                x_old.data_ptr(), out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
+                d, p, stages, int(x_new.dtype == torch.bfloat16),
+                backend.stream_ptr(x_new.device))
+    backend.raise_on_error("fed_mix_matching", rc)
+    fed_mix_matching.launches += 1
+    return out
+
+
+#: kernel calls since the last reset (CPU calls do not count)
+fed_mix_matching.launches = 0

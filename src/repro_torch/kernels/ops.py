@@ -9,7 +9,9 @@ row lines up column for column with the JAX package's.
 
 Dispatch goes by the tensor's device inside each kernel wrapper: CPU
 tensors take the plain PyTorch version, CUDA tensors the hand-written
-kernel (``fed_mix_segment``, ``fed_mix``).
+kernel (``fed_mix_segment``, ``fed_mix_matching``, ``fed_mix``,
+``fed_mix_q``, ``fed_aggregate``). ``wire_flat`` is the quantized-exchange
+step both mixing paths share.
 """
 from __future__ import annotations
 
@@ -18,9 +20,12 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels.fed_mix import fed_mix  # noqa: F401 — dispatcher
+from repro_torch import compression
+from repro_torch.kernels.fed_aggregate import fed_aggregate
+from repro_torch.kernels.fed_mix import fed_mix
+from repro_torch.kernels.fed_mix_q import fed_mix_q
 from repro_torch.kernels.fed_mix_sparse import (  # noqa: F401 — dispatcher
-    fed_mix_segment,
+    fed_mix_matching, fed_mix_segment,
 )
 
 _LOW_PRECISION = (torch.float16, torch.bfloat16)
@@ -167,16 +172,64 @@ def pack_tree_pair(f_new, f_old, caller: str = "fed_mix_tree"):
 
 
 # ---------------------------------------------------------------------------
-# dense mixing on packed buffers
+# aggregation
 # ---------------------------------------------------------------------------
 
-def fed_mix_flat(m_new, m_old, flat_new, flat_old, *, codec=None):
+def fed_aggregate_tree(stacked_params, w):
+    """The paper's ``Aggregate(·)`` over a stacked tree (leaves [N, ...]):
+    pack, one ``fed_aggregate`` pass over the [N, sum(sizes)] buffer,
+    unpack to one model (leaves cast back to their own dtypes)."""
+    flat, spec = pack_tree(stacked_params)
+    return unpack_tree(fed_aggregate(flat, w), spec)
+
+
+# ---------------------------------------------------------------------------
+# the quantized exchange and dense mixing on packed buffers
+# ---------------------------------------------------------------------------
+
+def wire_flat(codec, flat_new, flat_old, codec_state=None, *, u=None):
+    """The flat-buffer quantized-exchange step, shared by the dense
+    (``fed_mix_flat``) and structured (``protocols.spec.apply_spec_flat``)
+    mixing paths: what crosses the wire is the round DELTA ``flat_new -
+    flat_old`` against the round-start base, with the error-feedback
+    residual of stateful codecs zero-initialized when None and folded in.
+    ``u`` is the int8 codec's stochastic-rounding noise. Returns ``(enc,
+    d_shape, base, new_state)`` — the wire record, the shape ``decode``
+    needs, the f32 base, and the threaded codec state."""
+    base = flat_old.to(torch.float32)
+    d = flat_new.to(torch.float32) - base          # the uploaded delta
+    if codec.stateful and codec_state is None:
+        codec_state = torch.zeros_like(d)
+    enc, d_shape, new_res = compression.feedback_encode(codec, d,
+                                                        codec_state, u=u)
+    return enc, d_shape, base, (new_res if codec.stateful else codec_state)
+
+
+def fed_mix_flat(m_new, m_old, flat_new, flat_old, *, codec=None,
+                 codec_state=None, u=None):
     """The dense mixing pass on already-packed [D, sum(sizes)] buffers —
     the seam the packed-state ``DenseEngine`` carry drives on
-    ``mix_path="dense"``. The quantized-exchange ``codec`` wire is not
-    ported yet (ROADMAP module item 9)."""
-    if codec is not None:
-        raise NotImplementedError(
-            "fed_mix_flat: codecs are not ported yet (ROADMAP module item 9, "
-            "compression)")
-    return fed_mix(m_new, m_old, flat_new, flat_old)
+    ``mix_path="dense"``.
+
+    ``codec`` (a ``repro_torch.compression`` name or Codec) puts the round
+    DELTA through the lossy exchange; flat_old stays exact. The int8 codec
+    never materializes the dequantized reconstruction: the ``fed_mix_q``
+    kernel contracts the int8 record directly, folding the base back in as
+    ``M_new @ dq(Q) + (M_new + M_old) @ X_old`` (= ``M_new @ (X_old + dq)
+    + M_old @ X_old``). Other codecs decode, then ``fed_mix``. When
+    ``codec`` is given the call returns ``(flat, new_codec_state)``."""
+    codec_given = codec is not None
+    codec = None if not codec_given else compression.active(codec)
+    if codec is None:
+        out = fed_mix(m_new, m_old, flat_new, flat_old)
+        return (out, codec_state) if codec_given else out
+    enc, d_shape, base, new_state = wire_flat(codec, flat_new, flat_old,
+                                              codec_state, u=u)
+    if isinstance(codec, compression.Int8Codec):
+        out = fed_mix_q(m_new, m_new + m_old, enc.values, enc.scales,
+                        flat_old, chunk=codec.chunk,
+                        out_dtype=flat_new.dtype)
+    else:
+        x_hat = (base + codec.decode(enc, d_shape)).to(flat_new.dtype)
+        out = fed_mix(m_new, m_old, x_hat, flat_old)
+    return out, new_state

@@ -2,19 +2,25 @@
 
     proto = protocols.get("fedp2p")
     sel, cids = proto.partition(gen, fl)
-    spec = proto.mixing_spec(ctx)          # SegmentSpec
+    spec = proto.mixing_spec(ctx)          # SegmentSpec / MatchingSpec
     M_new, M_old = proto.mixing_matrix(ctx)
 
-FedAvg and FedP2P are ported; ``get``/``resolve`` raise for the JAX
-package's other protocols, naming the ROADMAP item that ports them.
+FedAvg, FedP2P, gossip and gossip_async are ported; ``get``/``resolve``
+raise for ``fedp2p_topo``, naming the ROADMAP item that ports it.
 """
 from repro_torch.protocols.base import (  # noqa: F401
     Protocol, get, get_participation, names, register, resolve,
 )
+from repro_torch.protocols.async_gossip import AsyncGossip
 from repro_torch.protocols.context import RoundContext, make_context  # noqa: F401
 from repro_torch.protocols.fedavg import FedAvg
 from repro_torch.protocols.fedp2p import FedP2P
-from repro_torch.protocols.spec import SegmentSpec, apply_spec_flat  # noqa: F401
+from repro_torch.protocols.gossip import DecentralizedGossip
+from repro_torch.protocols.spec import (  # noqa: F401
+    MatchingSpec, SegmentSpec, apply_spec_flat,
+)
 
 register(FedAvg())
 register(FedP2P())
+register(DecentralizedGossip())
+register(AsyncGossip())

@@ -27,7 +27,7 @@ from repro_torch.protocols.context import RoundContext
 
 #: protocols of the JAX package that this package has not ported yet, with
 #: the ROADMAP module item that ports them
-NOT_PORTED = {"gossip": 8, "gossip_async": 8, "fedp2p_topo": 7}
+NOT_PORTED = {"fedp2p_topo": 7}
 
 
 class Protocol:
@@ -62,6 +62,11 @@ class Protocol:
         return sel, torch.zeros((self.num_participants(fl),),
                                 dtype=torch.int32, device=gen.device)
 
+    def num_matchings(self, fl: FLConfig) -> int:
+        """R > 0 for a protocol that draws one of R matchings per mix
+        (``RoundContext.matching``, drawn by the engine); 0 otherwise."""
+        return 0
+
     # -- aggregation semantics --------------------------------------------
     def mixing_matrix(self, ctx: RoundContext
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -70,7 +75,8 @@ class Protocol:
         raise NotImplementedError
 
     def mixing_spec(self, ctx: RoundContext):
-        """The structured form of ``mixing_matrix`` (a ``SegmentSpec``), or
+        """The structured form of ``mixing_matrix`` (a ``SegmentSpec`` or
+        ``MatchingSpec``), or
         ``None`` for dense-only protocols. Contract:
         ``mixing_spec(ctx).to_dense()`` reproduces ``mixing_matrix(ctx)``
         exactly."""

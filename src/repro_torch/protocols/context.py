@@ -4,7 +4,9 @@
   tensor fields
     * ``survive``      — [D] 0/1 straggler mask (f32),
     * ``counts``       — [D] per-client data weights |D_i|,
-    * ``cluster_ids``  — [D] cluster assignment (int).
+    * ``cluster_ids``  — [D] cluster assignment (int),
+    * ``matching``     — 0-d int64 index of this mix's random matching
+      (``gossip_async``), or None.
 
   plain fields
     * ``round_index``    — the round counter ``t``,
@@ -12,9 +14,11 @@
     * ``do_global_sync`` — whether this round runs the server/global step.
 
 The JAX record's ``key`` has no counterpart: the port's round randomness is
-drawn up front into an explicit record (``protocols.engine.RoundDraws``).
-Its mesh, codec, fault and sampled-window fields arrive with the slices
-that use them (ROADMAP).
+drawn up front into an explicit record (``protocols.engine.RoundDraws``),
+and the one stochastic protocol draw, ``gossip_async``'s matching, arrives
+already drawn as ``matching`` — a device tensor, so the round loop never
+reads it back. Its mesh, codec, fault and sampled-window fields arrive
+with the slices that use them (ROADMAP).
 """
 from __future__ import annotations
 
@@ -29,13 +33,15 @@ class RoundContext:
     survive: torch.Tensor         # [D] 0/1 straggler mask
     counts: torch.Tensor          # [D] per-client data weights |D_i|
     cluster_ids: torch.Tensor     # [D] cluster assignment
+    matching: Optional[torch.Tensor] = None   # 0-d int64 matching index
     round_index: int = 0
     num_clusters: int = 1
     do_global_sync: bool = True
 
 
 def make_context(*, round_index=0, survive=None, counts=None,
-                 cluster_ids=None, num_clusters: Optional[int] = None,
+                 cluster_ids=None, matching=None,
+                 num_clusters: Optional[int] = None,
                  do_global_sync: bool = True,
                  num_clients: Optional[int] = None) -> RoundContext:
     """Build a RoundContext, defaulting every unspecified field.
@@ -60,6 +66,7 @@ def make_context(*, round_index=0, survive=None, counts=None,
         num_clusters = (int(cluster_ids.max()) + 1
                         if cluster_ids.numel() else 1)
     return RoundContext(survive=survive, counts=counts,
-                        cluster_ids=cluster_ids, round_index=int(round_index),
+                        cluster_ids=cluster_ids, matching=matching,
+                        round_index=int(round_index),
                         num_clusters=int(num_clusters),
                         do_global_sync=bool(do_global_sync))

@@ -8,17 +8,21 @@ One round (``DenseEngine._round_rows`` + the consensus collapse):
   3. local SGD  — all P clients at once (a hand-batched forward, autograd
      over the sum of the per-client losses, which gives each client's own
      gradient);
-  4. mixing     — the protocol's ``SegmentSpec`` through the
-     ``fed_mix_segment`` kernel, or on ``mix_path="dense"`` its
-     ``(M_new, M_old)`` through the ``fed_mix`` kernel; with
-     ``sync_period > 1`` the intermediate sub-rounds mix WITHOUT the
-     global step;
+  4. mixing     — the protocol's structured spec through its kernel
+     (``SegmentSpec``: ``fed_mix_segment``; ``MatchingSpec``:
+     ``fed_mix_matching``), or on ``mix_path="dense"`` its
+     ``(M_new, M_old)`` through ``fed_mix``; with a ``codec`` the round
+     delta crosses the lossy wire first (int8 on the dense path contracts
+     the int8 record in ``fed_mix_q``); with ``sync_period > 1`` the
+     intermediate sub-rounds mix WITHOUT the global step;
   5. collapse   — the reported global model is ``mean_packed`` over the
      mixed client rows;
   6. evaluation.
 
 The federated state is one packed [P, sum(sizes)] buffer for the whole
-round (``kernels.ops.pack_tree`` layout). A round's randomness is drawn up
+round (``kernels.ops.pack_tree`` layout); a stateful codec's
+error-feedback residual is one more [P, sum(sizes)] f32 buffer, carried
+across the rounds of a ``run_rounds``. A round's randomness is drawn up
 front into a ``RoundDraws`` record from a ``torch.Generator`` on the
 engine's device; a caller may hand the records in instead, which is how
 the parity tests give this engine and the JAX one the same draws. Metrics
@@ -32,13 +36,14 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from repro_torch import compression
 from repro_torch.config import FLConfig
 from repro_torch.configs.paper_models import PaperNetConfig
 from repro_torch.core.straggler import straggler_mask
 from repro_torch.kernels import backend
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.paper_nets import (
-    paper_net_correct, paper_net_loss_batched,
+    init_paper_net, paper_net_correct, paper_net_loss_batched,
 )
 from repro_torch.protocols.base import Protocol
 from repro_torch.protocols.context import make_context
@@ -67,15 +72,26 @@ def _resolve_spec(proto: Protocol, ctx, mix_path: str):
     return spec
 
 
-def mix_flat(proto: Protocol, flat_new, flat_old, ctx, *, mix_path: str):
+def mix_flat(proto: Protocol, flat_new, flat_old, ctx, codec_state, *,
+             mix_path: str, codec, u=None):
     """One mixing application on a packed [P, sum(sizes)] buffer: the
     structured-spec kernel on the sparse path, the dense (M_new, M_old)
-    kernel otherwise."""
+    kernel otherwise; the codec wire (``u``: the int8 codec's rounding
+    noise) sits identically in front of both. Always returns ``(flat,
+    codec_state)``."""
     spec = _resolve_spec(proto, ctx, mix_path)
     if spec is not None:
-        return apply_spec_flat(spec, flat_new, flat_old)
+        if codec is None:
+            return apply_spec_flat(spec, flat_new, flat_old), codec_state
+        return apply_spec_flat(spec, flat_new, flat_old, codec=codec,
+                               codec_state=codec_state, u=u)
     M_new, M_old = proto.mixing_matrix(ctx)
-    return kernel_ops.fed_mix_flat(M_new, M_old, flat_new, flat_old)
+    if codec is None:
+        return (kernel_ops.fed_mix_flat(M_new, M_old, flat_new, flat_old),
+                codec_state)
+    return kernel_ops.fed_mix_flat(M_new, M_old, flat_new, flat_old,
+                                   codec=codec, codec_state=codec_state,
+                                   u=u)
 
 
 # ---------------------------------------------------------------------------
@@ -134,12 +150,18 @@ class RoundDraws:
     """Every random draw of one round: ``sel`` [P] int64 participants,
     ``cluster_ids`` [P] int32, ``survive`` [P] f32 straggler mask,
     ``batch_perm`` [sub_rounds, P, E, n_max] int64 — the sample order of
-    every client's every epoch in every sub-round. The engine moves them to
-    its device."""
+    every client's every epoch in every sub-round. Mix r (r = 1 ..
+    sub_rounds) reads entry r-1 of the two optional fields: ``matching``
+    [sub_rounds] int64, the matching index of a protocol that draws one
+    (gossip_async), and ``wire_noise`` [sub_rounds, P, n_pad] f32, the
+    int8 codec's stochastic-rounding noise (n_pad = sum(sizes) rounded up
+    to the codec's chunk). The engine moves them to its device."""
     sel: torch.Tensor
     cluster_ids: torch.Tensor
     survive: torch.Tensor
     batch_perm: torch.Tensor
+    matching: Optional[torch.Tensor] = None
+    wire_noise: Optional[torch.Tensor] = None
 
 
 # ---------------------------------------------------------------------------
@@ -151,17 +173,15 @@ class DenseEngine:
     (§4.2) on a PACKED federated state (see the module docstring).
 
     ``device=None`` means the card (and raises where there is none);
-    ``device="cpu"`` runs the kernels' plain versions. ``codec`` and
-    ``faults`` other than ``None`` raise ``NotImplementedError``: they wait
-    for ROADMAP module items 9 and 10."""
+    ``device="cpu"`` runs the kernels' plain versions. ``codec`` is a
+    ``repro_torch.compression`` name or Codec (``None``/``"none"`` runs
+    the codec-free program). ``faults`` and ``topology`` other than
+    ``None`` raise ``NotImplementedError``: they wait for ROADMAP module
+    items 10 and 7."""
 
     def __init__(self, net: PaperNetConfig, data_dev: Dict, fl: FLConfig,
                  proto: Protocol, topology=None, *, codec=None,
                  mix_path: Optional[str] = None, faults=None, device=None):
-        if codec not in (None, "none"):
-            raise NotImplementedError(
-                f"DenseEngine: codec {codec!r} is not ported yet (ROADMAP "
-                "module item 9, compression)")
         if faults is not None:
             raise NotImplementedError(
                 "DenseEngine: fault plans are not ported yet (ROADMAP module "
@@ -174,6 +194,13 @@ class DenseEngine:
         self.device = backend.resolve_device(device)
         self.data_dev = {k: v.to(self.device) for k, v in data_dev.items()}
         self.mix_path = _check_mix_path(mix_path or fl.mix_path)
+        self.codec = compression.active(codec)
+        #: the int8 record's padded width, for the rounding-noise draw
+        self._n_pad = None
+        if isinstance(self.codec, compression.Int8Codec):
+            n = sum(v.numel() for v in init_paper_net(
+                torch.Generator(), net).values())
+            self._n_pad = self.codec.padded(n)
         self._train = make_local_trainer(net, fl)
 
     # -- randomness --------------------------------------------------------
@@ -184,10 +211,18 @@ class DenseEngine:
         sel, cids = self.proto.partition(gen, fl)
         survive = straggler_mask(gen, P, fl.straggler_rate)
         n_max = self.data_dev["y"].shape[1]
-        u = torch.rand((max(1, fl.sync_period), P, fl.local_epochs, n_max),
-                       generator=gen, device=gen.device)
+        subs = max(1, fl.sync_period)
+        u = torch.rand((subs, P, fl.local_epochs, n_max), generator=gen,
+                       device=gen.device)
+        R = self.proto.num_matchings(fl)
+        matching = (torch.randint(0, R, (subs,), generator=gen,
+                                  device=gen.device) if R else None)
+        noise = (torch.rand((subs, P, self._n_pad), generator=gen,
+                            device=gen.device)
+                 if self._n_pad is not None else None)
         return RoundDraws(sel=sel, cluster_ids=cids, survive=survive,
-                          batch_perm=u.argsort(dim=-1))
+                          batch_perm=u.argsort(dim=-1), matching=matching,
+                          wire_noise=noise)
 
     # -- evaluation --------------------------------------------------------
     def evaluate(self, params):
@@ -218,18 +253,28 @@ class DenseEngine:
                                            params.items()})
         return flat[0], spec
 
-    def _mix_flat(self, flat_new, flat_old, ctx):
-        return mix_flat(self.proto, flat_new, flat_old, ctx,
-                        mix_path=self.mix_path)
+    def _mix_flat(self, flat_new, flat_old, ctx, cstate, u=None):
+        return mix_flat(self.proto, flat_new, flat_old, ctx, cstate,
+                        mix_path=self.mix_path, codec=self.codec, u=u)
+
+    def _init_codec_state_flat(self, flat):
+        """The zero error-feedback residual of a stateful codec: one f32
+        row per participant slot over the packed width; None otherwise."""
+        if self.codec is None or not self.codec.stateful:
+            return None
+        P = self.proto.num_participants(self.fl)
+        return torch.zeros((P, flat.shape[-1]), dtype=torch.float32,
+                           device=flat.device)
 
     # -- one round -----------------------------------------------------------
     def _round_rows(self, spec, flat_params, draws: RoundDraws,
-                    round_index: int = 0):
+                    round_index: int = 0, codec_state=None):
         """One protocol round on the packed carry, stopping BEFORE the
         consensus collapse: ``flat_params`` is the flat [sum(sizes)] global
         model, ``spec`` its TreeSpec. Returns the mixed PER-CLIENT rows
-        ``(flat_mixed [P, sum(sizes)], losses [P])``; ``losses`` are the
-        last sub-round's."""
+        ``(flat_mixed [P, sum(sizes)], losses [P], codec_state)``;
+        ``losses`` are the last sub-round's, ``codec_state`` the threaded
+        error-feedback residual (None without a stateful codec)."""
         proto, fl, data = self.proto, self.fl, self.data_dev
         P = proto.num_participants(fl)
         L = proto.num_clusters(fl)
@@ -242,31 +287,42 @@ class DenseEngine:
         # kernels take dense [P, sum(sizes)] buffers)
         flat_old = flat_params[None].expand(P, -1).contiguous()
 
-        def ctx_for(sync: bool):
-            return make_context(round_index=round_index, survive=survive,
-                                counts=counts, cluster_ids=cids,
-                                num_clusters=L, do_global_sync=sync)
+        matching, noise = (None if t is None else t.to(self.device)
+                           for t in (draws.matching, draws.wire_noise))
+
+        def mix(flat_new, r: int, sync: bool, cstate):
+            """Mix r (1-based): its matching and rounding noise are entry
+            r-1 of the round's draws."""
+            ctx = make_context(
+                round_index=round_index, survive=survive, counts=counts,
+                cluster_ids=cids, num_clusters=L, do_global_sync=sync,
+                matching=None if matching is None else matching[r - 1])
+            return self._mix_flat(flat_new, flat_old, ctx, cstate,
+                                  u=None if noise is None else noise[r - 1])
 
         flat_cp = losses = None
-        for r in range(max(1, fl.sync_period)):
+        cstate = codec_state
+        subs = max(1, fl.sync_period)
+        for r in range(subs):
             if flat_cp is None:
                 start = flat_old
             else:
-                start = self._mix_flat(flat_cp, flat_old, ctx_for(False))
+                start, cstate = mix(flat_cp, r, False, cstate)
             cp, losses = self._train(kernel_ops.unpack_tree(start, spec),
                                      cx, cy, cm, perms[r])
             flat_cp = kernel_ops.pack_tree(cp)[0]
-        flat_mixed = self._mix_flat(flat_cp, flat_old, ctx_for(True))
-        return flat_mixed, losses
+        flat_mixed, cstate = mix(flat_cp, subs, True, cstate)
+        return flat_mixed, losses, cstate
 
     def _round_flat(self, spec, flat_params, draws: RoundDraws,
-                    round_index: int = 0):
+                    round_index: int = 0, codec_state=None):
         """``_round_rows`` + the consensus collapse: the global model is
         the mean over the mixed client rows, each leaf in its own dtype
-        (``mean_packed``). Returns ``(flat', mean_loss)``."""
-        flat_mixed, losses = self._round_rows(spec, flat_params, draws,
-                                              round_index)
-        return kernel_ops.mean_packed(flat_mixed, spec), losses.mean()
+        (``mean_packed``). Returns ``(flat', mean_loss, codec_state)``."""
+        flat_mixed, losses, cstate = self._round_rows(
+            spec, flat_params, draws, round_index, codec_state)
+        return (kernel_ops.mean_packed(flat_mixed, spec), losses.mean(),
+                cstate)
 
     # -- the training loop ---------------------------------------------------
     def run_rounds(self, params, gen: Optional[torch.Generator], T: int,
@@ -280,7 +336,9 @@ class DenseEngine:
         tensor on the engine's device — nothing is read back to the host.
         With ``eval_every > 1`` the accuracy entries are computed only at
         rounds where (t+1) % eval_every == 0 and at the last round; the
-        other slots are zeros the caller must not read."""
+        other slots are zeros the caller must not read. A stateful codec's
+        error-feedback residual is per-run memory: zeros at the start of
+        each call, carried from round to round."""
         T, eval_every = int(T), max(1, int(eval_every))
         if draws is None and gen is None:
             raise ValueError("run_rounds needs a generator or explicit "
@@ -289,13 +347,15 @@ class DenseEngine:
             raise ValueError(f"run_rounds: {len(draws)} RoundDraws for "
                              f"T={T} rounds")
         flat, spec = self._pack_params(params)
+        cstate = self._init_codec_state_flat(flat)
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
         loss: List[torch.Tensor] = []
         acc_w: List[torch.Tensor] = []
         acc_m: List[torch.Tensor] = []
         for t in range(T):
             d = draws[t] if draws is not None else self.draw_round(gen)
-            flat, round_loss = self._round_flat(spec, flat, d, t)
+            flat, round_loss, cstate = self._round_flat(spec, flat, d, t,
+                                                        cstate)
             loss.append(round_loss)
             if (t + 1) % eval_every == 0 or t == T - 1:
                 a_w, a_m = self.evaluate(kernel_ops.unpack_tree(flat, spec))

@@ -9,6 +9,9 @@ handed to the port as ``RoundDraws``:
   survive = straggler_mask(k_str, P, rate)   (straggler.py:12-14)
   keys = split(fold_in(k_tr, r), P)          per sub-round (engine.py:304)
   split(key_i, E) -> permutation(e, n_max)   per epoch (engine.py:114,129)
+  k_r = fold_in(k_mix, r)                    mix r = 1..S (engine.py:293)
+  randint(k_r, (), 0, R)                     gossip_async (async_gossip:136)
+  uniform(fold_in(k_r, 0x636F6465), ...)     int8 rounding (engine.py:86,95)
 
 Covered: fedp2p and fedavg x mix_path auto and dense x sync_period 1 and
 2 through a T=3 ``run_rounds`` against ``repro.core.simulator.Simulator.run``
@@ -49,6 +52,9 @@ from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core.simulator import Simulator  # noqa: E402
 from repro_torch.data.federated import pack_clients  # noqa: E402
 from repro_torch.data.synthetic import syncov  # noqa: E402
+from repro_torch.protocols.async_gossip import (  # noqa: E402
+    matching_perm_stack,
+)
 from repro_torch.protocols.engine import DenseEngine, RoundDraws  # noqa: E402
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -66,7 +72,7 @@ CNN = dict(name="cnn-8", kind="cnn", image_size=8, channels=1, hidden=8,
 @functools.partial(jax.jit, static_argnums=(0, 1, 3))
 def _jax_draws(proto, fl, kr, n_max):
     P = proto.num_participants(fl)
-    k_sel, k_tr, k_str, _ = jax.random.split(kr, 4)
+    k_sel, k_tr, k_str, k_mix = jax.random.split(kr, 4)
     sel, cids = proto.partition(k_sel, fl, None)
     survive = j_straggler(k_str, P, fl.straggler_rate)
 
@@ -77,28 +83,43 @@ def _jax_draws(proto, fl, kr, n_max):
     perms = [jax.vmap(epochs)(jax.random.split(jax.random.fold_in(k_tr, r),
                                                P))
              for r in range(max(1, fl.sync_period))]
-    return sel, cids, survive, jax.numpy.stack(perms)
+    k_mix = [jax.random.fold_in(k_mix, r)
+             for r in range(1, max(1, fl.sync_period) + 1)]
+    return sel, cids, survive, jax.numpy.stack(perms), k_mix
 
 
-def round_draws(proto, fl, kr, n_max) -> RoundDraws:
+def round_draws(proto, fl, kr, n_max, int8=None) -> RoundDraws:
     """One round's draws from the JAX round key ``kr``, exactly as
     ``repro.protocols.engine.DenseEngine._round_rows`` draws them (the
-    same threefry calls, jitted here as a whole)."""
-    sel, cids, survive, perms = (np.asarray(a) for a in
-                                 _jax_draws(proto, fl, kr, n_max))
+    same threefry calls, jitted here as a whole). ``int8`` = ``(codec,
+    n_params)`` adds the int8 codec's rounding noise."""
+    sel, cids, survive, perms, mix_keys = _jax_draws(proto, fl, kr, n_max)
+    P = proto.num_participants(fl)
+    matching = noise = None
+    if proto.name == "gossip_async":
+        R = matching_perm_stack(P).shape[0]
+        matching = torch.tensor([int(jax.random.randint(k, (), 0, R))
+                                 for k in mix_keys], dtype=torch.int64)
+    if int8 is not None:
+        codec, n = int8
+        shape = (P, codec.padded(n) // codec.chunk, codec.chunk)
+        noise = torch.stack([torch.from_numpy(np.array(jax.random.uniform(
+            jax.random.fold_in(k, 0x636F6465), shape))).reshape(P, -1)
+            for k in mix_keys])
     return RoundDraws(
-        sel=torch.tensor(sel, dtype=torch.int64),
-        cluster_ids=torch.tensor(cids, dtype=torch.int32),
-        survive=torch.tensor(survive, dtype=torch.float32),
-        batch_perm=torch.tensor(perms, dtype=torch.int64))
+        sel=torch.tensor(np.asarray(sel), dtype=torch.int64),
+        cluster_ids=torch.tensor(np.asarray(cids), dtype=torch.int32),
+        survive=torch.tensor(np.asarray(survive), dtype=torch.float32),
+        batch_perm=torch.tensor(np.asarray(perms), dtype=torch.int64),
+        matching=matching, wire_noise=noise)
 
 
-def run_draws(proto, fl, seed, rounds, n_max):
+def run_draws(proto, fl, seed, rounds, n_max, int8=None):
     """The draws of ``Simulator.run(seed=seed)``: key PRNGKey(seed + 1)."""
     key, out = jax.random.PRNGKey(seed + 1), []
     for _ in range(rounds):
         key, kr = jax.random.split(key)
-        out.append(round_draws(proto, fl, kr, n_max))
+        out.append(round_draws(proto, fl, kr, n_max, int8))
     return out
 
 
@@ -160,7 +181,7 @@ def test_cnn_round_rows_match_jax(femnist_data):
     sim = Simulator(PaperNetConfig(**CNN), femnist_data, fl, device="cpu")
     eng = sim.engine(algo)
     flat, spec = eng._pack_params(params)
-    rows, losses = eng._round_rows(
+    rows, losses, _ = eng._round_rows(
         spec, flat, round_draws(jprotocols.get(algo), jfl, kr, n_max))
     assert rows.shape == tuple(jrows.shape)
     _close(rows.numpy(), np.asarray(jrows), "mixed rows")
@@ -196,7 +217,7 @@ def test_cnn_full_width_matches_jax(femnist_full_data):
     jrows, jlosses, _ = jax.jit(jeng._round_rows, static_argnums=0)(
         jspec, jflat, kr)
     flat, spec = eng._pack_params(params)
-    rows, losses = eng._round_rows(
+    rows, losses, _ = eng._round_rows(
         spec, flat, round_draws(jprotocols.get(algo), jfl, kr, n_max))
     _close(rows.numpy(), np.asarray(jrows), "mixed rows")
     _close(losses.numpy(), np.asarray(jlosses), "client losses")
@@ -228,8 +249,23 @@ def test_simulator_run_on_cpu_history(syncov_data):
 def test_unported_options_raise(syncov_data):
     sim = Simulator(LOGREG_SYN, syncov_data, FLConfig(**LOGREG_FL),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        sim.engine("fedp2p", codec="int8")
+    # codecs and the gossip family are ported: they build and run
+    for codec in ("bf16", "int8", "topk", "none"):
+        assert sim.engine("fedp2p", codec=codec).proto.name == "fedp2p"
+    assert len(sim.run(rounds=1, algorithm="gossip").train_loss) == 1
+    assert len(sim.run(rounds=1, algorithm="gossip_async",
+                       codec="int8").train_loss) == 1
+    with pytest.raises(ValueError, match="unknown codec"):
+        sim.engine("fedp2p", codec="zip")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        DenseEngine(LOGREG_SYN, sim.data_dev, FLConfig(**LOGREG_FL),
+                    sim.engine("fedp2p").proto, topology=object(),
+                    device="cpu")
+    with pytest.raises(ValueError, match=r"not ported yet: ROADMAP module "
+                                         r"item 7"):
+        Simulator(LOGREG_SYN, syncov_data,
+                  FLConfig(**LOGREG_FL, topology_aware=True),
+                  device="cpu").run(rounds=1)
     with pytest.raises(NotImplementedError, match="item 10"):
         DenseEngine(LOGREG_SYN, sim.data_dev, FLConfig(**LOGREG_FL),
                     sim.engine("fedp2p").proto, faults=object(),
@@ -239,5 +275,3 @@ def test_unported_options_raise(syncov_data):
                   device="cpu")
     with pytest.raises(ValueError, match="unknown mix_path"):
         sim.engine("fedp2p", mix_path="sparsest")
-    with pytest.raises(ValueError, match="not ported yet"):
-        sim.run(rounds=1, algorithm="gossip")

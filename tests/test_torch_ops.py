@@ -3,7 +3,8 @@
 sorted-key leaf order (also for a dict built in another order and for a
 nested one), the promoted buffer dtype, ``unpack_tree``, and
 ``mean_packed``'s per-leaf-dtype reduction (a bf16 leaf accumulates in its
-own dtype); plus the packing guards."""
+own dtype); the packing guards; and the codec wire of ``fed_mix_flat``
+against the JAX one."""
 import numpy as np
 import pytest
 import torch
@@ -99,6 +100,46 @@ def test_pack_tree_pair_and_guards():
         ops.pack_tree({"a": torch.zeros(())})
     with pytest.raises(ValueError, match="leading client axis"):
         ops.pack_tree({"a": torch.zeros(2, 3), "b": torch.zeros(3)})
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="unknown codec"):
         ops.fed_mix_flat(torch.eye(3), torch.zeros(3, 3), fn, fo,
-                         codec="int8")
+                         codec="int4")
+
+
+@pytest.mark.parametrize("codec", ["none", "bf16", "int8", "topk"])
+def test_fed_mix_flat_codec_wire_matches_jax(codec):
+    """The codec branch of ``fed_mix_flat`` (int8: the fused ``fed_mix_q``
+    contraction; the others decode, then ``fed_mix``) and the carried
+    error-feedback residual against ``repro.kernels.ops.fed_mix_flat``.
+    The JAX int8 wire draws its rounding noise from ``key``; the port is
+    handed the same noise. Tolerance 1e-5: the matmuls sum in other orders
+    (the wire records themselves are bit for bit,
+    tests/test_torch_compression.py)."""
+    rng = np.random.default_rng(4)
+    d, p = 5, 700
+    mn = rng.uniform(0, 1, (d, d)).astype(np.float32)
+    mo = rng.uniform(0, 1, (d, d)).astype(np.float32)
+    tot = (mn + mo).sum(axis=1, keepdims=True)
+    mn, mo = mn / tot, mo / tot
+    xo = rng.normal(size=(d, p)).astype(np.float32)
+    xn = xo + 0.01 * rng.normal(size=(d, p)).astype(np.float32)
+    res = (0.001 * rng.normal(size=(d, p))).astype(np.float32)
+    key = jax.random.PRNGKey(3)
+    u = None
+    if codec == "int8":      # the noise the JAX int8 encode draws
+        u = torch.from_numpy(np.array(jax.random.uniform(
+            key, (d, 3, 256)))).reshape(d, -1)
+    state = res if codec == "topk" else None
+    jout, jstate = jax.jit(lambda *a: jops.fed_mix_flat(
+        *a[:4], codec=codec, codec_state=a[4], key=key))(
+            mn, mo, xn, xo, state)
+    out, new_state = ops.fed_mix_flat(
+        *(torch.from_numpy(a) for a in (mn, mo, xn, xo)), codec=codec,
+        codec_state=None if state is None else torch.from_numpy(state),
+        u=u)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=1e-5,
+                               atol=1e-5)
+    if codec == "topk":
+        np.testing.assert_allclose(new_state.numpy(), np.asarray(jstate),
+                                   rtol=1e-6, atol=1e-7)
+    else:
+        assert new_state is None and jstate is None

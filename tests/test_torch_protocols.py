@@ -6,8 +6,15 @@
   survive masks, masks with all-dead clusters and all-dead rounds. The
   counts are integer sample counts, as the data gives them, so the
   per-cluster sums are exact in any order;
+* ``gossip`` / ``gossip_async``: the partner-map stacks
+  (``_phase_perm_stack``, ``matching_perm_stack``) equal the JAX
+  package's, and ``MatchingSpec.to_dense()`` equals both the port's and
+  the JAX package's ``mixing_matrix`` BIT FOR BIT, at every matching
+  index of gossip_async (every entry is a small dyadic rational, so the
+  stage products are exact);
 * the registry: the ported names, ``resolve`` raising for the JAX
-  protocols not ported yet, unknown names raising;
+  protocol not ported yet, unknown names raising; gossip_async raising
+  without a drawn matching;
 * ``partition`` / ``straggler_mask`` shapes and ranges on a generator, and
   ``comm_time`` / ``wire_model`` equal to the JAX package's.
 """
@@ -21,10 +28,20 @@ import jax.numpy as jnp  # noqa: E402
 from repro import protocols as jprotocols  # noqa: E402
 from repro.config import FLConfig as JFLConfig  # noqa: E402
 from repro.core.comm_model import CommParams as JCommParams  # noqa: E402
+from repro.protocols.async_gossip import (  # noqa: E402
+    matching_perm_stack as j_matching_perm_stack,
+)
+from repro.protocols.gossip import (  # noqa: E402
+    _phase_perm_stack as j_phase_perm_stack,
+)
 from repro_torch import protocols  # noqa: E402
 from repro_torch.config import FLConfig  # noqa: E402
 from repro_torch.core.comm_model import CommParams  # noqa: E402
 from repro_torch.core.straggler import straggler_mask  # noqa: E402
+from repro_torch.protocols.async_gossip import (  # noqa: E402
+    matching_perm_stack,
+)
+from repro_torch.protocols.gossip import _phase_perm_stack  # noqa: E402
 
 
 def _survive(rng, D, ids, L, mode):
@@ -86,22 +103,72 @@ def test_mixing_spec_and_to_dense_bitwise(name, sync, D, L, mode):
                                rtol=1e-5)
 
 
+@pytest.mark.parametrize("D", [1, 2, 3, 8, 9, 17, 64])
+def test_perm_stacks_match_jax(D):
+    np.testing.assert_array_equal(matching_perm_stack(D),
+                                  j_matching_perm_stack(D))
+    np.testing.assert_array_equal(_phase_perm_stack(D),
+                                  j_phase_perm_stack(D))
+    assert matching_perm_stack(D).dtype == np.int32
+
+
+def _gossip_contexts(D, seed, r=None):
+    rng = np.random.default_rng(seed)
+    survive = (rng.random(D) > 0.35).astype(np.float32)
+    jkw, tkw = {}, {}
+    if r is not None:
+        # a key whose randint(key, (), 0, R) is r: the JAX protocol draws
+        # its matching from the key, the port is handed the index
+        R = matching_perm_stack(D).shape[0]
+        k = next(k for k in range(10_000) if int(jax.random.randint(
+            jax.random.PRNGKey(k), (), 0, R)) == r)
+        jkw["key"] = jax.random.PRNGKey(k)
+        tkw["matching"] = torch.tensor(r, dtype=torch.int64)
+    jctx = jprotocols.make_context(survive=jnp.asarray(survive), **jkw)
+    tctx = protocols.make_context(survive=torch.from_numpy(survive), **tkw)
+    return jctx, tctx
+
+
+@pytest.mark.parametrize("D", [5, 8, 16])
+def test_matching_spec_to_dense_bitwise(D):
+    cases = [("gossip", None)] + [
+        ("gossip_async", r) for r in range(matching_perm_stack(D).shape[0])]
+    for name, r in cases:
+        jctx, tctx = _gossip_contexts(D, seed=D + (r or 0), r=r)
+        spec = protocols.get(name).mixing_spec(tctx)
+        assert isinstance(spec, protocols.MatchingSpec)
+        assert spec.perms.shape == (2 if r is None else 1, D)
+        dense = spec.to_dense()
+        port = protocols.get(name).mixing_matrix(tctx)
+        jax_m = _jitted(name, "mixing_matrix")(jctx)
+        for got, mine, want in zip(dense, port, jax_m):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want),
+                                          err_msg=f"{name} r={r}")
+            np.testing.assert_array_equal(mine.numpy(), np.asarray(want),
+                                          err_msg=f"{name} r={r}")
+        np.testing.assert_allclose((dense[0] + dense[1]).sum(dim=1).numpy(),
+                                   1.0, rtol=1e-6)
+
+
 def test_registry_and_resolve():
-    assert set(protocols.names()) == {"fedavg", "fedp2p"}
+    assert set(protocols.names()) == {"fedavg", "fedp2p", "gossip",
+                                      "gossip_async"}
     assert protocols.resolve("fedp2p").name == "fedp2p"
-    for name in ("gossip", "gossip_async"):
-        with pytest.raises(ValueError, match="not ported yet") as err:
-            protocols.resolve(name)
-        assert "fedavg" in str(err.value) and "fedp2p" in str(err.value)
-    with pytest.raises(ValueError, match="fedp2p_topo"):
+    assert protocols.resolve("gossip_async").name == "gossip_async"
+    with pytest.raises(ValueError, match="not ported yet") as err:
         protocols.resolve("fedp2p", topology_aware=True)
+    assert "fedp2p_topo" in str(err.value) and "item 7" in str(err.value)
+    with pytest.raises(ValueError, match="is stochastic"):
+        protocols.get("gossip_async").mixing_spec(
+            protocols.make_context(num_clients=4))
     with pytest.raises(ValueError, match="unknown protocol 'nope'"):
         protocols.get("nope")
     with pytest.raises(ValueError, match="participation strategy"):
         protocols.get_participation("pareto")
 
 
-@pytest.mark.parametrize("name", ["fedp2p", "fedavg"])
+@pytest.mark.parametrize("name", ["fedp2p", "fedavg", "gossip",
+                                  "gossip_async"])
 def test_partition_and_stragglers_on_a_generator(name):
     fl = FLConfig(num_clients=30, num_clusters=3, devices_per_cluster=4,
                   participation=7)
@@ -120,7 +187,8 @@ def test_partition_and_stragglers_on_a_generator(name):
     assert 0.6 < float(s.mean()) < 0.8
 
 
-@pytest.mark.parametrize("name", ["fedp2p", "fedavg"])
+@pytest.mark.parametrize("name", ["fedp2p", "fedavg", "gossip",
+                                  "gossip_async"])
 def test_comm_time_and_wire_model_match_jax(name):
     jp = JCommParams(model_bytes=4e6, server_bw=1e8, device_bw=1e9)
     tp = CommParams(model_bytes=4e6, server_bw=1e8, device_bw=1e9)
