@@ -10,10 +10,13 @@ exits non-zero:
             kernel (one nvcc per source, all started together);
   kernels   each CUDA kernel against its plain PyTorch version on the card,
             at the main path's shapes and at ragged ones, f32 and bf16
-            (fed_mix_matching bit for bit);
+            (fed_mix_matching bit for bit); flash_attention at Hymba's
+            prefill shapes and the JAX kernel tests' sweep, ssd_scan at
+            Hymba's and mamba2-130m's;
   reference the port on the card (kernels) against the port on the CPU
             (plain versions) on a small CNN run with the same draws,
-            gossip, gossip_async and the int8/topk wire included;
+            gossip, gossip_async and the int8/topk wire included, and on
+            reduced Hymba's prefill and greedy decode;
   main_path ``Simulator.run`` on CNN-FEMNIST at the paper's full width
             (246,590 params x 100 clients): fedp2p, fedp2p with
             sync_period=2, fedavg, fedp2p on mix_path="dense", fedp2p
@@ -21,11 +24,15 @@ exits non-zero:
             gossip, gossip_async with sync_period=2, gossip on
             mix_path="dense", fedp2p with the int8 wire on "dense" and on
             "auto", gossip with the topk wire, and ``ops.fed_aggregate_tree``
-            over one fedp2p round's client models, each driven with the
-            launch counters set to 0 just before it and read just after;
+            over one fedp2p round's client models; then
+            ``serve.generate`` on Hymba-1.5B at full width (seeded
+            weights, made once; B = 4, prompts of 384 and 1920 tokens,
+            16 greedy tokens): each run driven with the launch counters
+            set to 0 just before it and read just after;
   timing    each kernel's mean time at the main path's shape beside its
-            plain version, its bound and its library yardstick, and two
-            rounds' split between local training, mixing and the wire.
+            plain version, its bound and its library yardstick, two
+            rounds' split between local training, mixing and the wire,
+            and the Hymba prefill's device time by kernel.
 
 Each phase prints one JSON line. The run ends with the kernel summary
 line, the ``nvidia-smi`` name/power-limit line, and then
@@ -60,6 +67,10 @@ KERNELS = (
      "src/repro/kernels/fed_mix_q.py:72"),
     ("fed_aggregate", "src/repro_torch/kernels/csrc/fed_aggregate.cu",
      "src/repro/kernels/fed_aggregate.py:36"),
+    ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:70"),
+    ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+     "src/repro/kernels/ssd_scan.py:71"),
 )
 
 # the main path's mix: 100 participants x the FEMNIST CNN's 246,590 params
@@ -72,6 +83,26 @@ MAIN_PQ = MAIN_P + (-MAIN_P) % CHUNK
 # O(1) values. bf16: one bf16 rounding step of O(1) outputs (2^-6 at
 # [2, 4)), as the JAX package's tests allow (3e-2).
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (3e-2, 3e-2)}
+
+# Hymba-1.5B's serving path (configs/hymba_1_5b.py): B 4; 25 query and 5
+# kv heads of 64, 128 meta tokens, window 1024; 50 SSM heads of 64, state
+# 16, chunk 128. Prompts of 384 and 1920 tokens make S + M = 512 (inside
+# the window) and 2048 (past it: ring decode).
+LM_ARCH, LM_B, LM_NEW = "hymba-1.5b", 4, 16
+LM_HQ, LM_HKV, LM_HD, LM_META, LM_WINDOW = 25, 5, 64, 128, 1024
+LM_PROMPTS = (384, 1920)
+LM_S = LM_PROMPTS[1] + LM_META
+# (atol, rtol) of flash_attention against its plain version. f32: an
+# online softmax over 64-key tiles against a one-shot softmax; bf16 as
+# above.
+FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (3e-2, 3e-2)}
+# ssd_scan against its plain version, f32: rtol 1e-4 and an atol of
+# SSD_ATOL_SCALE times the plain output's largest |value|. The cumsum of
+# dt·A reaches ~100 over a chunk and is taken in another order; exp of its
+# differences carries ~1e-5 of relative error in either order, and a chunk
+# sums hundreds of such terms. Each case also reports both versions' error
+# against the plain version computed in float64.
+SSD_RTOL, SSD_ATOL_SCALE = 1e-4, 5e-4
 
 
 def emit(obj) -> None:
@@ -161,9 +192,40 @@ def aggregate_inputs(torch, n, d, dtype, seed):
             w / w.sum())
 
 
-def compare(torch, got, want):
+def attention_inputs(torch, b, hq, hkv, s, hd, dtype, seed):
+    """q, k, v as the model hands them to the kernel: [B, S, H, hd]
+    projections viewed as [B, H, S, hd]."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [(torch.randn((b, s, h, hd), device="cuda", generator=g) * 0.5)
+            .to(dtype).transpose(1, 2) for h in (hq, hkv, hkv)]
+
+
+def ssd_inputs(torch, b, s, h, p, n, seed, with_state):
+    """x, B and C as slices of one conv output (the mixer's layout), dt
+    after softplus, A < 0; and an initial state or None."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(device="cuda", generator=g)
+    u = torch.randn((b, s, h * p + 2 * n), **kw) * 0.5
+    x = u[..., :h * p].unflatten(-1, (h, p))
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), **kw))
+    A = -torch.exp(torch.randn(h, **kw) * 0.3)
+    init = torch.randn((b, h, p, n), **kw) if with_state else None
+    return (x, dt, A, u[..., h * p:h * p + n], u[..., h * p + n:]), init
+
+
+def flash_mask(torch, s, window, num_meta):
+    """[S, S] bool: key j visible to query i (the kernel's mask)."""
+    i = torch.arange(s, device="cuda")[:, None]
+    j = torch.arange(s, device="cuda")[None, :]
+    mask = j <= i
+    if window > 0:
+        mask &= ((i - j) < window) | (j < num_meta)
+    return mask
+
+
+def compare(torch, got, want, tol=None):
     """(max abs err, tolerance at that element, ok) in the output dtype."""
-    atol, rtol = TOL[str(want.dtype).replace("torch.", "")]
+    atol, rtol = tol or TOL[str(want.dtype).replace("torch.", "")]
     g, w = got.float(), want.float()
     err = (g - w).abs()
     bound = atol + rtol * w.abs()
@@ -281,15 +343,100 @@ def phase_kernels(torch, state):
                      "dtype": str(dt)[6:], "max_abs_err": err,
                      "atol": atol, "rtol": rtol, "ok": ok})
         failed += [] if ok else [rows[-1]]
+    rows += lm_kernel_cases(torch)
+    failed += [r for r in rows if r["kernel"] in ("flash_attention",
+                                                  "ssd_scan")
+               and not r["ok"]]
     # the summary line's error: the main path's shape, f32
     for name, _, _ in KERNELS:
         state.setdefault("max_abs_err", {})[name] = max(
-            r["max_abs_err"] for r in rows if r["kernel"] == name
-            and (r["D"], r["P"], r["dtype"]) == (MAIN_D, MAIN_P, "float32"))
+            r["max_abs_err"] for r in rows
+            if r["kernel"] == name and main_case(r))
     emit({"phase": "kernels", "cases": rows})
     if failed:
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{failed}")
+
+
+def main_case(row):
+    """Whether a kernels-phase row is at the main path's shape, f32."""
+    if row["kernel"] == "flash_attention":
+        return (row["B"], row["S"], row["window"], row["dtype"]) == (
+            LM_B, LM_S, LM_WINDOW, "float32")
+    if row["kernel"] == "ssd_scan":
+        return (row["b"], row["S"], row["h"], row["dtype"],
+                row["initial_state"]) == (LM_B, LM_S, 50, "float32", True)
+    return (row["D"], row["P"], row["dtype"]) == (MAIN_D, MAIN_P, "float32")
+
+
+def lm_kernel_cases(torch):
+    """flash_attention at Hymba's prefill shapes (S + M = 512 and 2048,
+    window 0 and 1024, 128 meta tokens), the JAX kernel tests' sweep and a
+    ragged S; ssd_scan at Hymba's and mamba2-130m's shapes, the JAX sweep
+    and a small chunk, with and without an initial state. Each against its
+    plain version on the card."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = []
+    flash_cases = [(LM_B, LM_HQ, LM_HKV, s, LM_HD, w, LM_META)
+                   for s in (LM_PROMPTS[0] + LM_META, LM_S)
+                   for w in (0, LM_WINDOW)]
+    flash_cases += [(2, 4, 2, 256, 64, w, 0) for w in (0, 96)]
+    flash_cases += [(1, 2, 1, 512, 128, w, 0) for w in (0, 96)]
+    flash_cases += [(2, 3, 3, 128, 32, w, 0) for w in (0, 96)]
+    flash_cases += [(2, 4, 2, 200, 64, 64, 8)]           # ragged S
+    for i, (b, hq, hkv, s, hd, w, meta) in enumerate(flash_cases):
+        for dt in (f32, bf16):
+            q, k, v = attention_inputs(torch, b, hq, hkv, s, hd, dt,
+                                       seed=500 + i)
+            got = flash_attention(q, k, v, window=w, num_meta=meta)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_ref(q, k, v, window=w,
+                                           num_meta=meta)
+            name = str(dt)[6:]
+            err, atol, rtol, ok = compare(torch, got, want,
+                                          FLASH_TOL[name])
+            ok = ok and got.dtype == dt and got.shape == q.shape
+            rows.append({"kernel": "flash_attention", "B": b, "Hq": hq,
+                         "Hkv": hkv, "S": s, "hd": hd, "window": w,
+                         "num_meta": meta, "dtype": name,
+                         "max_abs_err": err, "atol": atol, "rtol": rtol,
+                         "ok": ok})
+    ssd_cases = [(LM_B, LM_S, 50, 64, 16, 128),             # Hymba
+                 (LM_B, LM_PROMPTS[0] + LM_META, 50, 64, 16, 128),
+                 (LM_B, LM_S, 24, 64, 128, 256),            # mamba2-130m
+                 (2, 128, 3, 16, 32, 32), (1, 256, 2, 64, 128, 64),
+                 (2, 64, 1, 8, 16, 16),                     # the JAX sweep
+                 (2, 100, 4, 16, 16, 20)]                   # a small chunk
+    for i, (b, s, h, p, n, chunk) in enumerate(ssd_cases):
+        for with_state in (False, True):
+            args, init = ssd_inputs(torch, b, s, h, p, n, 600 + i,
+                                    with_state)
+            y, st = ssd_scan(*args, chunk=chunk, initial_state=init)
+            torch.cuda.synchronize()
+            y_ref, st_ref = ref.ssd_chunked(*args, chunk,
+                                            initial_state=init)
+            y64, st64 = ref.ssd_chunked(
+                *[a.double() for a in args], chunk,
+                initial_state=None if init is None else init.double())
+            scale = float(y_ref.abs().max())
+            err_y, atol, rtol, ok_y = compare(
+                torch, y, y_ref, (SSD_ATOL_SCALE * scale, SSD_RTOL))
+            err_s, _, _, ok_s = compare(
+                torch, st, st_ref,
+                (SSD_ATOL_SCALE * float(st_ref.abs().max()), SSD_RTOL))
+            rows.append({"kernel": "ssd_scan", "b": b, "S": s, "h": h,
+                         "p": p, "n": n, "chunk": chunk,
+                         "initial_state": with_state, "dtype": "float32",
+                         "max_abs_err": max(err_y, err_s),
+                         "max_abs_err_state": err_s, "y_scale": scale,
+                         "f64_err_kernel": float((y - y64).abs().max()),
+                         "f64_err_plain": float((y_ref - y64).abs().max()),
+                         "atol": atol, "rtol": rtol, "ok": ok_y and ok_s
+                         and y.shape == args[0].shape})
+    return rows
 
 
 def femnist_setup(full: bool):
@@ -348,7 +495,64 @@ def phase_reference(torch, state):
             emit({"phase": "reference", "runs": rows})
             raise AssertionError(f"port on the card disagrees with the CPU "
                                  f"reference: {rows[-1]}")
+    rows.append(lm_reference(torch))
     emit({"phase": "reference", "runs": rows})
+    if not rows[-1]["ok"]:
+        raise AssertionError(f"port on the card disagrees with the CPU "
+                             f"reference: {rows[-1]}")
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def lm_reference(torch):
+    """Reduced Hymba (two layers, width 256, GQA kept with
+    num_kv_heads=2) on the card against the port on the CPU: the same
+    seeded weights (drawn on the CPU), the same 70-token prompts (78
+    positions with the 8 meta tokens, past the window of 64, in a cache of
+    78 slots that decode then rings over: meta pinning and ring decode),
+    prefill logits and 8 greedy decode steps. Tolerance: logits within rtol 1e-4 and 1e-4 of their
+    scale (the kernels and cuBLAS sum in other orders than the CPU's plain
+    versions); equal tokens."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(get_config(LM_ARCH).reduced(), num_kv_heads=2)
+    model = build_model(cfg)
+    prefill, decode = build_prefill_step(model), build_decode_step(model)
+    params = model.init(0, device="cpu")
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 70)))
+    buf = 70 + cfg.num_meta_tokens
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_to(params, dev)
+        cache = model.make_cache(2, buf, device=dev)
+        logits, cache = prefill(p, {"tokens": prompts.to(dev)}, cache)
+        steps, toks = [logits[:, -1]], []
+        for _ in range(8):
+            toks.append(serve._sample(steps[-1], 0.0, None))
+            logits, cache = decode(p, cache, {"token": toks[-1][:, None]})
+            steps.append(logits)
+        out[dev] = (torch.stack(steps).cpu(), torch.stack(toks).cpu())
+    (lc, tc), (lg, tg) = out["cpu"], out["cuda"]
+    err = float((lg - lc).abs().max())
+    bound = 1e-4 * float(lc.abs().max())
+    ok = (bool(torch.isfinite(lg).all()) and torch.equal(tc, tg)
+          and bool(((lg - lc).abs() <= bound + 1e-4 * lc.abs()).all()))
+    return {"model": f"{LM_ARCH} reduced, num_kv_heads=2", "prompt": 70,
+            "decode_steps": 8, "max_abs_err_logits": err,
+            "logits_scale": float(lc.abs().max()),
+            "tokens_cpu": tc.T.tolist(), "tokens_cuda": tg.T.tolist(),
+            "ok": ok}
 
 
 def launch_counters():
@@ -359,9 +563,12 @@ def launch_counters():
     from repro_torch.kernels.fed_mix_sparse import (
         fed_mix_matching, fed_mix_segment,
     )
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
     return {"fed_mix_segment": fed_mix_segment, "fed_mix": fed_mix,
             "fed_mix_matching": fed_mix_matching, "fed_mix_q": fed_mix_q,
-            "fed_aggregate": fed_aggregate}
+            "fed_aggregate": fed_aggregate,
+            "flash_attention": flash_attention, "ssd_scan": ssd_scan}
 
 
 def expected(**counts):
@@ -486,9 +693,68 @@ def phase_main_path(torch, state):
             emit({"phase": "main_path", "params_per_client": n_params,
                   "runs": results})
             raise AssertionError(f"main path run {label!r} failed: {row}")
+    lm_rows = lm_main_path(torch, counters, totals, state)
     state["launches"] = totals
     emit({"phase": "main_path", "params_per_client": n_params,
-          "runs": results})
+          "runs": results, "serving": lm_rows})
+    bad = [r for r in lm_rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"serving run failed: {bad}")
+
+
+def lm_main_path(torch, counters, totals, state):
+    """``serve.generate`` on Hymba-1.5B at full width through the entry
+    point: seeded weights drawn on the card once, B = 4, each prompt
+    length once, 16 greedy tokens. Each run is one prefill (32 layers:
+    32 flash_attention and 32 ssd_scan launches) and 15 decode steps (no
+    kernel launches: plain PyTorch)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+    cfg = get_config(LM_ARCH)
+    params = build_model(cfg).init(0, device="cuda")
+    state["lm_params"] = params
+    n_params = sum(v.numel() for v in tree_leaves(params))
+    expect = expected(flash_attention=cfg.num_layers,
+                      ssd_scan=cfg.num_layers)
+    rows = []
+    for prompt_len in LM_PROMPTS:
+        prompts = np.random.default_rng(prompt_len).integers(
+            0, cfg.vocab_size, (LM_B, prompt_len)).astype(np.int32)
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = serve.generate(LM_ARCH, prompts, reduced=False,
+                             max_new_tokens=LM_NEW, params=params)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in counters.items()}
+        for k in totals:
+            totals[k] += got[k]
+        toks = out["tokens"]
+        ok = (out["logits_finite"] and toks.shape == (LM_B, LM_NEW)
+              and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
+              and got == expect)
+        rows.append({"run": f"serve_{LM_ARCH}", "params": n_params,
+                     "batch": LM_B, "prompt": prompt_len,
+                     "positions": prompt_len + cfg.num_meta_tokens,
+                     "new_tokens": LM_NEW, "prefill_s": out["prefill_s"],
+                     "decode_ms_per_token":
+                         out["decode_s_per_token"] * 1e3,
+                     "seconds": round(secs, 3),
+                     "logits_finite": out["logits_finite"],
+                     "tokens_head": toks[:, :6].tolist(), "launches": got,
+                     "expected_launches": expect, "ok": ok})
+    return rows
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
 
 
 def device_ms(torch, fn, reps=20, warmup=3):
@@ -632,11 +898,124 @@ def phase_timing(torch, state):
         "bytes": byts, "flops": flops, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": sum(device_ms(torch, lambda: w @ x).values()),
         "library": "w @ x ([N] @ [N, D], one cuBLAS GEMV), TF32 off"})
+    rows += lm_timing(torch)
     state["timing"] = rows
     emit({"phase": "timing", "kernels": rows,
           "round_split": round_split(torch),
           "round_split_int8_dense": round_split_int8_dense(torch),
+          "prefill_split": prefill_split(torch, state.pop("lm_params")),
           "nvidia_smi": state["smi"]})
+
+
+def lm_timing(torch):
+    """The LM kernels at Hymba's 2048-position prefill (B 4): flash on a
+    window layer (1024, 30 of the 32 layers) and a full layer (layers 0
+    and 16), ssd_scan on the SSM heads. Flash's operations count the
+    visible (query, key) pairs only, 4·hd flops each (Q·K and P·V); its
+    bytes q, k, v read and o written once. The SSD's operations: per
+    chunk of q rows, the causal half of C·Bᵀ (2n a pair) and of its
+    product with x·dt (2p a pair), and the carried state's two products
+    (2pn a row each); its bytes x, dt, B, C and the initial state read,
+    y and the final state written once. The library yardstick for flash
+    is one ``scaled_dot_product_attention`` call with ``enable_gqa`` and
+    the boolean mask, TF32 off; no one PyTorch call computes the SSD
+    scan."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    f32 = torch.float32
+    rows = []
+    q, k, v = attention_inputs(torch, LM_B, LM_HQ, LM_HKV, LM_S, LM_HD, f32,
+                               seed=7)
+    for window in (LM_WINDOW, 0):
+        mask = flash_mask(torch, LM_S, window, LM_META)
+        pairs = int(mask.sum())
+        flops = 4 * LM_HD * pairs * LM_B * LM_HQ
+        byts = 4 * LM_S * LM_HD * LM_B * (2 * LM_HQ + 2 * LM_HKV)
+        b_ms, b_by = bound(byts, flops)
+
+        def call():
+            return flash_attention(q, k, v, window=window, num_meta=LM_META)
+
+        def plain():
+            return ref.flash_attention_ref(q, k, v, window=window,
+                                           num_meta=LM_META)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        rows.append({
+            "name": "flash_attention", "S": LM_S, "window": window,
+            "num_meta": LM_META, "visible_pairs_per_head": pairs,
+            "ms": named_ms(device_ms(torch, call), "flash_fwd_kernel"),
+            "plain_ms": sum(device_ms(torch, plain, reps=5).values()),
+            "bytes": byts, "flops": flops, "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": sum(device_ms(torch, library).values()),
+            "library": "scaled_dot_product_attention(enable_gqa=True, "
+                       "boolean mask), TF32 off",
+            "library_max_abs_err": float((library() - call()).abs().max())})
+    h, p, n, chunk = 50, 64, 16, 128
+    args, init = ssd_inputs(torch, LM_B, LM_S, h, p, n, 8, True)
+    nc = LM_S // chunk
+    tri = chunk * (chunk + 1) // 2
+    flops = LM_B * h * nc * (tri * (2 * n + 2 * p) + 4 * chunk * p * n)
+    byts = 4 * (2 * LM_B * LM_S * h * p + LM_B * LM_S * h
+                + 2 * LM_B * LM_S * n + 2 * LM_B * h * p * n)
+    b_ms, b_by = bound(byts, flops)
+    rows.append({
+        "name": "ssd_scan", "S": LM_S, "h": h, "p": p, "n": n,
+        "chunk": chunk,
+        "ms": named_ms(device_ms(
+            torch, lambda: ssd_scan(*args, chunk=chunk, initial_state=init)),
+            "ssd_scan_kernel"),
+        "plain_ms": sum(device_ms(
+            torch, lambda: ref.ssd_chunked(*args, chunk, initial_state=init),
+            reps=5).values()),
+        "bytes": byts, "flops": flops, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes the chunked "
+                   "SSD scan"})
+    return rows
+
+
+def prefill_split(torch, params):
+    """One Hymba-1.5B prefill at full width (B 4, 2048 positions) under
+    torch.profiler: the summed device time of its kernels, split into
+    flash_attention, ssd_scan, the matrix products (cuBLAS) and the rest
+    (norms, rope, the conv, elementwise)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models.model import build_model
+    model = build_model(get_config(LM_ARCH))
+    prefill = build_prefill_step(model)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, model.cfg.vocab_size, (LM_B, LM_PROMPTS[1]))).cuda()
+    buf = model.cfg.sliding_window + LM_META
+
+    def run():
+        prefill(params, {"tokens": tokens},
+                model.make_cache(LM_B, max(buf, LM_S)))
+
+    per = device_ms(torch, run, reps=1, warmup=1)
+    total = sum(per.values())
+    flash = named_ms(per, "flash_fwd_kernel")
+    ssd = named_ms(per, "ssd_scan_kernel")
+    gemm = sum(v for key, v in per.items()
+               if any(w in key.lower() for w in ("gemm", "cutlass", "xmma",
+                                                 "cublas")))
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+    return {"device_ms": total, "flash_attention_ms": flash,
+            "flash_share": flash / total, "ssd_scan_ms": ssd,
+            "ssd_share": ssd / total, "matmul_ms": gemm,
+            "matmul_share": gemm / total,
+            "rest_ms": total - flash - ssd - gemm,
+            "top_kernels_ms": [[key[:90], v] for key, v in top]}
 
 
 def round_split(torch):

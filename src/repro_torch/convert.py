@@ -37,3 +37,16 @@ def params_to_numpy(params) -> Dict:
     if t.dtype == torch.bfloat16:
         t = t.to(torch.float32)
     return t.numpy()
+
+
+def lm_params_from_jax(tree, device="cpu") -> Dict:
+    """The JAX package's LM parameter tree (nested dicts of numpy arrays,
+    the stacked ``layers`` included) -> the port's tree on ``device``. The
+    layouts are the same (dense weights ``[in, out]``, layers stacked
+    ``[L, ...]``), so this copies leaf by leaf."""
+    return params_from_jax(tree, device)
+
+
+def lm_params_to_numpy(params) -> Dict:
+    """The inverse of ``lm_params_from_jax``."""
+    return params_to_numpy(params)

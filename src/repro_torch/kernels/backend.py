@@ -30,7 +30,7 @@ import torch
 
 #: every kernel source under ``csrc/`` (one shared library each)
 KERNELS = ("fed_mix_segment", "fed_mix", "fed_mix_matching", "fed_mix_q",
-           "fed_aggregate")
+           "fed_aggregate", "flash_attention", "ssd_scan")
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # The libraries go to <repo>/build/repro_torch/, which .gitignore lists

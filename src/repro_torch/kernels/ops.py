@@ -10,8 +10,9 @@ row lines up column for column with the JAX package's.
 Dispatch goes by the tensor's device inside each kernel wrapper: CPU
 tensors take the plain PyTorch version, CUDA tensors the hand-written
 kernel (``fed_mix_segment``, ``fed_mix_matching``, ``fed_mix``,
-``fed_mix_q``, ``fed_aggregate``). ``wire_flat`` is the quantized-exchange
-step both mixing paths share.
+``fed_mix_q``, ``fed_aggregate``; the LM stack's ``flash_attention`` and
+``ssd_scan``). ``wire_flat`` is the quantized-exchange step both mixing
+paths share.
 """
 from __future__ import annotations
 
@@ -27,6 +28,10 @@ from repro_torch.kernels.fed_mix_q import fed_mix_q
 from repro_torch.kernels.fed_mix_sparse import (  # noqa: F401 — dispatcher
     fed_mix_matching, fed_mix_segment,
 )
+from repro_torch.kernels.flash_attention import (  # noqa: F401 — dispatcher
+    flash_attention,
+)
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: F401 — dispatcher
 
 _LOW_PRECISION = (torch.float16, torch.bfloat16)
 

@@ -93,3 +93,114 @@ def fed_aggregate_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     accumulate, cast back to x.dtype."""
     f32 = torch.float32
     return torch.einsum("n,nd->d", w.to(f32), x.to(f32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the LM kernels
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, window: int = 0, num_meta: int = 0
+                        ) -> torch.Tensor:
+    """q [B, Hq, Sq, hd]; k, v [B, Hkv, T, hd] -> [B, Hq, Sq, hd].
+
+    Dense causal softmax attention in f32 (query head h reads kv head
+    h // G), positions 0..Sq-1 and 0..T-1: key j is visible to query i when
+    j <= i and, for ``window > 0``, i - j < window or j < num_meta (the
+    pinned meta tokens). Masked scores are -1e30. Cast back to q.dtype.
+    """
+    f32 = torch.float32
+    sq, hd = q.shape[2], q.shape[3]
+    tk = k.shape[2]
+    g = q.shape[1] // k.shape[1]
+    kk = k.repeat_interleave(g, dim=1).to(f32)
+    vv = v.repeat_interleave(g, dim=1).to(f32)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(f32), kk) * hd ** -0.5
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(tk, device=q.device)[None, :]
+    mask = kp <= qp
+    if window > 0:
+        mask &= ((qp - kp) < window) | (kp < num_meta)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
+
+
+def ssd_scan_ref(x, dt, A, B, C):
+    """The naive sequential SSD recurrence (the ground truth of both the
+    chunked form and the kernel), from a zero state:
+    x [b,S,h,p], dt [b,S,h], A [h], B/C [b,S,n] -> (y in x's dtype,
+    final_state [b,h,p,n] f32)."""
+    f32 = torch.float32
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    out_dtype = x.dtype
+    x, dt, A, B, C = (t.to(f32) for t in (x, dt, A, B, C))
+    state = torch.zeros((b, h, p, n), dtype=f32, device=x.device)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dt[:, t] * A[None, :])                 # [b,h]
+        upd = torch.einsum("bhp,bn->bhpn", x[:, t] * dt[:, t, :, None],
+                           B[:, t])
+        state = state * decay[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", state, C[:, t]))
+    y = torch.stack(ys, dim=1) if ys else x.new_zeros((b, 0, h, p))
+    return y.to(out_dtype), state
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """[..., T] -> [..., T, T] lower-triangular segment sums (diagonal
+    included), -inf above the diagonal."""
+    t = x.shape[-1]
+    c = torch.cumsum(x, dim=-1)
+    z = c[..., :, None] - c[..., None, :]
+    mask = torch.tril(torch.ones((t, t), dtype=torch.bool, device=x.device))
+    return z.masked_fill(~mask, float("-inf"))
+
+
+def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None):
+    """The chunked SSD (``models/ssm.py`` ssd_chunked in the JAX package):
+    quadratic attention-like products inside each chunk of ``chunk``
+    positions plus a sequential recurrence of the state between chunks.
+
+    x [b,S,h,p], dt [b,S,h] (post-softplus), A [h] (< 0), B, C [b,S,n],
+    S a multiple of chunk, initial_state [b,h,p,n] or None (zeros) ->
+    (y [b,S,h,p] in x's dtype, final_state [b,h,p,n] f32). It computes in
+    f32, or in f64 for f64 inputs (a reference for the f32 versions).
+    """
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    if s % chunk:
+        raise ValueError(f"ssd_chunked: chunk {chunk} must divide S={s}")
+    q, nc = chunk, s // chunk
+    f32 = torch.promote_types(x.dtype, torch.float32)
+    xd = (x * dt[..., None]).to(f32).reshape(b, nc, q, h, p)
+    a_dt = (dt * A[None, None, :]).to(f32).reshape(b, nc, q, h)
+    a_dt = a_dt.permute(0, 3, 1, 2)                           # [b,h,c,q]
+    bc = B.to(f32).reshape(b, nc, q, n)
+    cc = C.to(f32).reshape(b, nc, q, n)
+
+    a_cum = torch.cumsum(a_dt, dim=-1)                        # [b,h,c,q]
+    L = torch.exp(_segsum(a_dt))                              # [b,h,c,q,q]
+    y_diag = torch.einsum("bcln,bcsn,bhcls,bcshp->bclhp", cc, bc, L, xd)
+
+    decay_states = torch.exp(a_cum[..., -1:] - a_cum)         # [b,h,c,q]
+    states = torch.einsum("bcsn,bhcs,bcshp->bchpn", bc, decay_states, xd)
+    chunk_decay = torch.exp(a_cum[..., -1])                   # [b,h,c]
+
+    state = (torch.zeros((b, h, p, n), dtype=f32, device=x.device)
+             if initial_state is None else initial_state.to(f32))
+    states_in = []
+    for c in range(nc):                          # the state ENTERING chunk c
+        states_in.append(state)
+        state = state * chunk_decay[:, :, c, None, None] + states[:, c]
+    states_in = torch.stack(states_in, dim=1)                 # [b,c,h,p,n]
+
+    state_decay = torch.exp(a_cum)                            # [b,h,c,q]
+    y_off = torch.einsum("bcln,bchpn,bhcl->bclhp", cc, states_in,
+                         state_decay)
+    y = (y_diag + y_off).reshape(b, s, h, p)
+    return y.to(x.dtype), state

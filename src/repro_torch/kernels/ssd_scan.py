@@ -1,0 +1,108 @@
+"""``ssd_scan`` — the Mamba-2 chunked SSD scan
+
+    h_t = exp(dt_t A) h_{t-1} + dt_t x_t ⊗ B_t,   y_t = h_t · C_t
+
+with the contract of ``ssd_chunked`` (``models/ssm.py`` in the JAX
+package): x [b, S, h, p], dt [b, S, h] (post-softplus), A [h] (< 0), B/C
+[b, S, n], a chunk that divides S and an optional initial state
+[b, h, p, n] -> (y [b, S, h, p] in x's dtype, final state [b, h, p, n]
+f32). The kernel is ``csrc/ssd_scan.cu`` (one block per (b, h) walking the
+chunks with the state in shared memory, replacing the Pallas
+``repro.kernels.ssd_scan.ssd_scan``); CPU tensors take ``ref.ssd_chunked``.
+The mixer's x, B and C are slices of its conv output: the kernel reads
+them by strides, so nothing is copied.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import backend, ref
+
+_DTYPES = (torch.float32, torch.bfloat16)
+MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 1024, 64, 256
+
+
+def _check(x, dt, A, B, C, chunk, initial_state) -> str:
+    name = "ssd_scan"
+    if x.dim() != 4:
+        raise ValueError(f"{name}: x must be [b, S, h, p], got "
+                         f"{tuple(x.shape)}")
+    b, s, h, p = x.shape
+    if tuple(dt.shape) != (b, s, h):
+        raise ValueError(f"{name}: dt must be [b, S, h]={[b, s, h]}, got "
+                         f"{tuple(dt.shape)}")
+    if tuple(A.shape) != (h,):
+        raise ValueError(f"{name}: A must be [h]=[{h}], got "
+                         f"{tuple(A.shape)}")
+    if B.dim() != 3 or B.shape != C.shape or tuple(B.shape[:2]) != (b, s):
+        raise ValueError(f"{name}: B {tuple(B.shape)} and C "
+                         f"{tuple(C.shape)} must both be [b={b}, S={s}, n]")
+    if not (x.dtype == B.dtype == C.dtype) or x.dtype not in _DTYPES:
+        raise ValueError(f"{name}: x, B, C must share one dtype, float32 or "
+                         f"bfloat16; got {x.dtype}, {B.dtype}, {C.dtype}")
+    if chunk < 1 or s % chunk:
+        raise ValueError(f"{name}: chunk {chunk} must divide S={s}")
+    tensors = (x, dt, A, B, C)
+    if initial_state is not None:
+        if tuple(initial_state.shape) != (b, h, p, B.shape[2]):
+            raise ValueError(
+                f"{name}: initial_state must be [b, h, p, n]="
+                f"{[b, h, p, B.shape[2]]}, got "
+                f"{tuple(initial_state.shape)}")
+        tensors += (initial_state,)
+    return backend.kernel_device(name, *tensors)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, *, chunk: int,
+             initial_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y [b, S, h, p] in x's dtype, final_state [b, h, p, n] f32); see the
+    module docstring. ``initial_state=None`` starts from zeros.
+
+    CPU tensors: the plain version. CUDA tensors: the hand-written kernel
+    (``ssd_scan.launches`` counts its launches); on the card the last
+    stride of x, B and C must be 1, chunk <= 1024, p <= 64, n <= 256."""
+    chunk = int(chunk)
+    if _check(x, dt, A, B, C, chunk, initial_state) == "cpu":
+        return ref.ssd_chunked(x, dt, A, B, C, chunk,
+                               initial_state=initial_state)
+    b, s, h, p = x.shape
+    n = B.shape[2]
+    if chunk > MAX_CHUNK or p > MAX_HEAD_DIM or n > MAX_STATE:
+        raise ValueError(f"ssd_scan: chunk {chunk} (<= {MAX_CHUNK}), p {p} "
+                         f"(<= {MAX_HEAD_DIM}) or n {n} (<= {MAX_STATE}) "
+                         "is outside what the kernel takes")
+    for arg, t in (("x", x), ("B", B), ("C", C)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"ssd_scan: {arg}'s last stride must be 1, got "
+                             f"strides {tuple(t.stride())}")
+    f32 = torch.float32
+    dt = dt.to(f32)
+    A = A.to(f32).contiguous()
+    init = (None if initial_state is None
+            else initial_state.to(f32).contiguous())
+    y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
+    final = torch.empty((b, h, p, n), dtype=f32, device=x.device)
+    if y.numel() == 0 or final.numel() == 0:       # nothing to scan
+        return y, (final.zero_() if init is None else final.copy_(init))
+    strides = (ctypes.c_longlong * 10)(
+        *x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2])
+    launch = backend.c_function(
+        "ssd_scan", "ssd_scan_launch",
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    rc = launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                C.data_ptr(), None if init is None else init.data_ptr(),
+                y.data_ptr(), final.data_ptr(), strides, b, s, h, p, n,
+                chunk, int(x.dtype == torch.bfloat16),
+                backend.stream_ptr(x.device))
+    backend.raise_on_error("ssd_scan", rc)
+    ssd_scan.launches += 1
+    return y, final
+
+
+#: kernel launches since the last reset (CPU calls do not count)
+ssd_scan.launches = 0

@@ -1,0 +1,129 @@
+"""Batched serving (the counterpart of ``repro.launch.serve``):
+prefill, then a greedy or temperature decode loop over the ring/pinned KV
+cache and the SSM caches.
+
+    python -m repro_torch.launch.serve --arch hymba-1.5b [--full]
+        [--device cuda|cpu]
+
+runs on the card unless ``--device cpu``; without ``--full`` the config is
+cut to two layers and width 128, as the JAX package's ``generate`` cuts
+it. Prefill attention and prefill SSD run through the ``flash_attention``
+and ``ssd_scan`` kernels; decode is plain PyTorch.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import backend
+from repro_torch.launch.steps import build_decode_step, build_prefill_step
+from repro_torch.models.model import build_model
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(arch: str, prompts: np.ndarray, *, max_new_tokens: int = 16,
+             temperature: float = 0.0, reduced: bool = True, window: int = 0,
+             seed: int = 0, verbose: bool = False, device=None,
+             params: Optional[Dict] = None,
+             generator: Optional[torch.Generator] = None) -> Dict:
+    """prompts: [B, S] int. Returns generated token ids [B, max_new] (numpy
+    int32), the prefill seconds, the decode seconds per token (host clock
+    around synchronized work) and whether every logit was finite.
+
+    ``device``: None is the card (raises without one); the CPU only when
+    asked. ``params``: the model's weights on that device; None draws the
+    port's own seeded init (``seed``). ``generator``: the
+    ``torch.Generator`` temperature sampling draws from (None: one on the
+    device seeded with ``seed + 1``). Greedy decoding is ``argmax``, the
+    first maximum winning."""
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced(num_layers=2, max_d_model=128)
+    dev = backend.resolve_device(device)
+    model = build_model(cfg)
+    if params is None:
+        params = model.init(seed, device=dev)
+    b, s = prompts.shape
+    m = cfg.num_meta_tokens
+    buf = (window or cfg.sliding_window or (s + max_new_tokens)) + m
+    buf = max(buf, m + 1)
+    if cfg.family == "ssm":
+        buf = 8
+    cache = model.make_cache(
+        b, max(buf, s + m + (0 if cfg.sliding_window else max_new_tokens)),
+        device=dev)
+    if temperature > 0.0 and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(seed + 1)
+
+    prefill = build_prefill_step(model)
+    decode = build_decode_step(model)
+    tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
+                             device=dev)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": tokens}, cache)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+    finite = torch.isfinite(logits).all()
+    out = [_sample(logits[:, -1], temperature, generator)]
+    t0 = time.perf_counter()
+    for _ in range(max_new_tokens - 1):
+        logits, cache = decode(params, cache, {"token": out[-1][:, None]})
+        finite &= torch.isfinite(logits).all()
+        out.append(_sample(logits, temperature, generator))
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+    per_token = t_decode / max(max_new_tokens - 1, 1)
+    if verbose:
+        print(f"prefill {t_prefill * 1e3:.1f} ms; "
+              f"decode {per_token * 1e3:.1f} ms/token")
+    return {"tokens": torch.stack(out, dim=1).cpu().numpy(),
+            "prefill_s": t_prefill, "decode_s_per_token": per_token,
+            "logits_finite": bool(finite)}
+
+
+def _sample(logits: torch.Tensor, temperature: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    probs = torch.softmax(logits.to(torch.float32) / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
+        torch.int32)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-1.5b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new-tokens", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--full", action="store_true",
+                    help="the published widths and depth (default: cut to "
+                         "two layers, width 128)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+    rng = np.random.default_rng(0)
+    cfg = get_config(args.arch)
+    vocab = cfg.vocab_size if args.full else cfg.reduced().vocab_size
+    prompts = rng.integers(0, vocab,
+                           (args.batch, args.prompt_len)).astype(np.int32)
+    out = generate(args.arch, prompts, max_new_tokens=args.max_new_tokens,
+                   temperature=args.temperature, reduced=not args.full,
+                   device=args.device, verbose=True)
+    print("generated:", out["tokens"][:, :8], "...")
+
+
+if __name__ == "__main__":
+    main()

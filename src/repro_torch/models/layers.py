@@ -1,23 +1,183 @@
-"""Initializers of the paper nets (the counterpart of ``dense_init`` /
-``embed_init`` in ``repro.models.layers``), drawn from an explicit CPU
-``torch.Generator`` so a seed gives the same weights on every device."""
+"""Shared layer primitives (the counterpart of ``repro.models.layers``):
+initializers, norms, MLP variants, RoPE, embedding and logits.
+
+Params are plain nested dicts of tensors; dense weights keep the JAX
+``[in, out]`` layout and are applied as ``x @ w``. Initializers draw from
+an explicit ``torch.Generator`` and create their tensors on its device, so
+a seed gives the same weights wherever the generator lives (a CPU
+generator gives the same weights on every device).
+"""
 from __future__ import annotations
 
 import math
+from typing import Dict
 
 import torch
+import torch.nn.functional as F
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
 
 
 def dense_init(gen: torch.Generator, fan_in: int, shape,
                dtype=torch.float32) -> torch.Tensor:
     """Truncated-normal (±3σ) fan-in init."""
     std = 1.0 / math.sqrt(max(fan_in, 1))
-    t = torch.empty(tuple(shape), dtype=torch.float32)
+    t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=gen)
     return (t * std).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype=torch.float32
                ) -> torch.Tensor:
-    t = torch.randn(tuple(shape), generator=gen, dtype=torch.float32)
+    t = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                    device=gen.device)
     return (t * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def init_norm(cfg, dim: int, dtype=torch.float32, device=None) -> Dict:
+    fill = torch.zeros if cfg.norm_type == "rmsnorm_p1" else torch.ones
+    p = {"scale": fill((dim,), dtype=dtype, device=device)}
+    if cfg.norm_type == "layernorm":
+        p["bias"] = torch.zeros((dim,), dtype=dtype, device=device)
+    return p
+
+
+def _self_dot(x: torch.Tensor) -> torch.Tensor:
+    """sum(x*x) over the last dim, accumulated in f32."""
+    xf = x.to(torch.float32)
+    return (xf * xf).sum(dim=-1)
+
+
+def apply_norm(p: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """RMSNorm / gemma-style RMSNorm(1+w) / LayerNorm with eps
+    ``cfg.norm_eps``; the reductions run in f32, the rest in x's dtype."""
+    d = x.shape[-1]
+    if cfg.norm_type == "layernorm":
+        mu = (x.to(torch.float32).sum(dim=-1) / d)[..., None]
+        xc = x - mu.to(x.dtype)
+        var = (_self_dot(xc) / d)[..., None]
+        inv = torch.rsqrt(var + cfg.norm_eps).to(x.dtype)
+        return xc * inv * p["scale"] + p["bias"]
+    ms = (_self_dot(x) / d)[..., None]
+    inv = torch.rsqrt(ms + cfg.norm_eps).to(x.dtype)
+    scale = p["scale"]
+    if cfg.norm_type == "rmsnorm_p1":
+        scale = 1.0 + scale
+    return x * inv * scale
+
+
+def rms_normalize(x: torch.Tensor, scale: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """Stateless RMSNorm with an externally supplied scale (qk-norm, the
+    hybrid branch norms, the SSM gate norm); eps 1e-6 as in the JAX
+    package, not ``cfg.norm_eps``."""
+    ms = (_self_dot(x) / x.shape[-1])[..., None]
+    inv = torch.rsqrt(ms + eps).to(x.dtype)
+    return x * inv * scale.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP variants
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, cfg, d_model: int, d_ff: int,
+             dtype=torch.float32) -> Dict:
+    p = {"w_in": dense_init(gen, d_model, (d_model, d_ff), dtype),
+         "w_out": dense_init(gen, d_ff, (d_ff, d_model), dtype)}
+    if cfg.mlp_variant in ("swiglu", "geglu"):
+        p["w_gate"] = dense_init(gen, d_model, (d_model, d_ff), dtype)
+    if cfg.mlp_bias:
+        p["b_in"] = torch.zeros((d_ff,), dtype=dtype, device=gen.device)
+        p["b_out"] = torch.zeros((d_model,), dtype=dtype, device=gen.device)
+    return p
+
+
+def apply_mlp(p: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    h = x @ p["w_in"]
+    if "b_in" in p:
+        h = h + p["b_in"]
+    v = cfg.mlp_variant
+    if v == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * h
+    elif v == "geglu":
+        h = F.gelu(x @ p["w_gate"], approximate="tanh") * h
+    elif v == "squared_relu":
+        h = torch.square(F.relu(h))
+    elif v == "gelu":
+        h = F.gelu(h, approximate="tanh")
+    else:
+        raise ValueError(f"unknown mlp variant {v}")
+    out = h @ p["w_out"]
+    if "b_out" in p:
+        out = out + p["b_out"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(cfg, head_dim: int, device=None) -> torch.Tensor:
+    rot = int(head_dim * cfg.rope_pct)
+    rot -= rot % 2
+    exps = torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot
+    return 1.0 / (cfg.rope_theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg,
+               head_dim: int = 0) -> torch.Tensor:
+    """Rotate the first ``rope_pct * head_dim`` dims of ``x``.
+
+    x: [..., S, H, hd] (or [..., S, hd]); positions: broadcastable to
+    [..., S]."""
+    hd = head_dim or x.shape[-1]
+    inv_freq = rope_frequencies(cfg, hd, device=x.device)
+    rot = inv_freq.shape[0] * 2
+    if rot == 0:
+        return x
+    ang = positions[..., None].to(torch.float32) * inv_freq   # [..., S, rot/2]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if x.dim() == cos.dim() + 1:          # [..., S, H, hd]: broadcast heads
+        cos, sin = cos[..., None, :], sin[..., None, :]
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    x1, x2 = x_rot[..., 0::2], x_rot[..., 1::2]
+    r1 = x1 * cos - x2 * sin
+    r2 = x2 * cos + x1 * sin
+    rotated = torch.stack([r1, r2], dim=-1).reshape(x_rot.shape)
+    return torch.cat([rotated.to(x.dtype), x_pass], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / logits
+# ---------------------------------------------------------------------------
+
+def init_embed(gen: torch.Generator, cfg, dtype=torch.float32) -> Dict:
+    p = {"table": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = dense_init(gen, cfg.d_model,
+                                  (cfg.d_model, cfg.vocab_size), dtype)
+    return p
+
+
+def embed_tokens(p: Dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    x = p["table"][tokens]
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x
+
+
+def compute_logits(p: Dict, h: torch.Tensor, cfg) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        logits = h @ p["table"].T
+    else:
+        logits = h @ p["unembed"]
+    if cfg.logit_softcap > 0:
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits

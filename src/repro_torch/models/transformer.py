@@ -1,0 +1,257 @@
+"""Decoder backbone (the counterpart of ``repro.models.transformer``) for
+the families the port serves:
+
+  dense  : attn -> mlp                           (qwen2)
+  ssm    : ssd mixer only                        (mamba2)
+  hybrid : (attn ∥ ssm, mean-combined) -> mlp    (hymba, + meta tokens)
+
+Layer params are stacked ``[L, ...]`` as in the JAX package; the layer
+loop is a Python loop over them (in place of ``lax.scan``), each layer's
+attention window a Python int from ``layer_windows``. The MoE, MLA and
+cross-attention branches raise ``NotImplementedError`` (ROADMAP item 14).
+
+Serving caches are stacked ``[L, ...]`` too and are updated IN PLACE: a
+layer writes its keys and values into its slice of the stacked buffers and
+its new SSM state and conv tail are copied into theirs, so a decode step
+moves what changed and no more. ``index`` is a Python int (the JAX package
+keeps a 0-d array); ``slot_pos`` stays a device tensor.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import (
+    apply_mlp, apply_norm, compute_logits, embed_init, embed_tokens,
+    init_embed, init_mlp, init_norm, rms_normalize,
+)
+
+_TODO = "is not ported to repro_torch yet (ROADMAP item 14)"
+
+
+def check_supported(cfg) -> None:
+    """Raise ``NotImplementedError`` for a configuration whose branches
+    the port has not reached: MoE, MLA, cross-attention (audio)."""
+    if cfg.family == "moe" or cfg.num_experts:
+        raise NotImplementedError(f"the MoE family {_TODO}")
+    if cfg.use_mla:
+        raise NotImplementedError(f"MLA attention {_TODO}")
+    if cfg.cross_attend or cfg.family == "audio":
+        raise NotImplementedError(f"cross-attention (audio) {_TODO}")
+    if cfg.first_dense_layers:
+        raise NotImplementedError(f"leading dense layers {_TODO}")
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+def _init_layer(gen: torch.Generator, cfg, dtype) -> Dict:
+    dev = gen.device
+    p: Dict = {"ln1": init_norm(cfg, cfg.d_model, dtype, dev)}
+    if cfg.family == "ssm":
+        p["ssm"] = ssm_mod.init_ssm(gen, ssm_mod.ssm_dims(cfg), dtype)
+        return p
+    p["attn"] = attn_mod.init_attention(gen, cfg, dtype)
+    if cfg.family == "hybrid":
+        p["ssm"] = ssm_mod.init_ssm(gen, ssm_mod.ssm_dims(cfg), dtype)
+        p["attn_branch_norm"] = torch.ones((cfg.d_model,), dtype=dtype,
+                                           device=dev)
+        p["ssm_branch_norm"] = torch.ones((cfg.d_model,), dtype=dtype,
+                                          device=dev)
+    p["ln2"] = init_norm(cfg, cfg.d_model, dtype, dev)
+    p["mlp"] = init_mlp(gen, cfg, cfg.d_model, cfg.d_ff, dtype)
+    return p
+
+
+def _stack(trees: List[Dict]) -> Dict:
+    return {k: (_stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
+                else torch.stack([t[k] for t in trees]))
+            for k in trees[0]}
+
+
+def _index(tree: Dict, i: int) -> Dict:
+    return {k: (_index(v, i) if isinstance(v, dict) else v[i])
+            for k, v in tree.items()}
+
+
+def init_params(gen: torch.Generator, cfg, dtype=torch.float32) -> Dict:
+    """Seeded random weights, drawn from ``gen`` on its device. The same
+    tree as the JAX package's ``init_params`` (layers stacked [L, ...]);
+    the numbers differ (no threefry port)."""
+    check_supported(cfg)
+    params: Dict = {"embed": init_embed(gen, cfg, dtype)}
+    if cfg.num_meta_tokens:
+        params["meta"] = embed_init(gen, (cfg.num_meta_tokens, cfg.d_model),
+                                    dtype)
+    params["layers"] = _stack([_init_layer(gen, cfg, dtype)
+                               for _ in range(cfg.num_layers)])
+    params["ln_f"] = init_norm(cfg, cfg.d_model, dtype, gen.device)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Caches (stacked over layers)
+# ---------------------------------------------------------------------------
+
+def layer_windows(cfg) -> List[int]:
+    """Per-layer attention window (0 = full attention)."""
+    fd = cfg.first_dense_layers
+    idx = range(fd, cfg.num_layers)
+    if cfg.sliding_window and cfg.global_layer_every:
+        return [0 if i % cfg.global_layer_every == 0 else cfg.sliding_window
+                for i in idx]
+    return [cfg.sliding_window for _ in idx]
+
+
+def init_cache(cfg, batch: int, buf_len: int, dtype=torch.float32,
+               device=None) -> Dict:
+    """buf_len: KV buffer slots (callers choose full length or
+    window+meta)."""
+    check_supported(cfg)
+    n_layers = cfg.num_layers
+    cache: Dict = {
+        "index": 0,
+        "slot_pos": torch.full((buf_len,), -1, dtype=torch.int32,
+                               device=device),
+    }
+    if cfg.family in ("ssm", "hybrid"):
+        dims = ssm_mod.ssm_dims(cfg)
+        cache["conv"] = torch.zeros(
+            (n_layers, batch, dims.conv_width - 1, dims.conv_ch),
+            dtype=dtype, device=device)
+        cache["state"] = torch.zeros(
+            (n_layers, batch, dims.nheads, dims.headdim, dims.nstate),
+            dtype=torch.float32, device=device)
+    if cfg.family != "ssm":
+        hk, hd = cfg.num_kv_heads, cfg.head_dim
+        for key in ("k", "v"):
+            cache[key] = torch.zeros((n_layers, batch, buf_len, hk, hd),
+                                     dtype=dtype, device=device)
+    return cache
+
+
+_PER_LAYER_KEYS = ("k", "v", "conv", "state")
+
+
+def _split_cache(cache: Optional[Dict]) -> Dict:
+    """The per-layer buffers of a cache (stacked [L, ...]); {} without a
+    cache. The JAX package also splits off leading dense layers, which
+    only the MoE family has."""
+    if cache is None:
+        return {}
+    return {k: v for k, v in cache.items() if k in _PER_LAYER_KEYS}
+
+
+# ---------------------------------------------------------------------------
+# One layer
+# ---------------------------------------------------------------------------
+
+def _layer_forward(lp: Dict, x, bufs: Dict, cfg, *, positions, window: int,
+                   kv_pos, write_slot) -> Tuple[torch.Tensor, Dict]:
+    """Returns (x_out, new_bufs)."""
+    new_bufs: Dict = {}
+    h = apply_norm(lp["ln1"], x, cfg)
+    ssm_cache = ({"conv": bufs["conv"], "state": bufs["state"]}
+                 if "conv" in bufs else None)
+
+    if cfg.family == "ssm":
+        y, new_ssm = ssm_mod.ssm_mixer(lp["ssm"], h, ssm_mod.ssm_dims(cfg),
+                                       cache=ssm_cache)
+        if new_ssm is not None:
+            new_bufs.update(new_ssm)
+        return x + y, new_bufs
+
+    kv_bufs = (bufs["k"], bufs["v"]) if "k" in bufs else None
+    y_attn, new_kv = attn_mod.attention(
+        lp["attn"], h, cfg, positions=positions, window=window,
+        num_meta=cfg.num_meta_tokens, kv_bufs=kv_bufs, kv_pos=kv_pos,
+        write_slot=write_slot)
+    if new_kv is not None:
+        new_bufs["k"], new_bufs["v"] = new_kv
+
+    if cfg.family == "hybrid":
+        y_ssm, new_ssm = ssm_mod.ssm_mixer(lp["ssm"], h,
+                                           ssm_mod.ssm_dims(cfg),
+                                           cache=ssm_cache)
+        if new_ssm is not None:
+            new_bufs.update(new_ssm)
+        y = 0.5 * (rms_normalize(y_attn, lp["attn_branch_norm"])
+                   + rms_normalize(y_ssm, lp["ssm_branch_norm"]))
+    else:
+        y = y_attn
+    x = x + y
+    h2 = apply_norm(lp["ln2"], x, cfg)
+    return x + apply_mlp(lp["mlp"], h2, cfg), new_bufs
+
+
+# ---------------------------------------------------------------------------
+# Full forward
+# ---------------------------------------------------------------------------
+
+def forward(params: Dict, cfg, *, tokens: torch.Tensor,
+            cache: Optional[Dict] = None, last_only: bool = False,
+            ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """Returns (logits, cache, aux_loss). ``last_only`` keeps the last
+    position only (what a prefill returns; every position's logits are
+    independent, so this only skips work). The hidden-state output and
+    embedding inputs of the JAX forward serve training and audio, which
+    later slices port.
+
+    Train: cache None. Prefill: fresh cache, S>1. Decode: cache, S==1.
+    logits: [B,S,V]; meta-token positions stripped. The cache is updated
+    in place and returned.
+    """
+    check_supported(cfg)
+    x = embed_tokens(params["embed"], tokens, cfg)
+    b, s_in, _ = x.shape
+    dev = x.device
+    m = cfg.num_meta_tokens
+    decode = cache is not None and s_in == 1   # one-token step with history
+
+    if m and not decode:
+        meta = params["meta"][None].expand(b, m, cfg.d_model).to(x.dtype)
+        x = torch.cat([meta, x], dim=1)
+    s = x.shape[1]
+
+    write_slot = None
+    kv_pos = None
+    if decode:
+        idx = cache["index"]
+        positions = torch.full((b, 1), idx, dtype=torch.int32, device=dev)
+        buf = cache["slot_pos"].shape[0]
+        write_slot = attn_mod.cache_write_slot(buf, idx, m)
+        kv_pos = cache["slot_pos"].clone()
+        kv_pos[write_slot] = idx
+    else:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=dev)[None].expand(b, s)
+        if cache is not None:                        # prefill
+            slots = torch.arange(cache["slot_pos"].shape[0],
+                                 dtype=torch.int32, device=dev)
+            kv_pos = torch.where(slots < s, slots, torch.full_like(slots, -1))
+
+    bufs_all = _split_cache(cache)
+    for i, window in enumerate(layer_windows(cfg)):
+        bufs = {k: v[i] for k, v in bufs_all.items()}
+        x, new_bufs = _layer_forward(
+            _index(params["layers"], i), x, bufs, cfg, positions=positions,
+            window=window, kv_pos=kv_pos, write_slot=write_slot)
+        for k, new in new_bufs.items():
+            if new is not bufs[k]:
+                bufs[k].copy_(new)
+
+    if cache is not None:
+        cache["slot_pos"] = kv_pos
+        cache["index"] = cache["index"] + 1 if decode else s
+
+    if m and not decode:
+        x = x[:, m:]
+    if last_only:
+        x = x[:, -1:]
+    x = apply_norm(params["ln_f"], x, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    return compute_logits(params["embed"], x, cfg), cache, aux

@@ -12,7 +12,17 @@ skip themselves elsewhere. Run them on the card with
   rounding in the plain version's order. Its large-D device-memory path
   (one launch per stage) is covered at D = 2048 and 4096;
 * the wrapper guards hold on CUDA tensors too; a bad cluster id is flagged
-  on the card and raised by ``check_cluster_ids``.
+  on the card and raised by ``check_cluster_ids``;
+* the LM kernels: ``flash_attention`` over the JAX kernel tests' sweep,
+  ragged S, odd head dims, the meta-token term and the model's strided
+  [B, S, H, hd] layout (tolerance f32 2e-5: an online softmax against a
+  one-shot one; bf16 3e-2); ``ssd_scan`` over the JAX sweep, Hymba's and
+  mamba2-130m's shapes, small chunks, an initial state and strided
+  inputs (tolerance f32 rtol 1e-4 and an atol of 5e-4 of the output's
+  largest value: the cumsum of dt·A, which reaches ~100 over a chunk, is
+  taken in another order, exp of its differences carries ~1e-5 of
+  relative error in either order, and a chunk sums hundreds of such
+  terms).
 """
 import pytest
 import torch
@@ -25,6 +35,8 @@ from repro_torch.kernels.fed_mix_q import fed_mix_q
 from repro_torch.kernels.fed_mix_sparse import (
     check_cluster_ids, fed_mix_matching, fed_mix_segment,
 )
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.protocols.async_gossip import matching_perm_stack
 from repro_torch.protocols.gossip import _phase_perm_stack
 
@@ -84,7 +96,7 @@ def test_cuda_tensor_launches_kernel_not_plain_version(cuda, monkeypatch):
 
     for name in ("fed_mix_segment_ref", "fed_mix_ref",
                  "fed_mix_matching_ref", "fed_mix_q_ref",
-                 "fed_aggregate_ref"):
+                 "fed_aggregate_ref", "flash_attention_ref", "ssd_chunked"):
         monkeypatch.setattr(ref, name, refuse)
     n0 = fed_mix_segment.launches
     out = fed_mix_segment(*_segment_args(cuda, 6, 9, 3, torch.float32),
@@ -108,6 +120,15 @@ def test_cuda_tensor_launches_kernel_not_plain_version(cuda, monkeypatch):
                         torch.rand(6, device="cuda"))
     torch.cuda.synchronize()
     assert fed_aggregate.launches == n0 + 1 and out.is_cuda
+    n0 = flash_attention.launches
+    out = flash_attention(*_attention_args(cuda, 1, 2, 1, 9, 16,
+                                           torch.float32))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1 and out.is_cuda
+    n0 = ssd_scan.launches
+    y, st = ssd_scan(*_ssd_args(cuda, 1, 8, 2, 4, 3, torch.float32), chunk=4)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == n0 + 1 and y.is_cuda and st.is_cuda
 
 
 @pytest.mark.parametrize("d,p,L", [(1, 1, 1), (7, 130, 3), (37, 1000, 37),
@@ -263,3 +284,117 @@ def test_fed_mix_matching_bad_partner_is_nan_on_card(cuda):
     assert torch.isnan(got[3]).all()
     keep = [i for i in range(8) if i != 3]
     assert torch.equal(got[keep], want[keep])
+
+
+# ---------------------------------------------------------------------------
+# the LM kernels
+# ---------------------------------------------------------------------------
+
+def _attention_args(gen, b, hq, hkv, s, hd, dtype, model_layout=False):
+    """q [b, hq, s, hd], k/v [b, hkv, s, hd]; with ``model_layout`` they are
+    [b, s, h, hd] tensors viewed as [b, h, s, hd], as the model hands them
+    over."""
+    kw = dict(device="cuda", generator=gen)
+    out = []
+    for h in (hq, hkv, hkv):
+        if model_layout:
+            t = (torch.randn((b, s, h, hd), **kw) * 0.5).transpose(1, 2)
+        else:
+            t = torch.randn((b, h, s, hd), **kw) * 0.5
+        out.append(t.to(dtype))
+    return out
+
+
+def _ssd_args(gen, b, s, h, p, n, dtype, strided=False):
+    kw = dict(device="cuda", generator=gen)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), **kw))
+    A = -torch.exp(torch.randn(h, **kw) * 0.3)
+    if strided:          # x, B, C as slices of one [b, s, h*p + 2n] tensor
+        u = torch.randn((b, s, h * p + 2 * n), **kw) * 0.5
+        x = u[..., :h * p].unflatten(-1, (h, p))
+        B, C = u[..., h * p:h * p + n], u[..., h * p + n:]
+    else:
+        x = torch.randn((b, s, h, p), **kw) * 0.5
+        B = torch.randn((b, s, n), **kw) * 0.5
+        C = torch.randn((b, s, n), **kw) * 0.5
+    return x.to(dtype), dt, A, B.to(dtype), C.to(dtype)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,hd,window,num_meta,model_layout", [
+    (2, 4, 2, 256, 64, 0, 0, False),        # the JAX kernel tests' sweep
+    (2, 4, 2, 256, 64, 96, 0, False),
+    (1, 2, 1, 512, 128, 0, 0, False),
+    (1, 2, 1, 512, 128, 96, 0, False),
+    (2, 3, 3, 128, 32, 0, 0, False),
+    (2, 3, 3, 128, 32, 96, 0, False),
+    (2, 4, 2, 200, 64, 0, 0, False),        # ragged last query tile
+    (2, 4, 2, 200, 64, 64, 8, True),
+    (1, 5, 5, 1, 48, 0, 0, False),          # one row, odd head dim
+    (1, 2, 1, 77, 16, 32, 5, True),
+    (2, 25, 5, 300, 64, 128, 16, True),     # Hymba's heads, window + meta
+    (1, 25, 5, 1100, 64, 1024, 128, True),  # past Hymba's own window
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain_on_card(cuda, b, hq, hkv, s, hd,
+                                               window, num_meta,
+                                               model_layout, dtype):
+    q, k, v = _attention_args(cuda, b, hq, hkv, s, hd, dtype, model_layout)
+    got = flash_attention(q, k, v, window=window, num_meta=num_meta)
+    want = ref.flash_attention_ref(q, k, v, window=window, num_meta=num_meta)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert got.stride() == q.stride()
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _close_scaled(got, want):
+    """The SSD tolerance: rtol 1e-4, atol 5e-4 of |want|'s largest value."""
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=5e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,strided", [
+    (2, 128, 3, 16, 32, 32, False),         # the JAX kernel tests' sweep
+    (1, 256, 2, 64, 128, 64, False),
+    (2, 64, 1, 8, 16, 16, False),
+    (2, 256, 50, 64, 16, 128, True),        # Hymba's SSM heads
+    (1, 512, 24, 64, 128, 256, True),       # mamba2-130m's
+    (2, 100, 4, 16, 16, 20, True),          # a small chunk the mixer picks
+    (1, 78, 3, 64, 200, 26, False),         # n over several tiles, ragged
+    (1, 7, 2, 5, 3, 7, False),
+])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_scan_matches_plain_on_card(cuda, b, s, h, p, n, chunk, strided,
+                                        with_state):
+    args = _ssd_args(cuda, b, s, h, p, n, torch.float32, strided)
+    init = (torch.randn((b, h, p, n), device="cuda", generator=cuda)
+            if with_state else None)
+    y, st = ssd_scan(*args, chunk=chunk, initial_state=init)
+    y_ref, st_ref = ref.ssd_chunked(*args, chunk, initial_state=init)
+    assert y.dtype == torch.float32 and y.shape == (b, s, h, p)
+    assert st.dtype == torch.float32 and st.shape == (b, h, p, n)
+    _close_scaled(y, y_ref)
+    _close_scaled(st, st_ref)
+
+
+def test_ssd_scan_bf16_on_card(cuda):
+    args = _ssd_args(cuda, 2, 256, 5, 64, 16, torch.bfloat16, strided=True)
+    y, st = ssd_scan(*args, chunk=128)
+    y_ref, st_ref = ref.ssd_chunked(*args, 128)
+    assert y.dtype == torch.bfloat16
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=3e-2,
+                               atol=3e-2)
+    _close_scaled(st, st_ref)
+
+
+def test_lm_kernel_guards_on_card(cuda):
+    q, k, v = _attention_args(cuda, 1, 2, 1, 9, 16, torch.float32)
+    with pytest.raises(ValueError, match="head_dim stride"):
+        flash_attention(q[..., ::2], k[..., ::2], v[..., ::2])
+    with pytest.raises(ValueError, match="several devices"):
+        flash_attention(q, k.cpu(), v)
+    args = _ssd_args(cuda, 1, 8, 2, 4, 3, torch.float32)
+    with pytest.raises(ValueError, match="must divide"):
+        ssd_scan(*args, chunk=3)
+    with pytest.raises(ValueError, match="outside what the kernel takes"):
+        ssd_scan(*_ssd_args(cuda, 1, 8, 1, 65, 3, torch.float32), chunk=8)

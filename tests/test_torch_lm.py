@@ -1,0 +1,233 @@
+"""The serving slice as a whole against the JAX package, with the JAX
+weights carried across by ``lm_params_from_jax``:
+
+* prefill logits and caches, then 8 greedy decode steps, against JAX's
+  ``build_prefill_step`` / ``build_decode_step`` (under ``jax.jit``) at
+  rtol 1e-4 (atol 1e-4 of the logits' scale: a two-layer model's f32
+  matmuls summed in other orders), greedy tokens equal. Three
+  configurations: reduced Hymba with ``num_kv_heads=2`` (``reduced()``
+  makes it MHA), reduced qwen2-1.5b and reduced mamba2-130m. The prompt
+  (70 tokens, 78 positions with Hymba's 8 meta tokens) runs past the
+  reduced window of 64, so meta pinning and the ring buffer are driven,
+  and its length has no divisor equal to the SSD chunk (32): the mixer
+  picks 26 (Hymba) or 14;
+* ``serve.generate`` against the JAX ``generate`` on the same weights:
+  equal tokens;
+* the port's counterpart of ``test_decode_matches_prefill``
+  (``tests/test_arch_smoke.py``): teacher-forced decode reproduces the
+  cache-free forward's logits;
+* the entry points default to the card and the unported parts raise.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.launch import serve as jserve  # noqa: E402
+from repro.launch.steps import (  # noqa: E402
+    build_decode_step as jbuild_decode_step,
+    build_prefill_step as jbuild_prefill_step,
+)
+from repro.models.model import build_model as jbuild_model  # noqa: E402
+from repro_torch.config import ModelConfig  # noqa: E402
+from repro_torch.configs import NOT_PORTED, get_config  # noqa: E402
+from repro_torch.convert import (  # noqa: E402
+    lm_params_from_jax, lm_params_to_numpy,
+)
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    build_decode_step, build_prefill_step,
+)
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
+
+ARCHS = ["hymba-1.5b", "qwen2-1.5b", "mamba2-130m"]
+B, S, STEPS = 2, 70, 8
+RTOL = 1e-4
+
+
+def _close(got, want, what):
+    want = np.asarray(want)
+    atol = RTOL * max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=atol,
+                               err_msg=what)
+
+
+def _configs(arch):
+    jcfg, cfg = jget_config(arch).reduced(), get_config(arch).reduced()
+    if arch == "hymba-1.5b":        # reduced() makes it MHA; keep GQA
+        jcfg = dataclasses.replace(jcfg, num_kv_heads=2)
+        cfg = dataclasses.replace(cfg, num_kv_heads=2)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
+    return jcfg, cfg
+
+
+def _weights(jmodel, seed=0):
+    jparams = jmodel.init(jax.random.PRNGKey(seed))
+    return jparams, lm_params_from_jax(jax.tree.map(np.asarray, jparams))
+
+
+def _buf_len(cfg):
+    """generate's cache size for this prompt."""
+    m = cfg.num_meta_tokens
+    buf = max((cfg.sliding_window or (S + STEPS)) + m, m + 1)
+    if cfg.family == "ssm":
+        buf = 8
+    return max(buf, S + m + (0 if cfg.sliding_window else STEPS))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_match_jax(arch):
+    jcfg, cfg = _configs(arch)
+    jmodel, model = jbuild_model(jcfg), build_model(cfg)
+    jparams, params = _weights(jmodel)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    buf = _buf_len(cfg)
+    m = cfg.num_meta_tokens
+    if cfg.sliding_window:
+        assert S + m > cfg.sliding_window and buf < S + m + STEPS  # ring
+    if cfg.family != "dense":
+        assert (S + m) % cfg.ssm_chunk and cfg.ssm_chunk < S + m
+
+    jprefill = jax.jit(jbuild_prefill_step(jmodel))
+    jdecode = jax.jit(jbuild_decode_step(jmodel))
+    prefill, decode = build_prefill_step(model), build_decode_step(model)
+    jcache = jmodel.make_cache(B, buf)
+    cache = model.make_cache(B, buf, device="cpu")
+    jlogits, jcache = jprefill(jparams, {"tokens": jnp.asarray(prompts)},
+                               jcache)
+    logits, cache = prefill(params, {"tokens": torch.from_numpy(prompts)},
+                            cache)
+    assert logits.shape == jlogits.shape
+    _close(logits, jlogits, "prefill logits")
+    assert cache["index"] == int(jcache["index"]) == S + m
+    assert set(cache) == set(jcache)
+    for key in sorted(set(cache) - {"index"}):
+        _close(cache[key], jcache[key], f"prefill cache {key}")
+
+    jtok = jnp.argmax(jlogits[:, -1], axis=-1).astype(jnp.int32)
+    tok = serve._sample(logits[:, -1], 0.0, None)
+    for step in range(STEPS):
+        assert np.array_equal(tok.numpy(), np.asarray(jtok)), step
+        jlogits, jcache = jdecode(jparams, jcache, {"token": jtok[:, None]})
+        logits, cache = decode(params, cache, {"token": tok[:, None]})
+        _close(logits, jlogits, f"decode step {step} logits")
+        jtok = jnp.argmax(jlogits, axis=-1).astype(jnp.int32)
+        tok = serve._sample(logits, 0.0, None)
+    assert cache["index"] == int(jcache["index"]) == S + m + STEPS
+    for key in sorted(set(cache) - {"index"}):
+        _close(cache[key], jcache[key], f"decode cache {key}")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_generate_matches_jax_generate(arch):
+    """The entry point itself, on the JAX generate's own weights (its
+    config: two layers, width 128) and prompt."""
+    jcfg = jget_config(arch).reduced(num_layers=2, max_d_model=128)
+    jparams = jbuild_model(jcfg).init(jax.random.PRNGKey(0))
+    prompts = np.random.default_rng(1).integers(
+        0, jcfg.vocab_size, (2, 40)).astype(np.int32)
+    want = jserve.generate(arch, prompts, max_new_tokens=6)
+    got = serve.generate(arch, prompts, max_new_tokens=6, device="cpu",
+                         params=lm_params_from_jax(
+                             jax.tree.map(np.asarray, jparams)))
+    assert got["tokens"].dtype == np.int32 and got["logits_finite"]
+    assert np.array_equal(got["tokens"], want["tokens"])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_matches_prefill(arch):
+    """Teacher-forced decode reproduces the cache-free forward's logits
+    step by step (KV and SSM caches, ring addressing), on the port's own
+    seeded init."""
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init(1, device="cpu")
+    b, s = 2, 32
+    toks = torch.randint(0, cfg.vocab_size, (b, s),
+                         generator=torch.Generator().manual_seed(1))
+    m = cfg.num_meta_tokens
+    with torch.inference_mode():
+        full, _, _ = transformer.forward(params, cfg, tokens=toks)
+        half = s // 2
+        cache = model.make_cache(b, s + m + 2, device="cpu")
+        last, cache = model.prefill(params, {"tokens": toks[:, :half]}, cache)
+        outs = [last[:, -1]]
+        for t in range(half, s):
+            logits, cache = model.decode(params, cache,
+                                         {"token": toks[:, t:t + 1]})
+            outs.append(logits)
+    dec = torch.stack(outs[:-1], dim=1)
+    torch.testing.assert_close(dec, full[:, half - 1:s - 1], rtol=2e-3,
+                               atol=2e-3)
+
+
+def test_generate_temperature_uses_the_generator():
+    kw = dict(max_new_tokens=5, temperature=1.0, device="cpu")
+    prompts = np.zeros((2, 9), dtype=np.int32)
+    params = build_model(get_config("qwen2-1.5b").reduced(
+        num_layers=2, max_d_model=128)).init(0, device="cpu")
+    a = serve.generate("qwen2-1.5b", prompts, params=params,
+                       generator=torch.Generator().manual_seed(3), **kw)
+    b = serve.generate("qwen2-1.5b", prompts, params=params,
+                       generator=torch.Generator().manual_seed(3), **kw)
+    assert np.array_equal(a["tokens"], b["tokens"])
+
+
+def test_params_round_trip():
+    jcfg, _ = _configs("hymba-1.5b")
+    jparams, params = _weights(jbuild_model(jcfg))
+    back = lm_params_to_numpy(params)
+    flat_j = jax.tree_util.tree_leaves_with_path(
+        jax.tree.map(np.asarray, jparams))
+    flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(flat_j) == len(flat_b)
+    for path, leaf in flat_j:
+        assert np.array_equal(flat_b[path], leaf), path
+    mine = lm_params_to_numpy(build_model(
+        get_config("hymba-1.5b").reduced()).init(0, device="cpu"))
+    want = jax.tree.map(np.asarray, jbuild_model(
+        jget_config("hymba-1.5b").reduced()).init(jax.random.PRNGKey(0)))
+    assert (jax.tree.map(lambda a: (a.shape, a.dtype), mine)
+            == jax.tree.map(lambda a: (a.shape, a.dtype), want))
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    prompts = np.zeros((1, 4), dtype=np.int32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.generate("qwen2-1.5b", prompts, max_new_tokens=2)
+    model = build_model(get_config("qwen2-1.5b").reduced())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.make_cache(1, 8)
+
+
+@pytest.mark.parametrize("arch", NOT_PORTED)
+def test_get_config_raises_for_unported_archs(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+        get_config(arch)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "dbrx-132b",
+                                  "musicgen-medium"])
+def test_unported_families_raise(arch):
+    """MoE, MLA and cross-attention configs (copied from the JAX
+    registry) are refused by the model, not run wrongly."""
+    cfg = ModelConfig(**dataclasses.asdict(jget_config(arch).reduced()))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+        build_model(cfg)
+
+
+def test_loss_fn_waits_for_the_training_slice():
+    model = build_model(get_config("qwen2-1.5b").reduced())
+    with pytest.raises(NotImplementedError, match="training"):
+        model.loss_fn({}, {})
