@@ -30,9 +30,11 @@ exits non-zero:
             16 greedy tokens): each run driven with the launch counters
             set to 0 just before it and read just after;
   timing    each kernel's mean time at the main path's shape beside its
-            plain version, its bound and its library yardstick, two
-            rounds' split between local training, mixing and the wire,
-            and the Hymba prefill's device time by kernel.
+            plain version, its bound (the product kernels' at the
+            split-f32 tensor-core rate, with the CUDA cores' f32 rate
+            beside it) and its library yardstick, two rounds' split
+            between local training, mixing and the wire, and the Hymba
+            prefill's device time by kernel.
 
 Each phase prints one JSON line. The run ends with the kernel summary
 line, the ``nvidia-smi`` name/power-limit line, and then
@@ -54,6 +56,13 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
+# An f32 matrix product to f32 accuracy on the TF32 tensor cores takes
+# three TF32 products (split-f32, kernels/csrc/tf32x3.cuh): the product
+# kernels' bound counts their flops at a third of the TF32 rate, and
+# the timing rows report the bound at the CUDA cores' f32 rate beside it
+# (bound_ffma_ms).
+SPLIT_F32_FLOP_PER_S = TF32_FLOP_PER_S / 3
 
 # (name, source, TPU kernel it replaces), in the summary line's order
 KERNELS = (
@@ -279,9 +288,13 @@ def phase_kernels(torch, state):
                      "dtype": str(dt)[6:], "max_abs_err": err,
                      "atol": atol, "rtol": rtol, "ok": ok})
         failed += [] if ok else [rows[-1]]
+    # + the tensor-core kernel's tile edges: D around its 16-row tiles and
+    # 128-row blocks, P = 0..3 mod 4 (rows off 16-byte alignment)
     dense_cases = [(MAIN_D, MAIN_P, f32), (MAIN_D, MAIN_P, bf16),
                    (37, 1000, f32), (37, 1000, bf16), (7, 130, f32),
-                   (1, 1, f32), (300, 5001, f32)]
+                   (1, 1, f32), (300, 5001, f32), (16, 4096, f32),
+                   (113, 4097, f32), (128, 4098, bf16), (112, 4099, f32),
+                   (MAIN_D, MAIN_P + 1, bf16)]
     for i, (d, p, dt) in enumerate(dense_cases):
         mn, mo, xn, xo = dense_inputs(torch, d, p, dt, seed=100 + i)
         got = fed_mix(mn, mo, xn, xo)
@@ -791,10 +804,21 @@ def named_ms(per, name):
     return sum(hits)
 
 
-def bound(byts, flops):
-    t_bytes, t_ops = byts / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+def bound(byts, flops, flop_rate=F32_FLOP_PER_S):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the flops over ``flop_rate``."""
+    t_bytes, t_ops = byts / HBM_BYTES_PER_S, flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def product_bounds(byts, flops):
+    """A matrix-product kernel's bound at the split-f32 tensor-core rate,
+    and at the CUDA cores' f32 rate beside it."""
+    b_ms, b_by = bound(byts, flops, SPLIT_F32_FLOP_PER_S)
+    return {"bound_ms": b_ms, "bound_by": b_by,
+            "bound_rate": "split-f32 (3xTF32, 165 TFLOP/s)",
+            "bound_ffma_ms": bound(byts, flops)[0]}
 
 
 def phase_timing(torch, state):
@@ -838,14 +862,13 @@ def phase_timing(torch, state):
     x_cat = torch.cat([xn, xo], dim=0).contiguous()
     byts = 3 * d * p * 4 + 2 * d * d * 4
     flops = 4 * d * d * p
-    b_ms, b_by = bound(byts, flops)
     rows.append({
         "name": "fed_mix",
         "ms": named_ms(device_ms(torch, lambda: fed_mix(mn, mo, xn, xo)),
                        "dense_mix_kernel"),
         "plain_ms": sum(device_ms(
             torch, lambda: ref.fed_mix_ref(mn, mo, xn, xo)).values()),
-        "bytes": byts, "flops": flops, "bound_ms": b_ms, "bound_by": b_by,
+        "bytes": byts, "flops": flops, **product_bounds(byts, flops),
         "library_ms": sum(device_ms(
             torch, lambda: torch.mm(m_cat, x_cat)).values()),
         "library": "torch.mm([D, 2D] @ [2D, P]) on pre-stacked operands, "
@@ -872,7 +895,6 @@ def phase_timing(torch, state):
                                      seed=4)
     byts = q.numel() + sc.numel() * 4 + 2 * d * p * 4 + 2 * d * d * 4
     flops = 4 * d * d * p + q.numel()        # the products + the dequant
-    b_ms, b_by = bound(byts, flops)
     rows.append({
         "name": "fed_mix_q", "Pq": q.shape[1],
         "ms": named_ms(device_ms(
@@ -881,7 +903,7 @@ def phase_timing(torch, state):
         "plain_ms": sum(device_ms(
             torch, lambda: ref.fed_mix_q_ref(mn, mo, q, sc, xo,
                                              chunk=CHUNK)).values()),
-        "bytes": byts, "flops": flops, "bound_ms": b_ms, "bound_by": b_by,
+        "bytes": byts, "flops": flops, **product_bounds(byts, flops),
         "library_ms": None,
         "library": "none: no single PyTorch call dequantizes an int8 "
                    "record inside a matrix product"})
@@ -934,7 +956,6 @@ def lm_timing(torch):
         pairs = int(mask.sum())
         flops = 4 * LM_HD * pairs * LM_B * LM_HQ
         byts = 4 * LM_S * LM_HD * LM_B * (2 * LM_HQ + 2 * LM_HKV)
-        b_ms, b_by = bound(byts, flops)
 
         def call():
             return flash_attention(q, k, v, window=window, num_meta=LM_META)
@@ -952,8 +973,7 @@ def lm_timing(torch):
             "num_meta": LM_META, "visible_pairs_per_head": pairs,
             "ms": named_ms(device_ms(torch, call), "flash_fwd_kernel"),
             "plain_ms": sum(device_ms(torch, plain, reps=5).values()),
-            "bytes": byts, "flops": flops, "bound_ms": b_ms,
-            "bound_by": b_by,
+            "bytes": byts, "flops": flops, **product_bounds(byts, flops),
             "library_ms": sum(device_ms(torch, library).values()),
             "library": "scaled_dot_product_attention(enable_gqa=True, "
                        "boolean mask), TF32 off",
@@ -965,7 +985,6 @@ def lm_timing(torch):
     flops = LM_B * h * nc * (tri * (2 * n + 2 * p) + 4 * chunk * p * n)
     byts = 4 * (2 * LM_B * LM_S * h * p + LM_B * LM_S * h
                 + 2 * LM_B * LM_S * n + 2 * LM_B * h * p * n)
-    b_ms, b_by = bound(byts, flops)
     rows.append({
         "name": "ssd_scan", "S": LM_S, "h": h, "p": p, "n": n,
         "chunk": chunk,
@@ -975,7 +994,7 @@ def lm_timing(torch):
         "plain_ms": sum(device_ms(
             torch, lambda: ref.ssd_chunked(*args, chunk, initial_state=init),
             reps=5).values()),
-        "bytes": byts, "flops": flops, "bound_ms": b_ms, "bound_by": b_by,
+        "bytes": byts, "flops": flops, **product_bounds(byts, flops),
         "library_ms": None,
         "library": "none: no single PyTorch call computes the chunked "
                    "SSD scan"})

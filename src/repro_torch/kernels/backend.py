@@ -8,8 +8,9 @@ the plain version on the card, and a failed build raises.
 
 The build: each ``csrc/<name>.cu`` has a plain C interface and is compiled
 on first use with ``nvcc`` for ``sm_90a`` into a shared library that
-``ctypes`` loads. The library's file name carries a digest of its source
-and flags, so an edited source is never served by a stale library.
+``ctypes`` loads. The library's file name carries a digest of its source,
+the shared headers it may include (``csrc/*.cuh``) and the flags, so an
+edited source or header is never served by a stale library.
 ``build()`` starts one ``nvcc`` per source, all at once, and waits for
 them.
 """
@@ -111,9 +112,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    """The library of ``csrc/<name>.cu``; its digest covers the source,
+    every shared header (``csrc/*.cuh``) and the flags, so an edited
+    header rebuilds every kernel."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:

@@ -3,146 +3,330 @@
 //   out = M_new @ X_new + M_old @ X_old
 //
 // with M_new/M_old the [D, D] f32 client-mixing matrices and X_new/X_old
-// the packed [D, P] client buffers (f32 or bf16), accumulated in full f32
-// and stored in X_new's dtype.
+// the packed [D, P] client buffers (f32 or bf16), accumulated in f32 and
+// stored in X_new's dtype.
 //
 // Replaces: src/repro/kernels/fed_mix.py · fed_mix (Pallas
 // _fed_mix_kernel: two MXU contractions per K step into an f32 VMEM
 // accumulator, f32 throughout via preferred_element_type).
 //
-// What bounds it on the card: operations. It is one [D, 2D] @ [2D, P]
-// product, 4·D²·P flops; at the main path's shape (D = 100, P = 246,590)
-// that is ≈ 9.9 GFLOP on ≈ 296 MB, about 33 flops per byte. Full f32 rules
-// out the tensor cores (TF32 keeps ~3 decimal digits), so the ceiling is
-// the CUDA cores' f32 rate, and at that rate the flops take longer than
-// the bytes.
+// What bounds it on the card: bytes. It is one [D, 2D] @ [2D, P] product,
+// 4·D²·P flops; at the main path's shape (D = 100, P = 246,590) that is
+// ≈ 9.9 GFLOP on ≈ 296 MB (X_new and X_old read, out written once). The
+// products run on the TF32 tensor cores as split-f32 (tf32x3.cuh: three
+// TF32 products per f32 product, two for a bf16 X): 3 x 9.9 GFLOP at
+// 495 TFLOP/s is 0.060 ms, below the 0.088 ms the bytes take at 3.35 TB/s.
+// (At the CUDA cores' 67 TFLOP/s the flops took 0.147 ms, longer than the
+// bytes.)
 //
-// What the design does about it: a register-blocked SGEMM on CUDA cores,
-// FFMA in full f32 (no TF32, no library GEMM). The concatenated operand
-// [M_new | M_old] @ [X_new ; X_old] is read in place: the K loop runs over
-// 2D and each K index picks its matrix, so no concatenation copy is made.
-// A block computes a 128 x 128 output tile with 256 threads; each thread
-// holds an 8 x 8 accumulator in registers, so each value it reads from
-// shared memory feeds eight FFMAs, and it reads them as 16-byte vectors
-// (two runs of four rows and of four columns, half a tile apart, which
-// keeps the warp's shared-memory reads free of bank conflicts). K steps
-// through 8-deep tiles of both operands staged in shared memory; X tiles
-// are loaded with consecutive threads on consecutive columns (coalesced),
-// bf16 widened to f32 on load; ragged D and P edges load zeros and are
-// masked on store. What it leaves on the table: each tile's loads are
-// waited for before its FFMAs (no asynchronous staging), and with D = 100
-// the 128-row tile is 78 % full. Later work: cp.async / TMA double
-// buffering, and a row tile fitted to D.
+// What the design does about it:
+// - Persistent blocks, one per SM for each row block, 16 warps each: a
+//   block walks 256-column tiles of P (blockIdx.x, + gridDim.x, ...).
+// - [M_new | M_old] lives in shared memory, loaded once per block at
+//   D <= 100 (padded to whole m16 tiles: 112 rows at D = 100; beside the
+//   ring it takes the rest of the 227 KB) instead of every column tile
+//   gathering it from L2 again. Larger D cuts K into chunks reloaded per
+//   column tile, and D > 128 into row blocks (grid.y).
+// - The 16 warps stand as 2 x 8: warp row wr owns m16 tiles wr, wr + 2,
+//   ... (4 and 3 of the 7 at D = 100), warp column wc 32 columns (four n8
+//   tiles). The four warps that share an SM quarter (w, w + 4, w + 8,
+//   w + 12) hold two of each warp row, so an odd tile count loads the four
+//   tensor cores evenly. The kernel is instantiated per tile count, so
+//   each warp row runs straight-line products. A warp splits its B
+//   fragments once per k8 step and each A fragment as it reads it (every
+//   X element is split by two warps, every M element by eight), and
+//   issues the three terms term by term over its accumulators.
+// - X streams once through a 3-stage cp.async ring of [40, 256] tiles of
+//   [X_new ; X_old], read in place; 40 rows make K = 200 (D = 100) five
+//   whole stages with five k8 steps between barriers. The ring runs on
+//   across column tiles, so the next tile's loads overlap this one's
+//   products and epilogue. Each 16-byte chunk takes the widest copy its
+//   source address allows (cp_async.cuh): with P = 2 mod 4 every other f32
+//   row is only 8-byte aligned, and a bf16 row may be 2-byte aligned.
+//   Ragged D, K and P edges load zeros and are masked on store. The stage
+//   pitches (264 f32 / 272 bf16) keep the B-fragment reads (k = t, n = g)
+//   on 32 distinct banks; M's pitch (4 mod 16 words) does the same for A.
+// - The accumulators are stored straight from the C fragments, two
+//   adjacent columns a store where the row is aligned for it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int BM = 128;   // output rows per block
-constexpr int BN = 128;   // output columns per block
-constexpr int BK = 8;     // K depth per shared-memory tile
-constexpr int TM = 8;     // rows per thread
-constexpr int TN = 8;     // columns per thread: two runs of 4, BN/2 apart
-constexpr int TR = BM / TM;            // 16 thread rows
-constexpr int TC = BN / TN;            // 16 thread columns
-constexpr int NT = TR * TC;            // 256 threads
+constexpr int kWarps = 16;
+constexpr int kThreads = 32 * kWarps;
+constexpr int NW = 4;                     // n8 tiles per warp
+constexpr int kWarpCols = kWarps / 2;     // warps as 2 rows x 8 columns
+constexpr int BN = kWarpCols * NW * 8;    // output columns per tile
+constexpr int BK = 40;                    // K rows of X per ring stage
+constexpr int kStages = 3;                // ring depth
+constexpr int kMaxMT = 8;                 // m16 tiles per row block (128 rows)
+constexpr int kStageBytes = BK * (BN + 8) * 4;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+// shared pitch, in elements, of a stage row: BN + 8 f32 (8 mod 32 banks),
+// BN + 16 bf16 (8 mod 32 words)
+template <typename T> __host__ __device__ constexpr int x_pitch() {
+  return sizeof(T) == 4 ? BN + 8 : BN + 16;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT, 2)
+template <typename T> __device__ __forceinline__ void store2(T* dst, float v0, float v1,
+                                                             bool both);
+template <> __device__ __forceinline__ void store2<float>(float* dst, float v0, float v1,
+                                                          bool both) {
+  if (both && ((uintptr_t)dst & 7) == 0) {
+    *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+  } else {
+    dst[0] = v0;
+    if (both) dst[1] = v1;
+  }
+}
+template <> __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* dst, float v0,
+                                                                  float v1, bool both) {
+  if (both && ((uintptr_t)dst & 3) == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    dst[0] = __float2bfloat16_rn(v0);
+    if (both) dst[1] = __float2bfloat16_rn(v1);
+  }
+}
+
+// B fragment element of a stage as a TF32 hi/lo pair (bf16: exact, lo = 0)
+__device__ __forceinline__ void b_elem(const float* xs, int idx, uint32_t& hi, uint32_t& lo) {
+  tf32x3::split(xs[idx], hi, lo);
+}
+__device__ __forceinline__ void b_elem(const __nv_bfloat16* xs, int idx, uint32_t& hi,
+                                       uint32_t& lo) {
+  hi = tf32x3::bf16_bits(reinterpret_cast<const uint16_t*>(xs)[idx]);
+  lo = 0u;
+}
+
+// acc += M[:, kl0 : kl0 + BK] · (one stage of X) for the warp's NJ m16
+// tiles (wr, wr + 2, ...) and its NW n8 tiles. B fragments are split once
+// and held; each A fragment is split as it is read and used on all NW n8
+// tiles, the three terms issued term by term over those accumulators
+// (lo·hi, hi·lo for an f32 X, hi·hi).
+template <int NJ, typename T>
+__device__ __forceinline__ void stage_products(float (&acc)[4][NW][4], const float* Ms, int kp,
+                                               const T* xs, int kl0, int wr, int n0, int g,
+                                               int t) {
+  constexpr bool kExactB = sizeof(T) == 2;  // bf16 X: lo = 0, two products
+  constexpr int XPT = x_pitch<T>();
+#pragma unroll
+  for (int ks = 0; ks < BK / 8; ++ks) {
+    uint32_t bh[NW][2], bl[NW][2];
+#pragma unroll
+    for (int nt = 0; nt < NW; ++nt) {
+      const int n = n0 + nt * 8 + g;
+      b_elem(xs, (ks * 8 + t) * XPT + n, bh[nt][0], bl[nt][0]);
+      b_elem(xs, (ks * 8 + t + 4) * XPT + n, bh[nt][1], bl[nt][1]);
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float* a = Ms + ((wr + 2 * j) * 16 + g) * kp + kl0 + ks * 8 + t;
+      uint32_t ah[4], al[4];
+      tf32x3::split(a[0], ah[0], al[0]);
+      tf32x3::split(a[8 * kp], ah[1], al[1]);
+      tf32x3::split(a[4], ah[2], al[2]);
+      tf32x3::split(a[8 * kp + 4], ah[3], al[3]);
+      tf32x3::mma_split<NW, false, kExactB>(acc[j], ah, al, bh, bl);
+    }
+  }
+}
+
+// MT: m16 tiles in a row block (warp row 0 takes (MT + 1) / 2 of them,
+// warp row 1 MT / 2)
+template <int MT, typename T>
+__global__ void __launch_bounds__(kThreads, 1)
 dense_mix_kernel(const float* __restrict__ m_new, const float* __restrict__ m_old,
                  const T* __restrict__ x_new, const T* __restrict__ x_old,
-                 T* __restrict__ out, int d, int64_t p) {
-  __shared__ __align__(16) float As[BK][BM];
-  __shared__ __align__(16) float Bs[BK][BN];
+                 T* __restrict__ out, int d, long long p, int kc, int n_col_tiles) {
+  constexpr int RM = MT * 16;
+  constexpr int XPT = x_pitch<T>();
+  constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16-byte chunk
+  constexpr int CPR = BN / EPC;             // chunks per stage row
+  extern __shared__ __align__(16) unsigned char smem[];
 
   const int tid = threadIdx.x;
-  const int tr = tid / TC;
-  const int tc = tid % TC;
-  const int row0 = blockIdx.y * BM;
-  const int64_t col0 = (int64_t)blockIdx.x * BN;
+  const int lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = (tid >> 5) / kWarpCols;    // its m16 tiles: wr, wr + 2, ...
+  const int nj = wr == 0 ? (MT + 1) / 2 : MT / 2;
+  const int n0 = (tid >> 5) % kWarpCols * NW * 8;  // its first column in a tile
+  const int row0 = blockIdx.y * RM;
+  const int kp = kc + 4;                    // M pitch: 4 mod 16 words
   const int k_total = 2 * d;
+  const int nkt = (k_total + BK - 1) / BK;  // K tiles per column tile
+  const int ktpc = kc / BK;                 // K tiles per M chunk
+  const int nkc = (nkt + ktpc - 1) / ktpc;
+  const int bx = blockIdx.x, gx = gridDim.x;
+  const int nmine = bx < n_col_tiles ? (n_col_tiles - bx + gx - 1) / gx : 0;
+  const int nitems = nmine * nkt;           // (column tile, K tile) pairs
 
-  float acc[TM][TN];
-#pragma unroll
-  for (int m = 0; m < TM; ++m)
-#pragma unroll
-    for (int n = 0; n < TN; ++n) acc[m][n] = 0.f;
+  float* Ms = reinterpret_cast<float*>(smem);                 // [RM][kp]
+  unsigned char* ring = smem + (size_t)RM * kp * sizeof(float);
 
-  for (int k0 = 0; k0 < k_total; k0 += BK) {
-    // A tile [BM, BK]: thread e -> (row e / BK, k e % BK), stored As[k][row]
+  // [M_new | M_old] rows row0.., columns kc0..kc0+kc; zeros outside. Eight
+  // loads are issued before their stores, so their latencies overlap.
+  auto load_m = [&](int chunk) {
+    const int kc0 = chunk * kc, n = RM * kc;
+    for (int e0 = tid; e0 < n; e0 += 8 * kThreads) {
+      float v[8];
 #pragma unroll
-    for (int j = 0; j < BM * BK / NT; ++j) {
-      const int e = tid + j * NT;
-      const int r = e / BK, kk = e % BK;
-      const int gi = row0 + r, gk = k0 + kk;
-      float v = 0.f;
-      if (gi < d && gk < k_total)
-        v = gk < d ? m_new[(int64_t)gi * d + gk] : m_old[(int64_t)gi * d + (gk - d)];
-      As[kk][r] = v;
+      for (int u = 0; u < 8; ++u) {
+        const int e = e0 + u * kThreads;
+        const int r = e / kc, k = kc0 + e - r * kc, i = row0 + r;
+        v[u] = 0.f;
+        if (e < n && i < d && k < k_total)
+          v[u] = k < d ? m_new[(long long)i * d + k] : m_old[(long long)i * d + (k - d)];
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = e0 + u * kThreads;
+        const int r = e / kc;
+        if (e < n) Ms[r * kp + (e - r * kc)] = v[u];
+      }
     }
-    // B tile [BK, BN]: consecutive threads on consecutive columns
-#pragma unroll
-    for (int j = 0; j < BK * BN / NT; ++j) {
-      const int e = tid + j * NT;
-      const int kk = e / BN, c = e % BN;
-      const int gk = k0 + kk;
-      const int64_t gj = col0 + c;
-      float v = 0.f;
-      if (gk < k_total && gj < p)
-        v = gk < d ? to_f32(x_new[(int64_t)gk * p + gj])
-                   : to_f32(x_old[(int64_t)(gk - d) * p + gj]);
-      Bs[kk][c] = v;
+  };
+
+  // stage the [BK, BN] tile of [X_new ; X_old] of item w, a warp per row;
+  // K padding rows and columns past P load zeros
+  auto load_item = [&](int w) {
+    const int j = w / nkt, kt = w - j * nkt;
+    const long long col0 = (long long)(bx + j * gx) * BN;
+    T* st = reinterpret_cast<T*>(ring + (w % kStages) * kStageBytes);
+    for (int r = tid >> 5; r < BK; r += kWarps) {
+      const int gk = kt * BK + r;
+      const T* row = gk < d ? x_new + (long long)gk * p : x_old + (long long)(gk - d) * p;
+      for (int c = lane; c < CPR; c += 32) {
+        const long long gc = col0 + (long long)c * EPC;
+        const int nbytes =
+            gk < k_total && gc < p ? (int)min((long long)EPC, p - gc) * (int)sizeof(T) : 0;
+        cp_async::chunk16(st + r * XPT + c * EPC, nbytes ? row + gc : x_new, nbytes);
+      }
     }
-    __syncthreads();
+  };
+
+  float acc[4][NW][4];
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][tr * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][tr * 4 + BM / 2]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tc * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][tc * 4 + BN / 2]);
-      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-      b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
-      b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int m = 0; m < TM; ++m)
+    for (int n = 0; n < NW; ++n)
 #pragma unroll
-        for (int n = 0; n < TN; ++n) acc[m][n] = fmaf(a[m], b[n], acc[m][n]);
-    }
-    __syncthreads();
+      for (int c = 0; c < 4; ++c) acc[j][n][c] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nitems) load_item(s);
+    cp_async::commit();
   }
+  if (nkc == 1) load_m(0);  // once for all column tiles, while X streams in
 
+  for (int w = 0; w < nitems; ++w) {
+    cp_async::wait<kStages - 2>();
+    __syncthreads();  // item w staged; every warp is done with item w - 1
+    if (w + kStages - 1 < nitems) load_item(w + kStages - 1);
+    cp_async::commit();
+    const int kt = w % nkt;
+    const int chunk = kt / ktpc;
+    if (nkc > 1 && kt == chunk * ktpc) {
+      load_m(chunk);
+      __syncthreads();
+    }
+    {
+      const T* xs = reinterpret_cast<const T*>(ring + (w % kStages) * kStageBytes);
+      const int kl0 = (kt - chunk * ktpc) * BK;
+      if (wr == 0)
+        stage_products<(MT + 1) / 2>(acc, Ms, kp, xs, kl0, wr, n0, g, t);
+      else
+        stage_products<MT / 2>(acc, Ms, kp, xs, kl0, wr, n0, g, t);
+    }
+
+    if (kt == nkt - 1) {  // the column tile is done: store and restart
+      const long long col0 = (long long)(bx + (w / nkt) * gx) * BN + n0;
 #pragma unroll
-  for (int m = 0; m < TM; ++m) {
-    const int gi = row0 + tr * 4 + (m & 3) + (m >> 2) * (BM / 2);
-    if (gi >= d) continue;
+      for (int j = 0; j < 4; ++j) {
+        if (j >= nj) continue;
 #pragma unroll
-    for (int n = 0; n < TN; ++n) {
-      const int64_t gj = col0 + tc * 4 + (n & 3) + (n >> 2) * (BN / 2);
-      if (gj < p) out[(int64_t)gi * p + gj] = from_f32<T>(acc[m][n]);
+        for (int half = 0; half < 2; ++half) {
+          const int i = row0 + (wr + 2 * j) * 16 + g + 8 * half;
+          if (i >= d) continue;
+          T* orow = out + (long long)i * p;
+#pragma unroll
+          for (int nt = 0; nt < NW; ++nt) {
+            const long long c = col0 + nt * 8 + 2 * t;
+            if (c < p)
+              store2<T>(orow + c, acc[j][nt][2 * half], acc[j][nt][2 * half + 1], c + 1 < p);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < NW; ++nt)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[j][nt][c] = 0.f;
+      }
     }
   }
+  cp_async::wait<0>();
+}
+
+template <int MT, typename T>
+cudaError_t launch_mt(const void* m_new, const void* m_old, const void* x_new,
+                      const void* x_old, void* out, int d, long long p, int kc, dim3 grid,
+                      size_t bytes, int n_col_tiles, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(dense_mix_kernel<MT, T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  dense_mix_kernel<MT, T><<<grid, kThreads, bytes, stream>>>(
+      (const float*)m_new, (const float*)m_old, (const T*)x_new, (const T*)x_old, (T*)out, d,
+      p, kc, n_col_tiles);
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* m_new, const void* m_old, const void* x_new,
-                   const void* x_old, void* out, int d, int64_t p, cudaStream_t stream) {
-  const dim3 grid((unsigned)((p + BN - 1) / BN), (unsigned)((d + BM - 1) / BM));
-  dense_mix_kernel<T><<<grid, NT, 0, stream>>>(
-      (const float*)m_new, (const float*)m_old, (const T*)x_new, (const T*)x_old,
-      (T*)out, d, p);
-  return cudaGetLastError();
+                   const void* x_old, void* out, int d, long long p, cudaStream_t stream) {
+  int dev = 0, nsm = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  const int mt_total = (d + 15) / 16;
+  const int nrb = (mt_total + kMaxMT - 1) / kMaxMT;  // row blocks
+  const int mt = (mt_total + nrb - 1) / nrb;         // m16 tiles per row block
+  const int ring = kStages * kStageBytes;
+  const int nkt = (2 * d + BK - 1) / BK;
+  // the widest M chunk that fits beside the ring, then chunks of equal size
+  const int kc_max = ((smem_max - ring) / (16 * mt * 4) - 4) / BK * BK;
+  if (kc_max < BK) return cudaErrorInvalidConfiguration;
+  const int nkc = (nkt * BK + kc_max - 1) / kc_max;
+  const int kc = (nkt + nkc - 1) / nkc * BK;
+  const size_t bytes = (size_t)16 * mt * (kc + 4) * sizeof(float) + ring;
+  const long long ncol = (p + BN - 1) / BN;
+  long long gx = nsm / nrb;
+  gx = gx < 1 ? 1 : (gx > ncol ? ncol : gx);
+  const dim3 grid((unsigned)gx, (unsigned)nrb);
+  const int nc = (int)ncol;
+#define FED_MIX_MT(N) \
+  case N:             \
+    return launch_mt<N, T>(m_new, m_old, x_new, x_old, out, d, p, kc, grid, bytes, nc, stream);
+  switch (mt) {
+    FED_MIX_MT(1)
+    FED_MIX_MT(2)
+    FED_MIX_MT(3)
+    FED_MIX_MT(4)
+    FED_MIX_MT(5)
+    FED_MIX_MT(6)
+    FED_MIX_MT(7)
+    default:
+      return launch_mt<8, T>(m_new, m_old, x_new, x_old, out, d, p, kc, grid, bytes, nc,
+                             stream);
+  }
+#undef FED_MIX_MT
 }
 
 }  // namespace

@@ -19,70 +19,140 @@
 // What bounds it on the card: operations. At Hymba's prefill (B 4, Hq 25,
 // S 2048, hd 64, window 1024, 128 meta tokens) the visible part of the
 // score matrix needs 4·hd flops per visible (i, j) pair, about 43 GFLOP per
-// call over 126 MB of q, k, v and o; f32 without tensor cores (full f32,
-// as the reference) makes the CUDA cores' f32 rate the ceiling.
+// call over 126 MB of q, k, v and o. Both products run on the TF32 tensor
+// cores as split-f32 (tf32x3.cuh): three TF32 products per f32 product,
+// 3 x 43.4 GFLOP at 495 TFLOP/s = 0.263 ms, against 0.038 ms for the bytes.
 //
-// What the design does about it: one block of 128 threads per (b, h,
-// 64-row query tile), the tiles with the most keys launched first. Q is
-// staged once, transposed, in shared memory; the block walks 64-row K/V
-// tiles (K transposed, V row-major, widened to f32 on load), skipping the
-// tiles above the diagonal and those wholly outside the window that hold
-// no meta token. Each thread owns 4 query rows x 8 keys of the score tile
-// (one 16-byte Q and two 16-byte K reads feed 32 FMAs) and 4 rows x hd/8
-// columns of the output. The row max and sum are reduced over the 8
-// threads of a row group with warp shuffles; P goes through shared memory
-// into the P·V product. Masked scores are the finite -1e30 of the TPU
-// kernel, never -inf: a row's first visited tile may be fully masked, and
-// the running state washes it out when a visible key arrives. A ragged
-// last query tile is masked and writes no padded row. What it leaves on
-// the table: no tensor cores, no asynchronous staging (each tile's loads
-// are waited for), bank conflicts on the transposed stores.
+// What the design does about it (FlashAttention-2 on mma.sync):
+// - One block of 4 warps per (b, h, 64-row query tile), the tiles with
+//   the most keys launched first; each warp owns 16 query rows.
+// - Q is staged once; at hd <= 64 each warp keeps its Q A-fragments in
+//   registers, split into TF32 hi/lo (64 registers at hd = 64); at
+//   hd = 128 it reads them from shared memory again for every K tile.
+// - K and V tiles (64 keys) are double-buffered with cp.async: the next
+//   visited tile's copies are in flight while this one is computed, one
+//   barrier a tile. Each 16-byte chunk takes the widest copy its source
+//   allows (cp_async.cuh), since the wrapper accepts any row stride. Both
+//   are stored row-major: K is exactly the "col" B operand of S = Q·Kᵀ
+//   (b0 = K[g][t]) and V that of O += P·V; pitches of hd + 4 (f32) and
+//   hd + 8 (bf16) keep the fragment reads on distinct banks.
+// - The online softmax runs on the S accumulator fragments: a row lives in
+//   one lane quad, so its max and sum take two __shfl_xor_sync each.
+// - P never leaves registers. The C fragment holds keys (2t, 2t + 1) of
+//   rows g and g + 8, which is the A fragment of P·V if A's columns t and
+//   t + 4 stand for keys 2t and 2t + 1; V's B fragment reads the same keys
+//   (b0 = V[2t][g], b1 = V[2t + 1][g]), so no shuffle moves P. P is split
+//   into hi/lo in registers.
+// - bf16 inputs are exact in TF32: S = Q·Kᵀ takes one product, P·V two
+//   (only P has a lo part). The three terms of each product go out term by
+//   term over the warp's eight accumulators, so no product waits on the
+//   one before it.
+// - A warp skips a K tile none of its 16 rows sees, and a tile all its
+//   rows see wholly takes no mask.
+// - Everything else is the JAX kernel's arithmetic: masked scores are the
+//   finite -1e30 of the TPU kernel, never -inf (a row's first visited tile
+//   may be fully masked, and the running state washes it out when a
+//   visible key arrives); expf, not __expf; the 1e-30 floor on the
+//   denominator. Tiles above the diagonal and those wholly outside the
+//   window that hold no meta token are skipped; a ragged last query tile
+//   is masked and writes no padded row.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "cp_async.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // key / value rows per tile
-constexpr int kThreads = 128;  // 16 row groups of 4 rows x 8 column groups
-constexpr int kPad = 4;        // keeps 16-byte alignment of padded rows
+constexpr int kThreads = 128;  // 4 warps x 16 query rows
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // element strides of one [B, H, S, hd] operand (the hd stride is 1)
 struct Strides {
   long long b, h, s;
 };
 
-template <int HD>
-constexpr int smem_floats() {
-  return HD * (kBQ + kPad) + HD * (kBK + kPad) + kBK * (HD + kPad) + kBK * (kBQ + kPad);
+// shared row pitch in elements: hd + 4 words (f32) / hd + 8 halves (bf16)
+template <typename T, int HD> __host__ __device__ constexpr int pitch() {
+  return HD + 16 / (int)sizeof(T);
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+constexpr size_t smem_bytes() {
+  return sizeof(T) * (size_t)pitch<T, HD>() * (kBQ + 4 * kBK);  // Q, K x 2, V x 2
+}
+
+// element idx of a shared tile as a TF32 hi/lo pair (bf16: exact, lo = 0)
+__device__ __forceinline__ void frag(const float* s, int idx, uint32_t& hi, uint32_t& lo) {
+  tf32x3::split(s[idx], hi, lo);
+}
+__device__ __forceinline__ void frag(const __nv_bfloat16* s, int idx, uint32_t& hi,
+                                     uint32_t& lo) {
+  hi = tf32x3::bf16_bits(reinterpret_cast<const uint16_t*>(s)[idx]);
+  lo = 0u;
+}
+
+template <typename T> __device__ __forceinline__ void store2(T* dst, float v0, float v1,
+                                                             bool both);
+template <> __device__ __forceinline__ void store2<float>(float* dst, float v0, float v1,
+                                                          bool both) {
+  if (both && ((uintptr_t)dst & 7) == 0) {
+    *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+  } else {
+    dst[0] = v0;
+    if (both) dst[1] = v1;
+  }
+}
+template <> __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* dst, float v0,
+                                                                  float v1, bool both) {
+  if (both && ((uintptr_t)dst & 3) == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    dst[0] = __float2bfloat16_rn(v0);
+    if (both) dst[1] = __float2bfloat16_rn(v1);
+  }
+}
+
+// stage rows row0 .. row0 + 63 (of n) of one head, hd columns, zero-padded
+template <typename T, int HD>
+__device__ __forceinline__ void copy_tile(T* dst, const T* base, long long stride, int row0,
+                                          int n, int hd) {
+  constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16-byte chunk
+  constexpr int CPR = HD / EPC;             // chunks per row
+  constexpr int PT = pitch<T, HD>();
+#pragma unroll
+  for (int i = 0; i < kBK * CPR / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int r = e / CPR, col = (e % CPR) * EPC;
+    const int row = row0 + r;
+    int nbytes = 0;
+    const T* src = base;
+    if (row < n && col < hd) {
+      src = base + row * stride + col;
+      nbytes = min(EPC, hd - col) * (int)sizeof(T);
+    }
+    cp_async::chunk16(dst + r * PT + col, src, nbytes);
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, Strides sq, Strides sk, Strides sv, Strides so,
                  int group, int n_q, int n_k, int hd, float scale, int window,
                  int num_meta) {
-  constexpr int LDQ = kBQ + kPad;  // QsT[d][row], PsT[key][row]
-  constexpr int LDK = kBK + kPad;  // KsT[d][key]
-  constexpr int LDV = HD + kPad;   // Vs[key][d]
-  constexpr int CV = HD / 32;      // 16-byte column runs of V per thread
-  extern __shared__ __align__(16) float smem[];
-  float* QsT = smem;
-  float* KsT = QsT + HD * LDQ;
-  float* Vs = KsT + HD * LDK;
-  float* PsT = Vs + kBK * LDV;
+  constexpr bool kBf16 = sizeof(T) == 2;  // q, k, v exact in TF32
+  constexpr int PT = pitch<T, HD>();
+  constexpr int KS = HD / 8;              // k8 steps of S = Q·Kᵀ
+  constexpr int NT = HD / 8;              // n8 tiles of O
+  constexpr bool kQReg = HD <= 64;        // Q fragments held in registers
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);     // [kBQ][PT]
+  T* Ks = Qs + kBQ * PT;                  // [2][kBK][PT]
+  T* Vs = Ks + 2 * kBK * PT;              // [2][kBK][PT]
 
   const int n_qt = (n_q + kBQ - 1) / kBQ;
   const int qt = n_qt - 1 - (int)blockIdx.x;  // most keys first
@@ -90,133 +160,201 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int b = blockIdx.z;
   const int hk = h / group;
   const int q0 = qt * kBQ;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int cg = lane & 7;                         // column group
-  const int r0 = ((tid >> 5) * 4 + (lane >> 3)) * 4;  // first of 4 rows
-  const int c0 = cg * 8;                           // first of 8 keys
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qr = (threadIdx.x >> 5) * 16;  // the warp's first row in the tile
 
   const T* qb = q + b * sq.b + h * sq.h;
   const T* kb = k + b * sk.b + hk * sk.h;
   const T* vb = v + b * sv.b + hk * sv.h;
 
-  for (int e = tid; e < kBQ * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD;
-    const int qi = q0 + r;
-    QsT[d * LDQ + r] = (qi < n_q && d < hd) ? to_f32(qb[qi * sq.s + d]) : 0.f;
-  }
-
-  float m[4], l[4], acc[4][4 * CV];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * CV; ++c) acc[i][c] = 0.f;
-  }
-
   const int q_last = min(q0 + kBQ, n_q) - 1;
   const int kt_last = min((n_k - 1) / kBK, q_last / kBK);
-  for (int kt = 0; kt <= kt_last; ++kt) {
-    const int k0 = kt * kBK;
-    // no row of this tile sees any key of it: outside the window, no meta
-    if (window > 0 && k0 >= num_meta && q0 - (k0 + kBK - 1) >= window) continue;
-    __syncthreads();  // the previous tile's readers are done
-    for (int e = tid; e < kBK * HD; e += kThreads) {
-      const int c = e / HD, d = e % HD;
-      const int kj = k0 + c;
-      const bool in = kj < n_k && d < hd;
-      KsT[d * LDK + c] = in ? to_f32(kb[kj * sk.s + d]) : 0.f;
-      Vs[c * LDV + d] = in ? to_f32(vb[kj * sv.s + d]) : 0.f;
+  // the next K/V tile after kt that some row of this tile sees (-1: none);
+  // a tile is skipped when it lies outside the window and holds no meta token
+  auto next_tile = [&](int kt) {
+    for (++kt; kt <= kt_last; ++kt) {
+      const int k0 = kt * kBK;
+      if (!(window > 0 && k0 >= num_meta && q0 - (k0 + kBK - 1) >= window)) return kt;
     }
-    __syncthreads();
+    return -1;
+  };
 
-    float s[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(&QsT[d * LDQ + r0]);
-      const float4 ka = *reinterpret_cast<const float4*>(&KsT[d * LDK + c0]);
-      const float4 kc = *reinterpret_cast<const float4*>(&KsT[d * LDK + c0 + 4]);
-      const float qr[4] = {qv.x, qv.y, qv.z, qv.w};
-      const float kr[8] = {ka.x, ka.y, ka.z, ka.w, kc.x, kc.y, kc.z, kc.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qr[i], kr[j], s[i][j]);
-    }
-
-    // mask, then the online softmax of each row over its 8 column groups
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + r0 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int kj = k0 + c0 + j;
-        const bool vis = kj < n_k && kj <= qi &&
-                         (window <= 0 || qi - kj < window || kj < num_meta);
-        s[i][j] = vis ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        sum += s[i][j];
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4 * CV; ++c) acc[i][c] *= corr;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<float4*>(&PsT[(c0 + j) * LDQ + r0]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
-
-    // acc += P V: rows r0..r0+3, columns g*32 + cg*4 + 0..3
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      const float4 pv = *reinterpret_cast<const float4*>(&PsT[c * LDQ + r0]);
-      const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
-#pragma unroll
-      for (int g = 0; g < CV; ++g) {
-        const float4 vv = *reinterpret_cast<const float4*>(&Vs[c * LDV + g * 32 + cg * 4]);
-        const float vr[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int t = 0; t < 4; ++t) acc[i][g * 4 + t] = fmaf(pr[i], vr[t], acc[i][g * 4 + t]);
-      }
-    }
+  copy_tile<T, HD>(Qs, qb, sq.s, q0, n_q, hd);
+  cp_async::commit();
+  int kt = next_tile(-1);
+  if (kt >= 0) {
+    copy_tile<T, HD>(Ks, kb, sk.s, kt * kBK, n_k, hd);
+    copy_tile<T, HD>(Vs, vb, sv.s, kt * kBK, n_k, hd);
   }
+  cp_async::commit();
+  cp_async::wait<1>();
+  __syncthreads();  // Q staged
+
+  // Q A-fragment of k8 step ks: rows (g, g + 8), columns (t, t + 4)
+  auto load_q = [&](int ks, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+    const int base = (qr + g) * PT + ks * 8 + t;
+    frag(Qs, base, hi[0], lo[0]);
+    frag(Qs, base + 8 * PT, hi[1], lo[1]);
+    frag(Qs, base + 4, hi[2], lo[2]);
+    frag(Qs, base + 8 * PT + 4, hi[3], lo[3]);
+  };
+  uint32_t qh[kQReg ? KS : 1][4], ql[kQReg ? KS : 1][4];
+  if constexpr (kQReg) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) load_q(ks, qh[ks], ql[ks]);
+  }
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  int buf = 0;
+  while (kt >= 0) {
+    const int nxt = next_tile(kt);
+    cp_async::wait<0>();
+    __syncthreads();  // tile kt staged in buf; every warp is done with buf ^ 1
+    if (nxt >= 0) {
+      copy_tile<T, HD>(Ks + (buf ^ 1) * kBK * PT, kb, sk.s, nxt * kBK, n_k, hd);
+      copy_tile<T, HD>(Vs + (buf ^ 1) * kBK * PT, vb, sv.s, nxt * kBK, n_k, hd);
+    }
+    cp_async::commit();
+    const T* Kt = Ks + buf * kBK * PT;
+    const T* Vt = Vs + buf * kBK * PT;
+    const int k0 = kt * kBK;
+
+    // the warp's 16 rows see no key of this tile: its state stays as it is
+    // (a fully masked tile would add terms the next visible key washes out
+    // exactly: exp(-1e30 - m) = 0)
+    const int r_lo = q0 + qr, r_hi = r_lo + 15;
+    const bool dead = k0 > r_hi || (window > 0 && k0 >= num_meta &&
+                                    r_lo - (k0 + kBK - 1) >= window);
+    // every key of the tile visible to all 16 rows: no mask needed
+    const bool full = k0 + kBK - 1 <= r_lo && k0 + kBK <= n_k &&
+                      (window <= 0 || r_hi - k0 < window || k0 + kBK <= num_meta);
+    if (!dead) {
+      // S = Q·Kᵀ: the warp's 16 rows x 64 keys, eight n8 tiles, the three
+      // terms issued term by term over the eight accumulators
+      float s[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t ah[4], al[4];
+        if constexpr (kQReg) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            ah[i] = qh[ks][i];
+            al[i] = ql[ks][i];
+          }
+        } else {
+          load_q(ks, ah, al);
+        }
+        uint32_t bh[8][2], bl[8][2];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int idx = (j * 8 + g) * PT + ks * 8 + t;  // K[key g][d t]
+          frag(Kt, idx, bh[j][0], bl[j][0]);
+          frag(Kt, idx + 4, bh[j][1], bl[j][1]);
+        }
+        tf32x3::mma_split<8, kBf16, kBf16>(s, ah, al, bh, bl);
+      }
+
+      // mask, then the online softmax of rows g (c = 0, 1) and g + 8 (c = 2, 3)
+      float mx[2] = {kNegInf, kNegInf};
+      if (full) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            s[j][c] *= scale;
+            mx[c >> 1] = fmaxf(mx[c >> 1], s[j][c]);
+          }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int qi = r_lo + g + (c >> 1) * 8;
+            const int kj = k0 + j * 8 + 2 * t + (c & 1);
+            const bool vis = kj < n_k && kj <= qi &&
+                             (window <= 0 || qi - kj < window || kj < num_meta);
+            s[j][c] = vis ? s[j][c] * scale : kNegInf;
+            mx[c >> 1] = fmaxf(mx[c >> 1], s[j][c]);
+          }
+      }
+      float m_new[2], corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        m_new[r] = fmaxf(m[r], mx[r]);
+        corr[r] = expf(m[r] - m_new[r]);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[j][c] = expf(s[j][c] - m_new[c >> 1]);
+          sum[c >> 1] += s[j][c];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l[r] = l[r] * corr[r] + sum[r];
+        m[r] = m_new[r];
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        acc[n][0] *= corr[0];
+        acc[n][1] *= corr[0];
+        acc[n][2] *= corr[1];
+        acc[n][3] *= corr[1];
+      }
+
+      // O += P·V over the tile's eight k8 steps of keys; A's columns t and
+      // t + 4 stand for keys 2t and 2t + 1, which this lane already holds
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        uint32_t ph[4], pl[4];
+        tf32x3::split(s[kk][0], ph[0], pl[0]);
+        tf32x3::split(s[kk][2], ph[1], pl[1]);
+        tf32x3::split(s[kk][1], ph[2], pl[2]);
+        tf32x3::split(s[kk][3], ph[3], pl[3]);
+        uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const int idx = (kk * 8 + 2 * t) * PT + n * 8 + g;  // V[key 2t][d g]
+          frag(Vt, idx, bh[n][0], bl[n][0]);
+          frag(Vt, idx + PT, bh[n][1], bl[n][1]);
+        }
+        tf32x3::mma_split<NT, false, kBf16>(acc, ph, pl, bh, bl);
+      }
+    }
+    buf ^= 1;
+    kt = nxt;
+  }
+  cp_async::wait<0>();
 
   T* ob = o + b * so.b + h * so.h;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + r0 + i;
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + qr + g + 8 * r;
     if (qi >= n_q) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+    const float denom = fmaxf(l[r], 1e-30f);
 #pragma unroll
-    for (int g = 0; g < CV; ++g)
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int d = g * 32 + cg * 4 + t;
-        if (d < hd) ob[qi * so.s + d] = from_f32<T>(acc[i][g * 4 + t] / denom);
-      }
+    for (int n = 0; n < NT; ++n) {
+      const int d = n * 8 + 2 * t;
+      if (d < hd)
+        store2<T>(ob + qi * so.s + d, acc[n][2 * r] / denom, acc[n][2 * r + 1] / denom,
+                  d + 1 < hd);
+    }
   }
 }
 
@@ -225,7 +363,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, Strides
                    Strides sk, Strides sv, Strides so, int batch, int hq, int group,
                    int n_q, int n_k, int hd, float scale, int window, int num_meta,
                    cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * smem_floats<HD>();
+  const size_t bytes = smem_bytes<T, HD>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);

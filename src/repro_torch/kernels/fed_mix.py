@@ -5,9 +5,10 @@
 with [D, D] mixing matrices and packed [D, P] client buffers, accumulated
 in full f32 and stored in X_new's dtype. It implements
 ``mix_path="dense"`` and is the form every ``SegmentSpec`` is held against
-(``SegmentSpec.to_dense``). The kernel is ``csrc/fed_mix.cu`` (a
-register-blocked f32 GEMM on CUDA cores, replacing the Pallas
-``repro.kernels.fed_mix.fed_mix``); CPU tensors take ``ref.fed_mix_ref``.
+(``SegmentSpec.to_dense``). The kernel is ``csrc/fed_mix.cu`` (split-f32
+products on the TF32 tensor cores, X streamed once through a cp.async
+ring, replacing the Pallas ``repro.kernels.fed_mix.fed_mix``); CPU
+tensors take ``ref.fed_mix_ref``.
 """
 from __future__ import annotations
 
@@ -53,7 +54,10 @@ def fed_mix(m_new: torch.Tensor, m_old: torch.Tensor, x_new: torch.Tensor,
     -> [D, P] in x_new.dtype, full f32 accumulation.
 
     CPU tensors: the plain version. CUDA tensors: the hand-written kernel
-    (``fed_mix.launches`` counts its launches)."""
+    (``fed_mix.launches`` counts its launches). The kernel's split-f32
+    products take finite inputs: an inf (or a value within half a TF32 ulp
+    of the f32 maximum) gives NaN in the columns it reaches, where the
+    plain version may give +-inf."""
     if _check(m_new, m_old, x_new, x_old) == "cpu":
         return ref.fed_mix_ref(m_new, m_old, x_new, x_old)
     d, p = x_new.shape

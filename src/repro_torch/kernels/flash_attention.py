@@ -6,7 +6,8 @@ window, pinned meta tokens and GQA:
 over the keys j a query i sees: j <= i and, when ``window > 0``,
 ``i - j < window`` or ``j < num_meta``. f32 scores and accumulation, the
 output in q's dtype. The kernel is ``csrc/flash_attention.cu`` (an
-online-softmax pass over 64-row K/V tiles, replacing the Pallas
+online-softmax pass over cp.async double-buffered 64-row K/V tiles, both
+products split-f32 on the TF32 tensor cores, replacing the Pallas
 ``repro.kernels.flash_attention.flash_attention``); CPU tensors take
 ``ref.flash_attention_ref``. The model calls it through ``ops`` for
 self-attention over positions 0..S-1 (prefill and the cache-free
@@ -57,7 +58,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CPU tensors: the plain version. CUDA tensors: the hand-written kernel
     (``flash_attention.launches`` counts its launches); on the card the
-    head_dim stride must be 1 and hd <= 128, other strides are free."""
+    head_dim stride must be 1 and hd <= 128, other strides are free. The
+    kernel's split-f32 products take finite inputs: an inf (or a value
+    within half a TF32 ulp of the f32 maximum) gives NaN in the rows it
+    reaches, where the plain version may give +-inf."""
     window, num_meta = int(window), int(num_meta)
     if _check(q, k, v, window, num_meta) == "cpu":
         return ref.flash_attention_ref(q, k, v, window=window,

@@ -7,16 +7,21 @@ skip themselves elsewhere. Run them on the card with
   rises) and never takes the plain version;
 * each kernel against its plain version on the card over ragged shapes,
   f32 and bf16 (tolerance: f32 1e-5 — the kernel and the plain version
-  sum in other orders; bf16 3e-2 — one rounding step of O(1) outputs).
+  sum in other orders, and ``fed_mix`` takes each f32 product as three
+  TF32 tensor-core products; bf16 3e-2 — one rounding step of O(1)
+  outputs). ``fed_mix`` also over its tile edges (D around 16-row tiles
+  and 128-row blocks, P = 0..3 mod 4: rows off 16-byte alignment) and at
+  the main path's D = 100, P = 246,590.
   ``fed_mix_matching`` is held bit for bit: each of its operations is one
   rounding in the plain version's order. Its large-D device-memory path
   (one launch per stage) is covered at D = 2048 and 4096;
 * the wrapper guards hold on CUDA tensors too; a bad cluster id is flagged
   on the card and raised by ``check_cluster_ids``;
 * the LM kernels: ``flash_attention`` over the JAX kernel tests' sweep,
-  ragged S, odd head dims, the meta-token term and the model's strided
-  [B, S, H, hd] layout (tolerance f32 2e-5: an online softmax against a
-  one-shot one; bf16 3e-2); ``ssd_scan`` over the JAX sweep, Hymba's and
+  ragged S, odd head dims, the meta-token term, the model's strided
+  [B, S, H, hd] layout and odd row strides (tolerance f32 2e-5: an online
+  softmax over split-f32 tensor-core products against a one-shot one;
+  bf16 3e-2); ``ssd_scan`` over the JAX sweep, Hymba's and
   mamba2-130m's shapes, small chunks, an initial state and strided
   inputs (tolerance f32 rtol 1e-4 and an atol of 5e-4 of the output's
   largest value: the cumsum of dt·A, which reaches ~100 over a chunk, is
@@ -152,6 +157,31 @@ def test_fed_mix_matches_plain_on_card(cuda, d, p, dtype):
     got = fed_mix(*args)
     want = ref.fed_mix_ref(*args)
     assert got.dtype == dtype and got.shape == (d, p)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+# the tile edges of the tensor-core kernel: D around its 16-row tiles and
+# its 128-row block (300: three row blocks, K in chunks), P = 0..3 mod 4
+# (every other f32 row off 16-byte alignment; bf16 rows 2-byte aligned)
+@pytest.mark.parametrize("d", [16, 100, 112, 113, 128, 300])
+@pytest.mark.parametrize("p", [4096, 4097, 4098, 4099])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fed_mix_tile_edges_on_card(cuda, d, p, dtype):
+    args = _dense_args(cuda, d, p, dtype)
+    got = fed_mix(*args)
+    want = ref.fed_mix_ref(*args)
+    assert got.dtype == dtype and got.shape == (d, p)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fed_mix_main_shape_on_card(cuda, dtype):
+    args = _dense_args(cuda, 100, 246_590, dtype)
+    got = fed_mix(*args)
+    want = ref.fed_mix_ref(*args)
+    assert got.dtype == dtype and got.shape == (100, 246_590)
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
 
@@ -343,6 +373,23 @@ def test_flash_attention_matches_plain_on_card(cuda, b, hq, hkv, s, hd,
     want = ref.flash_attention_ref(q, k, v, window=window, num_meta=num_meta)
     assert got.dtype == dtype and got.shape == q.shape
     assert got.stride() == q.stride()
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("hd", [16, 48, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_head_dims_unaligned_rows_on_card(cuda, hd, dtype):
+    """q, k, v as [b, s, h, hd] slices of [b, s, h, hd + 1] tensors: the
+    row stride h·(hd + 1) is odd, so rows start off every 16-, 8- and
+    (bf16) 4-byte boundary."""
+    kw = dict(device="cuda", generator=cuda)
+    q, k, v = [(torch.randn((1, 150, h, hd + 1), **kw) * 0.5).to(dtype)
+               [..., :hd].transpose(1, 2) for h in (3, 1, 1)]
+    assert q.stride(2) % 2 == 1
+    got = flash_attention(q, k, v, window=64, num_meta=4)
+    want = ref.flash_attention_ref(q, k, v, window=64, num_meta=4)
+    assert got.dtype == dtype and got.shape == q.shape
     tol = 2e-5 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 

@@ -18,7 +18,8 @@
   kernel tests' cases, 1e-5 for f32 and 3e-2 for bf16, and
   ``ops.fed_aggregate_tree`` on a mixed-dtype tree;
 * the wrapper guards: bad cluster ids or partners, mismatched x_new/x_old
-  shapes or dtypes, and non-contiguous inputs raise ValueError.
+  shapes or dtypes, and non-contiguous inputs raise ValueError;
+* the build's library digest covers the shared headers (``csrc/*.cuh``).
 
 The kernels themselves run only on a card: tests/test_torch_cuda.py.
 """
@@ -362,3 +363,30 @@ def test_fed_mix_rejects_mismatched_and_non_contiguous():
         fed_mix(mn.t(), mo, xn, xo)
     with pytest.raises(ValueError, match=r"must be \[D, D\]"):
         fed_mix(mn[:, :3], mo, xn, xo)
+
+
+# ---------------------------------------------------------------------------
+# the build's library digest
+# ---------------------------------------------------------------------------
+
+def test_library_path_changes_with_a_shared_header(tmp_path, monkeypatch):
+    """An edited csrc/*.cuh must not be served by a stale library: every
+    kernel's library path changes with it; an edited .cu changes only its
+    own kernel's path."""
+    import shutil
+
+    from repro_torch.kernels import backend
+    csrc = tmp_path / "csrc"
+    shutil.copytree(backend.CSRC, csrc)
+    monkeypatch.setattr(backend, "CSRC", csrc)
+    before = {n: backend.library_path(n) for n in backend.KERNELS}
+    assert backend.library_path("fed_mix") == before["fed_mix"]
+    header = csrc / "tf32x3.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: backend.library_path(n) for n in backend.KERNELS}
+    assert all(after[n] != before[n] for n in backend.KERNELS)
+    src = csrc / "flash_attention.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    again = {n: backend.library_path(n) for n in backend.KERNELS}
+    assert [n for n in backend.KERNELS if again[n] != after[n]] == [
+        "flash_attention"]

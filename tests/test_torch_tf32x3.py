@@ -1,0 +1,179 @@
+"""CPU rehearsal of the split-f32 (3xTF32) arithmetic of the port's
+tensor-core kernels (``kernels/csrc/tf32x3.cuh``, used by ``fed_mix.cu``
+and ``flash_attention.cu``).
+
+An f32 operand a is split as hi = tf32(a), lo = tf32(a - hi), both rounded
+to nearest with ties away from zero (the rounding of ``cvt.rna.tf32.f32``),
+and a product is taken as lo·hi + hi·lo + hi·hi, accumulated in f32. A
+bf16 operand is exact in TF32 (lo = 0), so its products take fewer terms.
+Here the split is emulated in plain PyTorch with int32 bit operations, and
+the products of the TF32 parts (exact in f32: 11 x 11 significant bits)
+are summed by CPU f32 matmuls.
+
+What is NOT emulated: the tensor cores' own accumulation inside an
+``mma.sync`` (its order and internal rounding of the f32 sum). These tests
+show that the split itself loses far less than the card tolerances allow
+(f32 1e-5 for ``fed_mix``, 2e-5 for ``flash_attention``); whether the
+tensor cores' accumulation keeps it so is checked on the card only
+(``tests/test_torch_cuda.py``).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ref
+
+F32 = torch.float32
+HALF_ULP = 0x1000      # half a TF32 ulp in the f32 bits (bit 12)
+DROPPED = 0x1FFF       # the 13 low mantissa bits TF32 drops
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to TF32 (10 mantissa bits), to nearest, ties away from
+    zero: add half an ulp to the magnitude bits, clear the dropped bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + HALF_ULP) & ~DROPPED).view(F32)
+
+
+def split(x: torch.Tensor):
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def mm3(a: torch.Tensor, b: torch.Tensor, b_exact: bool = False):
+    """a @ b as the kernels take it: lo·hi + hi·lo + hi·hi in f32 (two
+    terms when b is exact in TF32)."""
+    ah, al = split(a)
+    if b_exact:
+        return al @ b + ah @ b
+    bh, bl = split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _spread(n, seed):
+    """f32 values over 20 binary orders of magnitude, both signs."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=n) * np.exp2(rng.integers(-10, 10, n))
+    return torch.from_numpy(x.astype(np.float32))
+
+
+def test_split_keeps_ten_mantissa_bits_and_a_to_2_pow_minus_21():
+    a = _spread(200_000, 0)
+    hi, lo = split(a)
+    for part in (hi, lo):
+        assert not bool((part.view(torch.int32) & DROPPED).any())
+    err = (hi.double() + lo.double() - a.double()).abs()
+    assert bool((err <= 2.0 ** -21 * a.double().abs()).all())
+    # hi alone is within half a TF32 ulp (2^-11 relative)
+    assert bool(((hi.double() - a.double()).abs()
+                 <= 2.0 ** -11 * a.double().abs()).all())
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_tf32_round_ties_away_from_zero(sign):
+    # 1 + 2^-11 lies halfway between the TF32 neighbours 1 and 1 + 2^-10;
+    # 1 + 2^-11 + 2^-23 lies above the half, 1 + 2^-11 - 2^-23 below it
+    x = torch.tensor([1 + 2.0 ** -11, 1 + 2.0 ** -11 + 2.0 ** -23,
+                      1 + 2.0 ** -11 - 2.0 ** -23, 1 + 3 * 2.0 ** -11],
+                     dtype=torch.float64) * sign
+    got = tf32_round(x.to(F32)).double()
+    want = torch.tensor([1 + 2.0 ** -10, 1 + 2.0 ** -10, 1.0,
+                         1 + 2.0 ** -9], dtype=torch.float64) * sign
+    assert torch.equal(got, want)
+
+
+def test_bf16_is_exact_in_tf32():
+    x = _spread(10_000, 1).to(torch.bfloat16).to(F32)
+    hi, lo = split(x)
+    assert torch.equal(hi, x) and not bool(lo.any())
+
+
+def _mix_inputs(d, p, seed):
+    rng = np.random.default_rng(seed)
+    mn = rng.uniform(0, 1, (d, d))
+    mo = rng.uniform(0, 1, (d, d))
+    tot = (mn + mo).sum(axis=1, keepdims=True)
+    return [torch.from_numpy(a.astype(np.float32)) for a in
+            (mn / tot, mo / tot, rng.normal(size=(d, p)),
+             rng.normal(size=(d, p)))]
+
+
+def test_three_product_fed_mix_against_float64():
+    """The main path's mix at D = 100 (the kernel's [M_new | M_old] @
+    [X_new ; X_old] over K = 200) with P = 4099: the split products land
+    within 1e-6 of float64, a tenth of the card tolerance (1e-5)."""
+    mn, mo, xn, xo = _mix_inputs(100, 4099, 2)
+    m = torch.cat([mn, mo], 1)
+    x = torch.cat([xn, xo], 0)
+    got = mm3(m, x)
+    want = m.double() @ x.double()
+    err = (got.double() - want).abs()
+    assert float(err.max()) < 1e-6
+    assert bool((err <= 1e-6 + 1e-6 * want.abs()).all())
+    # and the card test's comparison: against the plain f32 version
+    plain = ref.fed_mix_ref(mn, mo, xn, xo)
+    torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
+    # one TF32 pass (what the f32 parity rule bans) misses it by far
+    one = tf32_round(m) @ tf32_round(x)
+    assert float((one.double() - want).abs().max()) > 1e-4
+
+
+def test_two_product_fed_mix_bf16_against_float64():
+    mn, mo, xn, xo = _mix_inputs(100, 1031, 3)
+    m = torch.cat([mn, mo], 1)
+    x = torch.cat([xn, xo], 0).to(torch.bfloat16).to(F32)
+    got = mm3(m, x, b_exact=True)
+    want = m.double() @ x.double()
+    assert float((got.double() - want).abs().max()) < 1e-6
+
+
+def _attention_tile(q, k, v, q0, window, num_meta, tile=64):
+    """One 64-row query tile as flash_attention.cu computes it, in f32:
+    split products for S = Q·Kᵀ and O += P·V, the online softmax over
+    64-key tiles with the finite -1e30 mask, expf, the 1e-30 floor."""
+    rows, hd = q.shape
+    scale = hd ** -0.5
+    qi = torch.arange(q0, q0 + rows)[:, None]
+    m = torch.full((rows, 1), -1e30)
+    l = torch.zeros(rows, 1)
+    acc = torch.zeros(rows, hd)
+    for k0 in range(0, min(k.shape[0], q0 + rows), tile):
+        kj = torch.arange(k0, k0 + tile)[None, :]
+        if window > 0 and k0 >= num_meta and q0 - (k0 + tile - 1) >= window:
+            continue
+        s = mm3(q, k[k0:k0 + tile].T.contiguous())
+        vis = (kj <= qi) & ((window <= 0) | (qi - kj < window)
+                            | (kj < num_meta))
+        s = torch.where(vis, s * scale, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.max(1, keepdim=True).values)
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(1, keepdim=True)
+        acc = acc * corr + mm3(p, v[k0:k0 + tile])
+        m = m_new
+    return acc / torch.clamp_min(l, 1e-30)
+
+
+@pytest.mark.parametrize("q0", [1984, 1024])
+def test_split_attention_tile_against_float64(q0):
+    """A Hymba-like head (hd 64, 2048 keys, window 1024, 128 meta tokens):
+    the last query tile and one whose window starts mid-tile. Within 2e-6
+    of float64, a tenth of the card tolerance (2e-5)."""
+    rng = np.random.default_rng(q0)
+    s, hd, window, meta = 2048, 64, 1024, 128
+    q, k, v = [torch.from_numpy((rng.normal(size=(s, hd)) * 0.5)
+                                .astype(np.float32)) for _ in range(3)]
+    got = _attention_tile(q[q0:q0 + 64], k, v, q0, window, meta)
+    qd, kd, vd = q.double(), k.double(), v.double()
+    i = torch.arange(s)[:, None]
+    j = torch.arange(s)[None, :]
+    vis = (j <= i) & (((i - j) < window) | (j < meta))
+    sd = torch.where(vis, qd @ kd.T * hd ** -0.5,
+                     torch.tensor(-1e30, dtype=torch.float64))
+    want = (torch.softmax(sd, -1) @ vd)[q0:q0 + 64]
+    assert float((got.double() - want).abs().max()) < 2e-6
+    # and the card test's comparison: against the plain f32 version
+    plain = ref.flash_attention_ref(q[None, None], k[None, None],
+                                    v[None, None], window=window,
+                                    num_meta=meta)[0, 0, q0:q0 + 64]
+    torch.testing.assert_close(got, plain, rtol=2e-5, atol=2e-5)
