@@ -10,7 +10,9 @@ exits non-zero:
             kernel (one nvcc per source, all started together);
   kernels   each CUDA kernel against its plain PyTorch version on the card,
             at the main path's shapes and at ragged ones, f32 and bf16
-            (fed_mix_matching bit for bit); flash_attention at Hymba's
+            (fed_mix_matching bit for bit); fed_mix and fed_mix_q with a
+            diverged client's inf, NaN and f32-maximum values (inf and NaN
+            where the plain version has them); flash_attention at Hymba's
             prefill shapes and the JAX kernel tests' sweep, ssd_scan at
             Hymba's and mamba2-130m's;
   reference the port on the card (kernels) against the port on the CPU
@@ -32,7 +34,8 @@ exits non-zero:
   timing    each kernel's mean time at the main path's shape beside its
             plain version, its bound (the product kernels' at the
             split-f32 tensor-core rate, with the CUDA cores' f32 rate
-            beside it) and its library yardstick, two rounds' split
+            beside it) and its library yardstick (ssd_scan also at
+            mamba2-130m's shape), two rounds' split
             between local training, mixing and the wire, and the Hymba
             prefill's device time by kernel.
 
@@ -232,6 +235,34 @@ def flash_mask(torch, s, window, num_meta):
     return mask
 
 
+def place_non_finite(torch, x):
+    """A diverged client's values in x (in place): inf, -inf, NaN and +-the
+    dtype's largest finite value in columns of their own, and inf beside
+    -inf in one column."""
+    big = torch.finfo(x.dtype).max
+    d = x.shape[0]
+    for r, c, v in ((3, 5, math.inf), (7, 11, -math.inf), (1, 17, math.nan),
+                    (2, 23, big), (5, 29, -big), (0, 31, math.inf),
+                    (d - 1, 31, -math.inf)):
+        x[r % d, c] = v
+    return x
+
+
+def compare_non_finite(torch, got, want, tol=None):
+    """(max abs err over the finite outputs, tolerance, ok): NaN where the
+    plain version has NaN, the same infinities, the finite outputs within
+    the usual tolerance."""
+    atol, rtol = tol or TOL[str(want.dtype).replace("torch.", "")]
+    g, w = got.float(), want.float()
+    fin = torch.isfinite(w)
+    err = (g - w).abs()[fin]
+    ok = (torch.equal(torch.isnan(g), torch.isnan(w))
+          and torch.equal(g[torch.isinf(w)], w[torch.isinf(w)])
+          and bool(torch.isfinite(g[fin]).all())
+          and bool((err <= atol + rtol * w.abs()[fin]).all()))
+    return float(err.max()) if err.numel() else 0.0, atol, rtol, ok
+
+
 def compare(torch, got, want, tol=None):
     """(max abs err, tolerance at that element, ok) in the output dtype."""
     atol, rtol = tol or TOL[str(want.dtype).replace("torch.", "")]
@@ -327,9 +358,14 @@ def phase_kernels(torch, state):
         failed += [] if ok else [rows[-1]]
     # (D, P, chunk, x_old dtype): the main path, the JAX kernel tests'
     # cases (tests/test_compression.py), a bf16 X_old
+    # + the kernel's two routes: chunk 16 and 48 dequantize in the
+    # fragment load, 192 folds the scale into M_new; D = 300 takes row
+    # blocks and K in chunks of M
     q_cases = [(MAIN_D, MAIN_P, CHUNK, f32), (6, 700, 256, f32),
                (16, 4096, 256, f32), (17, 513, 128, f32), (1, 129, 64, f32),
-               (40, 300, 128, f32), (17, 513, 128, bf16)]
+               (40, 300, 128, f32), (17, 513, 128, bf16),
+               (MAIN_D, 4099, 16, f32), (MAIN_D, 4099, 192, bf16),
+               (300, 513, 48, f32), (MAIN_D, MAIN_P, CHUNK, bf16)]
     for i, (d, p, chunk, dt) in enumerate(q_cases):
         args = quant_inputs(torch, d, p, chunk, dt, seed=300 + i)
         got = fed_mix_q(*args, chunk=chunk)
@@ -342,6 +378,8 @@ def phase_kernels(torch, state):
                      "dtype": str(dt)[6:], "max_abs_err": err,
                      "atol": atol, "rtol": rtol, "ok": ok})
         failed += [] if ok else [rows[-1]]
+    rows += non_finite_cases(torch)
+    failed += [r for r in rows if r.get("non_finite") and not r["ok"]]
     agg_cases = [(MAIN_D, MAIN_P, f32), (MAIN_D, MAIN_P, bf16),
                  (3, 1000, f32), (3, 1000, bf16), (8, 4096, f32),
                  (8, 4096, bf16), (1, 1, f32)]
@@ -371,6 +409,44 @@ def phase_kernels(torch, state):
                              f"{failed}")
 
 
+def non_finite_cases(torch):
+    """fed_mix and fed_mix_q with a diverged client's values in X (and, for
+    the int8 wire, non-finite scales) against the plain version: inf and
+    NaN where it has them, the finite outputs at the usual tolerance."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fed_mix import fed_mix
+    from repro_torch.kernels.fed_mix_q import fed_mix_q
+    rows = []
+    for i, dt in enumerate((torch.float32, torch.bfloat16)):
+        mn, mo, xn, xo = dense_inputs(torch, MAIN_D, MAIN_P, dt, seed=700 + i)
+        place_non_finite(torch, xn)
+        place_non_finite(torch, xo[:, 40:])
+        got = fed_mix(mn, mo, xn, xo)
+        torch.cuda.synchronize()
+        err, atol, rtol, ok = compare_non_finite(
+            torch, got, ref.fed_mix_ref(mn, mo, xn, xo))
+        rows.append({"kernel": "fed_mix", "D": MAIN_D, "P": MAIN_P,
+                     "dtype": str(dt)[6:], "non_finite": True,
+                     "max_abs_err": err, "atol": atol, "rtol": rtol,
+                     "ok": ok})
+    for i, (chunk, dt) in enumerate(((CHUNK, torch.float32),
+                                     (CHUNK, torch.bfloat16),
+                                     (48, torch.float32))):
+        mn, mo, q, sc, xo = quant_inputs(torch, MAIN_D, MAIN_P, chunk, dt,
+                                         seed=710 + i)
+        place_non_finite(torch, xo)
+        sc[4, 2], sc[9, 3] = math.inf, math.nan
+        got = fed_mix_q(mn, mo, q, sc, xo, chunk=chunk)
+        torch.cuda.synchronize()
+        err, atol, rtol, ok = compare_non_finite(
+            torch, got, ref.fed_mix_q_ref(mn, mo, q, sc, xo, chunk=chunk))
+        rows.append({"kernel": "fed_mix_q", "D": MAIN_D, "P": MAIN_P,
+                     "chunk": chunk, "dtype": str(dt)[6:],
+                     "non_finite": True, "max_abs_err": err, "atol": atol,
+                     "rtol": rtol, "ok": ok})
+    return rows
+
+
 def main_case(row):
     """Whether a kernels-phase row is at the main path's shape, f32."""
     if row["kernel"] == "flash_attention":
@@ -379,7 +455,9 @@ def main_case(row):
     if row["kernel"] == "ssd_scan":
         return (row["b"], row["S"], row["h"], row["dtype"],
                 row["initial_state"]) == (LM_B, LM_S, 50, "float32", True)
-    return (row["D"], row["P"], row["dtype"]) == (MAIN_D, MAIN_P, "float32")
+    return ((row["D"], row["P"], row["dtype"]) == (MAIN_D, MAIN_P, "float32")
+            and row.get("chunk", CHUNK) == CHUNK
+            and not row.get("non_finite"))
 
 
 def lm_kernel_cases(torch):
@@ -422,7 +500,9 @@ def lm_kernel_cases(torch):
                  (LM_B, LM_S, 24, 64, 128, 256),            # mamba2-130m
                  (2, 128, 3, 16, 32, 32), (1, 256, 2, 64, 128, 64),
                  (2, 64, 1, 8, 16, 16),                     # the JAX sweep
-                 (2, 100, 4, 16, 16, 20)]                   # a small chunk
+                 (2, 100, 4, 16, 16, 20),                   # a small chunk
+                 (2, 192, 3, 64, 8, 96),                    # n = 8, 96 rows
+                 (1, 300, 5, 48, 24, 100)]                  # n = 24, 100 rows
     for i, (b, s, h, p, n, chunk) in enumerate(ssd_cases):
         for with_state in (False, True):
             args, init = ssd_inputs(torch, b, s, h, p, n, 600 + i,
@@ -823,9 +903,11 @@ def product_bounds(byts, flops):
 
 def phase_timing(torch, state):
     """Kernel times are device times from torch.profiler (the kernel's
-    own launches, mean over 20 calls); plain and library times are the
-    device time of every kernel they launch. Inputs (296 MB) exceed the
-    50 MB L2, so every call reads from device memory."""
+    own launches, mean over 20 calls; fed_mix's and fed_mix_q's include
+    their redo pass, also given alone as redo_ms); plain and library
+    times are the device time of every kernel they launch. Inputs
+    (296 MB) exceed the 50 MB L2, so every call reads from device
+    memory."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.fed_aggregate import fed_aggregate
     from repro_torch.kernels.fed_mix import fed_mix
@@ -862,10 +944,10 @@ def phase_timing(torch, state):
     x_cat = torch.cat([xn, xo], dim=0).contiguous()
     byts = 3 * d * p * 4 + 2 * d * d * 4
     flops = 4 * d * d * p
+    per = device_ms(torch, lambda: fed_mix(mn, mo, xn, xo))
     rows.append({
-        "name": "fed_mix",
-        "ms": named_ms(device_ms(torch, lambda: fed_mix(mn, mo, xn, xo)),
-                       "dense_mix_kernel"),
+        "name": "fed_mix", "ms": named_ms(per, "dense_mix_kernel"),
+        "redo_ms": named_ms(per, "dense_mix_kernel_redo"),
         "plain_ms": sum(device_ms(
             torch, lambda: ref.fed_mix_ref(mn, mo, xn, xo)).values()),
         "bytes": byts, "flops": flops, **product_bounds(byts, flops),
@@ -895,11 +977,12 @@ def phase_timing(torch, state):
                                      seed=4)
     byts = q.numel() + sc.numel() * 4 + 2 * d * p * 4 + 2 * d * d * 4
     flops = 4 * d * d * p + q.numel()        # the products + the dequant
+    per = device_ms(torch,
+                    lambda: fed_mix_q(mn, mo, q, sc, xo, chunk=CHUNK))
     rows.append({
         "name": "fed_mix_q", "Pq": q.shape[1],
-        "ms": named_ms(device_ms(
-            torch, lambda: fed_mix_q(mn, mo, q, sc, xo, chunk=CHUNK)),
-            "quant_mix_kernel"),
+        "ms": named_ms(per, "quant_mix_kernel"),
+        "redo_ms": named_ms(per, "quant_mix_kernel_redo"),
         "plain_ms": sum(device_ms(
             torch, lambda: ref.fed_mix_q_ref(mn, mo, q, sc, xo,
                                              chunk=CHUNK)).values()),
@@ -932,7 +1015,9 @@ def phase_timing(torch, state):
 def lm_timing(torch):
     """The LM kernels at Hymba's 2048-position prefill (B 4): flash on a
     window layer (1024, 30 of the 32 layers) and a full layer (layers 0
-    and 16), ssd_scan on the SSM heads. Flash's operations count the
+    and 16), ssd_scan on the SSM heads (then at mamba2-130m's: 24 heads of
+    64, state 128, chunk 256; ``design_bytes`` is what the kernel's three
+    passes move, beside the bound's bytes). Flash's operations count the
     visible (query, key) pairs only, 4·hd flops each (Q·K and P·V); its
     bytes q, k, v read and o written once. The SSD's operations: per
     chunk of q rows, the causal half of C·Bᵀ (2n a pair) and of its
@@ -978,26 +1063,47 @@ def lm_timing(torch):
             "library": "scaled_dot_product_attention(enable_gqa=True, "
                        "boolean mask), TF32 off",
             "library_max_abs_err": float((library() - call()).abs().max())})
-    h, p, n, chunk = 50, 64, 16, 128
-    args, init = ssd_inputs(torch, LM_B, LM_S, h, p, n, 8, True)
-    nc = LM_S // chunk
-    tri = chunk * (chunk + 1) // 2
-    flops = LM_B * h * nc * (tri * (2 * n + 2 * p) + 4 * chunk * p * n)
-    byts = 4 * (2 * LM_B * LM_S * h * p + LM_B * LM_S * h
-                + 2 * LM_B * LM_S * n + 2 * LM_B * h * p * n)
-    rows.append({
-        "name": "ssd_scan", "S": LM_S, "h": h, "p": p, "n": n,
-        "chunk": chunk,
-        "ms": named_ms(device_ms(
-            torch, lambda: ssd_scan(*args, chunk=chunk, initial_state=init)),
-            "ssd_scan_kernel"),
-        "plain_ms": sum(device_ms(
-            torch, lambda: ref.ssd_chunked(*args, chunk, initial_state=init),
-            reps=5).values()),
-        "bytes": byts, "flops": flops, **product_bounds(byts, flops),
-        "library_ms": None,
-        "library": "none: no single PyTorch call computes the chunked "
-                   "SSD scan"})
+    # Hymba's SSM heads, then mamba2-130m's (the summary line takes the
+    # first row of a name: Hymba's)
+    for h, p, n, chunk in ((50, 64, 16, 128), (24, 64, 128, 256)):
+        args, init = ssd_inputs(torch, LM_B, LM_S, h, p, n, 8, True)
+        nc = LM_S // chunk
+        tri = chunk * (chunk + 1) // 2
+        flops = LM_B * h * nc * (tri * (2 * n + 2 * p) + 4 * chunk * p * n)
+        byts = 4 * (2 * LM_B * LM_S * h * p + LM_B * LM_S * h
+                    + 2 * LM_B * LM_S * n + 2 * LM_B * h * p * n)
+        # what the three passes move: x read by each state-column group of
+        # the chunk-state pass and by each of its chunk's row tiles at or
+        # below it, B once by pass 1 and by the same row tiles, C once, dt
+        # by every block of both passes, y written; the [b, h, nc, p, n]
+        # f32 workspace written by pass 1, read and rewritten by pass 2 and
+        # read by every row tile of pass 3
+        n_rt = -(-chunk // 64)
+        n8 = -(-n // 8)
+        groups = -(-n8 // (2 if n8 <= 2 else 4 if n8 <= 4 else 8))
+        reads = sum(min(chunk, 64 * (rt + 1)) for rt in range(n_rt)) / chunk
+        ws = 4 * LM_B * h * nc * p * n
+        design = (4 * LM_B * LM_S * h * p * (groups + reads + 1)
+                  + 4 * LM_B * LM_S * n * (1 + reads + 1)
+                  + 4 * LM_B * LM_S * h * (groups + n_rt)
+                  + (3 + n_rt) * ws + 2 * 4 * LM_B * h * p * n)
+        per = device_ms(
+            torch, lambda: ssd_scan(*args, chunk=chunk, initial_state=init))
+        rows.append({
+            "name": "ssd_scan", "S": LM_S, "h": h, "p": p, "n": n,
+            "chunk": chunk, "ms": named_ms(per, "ssd_scan_kernel"),
+            "passes_ms": {w: named_ms(per, f"ssd_scan_kernel_{w}")
+                          for w in ("local", "carry", "output")},
+            "plain_ms": sum(device_ms(
+                torch,
+                lambda: ref.ssd_chunked(*args, chunk, initial_state=init),
+                reps=5).values()),
+            "bytes": byts, "flops": flops, **product_bounds(byts, flops),
+            "design_bytes": design,
+            "design_bytes_ms": design / HBM_BYTES_PER_S * 1e3,
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes the chunked "
+                       "SSD scan"})
     return rows
 
 

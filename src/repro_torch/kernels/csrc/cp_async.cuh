@@ -8,7 +8,8 @@
 // 16-byte-aligned shared-memory chunk from `nbytes` (0..16) source bytes,
 // zero-filling the rest, with one 16-byte cp.async.cg where the source is
 // 16-byte aligned and whole, else 8- or 4-byte cp.async.ca copies, else
-// (2-byte alignment, bf16 only) plain loads and stores.
+// plain loads and stores: two bytes at a time (a bf16 row), or one (an
+// int8 row at any address, or an odd byte count).
 #pragma once
 
 #include <stdint.h>
@@ -43,8 +44,8 @@ __device__ __forceinline__ void wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// dst: 16-byte-aligned shared memory. src: a valid, 2-byte-aligned global
-// address (pass any valid address when nbytes == 0: nothing is read).
+// dst: 16-byte-aligned shared memory. src: a valid global address (pass
+// any valid address when nbytes == 0: nothing is read).
 __device__ __forceinline__ void chunk16(void* dst, const void* src, int nbytes) {
   nbytes = nbytes < 0 ? 0 : (nbytes > 16 ? 16 : nbytes);
   const uintptr_t a = (uintptr_t)src;
@@ -64,11 +65,14 @@ __device__ __forceinline__ void chunk16(void* dst, const void* src, int nbytes) 
       const int n = nbytes - 4 * i;
       ca4(d + 4 * i, n > 0 ? s + 4 * i : s, n < 0 ? 0 : (n > 4 ? 4 : n));
     }
-  } else {
+  } else if ((a & 1) == 0 && (nbytes & 1) == 0) {
     const uint16_t* s16 = (const uint16_t*)src;
     uint16_t* d16 = (uint16_t*)dst;
 #pragma unroll
     for (int i = 0; i < 8; ++i) d16[i] = 2 * i < nbytes ? s16[i] : (uint16_t)0;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) d[i] = i < nbytes ? s[i] : (char)0;
   }
 }
 

@@ -48,6 +48,14 @@
 //   on 32 distinct banks; M's pitch (4 mod 16 words) does the same for A.
 // - The accumulators are stored straight from the C fragments, two
 //   adjacent columns a store where the row is aligned for it.
+// - Non-finite values: the products run on the fast split (three integer
+//   and f32 operations, tf32x3.cuh), which turns an inf, a NaN or a value
+//   at the f32 maximum into an inf or NaN result, never a finite one. Each
+//   warp checks its tile's accumulators before the store and writes a flag
+//   for it; a second launch (dense_mix_kernel_redo) takes every flagged
+//   warp's part of its tile again from device memory on the full split,
+//   whose products follow IEEE (w·inf = inf, 0·inf = NaN) as the plain
+//   version's do. A finite mix reads the flags and exits (~4.5 us).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,6 +81,9 @@ template <typename T> __host__ __device__ constexpr int x_pitch() {
   return sizeof(T) == 4 ? BN + 8 : BN + 16;
 }
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
 template <typename T> __device__ __forceinline__ void store2(T* dst, float v0, float v1,
                                                              bool both);
 template <> __device__ __forceinline__ void store2<float>(float* dst, float v0, float v1,
@@ -94,21 +105,21 @@ template <> __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16*
   }
 }
 
-// B fragment element of a stage as a TF32 hi/lo pair (bf16: exact, lo = 0)
+// B fragment element of a stage as a TF32 hi/lo pair, on the fast split
+// (a bf16 is exact: its value in both slots, tf32x3.cuh)
 __device__ __forceinline__ void b_elem(const float* xs, int idx, uint32_t& hi, uint32_t& lo) {
-  tf32x3::split(xs[idx], hi, lo);
+  tf32x3::split_fast(xs[idx], hi, lo);
 }
 __device__ __forceinline__ void b_elem(const __nv_bfloat16* xs, int idx, uint32_t& hi,
                                        uint32_t& lo) {
-  hi = tf32x3::bf16_bits(reinterpret_cast<const uint16_t*>(xs)[idx]);
-  lo = 0u;
+  hi = lo = tf32x3::bf16_bits(reinterpret_cast<const uint16_t*>(xs)[idx]);
 }
 
 // acc += M[:, kl0 : kl0 + BK] · (one stage of X) for the warp's NJ m16
 // tiles (wr, wr + 2, ...) and its NW n8 tiles. B fragments are split once
 // and held; each A fragment is split as it is read and used on all NW n8
 // tiles, the three terms issued term by term over those accumulators
-// (lo·hi, hi·lo for an f32 X, hi·hi).
+// (lo·hi, hi·lo for an f32 X, hi·hi), on the fast split.
 template <int NJ, typename T>
 __device__ __forceinline__ void stage_products(float (&acc)[4][NW][4], const float* Ms, int kp,
                                                const T* xs, int kl0, int wr, int n0, int g,
@@ -128,11 +139,66 @@ __device__ __forceinline__ void stage_products(float (&acc)[4][NW][4], const flo
     for (int j = 0; j < NJ; ++j) {
       const float* a = Ms + ((wr + 2 * j) * 16 + g) * kp + kl0 + ks * 8 + t;
       uint32_t ah[4], al[4];
-      tf32x3::split(a[0], ah[0], al[0]);
-      tf32x3::split(a[8 * kp], ah[1], al[1]);
-      tf32x3::split(a[4], ah[2], al[2]);
-      tf32x3::split(a[8 * kp + 4], ah[3], al[3]);
+      tf32x3::split_fast(a[0], ah[0], al[0]);
+      tf32x3::split_fast(a[8 * kp], ah[1], al[1]);
+      tf32x3::split_fast(a[4], ah[2], al[2]);
+      tf32x3::split_fast(a[8 * kp + 4], ah[3], al[3]);
       tf32x3::mma_split<NW, false, kExactB>(acc[j], ah, al, bh, bl);
+    }
+  }
+}
+
+// The warp's outputs of one column tile (m16 tiles wr, wr + 2, ... of the
+// row block; columns c0 .. c0 + 31) taken again from device memory with
+// the full split, and stored: for a tile whose fast-split result held an
+// inf or a NaN (tf32x3.cuh). Rare, so plain: no staging.
+template <typename T>
+__device__ __forceinline__ void tile_full(const float* m_new, const float* m_old, const T* x_new,
+                                       const T* x_old, T* out, int d, long long p, int row0,
+                                       int wr, int nj, long long c0, int g, int t) {
+  constexpr bool kExactB = sizeof(T) == 2;
+  const int k_total = 2 * d;
+  for (int j = 0; j < nj; ++j) {
+    float acc[NW][4] = {};
+    const int i0 = row0 + (wr + 2 * j) * 16 + g;
+    for (int k0 = 0; k0 < k_total; k0 += 8) {
+      uint32_t bh[NW][2], bl[NW][2];
+#pragma unroll
+      for (int nt = 0; nt < NW; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = k0 + t + 4 * h;
+          const long long c = c0 + nt * 8 + g;
+          float v = 0.f;
+          if (k < k_total && c < p)
+            v = to_f32(k < d ? x_new[(long long)k * p + c] : x_old[(long long)(k - d) * p + c]);
+          if constexpr (kExactB)
+            tf32x3::exact(__float_as_uint(v), bh[nt][h], bl[nt][h]);
+          else
+            tf32x3::split(v, bh[nt][h], bl[nt][h]);
+        }
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + 8 * (e & 1), k = k0 + t + 4 * (e >> 1);
+        float m = 0.f;
+        if (i < d && k < k_total)
+          m = k < d ? m_new[(long long)i * d + k] : m_old[(long long)i * d + (k - d)];
+        tf32x3::split(m, ah[e], al[e]);
+      }
+      tf32x3::mma_split<NW, false, kExactB>(acc, ah, al, bh, bl);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = i0 + 8 * half;
+      if (i >= d) continue;
+#pragma unroll
+      for (int nt = 0; nt < NW; ++nt) {
+        const long long c = c0 + nt * 8 + 2 * t;
+        if (c < p)
+          store2<T>(out + (long long)i * p + c, acc[nt][2 * half], acc[nt][2 * half + 1],
+                    c + 1 < p);
+      }
     }
   }
 }
@@ -143,7 +209,8 @@ template <int MT, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 dense_mix_kernel(const float* __restrict__ m_new, const float* __restrict__ m_old,
                  const T* __restrict__ x_new, const T* __restrict__ x_old,
-                 T* __restrict__ out, int d, long long p, int kc, int n_col_tiles) {
+                 T* __restrict__ out, unsigned char* __restrict__ redo, int d, long long p,
+                 int kc, int n_col_tiles) {
   constexpr int RM = MT * 16;
   constexpr int XPT = x_pitch<T>();
   constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16-byte chunk
@@ -247,6 +314,19 @@ dense_mix_kernel(const float* __restrict__ m_new, const float* __restrict__ m_ol
 
     if (kt == nkt - 1) {  // the column tile is done: store and restart
       const long long col0 = (long long)(bx + (w / nkt) * gx) * BN + n0;
+      bool bad = false;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int nt = 0; nt < NW; ++nt)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) bad |= !tf32x3::finite(acc[j][nt][c]);
+      // an inf or NaN: the warp's part of the tile is taken again on the
+      // full split (dense_mix_kernel_redo); every warp writes its flag
+      const bool any_bad = __any_sync(0xffffffffu, bad);
+      if (lane == 0)
+        redo[((size_t)blockIdx.y * n_col_tiles + bx + (w / nkt) * gx) * kWarps + (tid >> 5)] =
+            any_bad;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (j >= nj) continue;
@@ -272,22 +352,48 @@ dense_mix_kernel(const float* __restrict__ m_new, const float* __restrict__ m_ol
   cp_async::wait<0>();
 }
 
+// The redo pass, launched after every dense_mix_kernel on the same grid:
+// a warp whose flag its dense_mix_kernel warp set takes its part of the
+// column tile again on the full split (tile_full); a call whose result
+// held no inf or NaN reads its flags and exits.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dense_mix_kernel_redo(const float* __restrict__ m_new, const float* __restrict__ m_old,
+                      const T* __restrict__ x_new, const T* __restrict__ x_old,
+                      T* __restrict__ out, const unsigned char* __restrict__ redo, int d,
+                      long long p, int mt, int n_col_tiles) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wr = warp / kWarpCols;
+  const int nj = wr == 0 ? (mt + 1) / 2 : mt / 2;
+  const int n0 = warp % kWarpCols * NW * 8;
+  for (int tile = blockIdx.x; tile < n_col_tiles; tile += gridDim.x)
+    if (redo[((size_t)blockIdx.y * n_col_tiles + tile) * kWarps + warp])
+      tile_full<T>(m_new, m_old, x_new, x_old, out, d, p, blockIdx.y * mt * 16, wr, nj,
+                   (long long)tile * BN + n0, lane >> 2, lane & 3);
+}
+
 template <int MT, typename T>
 cudaError_t launch_mt(const void* m_new, const void* m_old, const void* x_new,
-                      const void* x_old, void* out, int d, long long p, int kc, dim3 grid,
-                      size_t bytes, int n_col_tiles, cudaStream_t stream) {
+                      const void* x_old, void* out, void* redo, int d, long long p, int kc,
+                      dim3 grid, size_t bytes, int n_col_tiles, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(dense_mix_kernel<MT, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   dense_mix_kernel<MT, T><<<grid, kThreads, bytes, stream>>>(
-      (const float*)m_new, (const float*)m_old, (const T*)x_new, (const T*)x_old, (T*)out, d,
-      p, kc, n_col_tiles);
+      (const float*)m_new, (const float*)m_old, (const T*)x_new, (const T*)x_old, (T*)out,
+      (unsigned char*)redo, d, p, kc, n_col_tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dense_mix_kernel_redo<T><<<grid, kThreads, 0, stream>>>(
+      (const float*)m_new, (const float*)m_old, (const T*)x_new, (const T*)x_old, (T*)out,
+      (const unsigned char*)redo, d, p, MT, n_col_tiles);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* m_new, const void* m_old, const void* x_new,
-                   const void* x_old, void* out, int d, long long p, cudaStream_t stream) {
+                   const void* x_old, void* out, void* redo, int d, long long p,
+                   cudaStream_t stream) {
   int dev = 0, nsm = 0, smem_max = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -313,7 +419,8 @@ cudaError_t launch(const void* m_new, const void* m_old, const void* x_new,
   const int nc = (int)ncol;
 #define FED_MIX_MT(N) \
   case N:             \
-    return launch_mt<N, T>(m_new, m_old, x_new, x_old, out, d, p, kc, grid, bytes, nc, stream);
+    return launch_mt<N, T>(m_new, m_old, x_new, x_old, out, redo, d, p, kc, grid, bytes, nc, \
+                           stream);
   switch (mt) {
     FED_MIX_MT(1)
     FED_MIX_MT(2)
@@ -323,7 +430,7 @@ cudaError_t launch(const void* m_new, const void* m_old, const void* x_new,
     FED_MIX_MT(6)
     FED_MIX_MT(7)
     default:
-      return launch_mt<8, T>(m_new, m_old, x_new, x_old, out, d, p, kc, grid, bytes, nc,
+      return launch_mt<8, T>(m_new, m_old, x_new, x_old, out, redo, d, p, kc, grid, bytes, nc,
                              stream);
   }
 #undef FED_MIX_MT
@@ -333,16 +440,24 @@ cudaError_t launch(const void* m_new, const void* m_old, const void* x_new,
 
 extern "C" {
 
+// Bytes of the redo flags fed_mix_launch needs at (D, P): one per warp of
+// every (row block, column tile).
+long long fed_mix_redo_bytes(int d, long long p) {
+  const int mt_total = (d + 15) / 16;
+  return (long long)((mt_total + kMaxMT - 1) / kMaxMT) * ((p + BN - 1) / BN) * kWarps;
+}
+
 // m_new/m_old [D, D] f32, x_new/x_old/out [D, P] contiguous (f32 when
-// is_bf16 == 0, else bf16). Launches on `stream` and returns
-// cudaGetLastError().
+// is_bf16 == 0, else bf16), redo: fed_mix_redo_bytes(d, p) bytes of
+// scratch. Two launches on `stream` (the product, the redo pass); returns
+// the first failure of cudaGetLastError().
 int fed_mix_launch(const void* m_new, const void* m_old, const void* x_new,
-                   const void* x_old, void* out, int d, long long p, int is_bf16,
+                   const void* x_old, void* out, void* redo, int d, long long p, int is_bf16,
                    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
-    return (int)launch<__nv_bfloat16>(m_new, m_old, x_new, x_old, out, d, p, s);
-  return (int)launch<float>(m_new, m_old, x_new, x_old, out, d, p, s);
+    return (int)launch<__nv_bfloat16>(m_new, m_old, x_new, x_old, out, redo, d, p, s);
+  return (int)launch<float>(m_new, m_old, x_new, x_old, out, redo, d, p, s);
 }
 
 }  // extern "C"

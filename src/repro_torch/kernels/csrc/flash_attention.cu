@@ -56,9 +56,15 @@
 //   denominator. Tiles above the diagonal and those wholly outside the
 //   window that hold no meta token are skipped; a ragged last query tile
 //   is masked and writes no padded row.
+// - Non-finite values: the products run on the fast split (tf32x3.cuh),
+//   which turns an inf or NaN input into an inf or NaN result; a block
+//   whose result holds one is taken again on the full split, whose
+//   products follow IEEE (flash_block_full, out of line so that the fast
+//   path keeps its registers).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
 
 #include "cp_async.cuh"
 #include "tf32x3.cuh"
@@ -85,14 +91,19 @@ constexpr size_t smem_bytes() {
   return sizeof(T) * (size_t)pitch<T, HD>() * (kBQ + 4 * kBK);  // Q, K x 2, V x 2
 }
 
-// element idx of a shared tile as a TF32 hi/lo pair (bf16: exact, lo = 0)
+// element idx of a shared tile as a TF32 hi/lo pair: f32 split (kFull:
+// tf32x3::split, else split_fast); a bf16 is exact, its value in both
+// slots on the fast path and its finite part in lo's on the full one
+template <bool kFull>
 __device__ __forceinline__ void frag(const float* s, int idx, uint32_t& hi, uint32_t& lo) {
-  tf32x3::split(s[idx], hi, lo);
+  tf32x3::split_as<kFull>(s[idx], hi, lo);
 }
+template <bool kFull>
 __device__ __forceinline__ void frag(const __nv_bfloat16* s, int idx, uint32_t& hi,
                                      uint32_t& lo) {
-  hi = tf32x3::bf16_bits(reinterpret_cast<const uint16_t*>(s)[idx]);
-  lo = 0u;
+  const uint32_t bits = tf32x3::bf16_bits(reinterpret_cast<const uint16_t*>(s)[idx]);
+  if constexpr (kFull) tf32x3::exact(bits, hi, lo);
+  else hi = lo = bits;
 }
 
 template <typename T> __device__ __forceinline__ void store2(T* dst, float v0, float v1,
@@ -138,12 +149,16 @@ __device__ __forceinline__ void copy_tile(T* dst, const T* base, long long strid
   }
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, Strides sq, Strides sk, Strides sv, Strides so,
-                 int group, int n_q, int n_k, int hd, float scale, int window,
-                 int num_meta) {
+// The block's work and its store, on the fast split (kSlow false) or the
+// full one (tf32x3.cuh). On the fast split a result that holds an inf or a
+// NaN is not stored: it returns true, and the kernel takes the block again
+// on the full split.
+template <typename T, int HD, bool kSlow>
+__device__ __forceinline__ bool flash_block(const T* __restrict__ q, const T* __restrict__ k,
+                                            const T* __restrict__ v, T* __restrict__ o,
+                                            Strides sq, Strides sk, Strides sv, Strides so,
+                                            int group, int n_q, int n_k, int hd, float scale,
+                                            int window, int num_meta) {
   constexpr bool kBf16 = sizeof(T) == 2;  // q, k, v exact in TF32
   constexpr int PT = pitch<T, HD>();
   constexpr int KS = HD / 8;              // k8 steps of S = Q·Kᵀ
@@ -182,6 +197,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   copy_tile<T, HD>(Qs, qb, sq.s, q0, n_q, hd);
   cp_async::commit();
+
   int kt = next_tile(-1);
   if (kt >= 0) {
     copy_tile<T, HD>(Ks, kb, sk.s, kt * kBK, n_k, hd);
@@ -194,10 +210,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   // Q A-fragment of k8 step ks: rows (g, g + 8), columns (t, t + 4)
   auto load_q = [&](int ks, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
     const int base = (qr + g) * PT + ks * 8 + t;
-    frag(Qs, base, hi[0], lo[0]);
-    frag(Qs, base + 8 * PT, hi[1], lo[1]);
-    frag(Qs, base + 4, hi[2], lo[2]);
-    frag(Qs, base + 8 * PT + 4, hi[3], lo[3]);
+    frag<kSlow>(Qs, base, hi[0], lo[0]);
+    frag<kSlow>(Qs, base + 8 * PT, hi[1], lo[1]);
+    frag<kSlow>(Qs, base + 4, hi[2], lo[2]);
+    frag<kSlow>(Qs, base + 8 * PT + 4, hi[3], lo[3]);
   };
   uint32_t qh[kQReg ? KS : 1][4], ql[kQReg ? KS : 1][4];
   if constexpr (kQReg) {
@@ -259,8 +275,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int idx = (j * 8 + g) * PT + ks * 8 + t;  // K[key g][d t]
-          frag(Kt, idx, bh[j][0], bl[j][0]);
-          frag(Kt, idx + 4, bh[j][1], bl[j][1]);
+          frag<kSlow>(Kt, idx, bh[j][0], bl[j][0]);
+          frag<kSlow>(Kt, idx + 4, bh[j][1], bl[j][1]);
         }
         tf32x3::mma_split<8, kBf16, kBf16>(s, ah, al, bh, bl);
       }
@@ -323,16 +339,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) {
         uint32_t ph[4], pl[4];
-        tf32x3::split(s[kk][0], ph[0], pl[0]);
-        tf32x3::split(s[kk][2], ph[1], pl[1]);
-        tf32x3::split(s[kk][1], ph[2], pl[2]);
-        tf32x3::split(s[kk][3], ph[3], pl[3]);
+        tf32x3::split_as<kSlow>(s[kk][0], ph[0], pl[0]);
+        tf32x3::split_as<kSlow>(s[kk][2], ph[1], pl[1]);
+        tf32x3::split_as<kSlow>(s[kk][1], ph[2], pl[2]);
+        tf32x3::split_as<kSlow>(s[kk][3], ph[3], pl[3]);
         uint32_t bh[NT][2], bl[NT][2];
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
           const int idx = (kk * 8 + 2 * t) * PT + n * 8 + g;  // V[key 2t][d g]
-          frag(Vt, idx, bh[n][0], bl[n][0]);
-          frag(Vt, idx + PT, bh[n][1], bl[n][1]);
+          frag<kSlow>(Vt, idx, bh[n][0], bl[n][0]);
+          frag<kSlow>(Vt, idx + PT, bh[n][1], bl[n][1]);
         }
         tf32x3::mma_split<NT, false, kBf16>(acc, ph, pl, bh, bl);
       }
@@ -341,6 +357,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     kt = nxt;
   }
   cp_async::wait<0>();
+  if constexpr (!kSlow) {
+    bool bad = !tf32x3::finite(l[0]) || !tf32x3::finite(l[1]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) bad |= !tf32x3::finite(acc[n][c]);
+    if (__syncthreads_or(bad)) return true;  // every warp is done with the buffers
+  }
 
   T* ob = o + b * so.b + h * so.h;
 #pragma unroll
@@ -356,6 +380,29 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                   d + 1 < hd);
     }
   }
+  return false;
+}
+
+// the full split's block, out of line: the fast path keeps its registers
+template <typename T, int HD>
+__device__ __noinline__ void flash_block_full(const T* q, const T* k, const T* v, T* o,
+                                              Strides sq, Strides sk, Strides sv, Strides so,
+                                              int group, int n_q, int n_k, int hd, float scale,
+                                              int window, int num_meta) {
+  flash_block<T, HD, true>(q, k, v, o, sq, sk, sv, so, group, n_q, n_k, hd, scale, window,
+                           num_meta);
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 T* __restrict__ o, Strides sq, Strides sk, Strides sv, Strides so,
+                 int group, int n_q, int n_k, int hd, float scale, int window,
+                 int num_meta) {
+  if (flash_block<T, HD, false>(q, k, v, o, sq, sk, sv, so, group, n_q, n_k, hd, scale, window,
+                                num_meta))
+    flash_block_full<T, HD>(q, k, v, o, sq, sk, sv, so, group, n_q, n_k, hd, scale, window,
+                            num_meta);
 }
 
 template <typename T, int HD>

@@ -54,10 +54,7 @@ def fed_mix(m_new: torch.Tensor, m_old: torch.Tensor, x_new: torch.Tensor,
     -> [D, P] in x_new.dtype, full f32 accumulation.
 
     CPU tensors: the plain version. CUDA tensors: the hand-written kernel
-    (``fed_mix.launches`` counts its launches). The kernel's split-f32
-    products take finite inputs: an inf (or a value within half a TF32 ulp
-    of the f32 maximum) gives NaN in the columns it reaches, where the
-    plain version may give +-inf."""
+    (``fed_mix.launches`` counts its launches)."""
     if _check(m_new, m_old, x_new, x_old) == "cpu":
         return ref.fed_mix_ref(m_new, m_old, x_new, x_old)
     d, p = x_new.shape
@@ -66,12 +63,19 @@ def fed_mix(m_new: torch.Tensor, m_old: torch.Tensor, x_new: torch.Tensor,
         return out
     mn = m_new.to(torch.float32)
     mo = m_old.to(torch.float32)
+    redo_bytes = backend.c_function(
+        "fed_mix", "fed_mix_redo_bytes", [ctypes.c_int, ctypes.c_longlong],
+        restype=ctypes.c_longlong)
+    # the product's per-warp flags for its redo pass (a tile whose result
+    # held an inf or NaN, taken again on the full split)
+    redo = torch.empty(redo_bytes(d, p), dtype=torch.uint8,
+                       device=x_new.device)
     launch = backend.c_function(
         "fed_mix", "fed_mix_launch",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong,
+        [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong,
                                  ctypes.c_int, ctypes.c_void_p])
     rc = launch(mn.data_ptr(), mo.data_ptr(), x_new.data_ptr(),
-                x_old.data_ptr(), out.data_ptr(), d, p,
+                x_old.data_ptr(), out.data_ptr(), redo.data_ptr(), d, p,
                 int(x_new.dtype == torch.bfloat16),
                 backend.stream_ptr(x_new.device))
     backend.raise_on_error("fed_mix", rc)

@@ -7,10 +7,11 @@ values [D, Pq], Pq a multiple of ``chunk``, one f32 absmax scale per
 chunk: [D, Pq/chunk]) and the [D, P <= Pq] round-start buffer X_old,
 accumulated in full f32. ``ops.fed_mix_flat`` calls it on
 ``mix_path="dense"`` with the int8 codec. The kernel is
-``csrc/fed_mix_q.cu`` (dequantizes Q tile by tile inside the K loop of a
-register-blocked f32 GEMM, replacing the Pallas
-``repro.kernels.fed_mix_q.fed_mix_q``); CPU tensors take
-``ref.fed_mix_q_ref``.
+``csrc/fed_mix_q.cu`` (``fed_mix.cu``'s split-f32 tensor-core design with
+Q staged as int8 and widened in the fragment load: at a chunk that is a
+multiple of 32 the scale folds into M_new, else the load dequantizes;
+replacing the Pallas ``repro.kernels.fed_mix_q.fed_mix_q``); CPU tensors
+take ``ref.fed_mix_q_ref``.
 """
 from __future__ import annotations
 
@@ -85,14 +86,22 @@ def fed_mix_q(m_new: torch.Tensor, m_old: torch.Tensor, q_new: torch.Tensor,
     mn = m_new.to(torch.float32)
     mo = m_old.to(torch.float32)
     sc = scales.to(torch.float32)
+    redo_bytes = backend.c_function(
+        "fed_mix_q", "fed_mix_q_redo_bytes", [ctypes.c_int, ctypes.c_longlong],
+        restype=ctypes.c_longlong)
+    # the product's per-warp flags for its redo pass (a tile whose result
+    # held an inf or NaN, taken again on the full split)
+    redo = torch.empty(redo_bytes(d, p), dtype=torch.uint8,
+                       device=x_old.device)
     launch = backend.c_function(
         "fed_mix_q", "fed_mix_q_launch",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong,
+        [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_longlong,
                                  ctypes.c_longlong, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_int,
                                  ctypes.c_void_p])
     rc = launch(mn.data_ptr(), mo.data_ptr(), q_new.data_ptr(),
-                sc.data_ptr(), x_old.data_ptr(), out.data_ptr(), d, p, pq,
+                sc.data_ptr(), x_old.data_ptr(), out.data_ptr(),
+                redo.data_ptr(), d, p, pq,
                 chunk, int(x_old.dtype == torch.bfloat16),
                 int(out_dtype == torch.bfloat16),
                 backend.stream_ptr(x_old.device))

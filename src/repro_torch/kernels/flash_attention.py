@@ -58,10 +58,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CPU tensors: the plain version. CUDA tensors: the hand-written kernel
     (``flash_attention.launches`` counts its launches); on the card the
-    head_dim stride must be 1 and hd <= 128, other strides are free. The
-    kernel's split-f32 products take finite inputs: an inf (or a value
-    within half a TF32 ulp of the f32 maximum) gives NaN in the rows it
-    reaches, where the plain version may give +-inf."""
+    head_dim stride must be 1 and hd <= 128, other strides are free."""
     window, num_meta = int(window), int(num_meta)
     if _check(q, k, v, window, num_meta) == "cpu":
         return ref.flash_attention_ref(q, k, v, window=window,

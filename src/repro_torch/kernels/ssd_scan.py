@@ -6,11 +6,15 @@ with the contract of ``ssd_chunked`` (``models/ssm.py`` in the JAX
 package): x [b, S, h, p], dt [b, S, h] (post-softplus), A [h] (< 0), B/C
 [b, S, n], a chunk that divides S and an optional initial state
 [b, h, p, n] -> (y [b, S, h, p] in x's dtype, final state [b, h, p, n]
-f32). The kernel is ``csrc/ssd_scan.cu`` (one block per (b, h) walking the
-chunks with the state in shared memory, replacing the Pallas
-``repro.kernels.ssd_scan.ssd_scan``); CPU tensors take ``ref.ssd_chunked``.
-The mixer's x, B and C are slices of its conv output: the kernel reads
-them by strides, so nothing is copied.
+f32). The kernel is ``csrc/ssd_scan.cu``, replacing the Pallas
+``repro.kernels.ssd_scan.ssd_scan``: three launches on the caller's
+stream, the chunk-local states over a (b, h, chunk) grid, the short
+recurrence of the [p, n] state across chunks, and the output over a
+(b, h, chunk, 64-row tile) grid, every product split-f32 on the tensor
+cores. The chunk states live in a [b, h, S/chunk, p, n] f32 workspace
+that the wrapper takes from PyTorch's caching allocator. CPU tensors take
+``ref.ssd_chunked``. The mixer's x, B and C are slices of its conv
+output: the kernel reads them by strides, so nothing is copied.
 """
 from __future__ import annotations
 
@@ -64,7 +68,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     module docstring. ``initial_state=None`` starts from zeros.
 
     CPU tensors: the plain version. CUDA tensors: the hand-written kernel
-    (``ssd_scan.launches`` counts its launches); on the card the last
+    (``ssd_scan.launches`` counts its calls: one call is three
+    launches of its passes); on the card the last
     stride of x, B and C must be 1, chunk <= 1024, p <= 64, n <= 256."""
     chunk = int(chunk)
     if _check(x, dt, A, B, C, chunk, initial_state) == "cpu":
@@ -89,20 +94,25 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     final = torch.empty((b, h, p, n), dtype=f32, device=x.device)
     if y.numel() == 0 or final.numel() == 0:       # nothing to scan
         return y, (final.zero_() if init is None else final.copy_(init))
+    # the chunk states (then each chunk's incoming state) and a at each
+    # chunk's last row, written and read by the kernel's three passes
+    ws = torch.empty((b, h, s // chunk, p, n), dtype=f32, device=x.device)
+    alast = torch.empty((b, h, s // chunk), dtype=f32, device=x.device)
     strides = (ctypes.c_longlong * 10)(
         *x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2])
     launch = backend.c_function(
         "ssd_scan", "ssd_scan_launch",
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     rc = launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                 C.data_ptr(), None if init is None else init.data_ptr(),
-                y.data_ptr(), final.data_ptr(), strides, b, s, h, p, n,
-                chunk, int(x.dtype == torch.bfloat16),
-                backend.stream_ptr(x.device))
+                y.data_ptr(), final.data_ptr(), ws.data_ptr(),
+                alast.data_ptr(), strides, b, s, h, p, n, chunk,
+                int(x.dtype == torch.bfloat16), backend.stream_ptr(x.device))
     backend.raise_on_error("ssd_scan", rc)
     ssd_scan.launches += 1
     return y, final
 
 
-#: kernel launches since the last reset (CPU calls do not count)
+#: calls that launched the kernel since the last reset (CPU calls do not
+#: count)
 ssd_scan.launches = 0

@@ -12,6 +12,13 @@ skip themselves elsewhere. Run them on the card with
   outputs). ``fed_mix`` also over its tile edges (D around 16-row tiles
   and 128-row blocks, P = 0..3 mod 4: rows off 16-byte alignment) and at
   the main path's D = 100, P = 246,590.
+  ``fed_mix_q`` over both its routes (the scale folded into M_new at a
+  chunk that is a multiple of 32, dequantized in the fragment load at
+  another) and a record viewed at an odd byte offset;
+* a diverged client: inf, -inf, NaN and +-the largest finite value in X of
+  ``fed_mix`` and ``fed_mix_q`` (and non-finite int8 scales) give inf and
+  NaN where the plain version does, the finite outputs at the usual
+  tolerance (the kernels' fast split sends such a tile to the full split);
   ``fed_mix_matching`` is held bit for bit: each of its operations is one
   rounding in the plain version's order. Its large-D device-memory path
   (one launch per stage) is covered at D = 2048 and 4096;
@@ -22,8 +29,10 @@ skip themselves elsewhere. Run them on the card with
   [B, S, H, hd] layout and odd row strides (tolerance f32 2e-5: an online
   softmax over split-f32 tensor-core products against a one-shot one;
   bf16 3e-2); ``ssd_scan`` over the JAX sweep, Hymba's and
-  mamba2-130m's shapes, small chunks, an initial state and strided
-  inputs (tolerance f32 rtol 1e-4 and an atol of 5e-4 of the output's
+  mamba2-130m's shapes, one chunk (nc = 1, up to 1024 rows), small
+  chunks and chunks that are not multiples of its 64-row tiles, n = 8 and
+  24 (its k8 steps of n), an initial state and strided inputs (tolerance
+  f32 rtol 1e-4 and an atol of 5e-4 of the output's
   largest value: the cumsum of dt·A, which reaches ~100 over a chunk, is
   taken in another order, exp of its differences carries ~1e-5 of
   relative error in either order, and a chunk sums hundreds of such
@@ -212,10 +221,15 @@ def test_fed_mix_matching_bitwise_on_card(cuda, d, p, stages, dtype):
     assert torch.equal(got, want)
 
 
+# + the kernel's two routes for Q: the scale folded into M_new (a chunk
+# that is a multiple of 32: 192, 256) and dequantized in the fragment load
+# (16, 48); D = 300 takes three row blocks and K in chunks of M
 @pytest.mark.parametrize("d,p,chunk", [(6, 700, 256), (16, 4096, 256),
                                        (17, 513, 128), (1, 129, 64),
                                        (40, 300, 128), (100, 4099, 256),
-                                       (7, 130, 6)])
+                                       (7, 130, 6), (100, 4099, 16),
+                                       (100, 4099, 192), (37, 1000, 192),
+                                       (300, 513, 256), (300, 513, 48)])
 @pytest.mark.parametrize("x_dtype,out_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
     (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
@@ -227,6 +241,55 @@ def test_fed_mix_q_matches_plain_on_card(cuda, d, p, chunk, x_dtype,
     assert got.dtype == out_dtype and got.shape == (d, p)
     torch.testing.assert_close(got.float(), want.float(),
                                rtol=TOL[out_dtype], atol=TOL[out_dtype])
+
+
+def _place_non_finite(x):
+    """inf, -inf, NaN, +-FLT_MAX (for bf16: +-its largest finite value) in
+    columns of their own, and inf and -inf in one column (NaN there)."""
+    big = torch.finfo(x.dtype).max
+    d = x.shape[0]
+    x[3 % d, 5] = float("inf")
+    x[7 % d, 11] = float("-inf")
+    x[1 % d, 17] = float("nan")
+    x[2 % d, 23] = big
+    x[5 % d, 29] = -big
+    x[0, 31] = float("inf")
+    x[d - 1, 31] = float("-inf")
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fed_mix_non_finite_on_card(cuda, dtype):
+    """A diverged client: non-finite values and the f32 maximum in X give
+    inf and NaN where the plain version does, and the finite outputs hold
+    the usual tolerance."""
+    mn, mo, xn, xo = _dense_args(cuda, 100, 4099, dtype)
+    _place_non_finite(xn)
+    _place_non_finite(xo[:, 40:])
+    got = fed_mix(mn, mo, xn, xo)
+    want = ref.fed_mix_ref(mn, mo, xn, xo)
+    assert not bool(torch.isfinite(want).all())
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype], equal_nan=True)
+
+
+@pytest.mark.parametrize("chunk", [256, 48])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_fed_mix_q_non_finite_on_card(cuda, chunk, x_dtype):
+    """The same for the int8 wire: non-finite values in X_old, and
+    non-finite scales (a record whose absmax overflowed)."""
+    mn, mo, q, sc, xo = _quant_args(cuda, 100, 4099, chunk, x_dtype)
+    _place_non_finite(xo)
+    sc[4, 2] = float("inf")
+    sc[9, 3] = float("nan")
+    got = fed_mix_q(mn, mo, q, sc, xo, chunk=chunk, out_dtype=torch.float32)
+    want = ref.fed_mix_q_ref(mn, mo, q, sc, xo, chunk=chunk,
+                             out_dtype=torch.float32)
+    assert not bool(torch.isfinite(want).all())
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                               equal_nan=True)
 
 
 def test_fed_mix_q_unaligned_record_on_card(cuda):
@@ -409,6 +472,11 @@ def _close_scaled(got, want):
     (2, 100, 4, 16, 16, 20, True),          # a small chunk the mixer picks
     (1, 78, 3, 64, 200, 26, False),         # n over several tiles, ragged
     (1, 7, 2, 5, 3, 7, False),
+    (1, 2048, 24, 64, 128, 256, True),      # mamba2-130m's, b reduced
+    (1, 256, 3, 64, 16, 256, False),        # one chunk (nc = 1)
+    (1, 1024, 2, 32, 24, 1024, True),       # one chunk of the largest size
+    (2, 192, 3, 64, 8, 96, True),           # n = 8; chunk not a multiple of 64
+    (1, 300, 5, 48, 24, 100, False),        # n = 24 (three k8 steps)
 ])
 @pytest.mark.parametrize("with_state", [False, True])
 def test_ssd_scan_matches_plain_on_card(cuda, b, s, h, p, n, chunk, strided,

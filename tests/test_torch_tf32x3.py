@@ -1,14 +1,23 @@
 """CPU rehearsal of the split-f32 (3xTF32) arithmetic of the port's
-tensor-core kernels (``kernels/csrc/tf32x3.cuh``, used by ``fed_mix.cu``
-and ``flash_attention.cu``).
+tensor-core kernels (``kernels/csrc/tf32x3.cuh``, used by ``fed_mix.cu``,
+``fed_mix_q.cu``, ``flash_attention.cu`` and ``ssd_scan.cu``).
 
-An f32 operand a is split as hi = tf32(a), lo = tf32(a - hi), both rounded
-to nearest with ties away from zero (the rounding of ``cvt.rna.tf32.f32``),
-and a product is taken as lo·hi + hi·lo + hi·hi, accumulated in f32. A
-bf16 operand is exact in TF32 (lo = 0), so its products take fewer terms.
-Here the split is emulated in plain PyTorch with int32 bit operations, and
-the products of the TF32 parts (exact in f32: 11 x 11 significant bits)
-are summed by CPU f32 matmuls.
+An f32 operand a is split as hi = tf32(a), rounded to nearest with ties
+away from zero (the rounding of ``cvt.rna.tf32.f32``), and lo = a - hi,
+of which the tensor cores read the top 11 significant bits (the low 13
+bits are dropped: truncation). A product is taken as lo·hi + hi·lo +
+hi·hi, accumulated in f32. A bf16 or int8 operand is exact in TF32
+(lo = 0), so its products take fewer terms. Here the split is emulated in
+plain PyTorch with int32 bit operations, and the products of the TF32
+parts (exact in f32: 11 x 11 significant bits) are summed by CPU f32
+matmuls.
+
+Non-finite values: the full split (``split()``) gives hi = 0, lo = a for
+an inf or NaN, and truncates a value whose rounding would carry into the
+all-ones exponent; the products then follow IEEE. The fast split
+(``split_fast()``, the kernels' hot path) gives such a value an inf or
+NaN part, so its products are never silently finite, and the kernels
+take that tile again with the full split.
 
 What is NOT emulated: the tensor cores' own accumulation inside an
 ``mma.sync`` (its order and internal rounding of the f32 sum). These tests
@@ -17,6 +26,8 @@ show that the split itself loses far less than the card tolerances allow
 tensor cores' accumulation keeps it so is checked on the card only
 (``tests/test_torch_cuda.py``).
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -28,16 +39,47 @@ HALF_ULP = 0x1000      # half a TF32 ulp in the f32 bits (bit 12)
 DROPPED = 0x1FFF       # the 13 low mantissa bits TF32 drops
 
 
+ROUND_MAX = 0x7F7FF000  # the least magnitude whose rounding would carry
+FLT_MAX = torch.finfo(F32).max
+
+
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
     """Round f32 to TF32 (10 mantissa bits), to nearest, ties away from
-    zero: add half an ulp to the magnitude bits, clear the dropped bits."""
+    zero: add half an ulp to the magnitude bits, clear the dropped bits. A
+    magnitude of ROUND_MAX or more (and a NaN) is truncated instead, as
+    ``to_tf32`` does."""
     bits = x.contiguous().view(torch.int32)
-    return ((bits + HALF_ULP) & ~DROPPED).view(F32)
+    carry = (bits & 0x7FFFFFFF) >= ROUND_MAX
+    return (torch.where(carry, bits, bits + HALF_ULP) & ~DROPPED).view(F32)
+
+
+def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """What the tensor cores read of an f32 operand: the low 13 bits
+    dropped."""
+    return (x.contiguous().view(torch.int32) & ~DROPPED).view(F32)
 
 
 def split(x: torch.Tensor):
+    """``split_fast``, for the values it takes (|x| < ROUND_MAX): hi
+    rounded, lo = x - hi as the tensor cores read it."""
     hi = tf32_round(x)
-    return hi, tf32_round(x - hi)
+    return hi, tf32_trunc(x - hi)
+
+
+def split_fast_bits(x: torch.Tensor):
+    """``split_fast`` bit for bit, for any x: the rounding's carry may run
+    into the exponent (or, for a NaN, the sign); int32 arithmetic wraps as
+    the card's does."""
+    hi = ((x.contiguous().view(torch.int32) + HALF_ULP) & ~DROPPED).view(F32)
+    return hi, tf32_trunc(x - hi)
+
+
+def split_full(x: torch.Tensor):
+    """``split``: an inf or NaN gives hi = 0, lo = x."""
+    hi, lo = split(x)
+    finite = torch.isfinite(x)
+    return (torch.where(finite, hi, torch.zeros_like(x)),
+            torch.where(finite, lo, x))
 
 
 def mm3(a: torch.Tensor, b: torch.Tensor, b_exact: bool = False):
@@ -177,3 +219,82 @@ def test_split_attention_tile_against_float64(q0):
                                     v[None, None], window=window,
                                     num_meta=meta)[0, 0, q0:q0 + 64]
     torch.testing.assert_close(got, plain, rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# non-finite values
+# ---------------------------------------------------------------------------
+
+SPECIALS = [float("inf"), float("-inf"), float("nan")]
+
+
+def test_split_passes_non_finite_values_through():
+    """An inf or NaN splits as hi = 0, lo = the value itself (lo meets only
+    the other operand's hi, which has its sign and is zero only where it
+    is)."""
+    x = torch.tensor(SPECIALS, dtype=F32)
+    hi, lo = split_full(x)
+    assert not bool(hi.any())
+    assert torch.equal(lo[:2], x[:2]) and bool(torch.isnan(lo[2]))
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_split_keeps_values_near_flt_max_finite(sign):
+    """FLT_MAX and the values whose rounding would carry into the all-ones
+    exponent are truncated: hi and lo stay finite, and hi + lo holds the
+    value to 2^-21."""
+    bits = torch.tensor([ROUND_MAX, ROUND_MAX + 1, 0x7F7FFFFF, 0x7F7FE000,
+                         ROUND_MAX - 1], dtype=torch.int32)
+    x = bits.view(F32) * sign
+    assert float(x.abs().max()) == FLT_MAX
+    hi, lo = split_full(x)
+    assert bool(torch.isfinite(hi).all()) and bool(torch.isfinite(lo).all())
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert bool((err <= 2.0 ** -21 * x.double().abs()).all())
+
+
+def _mm3_full(a, b):
+    ah, al = split_full(a)
+    bh, bl = split_full(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def test_split_products_follow_ieee_with_non_finite_values():
+    """A diverged client: inf, -inf, NaN, +-FLT_MAX (and an inf beside a
+    -inf) in X of a convex mix. The three split products give inf and NaN
+    where the plain f32 product does, and the finite outputs hold 1e-5."""
+    mn, mo, xn, _ = _mix_inputs(16, 40, 4)
+    m = torch.cat([mn, mo], 1)
+    x = torch.cat([xn, xn.flip(0)], 0)
+    x[3, 5], x[7, 11], x[1, 17] = SPECIALS
+    x[2, 23], x[5, 29] = FLT_MAX, -FLT_MAX
+    x[0, 31], x[9, 31] = float("inf"), float("-inf")
+    got = _mm3_full(m, x)
+    want = m @ x
+    assert not bool(torch.isfinite(want).all())
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                               equal_nan=True)
+    # the same values as the first operand (an inf weight) follow IEEE too
+    got_t = _mm3_full(x.T.contiguous(), m.T.contiguous())
+    torch.testing.assert_close(got_t, want.T, rtol=1e-5, atol=1e-5,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("value", SPECIALS + [-FLT_MAX, FLT_MAX])
+def test_fast_split_never_hides_a_non_finite_value(value):
+    """split_fast on a value outside its range (an inf, a NaN, a value whose
+    rounding carries) gives an inf or NaN part, so its product with any
+    finite operand is inf or NaN: the kernels see it and take the tile
+    again with the full split."""
+    x = torch.full((8,), value, dtype=F32)
+    if math.isfinite(value):
+        assert (x.view(torch.int32)[0] & 0x7FFFFFFF) >= ROUND_MAX
+    if value != value:  # the card's canonical NaN, whose rounding wraps
+        x = torch.full((8,), 0x7FFFFFFF, dtype=torch.int32).view(F32)
+    hi, lo = split_fast_bits(x)
+    assert not bool((torch.isfinite(hi) & torch.isfinite(lo)).all())
+    w = torch.full((1, 8), 0.125, dtype=F32)
+    wh, wl = split(w)
+    prod = wl @ hi[:, None] + wh @ lo[:, None] + wh @ hi[:, None]
+    assert not bool(torch.isfinite(prod).any())
