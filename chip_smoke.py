@@ -10,11 +10,16 @@ exits non-zero:
             kernel (one nvcc per source, all started together);
   kernels   each CUDA kernel against its plain PyTorch version on the card,
             at the main path's shapes and at ragged ones, f32 and bf16
-            (fed_mix_matching bit for bit); fed_mix and fed_mix_q with a
-            diverged client's inf, NaN and f32-maximum values (inf and NaN
-            where the plain version has them); flash_attention at Hymba's
-            prefill shapes and the JAX kernel tests' sweep, ssd_scan at
-            Hymba's and mamba2-130m's;
+            (fed_mix_matching bit for bit, on its rounding-tree route at
+            S <= 3, its stage loop at S = 4 and its device-memory path);
+            fed_mix and fed_mix_q with a diverged client's inf, NaN and
+            f32-maximum values, flash_attention with inf and NaN in V, K
+            and Q at keys in tiles it skips and in tiles it visits, and
+            ssd_scan with inf and NaN in x, dt, B and C at rows above the
+            diagonal of skipped and of visited tiles (inf and NaN where the
+            plain version has them); flash_attention at Hymba's prefill
+            shapes and the JAX kernel tests' sweep, ssd_scan at Hymba's and
+            mamba2-130m's;
   reference the port on the card (kernels) against the port on the CPU
             (plain versions) on a small CNN run with the same draws,
             gossip, gossip_async and the int8/topk wire included, and on
@@ -35,7 +40,8 @@ exits non-zero:
             plain version, its bound (the product kernels' at the
             split-f32 tensor-core rate, with the CUDA cores' f32 rate
             beside it) and its library yardstick (ssd_scan also at
-            mamba2-130m's shape), two rounds' split
+            mamba2-130m's shape; flash_attention's two non-finite
+            launches alone, fed_mix_matching at S = 2 and 1), two rounds' split
             between local training, mixing and the wire, and the Hymba
             prefill's device time by kernel.
 
@@ -337,11 +343,16 @@ def phase_kernels(torch, state):
                      "dtype": str(dt)[6:], "max_abs_err": err,
                      "atol": atol, "rtol": rtol, "ok": ok})
         failed += [] if ok else [rows[-1]]
-    # bit for bit: every operation is one rounding in the plain order
+    # bit for bit: every operation is one rounding in the plain order;
+    # the rounding tree at S <= 3, the stage loop at S = 4
     match_cases = [(MAIN_D, MAIN_P, 2, f32), (MAIN_D, MAIN_P, 2, bf16),
-                   (MAIN_D, MAIN_P, 1, f32),
+                   (MAIN_D, MAIN_P, 1, f32), (MAIN_D, MAIN_P, 1, bf16),
                    (9, 1001, 2, f32),            # odd D: byes
                    (1, 1, 1, f32), (17, 513, 2, bf16),
+                   (MAIN_D, 63, 2, f32),         # below one tile
+                   (MAIN_D, 4099, 3, f32), (MAIN_D, 4099, 0, bf16),
+                   (MAIN_D, 4099, 4, f32), (37, 130, 4, bf16),
+                   (300, 1001, 3, f32),          # a narrower tile
                    (2048, 999, 2, f32),          # device-memory path
                    (4096, 257, 1, f32)]
     for i, (d, p, stages, dt) in enumerate(match_cases):
@@ -411,12 +422,14 @@ def phase_kernels(torch, state):
 
 def non_finite_cases(torch):
     """fed_mix and fed_mix_q with a diverged client's values in X (and, for
-    the int8 wire, non-finite scales) against the plain version: inf and
-    NaN where it has them, the finite outputs at the usual tolerance."""
+    the int8 wire, non-finite scales), flash_attention and ssd_scan with
+    inf and NaN where they skip tiles and where they do not, against the
+    plain version: inf and NaN where it has them, the finite outputs at
+    the usual tolerance."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.fed_mix import fed_mix
     from repro_torch.kernels.fed_mix_q import fed_mix_q
-    rows = []
+    rows = lm_non_finite_cases(torch)
     for i, dt in enumerate((torch.float32, torch.bfloat16)):
         mn, mo, xn, xo = dense_inputs(torch, MAIN_D, MAIN_P, dt, seed=700 + i)
         place_non_finite(torch, xn)
@@ -447,8 +460,76 @@ def non_finite_cases(torch):
     return rows
 
 
+def lm_non_finite_cases(torch):
+    """flash_attention at Hymba's 2048-position prefill (window 1024 with
+    the 128 meta tokens, and a full layer), f32 and bf16, with inf and NaN
+    in V at the last key (above the diagonal of every earlier query tile),
+    at key 300 (outside the window of rows 1324 on: query tiles 21-31 skip
+    its tile), at key 5 (a meta token, visible to every row) and key 1500,
+    in K at key 900 and in Q at row 1000. ssd_scan at Hymba's and
+    mamba2-130m's shapes, one call with inf and NaN in x and dt and one in
+    B and C, each at row 100 of the first chunk (a source tile the output
+    pass skips for rows 0-63) or row 30 (inside the diagonal tile), one
+    batch element each."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    inf, nan = math.inf, math.nan
+    rows = []
+    for window in (LM_WINDOW, 0):
+        for i, dt in enumerate((torch.float32, torch.bfloat16)):
+            q, k, v = attention_inputs(torch, LM_B, LM_HQ, LM_HKV, LM_S,
+                                       LM_HD, dt, seed=720 + i)
+            v[0, 1, LM_S - 1, 3], v[1, 0, LM_S - 1, 7] = inf, nan
+            v[2, 2, 300, 11], v[3, 4, 300, 13] = -inf, nan
+            v[0, 3, 5, 17], v[1, 2, 1500, 19] = nan, inf
+            k[2, 0, 900, 2], q[3, 7, 1000, 9] = inf, inf
+            got = flash_attention(q, k, v, window=window, num_meta=LM_META)
+            torch.cuda.synchronize()
+            name = str(dt)[6:]
+            err, atol, rtol, ok = compare_non_finite(
+                torch, got, ref.flash_attention_ref(
+                    q, k, v, window=window, num_meta=LM_META),
+                FLASH_TOL[name])
+            rows.append({"kernel": "flash_attention", "B": LM_B, "S": LM_S,
+                         "window": window, "num_meta": LM_META,
+                         "dtype": name, "non_finite": True,
+                         "max_abs_err": err, "atol": atol, "rtol": rtol,
+                         "ok": ok})
+    for h, p, n, chunk in ((50, 64, 16, 128), (24, 64, 128, 256)):
+        for j, names in enumerate((("x", "dt"), ("B", "C"))):
+            args, _ = ssd_inputs(torch, LM_B, LM_S, h, p, n, 730 + j, False)
+            x, dts, _, B, C = args
+            where = {"x": lambda bb, r, v: x.__setitem__((bb, r, 1, 3), v),
+                     "dt": lambda bb, r, v: dts.__setitem__((bb, r, 1), v),
+                     "B": lambda bb, r, v: B.__setitem__((bb, r, 5), v),
+                     "C": lambda bb, r, v: C.__setitem__((bb, r, 5), v)}
+            for bb, (name, r, v) in enumerate(
+                    ((names[0], 100, inf), (names[0], 30, nan),
+                     (names[1], 100, inf), (names[1], 30, nan))):
+                where[name](bb, r, v)
+            y, st = ssd_scan(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            y_ref, st_ref = ref.ssd_chunked(*args, chunk)
+            scale = float(y_ref[torch.isfinite(y_ref)].abs().max())
+            err, atol, rtol, ok_y = compare_non_finite(
+                torch, y, y_ref, (SSD_ATOL_SCALE * scale, SSD_RTOL))
+            st_scale = float(st_ref[torch.isfinite(st_ref)].abs().max())
+            _, _, _, ok_s = compare_non_finite(
+                torch, st, st_ref, (SSD_ATOL_SCALE * st_scale, SSD_RTOL))
+            rows.append({"kernel": "ssd_scan", "b": LM_B, "S": LM_S, "h": h,
+                         "p": p, "n": n, "chunk": chunk,
+                         "non_finite_in": list(names), "initial_state": False,
+                         "dtype": "float32", "non_finite": True,
+                         "max_abs_err": err, "atol": atol, "rtol": rtol,
+                         "ok": ok_y and ok_s})
+    return rows
+
+
 def main_case(row):
     """Whether a kernels-phase row is at the main path's shape, f32."""
+    if row.get("non_finite"):
+        return False
     if row["kernel"] == "flash_attention":
         return (row["B"], row["S"], row["window"], row["dtype"]) == (
             LM_B, LM_S, LM_WINDOW, "float32")
@@ -965,7 +1046,7 @@ def phase_timing(torch, state):
             "name": "fed_mix_matching", "S": stages,
             "ms": named_ms(device_ms(
                 torch, lambda: fed_mix_matching(perms, sv, xn, xo)),
-                "matching_mix_kernel"),
+                "matching_tree_kernel"),
             "plain_ms": sum(device_ms(
                 torch, lambda: ref.fed_mix_matching_ref(perms, sv, xn,
                                                         xo)).values()),
@@ -1053,10 +1134,13 @@ def lm_timing(torch):
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                   enable_gqa=True)
 
+        per = device_ms(torch, call)
         rows.append({
             "name": "flash_attention", "S": LM_S, "window": window,
             "num_meta": LM_META, "visible_pairs_per_head": pairs,
-            "ms": named_ms(device_ms(torch, call), "flash_fwd_kernel"),
+            "ms": named_ms(per, "flash_fwd_kernel"),
+            "nonfinite_ms": named_ms(per, "flash_fwd_kernel_vflags")
+                          + named_ms(per, "flash_fwd_kernel_nanfix"),
             "plain_ms": sum(device_ms(torch, plain, reps=5).values()),
             "bytes": byts, "flops": flops, **product_bounds(byts, flops),
             "library_ms": sum(device_ms(torch, library).values()),
@@ -1094,6 +1178,11 @@ def lm_timing(torch):
             "chunk": chunk, "ms": named_ms(per, "ssd_scan_kernel"),
             "passes_ms": {w: named_ms(per, f"ssd_scan_kernel_{w}")
                           for w in ("local", "carry", "output")},
+            "nonfinite_ms": None,
+            "nonfinite": "no launch of its own: the non-finite masks are "
+                         "written by the chunk-state pass (zeros on finite "
+                         "input) and read by the output pass, inside "
+                         "passes_ms",
             "plain_ms": sum(device_ms(
                 torch,
                 lambda: ref.ssd_chunked(*args, chunk, initial_state=init),

@@ -1,0 +1,86 @@
+#!/usr/bin/env python3
+"""Device times of the port's kernels from one source tree, for comparing
+two trees on one card.
+
+    python3 scripts/torch_kernel_ab.py --src DIR [--label NAME] [--out FILE]
+
+Imports ``repro_torch`` from ``DIR`` (a checkout's ``src/``; its kernels
+build into that checkout's ``build/``) and times, with ``chip_smoke.py``'s
+inputs and its ``device_ms`` (torch.profiler, mean of 20 calls after 3
+warm-up calls), the summed device time of every kernel one call launches:
+
+* ``flash_attention`` at Hymba-1.5B's 2048-position prefill (B 4, 25/5
+  heads of 64, 128 meta tokens), window 1024 and a full layer;
+* ``ssd_scan`` at Hymba's SSM heads (50 x 64, state 16, chunk 128, an
+  initial state);
+* ``fed_mix_matching`` at the FL main shape (D = 100, P = 246,590, f32),
+  S = 2 (gossip's ring) and S = 1 (gossip_async).
+
+Run it once per tree in turns (parent, change, change, parent) inside one
+call to compare two versions; each run prints one JSON line.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--src", required=True)
+    ap.add_argument("--label", default="")
+    ap.add_argument("--out", default="")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    sys.path.insert(1, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.fed_mix_sparse import fed_mix_matching
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    backend.use_full_f32()
+    backend.build(("flash_attention", "ssd_scan", "fed_mix_matching"))
+    rows = {}
+
+    def record(key, fn):
+        per = cs.device_ms(torch, fn)
+        rows[key] = {"ms": sum(per.values()),
+                     "kernels_ms": {k[:60]: v for k, v in per.items()}}
+
+    q, k, v = cs.attention_inputs(torch, cs.LM_B, cs.LM_HQ, cs.LM_HKV,
+                                  cs.LM_S, cs.LM_HD, torch.float32, seed=7)
+    for window in (cs.LM_WINDOW, 0):
+        record(f"flash_window{window}",
+               lambda: flash_attention(q, k, v, window=window,
+                                       num_meta=cs.LM_META))
+    args_ssd, init = cs.ssd_inputs(torch, cs.LM_B, cs.LM_S, 50, 64, 16, 8,
+                                   True)
+    record("ssd_scan_hymba",
+           lambda: ssd_scan(*args_ssd, chunk=128, initial_state=init))
+    for stages in (2, 1):
+        m = cs.matching_inputs(torch, cs.MAIN_D, cs.MAIN_P, stages,
+                               torch.float32, seed=3)
+        record(f"fed_mix_matching_S{stages}", lambda: fed_mix_matching(*m))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    line = json.dumps({"label": args.label or args.src, "nvidia_smi": smi,
+                       "times": rows})
+    print(line, flush=True)
+    if args.out:
+        with open(args.out, "a") as f:
+            f.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,28 +16,47 @@
 // What bounds it on the card: memory. Per output element it does a few
 // flops against eight bytes read and four written (f32). At the main
 // path's shape (D = 100, P = 246,590, f32) one launch must move
-// 3·D·P·4 ≈ 296 MB.
+// 3·D·P·4 ≈ 296 MB: 0.088 ms at 3.35 TB/s.
 //
 // What the design does about it: all the parallelism lies along P, and a
 // stage mixes whole rows, so a block owns a tile of consecutive columns
-// and holds all D rows of that tile in shared memory as f32, in two ping-
-// pong buffers. It loads x_new and x_old once (consecutive threads on
-// consecutive columns: coalesced), fuses the straggler substitution into
-// that load, runs the S stages between __syncthreads(), and writes the
-// last stage straight to out: each byte is moved once. Every operation is
+// and holds all D rows of that tile in shared memory. Every operation is
 // one IEEE rounding in the plain version's order (__fmul_rn / __fadd_rn,
 // so nvcc cannot contract them into an FMA), which makes the kernel equal
-// to the plain version bit for bit. When D rows of even a 32-column tile
-// do not fit twice in shared memory (D > ~900), the kernel runs one launch
-// per stage through device memory instead: stage 0 computes eff on the fly
-// from x_new/x_old, the middle stages ping-pong between two [D, P] f32
-// scratch buffers, and the last stage writes out.
+// to the plain version bit for bit. Three routes, by S and D:
+// 1. matching_tree_kernel (S <= 3, the gossip family's 1 and 2): no stage
+//    loop and no barrier between stages. Stage s averages row r with row
+//    perm_s[r], so the output of row i is a rounding tree over 2^S rows
+//    of eff (i, perm_0[i], perm_1[i], perm_0[perm_1[i]] at S = 2), added
+//    pairwise in the plain version's order: each intermediate value is
+//    the same IEEE operation on the same operands, so the result is bit
+//    for bit the stage loop's. Each block composes every row's leaves
+//    once from the [S, D] perms (a row with a partner outside [0, D)
+//    anywhere in its tree is NaN, as the stage loop makes it) and stages
+//    the survive mask, both in shared memory. The block is persistent: it
+//    walks column tiles of a compile-time width (256 bytes of a row at
+//    D = 100) with x_new and x_old of tile t + 1 in flight by cp.async
+//    (16-byte copies where the row allows, 8 where it is 8-byte aligned:
+//    at P = 2 mod 4 every other f32 row is) while tile t is consumed. A
+//    thread owns a (row, 16-byte column vector) pair with no division,
+//    substitutes stragglers as it reads each leaf's vectors, and stores a
+//    vector. Two blocks of 104 KB share an SM at D = 100.
+// 2. matching_mix_kernel (S >= 4, or D too large for two tree buffers):
+//    all D rows of a column tile in two ping-pong f32 buffers, the S
+//    stages between __syncthreads().
+// 3. When D rows of even a 32-column tile do not fit twice in shared
+//    memory (D > ~900), one launch per stage through device memory:
+//    stage 0 computes eff on the fly from x_new/x_old, the middle stages
+//    ping-pong between two [D, P] f32 scratch buffers, and the last stage
+//    writes out.
 //
 // A partner index outside [0, D) makes that output row NaN (jnp.take's
 // fill mode); the CPU wrapper raises on it before any launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "cp_async.cuh"
 
 namespace {
 
@@ -65,6 +84,176 @@ __device__ __forceinline__ float halve_sum(float a, float b) {
 }
 
 __device__ __forceinline__ float nan_f32() { return __int_as_float(0x7fc00000); }
+
+// ---------------------------------------------------------------------------
+// route 1: the rounding tree, S <= 3
+// ---------------------------------------------------------------------------
+
+constexpr int kTreeThreads = 256;
+constexpr int kMaxTreeStages = 3;
+
+// the 16-byte vector of VEC elements at src (16-byte aligned shared
+// memory) as f32
+__device__ __forceinline__ void load_vec(const float* src, float (&v)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = a.z;
+  v[3] = a.w;
+}
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* src, float (&v)[8]) {
+  const uint4 a = *reinterpret_cast<const uint4*>(src);
+  const uint32_t w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[2 * k] = __uint_as_float(w[k] << 16);
+    v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+
+// the first n (<= VEC) of v to dst in T, 16 bytes at a time where dst
+// allows, else 8, else one element at a time
+__device__ __forceinline__ void store_vec(float* dst, const float (&v)[4], int n) {
+  const uintptr_t a = (uintptr_t)dst;
+  if (n == 4 && (a & 15) == 0) {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if (n == 4 && (a & 7) == 0) {
+    reinterpret_cast<float2*>(dst)[0] = make_float2(v[0], v[1]);
+    reinterpret_cast<float2*>(dst)[1] = make_float2(v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (k < n) dst[k] = v[k];
+  }
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* dst, const float (&v)[8], int n) {
+  const uintptr_t a = (uintptr_t)dst;
+  if (n == 8 && (a & 15) == 0) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                                                pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+  } else if (n == 8 && (a & 7) == 0) {
+    reinterpret_cast<uint2*>(dst)[0] = make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+    reinterpret_cast<uint2*>(dst)[1] = make_uint2(pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (k < n) dst[k] = __float2bfloat16_rn(v[k]);
+  }
+}
+
+// Bytes of shared memory the tree kernel takes: two buffers of the
+// [D, W] x_new and x_old tiles, the leaves and the survive mask.
+__host__ __device__ constexpr size_t tree_smem_bytes(int d, int stages, int tile_bytes) {
+  return 4 * (size_t)d * tile_bytes + (size_t)d * ((1 << stages) + 1) * 4;
+}
+
+// Block: persistent over column tiles of W = WB / sizeof(T) elements.
+// Shared: tiles[2 buffers][x_new, x_old][D][W] (T), leaf[D][2^S] (int,
+// leaf[i][0] = -1 for a NaN row), sv[D] (f32).
+template <typename T, int S, int WB>
+__global__ void __launch_bounds__(kTreeThreads)
+matching_tree_kernel(const int32_t* __restrict__ perms, const float* __restrict__ survive,
+                     const T* __restrict__ x_new, const T* __restrict__ x_old,
+                     T* __restrict__ out, int d, int64_t p, int64_t n_tiles) {
+  constexpr int NL = 1 << S;               // leaves of an output's tree
+  constexpr int W = WB / (int)sizeof(T);   // columns of a tile
+  constexpr int VEC = 16 / (int)sizeof(T); // columns of a 16-byte vector
+  constexpr int NV = W / VEC;              // vectors of a tile row
+  constexpr int RPP = kTreeThreads / NV;   // rows a pass of the block covers
+  extern __shared__ __align__(16) unsigned char tree_smem[];
+  T* const tiles = reinterpret_cast<T*>(tree_smem);
+  const size_t tile_elems = (size_t)d * W;
+  int* const leaf = reinterpret_cast<int*>(tiles + 4 * tile_elems);
+  float* const sv = reinterpret_cast<float*>(leaf + d * NL);
+  const int tid = threadIdx.x;
+  const int vec = tid % NV, row0 = tid / NV;  // NV a power of two: no division
+
+  // x_new and x_old of column tile `tile` into buffer `buf`, cp.async
+  auto issue = [&](int64_t tile, int buf) {
+    T* dn = tiles + (size_t)(2 * buf) * tile_elems + vec * VEC;
+    T* dold = dn + tile_elems;
+    const int64_t c = tile * W + vec * VEC;
+    const int nbytes = c < p ? (int)(p - c < VEC ? p - c : VEC) * (int)sizeof(T) : 0;
+    for (int i = row0; i < d; i += RPP) {
+      const int64_t g = nbytes ? (int64_t)i * p + c : 0;
+      cp_async::chunk16(dn + i * W, x_new + g, nbytes);
+      cp_async::chunk16(dold + i * W, x_old + g, nbytes);
+    }
+  };
+  int64_t tile = blockIdx.x;
+  if (tile < n_tiles) issue(tile, 0);
+  cp_async::commit();
+
+  // each row's leaves: expand the tree from the last stage down, each
+  // node r of stage s into (r, perm_s[r]); a partner outside [0, D)
+  // anywhere makes the row NaN
+  for (int i = tid; i < d; i += kTreeThreads) {
+    int l[NL];
+    l[0] = i;
+    bool ok = true;
+#pragma unroll
+    for (int s = S - 1; s >= 0; --s) {
+#pragma unroll
+      for (int k = (1 << (S - 1 - s)) - 1; k >= 0; --k) {
+        const int r = l[k];
+        const int j = perms[(int64_t)s * d + r];
+        const bool valid = (unsigned)j < (unsigned)d;
+        ok = ok && valid;
+        l[2 * k + 1] = valid ? j : r;
+        l[2 * k] = r;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NL; ++k) leaf[i * NL + k] = k == 0 && !ok ? -1 : l[k];
+    sv[i] = survive[i];
+  }
+
+  for (int it = 0; tile < n_tiles; tile += gridDim.x, ++it) {
+    const int64_t next = tile + gridDim.x;
+    if (next < n_tiles) issue(next, (it + 1) & 1);
+    cp_async::commit();
+    cp_async::wait<1>();
+    __syncthreads();  // tile `tile` staged by every thread (and the leaves written)
+    const T* tn = tiles + (size_t)(2 * (it & 1)) * tile_elems + vec * VEC;
+    const T* to = tn + tile_elems;
+    const int64_t c = tile * W + vec * VEC;
+    if (c < p) {
+      const int n = p - c < VEC ? (int)(p - c) : VEC;
+      for (int i = row0; i < d; i += RPP) {
+        const int* li = leaf + i * NL;
+        float node[NL][VEC];
+#pragma unroll
+        for (int k = 0; k < NL; ++k) {
+          const int r = k == 0 && li[0] < 0 ? i : li[k];
+          float xn[VEC], xo[VEC];
+          load_vec(tn + r * W, xn);
+          load_vec(to + r * W, xo);
+          const float s = sv[r];
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) node[k][e] = substitute(s, xn[e], xo[e]);
+        }
+        // stage 0 pairs leaves (2m, 2m + 1), stage 1 those pairs' results, ...
+#pragma unroll
+        for (int step = 1; step < NL; step *= 2)
+#pragma unroll
+          for (int k = 0; k < NL; k += 2 * step)
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) node[k][e] = halve_sum(node[k][e], node[k + step][e]);
+        if (li[0] < 0) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) node[0][e] = nan_f32();
+        }
+        store_vec(out + (int64_t)i * p + c, node[0], n);
+      }
+    }
+    __syncthreads();  // every thread is done with this buffer before it is refilled
+  }
+  cp_async::wait<0>();
+}
 
 // Shared-memory path: block b owns columns [b * tile, (b + 1) * tile).
 // buf[k] holds the tile's D rows, element (i, c) at i * tile + c.
@@ -161,10 +350,66 @@ int tile_for(int d) {
   return tile;
 }
 
+// The tree kernel's tile row in bytes at (d, stages): the widest of 256,
+// 128 and 64 with which two blocks share an SM, else the widest with
+// which one block fits; 0 when none fits or stages > 3.
+int tree_tile_bytes(int d, int stages) {
+  if (stages > kMaxTreeStages) return 0;
+  int dev = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  const size_t two = (size_t)per_sm / 2 - 1024;  // 1 KB a block is the system's
+  for (int wb = 256; wb >= 64; wb /= 2)
+    if (tree_smem_bytes(d, stages, wb) <= two) return wb;
+  for (int wb = 256; wb >= 64; wb /= 2)
+    if (tree_smem_bytes(d, stages, wb) <= max_smem_per_block()) return wb;
+  return 0;
+}
+
+template <typename T, int S, int WB>
+cudaError_t launch_tree(const int32_t* perms, const float* survive, const T* x_new,
+                        const T* x_old, T* out, int d, int64_t p, cudaStream_t stream) {
+  constexpr int W = WB / (int)sizeof(T);
+  const size_t smem = tree_smem_bytes(d, S, WB);
+  auto kernel = matching_tree_kernel<T, S, WB>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kTreeThreads, smem);
+  if (err != cudaSuccess) return err;
+  const int64_t n_tiles = (p + W - 1) / W;
+  const int64_t resident = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+  const unsigned blocks = (unsigned)(n_tiles < resident ? n_tiles : resident);
+  kernel<<<blocks, kTreeThreads, smem, stream>>>(perms, survive, x_new, x_old, out, d, p,
+                                                 n_tiles);
+  return cudaGetLastError();
+}
+
+template <typename T, int S>
+cudaError_t launch_tree_wb(int wb, const int32_t* perms, const float* survive,
+                           const T* x_new, const T* x_old, T* out, int d, int64_t p,
+                           cudaStream_t stream) {
+  if (wb == 256) return launch_tree<T, S, 256>(perms, survive, x_new, x_old, out, d, p, stream);
+  if (wb == 128) return launch_tree<T, S, 128>(perms, survive, x_new, x_old, out, d, p, stream);
+  return launch_tree<T, S, 64>(perms, survive, x_new, x_old, out, d, p, stream);
+}
+
 template <typename T>
 cudaError_t launch(const int32_t* perms, const float* survive, const T* x_new,
                    const T* x_old, T* out, float* scratch, int d, int64_t p, int stages,
                    cudaStream_t stream) {
+  if (const int wb = tree_tile_bytes(d, stages)) {
+    switch (stages) {
+      case 0: return launch_tree_wb<T, 0>(wb, perms, survive, x_new, x_old, out, d, p, stream);
+      case 1: return launch_tree_wb<T, 1>(wb, perms, survive, x_new, x_old, out, d, p, stream);
+      case 2: return launch_tree_wb<T, 2>(wb, perms, survive, x_new, x_old, out, d, p, stream);
+      default: return launch_tree_wb<T, 3>(wb, perms, survive, x_new, x_old, out, d, p, stream);
+    }
+  }
   const int tile = tile_for(d);
   if (tile > 0) {
     const size_t smem = smem_bytes(d, tile);
@@ -206,8 +451,9 @@ cudaError_t launch(const int32_t* perms, const float* survive, const T* x_new,
 extern "C" {
 
 // How many [D, P] f32 scratch buffers the caller must pass for (d, stages):
-// 0 on the shared-memory path, else min(stages - 1, 2) (one launch per
-// stage through device memory).
+// 0 on the shared-memory routes, else min(stages - 1, 2) (one launch per
+// stage through device memory). (Where even the stage loop's tile does
+// not fit, the tree's does not either.)
 int fed_mix_matching_scratch_buffers(int d, int stages) {
   if (tile_for(d) > 0 || stages < 2) return 0;
   return stages == 2 ? 1 : 2;

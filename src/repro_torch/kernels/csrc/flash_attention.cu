@@ -61,6 +61,24 @@
 //   whose result holds one is taken again on the full split, whose
 //   products follow IEEE (flash_block_full, out of line so that the fast
 //   path keeps its registers).
+// - Non-finite values in keys a row does not see. The JAX kernel visits
+//   every key tile: a masked key has p = 0, and 0 · v[k, e] is NaN where
+//   v[k, e] is inf or NaN, so column e of every row that key is masked for
+//   comes out NaN (masked scores are replaced by -1e30, so a non-finite k
+//   or q never propagates through a masked key). Inside the tiles a warp
+//   computes, the arithmetic gives this NaN itself. The tiles it skips
+//   (above the diagonal, outside the window, or with no key any of its 16
+//   rows sees) take two small launches around the attention, which itself
+//   is unchanged: flash_fwd_kernel_vflags, one block per (b, kv head,
+//   64-key tile), reads V once (8 % of the call's bytes at Hymba's shape)
+//   and writes a bitmask over the hd columns of "holds an inf or NaN";
+//   after the attention, flash_fwd_kernel_nanfix ORs, for each warp of
+//   each query tile, the masks of the tiles that warp skipped and writes
+//   NaN into those columns of its 16 rows, for every query head of the
+//   GQA group. Finite input pays the two launches (reading V once and the
+//   masks) and no store; no skipped tile is visited. (Taking the OR and
+//   the NaN inside the attention kernel made it 3-6 % slower at its
+//   255-register limit.)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,6 +107,17 @@ template <typename T, int HD> __host__ __device__ constexpr int pitch() {
 template <typename T, int HD>
 constexpr size_t smem_bytes() {
   return sizeof(T) * (size_t)pitch<T, HD>() * (kBQ + 4 * kBK);  // Q, K x 2, V x 2
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T nan_as();
+template <> __device__ __forceinline__ float nan_as<float>() {
+  return __int_as_float(0x7fc00000);
+}
+template <> __device__ __forceinline__ __nv_bfloat16 nan_as<__nv_bfloat16>() {
+  return __float2bfloat16_rn(__int_as_float(0x7fc00000));
 }
 
 // element idx of a shared tile as a TF32 hi/lo pair: f32 split (kFull:
@@ -405,36 +434,125 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                             num_meta);
 }
 
+// Before the attention: vflags[b][kv head][key tile] = the bitmask over
+// the hd columns (four 32-bit words) of "V holds an inf or NaN in this
+// column within the tile's 64 keys". One block of 128 threads per (tile,
+// kv head, b); thread c reads column c of every row of the tile (a row's
+// columns are consecutive threads), eight rows in flight.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel_vflags(const T* __restrict__ v, Strides sv, uint4* __restrict__ vflags,
+                        int n_k, int hd) {
+  const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int c = threadIdx.x;
+  const T* col = v + b * sv.b + hk * sv.h + (long long)kt * kBK * sv.s + c;
+  const int rows = min(kBK, n_k - kt * kBK);
+  bool bad = false;
+  if (c < hd) {
+    for (int r0 = 0; r0 < rows; r0 += 8) {
+      float x[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) x[i] = r0 + i < rows ? to_f32(col[(r0 + i) * sv.s]) : 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) bad |= !tf32x3::finite(x[i]);
+    }
+  }
+  const uint32_t word = __ballot_sync(0xffffffffu, bad);
+  __shared__ uint32_t words[kThreads / 32];
+  if ((c & 31) == 0) words[c >> 5] = word;
+  __syncthreads();
+  if (c == 0)
+    vflags[((long long)b * gridDim.y + hk) * gridDim.x + kt] =
+        make_uint4(words[0], words[1], words[2], words[3]);
+}
+
+// After the attention: for each warp of the attention's query tile qt
+// (rows 16w .. 16w + 15), the OR of vflags over the key tiles it did not
+// compute (those its block skips: above the diagonal, or outside the
+// window with no meta token; and those none of its 16 rows sees), and NaN
+// into those columns of its rows, in every query head of the kv head's
+// group. One block per (query tile, kv head, b), a warp per attention
+// warp; a lane per key tile, then a lane per (row, flagged column).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel_nanfix(const uint4* __restrict__ vflags, T* __restrict__ o, Strides so,
+                        int group, int n_q, int n_k, int window, int num_meta) {
+  const int qt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_kt = (n_k + kBK - 1) / kBK;
+  const int q0 = qt * kBQ, q_last = min(q0 + kBQ, n_q) - 1;
+  const int kt_last = min((n_k - 1) / kBK, q_last / kBK);
+  const int r_lo = q0 + warp * 16, r_hi = r_lo + 15;
+  const uint4* vf = vflags + ((long long)b * gridDim.y + hk) * n_kt;
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  for (int j = lane; j < n_kt; j += 32) {
+    const int k0 = j * kBK;
+    const bool skipped = j > kt_last || (window > 0 && k0 >= num_meta &&
+                                         q0 - (k0 + kBK - 1) >= window);
+    const bool dead = k0 > r_hi || (window > 0 && k0 >= num_meta &&
+                                    r_lo - (k0 + kBK - 1) >= window);
+    if (skipped || dead) {
+      const uint4 f = vf[j];
+      w[0] |= f.x;
+      w[1] |= f.y;
+      w[2] |= f.z;
+      w[3] |= f.w;
+    }
+  }
+  uint32_t any = 0u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) any |= w[i] = __reduce_or_sync(0xffffffffu, w[i]);
+  if (!any) return;  // finite input: nothing to store
+  const T nan = nan_as<T>();
+  for (int hh = 0; hh < group; ++hh) {
+    T* ob = o + b * so.b + (long long)(hk * group + hh) * so.h;
+    for (int i = 0; i < 4; ++i) {
+      for (uint32_t m = w[i]; m; m &= m - 1) {
+        const int d = 32 * i + __ffs(m) - 1;
+        if (lane < 16 && r_lo + lane < n_q) ob[(r_lo + lane) * so.s + d] = nan;
+      }
+    }
+  }
+}
+
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, Strides sq,
-                   Strides sk, Strides sv, Strides so, int batch, int hq, int group,
-                   int n_q, int n_k, int hd, float scale, int window, int num_meta,
-                   cudaStream_t stream) {
+                   Strides sk, Strides sv, Strides so, uint4* vflags, int batch, int hq,
+                   int group, int n_q, int n_k, int hd, float scale, int window,
+                   int num_meta, cudaStream_t stream) {
   const size_t bytes = smem_bytes<T, HD>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n_q + kBQ - 1) / kBQ, hq, batch);
-  flash_fwd_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
+  const int n_qt = (n_q + kBQ - 1) / kBQ;
+  flash_fwd_kernel_vflags<T><<<dim3((n_k + kBK - 1) / kBK, hq / group, batch), kThreads, 0,
+                               stream>>>((const T*)v, sv, vflags, n_k, hd);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_fwd_kernel<T, HD><<<dim3(n_qt, hq, batch), kThreads, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, sk, sv, so, group, n_q, n_k, hd,
       scale, window, num_meta);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_fwd_kernel_nanfix<T><<<dim3(n_qt, hq / group, batch), kThreads, 0, stream>>>(
+      vflags, (T*)o, so, group, n_q, n_k, window, num_meta);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, Strides sq,
-                      Strides sk, Strides sv, Strides so, int batch, int hq, int group,
-                      int n_q, int n_k, int hd, float scale, int window, int num_meta,
-                      cudaStream_t stream) {
+                      Strides sk, Strides sv, Strides so, uint4* vflags, int batch, int hq,
+                      int group, int n_q, int n_k, int hd, float scale, int window,
+                      int num_meta, cudaStream_t stream) {
   if (hd <= 32)
-    return launch<T, 32>(q, k, v, o, sq, sk, sv, so, batch, hq, group, n_q, n_k, hd, scale,
-                         window, num_meta, stream);
+    return launch<T, 32>(q, k, v, o, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k, hd,
+                         scale, window, num_meta, stream);
   if (hd <= 64)
-    return launch<T, 64>(q, k, v, o, sq, sk, sv, so, batch, hq, group, n_q, n_k, hd, scale,
-                         window, num_meta, stream);
-  return launch<T, 128>(q, k, v, o, sq, sk, sv, so, batch, hq, group, n_q, n_k, hd, scale,
-                        window, num_meta, stream);
+    return launch<T, 64>(q, k, v, o, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k, hd,
+                         scale, window, num_meta, stream);
+  return launch<T, 128>(q, k, v, o, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k, hd,
+                        scale, window, num_meta, stream);
 }
 
 }  // namespace
@@ -443,23 +561,26 @@ extern "C" {
 
 // q [batch, hq, n_q, hd], k/v [batch, hq/group, n_k, hd], o like q; each
 // given by its (batch, head, row) element strides, the hd stride 1; f32
-// when is_bf16 == 0, else bf16; hd <= 128. Launches on `stream` and
-// returns cudaGetLastError().
+// when is_bf16 == 0, else bf16; hd <= 128. vflags: a workspace of batch x
+// hq/group x ceil(n_k / 64) entries of 16 bytes, 16-byte aligned. Three
+// launches on `stream` (V's flags, the attention, the NaN of skipped
+// tiles); returns the first failure of cudaGetLastError().
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                            const long long* strides,  // 12: q, k, v, o x (b, h, s)
-                           int batch, int hq, int group, int n_q, int n_k, int hd,
-                           float scale, int window, int num_meta, int is_bf16,
+                           void* vflags, int batch, int hq, int group, int n_q, int n_k,
+                           int hd, float scale, int window, int num_meta, int is_bf16,
                            void* stream) {
   const Strides sq{strides[0], strides[1], strides[2]};
   const Strides sk{strides[3], strides[4], strides[5]};
   const Strides sv{strides[6], strides[7], strides[8]};
   const Strides so{strides[9], strides[10], strides[11]};
   cudaStream_t s = (cudaStream_t)stream;
+  uint4* vf = (uint4*)vflags;
   if (is_bf16)
-    return (int)launch_hd<__nv_bfloat16>(q, k, v, o, sq, sk, sv, so, batch, hq, group, n_q,
-                                         n_k, hd, scale, window, num_meta, s);
-  return (int)launch_hd<float>(q, k, v, o, sq, sk, sv, so, batch, hq, group, n_q, n_k, hd,
-                               scale, window, num_meta, s);
+    return (int)launch_hd<__nv_bfloat16>(q, k, v, o, sq, sk, sv, so, vf, batch, hq, group,
+                                         n_q, n_k, hd, scale, window, num_meta, s);
+  return (int)launch_hd<float>(q, k, v, o, sq, sk, sv, so, vf, batch, hq, group, n_q, n_k,
+                               hd, scale, window, num_meta, s);
 }
 
 }  // extern "C"

@@ -63,6 +63,26 @@
 // whose products follow IEEE. Any chunk up to 1024 that divides S (ragged
 // row and source tiles are masked), p <= 64 (padded to 64), n <= 256
 // (padded to whole k8 steps).
+//
+// Non-finite values above the diagonal. The JAX kernel takes the whole
+// chunk: y = ((C·Bᵀ) ∘ L) · (x·dt) with L = 0 above the diagonal, so a
+// source s makes every earlier row l < s of its chunk NaN wherever C_l·B_s
+// or x_s·dt_s is not finite: (C_l·B_s)·0 is NaN for a non-finite C row or
+// B row (all columns), and 0 · (x·dt)[s, p] is NaN for a non-finite
+// x[s, p] or dt_s (column p, or all of them). Pass 3 keeps that without
+// visiting more: on the full split (the fast split's result is never
+// silently finite, so a block whose own tiles hold such a value is always
+// taken again) its masked entries are G·(0·dt_s) instead of 0; the source
+// tiles above the diagonal, which it skips, are summarized by pass 1, which
+// reads every source anyway: on its full split it writes, per (b, h,
+// chunk, 64-source tile, group of state columns), a bitmask over p of
+// "x·dt holds an inf or NaN in this column", all ones where the group's
+// B columns hold one (zeros on the fast split: then nothing there is non-
+// finite). Pass 3 ORs the masks of the tiles above its row tile into NaN
+// columns, and a row whose C holds an inf or NaN is NaN in every column
+// when such a tile exists. Finite input pays only the masks' stores and
+// loads. Limit: x·dt that overflows f32 from finite x and dt is not
+// flagged (the reference then gives NaN in earlier rows).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,6 +98,8 @@ constexpr int kThreads = 128;    // 4 warps
 constexpr int kR = 64;           // rows per tile (output rows, sources)
 constexpr int kP = 64;           // head_dim, padded
 constexpr int kMaxChunk = 1024;
+constexpr int kMaxTiles = kMaxChunk / kR;  // 64-row tiles of a chunk
+constexpr int kFlagSlots = 4;              // pass 1's groups of state columns, at most
 constexpr int kMaxN = 256;
 constexpr int kPX1 = kP + 8;     // pass 1 x pitch: [source][p] read as (t, g)
 constexpr int kPX3F = kP + 4;    // pass 3 x pitch, f32: [source][p] read as (2t, g)
@@ -94,6 +116,7 @@ struct Args {
   float* final_state;  // [b, h, p, n] contiguous
   float* ws;           // [b, h, nc, p, n]: chunk states, then incoming states
   float* alast;        // [b, h, nc]: a at each chunk's last row
+  unsigned long long* flags;  // [b, h, nc, tiles, kFlagSlots]: pass 1's masks of non-finite columns
   long long xs_b, xs_s, xs_h;   // x strides (p stride 1)
   long long ds_b, ds_s, ds_h;   // dt strides
   long long bs_b, bs_s;         // B strides (n stride 1)
@@ -103,6 +126,22 @@ struct Args {
   int ngroups;   // pass 1: groups of state columns
   int nbuf;      // pass 3: source buffers (1 or 2)
 };
+
+// exp with subnormal results flushed to 0, as XLA computes the reference
+// on the CPU and the TPU (where a decay underflows, an inf state times it
+// is NaN there); the plain version's ref._exp_ftz
+__device__ __forceinline__ float exp_ftz(float z) {
+  const float e = expf(z);
+  return e < 1.17549435e-38f ? 0.f : e;  // FLT_MIN; a NaN stays NaN
+}
+// exp_ftz on the full split; plain expf on the fast one, whose result is
+// kept only where every input it met is finite (a flushed subnormal then
+// changes it by less than FLT_MIN times a finite value)
+template <bool kFull>
+__device__ __forceinline__ float exp_as(float z) {
+  if constexpr (kFull) return exp_ftz(z);
+  else return expf(z);
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -220,7 +259,11 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel_local(Args a) {
   float* a_cum = reinterpret_cast<float*>(smem);
   float* dtv = a_cum + q;
   float* w = dtv + q;
-  unsigned char* bufs = smem + align16((size_t)3 * q * sizeof(float));
+  // each source tile's mask of non-finite columns (the full split only)
+  unsigned long long* tflag =
+      reinterpret_cast<unsigned long long*>(smem + align16((size_t)3 * q * sizeof(float)));
+  unsigned char* bufs = reinterpret_cast<unsigned char*>(tflag + kMaxTiles);
+  if (tid < kMaxTiles) tflag[tid] = 0ull;
   const size_t xbytes = (size_t)kR * kPX1 * sizeof(T);
   const size_t buf_bytes = xbytes + (size_t)kR * PB1 * sizeof(T);
 
@@ -240,7 +283,7 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel_local(Args a) {
   chunk_scan(a_cum, dtv, a.dt + b * a.ds_b + hh * a.ds_h + (long long)t0 * a.ds_s, a.ds_s,
              a.A[hh], q);
   const float a_last = a_cum[q - 1];
-  for (int i = tid; i < q; i += kThreads) w[i] = dtv[i] * expf(a_last - a_cum[i]);
+  for (int i = tid; i < q; i += kThreads) w[i] = dtv[i] * exp_ftz(a_last - a_cum[i]);
 
   float acc[NTW][4];
   const int nst = (q + kR - 1) / kR;
@@ -262,6 +305,24 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel_local(Args a) {
       const T* bs = reinterpret_cast<const T*>(bufs + (st & 1) * buf_bytes + xbytes);
       const int s0 = st * kR;
       const int nks = min(kR, q - s0 + 7) / 8;  // k8 steps holding a source
+      if constexpr (kSlow) {
+        // the tile's columns where x·dt is not finite; all of them where
+        // the group's B columns hold an inf or NaN
+        unsigned long long bits = 0ull;
+        bool b_bad = false;
+        for (int e = tid; e < kR * kP; e += kThreads) {
+          const int r = e / kP, col = e % kP;
+          if (s0 + r < q && col < a.p &&
+              !tf32x3::finite(to_f32(xs[r * kPX1 + col]) * dtv[s0 + r]))
+            bits |= 1ull << col;
+        }
+        for (int e = tid; e < kR * GW; e += kThreads) {
+          const int r = e / GW, col = e % GW;
+          b_bad |= s0 + r < q && col < n_valid && !tf32x3::finite(to_f32(bs[r * PB1 + col]));
+        }
+        if (b_bad) bits = ~0ull;
+        if (bits) atomicOr(&tflag[st], bits);
+      }
 #pragma unroll
       for (int ks = 0; ks < kR / 8; ++ks) {
         if (ks >= nks) break;
@@ -297,6 +358,8 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel_local(Args a) {
   }
 
   const long long bh_c = ((long long)b * a.heads + hh) * a.nc + c;
+  __syncthreads();  // every tile's mask is in tflag
+  if (tid < nst) a.flags[(bh_c * nst + tid) * kFlagSlots + grp] = tflag[tid];
   float* out = a.ws + bh_c * a.p * a.n;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -331,7 +394,7 @@ __global__ void __launch_bounds__(256) ssd_scan_kernel_carry(Args a) {
 #pragma unroll
     for (int i = 0; i < kAhead; ++i) {
       local[i] = c0 + i < a.nc ? slot[(c0 + i) * pn] : 0.f;
-      decay[i] = c0 + i < a.nc ? expf(al[c0 + i]) : 0.f;
+      decay[i] = c0 + i < a.nc ? exp_ftz(al[c0 + i]) : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < kAhead; ++i) {
@@ -347,8 +410,10 @@ __global__ void __launch_bounds__(256) ssd_scan_kernel_carry(Args a) {
 // pass 3: y, one 64-row tile of a chunk per block
 // ---------------------------------------------------------------------------
 
+// (at most 128 registers: four blocks share an SM at Hymba's shape; the
+// full split's extra terms must not take that from the fast path)
 template <typename T>
-__global__ void __launch_bounds__(kThreads) ssd_scan_kernel_output(Args a) {
+__global__ void __launch_bounds__(kThreads, 4) ssd_scan_kernel_output(Args a) {
   constexpr bool kB = sizeof(T) == 2;
   constexpr int PX = pitch_x3<T>();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -389,6 +454,21 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel_output(Args a) {
     cp_async::commit();
   };
   issue_first();
+
+  // the columns pass 1 found not finite (x·dt, or B) in the source tiles
+  // above this row tile, which no warp visits; read by warp 0 before the
+  // main loop and kept in shared memory (chunk_scan's barriers publish it)
+  __shared__ unsigned long long skipped_nan_cols;
+  if (warp == 0) {
+    unsigned long long m = 0ull;
+    const unsigned long long* fl = a.flags + (bh_c * n_rt + rt + 1) * kFlagSlots;
+    const int cnt = (n_rt - rt - 1) * kFlagSlots;
+    for (int i = lane; i < cnt; i += 32)
+      if ((i & (kFlagSlots - 1)) < a.ngroups) m |= fl[i];
+    const uint32_t lo = __reduce_or_sync(0xffffffffu, (uint32_t)m);
+    const uint32_t hi = __reduce_or_sync(0xffffffffu, (uint32_t)(m >> 32));
+    if (lane == 0) skipped_nan_cols = ((unsigned long long)hi << 32) | lo;
+  }
 
   chunk_scan(a_cum, dtv, a.dt + b * a.ds_b + hh * a.ds_h + (long long)t0 * a.ds_s, a.ds_s,
              a.A[hh], q);
@@ -432,8 +512,8 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel_output(Args a) {
           }
           tf32x3::mma_split<8, kB, false>(acc, ah, al, bh, bl);
         }
-        const float e_lo = l_lo < q ? expf(a_cum[l_lo]) : 0.f;
-        const float e_hi = l_hi < q ? expf(a_cum[l_hi]) : 0.f;
+        const float e_lo = l_lo < q ? exp_as<kSlow>(a_cum[l_lo]) : 0.f;
+        const float e_hi = l_hi < q ? exp_as<kSlow>(a_cum[l_hi]) : 0.f;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           acc[j][0] *= e_lo;
@@ -471,6 +551,8 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel_output(Args a) {
       // decay exp(a_l - a_s) dt_s and the causal mask (s <= l < q) on the
       // fragments: G[j][e] is row (e < 2 ? l_lo : l_hi), source
       // s0 + 8j + 2t + (e & 1)
+      // (the full split keeps the reference's masked term: G·(0·dt_s) is
+      // NaN where C_l·B_s or dt_s is not finite)
       const float al_lo = l_lo < q ? a_cum[l_lo] : 0.f;
       const float al_hi = l_hi < q ? a_cum[l_hi] : 0.f;
 #pragma unroll
@@ -480,7 +562,10 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel_output(Args a) {
           const int l = e < 2 ? l_lo : l_hi;
           const int s = s0 + j * 8 + 2 * t + (e & 1);
           const bool vis = l < q && s <= l;
-          G[j][e] = vis ? G[j][e] * expf((e < 2 ? al_lo : al_hi) - a_cum[s]) * dtv[s] : 0.f;
+          if (vis)
+            G[j][e] *= exp_as<kSlow>((e < 2 ? al_lo : al_hi) - a_cum[s]) * dtv[s];
+          else
+            G[j][e] = kSlow && s < q ? G[j][e] * (0.f * dtv[s]) : 0.f;
         }
       // y += G · x over the tile's eight k8 steps of sources; A's columns t
       // and t + 4 stand for sources 2t and 2t + 1, which this lane holds
@@ -514,21 +599,47 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel_output(Args a) {
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) bad |= !tf32x3::finite(acc[j][e]);
-  if (__syncthreads_or(bad)) {  // every warp is done with the buffers
+  const bool slow = __syncthreads_or(bad);  // every warp is done with the buffers
+  if (slow) {
     issue_first();
     run(std::true_type{});
   }
 
+  // the source tiles above this row tile, which no warp visited: the
+  // columns where pass 1 found x·dt (or B) not finite are NaN in every row
+  // of the tile, and so is every column of a row whose C is not finite
+  // (its C·B against those sources is; such a C sends the block to the
+  // full split)
+  const unsigned long long nan_cols = skipped_nan_cols;
+  bool c_bad_lo = false, c_bad_hi = false;
+  if (rt + 1 < n_rt) {
+    if (slow) {
+      for (int col = t; col < a.n; col += 4) {
+        c_bad_lo |= !tf32x3::finite(to_f32(Cs[crow * PN + col]));
+        c_bad_hi |= !tf32x3::finite(to_f32(Cs[(crow + 8) * PN + col]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        c_bad_lo |= __shfl_xor_sync(0xffffffffu, c_bad_lo, off);
+        c_bad_hi |= __shfl_xor_sync(0xffffffffu, c_bad_hi, off);
+      }
+    }
+  }
+
   T* y = (T*)a.y;
+  const float nan = __int_as_float(0x7fc00000);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int l = half ? l_hi : l_lo;
     if (l >= q) continue;
+    const unsigned long long row_nan = (half ? c_bad_hi : c_bad_lo) ? ~0ull : nan_cols;
     T* row = y + (((long long)b * a.seq + t0 + l) * a.heads + hh) * a.p;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int pp = j * 8 + 2 * t;
-      if (pp < a.p) store2(row + pp, acc[j][2 * half], acc[j][2 * half + 1], pp + 1 < a.p);
+      if (pp < a.p)
+        store2(row + pp, (row_nan >> pp) & 1 ? nan : acc[j][2 * half],
+               (row_nan >> (pp + 1)) & 1 ? nan : acc[j][2 * half + 1], pp + 1 < a.p);
     }
   }
 }
@@ -540,6 +651,7 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel_output(Args a) {
 template <typename T, int NTW>
 cudaError_t launch_local(const Args& a, int smem_max, cudaStream_t stream) {
   const size_t bytes = align16((size_t)3 * a.chunk * sizeof(float)) +
+                       kMaxTiles * sizeof(unsigned long long) +
                        2 * ((size_t)kR * kPX1 + (size_t)kR * (NTW * 8 + 8)) * sizeof(T);
   if (bytes > (size_t)smem_max) return cudaErrorInvalidConfiguration;
   cudaError_t err = cudaFuncSetAttribute(ssd_scan_kernel_local<T, NTW>,
@@ -560,7 +672,7 @@ cudaError_t launch(Args a, cudaStream_t stream) {
   a.n_pad = (a.n + 7) / 8 * 8;
   const int nt = a.n_pad / 8;           // n8 tiles of state columns
   const int ntw = nt <= 2 ? 2 : (nt <= 4 ? 4 : 8);
-  a.ngroups = (nt + ntw - 1) / ntw;
+  a.ngroups = (nt + ntw - 1) / ntw;  // <= kFlagSlots at n <= 256
 
   // pass 3's shared memory: a_cum and dt, C, one buffer of B and x, and
   // the second buffer or (where two do not fit) the state alone
@@ -603,20 +715,22 @@ extern "C" {
 // x [batch, seq, heads, p], dt [batch, seq, heads] f32, A [heads] f32,
 // B/C [batch, seq, n], init [batch, heads, p, n] f32 or null, y [batch,
 // seq, heads, p] contiguous, final_state [batch, heads, p, n] f32
-// contiguous, ws [batch, heads, seq / chunk, p, n] f32 and alast [batch,
-// heads, seq / chunk] f32 workspaces. strides: x (b, s, h), dt (b, s, h),
+// contiguous, ws [batch, heads, seq / chunk, p, n] f32, alast [batch,
+// heads, seq / chunk] f32 and flags [batch, heads, seq / chunk,
+// ceil(chunk / 64), 4] 64-bit workspaces. strides: x (b, s, h), dt (b, s, h),
 // B (b, s), C (b, s) in elements. x, B, C f32 when is_bf16 == 0, else
 // bf16 (y likewise); seq a multiple of chunk, chunk <= 1024, p <= 64,
 // n <= 256. Three launches on `stream`; returns the first failure of
 // cudaGetLastError().
 int ssd_scan_launch(const void* x, const void* dt, const void* A, const void* B,
                     const void* C, const void* init, void* y, void* final_state, void* ws,
-                    void* alast, const long long* strides, int batch, int seq, int heads,
-                    int p, int n, int chunk, int is_bf16, void* stream) {
+                    void* alast, void* flags, const long long* strides, int batch, int seq,
+                    int heads, int p, int n, int chunk, int is_bf16, void* stream) {
   if (chunk < 1 || chunk > kMaxChunk || seq % chunk || p < 1 || p > kP || n < 1 || n > kMaxN)
     return (int)cudaErrorInvalidValue;
   Args a{x,          (const float*)dt, (const float*)A, B,          C,
          (const float*)init, y,        (float*)final_state, (float*)ws, (float*)alast,
+         (unsigned long long*)flags,
          strides[0], strides[1],       strides[2],      strides[3], strides[4],
          strides[5], strides[6],       strides[7],      strides[8], strides[9],
          batch,      seq,              heads,           p,          n,

@@ -14,8 +14,9 @@
   gossip_async): straggler substitution, then S stages of averaging every
   row with its partner, in O(S·D·P) work. The kernel is
   ``csrc/fed_mix_matching.cu`` (replacing
-  ``repro.kernels.fed_mix_sparse.fed_mix_matching``); CPU tensors take
-  ``ref.fed_mix_matching_ref``.
+  ``repro.kernels.fed_mix_sparse.fed_mix_matching``; at S <= 3 each output
+  row is the rounding tree over the 2^S rows its stages reach, bit for bit
+  the stage loop); CPU tensors take ``ref.fed_mix_matching_ref``.
 
 Bad cluster ids: on the TPU an id outside [0, L) silently drops out of the
 one-hot. Here it raises ``ValueError``. On CPU tensors the wrapper raises

@@ -7,7 +7,9 @@ over the keys j a query i sees: j <= i and, when ``window > 0``,
 ``i - j < window`` or ``j < num_meta``. f32 scores and accumulation, the
 output in q's dtype. The kernel is ``csrc/flash_attention.cu`` (an
 online-softmax pass over cp.async double-buffered 64-row K/V tiles, both
-products split-f32 on the TF32 tensor cores, replacing the Pallas
+products split-f32 on the TF32 tensor cores, between two small launches
+that give the rows a skipped key tile's inf or NaN in V reaches their
+NaN; replacing the Pallas
 ``repro.kernels.flash_attention.flash_attention``); CPU tensors take
 ``ref.flash_attention_ref``. The model calls it through ``ops`` for
 self-attention over positions 0..S-1 (prefill and the cache-free
@@ -57,8 +59,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Positions run 0..Sq-1 and 0..T-1.
 
     CPU tensors: the plain version. CUDA tensors: the hand-written kernel
-    (``flash_attention.launches`` counts its launches); on the card the
-    head_dim stride must be 1 and hd <= 128, other strides are free."""
+    (``flash_attention.launches`` counts its calls: one call is three
+    launches: V's non-finite flags, the attention, and the NaN the
+    skipped tiles add); on the card the
+    head_dim stride must be 1 and hd <= 128, other strides are free.
+    Non-finite values come out as the plain version gives them: an inf or
+    NaN in V at a key masked for a row makes that row NaN in its column,
+    as 0 · inf does in the reference."""
     window, num_meta = int(window), int(num_meta)
     if _check(q, k, v, window, num_meta) == "cpu":
         return ref.flash_attention_ref(q, k, v, window=window,
@@ -77,14 +84,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out.zero_()
     strides = (ctypes.c_longlong * 12)(
         *[s for t in (q, k, v, out) for s in t.stride()[:3]])
+    # per 64-key tile, the bitmask of V's columns that hold an inf or NaN
+    vflags = torch.empty((b, hkv, -(-tk // 64), 4), dtype=torch.int32,
+                         device=q.device)
     launch = backend.c_function(
         "flash_attention", "flash_attention_launch",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
            ctypes.c_void_p])
     rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                strides, b, hq, hq // hkv, sq, tk, hd, hd ** -0.5, window,
-                num_meta, int(q.dtype == torch.bfloat16),
+                strides, vflags.data_ptr(), b, hq, hq // hkv, sq, tk, hd,
+                hd ** -0.5, window, num_meta, int(q.dtype == torch.bfloat16),
                 backend.stream_ptr(q.device))
     backend.raise_on_error("flash_attention", rc)
     flash_attention.launches += 1

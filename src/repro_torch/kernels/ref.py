@@ -161,6 +161,14 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
     return z.masked_fill(~mask, float("-inf"))
 
 
+def _exp_ftz(z: torch.Tensor) -> torch.Tensor:
+    """exp with subnormal results flushed to 0, as XLA computes it on the
+    CPU and the TPU: where a decay underflows, an inf times it is NaN, as
+    in the JAX kernel."""
+    e = torch.exp(z)
+    return e.masked_fill_(e < torch.finfo(e.dtype).tiny, 0.0)
+
+
 def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None):
     """The chunked SSD (``models/ssm.py`` ssd_chunked in the JAX package):
     quadratic attention-like products inside each chunk of ``chunk``
@@ -169,7 +177,8 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None):
     x [b,S,h,p], dt [b,S,h] (post-softplus), A [h] (< 0), B, C [b,S,n],
     S a multiple of chunk, initial_state [b,h,p,n] or None (zeros) ->
     (y [b,S,h,p] in x's dtype, final_state [b,h,p,n] f32). It computes in
-    f32, or in f64 for f64 inputs (a reference for the f32 versions).
+    f32, or in f64 for f64 inputs (a reference for the f32 versions). The
+    decays exp(·) flush subnormal results to 0, as XLA does.
     """
     b, s, h, p = x.shape
     n = B.shape[-1]
@@ -183,13 +192,20 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None):
     bc = B.to(f32).reshape(b, nc, q, n)
     cc = C.to(f32).reshape(b, nc, q, n)
 
+    # Every product is taken in the JAX kernel's order (C·Bᵀ, times the
+    # decay mask L, times x·dt; x·dtᵀ times B·decay; C·stateᵀ, times its
+    # decay), one pair of operands at a time, so that inf and NaN come out
+    # where the kernel gives them: a 0 of L above the diagonal times an
+    # inf of C·Bᵀ or of x·dt is NaN there.
     a_cum = torch.cumsum(a_dt, dim=-1)                        # [b,h,c,q]
-    L = torch.exp(_segsum(a_dt))                              # [b,h,c,q,q]
-    y_diag = torch.einsum("bcln,bcsn,bhcls,bcshp->bclhp", cc, bc, L, xd)
+    L = _exp_ftz(_segsum(a_dt))                               # [b,h,c,q,q]
+    cb = torch.einsum("bcln,bcsn->bcls", cc, bc)
+    y_diag = torch.einsum("bhcls,bcshp->bclhp", cb[:, None] * L, xd)
 
-    decay_states = torch.exp(a_cum[..., -1:] - a_cum)         # [b,h,c,q]
-    states = torch.einsum("bcsn,bhcs,bcshp->bchpn", bc, decay_states, xd)
-    chunk_decay = torch.exp(a_cum[..., -1])                   # [b,h,c]
+    decay_states = _exp_ftz(a_cum[..., -1:] - a_cum)          # [b,h,c,q]
+    states = torch.einsum("bcshp,bhcsn->bchpn", xd,
+                          bc[:, None] * decay_states[..., None])
+    chunk_decay = _exp_ftz(a_cum[..., -1])                    # [b,h,c]
 
     state = (torch.zeros((b, h, p, n), dtype=f32, device=x.device)
              if initial_state is None else initial_state.to(f32))
@@ -199,8 +215,8 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None):
         state = state * chunk_decay[:, :, c, None, None] + states[:, c]
     states_in = torch.stack(states_in, dim=1)                 # [b,c,h,p,n]
 
-    state_decay = torch.exp(a_cum)                            # [b,h,c,q]
-    y_off = torch.einsum("bcln,bchpn,bhcl->bclhp", cc, states_in,
-                         state_decay)
+    state_decay = _exp_ftz(a_cum)                             # [b,h,c,q]
+    y_off = (torch.einsum("bcln,bchpn->bclhp", cc, states_in)
+             * state_decay.permute(0, 2, 3, 1)[..., None])
     y = (y_diag + y_off).reshape(b, s, h, p)
     return y.to(x.dtype), state

@@ -70,7 +70,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     CPU tensors: the plain version. CUDA tensors: the hand-written kernel
     (``ssd_scan.launches`` counts its calls: one call is three
     launches of its passes); on the card the last
-    stride of x, B and C must be 1, chunk <= 1024, p <= 64, n <= 256."""
+    stride of x, B and C must be 1, chunk <= 1024, p <= 64, n <= 256.
+    Non-finite values come out as the JAX kernel gives them: an inf or NaN
+    in x·dt, B or C makes the earlier rows of its chunk NaN, as the
+    reference's 0 above the diagonal times inf does."""
     chunk = int(chunk)
     if _check(x, dt, A, B, C, chunk, initial_state) == "cpu":
         return ref.ssd_chunked(x, dt, A, B, C, chunk,
@@ -98,16 +101,21 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     # chunk's last row, written and read by the kernel's three passes
     ws = torch.empty((b, h, s // chunk, p, n), dtype=f32, device=x.device)
     alast = torch.empty((b, h, s // chunk), dtype=f32, device=x.device)
+    # per 64-source tile and group of state columns: the columns where x·dt
+    # (or B) is not finite, from pass 1 for pass 3
+    flags = torch.empty((b, h, s // chunk, -(-chunk // 64), 4),
+                        dtype=torch.int64, device=x.device)
     strides = (ctypes.c_longlong * 10)(
         *x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2])
     launch = backend.c_function(
         "ssd_scan", "ssd_scan_launch",
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     rc = launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                 C.data_ptr(), None if init is None else init.data_ptr(),
                 y.data_ptr(), final.data_ptr(), ws.data_ptr(),
-                alast.data_ptr(), strides, b, s, h, p, n, chunk,
-                int(x.dtype == torch.bfloat16), backend.stream_ptr(x.device))
+                alast.data_ptr(), flags.data_ptr(), strides, b, s, h, p, n,
+                chunk, int(x.dtype == torch.bfloat16),
+                backend.stream_ptr(x.device))
     backend.raise_on_error("ssd_scan", rc)
     ssd_scan.launches += 1
     return y, final

@@ -20,10 +20,14 @@ skip themselves elsewhere. Run them on the card with
   NaN where the plain version does, the finite outputs at the usual
   tolerance (the kernels' fast split sends such a tile to the full split);
   ``fed_mix_matching`` is held bit for bit: each of its operations is one
-  rounding in the plain version's order. Its large-D device-memory path
-  (one launch per stage) is covered at D = 2048 and 4096;
+  rounding in the plain version's order. Its rounding-tree route (S <= 3)
+  at the main shape (P = 2 mod 4: every other row 8-byte aligned), below
+  one tile and with non-involutive stages, its stage loop (S = 4) and its
+  large-D device-memory path (one launch per stage, D = 1000 and up);
 * the wrapper guards hold on CUDA tensors too; a bad cluster id is flagged
   on the card and raised by ``check_cluster_ids``;
+* with cuDNN's algorithms pinned, FL runs at the Table-1 participation
+  repeat bit for bit;
 * the LM kernels: ``flash_attention`` over the JAX kernel tests' sweep,
   ragged S, odd head dims, the meta-token term, the model's strided
   [B, S, H, hd] layout and odd row strides (tolerance f32 2e-5: an online
@@ -36,7 +40,12 @@ skip themselves elsewhere. Run them on the card with
   largest value: the cumsum of dt·A, which reaches ~100 over a chunk, is
   taken in another order, exp of its differences carries ~1e-5 of
   relative error in either order, and a chunk sums hundreds of such
-  terms).
+  terms). Both with inf and NaN in skipped tiles and in visited ones
+  (flash: in V at keys above the diagonal, outside the window and inside
+  the diagonal tile, in K and in Q; the SSD: in x, dt, B and C at row 100
+  of a 128-row chunk, whose 64-row tile the output pass skips for rows
+  0-63, and at row 30): inf and NaN where the plain version has them, the
+  finite outputs at the usual tolerance.
 """
 import pytest
 import torch
@@ -200,13 +209,19 @@ def test_fed_mix_main_shape_on_card(cuda, dtype):
                                         (100, 4099, 2), (37, 130, 3),
                                         (5, 64, 0),
                                         (2048, 999, 2), (4096, 257, 1),
-                                        (1000, 130, 3)])
+                                        (1000, 130, 3),
+                                        (100, 246_590, 2),  # the main shape
+                                        (100, 63, 2),       # below one tile
+                                        (37, 130, 4), (100, 4099, 4),
+                                        (300, 1001, 3)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fed_mix_matching_bitwise_on_card(cuda, d, p, stages, dtype):
-    """Bit for bit with the plain version, on the shared-memory path and on
-    the device-memory path (D = 1000 and up: one launch per stage)."""
-    if stages == 3:
-        perms = torch.from_numpy(matching_perm_stack(d)[[0, 3, 1]]).cuda()
+    """Bit for bit with the plain version, on the rounding-tree route
+    (S <= 3), the stage loop (S = 4) and the device-memory path (D = 1000
+    and up: one launch per stage)."""
+    if stages >= 3:
+        pick = [0, 3, 1, 2][:stages]
+        perms = torch.from_numpy(matching_perm_stack(d)[pick]).cuda()
         _, survive, xn, xo = _matching_args(cuda, d, p, 1, dtype)
         args = (perms.contiguous(), survive, xn, xo)
     elif stages == 0:
@@ -351,6 +366,28 @@ def test_bad_cluster_ids_flagged_on_card(cuda, d, p, L):
     check_cluster_ids()      # the flag was cleared
 
 
+@pytest.mark.parametrize("algo", ["fedp2p", "gossip_async"])
+def test_table1_participation_repeats_on_card(cuda, algo, monkeypatch):
+    """With cuDNN's convolution algorithms pinned (``deterministic`` on,
+    ``benchmark`` off), two runs of CNN-FEMNIST at full width and the
+    Table-1 participation (10 of 100) give the same losses bit for bit:
+    nothing else in the port's round (its kernels, the draws) varies
+    between runs. With cuDNN's defaults they did not repeat."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    from repro_torch.config import FLConfig
+    from repro_torch.configs.paper_models import CNN_FEMNIST
+    from repro_torch.core.simulator import Simulator
+    from repro_torch.data.federated import pseudo_femnist_federated
+    data = pseudo_femnist_federated(100, num_classes=62, seed=0)
+    fl = FLConfig(lr=0.05, num_clusters=5, devices_per_cluster=2,
+                  participation=10)
+    runs = [Simulator(CNN_FEMNIST, data, fl).run(rounds=2, algorithm=algo)
+            for _ in range(2)]
+    assert runs[0].train_loss == runs[1].train_loss
+    assert runs[0].acc == runs[1].acc
+
+
 def test_guards_on_card(cuda):
     ids, wn, wo, xn, xo = _segment_args(cuda, 6, 12, 3, torch.float32)
     with pytest.raises(ValueError, match="must be contiguous"):
@@ -364,6 +401,23 @@ def test_guards_on_card(cuda):
         fed_mix_q(*_quant_args(cuda, 6, 12, 64, torch.float32), chunk=48)
     with pytest.raises(ValueError, match="must be contiguous"):
         fed_aggregate(xn[:, ::2], survive)
+
+
+@pytest.mark.parametrize("stages", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fed_mix_matching_non_involutive_on_card(cuda, stages, dtype):
+    """Stages that are not matchings (a cyclic shift, random permutations,
+    a map that is no permutation): still bit for bit."""
+    d, p = 100, 4099
+    g = torch.Generator().manual_seed(stages)
+    rows = [torch.roll(torch.arange(d), 7), torch.randperm(d, generator=g),
+            torch.randint(0, d, (d,), generator=g),
+            torch.randperm(d, generator=g)]
+    perms = torch.stack(rows[:stages]).to(torch.int32).cuda()
+    _, survive, xn, xo = _matching_args(cuda, d, p, 1, dtype)
+    got = fed_mix_matching(perms, survive, xn, xo)
+    want = ref.fed_mix_matching_ref(perms, survive, xn, xo)
+    assert torch.equal(got, want)
 
 
 def test_fed_mix_matching_bad_partner_is_nan_on_card(cuda):
@@ -490,6 +544,78 @@ def test_ssd_scan_matches_plain_on_card(cuda, b, s, h, p, n, chunk, strided,
     assert st.dtype == torch.float32 and st.shape == (b, h, p, n)
     _close_scaled(y, y_ref)
     _close_scaled(st, st_ref)
+
+
+def _finite_scale(t):
+    """The largest |value| among t's finite entries (1 where it has none:
+    an inf in B reaches every head and every later chunk)."""
+    fin = t[torch.isfinite(t)]
+    return float(fin.abs().max()) if fin.numel() else 1.0
+
+
+def _compare_non_finite(got, want, tol):
+    """NaN where the plain version has NaN, the same infinities, the
+    finite outputs within ``tol`` (rtol and atol)."""
+    g, w = got.float(), want.float()
+    assert not bool(torch.isfinite(w).all())
+    assert torch.equal(torch.isnan(g), torch.isnan(w))
+    assert torch.equal(torch.isposinf(g), torch.isposinf(w))
+    assert torch.equal(torch.isneginf(g), torch.isneginf(w))
+    fin = torch.isfinite(w)
+    torch.testing.assert_close(g[fin], w[fin], rtol=tol[0], atol=tol[1])
+
+
+# (window, num_meta): a causal full layer, and a window layer with meta
+# tokens whose last query tile skips 3 key tiles past the window (a window
+# of 96 also leaves warps of visited tiles with no key to see)
+@pytest.mark.parametrize("window,num_meta", [(0, 0), (96, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_non_finite_on_card(cuda, window, num_meta, dtype):
+    """inf and NaN in V at keys in tiles the kernel skips for some rows
+    (the last key, above every earlier query tile's diagonal; key 100,
+    outside the window of rows 196 on: masked in a visited tile, in the
+    tile of warps 2-3 of query tile 3 that see none of it, and in a tile
+    query tiles 4-6 skip; key 70) and inside visited tiles (key 5, a meta
+    token), in K (masked for most rows) and in Q: the plain version's inf
+    and NaN."""
+    b, hq, hkv, s, hd = 2, 6, 2, 448, 64
+    q, k, v = _attention_args(cuda, b, hq, hkv, s, hd, dtype,
+                              model_layout=True)
+    v[0, 1, s - 1, 3] = float("inf")
+    v[1, 0, s - 1, 7] = float("nan")
+    v[0, 0, 100, 11] = float("-inf")
+    v[1, 1, 70, 13] = float("inf")
+    v[0, 0, 5, 17] = float("nan")
+    k[0, 1, 300, 2] = float("inf")
+    q[1, 4, 200, 9] = float("inf")
+    got = flash_attention(q, k, v, window=window, num_meta=num_meta)
+    want = ref.flash_attention_ref(q, k, v, window=window, num_meta=num_meta)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    _compare_non_finite(got, want, (tol, tol))
+
+
+@pytest.mark.parametrize("shape", [(1, 512, 4, 64, 16, 128),    # Hymba's
+                                   (1, 512, 2, 64, 128, 256)])  # mamba2's
+@pytest.mark.parametrize("name", ["x", "dt", "B", "C"])
+@pytest.mark.parametrize("row", [100, 30])
+@pytest.mark.parametrize("val", [float("inf"), float("nan")])
+def test_ssd_scan_non_finite_on_card(cuda, shape, name, row, val):
+    """An inf or NaN in x, dt, B or C at row 100 of the first chunk (a
+    source tile the output pass skips for rows 0-63) or row 30 (inside
+    the diagonal tile): the plain version's inf and NaN, in the chunk's
+    earlier rows and, through the state, in the later chunks."""
+    b, s, h, p, n, chunk = shape
+    args = list(_ssd_args(cuda, b, s, h, p, n, torch.float32, strided=True))
+    x, dt, _, B, C = args
+    {"x": lambda: x.__setitem__((0, row, 1, 3), val),
+     "dt": lambda: dt.__setitem__((0, row, 1), val),
+     "B": lambda: B.__setitem__((0, row, 5), val),
+     "C": lambda: C.__setitem__((0, row, 5), val)}[name]()
+    y, st = ssd_scan(*args, chunk=chunk)
+    y_ref, st_ref = ref.ssd_chunked(*args, chunk)
+    _compare_non_finite(y, y_ref, (1e-4, 5e-4 * _finite_scale(y_ref)))
+    if name != "C":
+        _compare_non_finite(st, st_ref, (1e-4, 5e-4 * _finite_scale(st_ref)))
 
 
 def test_ssd_scan_bf16_on_card(cuda):

@@ -23,11 +23,13 @@ first steps at these widths, so the two packages' f32 summation orders
 drift apart far more than in the short parity runs of
 ``test_torch_engine.py`` (rtol 1e-4). gossip_async runs at 100
 participants (``participation=100``), the width of the fedp2p runs: at
-its default 10, local training on the card already misses these bounds
-in the first round, before any mix has run — the card's runs at 10
-participants are not repeatable between calls either (PERF.md, open
-questions). The values are printed as one JSON
-line.
+10 participants (the Table-1 participation) local training on the card
+misses these bounds in the first round, before any mix has run (round 1
+train_loss 1.434 against JAX's 1.336 with cuDNN's algorithms pinned).
+With cuDNN's default algorithms the port's own round 1 there moved by up
+to 14 % between runs, so a change of summation order alone moves a
+10-participant round by more than the bound (PERF.md, open questions).
+The values are printed as one JSON line.
 """
 import json
 import os

@@ -9,7 +9,10 @@
   uses; output dtypes must match;
 * ``fed_mix_matching`` against the Pallas kernel (interpret mode) BIT FOR
   BIT, f32 and bf16, at odd and even D, S = 1 and 2: every operation is
-  one rounding in the same order in both;
+  one rounding in the same order in both; and the card kernel's rounding
+  tree (S <= 3) rehearsed in plain PyTorch against the plain stage loop,
+  bit for bit, over gossip's ring, round-robin matchings, byes and stages
+  that are not involutions;
 * ``fed_mix_q`` against the Pallas kernel (interpret mode) and the jnp
   oracle on the JAX kernel tests' cases, plus a bf16 x_old and explicit
   output dtypes, at rtol/atol 1e-5 (the JAX tests' tolerance: the
@@ -44,7 +47,7 @@ from repro.kernels.fed_mix_sparse import (  # noqa: E402
 from repro.kernels.fed_mix_sparse import (  # noqa: E402
     fed_mix_segment as jax_fed_mix_segment,
 )
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.fed_aggregate import fed_aggregate  # noqa: E402
 from repro_torch.kernels.fed_mix import fed_mix  # noqa: E402
 from repro_torch.kernels.fed_mix_q import fed_mix_q  # noqa: E402
@@ -184,6 +187,58 @@ def test_fed_mix_matching_bitwise_vs_pallas(d, stages, dtype):
     assert str(want.dtype) == dtype
     np.testing.assert_array_equal(got.to(torch.float32).numpy(),
                                   np.asarray(want.astype(jnp.float32)))
+
+
+def _tree_mix(perms, survive, x_new, x_old):
+    """The card kernel's route for S <= 3, in plain PyTorch: each row's
+    output as a rounding tree over 2^S rows of eff, the leaves composed
+    from the perms from the last stage down (node r of stage s splits into
+    r and perm_s[r]), added pairwise, stage 0's pairs first."""
+    d, stages = x_new.shape[0], perms.shape[0]
+    leaves = np.arange(d)[:, None]
+    for s in range(stages - 1, -1, -1):
+        leaves = np.stack([leaves, perms[s][leaves]], axis=-1).reshape(d, -1)
+    f32 = torch.float32
+    sv = torch.from_numpy(survive)[:, None]
+    eff = sv * x_new.to(f32) + (1.0 - sv) * x_old.to(f32)
+    node = eff[torch.from_numpy(leaves)]                  # [D, 2^S, P]
+    while node.shape[1] > 1:
+        node = 0.5 * (node[:, 0::2] + node[:, 1::2])
+    return node[:, 0].to(x_new.dtype)
+
+
+def _stage_maps(kind, d, stages, rng):
+    if kind == "ring":              # gossip's two phases, then matchings
+        stack = np.concatenate([_phase_perm_stack(d), matching_perm_stack(d)])
+        return stack[:stages]
+    if kind == "matchings":         # gossip_async's round-robin matchings
+        stack = matching_perm_stack(d)
+        return stack[rng.integers(0, stack.shape[0], stages)]
+    # not involutions: a cyclic shift, random permutations, a map that is
+    # no permutation at all
+    rows = [np.roll(np.arange(d), 3), rng.permutation(d),
+            rng.integers(0, d, d)]
+    return np.stack(rows[:stages])
+
+
+@pytest.mark.parametrize("d", [2, 9, 17, 100])
+@pytest.mark.parametrize("stages", [1, 2, 3])
+@pytest.mark.parametrize("kind", ["ring", "matchings", "maps"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fed_mix_matching_rounding_tree_is_bitwise(d, stages, kind, dtype):
+    """The rounding tree the card kernel computes at S <= 3 equals the
+    plain version's stage loop bit for bit (odd D: byes)."""
+    rng = np.random.default_rng(d * 100 + stages)
+    perms = np.ascontiguousarray(_stage_maps(kind, d, stages, rng)
+                                 .astype(np.int32))
+    _, survive, xn, xo = _matching_inputs(d, 257, 1, seed=d + stages)
+    txn = torch.from_numpy(xn).to(getattr(torch, dtype))
+    txo = torch.from_numpy(xo).to(getattr(torch, dtype))
+    want = ref.fed_mix_matching_ref(torch.from_numpy(perms),
+                                    torch.from_numpy(survive), txn, txo)
+    got = _tree_mix(perms, survive, txn, txo)
+    assert got.dtype == want.dtype
+    assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------
