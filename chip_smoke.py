@@ -18,20 +18,28 @@ exits non-zero:
             ssd_scan with inf and NaN in x, dt, B and C at rows above the
             diagonal of skipped and of visited tiles (inf and NaN where the
             plain version has them); flash_attention at Hymba's prefill
-            shapes and the JAX kernel tests' sweep, ssd_scan at Hymba's and
-            mamba2-130m's;
+            shapes and the JAX kernel tests' sweep, and at head_dim 160,
+            192, 256 (gemma-2b's MQA shape, with inf and NaN too) and
+            512; ssd_scan at Hymba's and mamba2-130m's;
   reference the port on the card (kernels) against the port on the CPU
             (plain versions) on a small CNN run with the same draws,
-            gossip, gossip_async and the int8/topk wire included, and on
+            gossip, gossip_async, the int8/topk wire, fedp2p_topo and a
+            faulted fedp2p run (its counters equal) included, a checkpoint
+            round trip of the card's final params (bit for bit), and
             reduced Hymba's prefill and greedy decode;
   main_path ``Simulator.run`` on CNN-FEMNIST at the paper's full width
             (246,590 params x 100 clients): fedp2p, fedp2p with
             sync_period=2, fedavg, fedp2p on mix_path="dense", fedp2p
             with the JAX package's Table-1 participation (10 of 100),
+            fedp2p_topo (``topology_aware=True``) at the default and at
+            the Table-1 participation, fedp2p under a fault plan (drops,
+            nan/inf/bitflip uploads; the counters held to the plan),
             gossip, gossip_async with sync_period=2, gossip on
             mix_path="dense", fedp2p with the int8 wire on "dense" and on
-            "auto", gossip with the topk wire, and ``ops.fed_aggregate_tree``
-            over one fedp2p round's client models; then
+            "auto", gossip with the topk wire, ``ops.fed_aggregate_tree``
+            and ``aggregation.cluster_then_global`` over one fedp2p
+            round's client models, and Table-1-style best-accuracy rows of
+            fedp2p, fedp2p_topo and fedavg (printed, not gated); then
             ``serve.generate`` on Hymba-1.5B at full width (seeded
             weights, made once; B = 4, prompts of 384 and 1920 tokens,
             16 greedy tokens): each run driven with the launch counters
@@ -41,7 +49,8 @@ exits non-zero:
             split-f32 tensor-core rate, with the CUDA cores' f32 rate
             beside it) and its library yardstick (ssd_scan also at
             mamba2-130m's shape; flash_attention's two non-finite
-            launches alone, fed_mix_matching at S = 2 and 1), two rounds' split
+            launches alone and at gemma-2b's hd 256 beside SDPA,
+            fed_mix_matching at S = 2 and 1), two rounds' split
             between local training, mixing and the wire, and the Hymba
             prefill's device time by kernel.
 
@@ -110,6 +119,9 @@ LM_ARCH, LM_B, LM_NEW = "hymba-1.5b", 4, 16
 LM_HQ, LM_HKV, LM_HD, LM_META, LM_WINDOW = 25, 5, 64, 128, 1024
 LM_PROMPTS = (384, 1920)
 LM_S = LM_PROMPTS[1] + LM_META
+# gemma-2b's attention (configs/gemma_2b.py): 8 query heads and one kv head
+# of 256 (MQA), causal, no window; the kernel's 128-column O slices.
+WIDE_HQ, WIDE_HKV, WIDE_HD = 8, 1, 256
 # (atol, rtol) of flash_attention against its plain version. f32: an
 # online softmax over 64-key tiles against a one-shot softmax; bf16 as
 # above.
@@ -496,6 +508,25 @@ def lm_non_finite_cases(torch):
                          "dtype": name, "non_finite": True,
                          "max_abs_err": err, "atol": atol, "rtol": rtol,
                          "ok": ok})
+    # gemma-2b's shape (hd 256: both 128-column slices), causal: V at the
+    # last key in each slice, at key 300 and a visited key 5, K and Q
+    for i, dt in enumerate((torch.float32, torch.bfloat16)):
+        q, k, v = attention_inputs(torch, LM_B, WIDE_HQ, WIDE_HKV, LM_S,
+                                   WIDE_HD, dt, seed=740 + i)
+        v[0, 0, LM_S - 1, 3], v[1, 0, LM_S - 1, 200] = inf, nan
+        v[2, 0, 300, 11], v[3, 0, 300, 140] = -inf, nan
+        v[0, 0, 5, 250], k[2, 0, 900, 130] = nan, inf
+        q[3, 7, 1000, 9] = inf
+        got = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        name = str(dt)[6:]
+        err, atol, rtol, ok = compare_non_finite(
+            torch, got, ref.flash_attention_ref(q, k, v), FLASH_TOL[name])
+        rows.append({"kernel": "flash_attention", "B": LM_B, "S": LM_S,
+                     "hd": WIDE_HD, "window": 0, "num_meta": 0,
+                     "dtype": name, "non_finite": True,
+                     "max_abs_err": err, "atol": atol, "rtol": rtol,
+                     "ok": ok})
     for h, p, n, chunk in ((50, 64, 16, 128), (24, 64, 128, 256)):
         for j, names in enumerate((("x", "dt"), ("B", "C"))):
             args, _ = ssd_inputs(torch, LM_B, LM_S, h, p, n, 730 + j, False)
@@ -531,8 +562,8 @@ def main_case(row):
     if row.get("non_finite"):
         return False
     if row["kernel"] == "flash_attention":
-        return (row["B"], row["S"], row["window"], row["dtype"]) == (
-            LM_B, LM_S, LM_WINDOW, "float32")
+        return (row["B"], row["S"], row["hd"], row["window"],
+                row["dtype"]) == (LM_B, LM_S, LM_HD, LM_WINDOW, "float32")
     if row["kernel"] == "ssd_scan":
         return (row["b"], row["S"], row["h"], row["dtype"],
                 row["initial_state"]) == (LM_B, LM_S, 50, "float32", True)
@@ -559,6 +590,12 @@ def lm_kernel_cases(torch):
     flash_cases += [(1, 2, 1, 512, 128, w, 0) for w in (0, 96)]
     flash_cases += [(2, 3, 3, 128, 32, w, 0) for w in (0, 96)]
     flash_cases += [(2, 4, 2, 200, 64, 64, 8)]           # ragged S
+    # head_dim > 128: gemma-2b's MQA at 2048 positions, GQA with a window
+    # and meta tokens, 32- and 64-column last slices, four slices
+    flash_cases += [(LM_B, WIDE_HQ, WIDE_HKV, LM_S, WIDE_HD, 0, 0),
+                    (2, 4, 2, 300, 256, 96, 16), (2, 4, 1, 200, 160, 0, 0),
+                    (2, 6, 2, 256, 192, 64, 5), (1, 2, 1, 333, 512, 0, 0),
+                    (1, 4, 2, 200, 512, 64, 4)]
     for i, (b, hq, hkv, s, hd, w, meta) in enumerate(flash_cases):
         for dt in (f32, bf16):
             q, k, v = attention_inputs(torch, b, hq, hkv, s, hd, dt,
@@ -628,32 +665,58 @@ def femnist_setup(full: bool):
                            local_epochs=2, lr=0.05, straggler_rate=0.25)
 
 
+def fault_plan(num_clients, rounds, seed):
+    """A fault plan that drops clients and corrupts uploads in all three
+    modes (nan, inf, bitflip) within ``rounds`` rounds; the first seed
+    from ``seed`` on whose draw shows every mode."""
+    from repro_torch.faults import CORRUPT_MODES, make_plan
+    for s in range(seed, seed + 100):
+        plan = make_plan(num_clients, rounds, seed=s, drop_rate=0.1,
+                         corrupt_rate=0.1)
+        modes = {m for spec in plan.specs for _, m in spec.corrupt}
+        if modes == set(CORRUPT_MODES) and any(sp.drop for sp in plan.specs):
+            return plan
+    raise RuntimeError("no fault plan with every corrupt mode")
+
+
 def phase_reference(torch, state):
     """The port on the card against the port on the CPU: same data, same
     initial weights, same draws (gossip_async's matchings and the int8
     wire's rounding noise included). Tolerance: train_loss rtol 1e-4
     (cuDNN and the kernels sum in other orders than the CPU over a few
-    dozen SGD steps); accuracy within one test sample."""
+    dozen SGD steps); accuracy within one test sample. The topology-aware
+    protocol runs on the topology each simulator builds from the config's
+    seed; the faulted fedp2p run (drops and all three corrupt modes) also
+    holds its counters equal on both. The card's final params of the last
+    run go through a checkpoint round trip, bit for bit."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
     from repro_torch.config import FLConfig
     from repro_torch.core.simulator import Simulator
     net, data, kw = femnist_setup(full=False)
     rows = []
     n_test = float(data.test_mask.sum())
-    for algo, mix_path, sync, codec in (
-            ("fedp2p", "auto", 2, None), ("fedavg", "auto", 1, None),
-            ("fedp2p", "dense", 1, None), ("gossip", "auto", 2, None),
-            ("gossip_async", "auto", 1, None), ("fedp2p", "dense", 1, "int8"),
-            ("gossip", "auto", 1, "topk")):
+    plan = fault_plan(kw["num_clusters"] * kw["devices_per_cluster"], 2, 0)
+    final = None
+    for algo, mix_path, sync, codec, faults in (
+            ("fedp2p", "auto", 2, None, None),
+            ("fedavg", "auto", 1, None, None),
+            ("fedp2p", "dense", 1, None, None),
+            ("gossip", "auto", 2, None, None),
+            ("gossip_async", "auto", 1, None, None),
+            ("fedp2p", "dense", 1, "int8", None),
+            ("gossip", "auto", 1, "topk", None),
+            ("fedp2p_topo", "auto", 1, None, None),
+            ("fedp2p", "auto", 1, None, plan)):
         fl = FLConfig(sync_period=sync, mix_path=mix_path, **kw)
         out = {}
-        sims = {dev: Simulator(net, data, fl, device=dev)
+        sims = {dev: Simulator(net, data, fl, faults=faults, device=dev)
                 for dev in ("cpu", "cuda")}
         eng = {dev: s.engine(algo, codec=codec) for dev, s in sims.items()}
         gen = torch.Generator(device="cpu").manual_seed(7)
         draws = [eng["cpu"].draw_round(gen) for _ in range(2)]
         for dev, e in eng.items():   # the engine moves the draws over
-            _, m = e.run_rounds(sims[dev].init_params(0), None, 2,
-                                draws=draws)
+            final, m = e.run_rounds(sims[dev].init_params(0), None, 2,
+                                    draws=draws)
             out[dev] = {k: v.cpu().tolist() for k, v in m.items()}
         lc, lg = out["cpu"]["train_loss"], out["cuda"]["train_loss"]
         ac, ag = out["cpu"]["acc"], out["cuda"]["acc"]
@@ -661,14 +724,34 @@ def phase_reference(torch, state):
               and all(abs(a - b) <= 1.0 / n_test + 1e-6
                       for a, b in zip(ac, ag))
               and all(math.isfinite(v) for v in lg + ag))
-        rows.append({"algorithm": algo, "mix_path": mix_path,
-                     "sync_period": sync, "codec": codec,
-                     "loss_cpu": lc, "loss_cuda": lg,
-                     "acc_cpu": ac, "acc_cuda": ag, "ok": ok})
+        row = {"algorithm": algo, "mix_path": mix_path, "sync_period": sync,
+               "codec": codec, "loss_cpu": lc, "loss_cuda": lg,
+               "acc_cpu": ac, "acc_cuda": ag}
+        if faults is not None:
+            names = ("dropped", "rejected_rows", "retries",
+                     "prefetch_fallbacks")
+            row["counters_cpu"] = {n: out["cpu"][n] for n in names}
+            row["counters_cuda"] = {n: out["cuda"][n] for n in names}
+            drop = faults.dense_arrays(2, len(draws[0].sel))[0]
+            ok = (ok and row["counters_cpu"] == row["counters_cuda"]
+                  and out["cuda"]["dropped"]
+                  == drop.sum(axis=1).astype(int).tolist()
+                  and all(torch.isfinite(v).all() for v in final.values()))
+        rows.append({**row, "ok": ok})
         if not ok:
             emit({"phase": "reference", "runs": rows})
             raise AssertionError(f"port on the card disagrees with the CPU "
                                  f"reference: {rows[-1]}")
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    save_checkpoint(str(ckpt), 2, final, metadata={"run": "faulted fedp2p"})
+    back, _ = load_checkpoint(str(ckpt), final, device="cuda")
+    same = all(torch.equal(back[k], v) and back[k].dtype == v.dtype
+               and back[k].device == v.device for k, v in final.items())
+    rows.append({"checkpoint_round_trip": "card params -> npz -> card",
+                 "leaves": len(final), "ok": same})
+    if not same:
+        emit({"phase": "reference", "runs": rows})
+        raise AssertionError("checkpoint round trip changed the params")
     rows.append(lm_reference(torch))
     emit({"phase": "reference", "runs": rows})
     if not rows[-1]["ok"]:
@@ -779,6 +862,41 @@ def aggregate_run(torch, sim):
     return drive, check
 
 
+def cluster_run(torch, sim):
+    """``core.aggregation.cluster_then_global`` (the paper's two-stage
+    ``Aggregate(·)``) over the [P, ...] client models of one fedp2p round
+    (``_round_rows``, made before the counters are reset): the
+    participants' sample counts, their 10 clusters, the round's survive
+    mask. Returns (drive, check): the call to count (one ``fed_aggregate``
+    launch), and the comparison of its result with the same function on
+    the CPU (the plain version)."""
+    from repro_torch.core import aggregation
+    from repro_torch.kernels import ops
+    eng = sim.engine("fedp2p")
+    flat, spec = eng._pack_params(sim.init_params(0))
+    draws = eng.draw_round(torch.Generator(device="cuda").manual_seed(6))
+    rows, _, _ = eng._round_rows(spec, flat, draws)
+    args = (sim.data_dev["counts"][draws.sel], draws.cluster_ids,
+            eng.proto.num_clusters(sim.fl), draws.survive)
+    tree = ops.unpack_tree(rows, spec)
+    out = {}
+
+    def drive():
+        out["tree"] = aggregation.cluster_then_global(tree, *args)
+
+    def check():
+        want = aggregation.cluster_then_global(
+            {k: v.cpu() for k, v in tree.items()},
+            *[a.cpu() if hasattr(a, "cpu") else a for a in args])
+        got = ops.pack_tree({k: v[None] for k, v in out["tree"].items()})[0]
+        ref_flat = ops.pack_tree({k: v[None] for k, v in want.items()})[0]
+        err, atol, rtol, ok = compare(torch, got[0].cpu(), ref_flat[0])
+        return {"max_abs_err": err, "atol": atol, "rtol": rtol,
+                "ok": ok and bool(torch.isfinite(got).all())}
+
+    return drive, check
+
+
 def phase_main_path(torch, state):
     from repro_torch.config import FLConfig
     from repro_torch.core.simulator import Simulator
@@ -786,20 +904,32 @@ def phase_main_path(torch, state):
     # gossip's participants: FLConfig.participation (default 10); 100 here,
     # the width of the fedp2p runs' mix
     g100 = {"participation": 100}
+    # the JAX package's Table-1 participation for this net
+    # (benchmarks/accuracy.py: L=5, Q=2, 10 participants; FedAvg's 10 is
+    # FLConfig's default participation)
+    table1 = {"num_clusters": 5, "devices_per_cluster": 2,
+              "participation": 10}
+    plan = fault_plan(100, 2, 1)
     runs = [  # (label, FLConfig overrides, run kwargs, expected launches)
         ("fedp2p", {}, dict(rounds=3, algorithm="fedp2p"),
          expected(fed_mix_segment=3)),
         ("fedp2p_sync2", {"sync_period": 2},
-         dict(rounds=3, algorithm="fedp2p"), expected(fed_mix_segment=6)),
-        ("fedavg", {}, dict(rounds=2, algorithm="fedavg"),
-         expected(fed_mix_segment=2)),
+         dict(rounds=2, algorithm="fedp2p"), expected(fed_mix_segment=4)),
+        ("fedavg", {}, dict(rounds=5, algorithm="fedavg"),
+         expected(fed_mix_segment=5)),
         ("fedp2p_dense", {}, dict(rounds=2, algorithm="fedp2p",
                                   mix_path="dense"), expected(fed_mix=2)),
-        # the JAX package's Table-1 participation for this net
-        # (benchmarks/accuracy.py: L=5, Q=2, 10 participants)
-        ("fedp2p_table1", {"num_clusters": 5, "devices_per_cluster": 2,
-                           "participation": 10},
+        ("fedp2p_table1", table1,
          dict(rounds=5, algorithm="fedp2p"), expected(fed_mix_segment=5)),
+        # the topology-aware protocol through FLConfig.topology_aware, on
+        # the topology the simulator builds (make_topology(100, seed=0))
+        ("fedp2p_topo", {"topology_aware": True},
+         dict(rounds=2, algorithm="fedp2p"), expected(fed_mix_segment=2)),
+        ("fedp2p_topo_table1", {**table1, "topology_aware": True},
+         dict(rounds=5, algorithm="fedp2p"), expected(fed_mix_segment=5)),
+        # a fault plan: drops and nan, inf and bitflip uploads
+        ("fedp2p_faulted", {"faults": plan},
+         dict(rounds=2, algorithm="fedp2p"), expected(fed_mix_segment=2)),
         ("gossip", g100, dict(rounds=2, algorithm="gossip"),
          expected(fed_mix_matching=2)),
         ("gossip_async_sync2", {**g100, "sync_period": 2},
@@ -816,24 +946,30 @@ def phase_main_path(torch, state):
         ("gossip_topk", g100, dict(rounds=2, algorithm="gossip",
                                    codec="topk"),
          expected(fed_mix_matching=2)),
-        ("aggregate", {}, None, expected(fed_aggregate=1)),
+        ("aggregate", {}, "aggregate", expected(fed_aggregate=1)),
+        ("cluster_then_global", {}, "cluster_then_global",
+         expected(fed_aggregate=1)),
     ]
     counters = launch_counters()
     totals = expected()
     results = []
     n_params = None
     for label, over, run_kw, expect in runs:
+        over = dict(over)
+        faults = over.pop("faults", None)
         fl = FLConfig(**{**kw, **over})
-        sim = Simulator(net, data, fl)
+        sim = Simulator(net, data, fl, faults=faults)
         if n_params is None:
             n_params = sum(v.numel() for v in sim.init_params(0).values())
-        if run_kw is None:
-            drive, check = aggregate_run(torch, sim)
+        if isinstance(run_kw, str):
+            drive, check = {"aggregate": aggregate_run,
+                            "cluster_then_global": cluster_run}[run_kw](
+                                torch, sim)
         torch.cuda.synchronize()
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        if run_kw is None:
+        if isinstance(run_kw, str):
             drive()
         else:
             hist = sim.run(**run_kw)
@@ -842,7 +978,7 @@ def phase_main_path(torch, state):
         got = {k: fn.launches for k, fn in counters.items()}
         for k in totals:
             totals[k] += got[k]
-        if run_kw is None:
+        if isinstance(run_kw, str):
             row = {"run": label, "participants": fl.num_clusters
                    * fl.devices_per_cluster, "seconds": round(secs, 4),
                    **check(), "launches": got, "expected_launches": expect}
@@ -862,6 +998,19 @@ def phase_main_path(torch, state):
                    "seconds_per_round": round(secs / run_kw["rounds"], 3),
                    "launches": got, "expected_launches": expect,
                    "finite": finite}
+            if sim.engine(run_kw["algorithm"]).proto.needs_topology:
+                row["protocol"] = "fedp2p_topo"
+            if faults is not None:
+                P = row["participants"]
+                drop, flag, _ = faults.dense_arrays(run_kw["rounds"], P)
+                row.update(dropped=hist.dropped,
+                           rejected_rows=hist.rejected_rows,
+                           plan_dropped=drop.sum(axis=1).astype(int).tolist(),
+                           plan_flagged=flag.sum(axis=1).astype(int).tolist())
+                finite = finite and hist.dropped == row["plan_dropped"] and all(
+                    r >= f for r, f in zip(hist.rejected_rows,
+                                           row["plan_flagged"]))
+                row["finite"] = finite
         results.append(row)
         if not finite or got != expect:
             emit({"phase": "main_path", "params_per_client": n_params,
@@ -870,10 +1019,27 @@ def phase_main_path(torch, state):
     lm_rows = lm_main_path(torch, counters, totals, state)
     state["launches"] = totals
     emit({"phase": "main_path", "params_per_client": n_params,
-          "runs": results, "serving": lm_rows})
+          "runs": results, "serving": lm_rows,
+          "table1": table1_rows(results)})
     bad = [r for r in lm_rows if not r["ok"]]
     if bad:
         raise AssertionError(f"serving run failed: {bad}")
+
+
+def table1_rows(results):
+    """Table-1-style rows at the Table-1 participation (10 of 100): each
+    protocol's best accuracy over the rounds run. Printed, not gated: a few
+    rounds of one seed say little about the ranking."""
+    by_label = {r["run"]: r for r in results}
+    rows = []
+    for proto, label in (("fedp2p", "fedp2p_table1"),
+                         ("fedp2p_topo", "fedp2p_topo_table1"),
+                         ("fedavg", "fedavg")):
+        r = by_label[label]
+        rows.append({"protocol": proto, "participants": r["participants"],
+                     "rounds": r["rounds"], "best_acc": max(r["acc"]),
+                     "seconds_per_round": r["seconds_per_round"]})
+    return rows
 
 
 def lm_main_path(torch, counters, totals, state):
@@ -1147,6 +1313,36 @@ def lm_timing(torch):
             "library": "scaled_dot_product_attention(enable_gqa=True, "
                        "boolean mask), TF32 off",
             "library_max_abs_err": float((library() - call()).abs().max())})
+    # gemma-2b's attention at 2048 positions (B 4, 8 query heads and one kv
+    # head of 256, causal): the kernel's 128-column O slices, each block
+    # computing the full scores
+    q, k, v = attention_inputs(torch, LM_B, WIDE_HQ, WIDE_HKV, LM_S,
+                               WIDE_HD, f32, seed=9)
+    mask = flash_mask(torch, LM_S, 0, 0)
+    pairs = int(mask.sum())
+    flops = 4 * WIDE_HD * pairs * LM_B * WIDE_HQ
+    byts = 4 * LM_S * WIDE_HD * LM_B * (2 * WIDE_HQ + 2 * WIDE_HKV)
+    per = device_ms(torch, lambda: flash_attention(q, k, v))
+    rows.append({
+        "name": "flash_attention", "S": LM_S, "hd": WIDE_HD,
+        "heads": [WIDE_HQ, WIDE_HKV], "window": 0, "num_meta": 0,
+        "visible_pairs_per_head": pairs,
+        "ms": named_ms(per, "flash_fwd_kernel"),
+        "wide_kernel_ms": named_ms(per, "flash_fwd_kernel_wide"),
+        "nonfinite_ms": named_ms(per, "flash_fwd_kernel_vflags")
+                      + named_ms(per, "flash_fwd_kernel_nanfix"),
+        "plain_ms": sum(device_ms(
+            torch, lambda: ref.flash_attention_ref(q, k, v), reps=5).values()),
+        "bytes": byts, "flops": flops,
+        # each 128-column slice's block recomputes the full scores: the
+        # design's operations, beside the function's
+        "design_flops": LM_B * WIDE_HQ * pairs * (
+            2 * WIDE_HD * (WIDE_HD // 128) + 2 * WIDE_HD),
+        **product_bounds(byts, flops),
+        "library_ms": sum(device_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)).values()),
+        "library": "scaled_dot_product_attention(enable_gqa=True, "
+                   "boolean mask), TF32 off"})
     # Hymba's SSM heads, then mamba2-130m's (the summary line takes the
     # first row of a name: Hymba's)
     for h, p, n, chunk in ((50, 64, 16, 128), (24, 64, 128, 256)):

@@ -10,11 +10,17 @@ inputs and its ``device_ms`` (torch.profiler, mean of 20 calls after 3
 warm-up calls), the summed device time of every kernel one call launches:
 
 * ``flash_attention`` at Hymba-1.5B's 2048-position prefill (B 4, 25/5
-  heads of 64, 128 meta tokens), window 1024 and a full layer;
+  heads of 64, 128 meta tokens), window 1024 and a full layer, and at
+  gemma-2b's (B 4, 8/1 heads of 256, causal; null where the tree's
+  wrapper refuses head_dim 256);
 * ``ssd_scan`` at Hymba's SSM heads (50 x 64, state 16, chunk 128, an
   initial state);
 * ``fed_mix_matching`` at the FL main shape (D = 100, P = 246,590, f32),
-  S = 2 (gossip's ring) and S = 1 (gossip_async).
+  S = 2 (gossip's ring) and S = 1 (gossip_async);
+
+and, on the host clock around synchronized work, ``Simulator.run``'s
+seconds per round of fedp2p on CNN-FEMNIST at full width (100 clients,
+default ``FLConfig`` with lr 0.05): one warm-up round, then 3 rounds.
 
 Run it once per tree in turns (parent, change, change, parent) inside one
 call to compare two versions; each run prints one JSON line.
@@ -28,6 +34,24 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+def fedp2p_seconds_per_round(torch, rounds=3):
+    import time
+
+    from repro_torch.config import FLConfig
+    from repro_torch.configs.paper_models import CNN_FEMNIST
+    from repro_torch.core.simulator import Simulator
+    from repro_torch.data.federated import pseudo_femnist_federated
+    sim = Simulator(CNN_FEMNIST, pseudo_femnist_federated(100, num_classes=62,
+                                                          seed=0),
+                    FLConfig(lr=0.05))
+    sim.run(rounds=1, algorithm="fedp2p")           # warm up cuDNN
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(rounds=rounds, algorithm="fedp2p")
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / rounds
 
 
 def main() -> int:
@@ -48,7 +72,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan import ssd_scan
     backend.use_full_f32()
-    backend.build(("flash_attention", "ssd_scan", "fed_mix_matching"))
+    backend.build(("flash_attention", "ssd_scan", "fed_mix_matching",
+                   "fed_mix_segment"))
     rows = {}
 
     def record(key, fn):
@@ -62,6 +87,13 @@ def main() -> int:
         record(f"flash_window{window}",
                lambda: flash_attention(q, k, v, window=window,
                                        num_meta=cs.LM_META))
+    qw, kw_, vw = cs.attention_inputs(torch, cs.LM_B, cs.WIDE_HQ,
+                                      cs.WIDE_HKV, cs.LM_S, cs.WIDE_HD,
+                                      torch.float32, seed=9)
+    try:
+        record("flash_gemma_hd256", lambda: flash_attention(qw, kw_, vw))
+    except ValueError as exc:        # a tree whose wrapper caps head_dim
+        rows["flash_gemma_hd256"] = {"ms": None, "error": str(exc)}
     args_ssd, init = cs.ssd_inputs(torch, cs.LM_B, cs.LM_S, 50, 64, 16, 8,
                                    True)
     record("ssd_scan_hymba",
@@ -70,6 +102,7 @@ def main() -> int:
         m = cs.matching_inputs(torch, cs.MAIN_D, cs.MAIN_P, stages,
                                torch.float32, seed=3)
         record(f"fed_mix_matching_S{stages}", lambda: fed_mix_matching(*m))
+    rows["fedp2p_seconds_per_round"] = fedp2p_seconds_per_round(torch)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

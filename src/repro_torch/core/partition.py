@@ -2,12 +2,16 @@
 explicit ``torch.Generator`` on the engine's device (the counterpart of
 ``repro.core.partition``; a generator takes the place of the JAX key, so
 the draws differ from JAX's — parity tests hand both packages the same
-draws instead)."""
+draws instead). ``topology_partition`` is the §5 host-side variant on
+numpy, seeded with an int."""
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
+
+from repro_torch.core.topology import Topology, grid_cluster_assignment
 
 
 def random_partition(gen: torch.Generator, num_clients: int,
@@ -31,3 +35,21 @@ def sample_participants(gen: torch.Generator, num_clients: int,
     replacement."""
     perm = torch.randperm(num_clients, generator=gen, device=gen.device)
     return perm[:participation]
+
+
+def topology_partition(seed: int, topo: Topology, num_clusters: int,
+                       devices_per_cluster: int
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """§5 topology-aware variant (host-side, numpy): sample L*Q devices
+    uniformly, then cut into clusters along the region space so
+    intra-cluster hop counts are small. ``seed`` seeds numpy's
+    ``default_rng``; the JAX version draws it from its key
+    (``randint(key, (), 0, 2**31 - 1)``), and the same seed gives the same
+    partition here. Pass ``int(torch.randint(0, 2**31 - 1, (),
+    generator=gen))`` to draw it from a generator."""
+    n = topo.hops.shape[0]
+    L, Q = num_clusters, devices_per_cluster
+    rng = np.random.default_rng(int(seed))
+    selected = rng.permutation(n)[: L * Q]
+    ids = grid_cluster_assignment(topo, selected, L)
+    return selected, ids

@@ -79,6 +79,22 @@
 //   masks) and no store; no skipped tile is visited. (Taking the OR and
 //   the NaN inside the attention kernel made it 3-6 % slower at its
 //   255-register limit.)
+//
+// Head dims above 128 (gemma-2b's 256; the Pallas kernel takes any hd).
+// At hd = 256 in f32 the staging above would need pitch x (kBQ + 4·kBK)
+// = 333 KB of shared memory, past the 227 KB a block can have, and O as
+// hd/8 n8 fragments a warp would not fit the 255 registers. So
+// flash_fwd_kernel_wide splits O's columns into slices of kCW = 128, one
+// block per (query tile, head, slice). Every slice's block computes the
+// full scores Q·Kᵀ over all of hd, in kKC = 64-column chunks staged in a
+// two-slot cp.async ring of (Q chunk, K chunk) pairs, so every slice runs
+// the same score arithmetic and gets the same m and l; then P·V for its
+// own 128 columns of V (staged once a tile, while the chunks are
+// computed). Shared memory: 103 KB in f32, two blocks an SM (128-column
+// chunks took 169 KB, one block an SM); 52 KB in bf16. The scores are
+// recomputed once per slice (hd/128 times), the cost of keeping the
+// hd <= 128 kernel as it is. V's non-finite flags are one 128-column mask
+// per slice.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -92,6 +108,8 @@ namespace {
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // key / value rows per tile
 constexpr int kThreads = 128;  // 4 warps x 16 query rows
+constexpr int kCW = 128;       // O slice at hd > 128
+constexpr int kKC = 64;        // column chunk of the scores at hd > 128
 constexpr float kNegInf = -1e30f;
 
 // element strides of one [B, H, S, hd] operand (the hd stride is 1)
@@ -434,36 +452,272 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                             num_meta);
 }
 
-// Before the attention: vflags[b][kv head][key tile] = the bitmask over
-// the hd columns (four 32-bit words) of "V holds an inf or NaN in this
-// column within the tile's 64 keys". One block of 128 threads per (tile,
-// kv head, b); thread c reads column c of every row of the tile (a row's
-// columns are consecutive threads), eight rows in flight.
+// hd > 128: the block's O slice (columns sl·kCW .. + 127) over the full
+// scores (see the head of this file). The same arithmetic as flash_block
+// otherwise; on the fast split a result that holds an inf or a NaN
+// returns true and the block is taken again on the full split.
+template <typename T, bool kSlow>
+__device__ __forceinline__ bool flash_block_wide(const T* __restrict__ q,
+                                                 const T* __restrict__ k,
+                                                 const T* __restrict__ v, T* __restrict__ o,
+                                                 Strides sq, Strides sk, Strides sv, Strides so,
+                                                 int group, int n_q, int n_k, int hd,
+                                                 float scale, int window, int num_meta) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int PC = pitch<T, kKC>();  // a chunk's row pitch
+  constexpr int PT = pitch<T, kCW>();  // the V slice's
+  constexpr int KS = kKC / 8;          // k8 steps of a chunk of S = Q·Kᵀ
+  constexpr int NT = kCW / 8;          // n8 tiles of the O slice
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);  // [2][kBQ][PC]: the ring's Q chunks
+  T* Ks = Qs + 2 * kBQ * PC;           // [2][kBK][PC]: its K chunks
+  T* Vs = Ks + 2 * kBK * PC;           // [kBK][PT]: the tile's V slice
+
+  const int n_sl = (hd + kCW - 1) / kCW;  // slices of O
+  const int n_ch = (hd + kKC - 1) / kKC;  // >= 3: chunks of hd
+  const int n_qt = (n_q + kBQ - 1) / kBQ;
+  const int qt = n_qt - 1 - (int)blockIdx.x;  // most keys first
+  const int h = blockIdx.y / n_sl, sl = blockIdx.y % n_sl;
+  const int b = blockIdx.z;
+  const int hk = h / group;
+  const int q0 = qt * kBQ;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qr = (threadIdx.x >> 5) * 16;
+  const int c_sl = sl * kCW, w_sl = min(kCW, hd - c_sl);
+
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* kb = k + b * sk.b + hk * sk.h;
+  const T* vb = v + b * sv.b + hk * sv.h;
+
+  const int q_last = min(q0 + kBQ, n_q) - 1;
+  const int kt_last = min((n_k - 1) / kBK, q_last / kBK);
+  auto next_tile = [&](int kt) {
+    for (++kt; kt <= kt_last; ++kt) {
+      const int k0 = kt * kBK;
+      if (!(window > 0 && k0 >= num_meta && q0 - (k0 + kBK - 1) >= window)) return kt;
+    }
+    return -1;
+  };
+  // Q's and K's columns c·kKC .. + 63 of tile kt into ring slot `slot`
+  // (zero past hd)
+  auto stage = [&](int kt, int c, int slot) {
+    const int w = min(kKC, hd - c * kKC);
+    copy_tile<T, kKC>(Qs + slot * kBQ * PC, qb + c * kKC, sq.s, q0, n_q, w);
+    copy_tile<T, kKC>(Ks + slot * kBK * PC, kb + c * kKC, sk.s, kt * kBK, n_k, w);
+  };
+
+  int kt = next_tile(-1);
+  if (kt >= 0) stage(kt, 0, 0);
+  cp_async::commit();
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  int slot = 0;
+  while (kt >= 0) {
+    const int nxt = next_tile(kt);
+    const int k0 = kt * kBK;
+    const int r_lo = q0 + qr, r_hi = r_lo + 15;
+    const bool dead = k0 > r_hi || (window > 0 && k0 >= num_meta &&
+                                    r_lo - (k0 + kBK - 1) >= window);
+    const bool full = k0 + kBK - 1 <= r_lo && k0 + kBK <= n_k &&
+                      (window <= 0 || r_hi - k0 < window || k0 + kBK <= num_meta);
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+    for (int c = 0; c < n_ch; ++c) {
+      cp_async::wait<0>();
+      // chunk c staged in `slot`; every warp is done with slot ^ 1 and,
+      // at c == 0, with the previous tile's V slice
+      __syncthreads();
+      if (c + 1 < n_ch) stage(kt, c + 1, slot ^ 1);
+      else if (nxt >= 0) stage(nxt, 0, slot ^ 1);
+      // the V slice lands by chunk 1's wait (n_ch >= 3)
+      if (c == 0) copy_tile<T, kCW>(Vs, vb + c_sl, sv.s, k0, n_k, w_sl);
+      cp_async::commit();
+      if (!dead) {
+        const T* Qc = Qs + slot * kBQ * PC;
+        const T* Kc = Ks + slot * kBK * PC;
+        // columns past hd are 0 in both chunks: they add 0
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t ah[4], al[4];
+          const int base = (qr + g) * PC + ks * 8 + t;
+          frag<kSlow>(Qc, base, ah[0], al[0]);
+          frag<kSlow>(Qc, base + 8 * PC, ah[1], al[1]);
+          frag<kSlow>(Qc, base + 4, ah[2], al[2]);
+          frag<kSlow>(Qc, base + 8 * PC + 4, ah[3], al[3]);
+          uint32_t bh[8][2], bl[8][2];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int idx = (j * 8 + g) * PC + ks * 8 + t;
+            frag<kSlow>(Kc, idx, bh[j][0], bl[j][0]);
+            frag<kSlow>(Kc, idx + 4, bh[j][1], bl[j][1]);
+          }
+          tf32x3::mma_split<8, kBf16, kBf16>(s, ah, al, bh, bl);
+        }
+      }
+      slot ^= 1;
+    }
+    if (!dead) {
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int qi = r_lo + g + (c >> 1) * 8;
+          const int kj = k0 + j * 8 + 2 * t + (c & 1);
+          const bool vis = full || (kj < n_k && kj <= qi &&
+                                    (window <= 0 || qi - kj < window || kj < num_meta));
+          s[j][c] = vis ? s[j][c] * scale : kNegInf;
+          mx[c >> 1] = fmaxf(mx[c >> 1], s[j][c]);
+        }
+      float m_new[2], corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        m_new[r] = fmaxf(m[r], mx[r]);
+        corr[r] = expf(m[r] - m_new[r]);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[j][c] = expf(s[j][c] - m_new[c >> 1]);
+          sum[c >> 1] += s[j][c];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l[r] = l[r] * corr[r] + sum[r];
+        m[r] = m_new[r];
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        acc[n][0] *= corr[0];
+        acc[n][1] *= corr[0];
+        acc[n][2] *= corr[1];
+        acc[n][3] *= corr[1];
+      }
+      // O += P·V, the slice's 16 n8 tiles in two halves of 8 (half the
+      // V fragments live at a time)
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        uint32_t ph[4], pl[4];
+        tf32x3::split_as<kSlow>(s[kk][0], ph[0], pl[0]);
+        tf32x3::split_as<kSlow>(s[kk][2], ph[1], pl[1]);
+        tf32x3::split_as<kSlow>(s[kk][1], ph[2], pl[2]);
+        tf32x3::split_as<kSlow>(s[kk][3], ph[3], pl[3]);
+#pragma unroll
+        for (int nh = 0; nh < NT; nh += 8) {
+          uint32_t bh[8][2], bl[8][2];
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            const int idx = (kk * 8 + 2 * t) * PT + (nh + n) * 8 + g;  // V[key 2t][d g]
+            frag<kSlow>(Vs, idx, bh[n][0], bl[n][0]);
+            frag<kSlow>(Vs, idx + PT, bh[n][1], bl[n][1]);
+          }
+          tf32x3::mma_split<8, false, kBf16>(*reinterpret_cast<float(*)[8][4]>(acc[nh]), ph,
+                                             pl, bh, bl);
+        }
+      }
+    }
+    kt = nxt;
+  }
+  cp_async::wait<0>();
+  if constexpr (!kSlow) {
+    bool bad = !tf32x3::finite(l[0]) || !tf32x3::finite(l[1]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) bad |= !tf32x3::finite(acc[n][c]);
+    if (__syncthreads_or(bad)) return true;  // every warp is done with the buffers
+  }
+
+  T* ob = o + b * so.b + h * so.h + c_sl;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + qr + g + 8 * r;
+    if (qi >= n_q) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int d = n * 8 + 2 * t;
+      if (d < w_sl)
+        store2<T>(ob + qi * so.s + d, acc[n][2 * r] / denom, acc[n][2 * r + 1] / denom,
+                  d + 1 < w_sl);
+    }
+  }
+  return false;
+}
+
+template <typename T>
+__device__ __noinline__ void flash_block_wide_full(const T* q, const T* k, const T* v, T* o,
+                                                   Strides sq, Strides sk, Strides sv,
+                                                   Strides so, int group, int n_q, int n_k,
+                                                   int hd, float scale, int window,
+                                                   int num_meta) {
+  flash_block_wide<T, true>(q, k, v, o, sq, sk, sv, so, group, n_q, n_k, hd, scale, window,
+                            num_meta);
+}
+
+// grid (query tiles, hq x slices, batch)
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o, Strides sq, Strides sk,
+                      Strides sv, Strides so, int group, int n_q, int n_k, int hd, float scale,
+                      int window, int num_meta) {
+  if (flash_block_wide<T, false>(q, k, v, o, sq, sk, sv, so, group, n_q, n_k, hd, scale,
+                                 window, num_meta))
+    flash_block_wide_full<T>(q, k, v, o, sq, sk, sv, so, group, n_q, n_k, hd, scale, window,
+                             num_meta);
+}
+
+// Before the attention: vflags[b][kv head][key tile][slice] = the bitmask
+// over 128 of the hd columns (four 32-bit words; one slice at hd <= 128)
+// of "V holds an inf or NaN in this column within the tile's 64 keys".
+// One block of 128 threads per (tile, kv head, b); thread c reads column
+// sl·128 + c of every row of the tile (a row's columns are consecutive
+// threads), eight rows in flight.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel_vflags(const T* __restrict__ v, Strides sv, uint4* __restrict__ vflags,
                         int n_k, int hd) {
   const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int c = threadIdx.x;
-  const T* col = v + b * sv.b + hk * sv.h + (long long)kt * kBK * sv.s + c;
+  const int n_sl = (hd + kThreads - 1) / kThreads;
   const int rows = min(kBK, n_k - kt * kBK);
-  bool bad = false;
-  if (c < hd) {
-    for (int r0 = 0; r0 < rows; r0 += 8) {
-      float x[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) x[i] = r0 + i < rows ? to_f32(col[(r0 + i) * sv.s]) : 0.f;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) bad |= !tf32x3::finite(x[i]);
-    }
-  }
-  const uint32_t word = __ballot_sync(0xffffffffu, bad);
   __shared__ uint32_t words[kThreads / 32];
-  if ((c & 31) == 0) words[c >> 5] = word;
-  __syncthreads();
-  if (c == 0)
-    vflags[((long long)b * gridDim.y + hk) * gridDim.x + kt] =
-        make_uint4(words[0], words[1], words[2], words[3]);
+  for (int sl = 0; sl < n_sl; ++sl) {
+    const int c = sl * kThreads + threadIdx.x;
+    const T* col = v + b * sv.b + hk * sv.h + (long long)kt * kBK * sv.s + c;
+    bool bad = false;
+    if (c < hd) {
+      for (int r0 = 0; r0 < rows; r0 += 8) {
+        float x[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) x[i] = r0 + i < rows ? to_f32(col[(r0 + i) * sv.s]) : 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) bad |= !tf32x3::finite(x[i]);
+      }
+    }
+    const uint32_t word = __ballot_sync(0xffffffffu, bad);
+    if ((threadIdx.x & 31) == 0) words[threadIdx.x >> 5] = word;
+    __syncthreads();
+    if (threadIdx.x == 0)
+      vflags[(((long long)b * gridDim.y + hk) * gridDim.x + kt) * n_sl + sl] =
+          make_uint4(words[0], words[1], words[2], words[3]);
+    __syncthreads();  // words is rewritten by the next slice
+  }
 }
 
 // After the attention: for each warp of the attention's query tile qt
@@ -472,44 +726,48 @@ flash_fwd_kernel_vflags(const T* __restrict__ v, Strides sv, uint4* __restrict__
 // window with no meta token; and those none of its 16 rows sees), and NaN
 // into those columns of its rows, in every query head of the kv head's
 // group. One block per (query tile, kv head, b), a warp per attention
-// warp; a lane per key tile, then a lane per (row, flagged column).
+// warp; a lane per key tile, then a lane per (row, flagged column); slice
+// by slice of 128 columns. (The wide kernel skips the same tiles.)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel_nanfix(const uint4* __restrict__ vflags, T* __restrict__ o, Strides so,
-                        int group, int n_q, int n_k, int window, int num_meta) {
+                        int group, int n_q, int n_k, int hd, int window, int num_meta) {
   const int qt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_kt = (n_k + kBK - 1) / kBK;
+  const int n_sl = (hd + kThreads - 1) / kThreads;
   const int q0 = qt * kBQ, q_last = min(q0 + kBQ, n_q) - 1;
   const int kt_last = min((n_k - 1) / kBK, q_last / kBK);
   const int r_lo = q0 + warp * 16, r_hi = r_lo + 15;
-  const uint4* vf = vflags + ((long long)b * gridDim.y + hk) * n_kt;
-  uint32_t w[4] = {0u, 0u, 0u, 0u};
-  for (int j = lane; j < n_kt; j += 32) {
-    const int k0 = j * kBK;
-    const bool skipped = j > kt_last || (window > 0 && k0 >= num_meta &&
-                                         q0 - (k0 + kBK - 1) >= window);
-    const bool dead = k0 > r_hi || (window > 0 && k0 >= num_meta &&
-                                    r_lo - (k0 + kBK - 1) >= window);
-    if (skipped || dead) {
-      const uint4 f = vf[j];
-      w[0] |= f.x;
-      w[1] |= f.y;
-      w[2] |= f.z;
-      w[3] |= f.w;
-    }
-  }
-  uint32_t any = 0u;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) any |= w[i] = __reduce_or_sync(0xffffffffu, w[i]);
-  if (!any) return;  // finite input: nothing to store
+  const uint4* vf = vflags + ((long long)b * gridDim.y + hk) * n_kt * n_sl;
   const T nan = nan_as<T>();
-  for (int hh = 0; hh < group; ++hh) {
-    T* ob = o + b * so.b + (long long)(hk * group + hh) * so.h;
-    for (int i = 0; i < 4; ++i) {
-      for (uint32_t m = w[i]; m; m &= m - 1) {
-        const int d = 32 * i + __ffs(m) - 1;
-        if (lane < 16 && r_lo + lane < n_q) ob[(r_lo + lane) * so.s + d] = nan;
+  for (int sl = 0; sl < n_sl; ++sl) {
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    for (int j = lane; j < n_kt; j += 32) {
+      const int k0 = j * kBK;
+      const bool skipped = j > kt_last || (window > 0 && k0 >= num_meta &&
+                                           q0 - (k0 + kBK - 1) >= window);
+      const bool dead = k0 > r_hi || (window > 0 && k0 >= num_meta &&
+                                      r_lo - (k0 + kBK - 1) >= window);
+      if (skipped || dead) {
+        const uint4 f = vf[(long long)j * n_sl + sl];
+        w[0] |= f.x;
+        w[1] |= f.y;
+        w[2] |= f.z;
+        w[3] |= f.w;
+      }
+    }
+    uint32_t any = 0u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) any |= w[i] = __reduce_or_sync(0xffffffffu, w[i]);
+    if (!any) continue;  // finite input: nothing to store
+    for (int hh = 0; hh < group; ++hh) {
+      T* ob = o + b * so.b + (long long)(hk * group + hh) * so.h;
+      for (int i = 0; i < 4; ++i) {
+        for (uint32_t m = w[i]; m; m &= m - 1) {
+          const int d = sl * kThreads + 32 * i + __ffs(m) - 1;
+          if (lane < 16 && r_lo + lane < n_q) ob[(r_lo + lane) * so.s + d] = nan;
+        }
       }
     }
   }
@@ -536,7 +794,35 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, Strides
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_fwd_kernel_nanfix<T><<<dim3(n_qt, hq / group, batch), kThreads, 0, stream>>>(
-      vflags, (T*)o, so, group, n_q, n_k, window, num_meta);
+      vflags, (T*)o, so, group, n_q, n_k, hd, window, num_meta);
+  return cudaGetLastError();
+}
+
+// hd > 128: flash_fwd_kernel_wide between the same two launches
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, Strides sq,
+                        Strides sk, Strides sv, Strides so, uint4* vflags, int batch, int hq,
+                        int group, int n_q, int n_k, int hd, float scale, int window,
+                        int num_meta, cudaStream_t stream) {
+  const size_t bytes = sizeof(T) * ((size_t)pitch<T, kKC>() * 2 * (kBQ + kBK) +
+                                    (size_t)pitch<T, kCW>() * kBK);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel_wide<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (n_q + kBQ - 1) / kBQ;
+  const int n_sl = (hd + kCW - 1) / kCW;
+  flash_fwd_kernel_vflags<T><<<dim3((n_k + kBK - 1) / kBK, hq / group, batch), kThreads, 0,
+                               stream>>>((const T*)v, sv, vflags, n_k, hd);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_fwd_kernel_wide<T><<<dim3(n_qt, hq * n_sl, batch), kThreads, bytes, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, sk, sv, so, group, n_q, n_k, hd,
+      scale, window, num_meta);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_fwd_kernel_nanfix<T><<<dim3(n_qt, hq / group, batch), kThreads, 0, stream>>>(
+      vflags, (T*)o, so, group, n_q, n_k, hd, window, num_meta);
   return cudaGetLastError();
 }
 
@@ -551,7 +837,10 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, Stri
   if (hd <= 64)
     return launch<T, 64>(q, k, v, o, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k, hd,
                          scale, window, num_meta, stream);
-  return launch<T, 128>(q, k, v, o, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k, hd,
+  if (hd <= 128)
+    return launch<T, 128>(q, k, v, o, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k, hd,
+                          scale, window, num_meta, stream);
+  return launch_wide<T>(q, k, v, o, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k, hd,
                         scale, window, num_meta, stream);
 }
 
@@ -561,8 +850,9 @@ extern "C" {
 
 // q [batch, hq, n_q, hd], k/v [batch, hq/group, n_k, hd], o like q; each
 // given by its (batch, head, row) element strides, the hd stride 1; f32
-// when is_bf16 == 0, else bf16; hd <= 128. vflags: a workspace of batch x
-// hq/group x ceil(n_k / 64) entries of 16 bytes, 16-byte aligned. Three
+// when is_bf16 == 0, else bf16; any hd >= 1. vflags: a workspace of batch
+// x hq/group x ceil(n_k / 64) x ceil(hd / 128) entries of 16 bytes,
+// 16-byte aligned. Three
 // launches on `stream` (V's flags, the attention, the NaN of skipped
 // tiles); returns the first failure of cudaGetLastError().
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o,

@@ -9,7 +9,8 @@ output in q's dtype. The kernel is ``csrc/flash_attention.cu`` (an
 online-softmax pass over cp.async double-buffered 64-row K/V tiles, both
 products split-f32 on the TF32 tensor cores, between two small launches
 that give the rows a skipped key tile's inf or NaN in V reaches their
-NaN; replacing the Pallas
+NaN; at head_dim > 128 one block per 128-column slice of O, each over
+the full scores; replacing the Pallas
 ``repro.kernels.flash_attention.flash_attention``); CPU tensors take
 ``ref.flash_attention_ref``. The model calls it through ``ops`` for
 self-attention over positions 0..S-1 (prefill and the cache-free
@@ -26,7 +27,9 @@ import torch
 from repro_torch.kernels import backend, ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
-MAX_HEAD_DIM = 128
+#: columns of V's non-finite mask per 16-byte entry, and the kernel's O
+#: slice at head_dim > 128
+_SLICE = 128
 
 
 def _check(q, k, v, window, num_meta) -> str:
@@ -62,7 +65,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (``flash_attention.launches`` counts its calls: one call is three
     launches: V's non-finite flags, the attention, and the NaN the
     skipped tiles add); on the card the
-    head_dim stride must be 1 and hd <= 128, other strides are free.
+    head_dim stride must be 1, other strides are free; any head_dim.
     Non-finite values come out as the plain version gives them: an inf or
     NaN in V at a key masked for a row makes that row NaN in its column,
     as 0 · inf does in the reference."""
@@ -72,9 +75,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                        num_meta=num_meta)
     b, hq, sq, hd = q.shape
     hkv, tk = k.shape[1], k.shape[2]
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head_dim {hd} > "
-                         f"{MAX_HEAD_DIM} is not supported on the card")
     for arg, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention: {arg}'s head_dim stride must "
@@ -84,9 +84,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out.zero_()
     strides = (ctypes.c_longlong * 12)(
         *[s for t in (q, k, v, out) for s in t.stride()[:3]])
-    # per 64-key tile, the bitmask of V's columns that hold an inf or NaN
-    vflags = torch.empty((b, hkv, -(-tk // 64), 4), dtype=torch.int32,
-                         device=q.device)
+    # per 64-key tile and 128-column slice, the bitmask of V's columns
+    # that hold an inf or NaN
+    vflags = torch.empty((b, hkv, -(-tk // 64), 4 * -(-hd // _SLICE)),
+                         dtype=torch.int32, device=q.device)
     launch = backend.c_function(
         "flash_attention", "flash_attention_launch",
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6

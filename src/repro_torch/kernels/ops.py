@@ -183,8 +183,12 @@ def pack_tree_pair(f_new, f_old, caller: str = "fed_mix_tree"):
 def fed_aggregate_tree(stacked_params, w):
     """The paper's ``Aggregate(·)`` over a stacked tree (leaves [N, ...]):
     pack, one ``fed_aggregate`` pass over the [N, sum(sizes)] buffer,
-    unpack to one model (leaves cast back to their own dtypes)."""
+    unpack to one model (leaves cast back to their own dtypes). A buffer
+    of another dtype than f32 or bf16 is reduced in f32, as the JAX
+    package reduces every leaf."""
     flat, spec = pack_tree(stacked_params)
+    if flat.dtype not in (torch.float32, torch.bfloat16):
+        flat = flat.to(torch.float32)
     return unpack_tree(fed_aggregate(flat, w), spec)
 
 

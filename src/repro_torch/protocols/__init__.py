@@ -5,8 +5,9 @@
     spec = proto.mixing_spec(ctx)          # SegmentSpec / MatchingSpec
     M_new, M_old = proto.mixing_matrix(ctx)
 
-FedAvg, FedP2P, gossip and gossip_async are ported; ``get``/``resolve``
-raise for ``fedp2p_topo``, naming the ROADMAP item that ports it.
+Every protocol of the JAX package is ported: FedAvg, FedP2P, the
+topology-aware FedP2P (``resolve("fedp2p", topology_aware=True)``),
+gossip and gossip_async.
 """
 from repro_torch.protocols.base import (  # noqa: F401
     Protocol, get, get_participation, names, register, resolve,
@@ -19,8 +20,10 @@ from repro_torch.protocols.gossip import DecentralizedGossip
 from repro_torch.protocols.spec import (  # noqa: F401
     MatchingSpec, SegmentSpec, apply_spec_flat,
 )
+from repro_torch.protocols.topology_aware import TopologyAwareFedP2P
 
 register(FedAvg())
 register(FedP2P())
 register(DecentralizedGossip())
+register(TopologyAwareFedP2P())
 register(AsyncGossip())

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.config import FLConfig
 from repro_torch.core.comm_model import CommParams, allreduce_time
+from repro_torch.core.topology import Topology
 from repro_torch.protocols.base import Protocol
 from repro_torch.protocols.context import RoundContext
 from repro_torch.protocols.gossip import on_device, straggler_split
@@ -111,7 +112,8 @@ class AsyncGossip(Protocol):
         """R, the size of the round-robin family a mix draws from."""
         return int(matching_perm_stack(self.num_participants(fl)).shape[0])
 
-    def partition(self, gen: torch.Generator, fl: FLConfig):
+    def partition(self, gen: torch.Generator, fl: FLConfig,
+                  topology: Optional[Topology] = None):
         sel = self.select_participants(gen, fl)
         return sel, torch.arange(fl.participation, dtype=torch.int32,
                                  device=gen.device)

@@ -16,6 +16,7 @@ slice (ROADMAP module item 13).
 """
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -23,11 +24,8 @@ import torch
 from repro_torch.config import FLConfig
 from repro_torch.core.comm_model import CommParams
 from repro_torch.core.partition import sample_participants
+from repro_torch.core.topology import Topology
 from repro_torch.protocols.context import RoundContext
-
-#: protocols of the JAX package that this package has not ported yet, with
-#: the ROADMAP module item that ports them
-NOT_PORTED = {"fedp2p_topo": 7}
 
 
 class Protocol:
@@ -37,6 +35,8 @@ class Protocol:
 
     #: registry key, e.g. "fedp2p"
     name: str = ""
+    #: True -> ``partition``/``comm_time`` want a ``core.topology.Topology``
+    needs_topology: bool = False
 
     # -- participant selection / cluster formation -----------------------
     def num_participants(self, fl: FLConfig) -> int:
@@ -54,10 +54,12 @@ class Protocol:
         return get_participation(fl.participation_strategy).select(
             gen, fl.num_clients, self.num_participants(fl), fl)
 
-    def partition(self, gen: torch.Generator, fl: FLConfig
+    def partition(self, gen: torch.Generator, fl: FLConfig,
+                  topology: Optional[Topology] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(selected [P] int64, cluster_ids [P] int32 in
-        [0, num_clusters(fl))), on ``gen``'s device."""
+        [0, num_clusters(fl))), on ``gen``'s device. ``topology`` is read
+        only by topology-aware protocols."""
         sel = self.select_participants(gen, fl)
         return sel, torch.zeros((self.num_participants(fl),),
                                 dtype=torch.int32, device=gen.device)
@@ -121,24 +123,32 @@ def names() -> Tuple[str, ...]:
 
 def get(name: str) -> Protocol:
     """Look up a registered protocol; unknown names raise, never a silent
-    FedAvg fallback. A JAX protocol not ported yet says so."""
+    FedAvg fallback."""
     try:
         return _REGISTRY[name]
     except KeyError:
-        pending = (f" ({name!r} is not ported yet: ROADMAP module item "
-                   f"{NOT_PORTED[name]})" if name in NOT_PORTED else "")
         raise ValueError(
-            f"unknown protocol {name!r}{pending}; registered protocols: "
+            f"unknown protocol {name!r}; registered protocols: "
             f"{', '.join(names())}") from None
 
 
 def resolve(name: str, topology_aware: bool = False) -> Protocol:
-    """Map an ``FLConfig`` (algorithm, topology_aware) pair to a protocol.
-    ``topology_aware=True`` asks for ``name + '_topo'``; where that variant
-    is not registered here the call raises rather than run a different
-    protocol than the JAX package would."""
+    """Map an ``FLConfig`` (algorithm, topology_aware) pair to a protocol,
+    as the JAX package does: ``topology_aware=True`` upgrades ``name`` to
+    ``name + '_topo'`` when such a variant is registered; when it is not,
+    and the base protocol is not topology-aware itself, the flag would do
+    nothing, so it warns."""
     if topology_aware:
-        return get(f"{name}_topo")
+        if f"{name}_topo" in _REGISTRY:
+            return get(f"{name}_topo")
+        proto = get(name)
+        if not proto.needs_topology:
+            warnings.warn(
+                f"topology_aware=True has no effect for protocol {name!r}: "
+                f"no {name + '_topo'!r} variant is registered and {name!r} "
+                f"is not topology-aware itself",
+                UserWarning, stacklevel=2)
+        return proto
     return get(name)
 
 

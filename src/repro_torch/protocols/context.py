@@ -6,19 +6,25 @@
     * ``counts``       — [D] per-client data weights |D_i|,
     * ``cluster_ids``  — [D] cluster assignment (int),
     * ``matching``     — 0-d int64 index of this mix's random matching
-      (``gossip_async``), or None.
+      (``gossip_async``), or None,
+    * ``fault_drop``   — [D] 0/1 injected-dropout mask of a fault plan
+      (already folded into ``survive``; carried separately so protocols
+      and cost models can tell injected dropouts from stragglers), or
+      None without a plan.
 
   plain fields
     * ``round_index``    — the round counter ``t``,
     * ``num_clusters``   — L, the segment count behind ``cluster_ids``,
-    * ``do_global_sync`` — whether this round runs the server/global step.
+    * ``do_global_sync`` — whether this round runs the server/global step,
+    * ``topology``       — an optional ``core.topology.Topology`` for
+      hop-aware protocols (partitioners, cost models).
 
 The JAX record's ``key`` has no counterpart: the port's round randomness is
 drawn up front into an explicit record (``protocols.engine.RoundDraws``),
 and the one stochastic protocol draw, ``gossip_async``'s matching, arrives
 already drawn as ``matching`` — a device tensor, so the round loop never
-reads it back. Its mesh, codec, fault and sampled-window fields arrive
-with the slices that use them (ROADMAP).
+reads it back. Its mesh, codec and sampled-window fields arrive with the
+slices that use them (ROADMAP).
 """
 from __future__ import annotations
 
@@ -27,6 +33,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.topology import Topology
+
 
 @dataclass(frozen=True)
 class RoundContext:
@@ -34,15 +42,18 @@ class RoundContext:
     counts: torch.Tensor          # [D] per-client data weights |D_i|
     cluster_ids: torch.Tensor     # [D] cluster assignment
     matching: Optional[torch.Tensor] = None   # 0-d int64 matching index
+    fault_drop: Optional[torch.Tensor] = None  # [D] injected dropouts
     round_index: int = 0
     num_clusters: int = 1
     do_global_sync: bool = True
+    topology: Optional[Topology] = None
 
 
 def make_context(*, round_index=0, survive=None, counts=None,
                  cluster_ids=None, matching=None,
                  num_clusters: Optional[int] = None,
                  do_global_sync: bool = True,
+                 topology: Optional[Topology] = None, fault_drop=None,
                  num_clients: Optional[int] = None) -> RoundContext:
     """Build a RoundContext, defaulting every unspecified field.
 
@@ -67,6 +78,7 @@ def make_context(*, round_index=0, survive=None, counts=None,
                         if cluster_ids.numel() else 1)
     return RoundContext(survive=survive, counts=counts,
                         cluster_ids=cluster_ids, matching=matching,
-                        round_index=int(round_index),
+                        fault_drop=fault_drop, round_index=int(round_index),
                         num_clusters=int(num_clusters),
-                        do_global_sync=bool(do_global_sync))
+                        do_global_sync=bool(do_global_sync),
+                        topology=topology)

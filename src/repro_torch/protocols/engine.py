@@ -19,6 +19,12 @@ One round (``DenseEngine._round_rows`` + the consensus collapse):
      mixed client rows;
   6. evaluation.
 
+With a fault plan (``faults=``, ``repro_torch.faults``) a round also
+drops the plan's clients from the survive mask, poisons its flagged
+uploads, takes non-finite or flagged rows out of the mix and runs the
+scatter-back guard after it; ``run_rounds`` then counts ``dropped`` and
+``rejected_rows`` per round. With ``faults=None`` none of this runs.
+
 The federated state is one packed [P, sum(sizes)] buffer for the whole
 round (``kernels.ops.pack_tree`` layout); a stateful codec's
 error-feedback residual is one more [P, sum(sizes)] f32 buffer, carried
@@ -37,9 +43,11 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from repro_torch import compression
+from repro_torch import faults as fault_lib
 from repro_torch.config import FLConfig
 from repro_torch.configs.paper_models import PaperNetConfig
 from repro_torch.core.straggler import straggler_mask
+from repro_torch.core.topology import Topology
 from repro_torch.kernels import backend
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.paper_nets import (
@@ -175,22 +183,19 @@ class DenseEngine:
     ``device=None`` means the card (and raises where there is none);
     ``device="cpu"`` runs the kernels' plain versions. ``codec`` is a
     ``repro_torch.compression`` name or Codec (``None``/``"none"`` runs
-    the codec-free program). ``faults`` and ``topology`` other than
-    ``None`` raise ``NotImplementedError``: they wait for ROADMAP module
-    items 10 and 7."""
+    the codec-free program). ``topology`` (a ``core.topology.Topology``)
+    reaches the protocol's ``partition`` and every ``RoundContext``.
+    ``faults`` is a ``repro_torch.faults.FaultPlan``; ``None`` or an empty
+    plan runs the fault-free program."""
 
     def __init__(self, net: PaperNetConfig, data_dev: Dict, fl: FLConfig,
-                 proto: Protocol, topology=None, *, codec=None,
-                 mix_path: Optional[str] = None, faults=None, device=None):
-        if faults is not None:
-            raise NotImplementedError(
-                "DenseEngine: fault plans are not ported yet (ROADMAP module "
-                "item 10, faults on DenseEngine)")
-        if topology is not None:
-            raise NotImplementedError(
-                "DenseEngine: topologies are not ported yet (ROADMAP module "
-                "item 7, topology_aware)")
+                 proto: Protocol, topology: Optional[Topology] = None, *,
+                 codec=None, mix_path: Optional[str] = None, faults=None,
+                 device=None):
         self.net, self.fl, self.proto = net, fl, proto
+        self.topology = topology
+        #: the fault plan in active form (None: the fault-free program)
+        self.faults = fault_lib.active(faults)
         self.device = backend.resolve_device(device)
         self.data_dev = {k: v.to(self.device) for k, v in data_dev.items()}
         self.mix_path = _check_mix_path(mix_path or fl.mix_path)
@@ -208,7 +213,7 @@ class DenseEngine:
         """One round's draws from ``gen`` (on the engine's device)."""
         fl = self.fl
         P = self.proto.num_participants(fl)
-        sel, cids = self.proto.partition(gen, fl)
+        sel, cids = self.proto.partition(gen, fl, self.topology)
         survive = straggler_mask(gen, P, fl.straggler_rate)
         n_max = self.data_dev["y"].shape[1]
         subs = max(1, fl.sync_period)
@@ -268,18 +273,33 @@ class DenseEngine:
 
     # -- one round -----------------------------------------------------------
     def _round_rows(self, spec, flat_params, draws: RoundDraws,
-                    round_index: int = 0, codec_state=None):
+                    round_index: int = 0, codec_state=None, fault=None):
         """One protocol round on the packed carry, stopping BEFORE the
         consensus collapse: ``flat_params`` is the flat [sum(sizes)] global
         model, ``spec`` its TreeSpec. Returns the mixed PER-CLIENT rows
         ``(flat_mixed [P, sum(sizes)], losses [P], codec_state)``;
         ``losses`` are the last sub-round's, ``codec_state`` the threaded
-        error-feedback residual (None without a stateful codec)."""
+        error-feedback residual (None without a stateful codec).
+
+        ``fault`` (active plans only) is this round's ``(drop [P], flag
+        [P], mode [P])`` from ``FaultPlan.dense_arrays``, on the engine's
+        device: dropped clients leave the survive mask for every
+        sub-round, flagged clients' FINAL uploads are poisoned
+        (``corrupt_flat``), rows that are non-finite or flagged are taken
+        out of the mix like stragglers and their bytes replaced with the
+        round-start row (a masked NaN row would still poison a dense
+        product through 0 · nan), and the scatter-back guard reverts any
+        rejected row to its round-start value. The return then grows a
+        4th element: ``{'dropped', 'rejected_rows'}`` 0-d int32 counters."""
         proto, fl, data = self.proto, self.fl, self.data_dev
         P = proto.num_participants(fl)
         L = proto.num_clusters(fl)
         sel, cids, survive, perms = (t.to(self.device) for t in (
             draws.sel, draws.cluster_ids, draws.survive, draws.batch_perm))
+        drop = flag = mode = None
+        if fault is not None:
+            drop, flag, mode = fault
+            survive = survive * (1.0 - drop)
         # gathered ONCE per round: the selection is fixed across sub-rounds
         cx, cy, cm = data["x"][sel], data["y"][sel], data["mask"][sel]
         counts = data["counts"][sel]
@@ -290,13 +310,14 @@ class DenseEngine:
         matching, noise = (None if t is None else t.to(self.device)
                            for t in (draws.matching, draws.wire_noise))
 
-        def mix(flat_new, r: int, sync: bool, cstate):
+        def mix(flat_new, r: int, sync: bool, cstate, mask=survive):
             """Mix r (1-based): its matching and rounding noise are entry
             r-1 of the round's draws."""
             ctx = make_context(
-                round_index=round_index, survive=survive, counts=counts,
+                round_index=round_index, survive=mask, counts=counts,
                 cluster_ids=cids, num_clusters=L, do_global_sync=sync,
-                matching=None if matching is None else matching[r - 1])
+                matching=None if matching is None else matching[r - 1],
+                topology=self.topology, fault_drop=drop)
             return self._mix_flat(flat_new, flat_old, ctx, cstate,
                                   u=None if noise is None else noise[r - 1])
 
@@ -311,18 +332,35 @@ class DenseEngine:
             cp, losses = self._train(kernel_ops.unpack_tree(start, spec),
                                      cx, cy, cm, perms[r])
             flat_cp = kernel_ops.pack_tree(cp)[0]
-        flat_mixed, cstate = mix(flat_cp, subs, True, cstate)
-        return flat_mixed, losses, cstate
+        if fault is None:
+            flat_mixed, cstate = mix(flat_cp, subs, True, cstate)
+            return flat_mixed, losses, cstate
+        # the fault wire sits on the FINAL upload: poison flagged rows,
+        # then the receive side's check — finite and not flagged (a
+        # bit-flipped row stays finite; without the flag its huge values
+        # would enter every other row's average)
+        flat_cp = fault_lib.corrupt_flat(flat_cp, flag, mode)
+        ok = torch.isfinite(flat_cp).all(dim=1) & (flag <= 0)
+        flat_cp = torch.where(ok[:, None], flat_cp, flat_old)
+        flat_mixed, cstate = mix(flat_cp, subs, True, cstate,
+                                 mask=survive * ok.to(survive.dtype))
+        guarded, bad = fault_lib.guard_flat(flat_mixed, flat_old, flag)
+        counters = {"dropped": drop.sum().to(torch.int32),
+                    "rejected_rows": bad.sum().to(torch.int32)}
+        return guarded, losses, cstate, counters
 
     def _round_flat(self, spec, flat_params, draws: RoundDraws,
-                    round_index: int = 0, codec_state=None):
+                    round_index: int = 0, codec_state=None, fault=None):
         """``_round_rows`` + the consensus collapse: the global model is
         the mean over the mixed client rows, each leaf in its own dtype
-        (``mean_packed``). Returns ``(flat', mean_loss, codec_state)``."""
-        flat_mixed, losses, cstate = self._round_rows(
-            spec, flat_params, draws, round_index, codec_state)
+        (``mean_packed``). Returns ``(flat', mean_loss, codec_state)``;
+        with ``fault`` the round's counter dict rides along as the last
+        element."""
+        out = self._round_rows(spec, flat_params, draws, round_index,
+                               codec_state, fault=fault)
+        flat_mixed, losses, cstate = out[:3]
         return (kernel_ops.mean_packed(flat_mixed, spec), losses.mean(),
-                cstate)
+                cstate) + out[3:]
 
     # -- the training loop ---------------------------------------------------
     def run_rounds(self, params, gen: Optional[torch.Generator], T: int,
@@ -334,6 +372,10 @@ class DenseEngine:
         else drawn from ``gen``. Returns (final_params, metrics) with
         metrics = {'train_loss', 'acc', 'acc_client_mean'}, each a [T]
         tensor on the engine's device — nothing is read back to the host.
+        Under a fault plan the metrics grow the four [T] int32 fault
+        counters: ``dropped``, ``rejected_rows``, and ``retries`` and
+        ``prefetch_fallbacks`` as zeros (store-tier counters; this engine
+        has no store).
         With ``eval_every > 1`` the accuracy entries are computed only at
         rounds where (t+1) % eval_every == 0 and at the last round; the
         other slots are zeros the caller must not read. A stateful codec's
@@ -352,10 +394,20 @@ class DenseEngine:
         loss: List[torch.Tensor] = []
         acc_w: List[torch.Tensor] = []
         acc_m: List[torch.Tensor] = []
+        fault_xs = counters = None
+        if self.faults is not None:
+            P = self.proto.num_participants(self.fl)
+            fault_xs = [torch.from_numpy(a).to(self.device)
+                        for a in self.faults.dense_arrays(T, P)]
+            counters = {"dropped": [], "rejected_rows": []}
         for t in range(T):
             d = draws[t] if draws is not None else self.draw_round(gen)
-            flat, round_loss, cstate = self._round_flat(spec, flat, d, t,
-                                                        cstate)
+            fault = None if fault_xs is None else [a[t] for a in fault_xs]
+            out = self._round_flat(spec, flat, d, t, cstate, fault=fault)
+            flat, round_loss, cstate = out[:3]
+            if fault is not None:
+                for k in counters:
+                    counters[k].append(out[3][k])
             loss.append(round_loss)
             if (t + 1) % eval_every == 0 or t == T - 1:
                 a_w, a_m = self.evaluate(kernel_ops.unpack_tree(flat, spec))
@@ -363,6 +415,10 @@ class DenseEngine:
                 a_w, a_m = zero, zero
             acc_w.append(a_w)
             acc_m.append(a_m)
-        return kernel_ops.unpack_tree(flat, spec), {
-            "train_loss": torch.stack(loss), "acc": torch.stack(acc_w),
-            "acc_client_mean": torch.stack(acc_m)}
+        metrics = {"train_loss": torch.stack(loss), "acc": torch.stack(acc_w),
+                   "acc_client_mean": torch.stack(acc_m)}
+        if counters is not None:
+            zeros = torch.zeros((T,), dtype=torch.int32, device=self.device)
+            metrics.update({k: torch.stack(v) for k, v in counters.items()},
+                           retries=zeros, prefetch_fallbacks=zeros.clone())
+        return kernel_ops.unpack_tree(flat, spec), metrics

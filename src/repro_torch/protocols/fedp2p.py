@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from repro_torch.config import FLConfig
 from repro_torch.core.comm_model import CommParams, h_fedp2p, min_h_fedp2p
 from repro_torch.core.partition import random_partition
+from repro_torch.core.topology import Topology
 from repro_torch.protocols.base import Protocol
 from repro_torch.protocols.context import RoundContext
 from repro_torch.protocols.spec import SegmentSpec
@@ -30,7 +31,8 @@ class FedP2P(Protocol):
     def num_clusters(self, fl: FLConfig) -> int:
         return fl.num_clusters
 
-    def partition(self, gen: torch.Generator, fl: FLConfig):
+    def partition(self, gen: torch.Generator, fl: FLConfig,
+                  topology: Optional[Topology] = None):
         return random_partition(gen, fl.num_clients, fl.num_clusters,
                                 fl.devices_per_cluster)
 

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.config import FLConfig
 from repro_torch.core.comm_model import CommParams, allreduce_time
+from repro_torch.core.topology import Topology
 from repro_torch.protocols.base import Protocol
 from repro_torch.protocols.context import RoundContext
 from repro_torch.protocols.spec import MatchingSpec
@@ -106,7 +107,8 @@ class DecentralizedGossip(Protocol):
         # every participant is its own "cluster"; mixing is purely pairwise
         return fl.participation
 
-    def partition(self, gen: torch.Generator, fl: FLConfig):
+    def partition(self, gen: torch.Generator, fl: FLConfig,
+                  topology: Optional[Topology] = None):
         sel = self.select_participants(gen, fl)
         return sel, torch.arange(fl.participation, dtype=torch.int32,
                                  device=gen.device)

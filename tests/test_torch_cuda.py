@@ -45,7 +45,12 @@ skip themselves elsewhere. Run them on the card with
   the diagonal tile, in K and in Q; the SSD: in x, dt, B and C at row 100
   of a 128-row chunk, whose 64-row tile the output pass skips for rows
   0-63, and at row 30): inf and NaN where the plain version has them, the
-  finite outputs at the usual tolerance.
+  finite outputs at the usual tolerance. ``flash_attention`` at head_dim
+  160, 192, 256 (gemma-2b's MQA shape included) and 512, and its
+  non-finite cases at 256;
+* the FL paths of the topology-aware protocol, fault plans and the
+  paper's ``Aggregate(·)`` launch their kernels (``fed_mix_segment`` /
+  ``fed_mix``, ``fed_aggregate``) and agree with the CPU.
 """
 import pytest
 import torch
@@ -639,3 +644,128 @@ def test_lm_kernel_guards_on_card(cuda):
         ssd_scan(*args, chunk=3)
     with pytest.raises(ValueError, match="outside what the kernel takes"):
         ssd_scan(*_ssd_args(cuda, 1, 8, 1, 65, 3, torch.float32), chunk=8)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention at head_dim > 128 (the kernel's 128-column O slices)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,hq,hkv,s,hd,window,num_meta", [
+    (1, 8, 1, 2048, 256, 0, 0),           # gemma-2b: MQA, hd 256
+    (2, 4, 2, 300, 256, 96, 16),          # GQA, window + meta, ragged S
+    (2, 4, 1, 200, 160, 0, 0),            # MQA, a 32-column last slice
+    (2, 4, 2, 333, 160, 64, 5),
+    (2, 6, 2, 256, 192, 0, 0),            # GQA, a 64-column last slice
+    (1, 3, 1, 150, 192, 96, 8),
+    (1, 2, 1, 333, 512, 0, 0),            # four slices
+    (1, 4, 2, 200, 512, 64, 4),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_wide_head_dims_on_card(cuda, b, hq, hkv, s, hd,
+                                                window, num_meta, dtype):
+    """hd 160, 192, 256 and 512 (the Pallas kernel takes any hd): causal
+    and window with meta tokens, GQA and MQA, in the model's strided
+    layout; the launch counter rises by one a call."""
+    q, k, v = _attention_args(cuda, b, hq, hkv, s, hd, dtype,
+                              model_layout=True)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, window=window, num_meta=num_meta)
+    assert flash_attention.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, window=window, num_meta=num_meta)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert got.stride() == q.stride()
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("window,num_meta", [(0, 0), (96, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_wide_non_finite_on_card(cuda, window, num_meta,
+                                                 dtype):
+    """At hd 256: inf and NaN in V at keys the kernel skips for some rows
+    and in visited tiles, in both 128-column slices (columns 3 and 200,
+    11 and 140), in K (column 250) and in Q (column 129): the plain
+    version's inf and NaN."""
+    b, hq, hkv, s, hd = 2, 6, 2, 448, 256
+    q, k, v = _attention_args(cuda, b, hq, hkv, s, hd, dtype,
+                              model_layout=True)
+    v[0, 1, s - 1, 3] = float("inf")
+    v[1, 0, s - 1, 200] = float("nan")
+    v[0, 0, 100, 11] = float("-inf")
+    v[1, 1, 70, 140] = float("inf")
+    v[0, 0, 5, 17] = float("nan")
+    k[0, 1, 300, 250] = float("inf")
+    q[1, 4, 200, 129] = float("inf")
+    got = flash_attention(q, k, v, window=window, num_meta=num_meta)
+    want = ref.flash_attention_ref(q, k, v, window=window, num_meta=num_meta)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    _compare_non_finite(got, want, (tol, tol))
+
+
+# ---------------------------------------------------------------------------
+# the FL paths of module items 7 and 10 launch their kernels
+# ---------------------------------------------------------------------------
+
+def _small_fl():
+    from repro_torch.config import FLConfig
+    from repro_torch.configs.paper_models import PaperNetConfig
+    from repro_torch.data.federated import pseudo_femnist_federated
+    net = PaperNetConfig(name="cnn-small", kind="cnn", image_size=28,
+                         channels=1, hidden=8, num_classes=10)
+    data = pseudo_femnist_federated(12, per_client=20, num_classes=10,
+                                    seed=1)
+    return net, data, dict(num_clients=12, num_clusters=2,
+                           devices_per_cluster=4, participation=4,
+                           local_epochs=1, lr=0.05, straggler_rate=0.25)
+
+
+def test_cluster_then_global_launches_fed_aggregate_on_card(cuda):
+    from repro_torch.core import aggregation
+    x = {"w": torch.randn((6, 40, 3), device="cuda", generator=cuda),
+         "b": torch.randn((6, 5), device="cuda", generator=cuda)}
+    counts = torch.tensor([3.0, 1, 4, 1, 5, 9], device="cuda")
+    mask = torch.tensor([1.0, 0, 1, 1, 1, 0], device="cuda")
+    ids = torch.tensor([0, 1, 1, 2, 2, 0], dtype=torch.int32, device="cuda")
+    before = fed_aggregate.launches
+    got = aggregation.cluster_then_global(x, counts, ids, 3, mask)
+    avg = aggregation.weighted_average(x, counts, mask)
+    assert fed_aggregate.launches == before + 2
+    cpu = {k: v.cpu() for k, v in x.items()}
+    want = aggregation.cluster_then_global(cpu, counts.cpu(), ids.cpu(), 3,
+                                           mask.cpu())
+    want_avg = aggregation.weighted_average(cpu, counts.cpu(), mask.cpu())
+    for k in x:
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-5,
+                                   atol=1e-5)
+        torch.testing.assert_close(avg[k].cpu(), want_avg[k], rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("mix_path,kernel", [("auto", fed_mix_segment),
+                                             ("dense", fed_mix)])
+def test_fedp2p_topo_and_faulted_runs_launch_mix_kernels_on_card(
+        cuda, mix_path, kernel):
+    """fedp2p_topo (through ``topology_aware=True``) and a faulted fedp2p
+    run, each two rounds: one mix kernel launch a round; the faulted
+    run's counters follow the plan and its carry stays finite."""
+    from repro_torch.config import FLConfig
+    from repro_torch.core.simulator import Simulator
+    from repro_torch.faults import make_plan
+    net, data, kw = _small_fl()
+    sim = Simulator(net, data, FLConfig(topology_aware=True,
+                                        mix_path=mix_path, **kw))
+    before = kernel.launches
+    hist = sim.run(rounds=2)
+    assert kernel.launches == before + 2
+    assert sim.engine("fedp2p").proto.name == "fedp2p_topo"
+    assert all(torch.isfinite(torch.tensor(hist.train_loss)))
+    plan = make_plan(8, 2, seed=5, drop_rate=0.25, corrupt_rate=0.4)
+    sim = Simulator(net, data, FLConfig(mix_path=mix_path, **kw),
+                    faults=plan)
+    before = kernel.launches
+    hist = sim.run(rounds=2, algorithm="fedp2p")
+    assert kernel.launches == before + 2
+    drop, flag, _ = plan.dense_arrays(2, 8)
+    assert hist.dropped == drop.sum(axis=1).astype(int).tolist()
+    assert all(r >= int(f.sum()) for r, f in zip(hist.rejected_rows, flag))
+    assert all(torch.isfinite(torch.tensor(hist.train_loss + hist.acc)))

@@ -247,6 +247,11 @@ def test_simulator_run_on_cpu_history(syncov_data):
 
 
 def test_unported_options_raise(syncov_data):
+    """What still raises (unknown codecs and mix paths), and what no longer
+    does: the topology-aware protocol (ROADMAP item 7) and fault plans
+    (item 10) build engines and run."""
+    from repro_torch.core.topology import make_topology
+    from repro_torch.faults import make_plan
     sim = Simulator(LOGREG_SYN, syncov_data, FLConfig(**LOGREG_FL),
                     device="cpu")
     # codecs and the gossip family are ported: they build and run
@@ -257,20 +262,23 @@ def test_unported_options_raise(syncov_data):
                        codec="int8").train_loss) == 1
     with pytest.raises(ValueError, match="unknown codec"):
         sim.engine("fedp2p", codec="zip")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        DenseEngine(LOGREG_SYN, sim.data_dev, FLConfig(**LOGREG_FL),
-                    sim.engine("fedp2p").proto, topology=object(),
-                    device="cpu")
-    with pytest.raises(ValueError, match=r"not ported yet: ROADMAP module "
-                                         r"item 7"):
-        Simulator(LOGREG_SYN, syncov_data,
-                  FLConfig(**LOGREG_FL, topology_aware=True),
-                  device="cpu").run(rounds=1)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        DenseEngine(LOGREG_SYN, sim.data_dev, FLConfig(**LOGREG_FL),
-                    sim.engine("fedp2p").proto, faults=object(),
-                    device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    topo = make_topology(LOGREG_FL["num_clients"], seed=0)
+    eng = DenseEngine(LOGREG_SYN, sim.data_dev, FLConfig(**LOGREG_FL),
+                      sim.engine("fedp2p").proto, topology=topo,
+                      device="cpu")
+    assert eng.topology is topo
+    hist = Simulator(LOGREG_SYN, syncov_data,
+                     FLConfig(**LOGREG_FL, topology_aware=True),
+                     device="cpu").run(rounds=1)
+    assert len(hist.train_loss) == 1 and math.isfinite(hist.train_loss[0])
+    plan = make_plan(6, 2, seed=0, drop_rate=0.3)
+    eng = DenseEngine(LOGREG_SYN, sim.data_dev, FLConfig(**LOGREG_FL),
+                      sim.engine("fedp2p").proto, faults=plan, device="cpu")
+    assert eng.faults is plan
+    hist = Simulator(LOGREG_SYN, syncov_data, FLConfig(**LOGREG_FL),
+                     faults=plan, device="cpu").run(rounds=2)
+    assert len(hist.dropped) == 2
+    with pytest.raises(TypeError, match="FaultPlan"):
         Simulator(LOGREG_SYN, syncov_data, FLConfig(), faults=object(),
                   device="cpu")
     with pytest.raises(ValueError, match="unknown mix_path"):

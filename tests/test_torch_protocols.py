@@ -80,7 +80,7 @@ def _jitted(name, method):
     return _JIT[name, method]
 
 
-@pytest.mark.parametrize("name", ["fedp2p", "fedavg"])
+@pytest.mark.parametrize("name", ["fedp2p", "fedavg", "fedp2p_topo"])
 @pytest.mark.parametrize("sync", [True, False])
 @pytest.mark.parametrize("D,L", [(5, 2), (8, 3), (16, 4), (12, 12)])
 @pytest.mark.parametrize("mode", ["random", "dead_cluster", "all_dead"])
@@ -151,13 +151,18 @@ def test_matching_spec_to_dense_bitwise(D):
 
 
 def test_registry_and_resolve():
-    assert set(protocols.names()) == {"fedavg", "fedp2p", "gossip",
-                                      "gossip_async"}
+    assert set(protocols.names()) == set(jprotocols.names()) == {
+        "fedavg", "fedp2p", "fedp2p_topo", "gossip", "gossip_async"}
     assert protocols.resolve("fedp2p").name == "fedp2p"
     assert protocols.resolve("gossip_async").name == "gossip_async"
-    with pytest.raises(ValueError, match="not ported yet") as err:
-        protocols.resolve("fedp2p", topology_aware=True)
-    assert "fedp2p_topo" in str(err.value) and "item 7" in str(err.value)
+    assert protocols.resolve("fedp2p", topology_aware=True).name == \
+        "fedp2p_topo"
+    assert protocols.get("fedp2p_topo").needs_topology
+    assert not protocols.get("fedp2p").needs_topology
+    # no gossip_topo: the flag would do nothing, so it warns, as JAX's does
+    with pytest.warns(UserWarning, match="no effect"):
+        assert protocols.resolve("gossip",
+                                 topology_aware=True).name == "gossip"
     with pytest.raises(ValueError, match="is stochastic"):
         protocols.get("gossip_async").mixing_spec(
             protocols.make_context(num_clients=4))
@@ -168,7 +173,7 @@ def test_registry_and_resolve():
 
 
 @pytest.mark.parametrize("name", ["fedp2p", "fedavg", "gossip",
-                                  "gossip_async"])
+                                  "gossip_async", "fedp2p_topo"])
 def test_partition_and_stragglers_on_a_generator(name):
     fl = FLConfig(num_clients=30, num_clusters=3, devices_per_cluster=4,
                   participation=7)
@@ -188,7 +193,7 @@ def test_partition_and_stragglers_on_a_generator(name):
 
 
 @pytest.mark.parametrize("name", ["fedp2p", "fedavg", "gossip",
-                                  "gossip_async"])
+                                  "gossip_async", "fedp2p_topo"])
 def test_comm_time_and_wire_model_match_jax(name):
     jp = JCommParams(model_bytes=4e6, server_bw=1e8, device_bw=1e9)
     tp = CommParams(model_bytes=4e6, server_bw=1e8, device_bw=1e9)
