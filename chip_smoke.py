@@ -20,13 +20,19 @@ exits non-zero:
             plain version has them); flash_attention at Hymba's prefill
             shapes and the JAX kernel tests' sweep, and at head_dim 160,
             192, 256 (gemma-2b's MQA shape, with inf and NaN too) and
-            512; ssd_scan at Hymba's and mamba2-130m's;
+            512; ssd_scan at Hymba's and mamba2-130m's; the backward
+            kernels (flash_attention_bwd, ssd_scan_bwd) against the plain
+            version's autograd at Hymba's, qwen2-1.5b's and mamba2-130m's
+            training shapes (flash in f32 and bf16), two backward calls
+            bit for bit, and (reported, not gated) an inf in V and in x;
   reference the port on the card (kernels) against the port on the CPU
             (plain versions) on a small CNN run with the same draws,
             gossip, gossip_async, the int8/topk wire, fedp2p_topo and a
             faulted fedp2p run (its counters equal) included, a checkpoint
-            round trip of the card's final params (bit for bit), and
-            reduced Hymba's prefill and greedy decode;
+            round trip of the card's final params (bit for bit),
+            reduced Hymba's prefill and greedy decode, and reduced
+            Hymba's training (the step-1 loss and every gradient leaf,
+            then 3 AdamW steps' losses);
   main_path ``Simulator.run`` on CNN-FEMNIST at the paper's full width
             (246,590 params x 100 clients): fedp2p, fedp2p with
             sync_period=2, fedavg, fedp2p on mix_path="dense", fedp2p
@@ -42,17 +48,24 @@ exits non-zero:
             fedp2p, fedp2p_topo and fedavg (printed, not gated); then
             ``serve.generate`` on Hymba-1.5B at full width (seeded
             weights, made once; B = 4, prompts of 384 and 1920 tokens,
-            16 greedy tokens): each run driven with the launch counters
-            set to 0 just before it and read just after;
+            16 greedy tokens); then ``run_lm_training`` on Hymba-1.5B at
+            full width (B 2 x 1920 tokens, 4 steps with remat off and 2
+            with remat on; every backward kernel launched 32 times a
+            step), one step's device-time split, and the CLI's
+            ``--mode lm --arch mamba2-130m --full --steps 20`` as a
+            subprocess: each run driven with the launch counters set to 0
+            just before it and read just after;
   timing    each kernel's mean time at the main path's shape beside its
             plain version, its bound (the product kernels' at the
             split-f32 tensor-core rate, with the CUDA cores' f32 rate
             beside it) and its library yardstick (ssd_scan also at
             mamba2-130m's shape; flash_attention's two non-finite
             launches alone and at gemma-2b's hd 256 beside SDPA,
-            fed_mix_matching at S = 2 and 1), two rounds' split
-            between local training, mixing and the wire, and the Hymba
-            prefill's device time by kernel.
+            fed_mix_matching at S = 2 and 1; the backward kernels at
+            Hymba's training shapes beside the plain autograd and, for
+            flash, SDPA's backward), two rounds' split between local
+            training, mixing and the wire, and the Hymba prefill's
+            device time by kernel.
 
 Each phase prints one JSON line. The run ends with the kernel summary
 line, the ``nvidia-smi`` name/power-limit line, and then
@@ -98,6 +111,14 @@ KERNELS = (
      "src/repro/kernels/flash_attention.py:70"),
     ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
      "src/repro/kernels/ssd_scan.py:71"),
+    # the backward kernels have no Pallas counterpart: the JAX package
+    # computes these gradients in jnp (flash: the custom VJP; SSD: autodiff
+    # of ssd_chunked)
+    ("flash_attention_bwd",
+     "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+     "src/repro/models/attention.py:138"),
+    ("ssd_scan_bwd", "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+     "src/repro/models/ssm.py:104"),
 )
 
 # the main path's mix: 100 participants x the FEMNIST CNN's 246,590 params
@@ -133,6 +154,18 @@ FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (3e-2, 3e-2)}
 # sums hundreds of such terms. Each case also reports both versions' error
 # against the plain version computed in float64.
 SSD_RTOL, SSD_ATOL_SCALE = 1e-4, 5e-4
+# The backward kernels against the plain version's autograd on the card, at
+# the forward's tolerances: flash's gradients at FLASH_TOL; each SSD
+# gradient at rtol SSD_RTOL and an atol of SSD_ATOL_SCALE times that
+# gradient's largest |value|. Each case also reports both versions' error
+# against the plain version's autograd in float64.
+# Hymba-1.5B's training main path (run_lm_training at full width): B 2,
+# 1920 tokens (2048 positions with the 128 meta tokens, past the window of
+# 1024), 4 steps with remat off, then 2 with remat on.
+TRAIN_B, TRAIN_SEQ, TRAIN_STEPS, TRAIN_REMAT_STEPS = 2, 1920, 4, 2
+# the step-1 loss of random weights: ln V plus about sigma^2 / 2 for
+# logits of unit spread; within 1.5 of ln(32001)
+TRAIN_LOSS0_SLACK = 1.5
 
 
 def emit(obj) -> None:
@@ -418,9 +451,10 @@ def phase_kernels(torch, state):
                      "atol": atol, "rtol": rtol, "ok": ok})
         failed += [] if ok else [rows[-1]]
     rows += lm_kernel_cases(torch)
-    failed += [r for r in rows if r["kernel"] in ("flash_attention",
-                                                  "ssd_scan")
-               and not r["ok"]]
+    rows += lm_backward_cases(torch)
+    failed += [r for r in rows if r["kernel"] in (
+        "flash_attention", "ssd_scan", "flash_attention_bwd", "ssd_scan_bwd")
+               and not r["ok"] and r.get("gated", True)]
     # the summary line's error: the main path's shape, f32
     for name, _, _ in KERNELS:
         state.setdefault("max_abs_err", {})[name] = max(
@@ -559,8 +593,14 @@ def lm_non_finite_cases(torch):
 
 def main_case(row):
     """Whether a kernels-phase row is at the main path's shape, f32."""
-    if row.get("non_finite"):
+    if row.get("non_finite") or "bitwise_repeat" in row:
         return False
+    if row["kernel"] == "flash_attention_bwd":
+        return (row["B"], row["S"], row["hd"], row["window"],
+                row["dtype"]) == (TRAIN_B, LM_S, LM_HD, LM_WINDOW, "float32")
+    if row["kernel"] == "ssd_scan_bwd":
+        return (row["b"], row["S"], row["h"], row["initial_state"]) == (
+            TRAIN_B, LM_S, 50, False)
     if row["kernel"] == "flash_attention":
         return (row["B"], row["S"], row["hd"], row["window"],
                 row["dtype"]) == (LM_B, LM_S, LM_HD, LM_WINDOW, "float32")
@@ -647,6 +687,195 @@ def lm_kernel_cases(torch):
                          "f64_err_plain": float((y_ref - y64).abs().max()),
                          "atol": atol, "rtol": rtol, "ok": ok_y and ok_s
                          and y.shape == args[0].shape})
+    return rows
+
+
+def flash_grads(torch, fn, q, k, v, dout, window, num_meta):
+    """(out, dq, dk, dv) of ``fn`` (the kernel's wrapper or the plain
+    version) by autograd, on copies of q, k, v that keep their layout."""
+    qq, kk, vv = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = fn(qq, kk, vv, window=window, num_meta=num_meta)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    return out.detach(), qq.grad, kk.grad, vv.grad
+
+
+def ssd_grads(torch, fn, args, init, dy, dfinal, chunk):
+    """(dx, d(dt), dA, dB, dC, d(initial state)) of ``fn`` (the kernel's
+    wrapper or ``ref.ssd_chunked``) by autograd of sum(y·dy) (+ sum(final ·
+    dfinal)); x, B and C stay slices of one conv output, as in the mixer."""
+    x, dts, A, B, C = args
+    h, p, n = x.shape[2], x.shape[3], B.shape[2]
+    u = torch.cat([x.flatten(2), B, C], dim=-1).detach().requires_grad_(True)
+    leaves = [u] + [t.detach().clone().requires_grad_(True) for t in (dts, A)]
+    ii = None if init is None else init.detach().clone().requires_grad_(True)
+    xx = u[..., :h * p].unflatten(-1, (h, p))
+    if fn is None:
+        from repro_torch.kernels import ref
+        y, fin = ref.ssd_chunked(xx, leaves[1], leaves[2], u[..., h * p:h * p + n],
+                                 u[..., h * p + n:], chunk, initial_state=ii)
+    else:
+        y, fin = fn(xx, leaves[1], leaves[2], u[..., h * p:h * p + n],
+                    u[..., h * p + n:], chunk=chunk, initial_state=ii)
+    loss = (y * dy.to(y.dtype)).sum()
+    if dfinal is not None:
+        loss = loss + (fin * dfinal.to(fin.dtype)).sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    g = u.grad
+    return [g[..., :h * p].unflatten(-1, (h, p)), leaves[1].grad,
+            leaves[2].grad, g[..., h * p:h * p + n], g[..., h * p + n:],
+            None if ii is None else ii.grad]
+
+
+def nan_mismatch(torch, got, want):
+    """(positions where NaN differs, where the infinities differ)."""
+    return (int((torch.isnan(got) != torch.isnan(want)).sum()),
+            int((torch.isinf(got) != torch.isinf(want)).sum()
+                + (got[torch.isinf(want)] != want[torch.isinf(want)]).sum()))
+
+
+def lm_backward_cases(torch):
+    """The two backward kernels against the plain version's autograd on the
+    card: flash at Hymba's training layers (B 2, 25/5 heads of 64, 2048
+    positions, window 1024 and a full layer, 128 meta tokens), qwen2-1.5b's
+    head_dim 128 (12/2 heads), an MQA layer, a ragged S and head_dim 32
+    (reduced Hymba's), f32 and bf16; the SSD at Hymba's (50 heads of 64,
+    state 16, chunk 128) and mamba2-130m's (24 heads of 64, state 128, chunk
+    256, and chunk 128 at the CLI's 128 tokens) shapes and two ragged ones,
+    without an initial state (the final state's cotangent unused, as in
+    training) and with one (the final state's cotangent random). Then a
+    bit-for-bit repeat of two backward calls of each kernel, and (reported,
+    not gated) the non-finite cases: an inf in V at a key of a tile the
+    kernels skip for later rows, and an inf in x."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        _launch, flash_attention, flash_attention_bwd,
+    )
+    from repro_torch.kernels.ssd_scan import _launch as ssd_launch
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = []
+    flash_cases = [(TRAIN_B, LM_HQ, LM_HKV, LM_S, LM_HD, w, LM_META)
+                   for w in (LM_WINDOW, 0)]
+    flash_cases += [(TRAIN_B, 12, 2, LM_S, 128, 0, 0),      # qwen2-1.5b
+                    (TRAIN_B, 8, 1, 1024, 64, 0, 0),        # MQA
+                    (2, 4, 2, 200, 64, 64, 8),              # ragged S
+                    (2, 4, 2, 128, 32, 64, 8)]              # reduced Hymba
+    for i, (b, hq, hkv, s, hd, w, meta) in enumerate(flash_cases):
+        for dt in (f32, bf16):
+            q, k, v = attention_inputs(torch, b, hq, hkv, s, hd, dt,
+                                       seed=800 + i)
+            g = torch.Generator(device="cuda").manual_seed(850 + i)
+            dout = torch.randn((b, hq, s, hd), device="cuda",
+                               generator=g).to(dt)
+            got = flash_grads(torch, flash_attention, q, k, v, dout, w, meta)
+            want = flash_grads(torch, ref.flash_attention_ref, q, k, v, dout,
+                               w, meta)
+            w64 = flash_grads(torch, ref.flash_attention_ref,
+                              *[t.double() for t in (q, k, v, dout)], w, meta)
+            name = str(dt)[6:]
+            errs, ok = {}, True
+            for j, gname in enumerate(("dq", "dk", "dv"), start=1):
+                err, atol, rtol, ok_g = compare(torch, got[j], want[j],
+                                                FLASH_TOL[name])
+                ok = ok and ok_g and got[j].dtype == dt
+                errs[gname] = {"max_abs_err": err, "scale": float(
+                    want[j].float().abs().max()),
+                    "f64_err_kernel": float((got[j].double() - w64[j]).abs().max()),
+                    "f64_err_plain": float((want[j].double() - w64[j]).abs().max())}
+            rows.append({"kernel": "flash_attention_bwd", "B": b, "Hq": hq,
+                         "Hkv": hkv, "S": s, "hd": hd, "window": w,
+                         "num_meta": meta, "dtype": name,
+                         "max_abs_err": max(e["max_abs_err"]
+                                            for e in errs.values()),
+                         "grads": errs, "atol": atol, "rtol": rtol,
+                         "ok": ok})
+    ssd_cases = [(TRAIN_B, LM_S, 50, 64, 16, 128),         # Hymba
+                 (TRAIN_B, LM_S, 24, 64, 128, 256),        # mamba2-130m
+                 (8, 128, 24, 64, 128, 128),               # its CLI's batch
+                 (2, 100, 4, 16, 16, 20),                  # a small chunk
+                 (1, 300, 5, 48, 24, 100)]                 # ragged tiles
+    for i, (b, s, h, p, n, chunk) in enumerate(ssd_cases):
+        for with_state in (False, True):
+            args, init = ssd_inputs(torch, b, s, h, p, n, 900 + i, with_state)
+            g = torch.Generator(device="cuda").manual_seed(950 + i)
+            dy = torch.randn((b, s, h, p), device="cuda", generator=g)
+            dfin = (torch.randn((b, h, p, n), device="cuda", generator=g)
+                    if with_state else None)
+            got = ssd_grads(torch, ssd_scan, args, init, dy, dfin, chunk)
+            want = ssd_grads(torch, None, args, init, dy, dfin, chunk)
+            w64 = ssd_grads(torch, None, [a.double() for a in args],
+                            None if init is None else init.double(),
+                            dy.double(), None if dfin is None
+                            else dfin.double(), chunk)
+            errs, ok = {}, True
+            for gname, gg, ww, w6 in zip(("dx", "ddt", "dA", "dB", "dC",
+                                          "dinit"), got, want, w64):
+                if ww is None:
+                    continue
+                scale = float(ww.abs().max())
+                err, atol, rtol, ok_g = compare(
+                    torch, gg, ww, (SSD_ATOL_SCALE * scale, SSD_RTOL))
+                ok = ok and ok_g
+                errs[gname] = {"max_abs_err": err, "scale": scale,
+                               "f64_err_kernel": float((gg.double() - w6).abs().max()),
+                               "f64_err_plain": float((ww.double() - w6).abs().max())}
+            rows.append({"kernel": "ssd_scan_bwd", "b": b, "S": s, "h": h,
+                         "p": p, "n": n, "chunk": chunk,
+                         "initial_state": with_state, "dtype": "float32",
+                         "max_abs_err": max(e["max_abs_err"]
+                                            for e in errs.values()),
+                         "grads": errs, "rtol": SSD_RTOL,
+                         "atol_scale": SSD_ATOL_SCALE, "ok": ok})
+    # two calls, the same bits (no float atomics)
+    q, k, v = attention_inputs(torch, TRAIN_B, LM_HQ, LM_HKV, LM_S, LM_HD, f32,
+                               seed=990)
+    lse = torch.empty((TRAIN_B, LM_HQ, LM_S), device="cuda")
+    out = _launch(q, k, v, LM_WINDOW, LM_META, lse=lse)
+    dout = torch.randn_like(out)
+    r1, r2 = [flash_attention_bwd(q, k, v, out, dout, lse, window=LM_WINDOW,
+                                  num_meta=LM_META) for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(r1, r2))
+    rows.append({"kernel": "flash_attention_bwd", "bitwise_repeat": same,
+                 "max_abs_err": 0.0, "ok": same})
+    for h, p, n, chunk in ((50, 64, 16, 128), (24, 64, 128, 256)):
+        args, _ = ssd_inputs(torch, TRAIN_B, LM_S, h, p, n, 991, False)
+        y, _, ws = ssd_launch(*args, chunk, None)
+        dy = torch.randn_like(y)
+        r1, r2 = [ssd_scan_bwd(*args, ws, dy, None, chunk=chunk)[:5]
+                  for _ in range(2)]
+        same = all(torch.equal(a, b) for a, b in zip(r1, r2))
+        rows.append({"kernel": "ssd_scan_bwd", "h": h, "n": n,
+                     "bitwise_repeat": same, "max_abs_err": 0.0, "ok": same})
+    # non-finite inputs: reported, not gated (finite input is the contract)
+    q, k, v = attention_inputs(torch, TRAIN_B, LM_HQ, LM_HKV, LM_S, LM_HD, f32,
+                               seed=995)
+    v[0, 1, 300, 11] = math.inf
+    dout = torch.randn((TRAIN_B, LM_HQ, LM_S, LM_HD), device="cuda")
+    got = flash_grads(torch, flash_attention, q, k, v, dout, LM_WINDOW,
+                      LM_META)
+    want = flash_grads(torch, ref.flash_attention_ref, q, k, v, dout,
+                       LM_WINDOW, LM_META)
+    rows.append({"kernel": "flash_attention_bwd", "non_finite": "inf in V",
+                 "gated": False, "max_abs_err": None,
+                 "nan_inf_mismatch": {gname: nan_mismatch(torch, got[j],
+                                                          want[j])
+                                      for j, gname in enumerate(
+                                          ("dq", "dk", "dv"), start=1)},
+                 "ok": all(nan_mismatch(torch, got[j], want[j]) == (0, 0)
+                           for j in (1, 2, 3))})
+    args, _ = ssd_inputs(torch, TRAIN_B, LM_S, 50, 64, 16, 996, False)
+    args[0][0, 100, 1, 3] = math.inf
+    dy = torch.randn((TRAIN_B, LM_S, 50, 64), device="cuda")
+    got = ssd_grads(torch, ssd_scan, args, None, dy, None, 128)
+    want = ssd_grads(torch, None, args, None, dy, None, 128)
+    mism = {gname: nan_mismatch(torch, a, b) for gname, a, b in zip(
+        ("dx", "ddt", "dA", "dB", "dC"), got, want)}
+    rows.append({"kernel": "ssd_scan_bwd", "non_finite": "inf in x",
+                 "gated": False, "max_abs_err": None,
+                 "nan_inf_mismatch": mism,
+                 "ok": all(m == (0, 0) for m in mism.values())})
     return rows
 
 
@@ -753,10 +982,12 @@ def phase_reference(torch, state):
         emit({"phase": "reference", "runs": rows})
         raise AssertionError("checkpoint round trip changed the params")
     rows.append(lm_reference(torch))
+    rows.append(lm_train_reference(torch))
     emit({"phase": "reference", "runs": rows})
-    if not rows[-1]["ok"]:
+    bad = [r for r in rows[-2:] if not r["ok"]]
+    if bad:
         raise AssertionError(f"port on the card disagrees with the CPU "
-                             f"reference: {rows[-1]}")
+                             f"reference: {bad}")
 
 
 def tree_to(tree, device):
@@ -812,6 +1043,61 @@ def lm_reference(torch):
             "ok": ok}
 
 
+def lm_train_reference(torch):
+    """Training on the card against training on the CPU: reduced Hymba (two
+    layers, width 128, GQA kept with num_kv_heads=2) from the same weights
+    (drawn on the CPU), 120 tokens a row (128 positions with the 8 meta
+    tokens, past the window of 64), B 2. Tolerances: the step-1 loss at
+    rtol 1e-5; every gradient leaf at step 1 within 1e-4 of the leaf's
+    largest |value| (the kernels and cuBLAS sum in other orders than the
+    CPU's plain versions); the losses of 3 AdamW steps at rtol 1e-3."""
+    import dataclasses
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm import token_stream_batches
+    from repro_torch.kernels.ops import tree_flatten
+    from repro_torch.launch.steps import _loss_and_grad, build_train_step
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(
+        get_config(LM_ARCH).reduced(num_layers=2, max_d_model=128),
+        num_kv_heads=2)
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    stream = token_stream_batches(cfg.vocab_size, 2, 120, seed=0)
+    batches = [{k: torch.from_numpy(v) for k, v in next(stream).items()}
+               for _ in range(3)]
+    counters = launch_counters()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_to(params, dev)
+        bs = [{k: v.to(dev) for k, v in b.items()} for b in batches]
+        for fn in counters.values():
+            fn.launches = 0
+        loss, _, grads = _loss_and_grad(model, False)(p, bs[0])
+        step, opt = build_train_step(model, TrainConfig(lr=3e-3, remat=False))
+        st, losses = opt.init(p), []
+        for b in bs:
+            p, st, m = step(p, st, b)
+            losses.append(float(m["loss"]))
+        out[dev] = (float(loss), [g.cpu() for g in tree_flatten(grads)[0]],
+                    losses, {k: fn.launches for k, fn in counters.items()
+                             if "flash" in k or "ssd" in k})
+    (lc, gc, sc, _), (lg, gg, sg, launches) = out["cpu"], out["cuda"]
+    leaf_err = [float((a - b).abs().max() / max(1e-30, float(b.abs().max())))
+                for a, b in zip(gg, gc)]
+    ok = (math.isfinite(lg) and abs(lg - lc) <= 1e-5 * abs(lc)
+          and max(leaf_err) <= 1e-4
+          and all(abs(a - b) <= 1e-3 * abs(b) for a, b in zip(sg, sc))
+          and all(v > 0 for v in launches.values()))
+    return {"model": f"{LM_ARCH} reduced (2 layers, width 128), "
+                     "num_kv_heads=2", "train": "3 AdamW steps, B 2 x 120",
+            "loss_step1_cpu": lc, "loss_step1_cuda": lg,
+            "grad_leaf_max_rel_err": max(leaf_err), "grad_leaves": len(gc),
+            "losses_cpu": sc, "losses_cuda": sg,
+            "launches_cuda": launches, "ok": ok}
+
+
 def launch_counters():
     """{kernel name: its wrapper}, each wrapper carrying ``.launches``."""
     from repro_torch.kernels.fed_aggregate import fed_aggregate
@@ -820,12 +1106,16 @@ def launch_counters():
     from repro_torch.kernels.fed_mix_sparse import (
         fed_mix_matching, fed_mix_segment,
     )
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd,
+    )
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
     return {"fed_mix_segment": fed_mix_segment, "fed_mix": fed_mix,
             "fed_mix_matching": fed_mix_matching, "fed_mix_q": fed_mix_q,
             "fed_aggregate": fed_aggregate,
-            "flash_attention": flash_attention, "ssd_scan": ssd_scan}
+            "flash_attention": flash_attention, "ssd_scan": ssd_scan,
+            "flash_attention_bwd": flash_attention_bwd,
+            "ssd_scan_bwd": ssd_scan_bwd}
 
 
 def expected(**counts):
@@ -1017,13 +1307,14 @@ def phase_main_path(torch, state):
                   "runs": results})
             raise AssertionError(f"main path run {label!r} failed: {row}")
     lm_rows = lm_main_path(torch, counters, totals, state)
+    train_rows = lm_train_main_path(torch, counters, totals, state)
     state["launches"] = totals
     emit({"phase": "main_path", "params_per_client": n_params,
-          "runs": results, "serving": lm_rows,
+          "runs": results, "serving": lm_rows, "training": train_rows,
           "table1": table1_rows(results)})
-    bad = [r for r in lm_rows if not r["ok"]]
+    bad = [r for r in lm_rows + train_rows if not r["ok"]]
     if bad:
-        raise AssertionError(f"serving run failed: {bad}")
+        raise AssertionError(f"serving or training run failed: {bad}")
 
 
 def table1_rows(results):
@@ -1055,7 +1346,6 @@ def lm_main_path(torch, counters, totals, state):
     from repro_torch.models.model import build_model
     cfg = get_config(LM_ARCH)
     params = build_model(cfg).init(0, device="cuda")
-    state["lm_params"] = params
     n_params = sum(v.numel() for v in tree_leaves(params))
     expect = expected(flash_attention=cfg.num_layers,
                       ssd_scan=cfg.num_layers)
@@ -1091,10 +1381,158 @@ def lm_main_path(torch, counters, totals, state):
     return rows
 
 
+def lm_train_main_path(torch, counters, totals, state):
+    """``run_lm_training`` on Hymba-1.5B at full width through the entry
+    point: B 2 x 1920 tokens (2048 positions with the meta tokens), its own
+    TrainConfig (AdamW, lr 3e-3) with remat off for 4 steps, then with remat
+    on for 2; each run driven with the launch counters set to 0 just before
+    it and read just after. A step is 32 layers: 32 launches of each
+    forward kernel (64 with remat: the backward recomputes each layer) and
+    32 of each backward kernel. Then one step under torch.profiler for the
+    device-time split, and the CLI's default run (mamba2-130m at full
+    width, 20 steps) as a subprocess."""
+    import os
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    cfg = get_config(LM_ARCH)
+    layers = cfg.num_layers
+    torch.cuda.empty_cache()
+    rows = []
+    for label, steps, remat in (("plain", TRAIN_STEPS, False),
+                                ("remat", TRAIN_REMAT_STEPS, True)):
+        tc = TrainConfig(lr=3e-3, schedule="warmup_cosine",
+                         warmup_steps=max(10, steps // 10), total_steps=steps,
+                         remat=remat)
+        fwd = layers * steps * (2 if remat else 1)
+        expect = expected(flash_attention=fwd, ssd_scan=fwd,
+                          flash_attention_bwd=layers * steps,
+                          ssd_scan_bwd=layers * steps)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = train.run_lm_training(LM_ARCH, reduced=False, batch=TRAIN_B,
+                                    seq_len=TRAIN_SEQ, steps=steps,
+                                    train_cfg=tc, verbose=False)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in counters.items()}
+        for k in totals:
+            totals[k] += got[k]
+        later = out["step_seconds"][1:]
+        s_step = sum(later) / len(later)
+        losses = out["losses"]
+        ok = (all(math.isfinite(v) for v in losses) and got == expect
+              and abs(losses[0] - math.log(cfg.vocab_size))
+              <= TRAIN_LOSS0_SLACK)
+        rows.append({"run": f"train_{LM_ARCH}_{label}", "remat": remat,
+                     "batch": TRAIN_B, "tokens": TRAIN_SEQ,
+                     "positions": TRAIN_SEQ + LM_META, "steps": steps,
+                     "losses": losses, "ln_vocab": math.log(cfg.vocab_size),
+                     "step_seconds": out["step_seconds"],
+                     "seconds_per_step": s_step,
+                     "tokens_per_second": TRAIN_B * TRAIN_SEQ / s_step,
+                     "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "seconds": secs, "launches": got,
+                     "expected_launches": expect, "ok": ok})
+    plain, remat = rows
+    same = abs(remat["losses"][0] - plain["losses"][0]) <= 1e-5 * abs(
+        plain["losses"][0])
+    remat["step1_loss_equals_plain"] = same
+    remat["ok"] = remat["ok"] and same
+    rows.append({"run": "train_step_split", **train_split(torch)})
+    rows[-1]["ok"] = True
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--mode", "lm",
+         "--arch", "mamba2-130m", "--full", "--steps", "20"],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=600)
+    last = cli.stdout.strip().splitlines()[-1] if cli.stdout.strip() else ""
+    parts = last.split()
+    a = b = math.nan
+    if len(parts) == 4 and parts[0] == "loss" and parts[2] == "->":
+        a, b = float(parts[1]), float(parts[3])
+    rows.append({"run": "cli: python -m repro_torch.launch.train --mode lm "
+                        "--arch mamba2-130m --full --steps 20",
+                 "exit": cli.returncode, "last_line": last,
+                 "stderr_tail": cli.stderr[-400:] if cli.returncode else "",
+                 "ok": cli.returncode == 0 and math.isfinite(a)
+                 and math.isfinite(b) and b < a})
+    return rows
+
+
+def train_split(torch):
+    """One Hymba-1.5B train step at full width (B 2 x 1920 tokens, remat
+    off, the step warmed up once) under torch.profiler: the summed device
+    time of its kernels, split into the matrix products (cuBLAS), flash
+    forward and backward, SSD forward and backward, the optimizer (every
+    kernel under the step's ``train_step.optimizer`` label: clipping and
+    AdamW) and the rest (elementwise, norms, the conv, the CE)."""
+    import numpy as np
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.model import build_model
+    model = build_model(get_config(LM_ARCH))
+    step, opt = build_train_step(model, TrainConfig(lr=3e-3, remat=False))
+    live = {"p": model.init(0, device="cuda")}
+    live["s"] = opt.init(live["p"])
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(
+        0, model.cfg.vocab_size, (TRAIN_B, TRAIN_SEQ))).cuda()
+        for k in ("tokens", "labels")}
+
+    def run():
+        live["p"], live["s"], _ = step(live["p"], live["s"], batch)
+
+    run()
+    torch.cuda.synchronize()
+    per, opt_ms = profiled(torch, run, "train_step.optimizer")
+    total = sum(per.values())
+    gemm = sum(v for k, v in per.items()
+               if any(w in k.lower() for w in ("gemm", "cutlass", "xmma",
+                                               "cublas")))
+    parts = {"matmul_ms": gemm,
+             "flash_fwd_ms": named_ms(per, "flash_fwd_kernel"),
+             "flash_bwd_ms": named_ms(per, "flash_bwd_"),
+             "ssd_fwd_ms": named_ms(per, "ssd_scan_kernel"),
+             "ssd_bwd_ms": named_ms(per, "ssd_bwd_kernel"),
+             "optimizer_ms": opt_ms}
+    parts["rest_ms"] = total - sum(parts.values())
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
+    del live
+    torch.cuda.empty_cache()
+    return {"device_ms": total, **parts,
+            "shares": {k[:-3]: v / total for k, v in parts.items()},
+            "top_kernels_ms": [[k[:90], v] for k, v in top]}
+
+
 def tree_leaves(tree):
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
     return [tree]
+
+
+def profiled(torch, fn, label):
+    """Run ``fn`` once under torch.profiler: ({kernel name: device ms},
+    the device ms of every kernel under the ``record_function`` events
+    named ``label``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per = {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and evt.device_time_total > 0:
+            per[evt.key] = per.get(evt.key, 0.0) + evt.device_time_total / 1e3
+    return per, sum(e.device_time_total for e in prof.events()
+                    if e.name == label) / 1e3
 
 
 def device_ms(torch, fn, reps=20, warmup=3):
@@ -1102,24 +1540,13 @@ def device_ms(torch, fn, reps=20, warmup=3):
     torch.profiler; returns {kernel name: device ms per call}. Only the
     device's own kernel events are read: a CPU op's "self device time"
     repeats its kernels'."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    per = {}
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA and evt.device_time_total > 0:
-            per[evt.key] = per.get(evt.key, 0.0) + (
-                evt.device_time_total / 1e3 / reps)
+    per, _ = profiled(torch, lambda: [fn() for _ in range(reps)], None)
     if not per:
         raise RuntimeError("torch.profiler recorded no device kernels")
-    return per
+    return {k: v / reps for k, v in per.items()}
 
 
 def named_ms(per, name):
@@ -1255,7 +1682,7 @@ def phase_timing(torch, state):
     emit({"phase": "timing", "kernels": rows,
           "round_split": round_split(torch),
           "round_split_int8_dense": round_split_int8_dense(torch),
-          "prefill_split": prefill_split(torch, state.pop("lm_params")),
+          "prefill_split": prefill_split(torch),
           "nvidia_smi": state["smi"]})
 
 
@@ -1389,20 +1816,121 @@ def lm_timing(torch):
             "library_ms": None,
             "library": "none: no single PyTorch call computes the chunked "
                        "SSD scan"})
+    return rows + lm_backward_timing(torch)
+
+
+def lm_backward_timing(torch):
+    """The backward kernels at Hymba-1.5B's training shapes (B 2, 2048
+    positions): flash on a window layer and a full layer, the SSD on the
+    SSM heads, then at mamba2-130m's. Kernel times are the device time of
+    every launch of one call; plain times the device time of the plain
+    version's autograd backward alone (``torch.autograd.grad`` on a kept
+    graph). Flash's operations: the function's five products of 2·hd flops
+    per visible pair and query head (S recomputed, dV, dP, dQ, dK); the
+    two-pass design computes S and dP twice (``design_flops``). Its bytes:
+    q, k, v, o, dO and lse read, dq, dk, dv written once. The library
+    yardstick is the backward of ``scaled_dot_product_attention`` with the
+    boolean mask and ``enable_gqa``, TF32 off, and its kernels' names say
+    which backend ran. The SSD's operations, per chunk of q rows and head:
+    the causal halves of W = dY·xdᵀ (2p a pair), G = C·Bᵀ (2n), and the
+    products with the masked [q, q] matrices giving d(xd) (2p), dC and dB
+    (2n each); four products with the [p, n] states (2pn a row each); its
+    bytes x, dt, B, C, dY and the saved incoming states read, dx, d(dt),
+    dB, dC written once. No one PyTorch call computes either gradient of
+    the SSD."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import _launch, flash_attention_bwd
+    from repro_torch.kernels.ssd_scan import _launch as ssd_launch
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
+    f32 = torch.float32
+    b, s, hq, hkv, hd = TRAIN_B, LM_S, LM_HQ, LM_HKV, LM_HD
+    rows = []
+    q, k, v = attention_inputs(torch, b, hq, hkv, s, hd, f32, seed=17)
+    dout = torch.randn((b, hq, s, hd), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(18))
+    for window in (LM_WINDOW, 0):
+        lse = torch.empty((b, hq, s), device="cuda")
+        out = _launch(q, k, v, window, LM_META, lse=lse)
+        mask = flash_mask(torch, s, window, LM_META)
+        pairs = int(mask.sum())
+        flops = 10 * hd * pairs * b * hq
+        byts = 4 * s * hd * b * (4 * hq + 4 * hkv) + 4 * b * hq * s
+        per = device_ms(torch, lambda: flash_attention_bwd(
+            q, k, v, out, dout, lse, window=window, num_meta=LM_META))
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        o_plain = ref.flash_attention_ref(*leaves, window=window,
+                                          num_meta=LM_META)
+        lib = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        o_lib = F.scaled_dot_product_attention(*lib, attn_mask=mask,
+                                               enable_gqa=True)
+        per_lib = device_ms(torch, lambda: torch.autograd.grad(
+            o_lib, lib, dout, retain_graph=True))
+        names = " ".join(per_lib).lower()
+        rows.append({
+            "name": "flash_attention_bwd", "B": b, "S": s, "window": window,
+            "num_meta": LM_META, "visible_pairs_per_head": pairs,
+            "ms": named_ms(per, "flash_bwd_"),
+            "passes_ms": {w: named_ms(per, f"flash_bwd_{w}_kernel")
+                          for w in ("delta", "dkdv", "dq")},
+            "plain_ms": sum(device_ms(torch, lambda: torch.autograd.grad(
+                o_plain, leaves, dout, retain_graph=True), reps=5).values()),
+            "bytes": byts, "flops": flops,
+            "design_flops": 14 * hd * pairs * b * hq,
+            **product_bounds(byts, flops),
+            "design_bound_ms": 14 * hd * pairs * b * hq
+            / SPLIT_F32_FLOP_PER_S * 1e3,
+            "library_ms": sum(per_lib.values()),
+            "library": "scaled_dot_product_attention(enable_gqa=True, "
+                       "boolean mask) backward, TF32 off",
+            "library_backend": ("efficient attention (cutlass fmha)"
+                                if "fmha" in names or "efficient" in names
+                                else "flash" if "flash" in names
+                                else "math (matmuls and softmax)"),
+            "library_kernels": sorted(per_lib, key=lambda k: -per_lib[k])[:4]})
+        del leaves, o_plain, lib, o_lib
+    for h, p, n, chunk in ((50, 64, 16, 128), (24, 64, 128, 256)):
+        args, _ = ssd_inputs(torch, b, s, h, p, n, 19, False)
+        y, _, ws = ssd_launch(*args, chunk, None)
+        dy = torch.randn_like(y)
+        nc = s // chunk
+        tri = chunk * (chunk + 1) // 2
+        flops = b * h * nc * (tri * (4 * p + 6 * n) + 8 * chunk * p * n)
+        byts = 4 * (3 * b * s * h * p + 2 * b * s * h + 4 * b * s * n
+                    + b * h * nc * p * n + h)
+        per = device_ms(torch, lambda: ssd_scan_bwd(*args, ws, dy, None,
+                                                    chunk=chunk))
+        leaves = [t.detach().clone().requires_grad_(True) for t in args]
+        y_plain, _ = ref.ssd_chunked(*leaves, chunk)
+        rows.append({
+            "name": "ssd_scan_bwd", "B": b, "S": s, "h": h, "p": p, "n": n,
+            "chunk": chunk, "ms": named_ms(per, "ssd_bwd_kernel"),
+            "passes_ms": {w: named_ms(per, f"ssd_bwd_kernel_{w}")
+                          for w in ("state", "carry", "rows", "cols", "chain",
+                                    "reduce")},
+            "plain_ms": sum(device_ms(torch, lambda: torch.autograd.grad(
+                y_plain, leaves, dy, retain_graph=True), reps=5).values()),
+            "bytes": byts, "flops": flops, **product_bounds(byts, flops),
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes the chunked "
+                       "SSD scan's gradient"})
+        del leaves, y_plain
     return rows
 
 
-def prefill_split(torch, params):
-    """One Hymba-1.5B prefill at full width (B 4, 2048 positions) under
-    torch.profiler: the summed device time of its kernels, split into
-    flash_attention, ssd_scan, the matrix products (cuBLAS) and the rest
-    (norms, rope, the conv, elementwise)."""
+def prefill_split(torch):
+    """One Hymba-1.5B prefill at full width (B 4, 2048 positions, seeded
+    weights drawn on the card) under torch.profiler: the summed device time
+    of its kernels, split into flash_attention, ssd_scan, the matrix
+    products (cuBLAS) and the rest (norms, rope, the conv, elementwise)."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import build_prefill_step
     from repro_torch.models.model import build_model
     model = build_model(get_config(LM_ARCH))
+    params = model.init(0, device="cuda")
     prefill = build_prefill_step(model)
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, model.cfg.vocab_size, (LM_B, LM_PROMPTS[1]))).cuda()
@@ -1461,8 +1989,7 @@ def round_split_int8_dense(torch):
     kernel launched inside ``ops.wire_flat``: the delta, the absmax
     scales, the stochastic rounding, the residual split), the convolution
     kernels and the rest."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
 
     from repro_torch.config import FLConfig
     from repro_torch.core.simulator import Simulator
@@ -1482,18 +2009,10 @@ def round_split_int8_dense(torch):
     torch.cuda.synchronize()
     ops.wire_flat = traced_wire
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            eng.run_rounds(params, gen, 1)
-            torch.cuda.synchronize()
+        per, wire_ms = profiled(torch, lambda: eng.run_rounds(params, gen, 1),
+                                "codec_wire")
     finally:
         ops.wire_flat = wire
-    per = {}
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA and evt.device_time_total > 0:
-            per[evt.key] = per.get(evt.key, 0.0) + evt.device_time_total / 1e3
-    wire_ms = sum(e.device_time_total for e in prof.events()
-                  if e.name == "codec_wire") / 1e3
     total = sum(per.values())
     mix = sum(v for k, v in per.items() if "quant_mix_kernel" in k)
     conv = sum(v for k, v in per.items()

@@ -17,6 +17,9 @@ warm-up calls), the summed device time of every kernel one call launches:
   initial state);
 * ``fed_mix_matching`` at the FL main shape (D = 100, P = 246,590, f32),
   S = 2 (gossip's ring) and S = 1 (gossip_async);
+* one Hymba-1.5B serving prefill at full width (B 4, 1920 tokens: 2048
+  positions; seeded weights drawn on the card; mean of 3 after one
+  warm-up);
 
 and, on the host clock around synchronized work, ``Simulator.run``'s
 seconds per round of fedp2p on CNN-FEMNIST at full width (100 clients,
@@ -52,6 +55,29 @@ def fedp2p_seconds_per_round(torch, rounds=3):
     sim.run(rounds=rounds, algorithm="fedp2p")
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / rounds
+
+
+def hymba_prefill_ms(torch, cs):
+    """{"ms": summed device time of one prefill's kernels, ...}."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models.model import build_model
+    model = build_model(get_config(cs.LM_ARCH))
+    params = model.init(0, device="cuda")
+    prefill = build_prefill_step(model)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, model.cfg.vocab_size, (cs.LM_B, cs.LM_PROMPTS[1]))).cuda()
+
+    def run():
+        prefill(params, {"tokens": tokens},
+                model.make_cache(cs.LM_B, cs.LM_S))
+
+    per = cs.device_ms(torch, run, reps=3, warmup=1)
+    return {"ms": sum(per.values()),
+            "flash_ms": sum(v for k, v in per.items()
+                            if "flash_fwd_kernel" in k)}
 
 
 def main() -> int:
@@ -102,6 +128,7 @@ def main() -> int:
         m = cs.matching_inputs(torch, cs.MAIN_D, cs.MAIN_P, stages,
                                torch.float32, seed=3)
         record(f"fed_mix_matching_S{stages}", lambda: fed_mix_matching(*m))
+    rows["hymba_prefill"] = hymba_prefill_ms(torch, cs)
     rows["fedp2p_seconds_per_round"] = fedp2p_seconds_per_round(torch)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

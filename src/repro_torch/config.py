@@ -1,5 +1,6 @@
-"""``FLConfig`` and ``ModelConfig`` — the port's copies of
-``repro.config.FLConfig`` and ``repro.config.ModelConfig``: the same
+"""``FLConfig``, ``ModelConfig`` and ``TrainConfig`` — the port's copies of
+``repro.config.FLConfig``, ``repro.config.ModelConfig`` and
+``repro.config.TrainConfig``: the same
 fields, defaults and validation, so one configuration means the same run in
 both packages. Options the port has not reached yet (faults, sampled
 participation; the MoE, MLA and audio families) keep their fields; the
@@ -231,3 +232,23 @@ class ModelConfig:
         if self.sliding_window:
             changes.update(sliding_window=64)
         return dataclasses.replace(self, **changes)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """LM training driver settings (``launch/train.py``)."""
+
+    optimizer: str = "adamw"         # sgd | momentum | adamw
+    lr: float = 3e-4
+    weight_decay: float = 0.01
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    momentum: float = 0.9
+    schedule: str = "cosine"         # constant | cosine | warmup_cosine
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    grad_clip: float = 1.0
+    remat: bool = True
+    microbatches: int = 1        # gradient-accumulation steps per batch
+    seed: int = 0

@@ -14,7 +14,12 @@
 // Replaces: src/repro/kernels/flash_attention.py · flash_attention (Pallas
 // _flash_kernel: grid (B, Hq, Sq/bq, Tk/bk), the kv axis sequential, the
 // running (m, l, acc) in VMEM scratch). With num_meta = 0 it is that
-// kernel's contract; num_meta > 0 adds the meta-token term.
+// kernel's contract; num_meta > 0 adds the meta-token term. When a
+// gradient is needed (hd <= 128) it also writes each row's log-sum-exp of
+// the scaled scores, m + log l, for flash_attention_bwd.cu, in an
+// instantiation of its own: serving runs the code it ran before (a
+// run-time test of a null lse in the shared code cost the hd-64 forward
+// 1-2 % in an A/B call on the card).
 //
 // What bounds it on the card: operations. At Hymba's prefill (B 4, Hq 25,
 // S 2048, hd 64, window 1024, 128 meta tokens) the visible part of the
@@ -199,13 +204,14 @@ __device__ __forceinline__ void copy_tile(T* dst, const T* base, long long strid
 // The block's work and its store, on the fast split (kSlow false) or the
 // full one (tf32x3.cuh). On the fast split a result that holds an inf or a
 // NaN is not stored: it returns true, and the kernel takes the block again
-// on the full split.
-template <typename T, int HD, bool kSlow>
+// on the full split. kLse: also store each row's log-sum-exp (a separate
+// instantiation, so that serving runs the code it ran without it).
+template <typename T, int HD, bool kSlow, bool kLse>
 __device__ __forceinline__ bool flash_block(const T* __restrict__ q, const T* __restrict__ k,
                                             const T* __restrict__ v, T* __restrict__ o,
-                                            Strides sq, Strides sk, Strides sv, Strides so,
-                                            int group, int n_q, int n_k, int hd, float scale,
-                                            int window, int num_meta) {
+                                            float* __restrict__ lse, Strides sq, Strides sk,
+                                            Strides sv, Strides so, int group, int n_q, int n_k,
+                                            int hd, float scale, int window, int num_meta) {
   constexpr bool kBf16 = sizeof(T) == 2;  // q, k, v exact in TF32
   constexpr int PT = pitch<T, HD>();
   constexpr int KS = HD / 8;              // k8 steps of S = Q·Kᵀ
@@ -419,6 +425,10 @@ __device__ __forceinline__ bool flash_block(const T* __restrict__ q, const T* __
     const int qi = q0 + qr + g + 8 * r;
     if (qi >= n_q) continue;
     const float denom = fmaxf(l[r], 1e-30f);
+    // the row log-sum-exp of the scaled scores, for the backward
+    if constexpr (kLse) {
+      if (t == 0) lse[((long long)b * gridDim.y + h) * n_q + qi] = m[r] + logf(denom);
+    }
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const int d = n * 8 + 2 * t;
@@ -431,25 +441,25 @@ __device__ __forceinline__ bool flash_block(const T* __restrict__ q, const T* __
 }
 
 // the full split's block, out of line: the fast path keeps its registers
-template <typename T, int HD>
+template <typename T, int HD, bool kLse>
 __device__ __noinline__ void flash_block_full(const T* q, const T* k, const T* v, T* o,
-                                              Strides sq, Strides sk, Strides sv, Strides so,
-                                              int group, int n_q, int n_k, int hd, float scale,
-                                              int window, int num_meta) {
-  flash_block<T, HD, true>(q, k, v, o, sq, sk, sv, so, group, n_q, n_k, hd, scale, window,
-                           num_meta);
+                                              float* lse, Strides sq, Strides sk, Strides sv,
+                                              Strides so, int group, int n_q, int n_k, int hd,
+                                              float scale, int window, int num_meta) {
+  flash_block<T, HD, true, kLse>(q, k, v, o, lse, sq, sk, sv, so, group, n_q, n_k, hd, scale,
+                                 window, num_meta);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kLse>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, Strides sq, Strides sk, Strides sv, Strides so,
-                 int group, int n_q, int n_k, int hd, float scale, int window,
-                 int num_meta) {
-  if (flash_block<T, HD, false>(q, k, v, o, sq, sk, sv, so, group, n_q, n_k, hd, scale, window,
-                                num_meta))
-    flash_block_full<T, HD>(q, k, v, o, sq, sk, sv, so, group, n_q, n_k, hd, scale, window,
-                            num_meta);
+                 T* __restrict__ o, float* __restrict__ lse, Strides sq, Strides sk,
+                 Strides sv, Strides so, int group, int n_q, int n_k, int hd, float scale,
+                 int window, int num_meta) {
+  if (flash_block<T, HD, false, kLse>(q, k, v, o, lse, sq, sk, sv, so, group, n_q, n_k, hd,
+                                      scale, window, num_meta))
+    flash_block_full<T, HD, kLse>(q, k, v, o, lse, sq, sk, sv, so, group, n_q, n_k, hd, scale,
+                                  window, num_meta);
 }
 
 // hd > 128: the block's O slice (columns sl·kCW .. + 127) over the full
@@ -774,13 +784,14 @@ flash_fwd_kernel_nanfix(const uint4* __restrict__ vflags, T* __restrict__ o, Str
 }
 
 template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, Strides sq,
-                   Strides sk, Strides sv, Strides so, uint4* vflags, int batch, int hq,
-                   int group, int n_q, int n_k, int hd, float scale, int window,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   Strides sq, Strides sk, Strides sv, Strides so, uint4* vflags, int batch,
+                   int hq, int group, int n_q, int n_k, int hd, float scale, int window,
                    int num_meta, cudaStream_t stream) {
   const size_t bytes = smem_bytes<T, HD>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const auto kernel = lse != nullptr ? flash_fwd_kernel<T, HD, true>
+                                     : flash_fwd_kernel<T, HD, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return err;
   const int n_qt = (n_q + kBQ - 1) / kBQ;
@@ -788,8 +799,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, Strides
                                stream>>>((const T*)v, sv, vflags, n_k, hd);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<T, HD><<<dim3(n_qt, hq, batch), kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, sk, sv, so, group, n_q, n_k, hd,
+  kernel<<<dim3(n_qt, hq, batch), kThreads, bytes, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, sq, sk, sv, so, group, n_q, n_k, hd,
       scale, window, num_meta);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -826,20 +837,22 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, St
   return cudaGetLastError();
 }
 
+// lse: written at hd <= 128 when not null (the wide kernel has no backward)
 template <typename T>
-cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, Strides sq,
-                      Strides sk, Strides sv, Strides so, uint4* vflags, int batch, int hq,
-                      int group, int n_q, int n_k, int hd, float scale, int window,
+cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, float* lse,
+                      Strides sq, Strides sk, Strides sv, Strides so, uint4* vflags, int batch,
+                      int hq, int group, int n_q, int n_k, int hd, float scale, int window,
                       int num_meta, cudaStream_t stream) {
   if (hd <= 32)
-    return launch<T, 32>(q, k, v, o, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k, hd,
-                         scale, window, num_meta, stream);
+    return launch<T, 32>(q, k, v, o, lse, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k,
+                         hd, scale, window, num_meta, stream);
   if (hd <= 64)
-    return launch<T, 64>(q, k, v, o, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k, hd,
-                         scale, window, num_meta, stream);
+    return launch<T, 64>(q, k, v, o, lse, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k,
+                         hd, scale, window, num_meta, stream);
   if (hd <= 128)
-    return launch<T, 128>(q, k, v, o, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k, hd,
-                          scale, window, num_meta, stream);
+    return launch<T, 128>(q, k, v, o, lse, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k,
+                          hd, scale, window, num_meta, stream);
+  if (lse != nullptr) return cudaErrorInvalidValue;  // the wrapper raises before
   return launch_wide<T>(q, k, v, o, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k, hd,
                         scale, window, num_meta, stream);
 }
@@ -852,13 +865,14 @@ extern "C" {
 // given by its (batch, head, row) element strides, the hd stride 1; f32
 // when is_bf16 == 0, else bf16; any hd >= 1. vflags: a workspace of batch
 // x hq/group x ceil(n_k / 64) x ceil(hd / 128) entries of 16 bytes,
-// 16-byte aligned. Three
-// launches on `stream` (V's flags, the attention, the NaN of skipped
+// 16-byte aligned. lse: null, or (hd <= 128) [batch, hq, n_q] f32 that
+// receives each row's log-sum-exp of the scaled scores for the backward.
+// Three launches on `stream` (V's flags, the attention, the NaN of skipped
 // tiles); returns the first failure of cudaGetLastError().
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                            const long long* strides,  // 12: q, k, v, o x (b, h, s)
-                           void* vflags, int batch, int hq, int group, int n_q, int n_k,
-                           int hd, float scale, int window, int num_meta, int is_bf16,
+                           void* vflags, float* lse, int batch, int hq, int group, int n_q,
+                           int n_k, int hd, float scale, int window, int num_meta, int is_bf16,
                            void* stream) {
   const Strides sq{strides[0], strides[1], strides[2]};
   const Strides sk{strides[3], strides[4], strides[5]};
@@ -867,9 +881,9 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
   cudaStream_t s = (cudaStream_t)stream;
   uint4* vf = (uint4*)vflags;
   if (is_bf16)
-    return (int)launch_hd<__nv_bfloat16>(q, k, v, o, sq, sk, sv, so, vf, batch, hq, group,
+    return (int)launch_hd<__nv_bfloat16>(q, k, v, o, lse, sq, sk, sv, so, vf, batch, hq, group,
                                          n_q, n_k, hd, scale, window, num_meta, s);
-  return (int)launch_hd<float>(q, k, v, o, sq, sk, sv, so, vf, batch, hq, group, n_q, n_k,
+  return (int)launch_hd<float>(q, k, v, o, lse, sq, sk, sv, so, vf, batch, hq, group, n_q, n_k,
                                hd, scale, window, num_meta, s);
 }
 

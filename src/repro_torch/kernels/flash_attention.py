@@ -17,6 +17,15 @@ self-attention over positions 0..S-1 (prefill and the cache-free
 forward), with q, k, v as ``[B, S, H, hd]`` projections viewed as
 ``[B, H, S, hd]``: the kernel reads and writes by strides, so no transpose
 is copied.
+
+Gradients. On CUDA tensors that need one, the call goes through
+``_FlashAttention`` (a ``torch.autograd.Function``): the forward kernel
+also writes each row's log-sum-exp, and the backward is
+``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``, the
+FlashAttention-2 backward that the JAX package's custom VJP writes in
+jnp; f32 or bf16, head_dim <= 128, Sq <= T). Without a gradient the
+kernel launches as it does for serving: no log-sum-exp is written. CPU
+tensors differentiate through ``ref.flash_attention_ref``.
 """
 from __future__ import annotations
 
@@ -27,6 +36,8 @@ import torch
 from repro_torch.kernels import backend, ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
+#: the backward kernel's largest head_dim
+MAX_BWD_HEAD_DIM = 128
 #: columns of V's non-finite mask per 16-byte entry, and the kernel's O
 #: slice at head_dim > 128
 _SLICE = 128
@@ -68,11 +79,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     head_dim stride must be 1, other strides are free; any head_dim.
     Non-finite values come out as the plain version gives them: an inf or
     NaN in V at a key masked for a row makes that row NaN in its column,
-    as 0 · inf does in the reference."""
+    as 0 · inf does in the reference. When a gradient is needed the call
+    is differentiable through ``flash_attention_bwd`` (head_dim <= 128,
+    Sq <= T; other shapes raise)."""
     window, num_meta = int(window), int(num_meta)
     if _check(q, k, v, window, num_meta) == "cpu":
         return ref.flash_attention_ref(q, k, v, window=window,
                                        num_meta=num_meta)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, window, num_meta)
+    return _launch(q, k, v, window, num_meta, lse=None)
+
+
+def _launch(q, k, v, window, num_meta, *, lse):
+    """The forward kernel on CUDA tensors; ``lse`` (or None) receives each
+    row's log-sum-exp of the scaled scores."""
     b, hq, sq, hd = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     for arg, t in (("q", q), ("k", k), ("v", v)):
@@ -90,13 +112,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          dtype=torch.int32, device=q.device)
     launch = backend.c_function(
         "flash_attention", "flash_attention_launch",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
            ctypes.c_void_p])
     rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                strides, vflags.data_ptr(), b, hq, hq // hkv, sq, tk, hd,
-                hd ** -0.5, window, num_meta, int(q.dtype == torch.bfloat16),
-                backend.stream_ptr(q.device))
+                strides, vflags.data_ptr(),
+                None if lse is None else lse.data_ptr(), b, hq, hq // hkv, sq,
+                tk, hd, hd ** -0.5, window, num_meta,
+                int(q.dtype == torch.bfloat16), backend.stream_ptr(q.device))
     backend.raise_on_error("flash_attention", rc)
     flash_attention.launches += 1
     return out
@@ -104,3 +127,83 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 #: kernel launches since the last reset (CPU calls do not count)
 flash_attention.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel with its hand-written backward, for CUDA tensors that
+    need a gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, num_meta):
+        b, hq, sq, hd = q.shape
+        _check_bwd(q, k)
+        lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+        out = _launch(q, k, v, window, num_meta, lse=lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window, ctx.num_meta = window, num_meta
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse,
+                                         window=ctx.window,
+                                         num_meta=ctx.num_meta)
+        return dq, dk, dv, None, None
+
+
+def _check_bwd(q, k) -> None:
+    name = "flash_attention_bwd"
+    if q.shape[3] > MAX_BWD_HEAD_DIM:
+        raise ValueError(
+            f"{name}: head_dim {q.shape[3]} > {MAX_BWD_HEAD_DIM}: the "
+            "backward kernel takes head_dim <= 128 (ROADMAP section 2b)")
+    if q.shape[2] > k.shape[2]:
+        raise ValueError(f"{name}: Sq={q.shape[2]} > T={k.shape[2]}: every "
+                         "query row must see a key")
+
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, *, window: int = 0,
+                        num_meta: int = 0):
+    """The backward kernel: (dq like q, dk like k, dv like v) from the
+    forward's inputs, its output ``out``, the output's cotangent ``dout``
+    and the rows' log-sum-exp ``lse`` [B, Hq, Sq] f32, all on the card
+    (``flash_attention_bwd.launches`` counts its calls: one call is three
+    launches: delta = rowsum(dO ∘ O), dK and dV, dQ)."""
+    name = "flash_attention_bwd"
+    if backend.kernel_device(name, q, k, v, out, dout, lse) != "cuda":
+        raise ValueError(f"{name}: runs on CUDA tensors only (CPU tensors "
+                         "differentiate through ref.flash_attention_ref)")
+    _check_bwd(q, k)
+    if dout.dtype != q.dtype or dout.shape != q.shape:
+        raise ValueError(f"{name}: dout {tuple(dout.shape)} {dout.dtype} "
+                         f"must match q {tuple(q.shape)} {q.dtype}")
+    if dout.stride(3) != 1:
+        dout = dout.contiguous()
+    b, hq, sq, hd = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or tk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    lse = lse.contiguous()
+    strides = (ctypes.c_longlong * 24)(
+        *[s for t in (q, k, v, out, dout, dq, dk, dv) for s in t.stride()[:3]])
+    launch = backend.c_function(
+        "flash_attention_bwd", "flash_attention_bwd_launch",
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+           ctypes.c_void_p])
+    rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), delta.data_ptr(), strides, b, hq, hq // hkv,
+                sq, tk, hd, hd ** -0.5, int(window), int(num_meta),
+                int(q.dtype == torch.bfloat16), backend.stream_ptr(q.device))
+    backend.raise_on_error(name, rc)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+#: backward kernel launches since the last reset
+flash_attention_bwd.launches = 0

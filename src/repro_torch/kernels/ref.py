@@ -164,9 +164,10 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
 def _exp_ftz(z: torch.Tensor) -> torch.Tensor:
     """exp with subnormal results flushed to 0, as XLA computes it on the
     CPU and the TPU: where a decay underflows, an inf times it is NaN, as
-    in the JAX kernel."""
+    in the JAX kernel. Out of place, so that autograd can go through it:
+    a flushed entry's gradient is 0, as XLA's flushed exp gives."""
     e = torch.exp(z)
-    return e.masked_fill_(e < torch.finfo(e.dtype).tiny, 0.0)
+    return torch.where(e < torch.finfo(e.dtype).tiny, torch.zeros_like(e), e)
 
 
 def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None):

@@ -15,6 +15,14 @@ cores. The chunk states live in a [b, h, S/chunk, p, n] f32 workspace
 that the wrapper takes from PyTorch's caching allocator. CPU tensors take
 ``ref.ssd_chunked``. The mixer's x, B and C are slices of its conv
 output: the kernel reads them by strides, so nothing is copied.
+
+Gradients. On CUDA tensors that need one, the call goes through
+``_SSDScan`` (a ``torch.autograd.Function``): the forward keeps its chunk
+workspace (each chunk's incoming state, 6.5 MB a layer at Hymba's B 2 x
+2048) for the backward, ``ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``), which
+gives the gradients of x, dt, A, B, C and the initial state (f32 only).
+Without a gradient the kernel launches as it does for serving. CPU tensors
+differentiate through ``ref.ssd_chunked``.
 """
 from __future__ import annotations
 
@@ -73,11 +81,24 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     stride of x, B and C must be 1, chunk <= 1024, p <= 64, n <= 256.
     Non-finite values come out as the JAX kernel gives them: an inf or NaN
     in x·dt, B or C makes the earlier rows of its chunk NaN, as the
-    reference's 0 above the diagonal times inf does."""
+    reference's 0 above the diagonal times inf does. When a gradient is
+    needed the call is differentiable through ``ssd_scan_bwd`` (f32
+    only)."""
     chunk = int(chunk)
     if _check(x, dt, A, B, C, chunk, initial_state) == "cpu":
         return ref.ssd_chunked(x, dt, A, B, C, chunk,
                                initial_state=initial_state)
+    inputs = (x, dt, A, B, C) + (() if initial_state is None
+                                 else (initial_state,))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return _SSDScan.apply(x, dt, A, B, C, initial_state, chunk)
+    y, final, _ = _launch(x, dt, A, B, C, chunk, initial_state)
+    return y, final
+
+
+def _launch(x, dt, A, B, C, chunk, initial_state):
+    """The forward kernel on CUDA tensors -> (y, final state, the chunk
+    workspace: each chunk's incoming state [b, h, S/chunk, p, n] f32)."""
     b, s, h, p = x.shape
     n = B.shape[2]
     if chunk > MAX_CHUNK or p > MAX_HEAD_DIM or n > MAX_STATE:
@@ -95,11 +116,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             else initial_state.to(f32).contiguous())
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     final = torch.empty((b, h, p, n), dtype=f32, device=x.device)
-    if y.numel() == 0 or final.numel() == 0:       # nothing to scan
-        return y, (final.zero_() if init is None else final.copy_(init))
     # the chunk states (then each chunk's incoming state) and a at each
     # chunk's last row, written and read by the kernel's three passes
     ws = torch.empty((b, h, s // chunk, p, n), dtype=f32, device=x.device)
+    if y.numel() == 0 or final.numel() == 0:       # nothing to scan
+        return y, (final.zero_() if init is None else final.copy_(init)), \
+            ws.zero_()
     alast = torch.empty((b, h, s // chunk), dtype=f32, device=x.device)
     # per 64-source tile and group of state columns: the columns where x·dt
     # (or B) is not finite, from pass 1 for pass 3
@@ -118,9 +140,102 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 backend.stream_ptr(x.device))
     backend.raise_on_error("ssd_scan", rc)
     ssd_scan.launches += 1
-    return y, final
+    return y, final, ws
 
 
 #: calls that launched the kernel since the last reset (CPU calls do not
 #: count)
 ssd_scan.launches = 0
+
+
+class _SSDScan(torch.autograd.Function):
+    """The kernel with its hand-written backward, for CUDA tensors that
+    need a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, initial_state, chunk):
+        if x.dtype != torch.float32 or B.dtype != torch.float32:
+            raise ValueError("ssd_scan_bwd: the backward kernel takes f32 "
+                             f"x, B and C, got {x.dtype}")
+        y, final, ws = _launch(x, dt, A, B, C, chunk, initial_state)
+        ctx.save_for_backward(x, dt, A, B, C, ws)
+        ctx.chunk = chunk
+        ctx.has_init = initial_state is not None
+        ctx.set_materialize_grads(False)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, A, B, C, ws = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        dx, ddt, dA, dB, dC, dinit = ssd_scan_bwd(
+            x, dt, A, B, C, ws, dy, dfinal, chunk=ctx.chunk,
+            with_initial_state=ctx.has_init)
+        return (dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC, dinit, None)
+
+
+def ssd_scan_bwd(x, dt, A, B, C, ws, dy, dfinal=None, *, chunk: int,
+                 with_initial_state: bool = False):
+    """The backward kernel, on the card: from the forward's inputs, its
+    chunk workspace ``ws`` (each chunk's incoming state), y's cotangent
+    ``dy`` and the final state's (``dfinal``, None for zero) ->
+    (dx, d(dt), dA, dB, dC, d(initial_state) or None), f32
+    (``ssd_scan_bwd.launches`` counts its calls: one call is six
+    launches)."""
+    name = "ssd_scan_bwd"
+    tensors = (x, dt, A, B, C, ws, dy) + (() if dfinal is None
+                                          else (dfinal,))
+    if backend.kernel_device(name, *tensors) != "cuda":
+        raise ValueError(f"{name}: runs on CUDA tensors only (CPU tensors "
+                         "differentiate through ref.ssd_chunked)")
+    f32 = torch.float32
+    if any(t.dtype != f32 for t in (x, B, C, dy)):
+        raise ValueError(f"{name}: x, B, C and dy must be float32")
+    b, s, h, p = x.shape
+    n = B.shape[2]
+    chunk = int(chunk)
+    nc = s // chunk
+    dt = dt.to(f32)
+    A = A.to(f32).contiguous()
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    if dfinal is not None:
+        dfinal = dfinal.to(f32).contiguous()
+    dev = x.device
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=f32, device=dev)
+
+    dx, ddt, dA = empty(b, s, h, p), empty(b, s, h), empty(h)
+    dB, dC = empty(b, s, n), empty(b, s, n)
+    dinit = empty(b, h, p, n) if with_initial_state else None
+    if x.numel() == 0 or B.numel() == 0:
+        return (dx.zero_(), ddt.zero_(), dA.zero_(), dB.zero_(), dC.zero_(),
+                None if dfinal is None or dinit is None else dinit.copy_(
+                    dfinal))
+    # workspaces: the chunks' a, the state cotangents, the decays' cotangents,
+    # each chunk's part of dA, each head's part of dB and dC, and the row
+    # and column terms of da
+    acum, dst, dalast = empty(b, h, s), empty(b, h, nc, p, n), empty(b, h, nc)
+    dAp, dBp, dCp = empty(b, h, nc), empty(b, h, s, n), empty(b, h, s, n)
+    da_row, da_col, ddd = empty(b, h, s), empty(b, h, s), empty(b, h, s)
+    ptrs = (ctypes.c_void_p * 23)(*[
+        None if t is None else t.data_ptr() for t in (
+            x, dt, A, B, C, dy, dfinal, ws, acum, dst, dalast, dinit, dx,
+            ddt, dAp, dBp, dCp, da_row, da_col, ddd, dA, dB, dC)])
+    strides = (ctypes.c_longlong * 13)(
+        *x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2],
+        *dy.stride()[:3])
+    launch = backend.c_function(
+        "ssd_scan_bwd", "ssd_scan_bwd_launch",
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    rc = launch(ptrs, strides, b, s, h, p, n, chunk,
+                backend.stream_ptr(dev))
+    backend.raise_on_error(name, rc)
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, dA, dB, dC, dinit
+
+
+#: backward kernel launches since the last reset
+ssd_scan_bwd.launches = 0

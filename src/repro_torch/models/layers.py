@@ -1,5 +1,6 @@
 """Shared layer primitives (the counterpart of ``repro.models.layers``):
-initializers, norms, MLP variants, RoPE, embedding and logits.
+initializers, norms, MLP variants, RoPE, embedding, logits and the
+cross-entropy losses.
 
 Params are plain nested dicts of tensors; dense weights keep the JAX
 ``[in, out]`` layout and are applied as ``x @ w``. Initializers draw from
@@ -14,6 +15,7 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 # ---------------------------------------------------------------------------
 # Initializers
@@ -181,3 +183,50 @@ def compute_logits(p: Dict, h: torch.Tensor, cfg) -> torch.Tensor:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
     return logits
+
+
+def _chunk_loss(embed_params: Dict, h_c: torch.Tensor, lab_c: torch.Tensor,
+                cfg) -> torch.Tensor:
+    logits = compute_logits(embed_params, h_c, cfg).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lab_c[..., None].long())[..., 0]
+    return torch.sum(lse - gold)
+
+
+def chunked_cross_entropy(embed_params: Dict, h: torch.Tensor,
+                          labels: torch.Tensor, cfg, chunk: int = 512,
+                          heads=None) -> torch.Tensor:
+    """Fused unembed + CE over sequence chunks, so that the full [B, S, V]
+    f32 logits never exist (V can be 256k): each chunk's logits are
+    recomputed in the backward (``torch.utils.checkpoint``). The chunk is
+    512, shrunk to a divisor of S; the chunks' sums are added in order and
+    divided by ``labels.numel()``. The gold logit is a gather (the JAX
+    package's one-hot select and sum give the same value)."""
+    if heads is not None:
+        raise NotImplementedError(
+            "chunked_cross_entropy: the audio codebook heads are not ported "
+            "to repro_torch yet (ROADMAP item 14b.3)")
+    b, s, _ = h.shape
+    cs = chunk
+    while s % cs:
+        cs -= 1
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, s, cs):
+        total = total + checkpoint(_chunk_loss, embed_params, h[:, c0:c0 + cs],
+                                   labels[:, c0:c0 + cs], cfg,
+                                   use_reentrant=False)
+    return total / labels.numel()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token-level cross entropy; logits [..., V], labels [...] int;
+    with ``mask``, the mean over its weight (at least 1)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

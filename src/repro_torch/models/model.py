@@ -1,12 +1,12 @@
 """Public model API (the counterpart of ``repro.models.model``):
 ``build_model(cfg)`` returns a ``Model`` with init / prefill / decode /
-make_cache for the LM families the port serves (dense, ssm, hybrid).
-Batch schemas:
+make_cache and the training loss for the LM families the port serves
+(dense, ssm, hybrid). Batch schemas:
 
+    train:   {"tokens": [B,S] int, "labels": [B,S] int, optional
+              "loss_mask": [B,S]}
     prefill: {"tokens": [B,S] int}
     decode:  {"token":  [B,1] int}
-
-``loss_fn`` belongs to LM training, which a later slice ports.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.kernels import backend
 from repro_torch.models import transformer
+from repro_torch.models.layers import chunked_cross_entropy, cross_entropy
 
 
 @dataclass(frozen=True)
@@ -37,11 +38,23 @@ def build_model(cfg) -> Model:
         gen = torch.Generator(device=backend.resolve_device(device))
         return transformer.init_params(gen.manual_seed(seed), cfg, dtype)
 
-    def loss_fn(params, batch, **kwargs):
-        raise NotImplementedError(
-            "LM training (loss_fn, chunked cross-entropy, optimizers, the "
-            "data pipeline) is not ported to repro_torch yet: the LM "
-            "training slice of ROADMAP item 14")
+    def loss_fn(params, batch, *, remat: bool = False):
+        """-> (loss, {"ce", "aux"}). Without a ``loss_mask``, the fused
+        chunked unembed + CE on the hidden states (the full [B, S, V] f32
+        logits never exist); with one, ``cross_entropy`` on the logits."""
+        labels = batch["labels"]
+        mask = batch.get("loss_mask")
+        if mask is None:
+            h, _, aux = transformer.forward(
+                params, cfg, tokens=batch["tokens"], remat=remat,
+                return_hidden=True)
+            ce = chunked_cross_entropy(params["embed"], h, labels, cfg)
+        else:
+            logits, _, aux = transformer.forward(
+                params, cfg, tokens=batch["tokens"], remat=remat)
+            ce = cross_entropy(logits, labels, mask)
+        loss = ce + aux
+        return loss, {"ce": ce, "aux": aux}
 
     def make_cache(batch: int, buf_len: int, dtype=torch.float32,
                    device=None) -> Dict:

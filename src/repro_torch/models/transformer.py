@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
@@ -194,12 +195,17 @@ def _layer_forward(lp: Dict, x, bufs: Dict, cfg, *, positions, window: int,
 
 def forward(params: Dict, cfg, *, tokens: torch.Tensor,
             cache: Optional[Dict] = None, last_only: bool = False,
+            remat: bool = False, return_hidden: bool = False,
             ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
-    """Returns (logits, cache, aux_loss). ``last_only`` keeps the last
+    """Returns (logits, cache, aux_loss) — or (hidden, ...) when
+    ``return_hidden``: the normed hidden states before the unembedding
+    (training's fused chunked CE takes them). ``last_only`` keeps the last
     position only (what a prefill returns; every position's logits are
-    independent, so this only skips work). The hidden-state output and
-    embedding inputs of the JAX forward serve training and audio, which
-    later slices port.
+    independent, so this only skips work). ``remat`` recomputes each layer
+    in the backward (one ``torch.utils.checkpoint`` per layer, where the
+    JAX package has ``jax.checkpoint`` around its scan body); it applies to
+    the cache-free forward. The embedding inputs of the JAX forward serve
+    audio, which a later slice ports.
 
     Train: cache None. Prefill: fresh cache, S>1. Decode: cache, S==1.
     logits: [B,S,V]; meta-token positions stripped. The cache is updated
@@ -236,6 +242,14 @@ def forward(params: Dict, cfg, *, tokens: torch.Tensor,
 
     bufs_all = _split_cache(cache)
     for i, window in enumerate(layer_windows(cfg)):
+        if remat and cache is None:
+            def body(xc, i=i, window=window):
+                return _layer_forward(
+                    _index(params["layers"], i), xc, {}, cfg,
+                    positions=positions, window=window, kv_pos=None,
+                    write_slot=None)[0]
+            x = checkpoint(body, x, use_reentrant=False)
+            continue
         bufs = {k: v[i] for k, v in bufs_all.items()}
         x, new_bufs = _layer_forward(
             _index(params["layers"], i), x, bufs, cfg, positions=positions,
@@ -250,8 +264,10 @@ def forward(params: Dict, cfg, *, tokens: torch.Tensor,
 
     if m and not decode:
         x = x[:, m:]
-    if last_only:
+    if last_only and not return_hidden:
         x = x[:, -1:]
     x = apply_norm(params["ln_f"], x, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
+    if return_hidden:
+        return x, cache, aux
     return compute_logits(params["embed"], x, cfg), cache, aux

@@ -50,7 +50,19 @@ skip themselves elsewhere. Run them on the card with
   non-finite cases at 256;
 * the FL paths of the topology-aware protocol, fault plans and the
   paper's ``Aggregate(·)`` launch their kernels (``fed_mix_segment`` /
-  ``fed_mix``, ``fed_aggregate``) and agree with the CPU.
+  ``fed_mix``, ``fed_aggregate``) and agree with the CPU;
+* the backward kernels against the plain version's autograd on the card:
+  ``flash_attention_bwd`` (dq, dk, dv) at Hymba's training layers (window
+  and full, meta tokens, GQA), qwen2-1.5b's head_dim 128, MQA, a ragged S
+  and head_dim 32, f32 at the forward's 2e-5 and bf16 at 3e-2;
+  ``ssd_scan_bwd`` (dx, d(dt), dA, dB, dC and the initial state's) at
+  Hymba's and mamba2-130m's shapes and ragged chunks, with and without an
+  initial state and the final state's cotangent, at the forward's
+  tolerance scaled to each gradient's largest |value|. A CUDA tensor that
+  needs a gradient goes through the backward kernel (its counter rises);
+  two backward calls give the same bits; the serving path (no gradient)
+  writes no log-sum-exp and gives the bits it gave; the backward raises
+  above head_dim 128 and for a bf16 SSD.
 """
 import pytest
 import torch
@@ -63,8 +75,10 @@ from repro_torch.kernels.fed_mix_q import fed_mix_q
 from repro_torch.kernels.fed_mix_sparse import (
     check_cluster_ids, fed_mix_matching, fed_mix_segment,
 )
-from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.flash_attention import (
+    flash_attention, flash_attention_bwd,
+)
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
 from repro_torch.protocols.async_gossip import matching_perm_stack
 from repro_torch.protocols.gossip import _phase_perm_stack
 
@@ -769,3 +783,145 @@ def test_fedp2p_topo_and_faulted_runs_launch_mix_kernels_on_card(
     assert hist.dropped == drop.sum(axis=1).astype(int).tolist()
     assert all(r >= int(f.sum()) for r, f in zip(hist.rejected_rows, flag))
     assert all(torch.isfinite(torch.tensor(hist.train_loss + hist.acc)))
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels
+# ---------------------------------------------------------------------------
+
+def _qkv_model_layout(gen, b, hq, hkv, s, hd, dtype):
+    """q, k, v as the model hands them over: [B, S, H, hd] viewed as
+    [B, H, S, hd]."""
+    return [(torch.randn((b, s, h, hd), device="cuda", generator=gen) * 0.5)
+            .to(dtype).transpose(1, 2) for h in (hq, hkv, hkv)]
+
+
+def _flash_grads(fn, q, k, v, dout, window, num_meta):
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = fn(*leaves, window=window, num_meta=num_meta)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    return [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,hd,window,num_meta", [
+    (2, 25, 5, 2048, 64, 1024, 128),    # Hymba's window layer
+    (2, 25, 5, 2048, 64, 0, 128),       # Hymba's full layer
+    (1, 12, 2, 1024, 128, 0, 0),        # qwen2-1.5b's heads
+    (2, 8, 1, 512, 64, 0, 0),           # MQA
+    (2, 4, 2, 200, 64, 64, 8),          # ragged S
+    (2, 4, 2, 128, 32, 64, 8),          # reduced Hymba's head_dim
+    (1, 3, 3, 100, 48, 32, 0),          # an odd head_dim, MHA
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_matches_plain_autograd_on_card(
+        cuda, b, hq, hkv, s, hd, window, num_meta, dtype):
+    q, k, v = _qkv_model_layout(cuda, b, hq, hkv, s, hd, dtype)
+    dout = torch.randn((b, hq, s, hd), device="cuda", generator=cuda).to(dtype)
+    before = flash_attention_bwd.launches
+    got = _flash_grads(flash_attention, q, k, v, dout, window, num_meta)
+    assert flash_attention_bwd.launches == before + 1
+    want = _flash_grads(ref.flash_attention_ref, q, k, v, dout, window,
+                        num_meta)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol,
+                                   msg=name)
+
+
+def _ssd_grads(fn, x, dt, A, B, C, init, dy, dfinal, chunk):
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (x, dt, A, B, C)]
+    ii = None if init is None else init.detach().clone().requires_grad_(True)
+    if fn is None:
+        y, fin = ref.ssd_chunked(*leaves, chunk, initial_state=ii)
+    else:
+        y, fin = fn(*leaves, chunk=chunk, initial_state=ii)
+    loss = (y * dy).sum()
+    if dfinal is not None:
+        loss = loss + (fin * dfinal).sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    return [t.grad for t in leaves] + ([ii.grad] if ii is not None else [])
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 2048, 50, 64, 16, 128),         # Hymba
+    (1, 1024, 24, 64, 128, 256),        # mamba2-130m
+    (2, 256, 24, 64, 128, 128),         # mamba2-130m at the CLI's chunk
+    (2, 100, 4, 16, 16, 20),            # small chunks
+    (1, 300, 5, 48, 24, 100),           # ragged tiles, n = 24
+    (1, 1024, 2, 64, 256, 1024),        # one chunk, the largest state
+])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_scan_bwd_matches_plain_autograd_on_card(cuda, b, s, h, p, n,
+                                                     chunk, with_state):
+    x = torch.randn((b, s, h, p), device="cuda", generator=cuda) * 0.5
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), device="cuda", generator=cuda))
+    A = -torch.exp(torch.randn(h, device="cuda", generator=cuda) * 0.3)
+    B = torch.randn((b, s, n), device="cuda", generator=cuda) * 0.5
+    C = torch.randn((b, s, n), device="cuda", generator=cuda) * 0.5
+    init = (torch.randn((b, h, p, n), device="cuda", generator=cuda)
+            if with_state else None)
+    dy = torch.randn((b, s, h, p), device="cuda", generator=cuda)
+    dfinal = (torch.randn((b, h, p, n), device="cuda", generator=cuda)
+              if with_state else None)
+    before = ssd_scan_bwd.launches
+    got = _ssd_grads(ssd_scan, x, dt, A, B, C, init, dy, dfinal, chunk)
+    assert ssd_scan_bwd.launches == before + 1
+    want = _ssd_grads(None, x, dt, A, B, C, init, dy, dfinal, chunk)
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dinit"), got,
+                          want):
+        scale = float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=5e-4 * scale,
+                                   msg=name)
+
+
+def test_backward_kernels_repeat_bit_for_bit_on_card(cuda):
+    from repro_torch.kernels.flash_attention import _launch
+    from repro_torch.kernels.ssd_scan import _launch as ssd_launch
+    q, k, v = _qkv_model_layout(cuda, 2, 25, 5, 1024, 64, torch.float32)
+    lse = torch.empty((2, 25, 1024), device="cuda")
+    out = _launch(q, k, v, 512, 128, lse=lse)
+    dout = torch.randn_like(out)
+    r1, r2 = [flash_attention_bwd(q, k, v, out, dout, lse, window=512,
+                                  num_meta=128) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(r1, r2))
+    x = torch.randn((2, 1024, 24, 64), device="cuda", generator=cuda)
+    dt = torch.rand((2, 1024, 24), device="cuda", generator=cuda)
+    A = -torch.rand(24, device="cuda", generator=cuda) - 0.5
+    B, C = [torch.randn((2, 1024, 128), device="cuda", generator=cuda)
+            for _ in range(2)]
+    y, _, ws = ssd_launch(x, dt, A, B, C, 256, None)
+    dy = torch.randn_like(y)
+    r1, r2 = [ssd_scan_bwd(x, dt, A, B, C, ws, dy, None, chunk=256)[:5]
+              for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(r1, r2))
+
+
+def test_serving_path_writes_no_lse_and_keeps_its_bits_on_card(cuda):
+    """Without a gradient the forward launches as for serving; with one,
+    the same output bits (the log-sum-exp store is the only addition)."""
+    q, k, v = _qkv_model_layout(cuda, 2, 25, 5, 512, 64, torch.float32)
+    with torch.no_grad():
+        served = flash_attention(q, k, v, window=256, num_meta=16)
+    trained = flash_attention(*[t.detach().requires_grad_(True)
+                                for t in (q, k, v)], window=256, num_meta=16)
+    assert served.grad_fn is None and trained.grad_fn is not None
+    assert torch.equal(served, trained.detach())
+
+
+def test_backward_guards_on_card(cuda):
+    q, k, v = _qkv_model_layout(cuda, 1, 2, 1, 64, 160, torch.float32)
+    with pytest.raises(ValueError, match="head_dim 160 > 128"):
+        flash_attention(q.requires_grad_(True), k, v)
+    with torch.no_grad():                # serving at hd 160 still runs
+        assert flash_attention(q, k, v).shape == q.shape
+    x = torch.randn((1, 64, 2, 16), device="cuda").bfloat16()
+    dt = torch.rand((1, 64, 2), device="cuda")
+    B = torch.randn((1, 64, 8), device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="f32"):
+        ssd_scan(x.requires_grad_(True), dt, -torch.ones(2, device="cuda"),
+                 B, B, chunk=32)
