@@ -24,7 +24,9 @@ exits non-zero:
             kernels (flash_attention_bwd, ssd_scan_bwd) against the plain
             version's autograd at Hymba's, qwen2-1.5b's and mamba2-130m's
             training shapes (flash in f32 and bf16), two backward calls
-            bit for bit, and (reported, not gated) an inf in V and in x;
+            bit for bit, and an inf or NaN in each input (flash: q, k, v,
+            dO; the SSD: x, dt, B, C, dY) giving the plain autograd's inf
+            and NaN;
   reference the port on the card (kernels) against the port on the CPU
             (plain versions) on a small CNN run with the same draws,
             gossip, gossip_async, the int8/topk wire, fedp2p_topo and a
@@ -454,7 +456,7 @@ def phase_kernels(torch, state):
     rows += lm_backward_cases(torch)
     failed += [r for r in rows if r["kernel"] in (
         "flash_attention", "ssd_scan", "flash_attention_bwd", "ssd_scan_bwd")
-               and not r["ok"] and r.get("gated", True)]
+               and not r["ok"]]
     # the summary line's error: the main path's shape, f32
     for name, _, _ in KERNELS:
         state.setdefault("max_abs_err", {})[name] = max(
@@ -729,10 +731,10 @@ def ssd_grads(torch, fn, args, init, dy, dfinal, chunk):
 
 
 def nan_mismatch(torch, got, want):
-    """(positions where NaN differs, where the infinities differ)."""
+    """(positions where NaN differs, where +inf or -inf differs)."""
     return (int((torch.isnan(got) != torch.isnan(want)).sum()),
-            int((torch.isinf(got) != torch.isinf(want)).sum()
-                + (got[torch.isinf(want)] != want[torch.isinf(want)]).sum()))
+            int((torch.isposinf(got) != torch.isposinf(want)).sum()
+                + (torch.isneginf(got) != torch.isneginf(want)).sum()))
 
 
 def lm_backward_cases(torch):
@@ -745,9 +747,9 @@ def lm_backward_cases(torch):
     256, and chunk 128 at the CLI's 128 tokens) shapes and two ragged ones,
     without an initial state (the final state's cotangent unused, as in
     training) and with one (the final state's cotangent random). Then a
-    bit-for-bit repeat of two backward calls of each kernel, and (reported,
-    not gated) the non-finite cases: an inf in V at a key of a tile the
-    kernels skip for later rows, and an inf in x."""
+    bit-for-bit repeat of two backward calls of each kernel, and the
+    non-finite cases (gated): an inf or NaN in each input of each kernel,
+    held to the plain autograd's inf and NaN positions."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (
         _launch, flash_attention, flash_attention_bwd,
@@ -848,35 +850,77 @@ def lm_backward_cases(torch):
         same = all(torch.equal(a, b) for a, b in zip(r1, r2))
         rows.append({"kernel": "ssd_scan_bwd", "h": h, "n": n,
                      "bitwise_repeat": same, "max_abs_err": 0.0, "ok": same})
-    # non-finite inputs: reported, not gated (finite input is the contract)
-    q, k, v = attention_inputs(torch, TRAIN_B, LM_HQ, LM_HKV, LM_S, LM_HD, f32,
-                               seed=995)
-    v[0, 1, 300, 11] = math.inf
-    dout = torch.randn((TRAIN_B, LM_HQ, LM_S, LM_HD), device="cuda")
-    got = flash_grads(torch, flash_attention, q, k, v, dout, LM_WINDOW,
-                      LM_META)
-    want = flash_grads(torch, ref.flash_attention_ref, q, k, v, dout,
-                       LM_WINDOW, LM_META)
-    rows.append({"kernel": "flash_attention_bwd", "non_finite": "inf in V",
-                 "gated": False, "max_abs_err": None,
-                 "nan_inf_mismatch": {gname: nan_mismatch(torch, got[j],
-                                                          want[j])
-                                      for j, gname in enumerate(
-                                          ("dq", "dk", "dv"), start=1)},
-                 "ok": all(nan_mismatch(torch, got[j], want[j]) == (0, 0)
-                           for j in (1, 2, 3))})
-    args, _ = ssd_inputs(torch, TRAIN_B, LM_S, 50, 64, 16, 996, False)
-    args[0][0, 100, 1, 3] = math.inf
-    dy = torch.randn((TRAIN_B, LM_S, 50, 64), device="cuda")
-    got = ssd_grads(torch, ssd_scan, args, None, dy, None, 128)
-    want = ssd_grads(torch, None, args, None, dy, None, 128)
-    mism = {gname: nan_mismatch(torch, a, b) for gname, a, b in zip(
-        ("dx", "ddt", "dA", "dB", "dC"), got, want)}
-    rows.append({"kernel": "ssd_scan_bwd", "non_finite": "inf in x",
-                 "gated": False, "max_abs_err": None,
-                 "nan_inf_mismatch": mism,
-                 "ok": all(m == (0, 0) for m in mism.values())})
+    # non-finite inputs: each gradient's inf and NaN where the plain
+    # autograd has them, its finite values at the finite cases' tolerance.
+    # Flash at Hymba's window layer: a query row whose masked keys lie in
+    # tiles the dK pass skips, a key the dQ pass skips for early and late
+    # rows, a V entry and a dO row; the SSD at Hymba's and mamba2-130m's
+    # shapes with the value at row 100 of a chunk (a tile the passes skip
+    # for rows 0-63) or, for dY, row 30.
+    flash_sites = (("q", (0, 7, 1500, 5)), ("k", (1, 2, 600, 9)),
+                   ("v", (0, 3, 1200, 20)), ("dO", (1, 12, 40, 7)))
+    for i, (tensor, index) in enumerate(flash_sites):
+        for val in (math.inf, math.nan):
+            q, k, v = attention_inputs(torch, TRAIN_B, LM_HQ, LM_HKV, LM_S,
+                                       LM_HD, f32, seed=995 + i)
+            dout = torch.randn((TRAIN_B, LM_HQ, LM_S, LM_HD), device="cuda")
+            {"q": q, "k": k, "v": v, "dO": dout}[tensor][index] = val
+            got = flash_grads(torch, flash_attention, q, k, v, dout,
+                              LM_WINDOW, LM_META)
+            want = flash_grads(torch, ref.flash_attention_ref, q, k, v, dout,
+                               LM_WINDOW, LM_META)
+            rows.append(non_finite_row(
+                torch, "flash_attention_bwd", f"{val} in {tensor}{index}",
+                ("dq", "dk", "dv"), got[1:], want[1:],
+                lambda w: FLASH_TOL["float32"]))
+    for h, p, n, chunk in ((50, 64, 16, 128), (24, 64, 128, 256)):
+        for i, tensor in enumerate(("x", "dt", "B", "C", "dY")):
+            args, _ = ssd_inputs(torch, TRAIN_B, LM_S, h, p, n, 996 + i,
+                                 False)
+            dy = torch.randn((TRAIN_B, LM_S, h, p), device="cuda")
+            row = 30 if tensor == "dY" else 100
+            target = {"x": (args[0], (0, row, 1, 3)),
+                      "dt": (args[1], (1, row, 1)),
+                      "B": (args[3], (0, row, 5)),
+                      "C": (args[4], (1, row, 5)),
+                      "dY": (dy, (0, row, 1, 3))}[tensor]
+            target[0][target[1]] = math.inf
+            got = ssd_grads(torch, ssd_scan, args, None, dy, None, chunk)
+            want = ssd_grads(torch, None, args, None, dy, None, chunk)
+            rows.append(non_finite_row(
+                torch, "ssd_scan_bwd", f"inf in {tensor}{target[1]}",
+                ("dx", "ddt", "dA", "dB", "dC"), got[:5], want[:5],
+                lambda w: (SSD_ATOL_SCALE * finite_scale(torch, w),
+                           SSD_RTOL), h=h, n=n))
     return rows
+
+
+def finite_scale(torch, t):
+    """The largest finite |value| of ``t`` (1 where none is finite)."""
+    fin = t[torch.isfinite(t)]
+    return float(fin.abs().max()) if fin.numel() else 1.0
+
+
+def non_finite_row(torch, kernel, what, names, got, want, tol, **extra):
+    """A gated kernels-phase row: for each gradient, NaN, +inf and -inf at
+    the plain autograd's places and the finite values within ``tol(want)``
+    = (atol, rtol)."""
+    grads, ok, worst = {}, True, 0.0
+    for gname, g, w in zip(names, got, want):
+        nan_mis, inf_mis = nan_mismatch(torch, g, w)
+        atol, rtol = tol(w)
+        fin = torch.isfinite(w) & torch.isfinite(g)
+        err = (g.float() - w.float()).abs()[fin]
+        bound_ = atol + rtol * w.float().abs()[fin]
+        ok_g = (nan_mis, inf_mis) == (0, 0) and bool((err <= bound_).all())
+        e = float(err.max()) if err.numel() else 0.0
+        worst = max(worst, e)
+        grads[gname] = {"nan_mismatch": nan_mis, "inf_mismatch": inf_mis,
+                        "non_finite": int((~torch.isfinite(w)).sum()),
+                        "max_abs_err": e, "ok": ok_g}
+        ok = ok and ok_g
+    return {"kernel": kernel, "non_finite": what, **extra,
+            "max_abs_err": worst, "grads": grads, "ok": ok}
 
 
 def femnist_setup(full: bool):
@@ -1821,23 +1865,27 @@ def lm_timing(torch):
 
 def lm_backward_timing(torch):
     """The backward kernels at Hymba-1.5B's training shapes (B 2, 2048
-    positions): flash on a window layer and a full layer, the SSD on the
-    SSM heads, then at mamba2-130m's. Kernel times are the device time of
-    every launch of one call; plain times the device time of the plain
-    version's autograd backward alone (``torch.autograd.grad`` on a kept
-    graph). Flash's operations: the function's five products of 2·hd flops
-    per visible pair and query head (S recomputed, dV, dP, dQ, dK); the
-    two-pass design computes S and dP twice (``design_flops``). Its bytes:
+    positions): flash on a window layer and a full layer, then at
+    qwen2-1.5b's (12/2 heads of 128, full causal, no meta tokens); the SSD
+    on Hymba's SSM heads, then at mamba2-130m's. Kernel times are the device time of
+    every launch of one call (``passes_ms`` by launch); plain times the
+    device time of the plain version's autograd backward alone
+    (``torch.autograd.grad`` on a kept graph). Flash's operations: the
+    function's five products of 2·hd flops per visible pair and query head
+    (S recomputed, dV, dP, dQ, dK); the two-pass design computes S and dP
+    twice (``design_flops``, ``design_bound_ms``). Its bytes:
     q, k, v, o, dO and lse read, dq, dk, dv written once. The library
     yardstick is the backward of ``scaled_dot_product_attention`` with the
     boolean mask and ``enable_gqa``, TF32 off, and its kernels' names say
-    which backend ran. The SSD's operations, per chunk of q rows and head:
-    the causal halves of W = dY·xdᵀ (2p a pair), G = C·Bᵀ (2n), and the
-    products with the masked [q, q] matrices giving d(xd) (2p), dC and dB
-    (2n each); four products with the [p, n] states (2pn a row each); its
-    bytes x, dt, B, C, dY and the saved incoming states read, dx, d(dt),
-    dB, dC written once. No one PyTorch call computes either gradient of
-    the SSD."""
+    which backend ran. The SSD's operations, per chunk of q rows: per head
+    the causal halves of W = dY·xdᵀ and (G∘L)ᵀ·dY (2p a pair each) and
+    four products with the [p, n] states (2pn a row each: Σ e^a dY⊗C,
+    dY·S_in, B·dstᵀ, xd·dst; da's state terms reuse the second and third
+    at 2n or 2p a row, left out); once G = C·Bᵀ (2n a pair), and dcb·B and
+    dcbᵀ·C on the head sum dcb = Σ_h W∘L (2n each); the design computes
+    whole 64 x 64 tile pairs (``design_flops``). Its bytes: x, dt, B, C, dY and the saved
+    incoming states read, dx, d(dt), dB, dC written once. No one PyTorch
+    call computes either gradient of the SSD."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -1845,23 +1893,27 @@ def lm_backward_timing(torch):
     from repro_torch.kernels.ssd_scan import _launch as ssd_launch
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd
     f32 = torch.float32
-    b, s, hq, hkv, hd = TRAIN_B, LM_S, LM_HQ, LM_HKV, LM_HD
+    b, s = TRAIN_B, LM_S
     rows = []
-    q, k, v = attention_inputs(torch, b, hq, hkv, s, hd, f32, seed=17)
-    dout = torch.randn((b, hq, s, hd), device="cuda",
-                       generator=torch.Generator(device="cuda").manual_seed(18))
-    for window in (LM_WINDOW, 0):
+    for hq, hkv, hd, window, meta in (
+            (LM_HQ, LM_HKV, LM_HD, LM_WINDOW, LM_META),
+            (LM_HQ, LM_HKV, LM_HD, 0, LM_META),
+            (12, 2, 128, 0, 0)):                         # qwen2-1.5b
+        q, k, v = attention_inputs(torch, b, hq, hkv, s, hd, f32, seed=17)
+        dout = torch.randn((b, hq, s, hd), device="cuda",
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(18))
         lse = torch.empty((b, hq, s), device="cuda")
-        out = _launch(q, k, v, window, LM_META, lse=lse)
-        mask = flash_mask(torch, s, window, LM_META)
+        out = _launch(q, k, v, window, meta, lse=lse)
+        mask = flash_mask(torch, s, window, meta)
         pairs = int(mask.sum())
         flops = 10 * hd * pairs * b * hq
         byts = 4 * s * hd * b * (4 * hq + 4 * hkv) + 4 * b * hq * s
         per = device_ms(torch, lambda: flash_attention_bwd(
-            q, k, v, out, dout, lse, window=window, num_meta=LM_META))
+            q, k, v, out, dout, lse, window=window, num_meta=meta))
         leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
         o_plain = ref.flash_attention_ref(*leaves, window=window,
-                                          num_meta=LM_META)
+                                          num_meta=meta)
         lib = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
         o_lib = F.scaled_dot_product_attention(*lib, attn_mask=mask,
                                                enable_gqa=True)
@@ -1869,11 +1921,12 @@ def lm_backward_timing(torch):
             o_lib, lib, dout, retain_graph=True))
         names = " ".join(per_lib).lower()
         rows.append({
-            "name": "flash_attention_bwd", "B": b, "S": s, "window": window,
-            "num_meta": LM_META, "visible_pairs_per_head": pairs,
+            "name": "flash_attention_bwd", "B": b, "S": s, "Hq": hq,
+            "Hkv": hkv, "hd": hd, "window": window,
+            "num_meta": meta, "visible_pairs_per_head": pairs,
             "ms": named_ms(per, "flash_bwd_"),
             "passes_ms": {w: named_ms(per, f"flash_bwd_{w}_kernel")
-                          for w in ("delta", "dkdv", "dq")},
+                          for w in ("prep", "dkdv", "reduce", "dq")},
             "plain_ms": sum(device_ms(torch, lambda: torch.autograd.grad(
                 o_plain, leaves, dout, retain_graph=True), reps=5).values()),
             "bytes": byts, "flops": flops,
@@ -1889,14 +1942,23 @@ def lm_backward_timing(torch):
                                 else "flash" if "flash" in names
                                 else "math (matmuls and softmax)"),
             "library_kernels": sorted(per_lib, key=lambda k: -per_lib[k])[:4]})
-        del leaves, o_plain, lib, o_lib
+        del leaves, o_plain, lib, o_lib, q, k, v, dout, lse, out
     for h, p, n, chunk in ((50, 64, 16, 128), (24, 64, 128, 256)):
         args, _ = ssd_inputs(torch, b, s, h, p, n, 19, False)
         y, _, ws = ssd_launch(*args, chunk, None)
         dy = torch.randn_like(y)
         nc = s // chunk
         tri = chunk * (chunk + 1) // 2
-        flops = b * h * nc * (tri * (4 * p + 6 * n) + 8 * chunk * p * n)
+        # the function: per head W·L and (G∘L)ᵀ·dY (2p a pair each) and the
+        # four state products (2pn a row); per chunk G (2n a pair) and, on
+        # the head sum dcb = Σ_h W∘L, dcb·B and dcbᵀ·C (2n each)
+        flops = b * nc * (h * (tri * 4 * p + 8 * chunk * p * n)
+                          + tri * 6 * n)
+        # the design: the same products over whole 64 x 64 tile pairs
+        tiles = -(-chunk // 64)
+        tri_t = tiles * (tiles + 1) // 2 * 64 * 64
+        design = b * nc * (h * (tri_t * 4 * p + 8 * chunk * p * n)
+                           + tri_t * 6 * n)
         byts = 4 * (3 * b * s * h * p + 2 * b * s * h + 4 * b * s * n
                     + b * h * nc * p * n + h)
         per = device_ms(torch, lambda: ssd_scan_bwd(*args, ws, dy, None,
@@ -1907,11 +1969,13 @@ def lm_backward_timing(torch):
             "name": "ssd_scan_bwd", "B": b, "S": s, "h": h, "p": p, "n": n,
             "chunk": chunk, "ms": named_ms(per, "ssd_bwd_kernel"),
             "passes_ms": {w: named_ms(per, f"ssd_bwd_kernel_{w}")
-                          for w in ("state", "carry", "rows", "cols", "chain",
-                                    "reduce")},
+                          for w in ("state", "carry", "g", "rows", "cols",
+                                    "dcb", "chain", "reduce")},
             "plain_ms": sum(device_ms(torch, lambda: torch.autograd.grad(
                 y_plain, leaves, dy, retain_graph=True), reps=5).values()),
             "bytes": byts, "flops": flops, **product_bounds(byts, flops),
+            "design_flops": design,
+            "design_bound_ms": bound(byts, design, SPLIT_F32_FLOP_PER_S)[0],
             "library_ms": None,
             "library": "none: no single PyTorch call computes the chunked "
                        "SSD scan's gradient"})

@@ -25,6 +25,26 @@ and, on the host clock around synchronized work, ``Simulator.run``'s
 seconds per round of fedp2p on CNN-FEMNIST at full width (100 clients,
 default ``FLConfig`` with lr 0.05): one warm-up round, then 3 rounds.
 
+``--set backward`` times instead, at ``chip_smoke.py``'s training shapes,
+the backward kernels (each call's launches, split by launch):
+
+* ``flash_attention_bwd`` at Hymba-1.5B's training layers (B 2, 25/5
+  heads of 64, 2048 positions, 128 meta tokens), window 1024 and a full
+  layer, and at qwen2-1.5b's (B 2, 12/2 heads of 128, 2048 positions,
+  causal), from the forward's output and log-sum-exp;
+* ``ssd_scan_bwd`` at Hymba's SSM heads (50 x 64, state 16, chunk 128)
+  and mamba2-130m's (24 x 64, state 128, chunk 256), B 2 x 2048;
+* the Hymba-1.5B serving prefill above (its kernels are the forward's);
+* Hymba-1.5B's train step at full width (B 2 x 1920 tokens, f32 AdamW,
+  remat off): seconds per step on the host clock (mean of steps 2-4 of
+  ``run_lm_training``), tokens per second and the peak device memory.
+
+``--set ptxas`` prints instead ptxas' registers, stack frame and spills
+for each kernel (and out-of-line block) of the tree's
+``flash_attention_bwd.cu`` (``nvcc -Xptxas -v`` for sm_90a with the
+build's flags; names as mangled, e.g. ``IfLi128E`` is f32 at head_dim
+128); it needs no card.
+
 Run it once per tree in turns (parent, change, change, parent) inside one
 call to compare two versions; each run prints one JSON line.
 """
@@ -80,12 +100,121 @@ def hymba_prefill_ms(torch, cs):
                             if "flash_fwd_kernel" in k)}
 
 
+def ptxas_usage(backend):
+    """ptxas' resource report for the tree's flash_attention_bwd.cu:
+    {function: {"registers", "stack", "spill_stores", "spill_loads"}} for
+    the kernels and their out-of-line full-split blocks."""
+    import re
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [backend.nvcc(), *[f for f in backend.NVCC_FLAGS
+                               if f not in ("-shared", "-Xcompiler",
+                                            "-fPIC")],
+             "-cubin", "-Xptxas", "-v", "-o", f"{tmp}/k.cubin",
+             str(backend.CSRC / "flash_attention_bwd.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    out = proc.stdout
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{out[-4000:]}")
+    usage, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"(?:entry function '|Function properties for )"
+                      r"([\w$.]+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None or not re.search(r"flash_bwd|dkdv|dq_block",
+                                         name):
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                      r"stores, (\d+) bytes spill loads", line)
+        if m:
+            usage.setdefault(name, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage.setdefault(name, {})["registers"] = int(m.group(1))
+    return usage
+
+
+def backward_rows(torch, cs):
+    """The backward kernels' device times and one train step's."""
+    import time
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.flash_attention import _launch, flash_attention_bwd
+    from repro_torch.kernels.ssd_scan import _launch as ssd_launch
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
+    from repro_torch.launch import train
+    backend.build(("flash_attention", "ssd_scan", "flash_attention_bwd",
+                   "ssd_scan_bwd"))
+    rows = {}
+    b, s = cs.TRAIN_B, cs.LM_S
+    for key, hq, hkv, hd, window, meta in (
+            (f"flash_bwd_window{cs.LM_WINDOW}", cs.LM_HQ, cs.LM_HKV, cs.LM_HD,
+             cs.LM_WINDOW, cs.LM_META),
+            ("flash_bwd_window0", cs.LM_HQ, cs.LM_HKV, cs.LM_HD, 0,
+             cs.LM_META),
+            ("flash_bwd_qwen2_hd128", 12, 2, 128, 0, 0)):
+        q, k, v = cs.attention_inputs(torch, b, hq, hkv, s, hd,
+                                      torch.float32, seed=17)
+        dout = torch.randn((b, hq, s, hd), device="cuda",
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(18))
+        lse = torch.empty((b, hq, s), device="cuda")
+        out = _launch(q, k, v, window, meta, lse=lse)
+        per = cs.device_ms(torch, lambda: flash_attention_bwd(
+            q, k, v, out, dout, lse, window=window, num_meta=meta))
+        rows[key] = {"ms": sum(per.values()),
+                     "kernels_ms": {k_[:60]: v_ for k_, v_ in per.items()}}
+    for h, p, n, chunk in ((50, 64, 16, 128), (24, 64, 128, 256)):
+        args, _ = cs.ssd_inputs(torch, b, s, h, p, n, 19, False)
+        y, _, ws = ssd_launch(*args, chunk, None)
+        dy = torch.randn_like(y)
+        per = cs.device_ms(torch, lambda: ssd_scan_bwd(*args, ws, dy, None,
+                                                       chunk=chunk))
+        rows[f"ssd_bwd_h{h}_n{n}_chunk{chunk}"] = {
+            "ms": sum(per.values()),
+            "kernels_ms": {k_[:60]: v_ for k_, v_ in per.items()}}
+    del q, k, v, dout, lse, out, args, y, ws, dy
+    rows["hymba_prefill"] = hymba_prefill_ms(torch, cs)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train.run_lm_training(
+        cs.LM_ARCH, reduced=False, batch=b, seq_len=cs.TRAIN_SEQ, steps=4,
+        train_cfg=TrainConfig(lr=3e-3, remat=False), verbose=False)
+    torch.cuda.synchronize()
+    later = out["step_seconds"][1:]
+    s_step = sum(later) / len(later)
+    rows["hymba_train_step"] = {
+        "seconds_per_step": s_step, "step_seconds": out["step_seconds"],
+        "tokens_per_second": b * cs.TRAIN_SEQ / s_step,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "losses": out["losses"], "seconds": time.perf_counter() - t0}
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", required=True)
     ap.add_argument("--label", default="")
     ap.add_argument("--out", default="")
+    ap.add_argument("--set", choices=("forward", "backward", "ptxas"),
+                    default="forward",
+                    help="forward (default): the forward kernels, prefill "
+                         "and fedp2p; backward: the backward kernels and a "
+                         "train step; ptxas: flash_attention_bwd's "
+                         "registers and spills")
     args = ap.parse_args()
+    if args.set == "ptxas":
+        sys.path.insert(0, str(Path(args.src).resolve()))
+        from repro_torch.kernels import backend
+        return emit(args, ptxas_usage(backend))
     import torch
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -98,6 +227,9 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan import ssd_scan
     backend.use_full_f32()
+    if args.set == "backward":
+        rows = backward_rows(torch, cs)
+        return emit(args, rows)
     backend.build(("flash_attention", "ssd_scan", "fed_mix_matching",
                    "fed_mix_segment"))
     rows = {}
@@ -130,11 +262,15 @@ def main() -> int:
         record(f"fed_mix_matching_S{stages}", lambda: fed_mix_matching(*m))
     rows["hymba_prefill"] = hymba_prefill_ms(torch, cs)
     rows["fedp2p_seconds_per_round"] = fedp2p_seconds_per_round(torch)
+    return emit(args, rows)
+
+
+def emit(args, rows) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    line = json.dumps({"label": args.label or args.src, "nvidia_smi": smi,
-                       "times": rows})
+    line = json.dumps({"label": args.label or args.src, "set": args.set,
+                       "nvidia_smi": smi, "times": rows})
     print(line, flush=True)
     if args.out:
         with open(args.out, "a") as f:

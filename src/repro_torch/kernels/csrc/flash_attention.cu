@@ -425,9 +425,13 @@ __device__ __forceinline__ bool flash_block(const T* __restrict__ q, const T* __
     const int qi = q0 + qr + g + 8 * r;
     if (qi >= n_q) continue;
     const float denom = fmaxf(l[r], 1e-30f);
-    // the row log-sum-exp of the scaled scores, for the backward
+    // the row log-sum-exp of the scaled scores, for the backward; NaN where
+    // the row's softmax is NaN (a visible score that is NaN or +inf makes l
+    // NaN, which fmaxf above would hide), as the reference's softmax row is
+    // then NaN at every key, masked ones included
     if constexpr (kLse) {
-      if (t == 0) lse[((long long)b * gridDim.y + h) * n_q + qi] = m[r] + logf(denom);
+      if (t == 0)
+        lse[((long long)b * gridDim.y + h) * n_q + qi] = l[r] != l[r] ? l[r] : m[r] + logf(denom);
     }
 #pragma unroll
     for (int n = 0; n < NT; ++n) {

@@ -23,7 +23,8 @@ Gradients. On CUDA tensors that need one, the call goes through
 also writes each row's log-sum-exp, and the backward is
 ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``, the
 FlashAttention-2 backward that the JAX package's custom VJP writes in
-jnp; f32 or bf16, head_dim <= 128, Sq <= T). Without a gradient the
+jnp, its products split-f32 on the tensor cores; f32 or bf16, head_dim
+<= 128, Sq <= T). Without a gradient the
 kernel launches as it does for serving: no log-sum-exp is written. CPU
 tensors differentiate through ``ref.flash_attention_ref``.
 """
@@ -169,8 +170,11 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, window: int = 0,
     """The backward kernel: (dq like q, dk like k, dv like v) from the
     forward's inputs, its output ``out``, the output's cotangent ``dout``
     and the rows' log-sum-exp ``lse`` [B, Hq, Sq] f32, all on the card
-    (``flash_attention_bwd.launches`` counts its calls: one call is three
-    launches: delta = rowsum(dO ∘ O), dK and dV, dQ)."""
+    (``flash_attention_bwd.launches`` counts its calls: one call is four
+    launches: delta = rowsum(dO ∘ O) with the tiles' masks of non-finite
+    columns, dK and dV per query head, their sum over the GQA group, dQ).
+    Non-finite values come out where the plain version's autograd gives
+    them."""
     name = "flash_attention_bwd"
     if backend.kernel_device(name, q, k, v, out, dout, lse) != "cuda":
         raise ValueError(f"{name}: runs on CUDA tensors only (CPU tensors "
@@ -186,20 +190,35 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, window: int = 0,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or tk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    f32, dev = torch.float32, q.device
+    delta = torch.empty((b, hq, sq), dtype=f32, device=dev)
+    # dK and dV of each query head (summed over the GQA group by the
+    # kernel's third launch), at head_dim rounded up to 32, 64 or 128
+    hd_pad = 32 if hd <= 32 else 64 if hd <= 64 else 128
+    dkp = torch.empty((b, hq, tk, hd_pad), dtype=f32, device=dev)
+    dvp = torch.empty_like(dkp)
+    # per 64-row tile: the bitmask of the columns where q, dO (query heads)
+    # and k (kv heads) hold an inf or NaN
+    qflags = torch.empty((b, hq, -(-sq // 64), 4), dtype=torch.int32,
+                         device=dev)
+    dflags = torch.empty_like(qflags)
+    kflags = torch.empty((b, hkv, -(-tk // 64), 4), dtype=torch.int32,
+                         device=dev)
     lse = lse.contiguous()
     strides = (ctypes.c_longlong * 24)(
         *[s for t in (q, k, v, out, dout, dq, dk, dv) for s in t.stride()[:3]])
     launch = backend.c_function(
         "flash_attention_bwd", "flash_attention_bwd_launch",
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
            ctypes.c_void_p])
     rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), delta.data_ptr(), strides, b, hq, hq // hkv,
-                sq, tk, hd, hd ** -0.5, int(window), int(num_meta),
-                int(q.dtype == torch.bfloat16), backend.stream_ptr(q.device))
+                dv.data_ptr(), delta.data_ptr(), dkp.data_ptr(),
+                dvp.data_ptr(), qflags.data_ptr(), dflags.data_ptr(),
+                kflags.data_ptr(), strides, b, hq, hq // hkv, sq, tk, hd,
+                hd ** -0.5, int(window), int(num_meta),
+                int(q.dtype == torch.bfloat16), backend.stream_ptr(dev))
     backend.raise_on_error(name, rc)
     flash_attention_bwd.launches += 1
     return dq, dk, dv

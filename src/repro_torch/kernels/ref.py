@@ -164,10 +164,12 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
 def _exp_ftz(z: torch.Tensor) -> torch.Tensor:
     """exp with subnormal results flushed to 0, as XLA computes it on the
     CPU and the TPU: where a decay underflows, an inf times it is NaN, as
-    in the JAX kernel. Out of place, so that autograd can go through it:
-    a flushed entry's gradient is 0, as XLA's flushed exp gives."""
+    in the JAX kernel. Out of place, so that autograd can go through it,
+    and a product with a 0/1 mask, so that a flushed entry's gradient is
+    g · 0 as XLA's flushed exp gives: 0 for a finite g, NaN for an inf or
+    NaN one (a select would give 0 for every g)."""
     e = torch.exp(z)
-    return torch.where(e < torch.finfo(e.dtype).tiny, torch.zeros_like(e), e)
+    return e * (e >= torch.finfo(e.dtype).tiny).to(e.dtype)
 
 
 def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None):
@@ -193,19 +195,22 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None):
     bc = B.to(f32).reshape(b, nc, q, n)
     cc = C.to(f32).reshape(b, nc, q, n)
 
-    # Every product is taken in the JAX kernel's order (C·Bᵀ, times the
-    # decay mask L, times x·dt; x·dtᵀ times B·decay; C·stateᵀ, times its
-    # decay), one pair of operands at a time, so that inf and NaN come out
-    # where the kernel gives them: a 0 of L above the diagonal times an
-    # inf of C·Bᵀ or of x·dt is NaN there.
+    # Every product is taken in the order in which XLA contracts the JAX
+    # package's einsums (C·Bᵀ, times the decay mask L, times x·dt;
+    # decay·x·dt, times B; C·decay, times the state), one pair of operands
+    # at a time, so that inf and NaN come out where the JAX kernel and
+    # jax.grad give them: a 0 of L above the diagonal times an inf of C·Bᵀ
+    # or of x·dt is NaN there, and each gradient sums the same partial
+    # products (an inf in B makes Σ_p of decay·x·dt·dstate NaN).
     a_cum = torch.cumsum(a_dt, dim=-1)                        # [b,h,c,q]
     L = _exp_ftz(_segsum(a_dt))                               # [b,h,c,q,q]
     cb = torch.einsum("bcln,bcsn->bcls", cc, bc)
     y_diag = torch.einsum("bhcls,bcshp->bclhp", cb[:, None] * L, xd)
 
     decay_states = _exp_ftz(a_cum[..., -1:] - a_cum)          # [b,h,c,q]
-    states = torch.einsum("bcshp,bhcsn->bchpn", xd,
-                          bc[:, None] * decay_states[..., None])
+    states = torch.einsum("bcshp,bcsn->bchpn",
+                          decay_states.permute(0, 2, 3, 1)[..., None] * xd,
+                          bc)
     chunk_decay = _exp_ftz(a_cum[..., -1])                    # [b,h,c]
 
     state = (torch.zeros((b, h, p, n), dtype=f32, device=x.device)
@@ -217,7 +222,8 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None):
     states_in = torch.stack(states_in, dim=1)                 # [b,c,h,p,n]
 
     state_decay = _exp_ftz(a_cum)                             # [b,h,c,q]
-    y_off = (torch.einsum("bcln,bchpn->bclhp", cc, states_in)
-             * state_decay.permute(0, 2, 3, 1)[..., None])
+    y_off = torch.einsum("bclhn,bchpn->bclhp",
+                         cc[:, :, :, None] * state_decay.permute(0, 2, 3, 1)[
+                             ..., None], states_in)
     y = (y_diag + y_off).reshape(b, s, h, p)
     return y.to(x.dtype), state

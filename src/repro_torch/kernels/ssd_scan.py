@@ -19,8 +19,11 @@ output: the kernel reads them by strides, so nothing is copied.
 Gradients. On CUDA tensors that need one, the call goes through
 ``_SSDScan`` (a ``torch.autograd.Function``): the forward keeps its chunk
 workspace (each chunk's incoming state, 6.5 MB a layer at Hymba's B 2 x
-2048) for the backward, ``ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``), which
-gives the gradients of x, dt, A, B, C and the initial state (f32 only).
+2048) for the backward, ``ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``, its
+products split-f32 on the tensor cores), which gives the gradients of x,
+dt, A, B, C and the initial state (f32 only). Its W∘L workspace holds a
+64 x 64 f32 tile per head and tile pair of each chunk (79 MB at Hymba's
+B 2 x 2048, chunk 128, 50 heads).
 Without a gradient the kernel launches as it does for serving. CPU tensors
 differentiate through ``ref.ssd_chunked``.
 """
@@ -181,8 +184,9 @@ def ssd_scan_bwd(x, dt, A, B, C, ws, dy, dfinal=None, *, chunk: int,
     chunk workspace ``ws`` (each chunk's incoming state), y's cotangent
     ``dy`` and the final state's (``dfinal``, None for zero) ->
     (dx, d(dt), dA, dB, dC, d(initial_state) or None), f32
-    (``ssd_scan_bwd.launches`` counts its calls: one call is six
-    launches)."""
+    (``ssd_scan_bwd.launches`` counts its calls: one call is eight
+    launches). Non-finite values come out where the plain version's
+    autograd gives them."""
     name = "ssd_scan_bwd"
     tensors = (x, dt, A, B, C, ws, dy) + (() if dfinal is None
                                           else (dfinal,))
@@ -214,16 +218,34 @@ def ssd_scan_bwd(x, dt, A, B, C, ws, dy, dfinal=None, *, chunk: int,
         return (dx.zero_(), ddt.zero_(), dA.zero_(), dB.zero_(), dC.zero_(),
                 None if dfinal is None or dinit is None else dinit.copy_(
                     dfinal))
-    # workspaces: the chunks' a, the state cotangents, the decays' cotangents,
-    # each chunk's part of dA, each head's part of dB and dC, and the row
-    # and column terms of da
-    acum, dst, dalast = empty(b, h, s), empty(b, h, nc, p, n), empty(b, h, nc)
+    # workspaces: the chunks' a, the state cotangents, the carry blocks'
+    # parts of the decays' cotangents, each chunk's part of dA, each head's
+    # part of dB and dC (the chunk states' terms), da's row terms, its
+    # column sums per row tile and its last-row terms; W∘L per head and
+    # tile pair; G = C·Bᵀ per tile pair (shared by the heads); dB and dC
+    # per tile pair (the head sum's products); and the masks of non-finite
+    # values (the kernel writes every word of every workspace)
+    tiles = -(-chunk // 64)
+    pairs = tiles * (tiles + 1) // 2
+    carry_blocks = -(-(p * n) // 256)
+    acum, dst = empty(b, h, s), empty(b, h, nc, p, n)
+    dalast = empty(b, h, nc, carry_blocks)
     dAp, dBp, dCp = empty(b, h, nc), empty(b, h, s, n), empty(b, h, s, n)
-    da_row, da_col, ddd = empty(b, h, s), empty(b, h, s), empty(b, h, s)
-    ptrs = (ctypes.c_void_p * 23)(*[
+    da_row, colsum, ddd = empty(b, h, s), empty(b, h, tiles, s), empty(b, h, s)
+    wl = empty(b, h, nc, pairs, 64 * 64)
+    gf = empty(b, nc, pairs, 64 * 64)
+    dBq, dCq = empty(b, tiles, s, n), empty(b, tiles, s, n)
+    i64 = torch.int64
+    fl_dy = torch.empty((b, h, nc, tiles), dtype=i64, device=dev)
+    fl_B = torch.empty((b, nc, tiles, 4), dtype=i64, device=dev)
+    fl_C = torch.empty_like(fl_B)
+    rowbits = torch.empty((b, s, h), dtype=torch.uint8, device=dev)
+    rowflag = torch.empty((b, s), dtype=torch.int32, device=dev)
+    ptrs = (ctypes.c_void_p * 32)(*[
         None if t is None else t.data_ptr() for t in (
             x, dt, A, B, C, dy, dfinal, ws, acum, dst, dalast, dinit, dx,
-            ddt, dAp, dBp, dCp, da_row, da_col, ddd, dA, dB, dC)])
+            ddt, dAp, dBp, dCp, da_row, colsum, ddd, wl, gf, dBq, dCq,
+            fl_dy, fl_B, fl_C, rowbits, rowflag, dA, dB, dC)])
     strides = (ctypes.c_longlong * 13)(
         *x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2],
         *dy.stride()[:3])

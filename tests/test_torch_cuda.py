@@ -58,7 +58,11 @@ skip themselves elsewhere. Run them on the card with
   ``ssd_scan_bwd`` (dx, d(dt), dA, dB, dC and the initial state's) at
   Hymba's and mamba2-130m's shapes and ragged chunks, with and without an
   initial state and the final state's cotangent, at the forward's
-  tolerance scaled to each gradient's largest |value|. A CUDA tensor that
+  tolerance scaled to each gradient's largest |value|. Both with an inf or
+  NaN in each input (flash: q, k, v, dO at Hymba's window layer; the SSD:
+  x, dt, B, C, dY at Hymba's and mamba2-130m's shapes, in tiles the passes
+  skip and inside the diagonal tile): inf and NaN where the plain
+  version's autograd has them. A CUDA tensor that
   needs a gradient goes through the backward kernel (its counter rises);
   two backward calls give the same bits; the serving path (no gradient)
   writes no log-sum-exp and gives the bits it gave; the backward raises
@@ -830,6 +834,40 @@ def test_flash_attention_bwd_matches_plain_autograd_on_card(
                                    msg=name)
 
 
+# (tensor, (b, head, row, column)) of Hymba's window layer (B 1, 25/5
+# heads of 64, 2048 positions, window 1024, 128 meta tokens): a query row
+# whose keys past the diagonal and before its window lie in tiles the dK
+# pass skips, keys whose later and much later rows the dQ pass skips (one a
+# meta token), a key inside visited tiles, and dO rows whose masked keys
+# the dV pass skips
+FLASH_BWD_SITES = [("q", (0, 7, 1500, 5)), ("k", (0, 2, 600, 9)),
+                   ("k", (0, 1, 50, 3)), ("v", (0, 3, 1200, 20)),
+                   ("dO", (0, 12, 40, 7)), ("dO", (0, 4, 1900, 60))]
+
+
+@pytest.mark.parametrize("tensor,index", FLASH_BWD_SITES,
+                         ids=[f"{t}_row{i[2]}" for t, i in FLASH_BWD_SITES])
+@pytest.mark.parametrize("val", [float("inf"), -float("inf"), float("nan")],
+                         ids=["inf", "-inf", "nan"])
+def test_flash_attention_bwd_non_finite_on_card(cuda, tensor, index, val):
+    """An inf or NaN in q, k, v or dO: dq, dk and dv hold NaN and inf where
+    the plain version's autograd does (its softmax backward sums p·dP over
+    masked keys too, and 0 · inf in the tiles the kernel skips), the
+    finite values at the f32 tolerance."""
+    b, hq, hkv, s, hd, window, meta = 1, 25, 5, 2048, 64, 1024, 128
+    q, k, v = _qkv_model_layout(cuda, b, hq, hkv, s, hd, torch.float32)
+    dout = torch.randn((b, hq, s, hd), device="cuda", generator=cuda)
+    {"q": q, "k": k, "v": v, "dO": dout}[tensor][index] = val
+    got = _flash_grads(flash_attention, q, k, v, dout, window, meta)
+    want = _flash_grads(ref.flash_attention_ref, q, k, v, dout, window, meta)
+    assert not all(bool(torch.isfinite(w).all()) for w in want)
+    for g, w in zip(got, want):     # dv stays finite for an inf in v
+        if bool(torch.isfinite(w).all()):
+            torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5)
+        else:
+            _compare_non_finite(g, w, (2e-5, 2e-5))
+
+
 def _ssd_grads(fn, x, dt, A, B, C, init, dy, dfinal, chunk):
     leaves = [t.detach().clone().requires_grad_(True)
               for t in (x, dt, A, B, C)]
@@ -877,6 +915,41 @@ def test_ssd_scan_bwd_matches_plain_autograd_on_card(cuda, b, s, h, p, n,
         scale = float(w.abs().max())
         torch.testing.assert_close(g, w, rtol=1e-4, atol=5e-4 * scale,
                                    msg=name)
+
+
+@pytest.mark.parametrize("shape", [(1, 512, 4, 64, 16, 128),    # Hymba's
+                                   (1, 512, 2, 64, 128, 256)])  # mamba2's
+@pytest.mark.parametrize("name", ["x", "dt", "B", "C", "dY"])
+@pytest.mark.parametrize("row", [100, 30, 200])
+@pytest.mark.parametrize("val", [float("inf"), -float("inf"), float("nan")],
+                         ids=["inf", "-inf", "nan"])
+def test_ssd_scan_bwd_non_finite_on_card(cuda, shape, name, row, val):
+    """An inf or NaN in x, dt, B, C or dY at row 100 of the first chunk (in
+    a 64-row tile the passes skip for rows 0-63 and sources 128-...), row
+    30 (inside the diagonal tile) or row 200 (the second chunk at Hymba's
+    shape): dx, d(dt), dA, dB and dC hold NaN and inf where the plain
+    version's autograd does, the finite values at the finite cases'
+    tolerance."""
+    b, s, h, p, n, chunk = shape
+    x = torch.randn((b, s, h, p), device="cuda", generator=cuda) * 0.5
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), device="cuda", generator=cuda))
+    A = -torch.exp(torch.randn(h, device="cuda", generator=cuda) * 0.3)
+    B = torch.randn((b, s, n), device="cuda", generator=cuda) * 0.5
+    C = torch.randn((b, s, n), device="cuda", generator=cuda) * 0.5
+    dy = torch.randn((b, s, h, p), device="cuda", generator=cuda)
+    target, index = {"x": (x, (0, row, 1, 3)), "dt": (dt, (0, row, 1)),
+                     "B": (B, (0, row, 5)), "C": (C, (0, row, 5)),
+                     "dY": (dy, (0, row, 1, 3))}[name]
+    target[index] = val
+    got = _ssd_grads(ssd_scan, x, dt, A, B, C, None, dy, None, chunk)
+    want = _ssd_grads(None, x, dt, A, B, C, None, dy, None, chunk)
+    for g, w in zip(got, want):
+        scale = _finite_scale(w)
+        if bool(torch.isfinite(w).all()):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=5e-4 * scale)
+        else:
+            _compare_non_finite(g, w, (1e-4, 5e-4 * scale))
 
 
 def test_backward_kernels_repeat_bit_for_bit_on_card(cuda):
