@@ -20,7 +20,10 @@ exits non-zero:
             plain version has them); flash_attention at Hymba's prefill
             shapes and the JAX kernel tests' sweep, and at head_dim 160,
             192, 256 (gemma-2b's MQA shape, with inf and NaN too) and
-            512; ssd_scan at Hymba's and mamba2-130m's; the backward
+            512, and with v's head_dim apart from q's and k's: DeepSeek-V2's
+            MLA prefill (192, 128; with inf and NaN too), (24, 16), (64,
+            32), (96, 128) and (320, 256); ssd_scan at Hymba's and
+            mamba2-130m's; the backward
             kernels (flash_attention_bwd, ssd_scan_bwd) against the plain
             version's autograd at Hymba's, qwen2-1.5b's and mamba2-130m's
             training shapes (flash in f32 and bf16), two backward calls
@@ -32,9 +35,11 @@ exits non-zero:
             gossip, gossip_async, the int8/topk wire, fedp2p_topo and a
             faulted fedp2p run (its counters equal) included, a checkpoint
             round trip of the card's final params (bit for bit),
-            reduced Hymba's prefill and greedy decode, and reduced
-            Hymba's training (the step-1 loss and every gradient leaf,
-            then 3 AdamW steps' losses);
+            reduced Hymba's prefill and greedy decode, reduced Hymba's
+            training (the step-1 loss and every gradient leaf, then 3
+            AdamW steps' losses), and reduced deepseek-v2-236b and
+            dbrx-132b's prefill and 8 greedy decode steps (logits, tokens,
+            and every MoE layer's routing equal on the two devices);
   main_path ``Simulator.run`` on CNN-FEMNIST at the paper's full width
             (246,590 params x 100 clients): fedp2p, fedp2p with
             sync_period=2, fedavg, fedp2p on mix_path="dense", fedp2p
@@ -50,7 +55,12 @@ exits non-zero:
             fedp2p, fedp2p_topo and fedavg (printed, not gated); then
             ``serve.generate`` on Hymba-1.5B at full width (seeded
             weights, made once; B = 4, prompts of 384 and 1920 tokens,
-            16 greedy tokens); then ``run_lm_training`` on Hymba-1.5B at
+            16 greedy tokens); then ``generate``'s body
+            (``serve._generate``) on deepseek-v2-236b cut to 3 layers
+            (the leading dense layer and 2 MoE layers; prompts of 512 and
+            2048) and dbrx-132b cut to 2 (a prompt of 2048), every width
+            published, B = 4, 16 greedy tokens, one flash_attention launch
+            a layer; then ``run_lm_training`` on Hymba-1.5B at
             full width (B 2 x 1920 tokens, 4 steps with remat off and 2
             with remat on; every backward kernel launched 32 times a
             step), one step's device-time split, and the CLI's
@@ -62,7 +72,8 @@ exits non-zero:
             split-f32 tensor-core rate, with the CUDA cores' f32 rate
             beside it) and its library yardstick (ssd_scan also at
             mamba2-130m's shape; flash_attention's two non-finite
-            launches alone and at gemma-2b's hd 256 beside SDPA,
+            launches alone and at gemma-2b's hd 256 and DeepSeek-V2's
+            MLA (192, 128) beside SDPA,
             fed_mix_matching at S = 2 and 1; the backward kernels at
             Hymba's training shapes beside the plain autograd and, for
             flash, SDPA's backward), two rounds' split between local
@@ -145,6 +156,13 @@ LM_S = LM_PROMPTS[1] + LM_META
 # gemma-2b's attention (configs/gemma_2b.py): 8 query heads and one kv head
 # of 256 (MQA), causal, no window; the kernel's 128-column O slices.
 WIDE_HQ, WIDE_HKV, WIDE_HD = 8, 1, 256
+# DeepSeek-V2's MLA prefill (configs/deepseek_v2_236b.py): 128 heads, q/k
+# 192 (nope 128 + rope 64), v 128, causal; B 4 at 2048 positions.
+MLA_H, MLA_HD, MLA_VD = 128, 192, 128
+# The MoE/MLA serving main path: (arch, layers kept, prompt lengths) at
+# every published width, depth the only cut (B 4, 16 greedy tokens).
+MOE_RUNS = (("deepseek-v2-236b", 3, (512, 2048)),
+            ("dbrx-132b", 2, (2048,)))
 # (atol, rtol) of flash_attention against its plain version. f32: an
 # online softmax over 64-key tiles against a one-shot softmax; bf16 as
 # above.
@@ -257,12 +275,13 @@ def aggregate_inputs(torch, n, d, dtype, seed):
             w / w.sum())
 
 
-def attention_inputs(torch, b, hq, hkv, s, hd, dtype, seed):
+def attention_inputs(torch, b, hq, hkv, s, hd, dtype, seed, vd=None):
     """q, k, v as the model hands them to the kernel: [B, S, H, hd]
-    projections viewed as [B, H, S, hd]."""
+    projections viewed as [B, H, S, hd]; v at ``vd`` (default hd)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return [(torch.randn((b, s, h, hd), device="cuda", generator=g) * 0.5)
-            .to(dtype).transpose(1, 2) for h in (hq, hkv, hkv)]
+    return [(torch.randn((b, s, h, d), device="cuda", generator=g) * 0.5)
+            .to(dtype).transpose(1, 2)
+            for h, d in ((hq, hd), (hkv, hd), (hkv, vd or hd))]
 
 
 def ssd_inputs(torch, b, s, h, p, n, seed, with_state):
@@ -563,6 +582,29 @@ def lm_non_finite_cases(torch):
                      "dtype": name, "non_finite": True,
                      "max_abs_err": err, "atol": atol, "rtol": rtol,
                      "ok": ok})
+    # MLA's (hd, vd) = (192, 128), 16 heads, causal and with a window and
+    # meta tokens: V at the last key, at key 300 (outside the window of
+    # later rows) and at visited keys 5 and 1500, K past v's width
+    # (column 150) and Q
+    for window, meta in ((0, 0), (LM_WINDOW, LM_META)):
+        for i, dt in enumerate((torch.float32, torch.bfloat16)):
+            q, k, v = attention_inputs(torch, 2, 16, 16, LM_S, MLA_HD, dt,
+                                       seed=750 + i, vd=MLA_VD)
+            v[0, 1, LM_S - 1, 3], v[1, 0, LM_S - 1, 127] = inf, nan
+            v[0, 2, 300, 11], v[1, 4, 300, 64] = -inf, nan
+            v[0, 3, 5, 17], v[1, 2, 1500, 19] = nan, inf
+            k[0, 0, 900, 150], q[1, 7, 1000, 129] = inf, inf
+            got = flash_attention(q, k, v, window=window, num_meta=meta)
+            torch.cuda.synchronize()
+            name = str(dt)[6:]
+            err, atol, rtol, ok = compare_non_finite(
+                torch, got, ref.flash_attention_ref(
+                    q, k, v, window=window, num_meta=meta), FLASH_TOL[name])
+            rows.append({"kernel": "flash_attention", "B": 2, "S": LM_S,
+                         "hd": MLA_HD, "vd": MLA_VD, "window": window,
+                         "num_meta": meta, "dtype": name, "non_finite": True,
+                         "max_abs_err": err, "atol": atol, "rtol": rtol,
+                         "ok": ok})
     for h, p, n, chunk in ((50, 64, 16, 128), (24, 64, 128, 256)):
         for j, names in enumerate((("x", "dt"), ("B", "C"))):
             args, _ = ssd_inputs(torch, LM_B, LM_S, h, p, n, 730 + j, False)
@@ -614,10 +656,42 @@ def main_case(row):
             and not row.get("non_finite"))
 
 
+def serving_flash_cases():
+    """(B, Hq, Hkv, S, hd, window, num_meta, vd) of every flash_attention
+    call that MOE_RUNS' prefills make, read from the configs: MLA expands
+    the latent to every head at q/k's nope + rope and v's own head_dim;
+    GQA keeps its kv heads at head_dim; the leading dense layers run at
+    window 0, the stacked layers at their own."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import layer_windows
+    cases = []
+    for arch, layers, prompt_lens in MOE_RUNS:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        if cfg.use_mla:
+            hq = hkv = cfg.num_heads
+            hd = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+            vd = cfg.v_head_dim
+        else:
+            hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+            vd = hd
+        m = cfg.num_meta_tokens
+        windows = [0] * cfg.first_dense_layers + layer_windows(cfg)
+        for prompt_len in prompt_lens:
+            for w in windows:
+                case = (LM_B, hq, hkv, prompt_len + m, hd, w, m, vd)
+                if case not in cases:
+                    cases.append(case)
+    return cases
+
+
 def lm_kernel_cases(torch):
     """flash_attention at Hymba's prefill shapes (S + M = 512 and 2048,
     window 0 and 1024, 128 meta tokens), the JAX kernel tests' sweep and a
-    ragged S; ssd_scan at Hymba's and mamba2-130m's shapes, the JAX sweep
+    ragged S, head_dim 160-512, every shape of the MoE/MLA serving main
+    path (``serving_flash_cases``), and v's head_dim apart from q's and k's
+    ((24, 16), (64, 32), (96, 128), (320, 256)); ssd_scan at Hymba's and mamba2-130m's shapes, the JAX sweep
     and a small chunk, with and without an initial state. Each against its
     plain version on the card."""
     from repro_torch.kernels import ref
@@ -638,10 +712,20 @@ def lm_kernel_cases(torch):
                     (2, 4, 2, 300, 256, 96, 16), (2, 4, 1, 200, 160, 0, 0),
                     (2, 6, 2, 256, 192, 64, 5), (1, 2, 1, 333, 512, 0, 0),
                     (1, 4, 2, 200, 512, 64, 4)]
-    for i, (b, hq, hkv, s, hd, w, meta) in enumerate(flash_cases):
+    flash_cases = [c + (c[4],) for c in flash_cases]
+    # every shape the MoE/MLA serving main path gives the kernel (DeepSeek-
+    # V2's (192, 128) at 512 and 2048 tokens, DBRX's GQA 48/8 at 128); v's
+    # head_dim apart from q's and k's at the reduced MLA config's (24, 16),
+    # and (64, 32), (96, 128), (320, 256) with GQA 4/1, a window and meta
+    # tokens
+    flash_cases += serving_flash_cases()
+    flash_cases += [(2, 4, 4, 70, 24, 0, 0, 16)]
+    flash_cases += [(2, 4, 1, 300, hd, 96, 16, vd)
+                    for hd, vd in ((64, 32), (96, 128), (320, 256))]
+    for i, (b, hq, hkv, s, hd, w, meta, vd) in enumerate(flash_cases):
         for dt in (f32, bf16):
             q, k, v = attention_inputs(torch, b, hq, hkv, s, hd, dt,
-                                       seed=500 + i)
+                                       seed=500 + i, vd=vd)
             got = flash_attention(q, k, v, window=w, num_meta=meta)
             torch.cuda.synchronize()
             want = ref.flash_attention_ref(q, k, v, window=w,
@@ -649,12 +733,13 @@ def lm_kernel_cases(torch):
             name = str(dt)[6:]
             err, atol, rtol, ok = compare(torch, got, want,
                                           FLASH_TOL[name])
-            ok = ok and got.dtype == dt and got.shape == q.shape
+            ok = ok and got.dtype == dt and got.shape == (b, hq, s, vd)
             rows.append({"kernel": "flash_attention", "B": b, "Hq": hq,
-                         "Hkv": hkv, "S": s, "hd": hd, "window": w,
+                         "Hkv": hkv, "S": s, "hd": hd, "vd": vd, "window": w,
                          "num_meta": meta, "dtype": name,
                          "max_abs_err": err, "atol": atol, "rtol": rtol,
                          "ok": ok})
+            del q, k, v, got, want
     ssd_cases = [(LM_B, LM_S, 50, 64, 16, 128),             # Hymba
                  (LM_B, LM_PROMPTS[0] + LM_META, 50, 64, 16, 128),
                  (LM_B, LM_S, 24, 64, 128, 256),            # mamba2-130m
@@ -1027,8 +1112,9 @@ def phase_reference(torch, state):
         raise AssertionError("checkpoint round trip changed the params")
     rows.append(lm_reference(torch))
     rows.append(lm_train_reference(torch))
+    rows += [moe_reference(torch, arch) for arch, _, _ in MOE_RUNS]
     emit({"phase": "reference", "runs": rows})
-    bad = [r for r in rows[-2:] if not r["ok"]]
+    bad = [r for r in rows[-4:] if not r["ok"]]
     if bad:
         raise AssertionError(f"port on the card disagrees with the CPU "
                              f"reference: {bad}")
@@ -1046,24 +1132,59 @@ def lm_reference(torch):
     seeded weights (drawn on the CPU), the same 70-token prompts (78
     positions with the 8 meta tokens, past the window of 64, in a cache of
     78 slots that decode then rings over: meta pinning and ring decode),
-    prefill logits and 8 greedy decode steps. Tolerance: logits within rtol 1e-4 and 1e-4 of their
-    scale (the kernels and cuBLAS sum in other orders than the CPU's plain
-    versions); equal tokens."""
+    prefill logits and 8 greedy decode steps (``serve_on_both``)."""
     import dataclasses
 
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(LM_ARCH).reduced(), num_kv_heads=2)
+    row = serve_on_both(torch, cfg, 70 + cfg.num_meta_tokens)
+    return {"model": f"{LM_ARCH} reduced, num_kv_heads=2", **row}
+
+
+def moe_reference(torch, arch):
+    """Reduced ``arch`` (``cfg.reduced()``: two layers, width 256, 4
+    experts; deepseek-v2's MLA at (24, 16) with q_lora_rank 0 and its
+    leading dense layer) on the card against the port on the CPU as
+    ``serve_on_both`` holds it, and every MoE layer's routing (expert ids
+    and kept assignments) equal on the two devices in every step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    orig, routes = moe.dispatch_indices, {"cpu": [], "cuda": []}
+
+    def recording(idx, num_experts, capacity):
+        out = orig(idx, num_experts, capacity)
+        routes[idx.device.type].append((idx.cpu(), out[2].cpu()))
+        return out
+
+    moe.dispatch_indices = recording
+    try:
+        row = serve_on_both(torch, get_config(arch).reduced(), 78)
+    finally:
+        moe.dispatch_indices = orig
+    rc, rg = routes["cpu"], routes["cuda"]
+    same = len(rc) == len(rg) > 0 and all(
+        torch.equal(ic, ig) and torch.equal(kc, kg)
+        for (ic, kc), (ig, kg) in zip(rc, rg))
+    return {"model": f"{arch} reduced", **row, "moe_layer_calls": len(rg),
+            "routing_equal": same, "ok": row["ok"] and same}
+
+
+def serve_on_both(torch, cfg, buf):
+    """``cfg``'s seeded weights drawn on the CPU, then on each of the CPU
+    and the card a prefill of the same 70-token prompts (B 2) into a cache
+    of ``buf`` slots and 8 greedy decode steps. Tolerance: logits within
+    rtol 1e-4 and 1e-4 of their scale (the kernels and cuBLAS sum in other
+    orders than the CPU's plain versions); equal tokens."""
     import numpy as np
 
-    from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.launch.steps import build_decode_step, build_prefill_step
     from repro_torch.models.model import build_model
-    cfg = dataclasses.replace(get_config(LM_ARCH).reduced(), num_kv_heads=2)
     model = build_model(cfg)
     prefill, decode = build_prefill_step(model), build_decode_step(model)
     params = model.init(0, device="cpu")
     prompts = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 70)))
-    buf = 70 + cfg.num_meta_tokens
     out = {}
     for dev in ("cpu", "cuda"):
         p = tree_to(params, dev)
@@ -1080,8 +1201,7 @@ def lm_reference(torch):
     bound = 1e-4 * float(lc.abs().max())
     ok = (bool(torch.isfinite(lg).all()) and torch.equal(tc, tg)
           and bool(((lg - lc).abs() <= bound + 1e-4 * lc.abs()).all()))
-    return {"model": f"{LM_ARCH} reduced, num_kv_heads=2", "prompt": 70,
-            "decode_steps": 8, "max_abs_err_logits": err,
+    return {"prompt": 70, "decode_steps": 8, "max_abs_err_logits": err,
             "logits_scale": float(lc.abs().max()),
             "tokens_cpu": tc.T.tolist(), "tokens_cuda": tg.T.tolist(),
             "ok": ok}
@@ -1351,6 +1471,7 @@ def phase_main_path(torch, state):
                   "runs": results})
             raise AssertionError(f"main path run {label!r} failed: {row}")
     lm_rows = lm_main_path(torch, counters, totals, state)
+    lm_rows += moe_main_path(torch, counters, totals)
     train_rows = lm_train_main_path(torch, counters, totals, state)
     state["launches"] = totals
     emit({"phase": "main_path", "params_per_client": n_params,
@@ -1422,6 +1543,81 @@ def lm_main_path(torch, counters, totals, state):
                      "logits_finite": out["logits_finite"],
                      "tokens_head": toks[:, :6].tolist(), "launches": got,
                      "expected_launches": expect, "ok": ok})
+    return rows
+
+
+def moe_main_path(torch, counters, totals):
+    """The MoE/MLA serving path at every published width, through
+    ``serve._generate`` (``generate``'s body, which takes the depth-cut
+    config): seeded f32 weights drawn on the card once per model (the
+    first freed before the second is drawn), B = 4, 16 greedy tokens,
+    each run driven with the launch counters set to 0 just before it and
+    read just after. Every layer's prefill attention is one
+    flash_attention launch (deepseek-v2's MLA at (192, 128), its leading
+    dense layer included; dbrx's GQA 48/8 at 128); decode launches no
+    kernel. ``decode_bound_ms``: every weight but the embedding table read
+    once a token (the capacity of 8 slots runs every expert at decode);
+    ``expert_read_ms`` the experts' share of it."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+    rows = []
+    for arch, layers, prompt_lens in MOE_RUNS:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=layers)
+        torch.cuda.reset_peak_memory_stats()
+        params = build_model(cfg).init(0, device="cuda")
+        n_params = sum(v.numel() for v in tree_leaves(params))
+        read = 4 * (n_params - params["embed"]["table"].numel())
+        experts = 4 * sum(params["layers"]["moe"][w].numel()
+                          for w in ("w_in", "w_gate", "w_out"))
+        expect = expected(flash_attention=layers)
+        for prompt_len in prompt_lens:
+            prompts = np.random.default_rng(prompt_len).integers(
+                0, cfg.vocab_size, (LM_B, prompt_len)).astype(np.int32)
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            out = serve._generate(cfg, prompts, max_new_tokens=LM_NEW,
+                                  temperature=0.0, window=0, seed=0,
+                                  verbose=False, device=None, params=params,
+                                  generator=None)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = {k: fn.launches for k, fn in counters.items()}
+            for k in totals:
+                totals[k] += got[k]
+            toks = out["tokens"]
+            ok = (out["logits_finite"] and toks.shape == (LM_B, LM_NEW)
+                  and int(toks.min()) >= 0
+                  and int(toks.max()) < cfg.vocab_size and got == expect)
+            rows.append({
+                "run": f"serve_{arch}", "params": n_params,
+                "param_bytes": 4 * n_params,
+                "reduced": {"num_layers": [full.num_layers, layers]},
+                "batch": LM_B, "prompt": prompt_len, "new_tokens": LM_NEW,
+                "prefill_s": out["prefill_s"],
+                "decode_ms_per_token": out["decode_s_per_token"] * 1e3,
+                "decode_bound_ms": read / HBM_BYTES_PER_S * 1e3,
+                "expert_read_ms": experts / HBM_BYTES_PER_S * 1e3,
+                "seconds": round(secs, 3),
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "logits_finite": out["logits_finite"],
+                "tokens_head": toks[:, :6].tolist(), "launches": got,
+                "expected_launches": expect, "ok": ok})
+        # one prefill at the longest prompt and one decode step under
+        # torch.profiler (not counted: the counters were read above)
+        rows[-1]["device_split"] = kernel_split(
+            torch, build_model(cfg), params,
+            torch.from_numpy(prompts).cuda(), prompt_len + LM_NEW,
+            decode=True)
+        del params
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1561,20 +1757,39 @@ def tree_leaves(tree):
     return [tree]
 
 
+# torch.profiler on the card has handed back, once in a run of dozens of
+# windows, a window with no device kernel in it; such a window is profiled
+# again, up to PROFILE_TRIES times, and each empty one is counted here and
+# printed with the timing phase
+PROFILE_TRIES = 3
+PROFILER_NOTES = {"empty_windows": 0, "event_timed": 0}
+EVENT_TIMED = "(whole call, CUDA events: torch.profiler recorded no kernel)"
+
+
 def profiled(torch, fn, label):
-    """Run ``fn`` once under torch.profiler: ({kernel name: device ms},
-    the device ms of every kernel under the ``record_function`` events
-    named ``label``)."""
+    """Run ``fn`` under torch.profiler: ({kernel name: device ms}, the
+    device ms of every kernel under the ``record_function`` events named
+    ``label``). A window with no device kernel is run again, up to
+    ``PROFILE_TRIES`` windows in all; the last one's result is returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    per = {}
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA and evt.device_time_total > 0:
-            per[evt.key] = per.get(evt.key, 0.0) + evt.device_time_total / 1e3
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        per = {}
+        for evt in prof.key_averages():
+            if (evt.device_type == DeviceType.CUDA
+                    and evt.device_time_total > 0):
+                per[evt.key] = (per.get(evt.key, 0.0)
+                                + evt.device_time_total / 1e3)
+        if per:
+            break
+        PROFILER_NOTES["empty_windows"] += 1
+        print(f"chip_smoke: torch.profiler recorded no device kernels "
+              f"(window {attempt} of {PROFILE_TRIES})", file=sys.stderr,
+              flush=True)
     return per, sum(e.device_time_total for e in prof.events()
                     if e.name == label) / 1e3
 
@@ -1583,13 +1798,23 @@ def device_ms(torch, fn, reps=20, warmup=3):
     """Call ``fn`` ``warmup`` times, then ``reps`` times under
     torch.profiler; returns {kernel name: device ms per call}. Only the
     device's own kernel events are read: a CPU op's "self device time"
-    repeats its kernels'."""
+    repeats its kernels'. If every window came back empty, the ``reps``
+    calls are timed between two CUDA events instead and the one entry is
+    keyed ``EVENT_TIMED``: a sum over the dict (a plain or library time)
+    still reads it, ``named_ms`` finds no kernel in it and raises."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     per, _ = profiled(torch, lambda: [fn() for _ in range(reps)], None)
     if not per:
-        raise RuntimeError("torch.profiler recorded no device kernels")
+        PROFILER_NOTES["event_timed"] += 1
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        per = {EVENT_TIMED: start.elapsed_time(end)}
     return {k: v / reps for k, v in per.items()}
 
 
@@ -1727,6 +1952,7 @@ def phase_timing(torch, state):
           "round_split": round_split(torch),
           "round_split_int8_dense": round_split_int8_dense(torch),
           "prefill_split": prefill_split(torch),
+          "profiler": dict(PROFILER_NOTES),
           "nvidia_smi": state["smi"]})
 
 
@@ -1814,6 +2040,8 @@ def lm_timing(torch):
             q, k, v, attn_mask=mask, enable_gqa=True)).values()),
         "library": "scaled_dot_product_attention(enable_gqa=True, "
                    "boolean mask), TF32 off"})
+    del q, k, v
+    rows.append(mla_flash_timing(torch))
     # Hymba's SSM heads, then mamba2-130m's (the summary line takes the
     # first row of a name: Hymba's)
     for h, p, n, chunk in ((50, 64, 16, 128), (24, 64, 128, 256)):
@@ -1861,6 +2089,44 @@ def lm_timing(torch):
             "library": "none: no single PyTorch call computes the chunked "
                        "SSD scan"})
     return rows + lm_backward_timing(torch)
+
+
+def mla_flash_timing(torch):
+    """flash_attention at DeepSeek-V2's MLA prefill: B 4, 128 heads, q/k
+    192 and v 128, 2048 positions, causal, f32; the wide kernel's one O
+    slice over the scores at 192. Operations: the visible pairs' Q·Kᵀ
+    (2·192 a pair) and P·V (2·128); bytes q, k, v read and o written
+    once. Library yardstick: one scaled_dot_product_attention call
+    (is_causal, v of 128), TF32 off."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = attention_inputs(torch, LM_B, MLA_H, MLA_H, LM_S, MLA_HD,
+                               torch.float32, seed=11, vd=MLA_VD)
+    pairs = LM_S * (LM_S + 1) // 2
+    flops = LM_B * MLA_H * pairs * 2 * (MLA_HD + MLA_VD)
+    byts = 4 * LM_B * MLA_H * LM_S * (2 * MLA_HD + 2 * MLA_VD)
+    per = device_ms(torch, lambda: flash_attention(q, k, v))
+    return {
+        "name": "flash_attention", "S": LM_S, "hd": MLA_HD, "vd": MLA_VD,
+        "heads": [MLA_H, MLA_H], "window": 0, "num_meta": 0,
+        "visible_pairs_per_head": pairs,
+        "ms": named_ms(per, "flash_fwd_kernel"),
+        "wide_kernel_ms": named_ms(per, "flash_fwd_kernel_wide"),
+        "nonfinite_ms": named_ms(per, "flash_fwd_kernel_vflags")
+                      + named_ms(per, "flash_fwd_kernel_nanfix"),
+        "plain_ms": sum(device_ms(
+            torch, lambda: ref.flash_attention_ref(q, k, v), reps=3,
+            warmup=1).values()),
+        "bytes": byts, "flops": flops, **product_bounds(byts, flops),
+        "library_ms": sum(device_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True)).values()),
+        "library": "scaled_dot_product_attention(is_causal=True), v of 128, "
+                   "TF32 off",
+        "library_max_abs_err": float((F.scaled_dot_product_attention(
+            q, k, v, is_causal=True) - flash_attention(q, k, v)).abs().max())}
 
 
 def lm_backward_timing(torch):
@@ -1991,33 +2257,52 @@ def prefill_split(torch):
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.launch.steps import build_prefill_step
     from repro_torch.models.model import build_model
     model = build_model(get_config(LM_ARCH))
     params = model.init(0, device="cuda")
-    prefill = build_prefill_step(model)
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, model.cfg.vocab_size, (LM_B, LM_PROMPTS[1]))).cuda()
-    buf = model.cfg.sliding_window + LM_META
+    buf = max(model.cfg.sliding_window + LM_META, LM_S)
+    return kernel_split(torch, model, params, tokens, buf)
+
+
+def kernel_split(torch, model, params, tokens, buf, decode=False):
+    """One prefill of ``tokens`` into a cache of ``buf`` slots (then, with
+    ``decode``, one greedy decode step) under torch.profiler: the summed
+    device time of its kernels, split into flash_attention, ssd_scan, the
+    matrix products (cuBLAS) and the rest (norms, rope, the conv, the MoE
+    router and dispatch, elementwise)."""
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    prefill, step = build_prefill_step(model), build_decode_step(model)
+    cache = {}
 
     def run():
-        prefill(params, {"tokens": tokens},
-                model.make_cache(LM_B, max(buf, LM_S)))
+        cache["c"] = model.make_cache(tokens.shape[0], buf)
+        return prefill(params, {"tokens": tokens}, cache["c"])
 
-    per = device_ms(torch, run, reps=1, warmup=1)
-    total = sum(per.values())
-    flash = named_ms(per, "flash_fwd_kernel")
-    ssd = named_ms(per, "ssd_scan_kernel")
-    gemm = sum(v for key, v in per.items()
-               if any(w in key.lower() for w in ("gemm", "cutlass", "xmma",
-                                                 "cublas")))
-    top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
-    return {"device_ms": total, "flash_attention_ms": flash,
-            "flash_share": flash / total, "ssd_scan_ms": ssd,
-            "ssd_share": ssd / total, "matmul_ms": gemm,
-            "matmul_share": gemm / total,
-            "rest_ms": total - flash - ssd - gemm,
-            "top_kernels_ms": [[key[:90], v] for key, v in top]}
+    def split(per):
+        total = sum(per.values())
+        flash = sum(v for k, v in per.items() if "flash_fwd_kernel" in k)
+        ssd = sum(v for k, v in per.items() if "ssd_scan_kernel" in k)
+        gemm = sum(v for key, v in per.items()
+                   if any(w in key.lower() for w in ("gemm", "cutlass", "xmma",
+                                                     "cublas")))
+        top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+        return {"device_ms": total, "flash_attention_ms": flash,
+                "flash_share": flash / total, "ssd_scan_ms": ssd,
+                "ssd_share": ssd / total, "matmul_ms": gemm,
+                "matmul_share": gemm / total,
+                "rest_ms": total - flash - ssd - gemm,
+                "top_kernels_ms": [[key[:90], v] for key, v in top]}
+
+    out = split(device_ms(torch, run, reps=1, warmup=1))
+    if decode:
+        logits, _ = run()
+        token = {"token": torch.argmax(logits[:, -1], dim=-1)[:, None]}
+        out["decode_step"] = split(device_ms(
+            torch, lambda: step(params, cache["c"], token), reps=1,
+            warmup=1))
+    return out
 
 
 def round_split(torch):
@@ -2128,11 +2413,17 @@ def main() -> int:
     backend.use_full_f32()
 
     state = {}
-    phase_env(torch, backend, state)
-    phase_kernels(torch, state)
-    phase_reference(torch, state)
-    phase_main_path(torch, state)
-    phase_timing(torch, state)
+    # each phase's wall time goes to stderr (the build is in env's)
+    for phase, args in ((phase_env, (torch, backend, state)),
+                        (phase_kernels, (torch, state)),
+                        (phase_reference, (torch, state)),
+                        (phase_main_path, (torch, state)),
+                        (phase_timing, (torch, state))):
+        t0 = time.perf_counter()
+        phase(*args)
+        print(f"chip_smoke: {phase.__name__} took "
+              f"{time.perf_counter() - t0:.1f} s", file=sys.stderr,
+              flush=True)
     emit(kernel_summary(state))
     print(state["smi"], flush=True)
     emit({"ok": True, "device": {

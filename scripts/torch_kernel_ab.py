@@ -10,9 +10,11 @@ inputs and its ``device_ms`` (torch.profiler, mean of 20 calls after 3
 warm-up calls), the summed device time of every kernel one call launches:
 
 * ``flash_attention`` at Hymba-1.5B's 2048-position prefill (B 4, 25/5
-  heads of 64, 128 meta tokens), window 1024 and a full layer, and at
+  heads of 64, 128 meta tokens), window 1024 and a full layer, at
   gemma-2b's (B 4, 8/1 heads of 256, causal; null where the tree's
-  wrapper refuses head_dim 256);
+  wrapper refuses head_dim 256) and at DeepSeek-V2's MLA prefill (B 4,
+  128 heads, q/k 192, v 128, causal; null where the tree's wrapper
+  needs v's head_dim to be q's);
 * ``ssd_scan`` at Hymba's SSM heads (50 x 64, state 16, chunk 128, an
   initial state);
 * ``fed_mix_matching`` at the FL main shape (D = 100, P = 246,590, f32),
@@ -252,6 +254,15 @@ def main() -> int:
         record("flash_gemma_hd256", lambda: flash_attention(qw, kw_, vw))
     except ValueError as exc:        # a tree whose wrapper caps head_dim
         rows["flash_gemma_hd256"] = {"ms": None, "error": str(exc)}
+    del qw, kw_, vw
+    qm, km, vm = cs.attention_inputs(torch, cs.LM_B, cs.MLA_H, cs.MLA_H,
+                                     cs.LM_S, cs.MLA_HD, torch.float32,
+                                     seed=11, vd=cs.MLA_VD)
+    try:
+        record("flash_mla_192_128", lambda: flash_attention(qm, km, vm))
+    except ValueError as exc:        # a tree whose wrapper needs vd = hd
+        rows["flash_mla_192_128"] = {"ms": None, "error": str(exc)}
+    del qm, km, vm
     args_ssd, init = cs.ssd_inputs(torch, cs.LM_B, cs.LM_S, 50, 64, 16, 8,
                                    True)
     record("ssd_scan_hymba",

@@ -41,9 +41,11 @@ def params_to_numpy(params) -> Dict:
 
 def lm_params_from_jax(tree, device="cpu") -> Dict:
     """The JAX package's LM parameter tree (nested dicts of numpy arrays,
-    the stacked ``layers`` included) -> the port's tree on ``device``. The
-    layouts are the same (dense weights ``[in, out]``, layers stacked
-    ``[L, ...]``), so this copies leaf by leaf."""
+    the stacked ``layers`` and ``dense_layers`` included) -> the port's
+    tree on ``device``. The layouts are the same (dense weights
+    ``[in, out]``, layers stacked ``[L, ...]``, the experts' ``[E, d, ff]``
+    and MLA's ``w_uk [r, h, nope]`` / ``w_uq [qr, h, nope + rope]``), so
+    this copies leaf by leaf."""
     return params_from_jax(tree, device)
 
 

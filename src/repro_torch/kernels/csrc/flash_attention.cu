@@ -6,10 +6,11 @@
 // over the keys j a query i sees: j <= i, and, when window > 0, i - j <
 // window or j < num_meta (the pinned meta tokens of models/attention.py
 // mask_block). GQA: query head h reads kv head h / G. q [B, Hq, Sq, hd],
-// k/v [B, Hkv, T, hd], f32 or bf16, read and written through their strides
-// (only the head_dim stride must be 1), so the model's [B, S, H, hd]
-// projections are read in place; f32 scores, running max, sum and
-// accumulator; the output in q's dtype.
+// k [B, Hkv, T, hd], v [B, Hkv, T, vd] and o [B, Hq, Sq, vd] (vd = hd, or
+// v's own head_dim: MLA's q/k 192 and v 128), f32 or bf16, read and
+// written through their strides (only the head_dim stride must be 1), so
+// the model's [B, S, H, hd] projections are read in place; f32 scores,
+// running max, sum and accumulator; the output in q's dtype.
 //
 // Replaces: src/repro/kernels/flash_attention.py · flash_attention (Pallas
 // _flash_kernel: grid (B, Hq, Sq/bq, Tk/bk), the kv axis sequential, the
@@ -100,6 +101,19 @@
 // recomputed once per slice (hd/128 times), the cost of keeping the
 // hd <= 128 kernel as it is. V's non-finite flags are one 128-column mask
 // per slice.
+//
+// V's head_dim apart from Q's and K's (vd != hd: DeepSeek-V2's MLA prefill,
+// q/k 192 = 128 nope + 64 rope, v 128). Every such call takes the wide
+// kernel, whose design already keeps the two widths apart: the score
+// chunks run over hd, and the O slices, V's staging, V's non-finite flags
+// and the NaN of skipped tiles over vd. At MLA's (192, 128) that is one O
+// slice, so the scores are computed once (padding v to 192 would take two
+// slices: the scores twice and 1.5x the O written). At DeepSeek's prefill
+// (B 4, 128 heads, S 2048, causal) the two products take
+// 4·128·(2048·2049/2)·2·(192 + 128) = 6.9e11 flops, 4.2 ms at the split-f32
+// rate (165 TFLOP/s) against 0.8 ms for its 2.7 GB of q, k, v and o at
+// 3.35 TB/s: operations bound it, as at hd = vd. hd = vd keeps the kernels
+// above unchanged.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -466,16 +480,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                                   window, num_meta);
 }
 
-// hd > 128: the block's O slice (columns sl·kCW .. + 127) over the full
-// scores (see the head of this file). The same arithmetic as flash_block
-// otherwise; on the fast split a result that holds an inf or a NaN
-// returns true and the block is taken again on the full split.
+// hd > 128, or vd != hd: the block's O slice (columns sl·kCW .. + 127 of
+// v's vd) over the full scores (hd; see the head of this file). The same
+// arithmetic as flash_block otherwise; on the fast split a result that
+// holds an inf or a NaN returns true and the block is taken again on the
+// full split.
 template <typename T, bool kSlow>
 __device__ __forceinline__ bool flash_block_wide(const T* __restrict__ q,
                                                  const T* __restrict__ k,
                                                  const T* __restrict__ v, T* __restrict__ o,
                                                  Strides sq, Strides sk, Strides sv, Strides so,
-                                                 int group, int n_q, int n_k, int hd,
+                                                 int group, int n_q, int n_k, int hd, int vd,
                                                  float scale, int window, int num_meta) {
   constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int PC = pitch<T, kKC>();  // a chunk's row pitch
@@ -487,8 +502,8 @@ __device__ __forceinline__ bool flash_block_wide(const T* __restrict__ q,
   T* Ks = Qs + 2 * kBQ * PC;           // [2][kBK][PC]: its K chunks
   T* Vs = Ks + 2 * kBK * PC;           // [kBK][PT]: the tile's V slice
 
-  const int n_sl = (hd + kCW - 1) / kCW;  // slices of O
-  const int n_ch = (hd + kKC - 1) / kKC;  // >= 3: chunks of hd
+  const int n_sl = (vd + kCW - 1) / kCW;  // slices of O
+  const int n_ch = (hd + kKC - 1) / kKC;  // chunks of hd (1 or more)
   const int n_qt = (n_q + kBQ - 1) / kBQ;
   const int qt = n_qt - 1 - (int)blockIdx.x;  // most keys first
   const int h = blockIdx.y / n_sl, sl = blockIdx.y % n_sl;
@@ -498,7 +513,7 @@ __device__ __forceinline__ bool flash_block_wide(const T* __restrict__ q,
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int qr = (threadIdx.x >> 5) * 16;
-  const int c_sl = sl * kCW, w_sl = min(kCW, hd - c_sl);
+  const int c_sl = sl * kCW, w_sl = min(kCW, vd - c_sl);
 
   const T* qb = q + b * sq.b + h * sq.h;
   const T* kb = k + b * sk.b + hk * sk.h;
@@ -553,7 +568,7 @@ __device__ __forceinline__ bool flash_block_wide(const T* __restrict__ q,
       __syncthreads();
       if (c + 1 < n_ch) stage(kt, c + 1, slot ^ 1);
       else if (nxt >= 0) stage(nxt, 0, slot ^ 1);
-      // the V slice lands by chunk 1's wait (n_ch >= 3)
+      // the V slice lands by chunk 1's wait (n_ch >= 2), or the wait below
       if (c == 0) copy_tile<T, kCW>(Vs, vb + c_sl, sv.s, k0, n_k, w_sl);
       cp_async::commit();
       if (!dead) {
@@ -579,6 +594,10 @@ __device__ __forceinline__ bool flash_block_wide(const T* __restrict__ q,
         }
       }
       slot ^= 1;
+    }
+    if (n_ch == 1) {  // hd <= 64: no chunk 1 whose wait lands the V slice
+      cp_async::wait<0>();
+      __syncthreads();
     }
     if (!dead) {
       float mx[2] = {kNegInf, kNegInf};
@@ -678,27 +697,27 @@ template <typename T>
 __device__ __noinline__ void flash_block_wide_full(const T* q, const T* k, const T* v, T* o,
                                                    Strides sq, Strides sk, Strides sv,
                                                    Strides so, int group, int n_q, int n_k,
-                                                   int hd, float scale, int window,
+                                                   int hd, int vd, float scale, int window,
                                                    int num_meta) {
-  flash_block_wide<T, true>(q, k, v, o, sq, sk, sv, so, group, n_q, n_k, hd, scale, window,
+  flash_block_wide<T, true>(q, k, v, o, sq, sk, sv, so, group, n_q, n_k, hd, vd, scale, window,
                             num_meta);
 }
 
-// grid (query tiles, hq x slices, batch)
+// grid (query tiles, hq x slices of vd, batch)
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o, Strides sq, Strides sk,
-                      Strides sv, Strides so, int group, int n_q, int n_k, int hd, float scale,
-                      int window, int num_meta) {
-  if (flash_block_wide<T, false>(q, k, v, o, sq, sk, sv, so, group, n_q, n_k, hd, scale,
+                      Strides sv, Strides so, int group, int n_q, int n_k, int hd, int vd,
+                      float scale, int window, int num_meta) {
+  if (flash_block_wide<T, false>(q, k, v, o, sq, sk, sv, so, group, n_q, n_k, hd, vd, scale,
                                  window, num_meta))
-    flash_block_wide_full<T>(q, k, v, o, sq, sk, sv, so, group, n_q, n_k, hd, scale, window,
+    flash_block_wide_full<T>(q, k, v, o, sq, sk, sv, so, group, n_q, n_k, hd, vd, scale, window,
                              num_meta);
 }
 
 // Before the attention: vflags[b][kv head][key tile][slice] = the bitmask
-// over 128 of the hd columns (four 32-bit words; one slice at hd <= 128)
+// over 128 of V's vd columns (four 32-bit words; one slice at vd <= 128)
 // of "V holds an inf or NaN in this column within the tile's 64 keys".
 // One block of 128 threads per (tile, kv head, b); thread c reads column
 // sl·128 + c of every row of the tile (a row's columns are consecutive
@@ -813,11 +832,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   return cudaGetLastError();
 }
 
-// hd > 128: flash_fwd_kernel_wide between the same two launches
+// hd > 128 or vd != hd: flash_fwd_kernel_wide between the same two
+// launches, which run over V's vd columns
 template <typename T>
 cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, Strides sq,
                         Strides sk, Strides sv, Strides so, uint4* vflags, int batch, int hq,
-                        int group, int n_q, int n_k, int hd, float scale, int window,
+                        int group, int n_q, int n_k, int hd, int vd, float scale, int window,
                         int num_meta, cudaStream_t stream) {
   const size_t bytes = sizeof(T) * ((size_t)pitch<T, kKC>() * 2 * (kBQ + kBK) +
                                     (size_t)pitch<T, kCW>() * kBK);
@@ -826,27 +846,33 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, St
                                          (int)bytes);
   if (err != cudaSuccess) return err;
   const int n_qt = (n_q + kBQ - 1) / kBQ;
-  const int n_sl = (hd + kCW - 1) / kCW;
+  const int n_sl = (vd + kCW - 1) / kCW;
   flash_fwd_kernel_vflags<T><<<dim3((n_k + kBK - 1) / kBK, hq / group, batch), kThreads, 0,
-                               stream>>>((const T*)v, sv, vflags, n_k, hd);
+                               stream>>>((const T*)v, sv, vflags, n_k, vd);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_fwd_kernel_wide<T><<<dim3(n_qt, hq * n_sl, batch), kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, sk, sv, so, group, n_q, n_k, hd,
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, sk, sv, so, group, n_q, n_k, hd, vd,
       scale, window, num_meta);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_fwd_kernel_nanfix<T><<<dim3(n_qt, hq / group, batch), kThreads, 0, stream>>>(
-      vflags, (T*)o, so, group, n_q, n_k, hd, window, num_meta);
+      vflags, (T*)o, so, group, n_q, n_k, vd, window, num_meta);
   return cudaGetLastError();
 }
 
-// lse: written at hd <= 128 when not null (the wide kernel has no backward)
+// lse: written at hd = vd <= 128 when not null (the wide kernel has no
+// backward)
 template <typename T>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, float* lse,
                       Strides sq, Strides sk, Strides sv, Strides so, uint4* vflags, int batch,
-                      int hq, int group, int n_q, int n_k, int hd, float scale, int window,
-                      int num_meta, cudaStream_t stream) {
+                      int hq, int group, int n_q, int n_k, int hd, int vd, float scale,
+                      int window, int num_meta, cudaStream_t stream) {
+  if (vd != hd) {
+    if (lse != nullptr) return cudaErrorInvalidValue;  // the wrapper raises before
+    return launch_wide<T>(q, k, v, o, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k, hd,
+                          vd, scale, window, num_meta, stream);
+  }
   if (hd <= 32)
     return launch<T, 32>(q, k, v, o, lse, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k,
                          hd, scale, window, num_meta, stream);
@@ -857,7 +883,7 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, floa
     return launch<T, 128>(q, k, v, o, lse, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k,
                           hd, scale, window, num_meta, stream);
   if (lse != nullptr) return cudaErrorInvalidValue;  // the wrapper raises before
-  return launch_wide<T>(q, k, v, o, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k, hd,
+  return launch_wide<T>(q, k, v, o, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k, hd, hd,
                         scale, window, num_meta, stream);
 }
 
@@ -865,19 +891,20 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, floa
 
 extern "C" {
 
-// q [batch, hq, n_q, hd], k/v [batch, hq/group, n_k, hd], o like q; each
-// given by its (batch, head, row) element strides, the hd stride 1; f32
-// when is_bf16 == 0, else bf16; any hd >= 1. vflags: a workspace of batch
-// x hq/group x ceil(n_k / 64) x ceil(hd / 128) entries of 16 bytes,
-// 16-byte aligned. lse: null, or (hd <= 128) [batch, hq, n_q] f32 that
-// receives each row's log-sum-exp of the scaled scores for the backward.
+// q [batch, hq, n_q, hd], k [batch, hq/group, n_k, hd], v [batch,
+// hq/group, n_k, vd], o [batch, hq, n_q, vd]; each given by its (batch,
+// head, row) element strides, the head_dim stride 1; f32 when is_bf16 ==
+// 0, else bf16; any hd, vd >= 1. vflags: a workspace of batch x hq/group x
+// ceil(n_k / 64) x ceil(vd / 128) entries of 16 bytes, 16-byte aligned.
+// lse: null, or (hd = vd <= 128) [batch, hq, n_q] f32 that receives each
+// row's log-sum-exp of the scaled scores for the backward.
 // Three launches on `stream` (V's flags, the attention, the NaN of skipped
 // tiles); returns the first failure of cudaGetLastError().
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                            const long long* strides,  // 12: q, k, v, o x (b, h, s)
                            void* vflags, float* lse, int batch, int hq, int group, int n_q,
-                           int n_k, int hd, float scale, int window, int num_meta, int is_bf16,
-                           void* stream) {
+                           int n_k, int hd, int vd, float scale, int window, int num_meta,
+                           int is_bf16, void* stream) {
   const Strides sq{strides[0], strides[1], strides[2]};
   const Strides sk{strides[3], strides[4], strides[5]};
   const Strides sv{strides[6], strides[7], strides[8]};
@@ -886,9 +913,9 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
   uint4* vf = (uint4*)vflags;
   if (is_bf16)
     return (int)launch_hd<__nv_bfloat16>(q, k, v, o, lse, sq, sk, sv, so, vf, batch, hq, group,
-                                         n_q, n_k, hd, scale, window, num_meta, s);
+                                         n_q, n_k, hd, vd, scale, window, num_meta, s);
   return (int)launch_hd<float>(q, k, v, o, lse, sq, sk, sv, so, vf, batch, hq, group, n_q, n_k,
-                               hd, scale, window, num_meta, s);
+                               hd, vd, scale, window, num_meta, s);
 }
 
 }  // extern "C"

@@ -4,13 +4,15 @@ window, pinned meta tokens and GQA:
     o[b, h, i] = softmax_j(q[b, h, i] · k[b, h // G, j] / √hd) v[b, h // G, j]
 
 over the keys j a query i sees: j <= i and, when ``window > 0``,
-``i - j < window`` or ``j < num_meta``. f32 scores and accumulation, the
-output in q's dtype. The kernel is ``csrc/flash_attention.cu`` (an
-online-softmax pass over cp.async double-buffered 64-row K/V tiles, both
-products split-f32 on the TF32 tensor cores, between two small launches
-that give the rows a skipped key tile's inf or NaN in V reaches their
-NaN; at head_dim > 128 one block per 128-column slice of O, each over
-the full scores; replacing the Pallas
+``i - j < window`` or ``j < num_meta``. v's head_dim vd may differ from
+q's and k's hd (MLA: q/k 192, v 128); the scale stays ``hd ** -0.5``. f32
+scores and accumulation, the output in q's dtype. The kernel is
+``csrc/flash_attention.cu`` (an online-softmax pass over cp.async
+double-buffered 64-row K/V tiles, both products split-f32 on the TF32
+tensor cores, between two small launches that give the rows a skipped
+key tile's inf or NaN in V reaches their NaN; at head_dim > 128, and
+whenever vd != hd, one block per 128-column slice of O (over vd), each
+over the full scores (over hd); replacing the Pallas
 ``repro.kernels.flash_attention.flash_attention``); CPU tensors take
 ``ref.flash_attention_ref``. The model calls it through ``ops`` for
 self-attention over positions 0..S-1 (prefill and the cache-free
@@ -24,7 +26,7 @@ also writes each row's log-sum-exp, and the backward is
 ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``, the
 FlashAttention-2 backward that the JAX package's custom VJP writes in
 jnp, its products split-f32 on the tensor cores; f32 or bf16, head_dim
-<= 128, Sq <= T). Without a gradient the
+<= 128, vd = hd, Sq <= T). Without a gradient the
 kernel launches as it does for serving: no log-sum-exp is written. CPU
 tensors differentiate through ``ref.flash_attention_ref``.
 """
@@ -51,10 +53,11 @@ def _check(q, k, v, window, num_meta) -> str:
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     b, hq, _, hd = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
+    if (k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != hd
+            or v.shape[3] == 0):
         raise ValueError(f"{name}: k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} must be [B={b}, Hkv, T, "
-                         f"hd={hd}]")
+                         f"hd={hd}] and [B={b}, Hkv, T, vd]")
     if k.shape[1] == 0 or hq % k.shape[1]:
         raise ValueError(f"{name}: Hq={hq} is not a multiple of "
                          f"Hkv={k.shape[1]}")
@@ -69,9 +72,10 @@ def _check(q, k, v, window, num_meta) -> str:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int = 0, num_meta: int = 0) -> torch.Tensor:
-    """q [B, Hq, Sq, hd]; k, v [B, Hkv, T, hd] (Hq a multiple of Hkv), f32
-    or bf16 -> [B, Hq, Sq, hd] in q's dtype, with q's memory layout.
-    Positions run 0..Sq-1 and 0..T-1.
+    """q [B, Hq, Sq, hd]; k [B, Hkv, T, hd]; v [B, Hkv, T, vd] (Hq a
+    multiple of Hkv; vd = hd or v's own head_dim), f32 or bf16 ->
+    [B, Hq, Sq, vd] in q's dtype, with q's memory layout (its dims in q's
+    order of strides). Positions run 0..Sq-1 and 0..T-1.
 
     CPU tensors: the plain version. CUDA tensors: the hand-written kernel
     (``flash_attention.launches`` counts its calls: one call is three
@@ -82,7 +86,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     NaN in V at a key masked for a row makes that row NaN in its column,
     as 0 · inf does in the reference. When a gradient is needed the call
     is differentiable through ``flash_attention_bwd`` (head_dim <= 128,
-    Sq <= T; other shapes raise)."""
+    vd = hd, Sq <= T; other shapes raise)."""
     window, num_meta = int(window), int(num_meta)
     if _check(q, k, v, window, num_meta) == "cpu":
         return ref.flash_attention_ref(q, k, v, window=window,
@@ -97,29 +101,29 @@ def _launch(q, k, v, window, num_meta, *, lse):
     """The forward kernel on CUDA tensors; ``lse`` (or None) receives each
     row's log-sum-exp of the scaled scores."""
     b, hq, sq, hd = q.shape
-    hkv, tk = k.shape[1], k.shape[2]
+    hkv, tk, vd = k.shape[1], k.shape[2], v.shape[3]
     for arg, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention: {arg}'s head_dim stride must "
                              f"be 1, got strides {tuple(t.stride())}")
-    out = torch.empty_like(q)          # keeps q's layout (a dense view)
+    out = _empty_out(q, vd)
     if out.numel() == 0 or tk == 0:
         return out.zero_()
     strides = (ctypes.c_longlong * 12)(
         *[s for t in (q, k, v, out) for s in t.stride()[:3]])
     # per 64-key tile and 128-column slice, the bitmask of V's columns
     # that hold an inf or NaN
-    vflags = torch.empty((b, hkv, -(-tk // 64), 4 * -(-hd // _SLICE)),
+    vflags = torch.empty((b, hkv, -(-tk // 64), 4 * -(-vd // _SLICE)),
                          dtype=torch.int32, device=q.device)
     launch = backend.c_function(
         "flash_attention", "flash_attention_launch",
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
            ctypes.c_void_p])
     rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 strides, vflags.data_ptr(),
                 None if lse is None else lse.data_ptr(), b, hq, hq // hkv, sq,
-                tk, hd, hd ** -0.5, window, num_meta,
+                tk, hd, vd, hd ** -0.5, window, num_meta,
                 int(q.dtype == torch.bfloat16), backend.stream_ptr(q.device))
     backend.raise_on_error("flash_attention", rc)
     flash_attention.launches += 1
@@ -130,6 +134,17 @@ def _launch(q, k, v, window, num_meta, *, lse):
 flash_attention.launches = 0
 
 
+def _empty_out(q, vd):
+    """The output [B, Hq, Sq, vd], laid out as q is: its first three dims
+    in q's order of strides, vd innermost (the model's [B, S, H, hd] views
+    give a [B, S, H, vd] tensor viewed as [B, H, S, vd]; at vd = hd and a
+    dense q, q's own layout)."""
+    order = sorted(range(3), key=lambda i: -q.stride(i))
+    out = torch.empty([q.shape[i] for i in order] + [vd], dtype=q.dtype,
+                      device=q.device)
+    return out.permute(*[order.index(i) for i in range(3)], 3)
+
+
 class _FlashAttention(torch.autograd.Function):
     """The kernel with its hand-written backward, for CUDA tensors that
     need a gradient."""
@@ -137,7 +152,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, window, num_meta):
         b, hq, sq, hd = q.shape
-        _check_bwd(q, k)
+        _check_bwd(q, k, v)
         lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
         out = _launch(q, k, v, window, num_meta, lse=lse)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -153,8 +168,13 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def _check_bwd(q, k) -> None:
+def _check_bwd(q, k, v) -> None:
     name = "flash_attention_bwd"
+    if v.shape[3] != q.shape[3]:
+        raise ValueError(
+            f"{name}: v's head_dim {v.shape[3]} != q's and k's "
+            f"{q.shape[3]}: the backward kernel takes one head_dim (the "
+            "MLA families' training waits for ROADMAP item 14b.2b)")
     if q.shape[3] > MAX_BWD_HEAD_DIM:
         raise ValueError(
             f"{name}: head_dim {q.shape[3]} > {MAX_BWD_HEAD_DIM}: the "
@@ -176,10 +196,10 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, window: int = 0,
     Non-finite values come out where the plain version's autograd gives
     them."""
     name = "flash_attention_bwd"
+    _check_bwd(q, k, v)
     if backend.kernel_device(name, q, k, v, out, dout, lse) != "cuda":
         raise ValueError(f"{name}: runs on CUDA tensors only (CPU tensors "
                          "differentiate through ref.flash_attention_ref)")
-    _check_bwd(q, k)
     if dout.dtype != q.dtype or dout.shape != q.shape:
         raise ValueError(f"{name}: dout {tuple(dout.shape)} {dout.dtype} "
                          f"must match q {tuple(q.shape)} {q.dtype}")

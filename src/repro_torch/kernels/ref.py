@@ -105,12 +105,15 @@ NEG_INF = -1e30
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, window: int = 0, num_meta: int = 0
                         ) -> torch.Tensor:
-    """q [B, Hq, Sq, hd]; k, v [B, Hkv, T, hd] -> [B, Hq, Sq, hd].
+    """q [B, Hq, Sq, hd]; k [B, Hkv, T, hd]; v [B, Hkv, T, vd] ->
+    [B, Hq, Sq, vd] (vd = hd, or v's own head_dim: MLA's q/k 192, v 128).
 
     Dense causal softmax attention in f32 (query head h reads kv head
-    h // G), positions 0..Sq-1 and 0..T-1: key j is visible to query i when
-    j <= i and, for ``window > 0``, i - j < window or j < num_meta (the
-    pinned meta tokens). Masked scores are -1e30. Cast back to q.dtype.
+    h // G), scaled by ``hd ** -0.5`` of q's and k's head_dim (as the JAX
+    package's ``_direct_attention``), positions 0..Sq-1 and 0..T-1: key j
+    is visible to query i when j <= i and, for ``window > 0``, i - j <
+    window or j < num_meta (the pinned meta tokens). Masked scores are
+    -1e30. Cast back to q.dtype.
     """
     f32 = torch.float32
     sq, hd = q.shape[2], q.shape[3]

@@ -7,8 +7,9 @@ cache and the SSM caches.
 
 runs on the card unless ``--device cpu``; without ``--full`` the config is
 cut to two layers and width 128, as the JAX package's ``generate`` cuts
-it. Prefill attention and prefill SSD run through the ``flash_attention``
-and ``ssd_scan`` kernels; decode is plain PyTorch.
+it. Prefill attention (MLA's included, at v's own head_dim) and prefill
+SSD run through the ``flash_attention`` and ``ssd_scan`` kernels; decode
+is plain PyTorch (MLA's absorbed step over the latent cache included).
 """
 from __future__ import annotations
 
@@ -48,6 +49,18 @@ def generate(arch: str, prompts: np.ndarray, *, max_new_tokens: int = 16,
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced(num_layers=2, max_d_model=128)
+    return _generate(cfg, prompts, max_new_tokens=max_new_tokens,
+                     temperature=temperature, window=window, seed=seed,
+                     verbose=verbose, device=device, params=params,
+                     generator=generator)
+
+
+def _generate(cfg, prompts: np.ndarray, *, max_new_tokens: int,
+              temperature: float, window: int, seed: int, verbose: bool,
+              device, params: Optional[Dict],
+              generator: Optional[torch.Generator]) -> Dict:
+    """``generate``'s body for a ``ModelConfig`` (a depth-cut one, say: the
+    card's checks time the serving path through here)."""
     dev = backend.resolve_device(device)
     model = build_model(cfg)
     if params is None:

@@ -1,7 +1,8 @@
 """Public model API (the counterpart of ``repro.models.model``):
 ``build_model(cfg)`` returns a ``Model`` with init / prefill / decode /
 make_cache and the training loss for the LM families the port serves
-(dense, ssm, hybrid). Batch schemas:
+(dense, moe, ssm, hybrid; the loss carries the MoE layers' load-balance
+``aux``). Batch schemas:
 
     train:   {"tokens": [B,S] int, "labels": [B,S] int, optional
               "loss_mask": [B,S]}

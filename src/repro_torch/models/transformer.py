@@ -2,13 +2,17 @@
 the families the port serves:
 
   dense  : attn -> mlp                           (qwen2)
+  moe    : attn|mla -> moe (+ leading dense layers: deepseek-v2; dbrx)
   ssm    : ssd mixer only                        (mamba2)
   hybrid : (attn ∥ ssm, mean-combined) -> mlp    (hymba, + meta tokens)
 
-Layer params are stacked ``[L, ...]`` as in the JAX package; the layer
-loop is a Python loop over them (in place of ``lax.scan``), each layer's
-attention window a Python int from ``layer_windows``. The MoE, MLA and
-cross-attention branches raise ``NotImplementedError`` (ROADMAP item 14).
+Layer params are stacked ``[L, ...]`` as in the JAX package (deepseek's
+leading dense layers apart, in ``dense_layers``); the layer loop is a
+Python loop over them (in place of ``lax.scan``), each layer's attention
+window a Python int from ``layer_windows`` (the leading dense layers'
+is 0). The MoE layers' load-balance losses are summed into ``aux``. The
+cross-attention branch (audio) raises ``NotImplementedError`` (ROADMAP
+item 14b.3).
 
 Serving caches are stacked ``[L, ...]`` too and are updated IN PLACE: a
 layer writes its keys and values into its slice of the stacked buffers and
@@ -18,45 +22,45 @@ keeps a 0-d array); ``slot_pos`` stays a device tensor.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, compute_logits, embed_init, embed_tokens,
     init_embed, init_mlp, init_norm, rms_normalize,
 )
 
-_TODO = "is not ported to repro_torch yet (ROADMAP item 14)"
-
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for a configuration whose branches
-    the port has not reached: MoE, MLA, cross-attention (audio)."""
-    if cfg.family == "moe" or cfg.num_experts:
-        raise NotImplementedError(f"the MoE family {_TODO}")
-    if cfg.use_mla:
-        raise NotImplementedError(f"MLA attention {_TODO}")
+    the port has not reached: cross-attention (audio)."""
     if cfg.cross_attend or cfg.family == "audio":
-        raise NotImplementedError(f"cross-attention (audio) {_TODO}")
-    if cfg.first_dense_layers:
-        raise NotImplementedError(f"leading dense layers {_TODO}")
+        raise NotImplementedError(
+            "cross-attention (audio) is not ported to repro_torch yet "
+            "(ROADMAP item 14b.3)")
 
 
 # ---------------------------------------------------------------------------
 # Params
 # ---------------------------------------------------------------------------
 
-def _init_layer(gen: torch.Generator, cfg, dtype) -> Dict:
+def _init_layer(gen: torch.Generator, cfg, dtype, *,
+                moe_layer: bool = False) -> Dict:
     dev = gen.device
     p: Dict = {"ln1": init_norm(cfg, cfg.d_model, dtype, dev)}
     if cfg.family == "ssm":
         p["ssm"] = ssm_mod.init_ssm(gen, ssm_mod.ssm_dims(cfg), dtype)
         return p
-    p["attn"] = attn_mod.init_attention(gen, cfg, dtype)
+    if cfg.use_mla:
+        p["attn"] = mla_mod.init_mla(gen, cfg, dtype)
+    else:
+        p["attn"] = attn_mod.init_attention(gen, cfg, dtype)
     if cfg.family == "hybrid":
         p["ssm"] = ssm_mod.init_ssm(gen, ssm_mod.ssm_dims(cfg), dtype)
         p["attn_branch_norm"] = torch.ones((cfg.d_model,), dtype=dtype,
@@ -64,32 +68,62 @@ def _init_layer(gen: torch.Generator, cfg, dtype) -> Dict:
         p["ssm_branch_norm"] = torch.ones((cfg.d_model,), dtype=dtype,
                                           device=dev)
     p["ln2"] = init_norm(cfg, cfg.d_model, dtype, dev)
-    p["mlp"] = init_mlp(gen, cfg, cfg.d_model, cfg.d_ff, dtype)
+    if moe_layer:
+        p["moe"] = moe_mod.init_moe(gen, cfg, dtype)
+    else:
+        ff = (cfg.moe_dense_d_ff if cfg.family == "moe" and cfg.moe_dense_d_ff
+              else cfg.d_ff)
+        p["mlp"] = init_mlp(gen, cfg, cfg.d_model, ff, dtype)
     return p
 
 
-def _stack(trees: List[Dict]) -> Dict:
-    return {k: (_stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
-                else torch.stack([t[k] for t in trees]))
-            for k in trees[0]}
+def _init_stacked(n: int, draw: Callable[[], Dict]) -> Dict:
+    """``n`` layers drawn one after another by ``draw``, stacked [n, ...]:
+    each layer is copied into leaves allocated once (from layer 0's shapes)
+    and then freed, so the peak is the stack plus one layer, not two
+    stacks (the draws are those of stacking a list of n draws). ``n`` 0
+    draws nothing and gives an empty tree."""
+    if n == 0:
+        return {}
+    layer = draw()
+    stacked = _map(lambda t: t.new_empty((n,) + t.shape), layer)
+    for i in range(n):
+        if i:
+            del layer                  # freed before the next draw
+            layer = draw()
+        _map(lambda dst, src: dst[i].copy_(src), stacked, layer)
+    return stacked
+
+
+def _map(fn: Callable, tree: Dict, *rest: Dict) -> Dict:
+    return {k: (_map(fn, v, *[r[k] for r in rest]) if isinstance(v, dict)
+                else fn(v, *[r[k] for r in rest]))
+            for k, v in tree.items()}
 
 
 def _index(tree: Dict, i: int) -> Dict:
-    return {k: (_index(v, i) if isinstance(v, dict) else v[i])
-            for k, v in tree.items()}
+    return _map(lambda t: t[i], tree)
 
 
 def init_params(gen: torch.Generator, cfg, dtype=torch.float32) -> Dict:
     """Seeded random weights, drawn from ``gen`` on its device. The same
-    tree as the JAX package's ``init_params`` (layers stacked [L, ...]);
-    the numbers differ (no threefry port)."""
+    tree as the JAX package's ``init_params`` (layers stacked [L, ...],
+    the leading dense layers in ``dense_layers``); the numbers differ (no
+    threefry port). The draws run embed, meta, the stacked layers, then
+    the dense layers."""
     check_supported(cfg)
     params: Dict = {"embed": init_embed(gen, cfg, dtype)}
     if cfg.num_meta_tokens:
         params["meta"] = embed_init(gen, (cfg.num_meta_tokens, cfg.d_model),
                                     dtype)
-    params["layers"] = _stack([_init_layer(gen, cfg, dtype)
-                               for _ in range(cfg.num_layers)])
+    fd = cfg.first_dense_layers
+    moe_layer = cfg.family == "moe"
+    params["layers"] = _init_stacked(
+        cfg.num_layers - fd,
+        lambda: _init_layer(gen, cfg, dtype, moe_layer=moe_layer))
+    if fd:
+        params["dense_layers"] = _init_stacked(
+            fd, lambda: _init_layer(gen, cfg, dtype, moe_layer=False))
     params["ln_f"] = init_norm(cfg, cfg.d_model, dtype, gen.device)
     return params
 
@@ -127,7 +161,14 @@ def init_cache(cfg, batch: int, buf_len: int, dtype=torch.float32,
         cache["state"] = torch.zeros(
             (n_layers, batch, dims.nheads, dims.headdim, dims.nstate),
             dtype=torch.float32, device=device)
-    if cfg.family != "ssm":
+    if cfg.family != "ssm" and cfg.use_mla:
+        cache["latent"] = torch.zeros((n_layers, batch, buf_len,
+                                       cfg.kv_lora_rank), dtype=dtype,
+                                      device=device)
+        cache["k_rope"] = torch.zeros((n_layers, batch, buf_len,
+                                       cfg.qk_rope_head_dim), dtype=dtype,
+                                      device=device)
+    elif cfg.family != "ssm":
         hk, hd = cfg.num_kv_heads, cfg.head_dim
         for key in ("k", "v"):
             cache[key] = torch.zeros((n_layers, batch, buf_len, hk, hd),
@@ -135,16 +176,18 @@ def init_cache(cfg, batch: int, buf_len: int, dtype=torch.float32,
     return cache
 
 
-_PER_LAYER_KEYS = ("k", "v", "conv", "state")
+_PER_LAYER_KEYS = ("k", "v", "latent", "k_rope", "conv", "state")
 
 
-def _split_cache(cache: Optional[Dict]) -> Dict:
-    """The per-layer buffers of a cache (stacked [L, ...]); {} without a
-    cache. The JAX package also splits off leading dense layers, which
-    only the MoE family has."""
+def _split_cache(cache: Optional[Dict], fd: int) -> Tuple[Dict, Dict]:
+    """-> (the leading dense layers' buffers, the stacked layers'), each a
+    dict of [L, ...] views of the cache's per-layer buffers ({} without a
+    cache): the dense layers own the first ``fd`` slices."""
     if cache is None:
-        return {}
-    return {k: v for k, v in cache.items() if k in _PER_LAYER_KEYS}
+        return {}, {}
+    per_layer = {k: v for k, v in cache.items() if k in _PER_LAYER_KEYS}
+    head = {k: v[:fd] for k, v in per_layer.items()} if fd else {}
+    return head, {k: v[fd:] for k, v in per_layer.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -152,8 +195,9 @@ def _split_cache(cache: Optional[Dict]) -> Dict:
 # ---------------------------------------------------------------------------
 
 def _layer_forward(lp: Dict, x, bufs: Dict, cfg, *, positions, window: int,
-                   kv_pos, write_slot) -> Tuple[torch.Tensor, Dict]:
-    """Returns (x_out, new_bufs)."""
+                   kv_pos, write_slot, moe_layer: bool = False
+                   ) -> Tuple[torch.Tensor, Dict, Optional[torch.Tensor]]:
+    """Returns (x_out, new_bufs, the MoE layer's aux loss or None)."""
     new_bufs: Dict = {}
     h = apply_norm(lp["ln1"], x, cfg)
     ssm_cache = ({"conv": bufs["conv"], "state": bufs["state"]}
@@ -164,15 +208,18 @@ def _layer_forward(lp: Dict, x, bufs: Dict, cfg, *, positions, window: int,
                                        cache=ssm_cache)
         if new_ssm is not None:
             new_bufs.update(new_ssm)
-        return x + y, new_bufs
+        return x + y, new_bufs, None
 
-    kv_bufs = (bufs["k"], bufs["v"]) if "k" in bufs else None
-    y_attn, new_kv = attn_mod.attention(
+    kv_keys = ("latent", "k_rope") if cfg.use_mla else ("k", "v")
+    kv_bufs = (tuple(bufs[k] for k in kv_keys) if kv_keys[0] in bufs
+               else None)
+    attn_fn = mla_mod.mla_attention if cfg.use_mla else attn_mod.attention
+    y_attn, new_kv = attn_fn(
         lp["attn"], h, cfg, positions=positions, window=window,
         num_meta=cfg.num_meta_tokens, kv_bufs=kv_bufs, kv_pos=kv_pos,
         write_slot=write_slot)
     if new_kv is not None:
-        new_bufs["k"], new_bufs["v"] = new_kv
+        new_bufs.update(zip(kv_keys, new_kv))
 
     if cfg.family == "hybrid":
         y_ssm, new_ssm = ssm_mod.ssm_mixer(lp["ssm"], h,
@@ -186,7 +233,10 @@ def _layer_forward(lp: Dict, x, bufs: Dict, cfg, *, positions, window: int,
         y = y_attn
     x = x + y
     h2 = apply_norm(lp["ln2"], x, cfg)
-    return x + apply_mlp(lp["mlp"], h2, cfg), new_bufs
+    if moe_layer:
+        y2, aux = moe_mod.moe_ffn(lp["moe"], h2, cfg)
+        return x + y2, new_bufs, aux
+    return x + apply_mlp(lp["mlp"], h2, cfg), new_bufs, None
 
 
 # ---------------------------------------------------------------------------
@@ -240,23 +290,35 @@ def forward(params: Dict, cfg, *, tokens: torch.Tensor,
                                  dtype=torch.int32, device=dev)
             kv_pos = torch.where(slots < s, slots, torch.full_like(slots, -1))
 
-    bufs_all = _split_cache(cache)
-    for i, window in enumerate(layer_windows(cfg)):
+    # (stacked params, their buffers, index, window, MoE layer): the
+    # leading dense layers (window 0), then the stacked layers
+    fd = cfg.first_dense_layers
+    head_bufs, tail_bufs = _split_cache(cache, fd)
+    plan = [("dense_layers", head_bufs, i, 0, False) for i in range(fd)]
+    plan += [("layers", tail_bufs, i, w, cfg.family == "moe")
+             for i, w in enumerate(layer_windows(cfg))]
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
+    for key, bufs_all, i, window, moe_layer in plan:
         if remat and cache is None:
-            def body(xc, i=i, window=window):
-                return _layer_forward(
-                    _index(params["layers"], i), xc, {}, cfg,
+            def body(xc, key=key, i=i, window=window, moe_layer=moe_layer):
+                out, _, aux = _layer_forward(
+                    _index(params[key], i), xc, {}, cfg,
                     positions=positions, window=window, kv_pos=None,
-                    write_slot=None)[0]
-            x = checkpoint(body, x, use_reentrant=False)
-            continue
-        bufs = {k: v[i] for k, v in bufs_all.items()}
-        x, new_bufs = _layer_forward(
-            _index(params["layers"], i), x, bufs, cfg, positions=positions,
-            window=window, kv_pos=kv_pos, write_slot=write_slot)
-        for k, new in new_bufs.items():
-            if new is not bufs[k]:
-                bufs[k].copy_(new)
+                    write_slot=None, moe_layer=moe_layer)
+                return out if aux is None else (out, aux)
+            out = checkpoint(body, x, use_reentrant=False)
+            x, aux = out if moe_layer else (out, None)
+        else:
+            bufs = {k: v[i] for k, v in bufs_all.items()}
+            x, new_bufs, aux = _layer_forward(
+                _index(params[key], i), x, bufs, cfg, positions=positions,
+                window=window, kv_pos=kv_pos, write_slot=write_slot,
+                moe_layer=moe_layer)
+            for k, new in new_bufs.items():
+                if new is not bufs[k]:
+                    bufs[k].copy_(new)
+        if aux is not None:
+            aux_total = aux_total + aux
 
     if cache is not None:
         cache["slot_pos"] = kv_pos
@@ -267,7 +329,6 @@ def forward(params: Dict, cfg, *, tokens: torch.Tensor,
     if last_only and not return_hidden:
         x = x[:, -1:]
     x = apply_norm(params["ln_f"], x, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
     if return_hidden:
-        return x, cache, aux
-    return compute_logits(params["embed"], x, cfg), cache, aux
+        return x, cache, aux_total
+    return compute_logits(params["embed"], x, cfg), cache, aux_total

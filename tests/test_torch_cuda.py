@@ -66,7 +66,14 @@ skip themselves elsewhere. Run them on the card with
   needs a gradient goes through the backward kernel (its counter rises);
   two backward calls give the same bits; the serving path (no gradient)
   writes no log-sum-exp and gives the bits it gave; the backward raises
-  above head_dim 128 and for a bf16 SSD.
+  above head_dim 128 and for a bf16 SSD;
+* ``flash_attention`` with v's head_dim apart from q's and k's (MLA) at
+  DeepSeek-V2's prefill (192, 128) of 512 and 2048 tokens, DBRX's GQA
+  48/8 prefill at 128, the reduced config's (24, 16), and
+  (64, 32), (96, 128), (320, 256) with GQA, a window and meta tokens, f32
+  and bf16, and with inf and NaN at (192, 128); its backward raises
+  (item 14b.2b); reduced deepseek-v2 and dbrx route every MoE layer alike
+  on the card and on the CPU.
 """
 import pytest
 import torch
@@ -998,3 +1005,132 @@ def test_backward_guards_on_card(cuda):
     with pytest.raises(ValueError, match="f32"):
         ssd_scan(x.requires_grad_(True), dt, -torch.ones(2, device="cuda"),
                  B, B, chunk=32)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention with v's head_dim apart from q's and k's (MLA) and the
+# MoE/MLA serving path
+# ---------------------------------------------------------------------------
+
+def _qkv_vd(gen, b, hq, hkv, s, hd, vd, dtype):
+    """q, k at hd and v at vd, [b, s, h, ·] tensors viewed as
+    [b, h, s, ·] (the model's layout)."""
+    return [(torch.randn((b, s, h, d), device="cuda", generator=gen) * 0.5)
+            .to(dtype).transpose(1, 2)
+            for h, d in ((hq, hd), (hkv, hd), (hkv, vd))]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,hd,vd,window,num_meta", [
+    (4, 128, 128, 2048, 192, 128, 0, 0),  # DeepSeek-V2's prefill
+    (4, 128, 128, 512, 192, 128, 0, 0),   # its 512-token prompt
+    (4, 48, 8, 2048, 128, 128, 0, 0),     # DBRX's prefill (vd = hd)
+    (2, 4, 4, 70, 24, 16, 0, 0),          # the reduced MLA config
+    (2, 4, 1, 300, 64, 32, 96, 16),       # GQA 4/1, window + meta
+    (2, 4, 1, 300, 96, 128, 96, 16),
+    (2, 4, 1, 300, 320, 256, 96, 16),     # two O slices, five chunks
+    (1, 3, 1, 150, 192, 128, 64, 8),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_vd_on_card(cuda, b, hq, hkv, s, hd, vd, window,
+                                    num_meta, dtype):
+    """vd != hd through the wide kernel (one O slice at vd <= 128), and
+    every shape the MoE/MLA serving path gives the kernel (DBRX's at
+    vd = hd), against the plain version at the hd-256 rows' tolerances;
+    the output is [B, S, H, vd] memory viewed as [B, H, S, vd], as q's
+    layout is."""
+    q, k, v = _qkv_vd(cuda, b, hq, hkv, s, hd, vd, dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, window=window, num_meta=num_meta)
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, hq, s, vd)
+    assert got.transpose(1, 2).is_contiguous()
+    want = ref.flash_attention_ref(q, k, v, window=window, num_meta=num_meta)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("window,num_meta", [(0, 0), (96, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_vd_non_finite_on_card(cuda, window, num_meta, dtype):
+    """At (hd, vd) = (192, 128): inf and NaN in V at keys the kernel skips
+    for some rows (the last key; key 100, outside the window of later rows)
+    and in visited tiles (keys 70 and 5), in K past v's width (column 150)
+    and in Q: the plain version's inf and NaN."""
+    b, hq, hkv, s = 2, 6, 6, 448
+    q, k, v = _qkv_vd(cuda, b, hq, hkv, s, 192, 128, dtype)
+    v[0, 1, s - 1, 3] = float("inf")
+    v[1, 0, s - 1, 127] = float("nan")
+    v[0, 0, 100, 11] = float("-inf")
+    v[1, 1, 70, 64] = float("inf")
+    v[0, 2, 5, 17] = float("nan")
+    k[0, 1, 300, 150] = float("inf")
+    q[1, 4, 200, 129] = float("inf")
+    got = flash_attention(q, k, v, window=window, num_meta=num_meta)
+    want = ref.flash_attention_ref(q, k, v, window=window, num_meta=num_meta)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    _compare_non_finite(got, want, (tol, tol))
+
+
+def test_flash_attention_vd_backward_raises_on_card(cuda):
+    """Training at v's own head_dim waits for item 14b.2b: a CUDA tensor
+    that needs a gradient raises (no fallback); serving runs."""
+    q, k, v = _qkv_vd(cuda, 1, 2, 2, 64, 24, 16, torch.float32)
+    with pytest.raises(ValueError, match="14b.2b"):
+        flash_attention(q.requires_grad_(True), k, v)
+    with torch.no_grad():
+        assert flash_attention(q, k, v).shape == (1, 2, 64, 16)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "dbrx-132b"])
+def test_moe_routing_equal_on_card_and_cpu(cuda, arch, monkeypatch):
+    """Reduced MoE models from the same weights (drawn on the CPU): every
+    MoE layer's routing (expert ids, kept assignments) equal on the card
+    and on the CPU in the prefill and 4 greedy decode steps, the logits at
+    rtol 1e-4 of their scale, the same tokens."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 70)))
+    orig = moe.dispatch_indices
+    routes = []
+
+    def recording(idx, num_experts, capacity):
+        out = orig(idx, num_experts, capacity)
+        routes.append((idx.cpu(), out[2].cpu()))
+        return out
+
+    monkeypatch.setattr(moe, "dispatch_indices", recording)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _tree_to(params, dev)
+        cache = model.make_cache(2, 80, device=dev)
+        logits, cache = model.prefill(p, {"tokens": prompts.to(dev)}, cache)
+        steps, toks = [logits[:, -1]], []
+        for _ in range(4):
+            toks.append(serve._sample(steps[-1], 0.0, None))
+            logits, cache = model.decode(p, cache,
+                                         {"token": toks[-1][:, None]})
+            steps.append(logits)
+        out[dev] = (torch.stack(steps).cpu(), torch.stack(toks).cpu(),
+                    list(routes))
+        routes.clear()
+    (lc, tc, rc), (lg, tg, rg) = out["cpu"], out["cuda"]
+    assert len(rc) == len(rg) > 0
+    for (ic, kc), (ig, kg) in zip(rc, rg):
+        assert torch.equal(ic, ig) and torch.equal(kc, kg)
+    assert torch.equal(tc, tg)
+    torch.testing.assert_close(lg, lc, rtol=1e-4,
+                               atol=1e-4 * float(lc.abs().max()))
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)

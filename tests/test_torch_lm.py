@@ -4,19 +4,28 @@ weights carried across by ``lm_params_from_jax``:
 * prefill logits and caches, then 8 greedy decode steps, against JAX's
   ``build_prefill_step`` / ``build_decode_step`` (under ``jax.jit``) at
   rtol 1e-4 (atol 1e-4 of the logits' scale: a two-layer model's f32
-  matmuls summed in other orders), greedy tokens equal. Three
+  matmuls summed in other orders), greedy tokens equal. Five
   configurations: reduced Hymba with ``num_kv_heads=2`` (``reduced()``
-  makes it MHA), reduced qwen2-1.5b and reduced mamba2-130m. The prompt
-  (70 tokens, 78 positions with Hymba's 8 meta tokens) runs past the
-  reduced window of 64, so meta pinning and the ring buffer are driven,
-  and its length has no divisor equal to the SSD chunk (32): the mixer
-  picks 26 (Hymba) or 14;
+  makes it MHA), reduced qwen2-1.5b, reduced mamba2-130m, reduced
+  deepseek-v2-236b (MLA's latent cache and absorbed decode, one leading
+  dense layer, a shared expert) and reduced dbrx-132b (LayerNorm, MoE).
+  The prompt (70 tokens, 78 positions with Hymba's 8 meta tokens) runs
+  past the reduced window of 64, so meta pinning and the ring buffer are
+  driven, and its length has no divisor equal to the SSD chunk (32): the
+  mixer picks 26 (Hymba) or 14. In the MoE models every layer's routing
+  (expert ids, kept assignments) is held equal before the logits are
+  compared, also with 8 experts and a capacity factor of 0.5, where
+  tokens are dropped at capacity;
+* ``loss_fn`` (ce and the MoE load-balance aux) of the MoE models at
+  rtol 1e-4, and the MoE/MLA parameter trees carried across leaf by leaf;
 * ``serve.generate`` against the JAX ``generate`` on the same weights:
   equal tokens;
 * the port's counterpart of ``test_decode_matches_prefill``
   (``tests/test_arch_smoke.py``): teacher-forced decode reproduces the
   cache-free forward's logits;
-* the entry points default to the card and the unported parts raise.
+* the entry points default to the card and the unported parts raise
+  (MoE training waits for item 14b.2b); ``init_params`` draws a seed's
+  weights as the stacking of a list of layers did.
 """
 import dataclasses
 
@@ -27,6 +36,7 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+import repro.models.moe as jmoe  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.launch import serve as jserve  # noqa: E402
 from repro.launch.steps import (  # noqa: E402
@@ -43,10 +53,13 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.steps import (  # noqa: E402
     build_decode_step, build_prefill_step,
 )
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.launch.train import run_lm_training  # noqa: E402
+from repro_torch.models import moe, transformer  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 
-ARCHS = ["hymba-1.5b", "qwen2-1.5b", "mamba2-130m"]
+ARCHS = ["hymba-1.5b", "qwen2-1.5b", "mamba2-130m", "deepseek-v2-236b",
+         "dbrx-132b"]
+MOE_ARCHS = ["deepseek-v2-236b", "dbrx-132b"]
 B, S, STEPS = 2, 70, 8
 RTOL = 1e-4
 
@@ -81,9 +94,65 @@ def _buf_len(cfg):
     return max(buf, S + m + (0 if cfg.sliding_window else STEPS))
 
 
+def _routing_recorder(monkeypatch):
+    """Record every MoE layer's (expert ids, kept assignments) in both
+    packages, in call order: the JAX side through an ordered debug
+    callback, which runs inside the jitted steps' layer scan."""
+    got, want = [], []
+    jorig, orig = jmoe.dispatch_indices, moe.dispatch_indices
+
+    def jpatched(idx, num_experts, capacity):
+        out = jorig(idx, num_experts, capacity)
+        jax.debug.callback(lambda i, k: want.append((np.asarray(i),
+                                                     np.asarray(k))),
+                           idx, out[2], ordered=True)
+        return out
+
+    def patched(idx, num_experts, capacity):
+        out = orig(idx, num_experts, capacity)
+        got.append((idx.numpy().copy(), out[2].numpy().copy()))
+        return out
+
+    monkeypatch.setattr(jmoe, "dispatch_indices", jpatched)
+    monkeypatch.setattr(moe, "dispatch_indices", patched)
+
+    def check(what, jout):
+        """The routing of the step just run equal on both sides."""
+        jax.block_until_ready(jout)
+        jax.effects_barrier()
+        assert len(got) == len(want) > 0, what
+        for layer, ((gi, gk), (wi, wk)) in enumerate(zip(got, want)):
+            assert np.array_equal(gi, wi), f"{what}: layer {layer} experts"
+            assert np.array_equal(gk, wk), f"{what}: layer {layer} kept"
+        dropped = not all(k.all() for _, k in want)
+        got.clear()
+        want.clear()
+        return dropped
+
+    return check
+
+
 @pytest.mark.parametrize("arch", ARCHS)
-def test_prefill_and_decode_match_jax(arch):
-    jcfg, cfg = _configs(arch)
+def test_prefill_and_decode_match_jax(arch, monkeypatch):
+    _prefill_decode_parity(*_configs(arch), monkeypatch)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_with_drops_matches_jax(arch, monkeypatch):
+    """8 experts and a capacity factor of 0.5: the prefill drops
+    assignments at capacity in every MoE layer."""
+    jcfg, cfg = [dataclasses.replace(c, num_experts=8, capacity_factor=0.5)
+                 for c in _configs(arch)]
+    assert _prefill_decode_parity(jcfg, cfg, monkeypatch)
+
+
+def _prefill_decode_parity(jcfg, cfg, monkeypatch):
+    """Prefill, 8 greedy decode steps and the caches against JAX's jitted
+    steps; in MoE models the routing of every layer first. Returns whether
+    the prefill dropped an assignment."""
+    routing = (_routing_recorder(monkeypatch) if cfg.family == "moe"
+               else None)
+    dropped = False
     jmodel, model = jbuild_model(jcfg), build_model(cfg)
     jparams, params = _weights(jmodel)
     prompts = np.random.default_rng(0).integers(
@@ -92,7 +161,7 @@ def test_prefill_and_decode_match_jax(arch):
     m = cfg.num_meta_tokens
     if cfg.sliding_window:
         assert S + m > cfg.sliding_window and buf < S + m + STEPS  # ring
-    if cfg.family != "dense":
+    if cfg.family in ("ssm", "hybrid"):
         assert (S + m) % cfg.ssm_chunk and cfg.ssm_chunk < S + m
 
     jprefill = jax.jit(jbuild_prefill_step(jmodel))
@@ -104,6 +173,8 @@ def test_prefill_and_decode_match_jax(arch):
                                jcache)
     logits, cache = prefill(params, {"tokens": torch.from_numpy(prompts)},
                             cache)
+    if routing:
+        dropped = routing("prefill", jlogits)
     assert logits.shape == jlogits.shape
     _close(logits, jlogits, "prefill logits")
     assert cache["index"] == int(jcache["index"]) == S + m
@@ -117,12 +188,120 @@ def test_prefill_and_decode_match_jax(arch):
         assert np.array_equal(tok.numpy(), np.asarray(jtok)), step
         jlogits, jcache = jdecode(jparams, jcache, {"token": jtok[:, None]})
         logits, cache = decode(params, cache, {"token": tok[:, None]})
+        if routing:
+            routing(f"decode step {step}", jlogits)
         _close(logits, jlogits, f"decode step {step} logits")
         jtok = jnp.argmax(jlogits, axis=-1).astype(jnp.int32)
         tok = serve._sample(logits, 0.0, None)
     assert cache["index"] == int(jcache["index"]) == S + m + STEPS
     for key in sorted(set(cache) - {"index"}):
         _close(cache[key], jcache[key], f"decode cache {key}")
+    return dropped
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_loss_fn_matches_jax(arch):
+    """``loss_fn``'s loss, ce and aux (the MoE layers' load-balance loss,
+    summed over the layers) against the JAX package's, on its weights."""
+    jcfg, cfg = _configs(arch)
+    jmodel, model = jbuild_model(jcfg), build_model(cfg)
+    jparams, params = _weights(jmodel)
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, cfg.vocab_size, (B, 48)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (B, 48)).astype(np.int32)
+    jloss, jm = jax.jit(jmodel.loss_fn)(
+        jparams, {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)})
+    with torch.no_grad():
+        loss, m = model.loss_fn(params, {"tokens": torch.from_numpy(tokens),
+                                         "labels": torch.from_numpy(labels)})
+    assert float(jm["aux"]) > 0
+    for got, want in ((loss, jloss), (m["ce"], jm["ce"]),
+                      (m["aux"], jm["aux"])):
+        np.testing.assert_allclose(float(got), float(want), rtol=RTOL)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_mla_params_round_trip(arch):
+    """``lm_params_from_jax`` carries ``dense_layers``, ``moe/*`` (the
+    shared experts included) and MLA's leaves with their layouts, and the
+    port's own init gives the JAX tree's shapes."""
+    jcfg, cfg = _configs(arch)
+    jparams, params = _weights(jbuild_model(jcfg))
+    flat_j = jax.tree_util.tree_leaves_with_path(
+        jax.tree.map(np.asarray, jparams))
+    flat_b = dict(jax.tree_util.tree_leaves_with_path(
+        lm_params_to_numpy(params)))
+    assert len(flat_j) == len(flat_b)
+    for path, leaf in flat_j:
+        assert np.array_equal(flat_b[path], leaf), path
+    names = {jax.tree_util.keystr(path) for path, _ in flat_j}
+    if arch == "deepseek-v2-236b":
+        assert {"['dense_layers']['mlp']['w_in']",
+                "['layers']['moe']['shared']['w_gate']",
+                "['layers']['attn']['w_uk']",
+                "['layers']['attn']['w_q']"} <= names
+        r, h = cfg.kv_lora_rank, cfg.num_heads
+        assert params["layers"]["attn"]["w_uk"].shape[1:] == (
+            r, h, cfg.qk_nope_head_dim)
+    else:
+        assert "['layers']['moe']['w_gate']" in names
+    mine = lm_params_to_numpy(build_model(cfg).init(0, device="cpu"))
+    assert (jax.tree.map(lambda a: (a.shape, a.dtype), mine)
+            == jax.tree.map(lambda a: (a.shape, a.dtype),
+                            jax.tree.map(np.asarray, jparams)))
+
+
+def test_init_params_draws_as_before():
+    """Drawing layer by layer into preallocated [L, ...] leaves gives the
+    weights that drawing every layer and then stacking them gave (the
+    same generator calls in the same order), bit for bit."""
+    cfg = get_config("hymba-1.5b").reduced()
+    gen = torch.Generator().manual_seed(0)
+    embed = transformer.init_embed(gen, cfg)
+    meta = transformer.embed_init(gen, (cfg.num_meta_tokens, cfg.d_model))
+    layers = [transformer._init_layer(gen, cfg, torch.float32)
+              for _ in range(cfg.num_layers)]
+
+    def stack(trees):
+        return {k: (stack([t[k] for t in trees]) if isinstance(trees[0][k],
+                                                               dict)
+                    else torch.stack([t[k] for t in trees]))
+                for k in trees[0]}
+
+    want = {"embed": embed, "meta": meta, "layers": stack(layers),
+            "ln_f": transformer.init_norm(cfg, cfg.d_model)}
+    got = transformer.init_params(torch.Generator().manual_seed(0), cfg)
+    flat_w = jax.tree_util.tree_leaves_with_path(lm_params_to_numpy(want))
+    flat_g = dict(jax.tree_util.tree_leaves_with_path(
+        lm_params_to_numpy(got)))
+    assert len(flat_w) == len(flat_g)
+    for path, leaf in flat_w:
+        assert np.array_equal(flat_g[path], leaf), path
+
+
+def test_init_params_with_only_dense_layers():
+    """A config cut to its leading dense layers draws no MoE layer: the
+    stacked layers are empty and the dense layer holds the draws that come
+    right after the embedding; the model still serves."""
+    cfg = get_config("deepseek-v2-236b").reduced(num_layers=1)
+    assert cfg.first_dense_layers == cfg.num_layers == 1
+    gen = torch.Generator().manual_seed(0)
+    transformer.init_embed(gen, cfg)
+    dense = transformer._init_layer(gen, cfg, torch.float32, moe_layer=False)
+    got = transformer.init_params(torch.Generator().manual_seed(0), cfg)
+    assert got["layers"] == {}
+    flat_w = jax.tree_util.tree_leaves_with_path(lm_params_to_numpy(dense))
+    flat_g = dict(jax.tree_util.tree_leaves_with_path(
+        lm_params_to_numpy(got["dense_layers"])))
+    assert len(flat_w) == len(flat_g)
+    for path, leaf in flat_w:
+        assert np.array_equal(flat_g[path][0], leaf), path
+    prompts = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    out = serve._generate(cfg, prompts, max_new_tokens=3, temperature=0.0,
+                          window=0, seed=0, verbose=False, device="cpu",
+                          params=got, generator=None)
+    assert out["logits_finite"] and out["tokens"].shape == (2, 3)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -217,14 +396,22 @@ def test_get_config_raises_for_unported_archs(arch):
         get_config(arch)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "dbrx-132b",
-                                  "musicgen-medium"])
+@pytest.mark.parametrize("arch", ["musicgen-medium"])
 def test_unported_families_raise(arch):
-    """MoE, MLA and cross-attention configs (copied from the JAX
-    registry) are refused by the model, not run wrongly."""
+    """Cross-attention configs (copied from the JAX registry) are refused
+    by the model, not run wrongly (item 14b.3)."""
     cfg = ModelConfig(**dataclasses.asdict(jget_config(arch).reduced()))
     with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
         build_model(cfg)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_training_waits_for_its_slice(arch):
+    """The port serves the MoE and MLA families; training them raises,
+    naming item 14b.2b, on every device (before any weight is drawn)."""
+    for device in ("cpu", None):
+        with pytest.raises(NotImplementedError, match="14b.2b"):
+            run_lm_training(arch, steps=1, device=device, verbose=False)
 
 
 def test_loss_fn_waits_for_the_training_slice():
