@@ -19,9 +19,13 @@ warm-up calls), the summed device time of every kernel one call launches:
   initial state);
 * ``fed_mix_matching`` at the FL main shape (D = 100, P = 246,590, f32),
   S = 2 (gossip's ring) and S = 1 (gossip_async);
+* ``scaled_dot_product_attention`` at the MLA shape above (is_causal,
+  TF32 off): the library yardstick in the same run;
 * one Hymba-1.5B serving prefill at full width (B 4, 1920 tokens: 2048
   positions; seeded weights drawn on the card; mean of 3 after one
-  warm-up);
+  warm-up), and one of deepseek-v2-236b cut to 3 layers (every width
+  published, B 4 x 2048 tokens, f32, seeded weights; the prefill's three
+  flash_attention launches as ``flash_ms``);
 
 and, on the host clock around synchronized work, ``Simulator.run``'s
 seconds per round of fedp2p on CNN-FEMNIST at full width (100 clients,
@@ -43,9 +47,10 @@ the backward kernels (each call's launches, split by launch):
 
 ``--set ptxas`` prints instead ptxas' registers, stack frame and spills
 for each kernel (and out-of-line block) of the tree's
-``flash_attention_bwd.cu`` (``nvcc -Xptxas -v`` for sm_90a with the
-build's flags; names as mangled, e.g. ``IfLi128E`` is f32 at head_dim
-128); it needs no card.
+``flash_attention.cu`` and ``flash_attention_bwd.cu`` (``nvcc -Xptxas
+-v`` for sm_90a with the build's flags; names as mangled, e.g.
+``IfLi128E`` is f32 at head_dim 128, ``IfLi3EE`` f32 with three 64-column
+chunks of hd), with ptxas' warnings; it needs no card.
 
 Run it once per tree in turns (parent, change, change, parent) inside one
 call to compare two versions; each run prints one JSON line.
@@ -102,43 +107,80 @@ def hymba_prefill_ms(torch, cs):
                             if "flash_fwd_kernel" in k)}
 
 
+def deepseek_prefill_ms(torch, cs, layers=3, prompt=2048):
+    """One prefill of deepseek-v2-236b cut to ``layers`` (every width
+    published; seeded f32 weights drawn on the card; B 4 x ``prompt``
+    tokens): {"ms": summed device time of its kernels, "flash_ms": its
+    flash_attention launches'}, mean of 3 after one warm-up."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models.model import build_model
+    model = build_model(dataclasses.replace(get_config("deepseek-v2-236b"),
+                                            num_layers=layers))
+    params = model.init(0, device="cuda")
+    prefill = build_prefill_step(model)
+    tokens = torch.from_numpy(np.random.default_rng(prompt).integers(
+        0, model.cfg.vocab_size, (cs.LM_B, prompt))).cuda()
+
+    def run():
+        prefill(params, {"tokens": tokens}, model.make_cache(cs.LM_B, prompt))
+
+    per = cs.device_ms(torch, run, reps=3, warmup=1)
+    del params
+    return {"ms": sum(per.values()),
+            "flash_ms": sum(v for k, v in per.items()
+                            if "flash_fwd_kernel" in k),
+            "layers": layers, "prompt": prompt}
+
+
 def ptxas_usage(backend):
-    """ptxas' resource report for the tree's flash_attention_bwd.cu:
-    {function: {"registers", "stack", "spill_stores", "spill_loads"}} for
-    the kernels and their out-of-line full-split blocks."""
+    """ptxas' resource report for the tree's flash_attention.cu and
+    flash_attention_bwd.cu: {file: {function: {"registers", "stack",
+    "spill_stores", "spill_loads"}}} for the kernels and their out-of-line
+    full-split blocks, and under "warnings" ptxas' notes on them (a wgmma
+    serialized, for one)."""
     import re
     import tempfile
-    with tempfile.TemporaryDirectory() as tmp:
-        proc = subprocess.run(
-            [backend.nvcc(), *[f for f in backend.NVCC_FLAGS
-                               if f not in ("-shared", "-Xcompiler",
-                                            "-fPIC")],
-             "-cubin", "-Xptxas", "-v", "-o", f"{tmp}/k.cubin",
-             str(backend.CSRC / "flash_attention_bwd.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    out = proc.stdout
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{out[-4000:]}")
-    usage, name = {}, None
-    for line in out.splitlines():
-        m = re.search(r"(?:entry function '|Function properties for )"
-                      r"([\w$.]+)", line)
-        if m:
-            name = m.group(1)
-            continue
-        if name is None or not re.search(r"flash_bwd|dkdv|dq_block",
-                                         name):
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                      r"stores, (\d+) bytes spill loads", line)
-        if m:
-            usage.setdefault(name, {}).update(
-                stack=int(m.group(1)), spill_stores=int(m.group(2)),
-                spill_loads=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            usage.setdefault(name, {})["registers"] = int(m.group(1))
-    return usage
+    report = {}
+    for src in ("flash_attention", "flash_attention_bwd"):
+        with tempfile.TemporaryDirectory() as tmp:
+            proc = subprocess.run(
+                [backend.nvcc(), *[f for f in backend.NVCC_FLAGS
+                                   if f not in ("-shared", "-Xcompiler",
+                                                "-fPIC")],
+                 "-cubin", "-Xptxas", "-v", "-o", f"{tmp}/k.cubin",
+                 str(backend.CSRC / f"{src}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        out = proc.stdout
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v {src}.cu failed:\n"
+                               f"{out[-4000:]}")
+        usage, name, notes = {}, None, []
+        for line in out.splitlines():
+            if "warning" in line.lower() or "performance" in line.lower():
+                notes.append(line.strip()[:300])
+            m = re.search(r"(?:entry function '|Function properties for )"
+                          r"([\w$.]+)", line)
+            if m:
+                name = m.group(1)
+                continue
+            if name is None or not re.search(r"flash|dkdv|dq_block", name):
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                usage.setdefault(name, {}).update(
+                    stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                    spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                usage.setdefault(name, {})["registers"] = int(m.group(1))
+        report[f"{src}.cu"] = {**usage, "warnings": notes}
+    return report
 
 
 def backward_rows(torch, cs):
@@ -210,8 +252,8 @@ def main() -> int:
                     default="forward",
                     help="forward (default): the forward kernels, prefill "
                          "and fedp2p; backward: the backward kernels and a "
-                         "train step; ptxas: flash_attention_bwd's "
-                         "registers and spills")
+                         "train step; ptxas: flash_attention's and "
+                         "flash_attention_bwd's registers and spills")
     args = ap.parse_args()
     if args.set == "ptxas":
         sys.path.insert(0, str(Path(args.src).resolve()))
@@ -262,6 +304,9 @@ def main() -> int:
         record("flash_mla_192_128", lambda: flash_attention(qm, km, vm))
     except ValueError as exc:        # a tree whose wrapper needs vd = hd
         rows["flash_mla_192_128"] = {"ms": None, "error": str(exc)}
+    import torch.nn.functional as F
+    record("sdpa_mla_192_128", lambda: F.scaled_dot_product_attention(
+        qm, km, vm, is_causal=True))
     del qm, km, vm
     args_ssd, init = cs.ssd_inputs(torch, cs.LM_B, cs.LM_S, 50, 64, 16, 8,
                                    True)
@@ -272,6 +317,10 @@ def main() -> int:
                                torch.float32, seed=3)
         record(f"fed_mix_matching_S{stages}", lambda: fed_mix_matching(*m))
     rows["hymba_prefill"] = hymba_prefill_ms(torch, cs)
+    del args_ssd, init, m
+    torch.cuda.empty_cache()
+    rows["deepseek_prefill"] = deepseek_prefill_ms(torch, cs)
+    torch.cuda.empty_cache()
     rows["fedp2p_seconds_per_round"] = fedp2p_seconds_per_round(torch)
     return emit(args, rows)
 

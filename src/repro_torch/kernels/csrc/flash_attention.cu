@@ -86,11 +86,11 @@
 //   the NaN inside the attention kernel made it 3-6 % slower at its
 //   255-register limit.)
 //
-// Head dims above 128 (gemma-2b's 256; the Pallas kernel takes any hd).
-// At hd = 256 in f32 the staging above would need pitch x (kBQ + 4·kBK)
-// = 333 KB of shared memory, past the 227 KB a block can have, and O as
-// hd/8 n8 fragments a warp would not fit the 255 registers. So
-// flash_fwd_kernel_wide splits O's columns into slices of kCW = 128, one
+// Head dims above 128 with v's as wide (gemma-2b's 256; the Pallas kernel
+// takes any hd). At hd = 256 in f32 the staging above would need pitch x
+// (kBQ + 4·kBK) = 333 KB of shared memory, past the 227 KB a block can
+// have, and O as hd/8 n8 fragments a warp would not fit the 255 registers.
+// So flash_fwd_kernel_wide splits O's columns into slices of kCW = 128, one
 // block per (query tile, head, slice). Every slice's block computes the
 // full scores Q·Kᵀ over all of hd, in kKC = 64-column chunks staged in a
 // two-slot cp.async ring of (Q chunk, K chunk) pairs, so every slice runs
@@ -100,20 +100,85 @@
 // chunks took 169 KB, one block an SM); 52 KB in bf16. The scores are
 // recomputed once per slice (hd/128 times), the cost of keeping the
 // hd <= 128 kernel as it is. V's non-finite flags are one 128-column mask
-// per slice.
+// per slice. It also takes vd != hd where vd > 128 or hd > 256 ((320, 256),
+// hd 512).
 //
-// V's head_dim apart from Q's and K's (vd != hd: DeepSeek-V2's MLA prefill,
-// q/k 192 = 128 nope + 64 rope, v 128). Every such call takes the wide
-// kernel, whose design already keeps the two widths apart: the score
-// chunks run over hd, and the O slices, V's staging, V's non-finite flags
-// and the NaN of skipped tiles over vd. At MLA's (192, 128) that is one O
-// slice, so the scores are computed once (padding v to 192 would take two
-// slices: the scores twice and 1.5x the O written). At DeepSeek's prefill
-// (B 4, 128 heads, S 2048, causal) the two products take
+// V's head_dim apart from Q's and K's, vd <= 128 and hd <= 256
+// (DeepSeek-V2's MLA prefill: q/k 192 = 128 nope + 64 rope, v 128):
+// flash_fwd_kernel_wgmma, on Hopper's warpgroup products. At DeepSeek's
+// prefill (B 4, 128 heads, S 2048, causal) the two products take
 // 4·128·(2048·2049/2)·2·(192 + 128) = 6.9e11 flops, 4.2 ms at the split-f32
 // rate (165 TFLOP/s) against 0.8 ms for its 2.7 GB of q, k, v and o at
-// 3.35 TB/s: operations bound it, as at hd = vd. hd = vd keeps the kernels
-// above unchanged.
+// 3.35 TB/s: operations bound it. (The wide kernel above ran it at 15 % of
+// that bound on mma.sync: Q restaged and resplit beside every K chunk,
+// every warp splitting the same K and V fragments, one chunk in flight.)
+// - Tile: a block per (64-row query tile, head), most keys first, 256
+//   threads: a consumer warpgroup (threads 0-127) and a producer
+//   warpgroup (128-255). Key tiles of 64.
+// - Shared memory, 224 KB, one block an SM: Q stays resident for the
+//   block's life as hi and lo parts, hd/64 chunks of 2 x 16 KB (96 KB at
+//   hd 192); the rest is a ring of NS = 7 - hd/64 stages of 32 KB (4 at
+//   hd 192), each a 64-key x 64-column chunk of K or a 128 x 32-key half
+//   of Vᵀ, hi and lo. A key tile is hd/64 + 2 stages, so the ring holds
+//   less than one: the consumer frees a stage as soon as its products are
+//   done. Each stage has a full and an empty mbarrier, one arrival per
+//   warp; the consumer waits once a stage and never on __syncthreads().
+//   (A 128-row query tile on two consumer warpgroups would share each K/V
+//   tile between twice the rows, but its Q alone, hi and lo, is 192 KB.)
+// - Every operand is split once, by the producer, as it is stored: hi is
+//   the f32 truncated to the 19 bits the tensor cores read, lo = x - hi
+//   (exact in f32), both in shared memory, so no warp splits a fragment.
+//   The producer reads global memory into registers two stages ahead of
+//   its stores; it keeps the raw bits and widens and splits them as it
+//   stores them in the 128-byte-swizzled K-major layout wgmma reads (a
+//   conversion right after each load would stall the warp on it), then
+//   fences the async proxy and arrives. 16-byte (f32) or 8-byte (bf16)
+//   loads where a stage lies inside the operand and its rows are aligned;
+//   element by element otherwise, zero past the edges (the wrapper takes
+//   any row stride).
+// - S = Q·Kᵀ: m64n64k8 TF32 wgmma with both operands in shared memory, both
+//   K-major as stored; per k8 step lo·hi, hi·lo, hi·hi into one f32
+//   accumulator, chunk by chunk over hd, each chunk's stage released one
+//   group later. O += P·V: m64n128k8 with P from registers and Vᵀ from
+//   shared memory. tf32 wgmma takes only K-major operands from shared
+//   memory, so the producer stores V transposed, [vd][keys]; inside each
+//   group of 8 keys, position t holds key 2t and position t + 4 key
+//   2t + 1, the order in which the S accumulator (keys 2t, 2t + 1 of rows
+//   g, g + 8) hands P over as an A fragment (columns t, t + 4). P is split
+//   into hi/lo in registers. Columns past hd, rows past vd and keys past T
+//   are stored as zeros.
+// - Order: the next tile's S, then this tile's P·V right behind it on the
+//   tensor cores; once S has landed, its softmax runs while P·V does. The
+//   producer fills the ring in that order (K of tile j + 1 before V of j).
+// - Registers: O (64 f32 a thread: 64 rows x 128 columns over 128
+//   threads), S (32), P's hi and lo (64); 249-255 a thread, no spill
+//   (ptxas, `scripts/torch_kernel_ab.py --set ptxas`). ptxas serializes
+//   every wgmma of the kernel if any path could touch a group's registers
+//   before its wait (an out-of-line call, or two branches on one condition
+//   around an issue and its wait): each branch here issues and waits for
+//   its own groups, and the full split's pass is the same inlined body.
+// - What bounds it: the function, operations (above); the kernel, its
+//   producer and shared memory. Per 64 x 64 tile S reads 288 KB of
+//   operands from shared memory (m64n64k8 with both operands there runs at
+//   the 128 bytes a clock shared memory gives), P·V 96 KB, the producer's
+//   stores 160 KB: 2.4 us of an SM against 2.1 for the tensor cores. On
+//   an H100 80GB HBM3 at 700 W (scripts/torch_flash_variants.py) the
+//   consumer alone takes 7.7 ms at DeepSeek's prefill, the producer
+//   alone 10.2, the kernel 15.6: the producer sets the time, and the two
+//   overlap only in part.
+// - The arithmetic otherwise is the kernels' above: the finite -1e30
+//   mask, expf, the 1e-30 floor, the tile skipping of the window and the
+//   meta tokens, GQA, ragged tiles; bf16 is exact in TF32 (S one product,
+//   P·V two). The warpgroup computes a key tile for all its 64 rows, so
+//   the per-warp skipping above has no counterpart here; a row that sees
+//   no key of a tile gets p = 0, or weights the running state washes out
+//   exactly. Non-finite values: the fast split gives an inf or NaN a NaN
+//   lo, so the result is never silently finite; a block whose result
+//   holds one is taken again on the full split (tf32x3::split,
+//   tf32x3::exact) in the same launch, its producer and consumer going on
+//   through the same ring. The two launches around the attention (V's
+//   flags, the NaN of skipped tiles) are the same as for the kernels
+//   above.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -480,7 +545,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                                   window, num_meta);
 }
 
-// hd > 128, or vd != hd: the block's O slice (columns sl·kCW .. + 127 of
+// vd > 128, or hd > 256: the block's O slice (columns sl·kCW .. + 127 of
 // v's vd) over the full scores (hd; see the head of this file). The same
 // arithmetic as flash_block otherwise; on the fast split a result that
 // holds an inf or a NaN returns true and the block is taken again on the
@@ -806,6 +871,694 @@ flash_fwd_kernel_nanfix(const uint4* __restrict__ vflags, T* __restrict__ o, Str
   }
 }
 
+// ---------------------------------------------------------------------------
+// v's head_dim apart from q's and k's, vd <= 128 and hd <= 256 (DeepSeek-V2's
+// MLA prefill): flash_fwd_kernel_wgmma, on Hopper's warpgroup products (see
+// the head of this file)
+// ---------------------------------------------------------------------------
+namespace wg {
+
+constexpr int kAtom = 8192;       // 64 rows x 128 bytes: one swizzle atom column
+constexpr int kHalf = 2 * kAtom;  // 64 rows x 64 columns (or 128 x 32) of f32
+constexpr int kStage = 2 * kHalf;  // a ring stage, or a 64-column chunk of Q: hi + lo
+constexpr int kUnits = 7;          // Q's chunks + the ring's stages: 224 KB
+constexpr int kSmem = kUnits * kStage + 1024;  // + the alignment to 1024 bytes
+constexpr int kThreads = 256;      // the consumer warpgroup, then the producer's
+constexpr int kWarps = 4;          // a barrier phase: one arrival per warp of a warpgroup
+constexpr uint32_t kTrunc = 0xffffe000u;  // the bits of an f32 the tensor cores read
+constexpr int kQ = -2;             // the producer's stages: Q's chunks,
+constexpr int kFirst = -3;         // then the first key tile's chunks of K
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// byte offset of element (r, k) of a K-major tile whose rows are 128 bytes
+// (32 f32 of K) under the 128-byte swizzle: row r's 16-byte chunk k / 4
+// sits at chunk (k / 4) ^ (r % 8)
+__device__ __forceinline__ int sw128(int r, int k) {
+  return r * 128 + ((((k >> 2) ^ r) & 7) << 4) + ((k & 3) << 2);
+}
+
+// wgmma's shared-memory descriptor of such a tile at `addr` (1024-byte
+// aligned, or advanced by a k8 step's 32 bytes inside its atom): 128-byte
+// swizzle, 8-row groups 1024 bytes apart (the leading offset is unused)
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3ffffu) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// one arrival for the warp, once all its lanes are here (a barrier counts
+// kWarps arrivals: 128 lanes arriving one by one on one word serialize)
+__device__ __forceinline__ void warp_arrive(uint32_t bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) bar_arrive(bar);
+}
+// until the barrier's phase of parity `parity` has completed; a wait that
+// outlasts 2^26 tries (seconds) traps, so that a fault in the ring's
+// bookkeeping fails the launch instead of hanging the card
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 26)) __trap();
+  }
+}
+// the producer's shared-memory stores, made visible to the tensor cores'
+// (async proxy) reads before its arrival
+__device__ __forceinline__ void fence_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void mma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void mma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void mma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// registers a product in flight reads or writes: nothing may touch them
+// before the wait that precedes this (the compiler sees them redefined here)
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d[64 x 64] += A[64 x 8] · B[64 x 8]ᵀ, TF32 from shared memory (both
+// K-major), f32 accumulators in the m16n8 C layout of each warp's 16 rows
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d[64 x 128] += A[64 x 8] · B[128 x 8]ᵀ: A from registers (a0 (g, t),
+// a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4) of the warp's 16 rows),
+// B from shared memory (K-major)
+__device__ __forceinline__ void mma_rs(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+
+// The producer's loads keep the raw bits of 4 elements (a uint4 for f32,
+// the low two words for bf16) and widen them only when it stores them, so
+// that a stage's eight loads issue back to back: a conversion right after
+// each load would stall the warp on it. A stage takes 16-byte (f32) or
+// 8-byte (bf16) loads when all its rows and columns lie inside the operand
+// and its rows are aligned (the wrapper takes any row stride: `vec`), else
+// element by element, zero past the edges.
+template <typename T>
+__device__ __forceinline__ uint4 ld_raw(const T* p) {
+  if constexpr (sizeof(T) == 4) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  } else {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    return make_uint4(u.x, u.y, 0u, 0u);
+  }
+}
+template <typename T>
+__device__ __forceinline__ uint4 ld_raw_masked(const T* row, int col, int width) {
+  uint32_t b[4] = {0u, 0u, 0u, 0u};
+  if (row != nullptr) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (col + i >= width) continue;
+      if constexpr (sizeof(T) == 4) b[i] = __float_as_uint(row[col + i]);
+      else b[i] = reinterpret_cast<const uint16_t*>(row)[col + i];
+    }
+  }
+  if constexpr (sizeof(T) == 4) return make_uint4(b[0], b[1], b[2], b[3]);
+  else return make_uint4(b[0] | (b[1] << 16), b[2] | (b[3] << 16), 0u, 0u);
+}
+// ld_raw's 4 elements as f32
+template <typename T>
+__device__ __forceinline__ float4 widen(const uint4& r) {
+  if constexpr (sizeof(T) == 4)
+    return make_float4(__uint_as_float(r.x), __uint_as_float(r.y), __uint_as_float(r.z),
+                       __uint_as_float(r.w));
+  else
+    return make_float4(__uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u),
+                       __uint_as_float(r.y << 16), __uint_as_float(r.y & 0xffff0000u));
+}
+// whether 4-element loads from rows of `base` at multiples of 4 columns are
+// aligned
+template <typename T>
+__device__ __forceinline__ bool aligned4(const T* base, long long stride) {
+  return ((uintptr_t)base & (4 * sizeof(T) - 1)) == 0 && (stride & 3) == 0;
+}
+
+// one value as its TF32 hi part and its lo slot. f32, fast: hi the value
+// truncated to the bits the tensor cores read, lo = x - hi (exact; an inf
+// or NaN gives a NaN lo, so that the result is never silently finite);
+// full: tf32x3::split. A widened bf16 is exact: hi its bits, the lo slot
+// (read by the cross term with P's lo) the bits, or its finite part on the
+// full split (tf32x3::exact)
+template <typename T, bool kSlow>
+__device__ __forceinline__ void split_in(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (sizeof(T) == 2) {
+    if constexpr (kSlow) tf32x3::exact(__float_as_uint(x), hi, lo);
+    else hi = lo = __float_as_uint(x);
+  } else if constexpr (kSlow) {
+    tf32x3::split(x, hi, lo);
+  } else {
+    hi = __float_as_uint(x) & kTrunc;
+    lo = __float_as_uint(x - __uint_as_float(hi));
+  }
+}
+
+// the producer's loads of one stage: eight 4-element loads a thread. Rows
+// row0 + 8i + p / 16 of a [n x width] operand (Q or K), columns col0 +
+// 4(p % 16) .. + 3; coalesced, 256 bytes (f32) a row
+template <typename T>
+__device__ __forceinline__ void get_rows(uint4 (&x)[8], const T* base, long long stride,
+                                         int row0, int n, int col0, int width, bool vec,
+                                         int p) {
+  const int col = col0 + 4 * (p & 15);
+  if (vec && row0 + 64 <= n && col0 + 64 <= width) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = ld_raw<T>(base + (row0 + 8 * i + (p >> 4)) * stride + col);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = row0 + 8 * i + (p >> 4);
+      x[i] = ld_raw_masked<T>(row < n ? base + row * stride : nullptr, col, width);
+    }
+  }
+}
+
+// V's 32 keys k0 .. k0 + 31 of a stage: warp w reads keys k0 + 16(w % 2) +
+// l % 16 at columns 64(w / 2) + 8C + 4(l / 16) .. + 3 (C < 8), 32 bytes
+// (f32) a row, so that the transposed stores below fall on 32 distinct
+// banks
+template <typename T>
+__device__ __forceinline__ void get_vt(uint4 (&x)[8], const T* base, long long stride, int k0,
+                                       int n, int vd, bool vec, int p) {
+  const int w = p >> 5, l = p & 31;
+  const int row = k0 + 16 * (w & 1) + (l & 15);
+  const int col = 64 * (w >> 1) + 4 * (l >> 4);
+  if (vec && k0 + 32 <= n && vd == 128) {
+    const T* r = base + row * stride + col;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) x[c] = ld_raw<T>(r + 8 * c);
+  } else {
+    const T* r = row < n ? base + row * stride : nullptr;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) x[c] = ld_raw_masked<T>(r, col + 8 * c, vd);
+  }
+}
+
+// get_rows' values into a 64 x 64 chunk of hi parts and one of lo parts
+// (two 32-column atoms each); a bf16 Q or K has no lo part (S takes one
+// product)
+template <typename T, bool kSlow>
+__device__ __forceinline__ void put_rows(unsigned char* hi, unsigned char* lo,
+                                         const uint4 (&x)[8], int p) {
+  const int off0 = ((p & 15) >> 3) * kAtom;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int off = off0 + sw128(8 * i + (p >> 4), 4 * (p & 7));
+    const float4 f = widen<T>(x[i]);
+    uint4 h, l;
+    split_in<T, kSlow>(f.x, h.x, l.x);
+    split_in<T, kSlow>(f.y, h.y, l.y);
+    split_in<T, kSlow>(f.z, h.z, l.z);
+    split_in<T, kSlow>(f.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + off) = h;
+    if constexpr (sizeof(T) == 4) *reinterpret_cast<uint4*>(lo + off) = l;
+  }
+}
+
+// get_vt's values transposed: Vᵀ [128 columns of vd][32 keys], K-major, so
+// that it is the B operand of O += P·V. Inside each group of 8 keys,
+// position t holds key 2t and position t + 4 key 2t + 1: the order in
+// which the S accumulator hands P over as an A fragment
+template <typename T, bool kSlow>
+__device__ __forceinline__ void put_vt(unsigned char* hi, unsigned char* lo,
+                                       const uint4 (&x)[8], int p) {
+  const int w = p >> 5, l = p & 31;
+  const int kp = 16 * (w & 1) + (l & 15);
+  const int pos = (kp & ~7) | ((kp & 1) ? 4 + ((kp & 7) >> 1) : (kp & 7) >> 1);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int d0 = 64 * (w >> 1) + 8 * c + 4 * (l >> 4);
+    const float4 f = widen<T>(x[c]);
+    const float v[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int off = sw128(d0 + i, pos);
+      uint32_t h, lw;
+      split_in<T, kSlow>(v[i], h, lw);
+      *reinterpret_cast<uint32_t*>(hi + off) = h;
+      *reinterpret_cast<uint32_t*>(lo + off) = lw;
+    }
+  }
+}
+
+}  // namespace wg
+
+// The block's work on wgmma: one (64-row query tile, head), a consumer
+// warpgroup (threads 0-127) and a producer warpgroup (128-255) around a
+// ring of NS = 7 - NKC stages of 32 KB in shared memory (see the head of
+// this file). pass 0 runs on the fast split: a result that holds an inf
+// or a NaN is not stored, and it returns the ring's stage count, from
+// which pass 1, on the full split, goes on; else -1. n0: the ring's stage
+// count at the start (Q's barrier completes once a pass).
+template <typename T, int NKC>
+__device__ __forceinline__ int flash_block_wgmma(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
+    Strides sq, Strides sk, Strides sv, Strides so, int group, int n_q, int n_k, int hd, int vd,
+    float scale, int window, int num_meta, unsigned char* smem, uint32_t bars, uint32_t pass,
+    uint32_t n0) {
+  using namespace wg;
+  const bool slow = pass == 1;
+  constexpr int NS = kUnits - NKC;  // the ring's stages
+  constexpr int SPT = NKC + 2;      // stages a key tile: NKC chunks of K, two halves of Vᵀ
+  constexpr bool kBf16 = sizeof(T) == 2;
+  const uint32_t base = smem_u32(smem);
+  const uint32_t ring = base + NKC * kStage;
+  const uint32_t qbar = bars + 16 * NS;
+  auto full = [&](uint32_t n) { return bars + 8 * (n % NS); };
+  auto empty = [&](uint32_t n) { return bars + 8 * (NS + n % NS); };
+
+  const int n_qt = (n_q + kBQ - 1) / kBQ;
+  const int qt = n_qt - 1 - (int)blockIdx.x;  // most keys first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / group;
+  const int q0 = qt * kBQ;
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* kb = k + b * sk.b + hk * sk.h;
+  const T* vb = v + b * sv.b + hk * sv.h;
+  const int q_last = min(q0 + kBQ, n_q) - 1;
+  const int kt_last = min((n_k - 1) / kBK, q_last / kBK);
+  auto next_tile = [&](int kt) {
+    for (++kt; kt <= kt_last; ++kt) {
+      const int k0 = kt * kBK;
+      if (!(window > 0 && k0 >= num_meta && q0 - (k0 + kBK - 1) >= window)) return kt;
+    }
+    return -1;
+  };
+
+  if (threadIdx.x >= 128) {
+    // the producer, in the consumer's order: Q's NKC chunks, the first
+    // visited key tile's NKC chunks of K, then for each visited tile the
+    // next one's chunks of K and its own two halves of Vᵀ. Each stage is
+    // loaded into registers, split into hi and lo as it is stored, then
+    // arrived on by each warp.
+    const int p = threadIdx.x - 128;
+    // a stage: kt == kQ: Q's chunk st; kt == kFirst: chunk st of K's tile
+    // nk (the first); else st < NKC: chunk st of K's tile nk (the next
+    // after kt), st >= NKC: half st - NKC of tile kt's Vᵀ. kt == -1: done
+    struct Stage {
+      int kt, nk, st;
+    };
+    auto advance = [&](Stage& c) {
+      ++c.st;
+      if (c.kt == kQ) {
+        if (c.st == NKC) c = {kFirst, next_tile(-1), 0};
+        if (c.kt == kFirst && c.nk < 0) c.kt = -1;
+      } else if (c.kt == kFirst) {
+        if (c.st == NKC) c = {c.nk, next_tile(c.nk), NKC};
+        if (c.kt >= 0 && c.nk >= 0 && c.st == NKC) c.st = 0;
+      } else if (c.st == SPT) {
+        c.kt = c.nk;
+        if (c.kt >= 0) {
+          c.nk = next_tile(c.kt);
+          c.st = c.nk >= 0 ? 0 : NKC;
+        }
+      }
+    };
+    const bool vq = aligned4(qb, sq.s), vk = aligned4(kb, sk.s), vv = aligned4(vb, sv.s);
+    auto load = [&](const Stage& c, uint4 (&x)[8]) {
+      if (c.kt == kQ) get_rows<T>(x, qb, sq.s, q0, n_q, 64 * c.st, hd, vq, p);
+      else if (c.st < NKC) get_rows<T>(x, kb, sk.s, c.nk * kBK, n_k, 64 * c.st, hd, vk, p);
+      else get_vt<T>(x, vb, sv.s, c.kt * kBK + 32 * (c.st - NKC), n_k, vd, vv, p);
+    };
+    uint32_t n = n0;
+    auto store = [&](const Stage& c, const uint4 (&x)[8]) {
+      if (c.kt == kQ) {
+        if (slow) put_rows<T, true>(smem + c.st * kHalf, smem + (NKC + c.st) * kHalf, x, p);
+        else put_rows<T, false>(smem + c.st * kHalf, smem + (NKC + c.st) * kHalf, x, p);
+        if (c.st == NKC - 1) {
+          fence_proxy();
+          warp_arrive(qbar);
+        }
+        return;
+      }
+      if (n >= (uint32_t)NS) bar_wait(empty(n), (n / NS - 1) & 1);  // the slot's last use is done
+      unsigned char* s = smem + NKC * kStage + (n % NS) * kStage;
+      if (c.st < NKC) {
+        if (slow) put_rows<T, true>(s, s + kHalf, x, p);
+        else put_rows<T, false>(s, s + kHalf, x, p);
+      } else {
+        if (slow) put_vt<T, true>(s, s + kHalf, x, p);
+        else put_vt<T, false>(s, s + kHalf, x, p);
+      }
+      fence_proxy();
+      warp_arrive(full(n));
+      ++n;
+    };
+    // two stages of loads in flight: a turn stores one stage and loads the
+    // one two ahead into its registers (loading before the slot wait, or
+    // further ahead, measured slower: more loads in flight contend with
+    // the tensor cores' shared-memory reads)
+    uint4 x[2][8];
+    Stage ld{kQ, 0, 0}, st{kQ, 0, 0};  // the next stage to load, to store
+#pragma unroll
+    for (int d = 0; d < 2; ++d) {
+      if (ld.kt != -1) {
+        load(ld, x[d]);
+        advance(ld);
+      }
+    }
+    auto turn = [&](uint4 (&xd)[8]) {
+      store(st, xd);
+      advance(st);
+      if (ld.kt != -1) {
+        load(ld, xd);
+        advance(ld);
+      }
+      return st.kt != -1;
+    };
+    while (turn(x[0]) && turn(x[1])) {
+    }
+    if (!slow && __syncthreads_or(0)) return (int)n;
+    return -1;
+  }
+
+  // the consumer: S = Q·Kᵀ (64 x 64 on m64n64k8, Q and K from shared
+  // memory), the online softmax in registers, O += P·V (64 x 128 on
+  // m64n128k8, P from registers, Vᵀ from shared memory). A tile's P·V
+  // goes to the tensor cores right behind the next tile's S, and that S's
+  // softmax runs once it has landed, while the tensor cores run the P·V.
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const uint64_t dq_hi = desc(base), dq_lo = desc(base + NKC * kHalf);
+  float acc[64], s[32];
+  uint32_t ph[32], pl[32];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) ph[i] = pl[i] = 0u;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2] = {1.f, 1.f};
+
+  // each stage's products are one wgmma group, committed in stage order;
+  // stages rel .. n - 1 are committed and not yet released
+  uint32_t n = n0, rel = n0;
+  // every group done, every stage released
+  auto drain = [&]() {
+    mma_wait<0>();
+    while (rel < n) warp_arrive(empty(rel++));
+    keep(acc);
+    keep(s);
+    keep(ph);
+    keep(pl);
+  };
+  // the ring's next stage, once the producer has filled it
+  auto take = [&]() {
+    bar_wait(full(n), (n / NS) & 1);
+    return ring + (n % NS) * kStage;
+  };
+  // S = Q·Kᵀ over hd's NKC chunks: per k8 step lo·hi, hi·lo, hi·hi (bf16:
+  // hi·hi alone). A chunk's stage is released as soon as the next chunk's
+  // group is committed and the wait leaves only that one in flight, so
+  // that the producer refills it while S runs.
+  auto issue_s = [&]() {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NKC; ++c) {
+      const uint32_t sa = take();
+      const uint64_t dk_hi = desc(sa), dk_lo = desc(sa + kHalf);
+      mma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks) {
+        const int kq = 8 * c + ks;
+        const uint32_t oq = ((kq >> 2) * kAtom + (kq & 3) * 32) >> 4;
+        const uint32_t ok = ((ks >> 2) * kAtom + (ks & 3) * 32) >> 4;
+        if constexpr (!kBf16) {
+          mma_ss(s, dq_lo + oq, dk_hi + ok);
+          mma_ss(s, dq_hi + oq, dk_lo + ok);
+        }
+        mma_ss(s, dq_hi + oq, dk_hi + ok);
+      }
+      mma_commit();
+      ++n;
+      if (c > 0) {
+        mma_wait<1>();
+        warp_arrive(empty(rel++));
+      }
+    }
+  };
+  // O += P·V over the tile's two halves of 32 keys: per k8 step lo·hi,
+  // hi·lo, hi·hi (bf16: P's lo with V's lo slot, then hi·hi)
+  auto issue_pv = [&]() {
+#pragma unroll
+    for (int vh = 0; vh < 2; ++vh) {
+      const uint32_t sa = take();
+      const uint64_t dv_hi = desc(sa), dv_lo = desc(sa + kHalf);
+      mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int j = 4 * (4 * vh + kk);
+        const uint32_t ov = 2 * kk;  // 32 bytes
+        if constexpr (!kBf16) {
+          mma_rs(acc, pl[j], pl[j + 1], pl[j + 2], pl[j + 3], dv_hi + ov);
+          mma_rs(acc, ph[j], ph[j + 1], ph[j + 2], ph[j + 3], dv_lo + ov);
+        } else {
+          mma_rs(acc, pl[j], pl[j + 1], pl[j + 2], pl[j + 3], dv_lo + ov);
+        }
+        mma_rs(acc, ph[j], ph[j + 1], ph[j + 2], ph[j + 3], dv_hi + ov);
+      }
+      mma_commit();
+      ++n;
+    }
+  };
+  // mask, then the online softmax of rows g (c = 0, 1) and g + 8 (c = 2, 3)
+  // of the warp's 16: s becomes P, corr the factor O is to be rescaled by
+  auto softmax = [&](int k0) {
+    const int r0 = q0 + 16 * w + g;
+    const bool all = k0 + kBK - 1 <= q0 && k0 + kBK <= n_k &&
+                     (window <= 0 || q0 + kBQ - 1 - k0 < window || k0 + kBK <= num_meta);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int qi = r0 + (c >> 1) * 8;
+        const int kj = k0 + j * 8 + 2 * t + (c & 1);
+        const bool vis = all || (kj < n_k && kj <= qi &&
+                                 (window <= 0 || qi - kj < window || kj < num_meta));
+        float& x = s[4 * j + c];
+        x = vis ? x * scale : kNegInf;
+        mx[c >> 1] = fmaxf(mx[c >> 1], x);
+      }
+    float m_new[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      m_new[r] = fmaxf(m[r], mx[r]);
+      corr[r] = expf(m[r] - m_new[r]);
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = expf(s[i] - m_new[(i >> 1) & 1]);
+      sum[(i >> 1) & 1] += s[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      l[r] = l[r] * corr[r] + sum[r];
+      m[r] = m_new[r];
+    }
+  };
+  // P into hi/lo A fragments: element (row, key 8j + 2t + e) of s goes to
+  // A column t + 4e of k8 step j
+  auto split_p = [&]() {
+    if (slow) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int a = (i & ~3) | (((i & 1) << 1) | ((i >> 1) & 1));
+        tf32x3::split(s[i], ph[a], pl[a]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int a = (i & ~3) | (((i & 1) << 1) | ((i >> 1) & 1));
+        ph[a] = __float_as_uint(s[i]) & kTrunc;
+        pl[a] = __float_as_uint(s[i] - __uint_as_float(ph[a]));
+      }
+    }
+  };
+  auto rescale = [&]() {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      acc[4 * j] *= corr[0];
+      acc[4 * j + 1] *= corr[0];
+      acc[4 * j + 2] *= corr[1];
+      acc[4 * j + 3] *= corr[1];
+    }
+  };
+
+  bar_wait(qbar, pass);
+  int kt = next_tile(-1);
+  if (kt >= 0) {
+    issue_s();
+    drain();
+    softmax(kt * kBK);
+    split_p();
+  }
+  // Tile kt's P is in ph/pl and its factor in corr: the next tile's S
+  // goes to the tensor cores first, kt's P·V right behind it; once S has
+  // landed (the wait leaves P·V's two groups in flight), its softmax runs
+  // under P·V. Each branch issues and waits for its own groups (ptxas
+  // serializes every wgmma of the kernel if a path could leave a group in
+  // flight where its registers are read).
+  while (kt >= 0) {
+    const int nxt = next_tile(kt);
+    if (nxt >= 0) {
+      issue_s();
+      rescale();
+      issue_pv();
+      mma_wait<2>();
+      while (rel < n - 2) warp_arrive(empty(rel++));
+      keep(s);
+      softmax(nxt * kBK);
+      drain();
+      split_p();
+    } else {
+      rescale();
+      issue_pv();
+      drain();
+    }
+    kt = nxt;
+  }
+  if (!slow) {
+    bool bad = !tf32x3::finite(l[0]) || !tf32x3::finite(l[1]);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) bad |= !tf32x3::finite(acc[i]);
+    if (__syncthreads_or(bad)) return (int)n;
+  }
+
+  T* ob = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + 16 * w + g + 8 * r;
+    if (qi >= n_q) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int d = j * 8 + 2 * t;
+      if (d < vd)
+        store2<T>(ob + qi * so.s + d, acc[4 * j + 2 * r] / denom, acc[4 * j + 2 * r + 1] / denom,
+                  d + 1 < vd);
+    }
+  }
+  return -1;
+}
+
+// grid (query tiles, hq, batch), 256 threads: hd <= 64·NKC, vd <= 128
+template <typename T, int NKC>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+flash_fwd_kernel_wgmma(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ o, Strides sq, Strides sk,
+                       Strides sv, Strides so, int group, int n_q, int n_k, int hd, int vd,
+                       float scale, int window, int num_meta) {
+  constexpr int NS = wg::kUnits - NKC;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bars[2 * NS + 1];  // full[NS], empty[NS], Q's
+  unsigned char* tiles = smem + ((1024u - (wg::smem_u32(smem) & 1023u)) & 1023u);
+  const uint32_t bu = wg::smem_u32(bars);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= 2 * NS; ++i) wg::bar_init(bu + 8 * i, wg::kWarps);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // the fast split's pass, then, for a block whose result holds an inf or
+  // a NaN, the full split's, in one inlined body (a call out of line
+  // would make ptxas serialize every wgmma of the kernel)
+  uint32_t n0 = 0;
+  for (uint32_t pass = 0;; ++pass) {
+    const int n = flash_block_wgmma<T, NKC>(q, k, v, o, sq, sk, sv, so, group, n_q, n_k, hd, vd,
+                                            scale, window, num_meta, tiles, bu, pass, n0);
+    if (n < 0) break;
+    n0 = (uint32_t)n;
+  }
+}
+
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    Strides sq, Strides sk, Strides sv, Strides so, uint4* vflags, int batch,
@@ -832,7 +1585,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   return cudaGetLastError();
 }
 
-// hd > 128 or vd != hd: flash_fwd_kernel_wide between the same two
+// vd > 128 or hd > 256: flash_fwd_kernel_wide between the same two
 // launches, which run over V's vd columns
 template <typename T>
 cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, Strides sq,
@@ -861,6 +1614,46 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, St
   return cudaGetLastError();
 }
 
+// vd != hd with vd <= 128 and hd <= 256: flash_fwd_kernel_wgmma between the
+// same two launches, over V's vd columns
+template <typename T, int NKC>
+cudaError_t launch_wgmma_nkc(const void* q, const void* k, const void* v, void* o, Strides sq,
+                             Strides sk, Strides sv, Strides so, int batch, int hq, int group,
+                             int n_q, int n_k, int hd, int vd, float scale, int window,
+                             int num_meta, cudaStream_t stream) {
+  const auto kernel = flash_fwd_kernel_wgmma<T, NKC>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         wg::kSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((n_q + kBQ - 1) / kBQ, hq, batch), wg::kThreads, wg::kSmem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, sk, sv, so, group, n_q, n_k, hd, vd,
+      scale, window, num_meta);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, Strides sq,
+                         Strides sk, Strides sv, Strides so, uint4* vflags, int batch, int hq,
+                         int group, int n_q, int n_k, int hd, int vd, float scale, int window,
+                         int num_meta, cudaStream_t stream) {
+  flash_fwd_kernel_vflags<T><<<dim3((n_k + kBK - 1) / kBK, hq / group, batch), kThreads, 0,
+                               stream>>>((const T*)v, sv, vflags, n_k, vd);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int nkc = (hd + kKC - 1) / kKC;
+  auto attention = nkc == 1   ? launch_wgmma_nkc<T, 1>
+                   : nkc == 2 ? launch_wgmma_nkc<T, 2>
+                   : nkc == 3 ? launch_wgmma_nkc<T, 3>
+                              : launch_wgmma_nkc<T, 4>;
+  err = attention(q, k, v, o, sq, sk, sv, so, batch, hq, group, n_q, n_k, hd, vd, scale, window,
+                  num_meta, stream);
+  if (err != cudaSuccess) return err;
+  flash_fwd_kernel_nanfix<T><<<dim3((n_q + kBQ - 1) / kBQ, hq / group, batch), kThreads, 0,
+                               stream>>>(vflags, (T*)o, so, group, n_q, n_k, vd, window,
+                                         num_meta);
+  return cudaGetLastError();
+}
+
 // lse: written at hd = vd <= 128 when not null (the wide kernel has no
 // backward)
 template <typename T>
@@ -870,6 +1663,9 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, floa
                       int window, int num_meta, cudaStream_t stream) {
   if (vd != hd) {
     if (lse != nullptr) return cudaErrorInvalidValue;  // the wrapper raises before
+    if (vd <= kCW && hd <= 4 * kKC)
+      return launch_wgmma<T>(q, k, v, o, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k, hd,
+                             vd, scale, window, num_meta, stream);
     return launch_wide<T>(q, k, v, o, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k, hd,
                           vd, scale, window, num_meta, stream);
   }

@@ -7,14 +7,28 @@ over the keys j a query i sees: j <= i and, when ``window > 0``,
 ``i - j < window`` or ``j < num_meta``. v's head_dim vd may differ from
 q's and k's hd (MLA: q/k 192, v 128); the scale stays ``hd ** -0.5``. f32
 scores and accumulation, the output in q's dtype. The kernel is
-``csrc/flash_attention.cu`` (an online-softmax pass over cp.async
-double-buffered 64-row K/V tiles, both products split-f32 on the TF32
-tensor cores, between two small launches that give the rows a skipped
-key tile's inf or NaN in V reaches their NaN; at head_dim > 128, and
-whenever vd != hd, one block per 128-column slice of O (over vd), each
-over the full scores (over hd); replacing the Pallas
-``repro.kernels.flash_attention.flash_attention``); CPU tensors take
-``ref.flash_attention_ref``. The model calls it through ``ops`` for
+``csrc/flash_attention.cu`` (replacing the Pallas
+``repro.kernels.flash_attention.flash_attention``): three launches, V's
+non-finite flags, the attention, and the NaN that a skipped key tile's
+inf or NaN in V gives the rows that do not see it. Both products are
+split-f32 on the TF32 tensor cores. The attention by shape:
+
+* vd = hd <= 128 (Hymba, DBRX): an online-softmax pass of 4 warps over
+  cp.async double-buffered 64-row K/V tiles on ``mma.sync``;
+* vd != hd with vd <= 128 and hd <= 256 (DeepSeek-V2's MLA at (192,
+  128)): ``flash_fwd_kernel_wgmma``, a 64-row query tile per block on
+  Hopper's warpgroup products (``wgmma``), a producer warpgroup feeding a
+  consumer one. Q stays in shared memory for the block's life; K and V
+  pass through a ring of 32 KB stages (224 KB with Q, one block an SM),
+  each split once into TF32 hi/lo parts as the producer stores it, V
+  transposed (tf32 ``wgmma`` reads only K-major operands) in the key
+  order of P's register fragments; one mbarrier wait a stage. What bounds
+  it: operations (6.9e11 flops at DeepSeek's prefill, 4.2 ms at the
+  split-f32 rate);
+* vd > 128 or hd > 256 (gemma-2b's 256): one block per 128-column slice
+  of O (over vd), each over the full scores (over hd), on ``mma.sync``.
+
+CPU tensors take ``ref.flash_attention_ref``. The model calls it through ``ops`` for
 self-attention over positions 0..S-1 (prefill and the cache-free
 forward), with q, k, v as ``[B, S, H, hd]`` projections viewed as
 ``[B, H, S, hd]``: the kernel reads and writes by strides, so no transpose

@@ -1029,13 +1029,18 @@ def _qkv_vd(gen, b, hq, hkv, s, hd, vd, dtype):
     (2, 4, 1, 300, 96, 128, 96, 16),
     (2, 4, 1, 300, 320, 256, 96, 16),     # two O slices, five chunks
     (1, 3, 1, 150, 192, 128, 64, 8),
+    (2, 4, 4, 1000, 192, 128, 0, 0),      # MLA, ragged S
+    (1, 4, 4, 2047, 192, 128, 0, 0),
+    (2, 8, 2, 600, 192, 128, 0, 0),       # GQA 8/2 at MLA's widths
+    (2, 4, 2, 333, 256, 64, 96, 16),      # hd 256: four chunks of Q·Kᵀ
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_vd_on_card(cuda, b, hq, hkv, s, hd, vd, window,
                                     num_meta, dtype):
-    """vd != hd through the wide kernel (one O slice at vd <= 128), and
-    every shape the MoE/MLA serving path gives the kernel (DBRX's at
-    vd = hd), against the plain version at the hd-256 rows' tolerances;
+    """vd != hd through flash_fwd_kernel_wgmma (vd <= 128, hd <= 256) or
+    the wide kernel ((320, 256)), and every shape the MoE/MLA serving
+    path gives the kernel (DBRX's at vd = hd), against the plain version
+    at the hd-256 rows' tolerances;
     the output is [B, S, H, vd] memory viewed as [B, H, S, vd], as q's
     layout is."""
     q, k, v = _qkv_vd(cuda, b, hq, hkv, s, hd, vd, dtype)
@@ -1069,6 +1074,23 @@ def test_flash_attention_vd_non_finite_on_card(cuda, window, num_meta, dtype):
     want = ref.flash_attention_ref(q, k, v, window=window, num_meta=num_meta)
     tol = 2e-5 if dtype == torch.float32 else 3e-2
     _compare_non_finite(got, want, (tol, tol))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_vd_unaligned_rows_on_card(cuda, dtype):
+    """At (192, 128), q, k and v whose rows start off 16 bytes (views of
+    [B, S, H, d + 1] memory): the kernel's producer takes its element-wise
+    loads where a vector load is not aligned, and matches the plain
+    version."""
+    b, h, s = 2, 3, 300
+    q, k, v = [(torch.randn((b, s, h, d + 1), device="cuda",
+                            generator=cuda) * 0.5).to(dtype)[..., :d]
+               .transpose(1, 2) for d in (192, 192, 128)]
+    assert q.stride(2) % 4 and v.stride(2) % 4
+    got = flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 def test_flash_attention_vd_backward_raises_on_card(cuda):

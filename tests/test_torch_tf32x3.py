@@ -169,21 +169,21 @@ def test_two_product_fed_mix_bf16_against_float64():
     assert float((got.double() - want).abs().max()) < 1e-6
 
 
-def _attention_tile(q, k, v, q0, window, num_meta, tile=64):
+def _attention_tile(q, k, v, q0, window, num_meta, tile=64, mm=mm3):
     """One 64-row query tile as flash_attention.cu computes it, in f32:
-    split products for S = Q·Kᵀ and O += P·V, the online softmax over
-    64-key tiles with the finite -1e30 mask, expf, the 1e-30 floor."""
+    split products (``mm``) for S = Q·Kᵀ and O += P·V, the online softmax
+    over 64-key tiles with the finite -1e30 mask, expf, the 1e-30 floor."""
     rows, hd = q.shape
     scale = hd ** -0.5
     qi = torch.arange(q0, q0 + rows)[:, None]
     m = torch.full((rows, 1), -1e30)
     l = torch.zeros(rows, 1)
-    acc = torch.zeros(rows, hd)
+    acc = torch.zeros(rows, v.shape[1])
     for k0 in range(0, min(k.shape[0], q0 + rows), tile):
         kj = torch.arange(k0, k0 + tile)[None, :]
         if window > 0 and k0 >= num_meta and q0 - (k0 + tile - 1) >= window:
             continue
-        s = mm3(q, k[k0:k0 + tile].T.contiguous())
+        s = mm(q, k[k0:k0 + tile].T.contiguous())
         vis = (kj <= qi) & ((window <= 0) | (qi - kj < window)
                             | (kj < num_meta))
         s = torch.where(vis, s * scale, torch.tensor(-1e30))
@@ -191,28 +191,65 @@ def _attention_tile(q, k, v, q0, window, num_meta, tile=64):
         corr = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
         l = l * corr + p.sum(1, keepdim=True)
-        acc = acc * corr + mm3(p, v[k0:k0 + tile])
+        acc = acc * corr + mm(p, v[k0:k0 + tile])
         m = m_new
     return acc / torch.clamp_min(l, 1e-30)
 
 
-@pytest.mark.parametrize("q0", [1984, 1024])
-def test_split_attention_tile_against_float64(q0):
+def split_trunc(x: torch.Tensor):
+    """The wgmma kernel's fast split (``flash_fwd_kernel_wgmma``): hi the
+    f32 truncated to the bits the tensor cores read, lo = x - hi (exact in
+    f32) as they read it."""
+    hi = tf32_trunc(x)
+    return hi, tf32_trunc(x - hi)
+
+
+def mm3_k8(a: torch.Tensor, b: torch.Tensor):
+    """a @ b as flash_fwd_kernel_wgmma accumulates it: k8 step by k8 step
+    over the inner dimension (hd's chunks in order for Q·Kᵀ, a key tile's
+    keys for P·V), three products a step (lo·hi, hi·lo, hi·hi) into one f32
+    accumulator, on the truncating split."""
+    ah, al = split_trunc(a)
+    bh, bl = split_trunc(b)
+    out = torch.zeros(a.shape[0], b.shape[1])
+    for k0 in range(0, a.shape[1], 8):
+        k = slice(k0, k0 + 8)
+        out = out + al[:, k] @ bh[k]
+        out = out + ah[:, k] @ bl[k]
+        out = out + ah[:, k] @ bh[k]
+    return out
+
+
+@pytest.mark.parametrize("q0,hd,vd,window,meta,wgmma", [
+    pytest.param(1984, 64, 64, 1024, 128, False, id="1984"),
+    pytest.param(1024, 64, 64, 1024, 128, False, id="1024"),
+    # DeepSeek-V2's MLA prefill (q/k 192, v 128, causal) on the wgmma
+    # kernel's split and order
+    pytest.param(1984, 192, 128, 0, 0, True, id="mla-1984"),
+    pytest.param(1024, 192, 128, 0, 0, True, id="mla-1024"),
+    pytest.param(0, 192, 128, 0, 0, True, id="mla-0"),
+    pytest.param(1024, 192, 128, 96, 16, True, id="mla-window"),
+])
+def test_split_attention_tile_against_float64(q0, hd, vd, window, meta,
+                                              wgmma):
     """A Hymba-like head (hd 64, 2048 keys, window 1024, 128 meta tokens):
-    the last query tile and one whose window starts mid-tile. Within 2e-6
-    of float64, a tenth of the card tolerance (2e-5)."""
+    the last query tile and one whose window starts mid-tile; and MLA's
+    (192, 128) as flash_fwd_kernel_wgmma takes it (the truncating split,
+    three products a k8 step). Within 2e-6 of float64, a tenth of the card
+    tolerance (2e-5)."""
     rng = np.random.default_rng(q0)
-    s, hd, window, meta = 2048, 64, 1024, 128
-    q, k, v = [torch.from_numpy((rng.normal(size=(s, hd)) * 0.5)
-                                .astype(np.float32)) for _ in range(3)]
-    got = _attention_tile(q[q0:q0 + 64], k, v, q0, window, meta)
-    qd, kd, vd = q.double(), k.double(), v.double()
+    s = 2048
+    q, k, v = [torch.from_numpy((rng.normal(size=(s, d)) * 0.5)
+                                .astype(np.float32)) for d in (hd, hd, vd)]
+    got = _attention_tile(q[q0:q0 + 64], k, v, q0, window, meta,
+                          mm=mm3_k8 if wgmma else mm3)
+    qd, kd, vd_ = q.double(), k.double(), v.double()
     i = torch.arange(s)[:, None]
     j = torch.arange(s)[None, :]
-    vis = (j <= i) & (((i - j) < window) | (j < meta))
+    vis = (j <= i) & ((window <= 0) | ((i - j) < window) | (j < meta))
     sd = torch.where(vis, qd @ kd.T * hd ** -0.5,
                      torch.tensor(-1e30, dtype=torch.float64))
-    want = (torch.softmax(sd, -1) @ vd)[q0:q0 + 64]
+    want = (torch.softmax(sd, -1) @ vd_)[q0:q0 + 64]
     assert float((got.double() - want).abs().max()) < 2e-6
     # and the card test's comparison: against the plain f32 version
     plain = ref.flash_attention_ref(q[None, None], k[None, None],
