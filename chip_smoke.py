@@ -24,20 +24,23 @@ exits non-zero:
             MLA prefill (192, 128; with inf and NaN too), (24, 16), (64,
             32), (96, 128) and (320, 256); ssd_scan at Hymba's and
             mamba2-130m's; the backward
-            kernels (flash_attention_bwd, ssd_scan_bwd) against the plain
-            version's autograd at Hymba's, qwen2-1.5b's and mamba2-130m's
-            training shapes (flash in f32 and bf16), two backward calls
-            bit for bit, and an inf or NaN in each input (flash: q, k, v,
-            dO; the SSD: x, dt, B, C, dY) giving the plain autograd's inf
-            and NaN;
+            kernels (flash_attention_bwd, flash_attention_bwd_vd,
+            ssd_scan_bwd) against the plain version's autograd at
+            Hymba's, qwen2-1.5b's, DeepSeek-V2's (192, 128) and
+            mamba2-130m's training shapes (flash in f32 and bf16), two
+            backward calls bit for bit, and an inf or NaN in each input
+            (flash: q, k, v, dO; the SSD: x, dt, B, C, dY) giving the
+            plain autograd's inf and NaN; the wgmma forward's row
+            log-sum-exp against the plain one;
   reference the port on the card (kernels) against the port on the CPU
             (plain versions) on a small CNN run with the same draws,
             gossip, gossip_async, the int8/topk wire, fedp2p_topo and a
             faulted fedp2p run (its counters equal) included, a checkpoint
             round trip of the card's final params (bit for bit),
-            reduced Hymba's prefill and greedy decode, reduced Hymba's
-            training (the step-1 loss and every gradient leaf, then 3
-            AdamW steps' losses), and reduced deepseek-v2-236b and
+            reduced Hymba's prefill and greedy decode, reduced Hymba's,
+            deepseek-v2-236b's and dbrx-132b's training (the step-1 loss
+            and every gradient leaf, then 3 AdamW steps' losses; the MoE
+            routing of step 1 equal), and reduced deepseek-v2-236b and
             dbrx-132b's prefill and 8 greedy decode steps (logits, tokens,
             and every MoE layer's routing equal on the two devices);
   main_path ``Simulator.run`` on CNN-FEMNIST at the paper's full width
@@ -65,8 +68,12 @@ exits non-zero:
             with remat on; every backward kernel launched 32 times a
             step), one step's device-time split, and the CLI's
             ``--mode lm --arch mamba2-130m --full --steps 20`` as a
-            subprocess: each run driven with the launch counters set to 0
-            just before it and read just after;
+            subprocess; then the train step of deepseek-v2-236b (2
+            layers, 32 of 160 routed experts) and dbrx-132b (1 layer, 6
+            of 16) at every published width, B 1 x 2048, 3 steps, with a
+            step's split, and ``run_lm_training`` on both reduced: each
+            run driven with the launch counters set to 0 just before it
+            and read just after;
   timing    each kernel's mean time at the main path's shape beside its
             plain version (the FL rows with the L2 evicted before every
             call), its bound (the product kernels' at the
@@ -76,8 +83,9 @@ exits non-zero:
             launches alone and at gemma-2b's hd 256 and DeepSeek-V2's
             MLA (192, 128) beside SDPA,
             fed_mix_matching at S = 2 and 1; the backward kernels at
-            Hymba's training shapes beside the plain autograd and, for
-            flash, SDPA's backward), two rounds' split between local
+            Hymba's, DeepSeek-V2's and DBRX's training shapes beside the
+            plain autograd and, for flash, SDPA's backward), two rounds'
+            split between local
             training, mixing and the wire, and the Hymba prefill's
             device time by kernel.
 
@@ -131,6 +139,10 @@ KERNELS = (
     ("flash_attention_bwd",
      "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
      "src/repro/models/attention.py:138"),
+    # at v's own head_dim (MLA): JAX differentiates its jnp attention_core
+    ("flash_attention_bwd_vd",
+     "src/repro_torch/kernels/csrc/flash_attention_bwd_vd.cu",
+     "src/repro/models/mla.py:104"),
     ("ssd_scan_bwd", "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
      "src/repro/models/ssm.py:104"),
 )
@@ -187,6 +199,14 @@ TRAIN_B, TRAIN_SEQ, TRAIN_STEPS, TRAIN_REMAT_STEPS = 2, 1920, 4, 2
 # the step-1 loss of random weights: ln V plus about sigma^2 / 2 for
 # logits of unit spread; within 1.5 of ln(32001)
 TRAIN_LOSS0_SLACK = 1.5
+# The MoE/MLA training main path: (arch, layers kept, routed experts
+# kept) at every published width, B 1 x 2048 tokens, 3 AdamW steps, remat
+# off. The functional AdamW's update holds 28 B a parameter (the params,
+# the clipped gradients, m and v, and the new m, v and updates; then the
+# new params in the gradients' place), so the routed experts are cut to
+# what fits the card's 80 GB with ~10 GB to spare.
+MOE_TRAIN_RUNS = (("deepseek-v2-236b", 2, 32), ("dbrx-132b", 1, 6))
+MOE_TRAIN_B, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 1, 2048, 3
 
 
 def emit(obj) -> None:
@@ -475,8 +495,8 @@ def phase_kernels(torch, state):
     rows += lm_kernel_cases(torch)
     rows += lm_backward_cases(torch)
     failed += [r for r in rows if r["kernel"] in (
-        "flash_attention", "ssd_scan", "flash_attention_bwd", "ssd_scan_bwd")
-               and not r["ok"]]
+        "flash_attention", "ssd_scan", "flash_attention_bwd",
+        "flash_attention_bwd_vd", "ssd_scan_bwd") and not r["ok"]]
     # the summary line's error: the main path's shape, f32
     for name, _, _ in KERNELS:
         state.setdefault("max_abs_err", {})[name] = max(
@@ -643,6 +663,11 @@ def main_case(row):
     if row["kernel"] == "flash_attention_bwd":
         return (row["B"], row["S"], row["hd"], row["window"],
                 row["dtype"]) == (TRAIN_B, LM_S, LM_HD, LM_WINDOW, "float32")
+    if row["kernel"] == "flash_attention_bwd_vd":
+        return (row["B"], row["S"], row["hd"], row["vd"], row["dtype"]) == (
+            MOE_TRAIN_B, MOE_TRAIN_SEQ, MLA_HD, MLA_VD, "float32")
+    if row.get("lse"):
+        return False
     if row["kernel"] == "ssd_scan_bwd":
         return (row["b"], row["S"], row["h"], row["initial_state"]) == (
             TRAIN_B, LM_S, 50, False)
@@ -824,11 +849,16 @@ def nan_mismatch(torch, got, want):
 
 
 def lm_backward_cases(torch):
-    """The two backward kernels against the plain version's autograd on the
+    """The backward kernels against the plain version's autograd on the
     card: flash at Hymba's training layers (B 2, 25/5 heads of 64, 2048
     positions, window 1024 and a full layer, 128 meta tokens), qwen2-1.5b's
     head_dim 128 (12/2 heads), an MQA layer, a ragged S and head_dim 32
-    (reduced Hymba's), f32 and bf16; the SSD at Hymba's (50 heads of 64,
+    (reduced Hymba's), f32 and bf16; at v's own head_dim
+    (``flash_attention_bwd_vd``) DeepSeek-V2's training shape (B 1, 128
+    heads, 2048 positions, (192, 128)), a ragged S, the reduced config's
+    (24, 16), (192, 128) with a window and meta tokens and (64, 32) with
+    GQA 4/1, f32 and bf16, beside the wgmma forward's log-sum-exp against
+    the plain one; the SSD at Hymba's (50 heads of 64,
     state 16, chunk 128) and mamba2-130m's (24 heads of 64, state 128, chunk
     256, and chunk 128 at the CLI's 128 tokens) shapes and two ragged ones,
     without an initial state (the final state's cotangent unused, as in
@@ -838,7 +868,7 @@ def lm_backward_cases(torch):
     held to the plain autograd's inf and NaN positions."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (
-        _launch, flash_attention, flash_attention_bwd,
+        _launch, flash_attention, flash_attention_bwd, flash_attention_bwd_vd,
     )
     from repro_torch.kernels.ssd_scan import _launch as ssd_launch
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
@@ -850,12 +880,22 @@ def lm_backward_cases(torch):
                     (TRAIN_B, 8, 1, 1024, 64, 0, 0),        # MQA
                     (2, 4, 2, 200, 64, 64, 8),              # ragged S
                     (2, 4, 2, 128, 32, 64, 8)]              # reduced Hymba
-    for i, (b, hq, hkv, s, hd, w, meta) in enumerate(flash_cases):
+    flash_cases = [c + (c[4],) for c in flash_cases]
+    # v's own head_dim: DeepSeek-V2's training shape, a ragged S, reduced
+    # deepseek-v2's (24, 16), a window and meta tokens, GQA
+    flash_cases += [(MOE_TRAIN_B, MLA_H, MLA_H, MOE_TRAIN_SEQ, MLA_HD, 0, 0,
+                     MLA_VD),
+                    (2, 4, 4, 200, MLA_HD, 0, 0, MLA_VD),
+                    (2, 4, 4, 70, 24, 0, 0, 16),
+                    (1, 2, 2, 300, MLA_HD, 96, 16, MLA_VD),
+                    (2, 4, 1, 150, 64, 48, 5, 32)]
+    for i, (b, hq, hkv, s, hd, w, meta, vd) in enumerate(flash_cases):
+        kernel = "flash_attention_bwd" if vd == hd else "flash_attention_bwd_vd"
         for dt in (f32, bf16):
             q, k, v = attention_inputs(torch, b, hq, hkv, s, hd, dt,
-                                       seed=800 + i)
+                                       seed=800 + i, vd=vd)
             g = torch.Generator(device="cuda").manual_seed(850 + i)
-            dout = torch.randn((b, hq, s, hd), device="cuda",
+            dout = torch.randn((b, hq, s, vd), device="cuda",
                                generator=g).to(dt)
             got = flash_grads(torch, flash_attention, q, k, v, dout, w, meta)
             want = flash_grads(torch, ref.flash_attention_ref, q, k, v, dout,
@@ -872,13 +912,37 @@ def lm_backward_cases(torch):
                     want[j].float().abs().max()),
                     "f64_err_kernel": float((got[j].double() - w64[j]).abs().max()),
                     "f64_err_plain": float((want[j].double() - w64[j]).abs().max())}
-            rows.append({"kernel": "flash_attention_bwd", "B": b, "Hq": hq,
-                         "Hkv": hkv, "S": s, "hd": hd, "window": w,
+            rows.append({"kernel": kernel, "B": b, "Hq": hq,
+                         "Hkv": hkv, "S": s, "hd": hd, "vd": vd, "window": w,
                          "num_meta": meta, "dtype": name,
                          "max_abs_err": max(e["max_abs_err"]
                                             for e in errs.values()),
                          "grads": errs, "atol": atol, "rtol": rtol,
                          "ok": ok})
+            del q, k, v, dout, got, want, w64
+    # the wgmma forward's log-sum-exp (what K2 reads) against the plain
+    # one: logsumexp of each row's visible scaled scores, in float64
+    for i, (b, hq, s, hd, vd, w, meta) in enumerate((
+            (MOE_TRAIN_B, MLA_H, MOE_TRAIN_SEQ, MLA_HD, MLA_VD, 0, 0),
+            (2, 4, 70, 24, 16, 0, 0), (1, 2, 300, 160, 64, 96, 16))):
+        for dt in (f32, bf16):
+            q, k, v = attention_inputs(torch, b, hq, hq, s, hd, dt,
+                                       seed=870 + i, vd=vd)
+            lse = torch.empty((b, hq, s), device="cuda")
+            out = _launch(q, k, v, w, meta, lse=lse)
+            same = torch.equal(out, _launch(q, k, v, w, meta, lse=None))
+            scores = torch.einsum("bhid,bhjd->bhij", q.double(),
+                                  k.double()) * hd ** -0.5
+            want = torch.logsumexp(scores.masked_fill(
+                ~flash_mask(torch, s, w, meta), -math.inf), dim=-1)
+            err, atol, rtol, ok = compare(torch, lse, want.float(),
+                                          FLASH_TOL["float32"])
+            rows.append({"kernel": "flash_attention", "lse": True, "B": b,
+                         "Hq": hq, "S": s, "hd": hd, "vd": vd, "window": w,
+                         "num_meta": meta, "dtype": str(dt)[6:],
+                         "max_abs_err": err, "atol": atol, "rtol": rtol,
+                         "output_equals_serving": same, "ok": ok and same})
+            del q, k, v, scores, want
     ssd_cases = [(TRAIN_B, LM_S, 50, 64, 16, 128),         # Hymba
                  (TRAIN_B, LM_S, 24, 64, 128, 256),        # mamba2-130m
                  (8, 128, 24, 64, 128, 128),               # its CLI's batch
@@ -927,6 +991,18 @@ def lm_backward_cases(torch):
     same = all(torch.equal(a, b) for a, b in zip(r1, r2))
     rows.append({"kernel": "flash_attention_bwd", "bitwise_repeat": same,
                  "max_abs_err": 0.0, "ok": same})
+    for hq, hkv in ((16, 16), (16, 4)):
+        q, k, v = attention_inputs(torch, 2, hq, hkv, 1024, MLA_HD,
+                                   f32, seed=992, vd=MLA_VD)
+        lse = torch.empty((2, hq, 1024), device="cuda")
+        out = _launch(q, k, v, 0, 0, lse=lse)
+        dout = torch.randn_like(out)
+        r1, r2 = [flash_attention_bwd_vd(q, k, v, out, dout, lse)
+                  for _ in range(2)]
+        same = all(torch.equal(a, b) for a, b in zip(r1, r2))
+        rows.append({"kernel": "flash_attention_bwd_vd", "Hq": hq,
+                     "Hkv": hkv, "bitwise_repeat": same, "max_abs_err": 0.0,
+                     "ok": same})
     for h, p, n, chunk in ((50, 64, 16, 128), (24, 64, 128, 256)):
         args, _ = ssd_inputs(torch, TRAIN_B, LM_S, h, p, n, 991, False)
         y, _, ws = ssd_launch(*args, chunk, None)
@@ -957,6 +1033,26 @@ def lm_backward_cases(torch):
                                LM_WINDOW, LM_META)
             rows.append(non_finite_row(
                 torch, "flash_attention_bwd", f"{val} in {tensor}{index}",
+                ("dq", "dk", "dv"), got[1:], want[1:],
+                lambda w: FLASH_TOL["float32"]))
+    # K2 at (192, 128), 448 positions, window 96, 16 meta tokens: a q row
+    # (column 150: the third dK slice) whose masked keys lie in tiles the
+    # dK/dV pass skips, keys the dQ pass skips for later rows (one a meta
+    # token at column 170), a v entry, dO rows
+    vd_sites = (("q", (0, 1, 300, 150)), ("k", (0, 2, 100, 9)),
+                ("k", (0, 1, 5, 170)), ("v", (0, 3, 200, 20)),
+                ("dO", (0, 0, 40, 100)), ("dO", (0, 2, 400, 7)))
+    for i, (tensor, index) in enumerate(vd_sites):
+        for val in (math.inf, math.nan):
+            q, k, v = attention_inputs(torch, 1, 4, 4, 448, MLA_HD, f32,
+                                       seed=1000 + i, vd=MLA_VD)
+            dout = torch.randn((1, 4, 448, MLA_VD), device="cuda")
+            {"q": q, "k": k, "v": v, "dO": dout}[tensor][index] = val
+            got = flash_grads(torch, flash_attention, q, k, v, dout, 96, 16)
+            want = flash_grads(torch, ref.flash_attention_ref, q, k, v, dout,
+                               96, 16)
+            rows.append(non_finite_row(
+                torch, "flash_attention_bwd_vd", f"{val} in {tensor}{index}",
                 ("dq", "dk", "dv"), got[1:], want[1:],
                 lambda w: FLASH_TOL["float32"]))
     for h, p, n, chunk in ((50, 64, 16, 128), (24, 64, 128, 256)):
@@ -1114,8 +1210,11 @@ def phase_reference(torch, state):
     rows.append(lm_reference(torch))
     rows.append(lm_train_reference(torch))
     rows += [moe_reference(torch, arch) for arch, _, _ in MOE_RUNS]
+    rows += [moe_train_reference(torch, "deepseek-v2-236b",
+                                 "flash_attention_bwd_vd"),
+             moe_train_reference(torch, "dbrx-132b", "flash_attention_bwd")]
     emit({"phase": "reference", "runs": rows})
-    bad = [r for r in rows[-4:] if not r["ok"]]
+    bad = [r for r in rows[-6:] if not r["ok"]]
     if bad:
         raise AssertionError(f"port on the card disagrees with the CPU "
                              f"reference: {bad}")
@@ -1210,26 +1309,69 @@ def serve_on_both(torch, cfg, buf):
 
 def lm_train_reference(torch):
     """Training on the card against training on the CPU: reduced Hymba (two
-    layers, width 128, GQA kept with num_kv_heads=2) from the same weights
-    (drawn on the CPU), 120 tokens a row (128 positions with the 8 meta
-    tokens, past the window of 64), B 2. Tolerances: the step-1 loss at
-    rtol 1e-5; every gradient leaf at step 1 within 1e-4 of the leaf's
-    largest |value| (the kernels and cuBLAS sum in other orders than the
-    CPU's plain versions); the losses of 3 AdamW steps at rtol 1e-3."""
+    layers, width 128, GQA kept with num_kv_heads=2), 120 tokens a row (128
+    positions with the 8 meta tokens, past the window of 64)
+    (``train_on_both``)."""
     import dataclasses
 
-    from repro_torch.config import TrainConfig
     from repro_torch.configs import get_config
+    cfg = dataclasses.replace(
+        get_config(LM_ARCH).reduced(num_layers=2, max_d_model=128),
+        num_kv_heads=2)
+    row = train_on_both(torch, cfg, 120, ("flash_attention", "ssd_scan",
+                                          "flash_attention_bwd",
+                                          "ssd_scan_bwd"))
+    return {"model": f"{LM_ARCH} reduced (2 layers, width 128), "
+                     "num_kv_heads=2", **row}
+
+
+def moe_train_reference(torch, arch, backward):
+    """Training reduced ``arch`` (``cfg.reduced()``: two layers, width 256,
+    4 experts; deepseek-v2's MLA at (24, 16) through ``backward``,
+    flash_attention_bwd_vd) on the card against the CPU as
+    ``train_on_both`` holds it, 96 tokens a row, and every MoE layer's
+    routing (expert ids and kept assignments) of step 1's forward equal on
+    the two devices."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    orig, routes = moe.dispatch_indices, {"cpu": [], "cuda": []}
+
+    def recording(idx, num_experts, capacity):
+        out = orig(idx, num_experts, capacity)
+        routes[idx.device.type].append((idx.cpu(), out[2].cpu()))
+        return out
+
+    moe.dispatch_indices = recording
+    try:
+        row = train_on_both(torch, get_config(arch).reduced(), 96,
+                            ("flash_attention", backward), routes=routes)
+    finally:
+        moe.dispatch_indices = orig
+    rc, rg = routes["cpu"], routes["cuda"]
+    same = len(rc) == len(rg) > 0 and all(
+        torch.equal(ic, ig) and torch.equal(kc, kg)
+        for (ic, kc), (ig, kg) in zip(rc, rg))
+    return {"model": f"{arch} reduced", **row, "moe_layer_calls": len(rg),
+            "routing_equal_step1": same, "ok": row["ok"] and same}
+
+
+def train_on_both(torch, cfg, seq, kernels, routes=None):
+    """``cfg`` trained on the CPU and on the card from the same weights
+    (drawn on the CPU), B 2 x ``seq`` tokens of the synthetic stream.
+    Tolerances: the step-1 loss at rtol 1e-5; every gradient leaf at step 1
+    within 1e-4 of the leaf's largest |value| (the kernels, cuBLAS and the
+    MoE gathers' index-accumulates sum in other orders than the CPU's
+    plain versions); the losses of 3 AdamW steps at rtol 1e-3; each of
+    ``kernels`` launched on the card. ``routes``: {device: list} that a
+    recording router fills, cut here to step 1's loss and gradient."""
+    from repro_torch.config import TrainConfig
     from repro_torch.data.lm import token_stream_batches
     from repro_torch.kernels.ops import tree_flatten
     from repro_torch.launch.steps import _loss_and_grad, build_train_step
     from repro_torch.models.model import build_model
-    cfg = dataclasses.replace(
-        get_config(LM_ARCH).reduced(num_layers=2, max_d_model=128),
-        num_kv_heads=2)
     model = build_model(cfg)
     params = model.init(0, device="cpu")
-    stream = token_stream_batches(cfg.vocab_size, 2, 120, seed=0)
+    stream = token_stream_batches(cfg.vocab_size, 2, seq, seed=0)
     batches = [{k: torch.from_numpy(v) for k, v in next(stream).items()}
                for _ in range(3)]
     counters = launch_counters()
@@ -1240,14 +1382,16 @@ def lm_train_reference(torch):
         for fn in counters.values():
             fn.launches = 0
         loss, _, grads = _loss_and_grad(model, False)(p, bs[0])
+        step1 = None if routes is None else len(routes[dev])
         step, opt = build_train_step(model, TrainConfig(lr=3e-3, remat=False))
         st, losses = opt.init(p), []
         for b in bs:
             p, st, m = step(p, st, b)
             losses.append(float(m["loss"]))
+        if routes is not None:
+            del routes[dev][step1:]           # step 1's forward only
         out[dev] = (float(loss), [g.cpu() for g in tree_flatten(grads)[0]],
-                    losses, {k: fn.launches for k, fn in counters.items()
-                             if "flash" in k or "ssd" in k})
+                    losses, {k: counters[k].launches for k in kernels})
     (lc, gc, sc, _), (lg, gg, sg, launches) = out["cpu"], out["cuda"]
     leaf_err = [float((a - b).abs().max() / max(1e-30, float(b.abs().max())))
                 for a, b in zip(gg, gc)]
@@ -1255,8 +1399,7 @@ def lm_train_reference(torch):
           and max(leaf_err) <= 1e-4
           and all(abs(a - b) <= 1e-3 * abs(b) for a, b in zip(sg, sc))
           and all(v > 0 for v in launches.values()))
-    return {"model": f"{LM_ARCH} reduced (2 layers, width 128), "
-                     "num_kv_heads=2", "train": "3 AdamW steps, B 2 x 120",
+    return {"train": f"3 AdamW steps, B 2 x {seq}",
             "loss_step1_cpu": lc, "loss_step1_cuda": lg,
             "grad_leaf_max_rel_err": max(leaf_err), "grad_leaves": len(gc),
             "losses_cpu": sc, "losses_cuda": sg,
@@ -1272,7 +1415,7 @@ def launch_counters():
         fed_mix_matching, fed_mix_segment,
     )
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd,
+        flash_attention, flash_attention_bwd, flash_attention_bwd_vd,
     )
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
     return {"fed_mix_segment": fed_mix_segment, "fed_mix": fed_mix,
@@ -1280,6 +1423,7 @@ def launch_counters():
             "fed_aggregate": fed_aggregate,
             "flash_attention": flash_attention, "ssd_scan": ssd_scan,
             "flash_attention_bwd": flash_attention_bwd,
+            "flash_attention_bwd_vd": flash_attention_bwd_vd,
             "ssd_scan_bwd": ssd_scan_bwd}
 
 
@@ -1474,6 +1618,7 @@ def phase_main_path(torch, state):
     lm_rows = lm_main_path(torch, counters, totals, state)
     lm_rows += moe_main_path(torch, counters, totals)
     train_rows = lm_train_main_path(torch, counters, totals, state)
+    train_rows += moe_train_main_path(torch, counters, totals)
     state["launches"] = totals
     emit({"phase": "main_path", "params_per_client": n_params,
           "runs": results, "serving": lm_rows, "training": train_rows,
@@ -1705,13 +1850,143 @@ def lm_train_main_path(torch, counters, totals, state):
     return rows
 
 
+def moe_train_main_path(torch, counters, totals):
+    """The MoE/MLA training path at every published width: the train step
+    that ``run_lm_training`` runs (``build_train_step`` with its own
+    TrainConfig: AdamW, lr 3e-3, warmup cosine, remat off), driven as
+    ``run_lm_training``'s loop drives it on a config the entry point
+    cannot take: ``MOE_TRAIN_RUNS``' depth and routed-expert cuts of
+    deepseek-v2-236b and dbrx-132b, seeded f32 weights drawn on the card,
+    B 1 x 2048 tokens of the synthetic stream, 3 steps, each model freed
+    before the next. A step launches flash_attention once a layer and its
+    backward (deepseek-v2's MLA: flash_attention_bwd_vd at (192, 128);
+    dbrx's GQA 48/8 at 128: flash_attention_bwd) once a layer. Then one
+    step under torch.profiler (``step_split``), and ``run_lm_training`` on
+    each arch's reduced config through the entry point (4 layers, width
+    256; 2 steps of B 2 x 64), every run with the counters set to 0 just
+    before it and read just after."""
+    import dataclasses
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm import token_stream_batches
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.model import build_model
+    rows = []
+    steps, b, seq = MOE_TRAIN_STEPS, MOE_TRAIN_B, MOE_TRAIN_SEQ
+    for arch, layers, experts in MOE_TRAIN_RUNS:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=layers,
+                                  num_experts=experts)
+        bwd = ("flash_attention_bwd_vd" if cfg.use_mla
+               else "flash_attention_bwd")
+        expect = expected(**{"flash_attention": layers * steps,
+                             bwd: layers * steps})
+        model = build_model(cfg)
+        step_fn, opt = build_train_step(model, TrainConfig(
+            lr=3e-3, schedule="warmup_cosine", warmup_steps=10,
+            total_steps=steps, remat=False))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        live = {"p": model.init(0, device="cuda")}
+        live["s"] = opt.init(live["p"])
+        n_params = sum(v.numel() for v in tree_leaves(live["p"]))
+        stream = token_stream_batches(cfg.vocab_size, b, seq, seed=0)
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        losses, step_seconds = [], []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            t_step = time.perf_counter()
+            batch = {k: torch.from_numpy(v).cuda()
+                     for k, v in next(stream).items()}
+            live["p"], live["s"], m = step_fn(live["p"], live["s"], batch)
+            losses.append(float(m["loss"]))
+            step_seconds.append(time.perf_counter() - t_step)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in counters.items()}
+        for k in totals:
+            totals[k] += got[k]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        later = step_seconds[1:]
+        s_step = sum(later) / len(later)
+        ok = (all(math.isfinite(v) for v in losses) and got == expect
+              and abs(losses[0] - math.log(cfg.vocab_size))
+              <= TRAIN_LOSS0_SLACK)
+        row = {"run": f"train_{arch}", "params": n_params,
+               "reduced": {"num_layers": [full.num_layers, layers],
+                           "num_experts": [full.num_experts, experts]},
+               "top_k": cfg.num_experts_per_tok, "remat": False,
+               "batch": b, "tokens": seq, "steps": steps, "losses": losses,
+               "ln_vocab": math.log(cfg.vocab_size),
+               "step_seconds": step_seconds, "seconds_per_step": s_step,
+               "tokens_per_second": b * seq / s_step,
+               "peak_memory_gb": peak, "seconds": secs, "launches": got,
+               "expected_launches": expect, "ok": ok}
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in next(stream).items()}
+        row["device_split"] = step_split(
+            torch, step_fn, live, batch,
+            {"flash_fwd_ms": "flash_fwd_kernel", "flash_bwd_ms": "flash_bwd_"})
+        rows.append(row)
+        del live, batch, m
+        torch.cuda.empty_cache()
+    for arch, _, _ in MOE_TRAIN_RUNS:
+        layers = 4                       # run_lm_training's reduced depth
+        bwd = ("flash_attention_bwd_vd" if get_config(arch).use_mla
+               else "flash_attention_bwd")
+        expect = expected(**{"flash_attention": layers * 2,
+                             bwd: layers * 2})
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        out = train.run_lm_training(arch, steps=2, batch=2, seq_len=64,
+                                    verbose=False)
+        torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in counters.items()}
+        for k in totals:
+            totals[k] += got[k]
+        rows.append({"run": f"run_lm_training({arch!r}, reduced=True, "
+                            "steps=2, batch=2, seq_len=64)",
+                     "losses": out["losses"], "launches": got,
+                     "expected_launches": expect,
+                     "ok": all(math.isfinite(v) for v in out["losses"])
+                     and got == expect})
+    return rows
+
+
+def step_split(torch, step_fn, live, batch, kernels):
+    """One train step (its params and optimizer state in ``live``, updated)
+    under torch.profiler: the summed device time of its kernels, split
+    into the matrix products (cuBLAS), the hand-written kernels
+    (``kernels``: {part: a substring of their names}), the optimizer
+    (every kernel under ``train_step.optimizer``: clipping and AdamW) and
+    the rest (elementwise, norms, the conv, the CE; the MoE routing,
+    dispatch and gathers)."""
+    def run():
+        live["p"], live["s"], _ = step_fn(live["p"], live["s"], batch)
+
+    per, opt_ms = profiled(torch, run, "train_step.optimizer")
+    total = sum(per.values())
+    parts = {"matmul_ms": sum(v for k, v in per.items() if any(
+                 w in k.lower() for w in ("gemm", "cutlass", "xmma",
+                                          "cublas"))),
+             **{part: named_ms(per, name) for part, name in kernels.items()},
+             "optimizer_ms": opt_ms}
+    parts["rest_ms"] = total - sum(parts.values())
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
+    return {"device_ms": total, **parts,
+            "shares": {k[:-3]: v / total for k, v in parts.items()},
+            "top_kernels_ms": [[k[:90], v] for k, v in top]}
+
+
 def train_split(torch):
     """One Hymba-1.5B train step at full width (B 2 x 1920 tokens, remat
-    off, the step warmed up once) under torch.profiler: the summed device
-    time of its kernels, split into the matrix products (cuBLAS), flash
-    forward and backward, SSD forward and backward, the optimizer (every
-    kernel under the step's ``train_step.optimizer`` label: clipping and
-    AdamW) and the rest (elementwise, norms, the conv, the CE)."""
+    off, the step warmed up once) split as ``step_split`` splits it, with
+    flash forward and backward and SSD forward and backward apart."""
     import numpy as np
 
     from repro_torch.config import TrainConfig
@@ -1726,30 +2001,16 @@ def train_split(torch):
     batch = {k: torch.from_numpy(rng.integers(
         0, model.cfg.vocab_size, (TRAIN_B, TRAIN_SEQ))).cuda()
         for k in ("tokens", "labels")}
-
-    def run():
-        live["p"], live["s"], _ = step(live["p"], live["s"], batch)
-
-    run()
+    live["p"], live["s"], _ = step(live["p"], live["s"], batch)
     torch.cuda.synchronize()
-    per, opt_ms = profiled(torch, run, "train_step.optimizer")
-    total = sum(per.values())
-    gemm = sum(v for k, v in per.items()
-               if any(w in k.lower() for w in ("gemm", "cutlass", "xmma",
-                                               "cublas")))
-    parts = {"matmul_ms": gemm,
-             "flash_fwd_ms": named_ms(per, "flash_fwd_kernel"),
-             "flash_bwd_ms": named_ms(per, "flash_bwd_"),
-             "ssd_fwd_ms": named_ms(per, "ssd_scan_kernel"),
-             "ssd_bwd_ms": named_ms(per, "ssd_bwd_kernel"),
-             "optimizer_ms": opt_ms}
-    parts["rest_ms"] = total - sum(parts.values())
-    top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
+    out = step_split(torch, step, live, batch,
+                     {"flash_fwd_ms": "flash_fwd_kernel",
+                      "flash_bwd_ms": "flash_bwd_",
+                      "ssd_fwd_ms": "ssd_scan_kernel",
+                      "ssd_bwd_ms": "ssd_bwd_kernel"})
     del live
     torch.cuda.empty_cache()
-    return {"device_ms": total, **parts,
-            "shares": {k[:-3]: v / total for k, v in parts.items()},
-            "top_kernels_ms": [[k[:90], v] for k, v in top]}
+    return out
 
 
 def tree_leaves(tree):
@@ -1770,8 +2031,10 @@ EVENT_TIMED = "(whole call, CUDA events: torch.profiler recorded no kernel)"
 def profiled(torch, fn, label):
     """Run ``fn`` under torch.profiler: ({kernel name: device ms}, the
     device ms of every kernel under the ``record_function`` events named
-    ``label``). A window with no device kernel is run again, up to
-    ``PROFILE_TRIES`` windows in all; the last one's result is returned."""
+    ``label``). A ``record_function`` also leaves a span on the device's
+    timeline (a user annotation, not a kernel): it is counted in neither.
+    A window with no device kernel is run again, up to ``PROFILE_TRIES``
+    windows in all; the last one's result is returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(1, PROFILE_TRIES + 1):
@@ -1782,7 +2045,9 @@ def profiled(torch, fn, label):
         per = {}
         for evt in prof.key_averages():
             if (evt.device_type == DeviceType.CUDA
-                    and evt.device_time_total > 0):
+                    and evt.device_time_total > 0
+                    and not getattr(evt, "is_user_annotation", False)
+                    and evt.key != label):
                 per[evt.key] = (per.get(evt.key, 0.0)
                                 + evt.device_time_total / 1e3)
         if per:
@@ -1792,7 +2057,8 @@ def profiled(torch, fn, label):
               f"(window {attempt} of {PROFILE_TRIES})", file=sys.stderr,
               flush=True)
     return per, sum(e.device_time_total for e in prof.events()
-                    if e.name == label) / 1e3
+                    if e.name == label
+                    and e.device_type == DeviceType.CPU) / 1e3
 
 
 # Between the timed calls of a kernel whose inputs would otherwise stay
@@ -2174,18 +2440,22 @@ def mla_flash_timing(torch):
 def lm_backward_timing(torch):
     """The backward kernels at Hymba-1.5B's training shapes (B 2, 2048
     positions): flash on a window layer and a full layer, then at
-    qwen2-1.5b's (12/2 heads of 128, full causal, no meta tokens); the SSD
+    qwen2-1.5b's (12/2 heads of 128, full causal, no meta tokens); at v's
+    own head_dim (``flash_attention_bwd_vd``) DeepSeek-V2's training shape
+    (B 1, 128 heads, 2048 positions, (192, 128)), and the flash backward at
+    DBRX's (B 1, GQA 48/8 of 128, 2048); the SSD
     on Hymba's SSM heads, then at mamba2-130m's. Kernel times are the device time of
     every launch of one call (``passes_ms`` by launch); plain times the
     device time of the plain version's autograd backward alone
     (``torch.autograd.grad`` on a kept graph). Flash's operations: the
-    function's five products of 2·hd flops per visible pair and query head
-    (S recomputed, dV, dP, dQ, dK); the two-pass design computes S and dP
-    twice (``design_flops``, ``design_bound_ms``). Its bytes:
-    q, k, v, o, dO and lse read, dq, dk, dv written once. The library
-    yardstick is the backward of ``scaled_dot_product_attention`` with the
-    boolean mask and ``enable_gqa``, TF32 off, and its kernels' names say
-    which backend ran. The SSD's operations, per chunk of q rows: per head
+    function's five products per visible pair and query head, 2·hd flops
+    each for S, dK and dQ and 2·vd for dP and dV; the two-pass design at
+    vd = hd computes S and dP twice, the one at vd != hd once per column
+    slice of dK/dV and of dQ (``design_flops``, ``design_bound_ms``). Its
+    bytes: q, k, v, o, dO and lse read, dq, dk, dv written once. The
+    library yardstick is the backward of ``scaled_dot_product_attention``
+    (vd = hd: the boolean mask and ``enable_gqa``; MLA: ``is_causal``),
+    TF32 off, and its kernels' names say which backend ran. The SSD's operations, per chunk of q rows: per head
     the causal halves of W = dY·xdᵀ and (G∘L)ᵀ·dY (2p a pair each) and
     four products with the [p, n] states (2pn a row each: Σ e^a dY⊗C,
     dY·S_in, B·dstᵀ, xd·dst; da's state terms reuse the second and third
@@ -2197,60 +2467,88 @@ def lm_backward_timing(torch):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import _launch, flash_attention_bwd
+    from repro_torch.kernels.flash_attention import (
+        _bwd_vd_widths, _launch, flash_attention_bwd, flash_attention_bwd_vd,
+    )
     from repro_torch.kernels.ssd_scan import _launch as ssd_launch
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd
     f32 = torch.float32
     b, s = TRAIN_B, LM_S
     rows = []
-    for hq, hkv, hd, window, meta in (
-            (LM_HQ, LM_HKV, LM_HD, LM_WINDOW, LM_META),
-            (LM_HQ, LM_HKV, LM_HD, 0, LM_META),
-            (12, 2, 128, 0, 0)):                         # qwen2-1.5b
-        q, k, v = attention_inputs(torch, b, hq, hkv, s, hd, f32, seed=17)
-        dout = torch.randn((b, hq, s, hd), device="cuda",
+    for b, s, hq, hkv, hd, vd, window, meta in (
+            (b, s, LM_HQ, LM_HKV, LM_HD, LM_HD, LM_WINDOW, LM_META),
+            (b, s, LM_HQ, LM_HKV, LM_HD, LM_HD, 0, LM_META),
+            (b, s, 12, 2, 128, 128, 0, 0),               # qwen2-1.5b
+            (MOE_TRAIN_B, MOE_TRAIN_SEQ, MLA_H, MLA_H, MLA_HD, MLA_VD, 0, 0),
+            (MOE_TRAIN_B, MOE_TRAIN_SEQ, 48, 8, 128, 128, 0, 0)):  # DBRX
+        q, k, v = attention_inputs(torch, b, hq, hkv, s, hd, f32, seed=17,
+                                   vd=vd)
+        dout = torch.randn((b, hq, s, vd), device="cuda",
                            generator=torch.Generator(
                                device="cuda").manual_seed(18))
         lse = torch.empty((b, hq, s), device="cuda")
         out = _launch(q, k, v, window, meta, lse=lse)
         mask = flash_mask(torch, s, window, meta)
         pairs = int(mask.sum())
-        flops = 10 * hd * pairs * b * hq
-        byts = 4 * s * hd * b * (4 * hq + 4 * hkv) + 4 * b * hq * s
-        per = device_ms(torch, lambda: flash_attention_bwd(
+        flops = 2 * (3 * hd + 2 * vd) * pairs * b * hq
+        byts = (4 * s * b * (hq * (2 * hd + 2 * vd) + hkv * (2 * hd + 2 * vd))
+                + 4 * b * hq * s)
+        if vd == hd:
+            name, bwd, pass_names = ("flash_attention_bwd", flash_attention_bwd,
+                                     ("prep", "dkdv", "reduce", "dq"))
+            design = 14 * hd * pairs * b * hq
+        else:
+            name, bwd = "flash_attention_bwd_vd", flash_attention_bwd_vd
+            pass_names = ("vd_prep", "vd_dkdv", "vd_dq") + (
+                ("vd_reduce",) if hq != hkv else ())
+            # per column slice of dK/dV (64) and of dQ (96 at 192, else 64)
+            # the design recomputes S (2·HD) and dP (2·VD) at its padded
+            # widths
+            hp, vp = _bwd_vd_widths(hd, vd)
+            nkv, nq = hp // min(64, hp), hp // (96 if hp % 96 == 0
+                                                else min(64, hp))
+            design = (2 * (nkv + nq) * (hp + vp) + 2 * (2 * hp + vp)) \
+                * pairs * b * hq
+        per = device_ms(torch, lambda: bwd(
             q, k, v, out, dout, lse, window=window, num_meta=meta))
         leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
         o_plain = ref.flash_attention_ref(*leaves, window=window,
                                           num_meta=meta)
         lib = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-        o_lib = F.scaled_dot_product_attention(*lib, attn_mask=mask,
-                                               enable_gqa=True)
+        if vd == hd:
+            o_lib = F.scaled_dot_product_attention(*lib, attn_mask=mask,
+                                                   enable_gqa=True)
+            lib_name = ("scaled_dot_product_attention(enable_gqa=True, "
+                        "boolean mask) backward, TF32 off")
+        else:
+            o_lib = F.scaled_dot_product_attention(*lib, is_causal=True)
+            lib_name = ("scaled_dot_product_attention(is_causal=True) "
+                        "backward, v of 128, TF32 off")
         per_lib = device_ms(torch, lambda: torch.autograd.grad(
             o_lib, lib, dout, retain_graph=True))
         names = " ".join(per_lib).lower()
         rows.append({
-            "name": "flash_attention_bwd", "B": b, "S": s, "Hq": hq,
-            "Hkv": hkv, "hd": hd, "window": window,
+            "name": name, "B": b, "S": s, "Hq": hq,
+            "Hkv": hkv, "hd": hd, "vd": vd, "window": window,
             "num_meta": meta, "visible_pairs_per_head": pairs,
             "ms": named_ms(per, "flash_bwd_"),
             "passes_ms": {w: named_ms(per, f"flash_bwd_{w}_kernel")
-                          for w in ("prep", "dkdv", "reduce", "dq")},
+                          for w in pass_names},
             "plain_ms": sum(device_ms(torch, lambda: torch.autograd.grad(
                 o_plain, leaves, dout, retain_graph=True), reps=5).values()),
             "bytes": byts, "flops": flops,
-            "design_flops": 14 * hd * pairs * b * hq,
+            "design_flops": design,
             **product_bounds(byts, flops),
-            "design_bound_ms": 14 * hd * pairs * b * hq
-            / SPLIT_F32_FLOP_PER_S * 1e3,
+            "design_bound_ms": design / SPLIT_F32_FLOP_PER_S * 1e3,
             "library_ms": sum(per_lib.values()),
-            "library": "scaled_dot_product_attention(enable_gqa=True, "
-                       "boolean mask) backward, TF32 off",
+            "library": lib_name,
             "library_backend": ("efficient attention (cutlass fmha)"
                                 if "fmha" in names or "efficient" in names
                                 else "flash" if "flash" in names
                                 else "math (matmuls and softmax)"),
             "library_kernels": sorted(per_lib, key=lambda k: -per_lib[k])[:4]})
         del leaves, o_plain, lib, o_lib, q, k, v, dout, lse, out
+    b, s = TRAIN_B, LM_S
     for h, p, n, chunk in ((50, 64, 16, 128), (24, 64, 128, 256)):
         args, _ = ssd_inputs(torch, b, s, h, p, n, 19, False)
         y, _, ws = ssd_launch(*args, chunk, None)

@@ -47,10 +47,12 @@ the backward kernels (each call's launches, split by launch):
 
 ``--set ptxas`` prints instead ptxas' registers, stack frame and spills
 for each kernel (and out-of-line block) of the tree's
-``flash_attention.cu`` and ``flash_attention_bwd.cu`` (``nvcc -Xptxas
--v`` for sm_90a with the build's flags; names as mangled, e.g.
-``IfLi128E`` is f32 at head_dim 128, ``IfLi3EE`` f32 with three 64-column
-chunks of hd), with ptxas' warnings; it needs no card.
+``flash_attention.cu``, ``flash_attention_bwd.cu`` and, where the tree
+has it, ``flash_attention_bwd_vd.cu`` (``nvcc -Xptxas -v`` for sm_90a
+with the build's flags; names as mangled, e.g. ``IfLi128E`` is f32 at
+head_dim 128, ``IfLi3EE`` f32 with three 64-column chunks of hd,
+``IfLi192ELi128E`` f32 at (hd, vd) = (192, 128)), with ptxas' warnings;
+it needs no card.
 
 Run it once per tree in turns (parent, change, change, parent) inside one
 call to compare two versions; each run prints one JSON line.
@@ -138,15 +140,19 @@ def deepseek_prefill_ms(torch, cs, layers=3, prompt=2048):
 
 
 def ptxas_usage(backend):
-    """ptxas' resource report for the tree's flash_attention.cu and
-    flash_attention_bwd.cu: {file: {function: {"registers", "stack",
+    """ptxas' resource report for the tree's flash_attention.cu,
+    flash_attention_bwd.cu and flash_attention_bwd_vd.cu (where the tree
+    has it): {file: {function: {"registers", "stack",
     "spill_stores", "spill_loads"}}} for the kernels and their out-of-line
     full-split blocks, and under "warnings" ptxas' notes on them (a wgmma
     serialized, for one)."""
     import re
     import tempfile
     report = {}
-    for src in ("flash_attention", "flash_attention_bwd"):
+    for src in ("flash_attention", "flash_attention_bwd",
+                "flash_attention_bwd_vd"):
+        if not (backend.CSRC / f"{src}.cu").exists():
+            continue
         with tempfile.TemporaryDirectory() as tmp:
             proc = subprocess.run(
                 [backend.nvcc(), *[f for f in backend.NVCC_FLAGS
@@ -252,8 +258,8 @@ def main() -> int:
                     default="forward",
                     help="forward (default): the forward kernels, prefill "
                          "and fedp2p; backward: the backward kernels and a "
-                         "train step; ptxas: flash_attention's and "
-                         "flash_attention_bwd's registers and spills")
+                         "train step; ptxas: the flash kernels' registers "
+                         "and spills")
     args = ap.parse_args()
     if args.set == "ptxas":
         sys.path.insert(0, str(Path(args.src).resolve()))

@@ -16,11 +16,12 @@
 // _flash_kernel: grid (B, Hq, Sq/bq, Tk/bk), the kv axis sequential, the
 // running (m, l, acc) in VMEM scratch). With num_meta = 0 it is that
 // kernel's contract; num_meta > 0 adds the meta-token term. When a
-// gradient is needed (hd <= 128) it also writes each row's log-sum-exp of
-// the scaled scores, m + log l, for flash_attention_bwd.cu, in an
-// instantiation of its own: serving runs the code it ran before (a
-// run-time test of a null lse in the shared code cost the hd-64 forward
-// 1-2 % in an A/B call on the card).
+// gradient is needed (hd = vd <= 128, or vd != hd on the wgmma kernel
+// below at hd <= 192) it also writes each row's log-sum-exp of the scaled
+// scores, m + log l, for flash_attention_bwd.cu (flash_attention_bwd_vd.cu
+// at vd != hd), in an instantiation of its own: serving runs the code it
+// ran before (a run-time test of a null lse in the shared code cost the
+// hd-64 forward 1-2 % in an A/B call on the card).
 //
 // What bounds it on the card: operations. At Hymba's prefill (B 4, Hq 25,
 // S 2048, hd 64, window 1024, 128 meta tokens) the visible part of the
@@ -1194,10 +1195,10 @@ __device__ __forceinline__ void put_vt(unsigned char* hi, unsigned char* lo,
 // or a NaN is not stored, and it returns the ring's stage count, from
 // which pass 1, on the full split, goes on; else -1. n0: the ring's stage
 // count at the start (Q's barrier completes once a pass).
-template <typename T, int NKC>
+template <typename T, int NKC, bool kLse>
 __device__ __forceinline__ int flash_block_wgmma(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
-    Strides sq, Strides sk, Strides sv, Strides so, int group, int n_q, int n_k, int hd, int vd,
+    float* __restrict__ lse, Strides sq, Strides sk, Strides sv, Strides so, int group, int n_q, int n_k, int hd, int vd,
     float scale, int window, int num_meta, unsigned char* smem, uint32_t bars, uint32_t pass,
     uint32_t n0) {
   using namespace wg;
@@ -1519,6 +1520,12 @@ __device__ __forceinline__ int flash_block_wgmma(
     const int qi = q0 + 16 * w + g + 8 * r;
     if (qi >= n_q) continue;
     const float denom = fmaxf(l[r], 1e-30f);
+    // the row log-sum-exp, as flash_block writes it (NaN for a NaN
+    // softmax row)
+    if constexpr (kLse) {
+      if (t == 0)
+        lse[((long long)b * gridDim.y + h) * n_q + qi] = l[r] != l[r] ? l[r] : m[r] + logf(denom);
+    }
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const int d = j * 8 + 2 * t;
@@ -1530,11 +1537,14 @@ __device__ __forceinline__ int flash_block_wgmma(
   return -1;
 }
 
-// grid (query tiles, hq, batch), 256 threads: hd <= 64·NKC, vd <= 128
-template <typename T, int NKC>
+// grid (query tiles, hq, batch), 256 threads: hd <= 64·NKC, vd <= 128;
+// kLse: also the rows' log-sum-exp (a separate instantiation, so that
+// serving runs the code it ran without it)
+template <typename T, int NKC, bool kLse>
 __global__ void __launch_bounds__(wg::kThreads, 1)
 flash_fwd_kernel_wgmma(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, Strides sq, Strides sk,
+                       const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                       Strides sq, Strides sk,
                        Strides sv, Strides so, int group, int n_q, int n_k, int hd, int vd,
                        float scale, int window, int num_meta) {
   constexpr int NS = wg::kUnits - NKC;
@@ -1552,8 +1562,9 @@ flash_fwd_kernel_wgmma(const T* __restrict__ q, const T* __restrict__ k,
   // would make ptxas serialize every wgmma of the kernel)
   uint32_t n0 = 0;
   for (uint32_t pass = 0;; ++pass) {
-    const int n = flash_block_wgmma<T, NKC>(q, k, v, o, sq, sk, sv, so, group, n_q, n_k, hd, vd,
-                                            scale, window, num_meta, tiles, bu, pass, n0);
+    const int n = flash_block_wgmma<T, NKC, kLse>(q, k, v, o, lse, sq, sk, sv, so, group, n_q,
+                                                  n_k, hd, vd, scale, window, num_meta, tiles, bu,
+                                                  pass, n0);
     if (n < 0) break;
     n0 = (uint32_t)n;
   }
@@ -1617,23 +1628,29 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, St
 // vd != hd with vd <= 128 and hd <= 256: flash_fwd_kernel_wgmma between the
 // same two launches, over V's vd columns
 template <typename T, int NKC>
-cudaError_t launch_wgmma_nkc(const void* q, const void* k, const void* v, void* o, Strides sq,
-                             Strides sk, Strides sv, Strides so, int batch, int hq, int group,
-                             int n_q, int n_k, int hd, int vd, float scale, int window,
-                             int num_meta, cudaStream_t stream) {
-  const auto kernel = flash_fwd_kernel_wgmma<T, NKC>;
+cudaError_t launch_wgmma_nkc(const void* q, const void* k, const void* v, void* o, float* lse,
+                             Strides sq, Strides sk, Strides sv, Strides so, int batch, int hq,
+                             int group, int n_q, int n_k, int hd, int vd, float scale,
+                             int window, int num_meta, cudaStream_t stream) {
+  // the log-sum-exp at hd <= 192, the backward's range (an instantiation
+  // adds a minute to the build)
+  constexpr bool kLseOk = NKC <= 3;
+  if (!kLseOk && lse != nullptr) return cudaErrorInvalidValue;  // the wrapper raises before
+  const auto kernel = lse != nullptr ? flash_fwd_kernel_wgmma<T, NKC, kLseOk>
+                                     : flash_fwd_kernel_wgmma<T, NKC, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          wg::kSmem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3((n_q + kBQ - 1) / kBQ, hq, batch), wg::kThreads, wg::kSmem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, sk, sv, so, group, n_q, n_k, hd, vd,
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, sq, sk, sv, so, group, n_q, n_k, hd, vd,
       scale, window, num_meta);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, Strides sq,
-                         Strides sk, Strides sv, Strides so, uint4* vflags, int batch, int hq,
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
+                         Strides sq, Strides sk, Strides sv, Strides so, uint4* vflags, int batch,
+                         int hq,
                          int group, int n_q, int n_k, int hd, int vd, float scale, int window,
                          int num_meta, cudaStream_t stream) {
   flash_fwd_kernel_vflags<T><<<dim3((n_k + kBK - 1) / kBK, hq / group, batch), kThreads, 0,
@@ -1645,8 +1662,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, S
                    : nkc == 2 ? launch_wgmma_nkc<T, 2>
                    : nkc == 3 ? launch_wgmma_nkc<T, 3>
                               : launch_wgmma_nkc<T, 4>;
-  err = attention(q, k, v, o, sq, sk, sv, so, batch, hq, group, n_q, n_k, hd, vd, scale, window,
-                  num_meta, stream);
+  err = attention(q, k, v, o, lse, sq, sk, sv, so, batch, hq, group, n_q, n_k, hd, vd, scale,
+                  window, num_meta, stream);
   if (err != cudaSuccess) return err;
   flash_fwd_kernel_nanfix<T><<<dim3((n_q + kBQ - 1) / kBQ, hq / group, batch), kThreads, 0,
                                stream>>>(vflags, (T*)o, so, group, n_q, n_k, vd, window,
@@ -1654,18 +1671,18 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, S
   return cudaGetLastError();
 }
 
-// lse: written at hd = vd <= 128 when not null (the wide kernel has no
-// backward)
+// lse: written when not null at hd = vd <= 128 and on the wgmma kernel (the
+// wide kernel has no backward)
 template <typename T>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, float* lse,
                       Strides sq, Strides sk, Strides sv, Strides so, uint4* vflags, int batch,
                       int hq, int group, int n_q, int n_k, int hd, int vd, float scale,
                       int window, int num_meta, cudaStream_t stream) {
   if (vd != hd) {
-    if (lse != nullptr) return cudaErrorInvalidValue;  // the wrapper raises before
     if (vd <= kCW && hd <= 4 * kKC)
-      return launch_wgmma<T>(q, k, v, o, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k, hd,
-                             vd, scale, window, num_meta, stream);
+      return launch_wgmma<T>(q, k, v, o, lse, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k,
+                             hd, vd, scale, window, num_meta, stream);
+    if (lse != nullptr) return cudaErrorInvalidValue;  // the wrapper raises before
     return launch_wide<T>(q, k, v, o, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k, hd,
                           vd, scale, window, num_meta, stream);
   }
@@ -1692,8 +1709,9 @@ extern "C" {
 // head, row) element strides, the head_dim stride 1; f32 when is_bf16 ==
 // 0, else bf16; any hd, vd >= 1. vflags: a workspace of batch x hq/group x
 // ceil(n_k / 64) x ceil(vd / 128) entries of 16 bytes, 16-byte aligned.
-// lse: null, or (hd = vd <= 128) [batch, hq, n_q] f32 that receives each
-// row's log-sum-exp of the scaled scores for the backward.
+// lse: null, or (hd = vd <= 128, or vd != hd with vd <= 128 and hd <= 192)
+// [batch, hq, n_q] f32 that receives each row's log-sum-exp of the scaled
+// scores for the backward.
 // Three launches on `stream` (V's flags, the attention, the NaN of skipped
 // tiles); returns the first failure of cudaGetLastError().
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o,

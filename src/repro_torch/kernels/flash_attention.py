@@ -36,13 +36,21 @@ is copied.
 
 Gradients. On CUDA tensors that need one, the call goes through
 ``_FlashAttention`` (a ``torch.autograd.Function``): the forward kernel
-also writes each row's log-sum-exp, and the backward is
-``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``, the
-FlashAttention-2 backward that the JAX package's custom VJP writes in
-jnp, its products split-f32 on the tensor cores; f32 or bf16, head_dim
-<= 128, vd = hd, Sq <= T). Without a gradient the
-kernel launches as it does for serving: no log-sum-exp is written. CPU
-tensors differentiate through ``ref.flash_attention_ref``.
+also writes each row's log-sum-exp, and the backward is a hand-written
+kernel, f32 or bf16, Sq <= T:
+
+* vd = hd <= 128: ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``,
+  the FlashAttention-2 backward that the JAX package's custom VJP writes
+  in jnp, its products split-f32 on the tensor cores);
+* vd != hd with vd <= 128 and hd <= 192 (MLA; the forward is then
+  ``flash_fwd_kernel_wgmma``): ``flash_attention_bwd_vd``
+  (``csrc/flash_attention_bwd_vd.cu``, the same two passes with the
+  accumulated gradients' columns split over blocks).
+
+Other shapes raise (hd = vd > 128 waits for ROADMAP item 14b.3's K2 at
+256). Without a gradient the kernel launches as it does for serving: no
+log-sum-exp is written. CPU tensors differentiate through
+``ref.flash_attention_ref``.
 """
 from __future__ import annotations
 
@@ -53,8 +61,10 @@ import torch
 from repro_torch.kernels import backend, ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
-#: the backward kernel's largest head_dim
+#: the backward kernels' largest head_dim at vd = hd, and q's/k's and v's
+#: at vd != hd
 MAX_BWD_HEAD_DIM = 128
+MAX_BWD_VD_DIMS = (192, 128)
 #: columns of V's non-finite mask per 16-byte entry, and the kernel's O
 #: slice at head_dim > 128
 _SLICE = 128
@@ -100,7 +110,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     NaN in V at a key masked for a row makes that row NaN in its column,
     as 0 · inf does in the reference. When a gradient is needed the call
     is differentiable through ``flash_attention_bwd`` (head_dim <= 128,
-    vd = hd, Sq <= T; other shapes raise)."""
+    vd = hd) or ``flash_attention_bwd_vd`` (vd != hd, vd <= 128, hd <=
+    192), Sq <= T; other shapes raise."""
     window, num_meta = int(window), int(num_meta)
     if _check(q, k, v, window, num_meta) == "cpu":
         return ref.flash_attention_ref(q, k, v, window=window,
@@ -176,26 +187,42 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse,
-                                         window=ctx.window,
-                                         num_meta=ctx.num_meta)
+        bwd = (flash_attention_bwd if v.shape[3] == q.shape[3]
+               else flash_attention_bwd_vd)
+        dq, dk, dv = bwd(q, k, v, out, dout, lse, window=ctx.window,
+                         num_meta=ctx.num_meta)
         return dq, dk, dv, None, None
 
 
 def _check_bwd(q, k, v) -> None:
     name = "flash_attention_bwd"
-    if v.shape[3] != q.shape[3]:
+    hd, vd = q.shape[3], v.shape[3]
+    if vd == hd and hd > MAX_BWD_HEAD_DIM:
         raise ValueError(
-            f"{name}: v's head_dim {v.shape[3]} != q's and k's "
-            f"{q.shape[3]}: the backward kernel takes one head_dim (the "
-            "MLA families' training waits for ROADMAP item 14b.2b)")
-    if q.shape[3] > MAX_BWD_HEAD_DIM:
+            f"{name}: head_dim {hd} > {MAX_BWD_HEAD_DIM}: the backward "
+            "kernels take head_dim <= 128 at vd = hd (hd = vd = 256 waits "
+            "for ROADMAP item 14b.3)")
+    if vd != hd and (hd > MAX_BWD_VD_DIMS[0] or vd > MAX_BWD_VD_DIMS[1]):
         raise ValueError(
-            f"{name}: head_dim {q.shape[3]} > {MAX_BWD_HEAD_DIM}: the "
-            "backward kernel takes head_dim <= 128 (ROADMAP section 2b)")
+            f"{name}: q/k head_dim {hd} and v's {vd}: the backward kernel "
+            f"at vd != hd takes hd <= {MAX_BWD_VD_DIMS[0]} and vd <= "
+            f"{MAX_BWD_VD_DIMS[1]}")
     if q.shape[2] > k.shape[2]:
         raise ValueError(f"{name}: Sq={q.shape[2]} > T={k.shape[2]}: every "
                          "query row must see a key")
+
+
+def _check_bwd_args(name, q, k, v, out, dout, lse):
+    """The backward's device rule and dO's shape; -> dO with head_dim
+    stride 1."""
+    _check_bwd(q, k, v)
+    if backend.kernel_device(name, q, k, v, out, dout, lse) != "cuda":
+        raise ValueError(f"{name}: runs on CUDA tensors only (CPU tensors "
+                         "differentiate through ref.flash_attention_ref)")
+    if dout.dtype != q.dtype or dout.shape != out.shape:
+        raise ValueError(f"{name}: dout {tuple(dout.shape)} {dout.dtype} "
+                         f"must match out {tuple(out.shape)} {q.dtype}")
+    return dout if dout.stride(3) == 1 else dout.contiguous()
 
 
 
@@ -210,15 +237,10 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, window: int = 0,
     Non-finite values come out where the plain version's autograd gives
     them."""
     name = "flash_attention_bwd"
-    _check_bwd(q, k, v)
-    if backend.kernel_device(name, q, k, v, out, dout, lse) != "cuda":
-        raise ValueError(f"{name}: runs on CUDA tensors only (CPU tensors "
-                         "differentiate through ref.flash_attention_ref)")
-    if dout.dtype != q.dtype or dout.shape != q.shape:
-        raise ValueError(f"{name}: dout {tuple(dout.shape)} {dout.dtype} "
-                         f"must match q {tuple(q.shape)} {q.dtype}")
-    if dout.stride(3) != 1:
-        dout = dout.contiguous()
+    if v.shape[3] != q.shape[3]:
+        raise ValueError(f"{name}: v's head_dim {v.shape[3]} != q's "
+                         f"{q.shape[3]}: flash_attention_bwd_vd takes it")
+    dout = _check_bwd_args(name, q, k, v, out, dout, lse)
     b, hq, sq, hd = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -260,3 +282,72 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, window: int = 0,
 
 #: backward kernel launches since the last reset
 flash_attention_bwd.launches = 0
+
+
+def flash_attention_bwd_vd(q, k, v, out, dout, lse, *, window: int = 0,
+                           num_meta: int = 0):
+    """The backward kernel at v's own head_dim (vd != hd, vd <= 128, hd <=
+    192; MLA's (192, 128)): (dq like q, dk like k, dv like v) from the
+    forward's inputs, its output ``out`` [B, Hq, Sq, vd], the output's
+    cotangent ``dout`` and the rows' log-sum-exp ``lse`` [B, Hq, Sq] f32,
+    all on the card (``flash_attention_bwd_vd.launches`` counts its calls:
+    one call is three launches at GQA group 1, four above it: delta with
+    the tiles' masks of non-finite columns, dK and dV by column slice,
+    their sum over the group, dQ by column slice). Non-finite values come
+    out where the plain version's autograd gives them."""
+    name = "flash_attention_bwd_vd"
+    if v.shape[3] == q.shape[3]:
+        raise ValueError(f"{name}: vd = hd = {q.shape[3]}: "
+                         "flash_attention_bwd takes it")
+    dout = _check_bwd_args(name, q, k, v, out, dout, lse)
+    b, hq, sq, hd = q.shape
+    hkv, tk, vd = k.shape[1], k.shape[2], v.shape[3]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or tk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    f32, dev = torch.float32, q.device
+    delta = torch.empty((b, hq, sq), dtype=f32, device=dev)
+    # per 64-row tile, 8 words: the bitmask of the columns (up to 256)
+    # where q, dO (query heads) and k (kv heads) hold an inf or NaN
+    qflags = torch.empty((b, hq, -(-sq // 64), 8), dtype=torch.int32,
+                         device=dev)
+    dflags = torch.empty_like(qflags)
+    kflags = torch.empty((b, hkv, -(-tk // 64), 8), dtype=torch.int32,
+                         device=dev)
+    # above GQA group 1, dK and dV of each query head at the kernel's
+    # padded widths (summed over the group by its third launch)
+    dkp = dvp = None
+    if hq != hkv:
+        hd_pad, vd_pad = _bwd_vd_widths(hd, vd)
+        dkp = torch.empty((b, hq, tk, hd_pad), dtype=f32, device=dev)
+        dvp = torch.empty((b, hq, tk, vd_pad), dtype=f32, device=dev)
+    lse = lse.contiguous()
+    strides = (ctypes.c_longlong * 24)(
+        *[s for t in (q, k, v, out, dout, dq, dk, dv) for s in t.stride()[:3]])
+    launch = backend.c_function(
+        name, "flash_attention_bwd_vd_launch",
+        [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+           ctypes.c_void_p])
+    rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), delta.data_ptr(),
+                None if dkp is None else dkp.data_ptr(),
+                None if dvp is None else dvp.data_ptr(), qflags.data_ptr(),
+                dflags.data_ptr(), kflags.data_ptr(), strides, b, hq,
+                hq // hkv, sq, tk, hd, vd, hd ** -0.5, int(window),
+                int(num_meta), int(q.dtype == torch.bfloat16),
+                backend.stream_ptr(dev))
+    backend.raise_on_error(name, rc)
+    flash_attention_bwd_vd.launches += 1
+    return dq, dk, dv
+
+
+#: backward kernel launches at vd != hd since the last reset
+flash_attention_bwd_vd.launches = 0
+
+
+def _bwd_vd_widths(hd, vd):
+    """(HD, VD): the widths ``csrc/flash_attention_bwd_vd.cu``'s
+    ``launch_dims`` runs (hd, vd) at."""
+    return (32, 32) if max(hd, vd) <= 32 else (192, 128)

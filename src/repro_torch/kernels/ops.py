@@ -63,18 +63,21 @@ def tree_flatten(tree):
 
 
 def tree_unflatten(treedef, leaves):
-    it = iter(leaves)
+    # a module-level recursion, not a closure that calls itself: such a
+    # closure is a reference cycle, and through its iterator it kept every
+    # leaf alive until Python's cyclic collector ran (at full width, whole
+    # param-sized trees past a train step)
+    return _unflatten(treedef, iter(leaves))
 
-    def build(d):
-        if d is None:
-            return next(it)
-        kind, keys, defs = d
-        if kind == "dict":
-            return {k: build(sub) for k, sub in zip(keys, defs)}
-        vals = [build(sub) for sub in defs]
-        return tuple(vals) if kind == "tuple" else vals
 
-    return build(treedef)
+def _unflatten(d, it):
+    if d is None:
+        return next(it)
+    kind, keys, defs = d
+    if kind == "dict":
+        return {k: _unflatten(sub, it) for k, sub in zip(keys, defs)}
+    vals = [_unflatten(sub, it) for sub in defs]
+    return tuple(vals) if kind == "tuple" else vals
 
 
 # ---------------------------------------------------------------------------

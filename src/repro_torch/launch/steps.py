@@ -44,6 +44,13 @@ def build_train_step(model: Model, train_cfg: TrainConfig):
     microbatch i (the JAX package's split), whose f32 gradients are summed
     in order and divided by mb. The clipping and the optimizer update run
     under the profiler label ``train_step.optimizer``."""
+    # torch.utils.checkpoint (the chunked CE's, and remat's) imports
+    # torch._dynamo on its first call, and that import leaves reference
+    # cycles through the frames it runs under: a first step would keep its
+    # params, gradients and updates alive until Python's cyclic collector
+    # ran (one to three param-sized copies more at the next update's peak,
+    # 8.6 GB each at 2.15 B params). Imported here, outside any step.
+    import torch._dynamo  # noqa: F401
     opt = make_optimizer(train_cfg)
     loss_and_grad = _loss_and_grad(model, train_cfg.remat)
     mb = max(1, train_cfg.microbatches)
@@ -74,6 +81,9 @@ def build_train_step(model: Model, train_cfg: TrainConfig):
         with torch.no_grad(), record_function("train_step.optimizer"):
             grads, gnorm = clip_by_global_norm(grads, train_cfg.grad_clip)
             updates, new_opt = opt.update(grads, opt_state, params)
+            # the gradients are not read again: freed before the new
+            # params are made (4 B a param off the update's peak)
+            del grads
             new_params = apply_updates(params, updates)
         return new_params, new_opt, {"loss": loss, "grad_norm": gnorm,
                                      **metrics}

@@ -41,12 +41,6 @@ def run_lm_training(arch: str, *, steps: int = 100, batch: int = 8,
     the read of its loss (a synchronization on the card). Checkpoints of
     {"params": ...} at every ``steps // 2`` steps when ``ckpt_dir``."""
     cfg = get_config(arch)
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"training {arch!r} (the MoE and MLA families) is not ported to "
-            "repro_torch yet (ROADMAP item 14b.2b): it waits for "
-            "flash_attention_bwd at v's own head_dim and the aux loss "
-            "through autograd; the port serves it")
     if reduced:
         cfg = cfg.reduced(num_layers=4, max_d_model=256)
     dev = backend.resolve_device(device)

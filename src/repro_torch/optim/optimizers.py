@@ -123,14 +123,18 @@ def adamw(lr: Schedule, beta1: float = 0.9, beta2: float = 0.95,
         bc2 = 1.0 - beta2 ** stepf
 
         def upd(g, m, v, p):
+            # the JAX package's operations in its order; each result is
+            # written over a temporary of this leaf's own where it can be,
+            # so that at most two leaf-sized temporaries live beside the
+            # outputs (at full width the largest leaf is GBs)
             g = g.to(torch.float32)
-            m_new = beta1 * m + (1 - beta1) * g
-            v_new = beta2 * v + (1 - beta2) * torch.square(g)
-            mh = m_new / bc1
-            vh = v_new / bc2
-            delta = -eta * (mh / (torch.sqrt(vh) + eps)
-                            + weight_decay * p.to(torch.float32))
-            return delta, m_new, v_new
+            m_new = (beta1 * m).add_((1 - beta1) * g)
+            v_new = (beta2 * v).add_(torch.square(g).mul_(1 - beta2))
+            denom = (v_new / bc2).sqrt_().add_(eps)
+            delta = (m_new / bc1).div_(denom)
+            del denom
+            delta.add_(weight_decay * p.to(torch.float32))
+            return delta.mul_(-eta), m_new, v_new
 
         updates, m, v = _map(upd, grads, state["m"], state["v"], params)
         return updates, {"step": step, "m": m, "v": v}

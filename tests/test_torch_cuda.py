@@ -71,9 +71,17 @@ skip themselves elsewhere. Run them on the card with
   DeepSeek-V2's prefill (192, 128) of 512 and 2048 tokens, DBRX's GQA
   48/8 prefill at 128, the reduced config's (24, 16), and
   (64, 32), (96, 128), (320, 256) with GQA, a window and meta tokens, f32
-  and bf16, and with inf and NaN at (192, 128); its backward raises
-  (item 14b.2b); reduced deepseek-v2 and dbrx route every MoE layer alike
-  on the card and on the CPU.
+  and bf16, and with inf and NaN at (192, 128); the wgmma forward's
+  log-sum-exp against the plain one; its backward
+  ``flash_attention_bwd_vd`` (dq, dk, dv) against the plain version's
+  autograd at DeepSeek-V2's training shape (128 heads, 2048 positions,
+  (192, 128)), the reduced config's (24, 16), (64, 32) and (96, 128)
+  with GQA, a window and meta tokens and a ragged S, f32 and bf16, with
+  an inf or NaN in each input, and two calls bit for bit; the backward
+  raises past hd 192 or vd 128 (no fallback); reduced
+  deepseek-v2 and dbrx route every MoE layer alike on the card and on
+  the CPU, and train on the card as on the CPU (the step-1 loss and
+  every gradient leaf, 3 AdamW steps, the routing).
 """
 import pytest
 import torch
@@ -87,7 +95,7 @@ from repro_torch.kernels.fed_mix_sparse import (
     check_cluster_ids, fed_mix_matching, fed_mix_segment,
 )
 from repro_torch.kernels.flash_attention import (
-    flash_attention, flash_attention_bwd,
+    flash_attention, flash_attention_bwd, flash_attention_bwd_vd,
 )
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
 from repro_torch.protocols.async_gossip import matching_perm_stack
@@ -1094,13 +1102,176 @@ def test_flash_attention_vd_unaligned_rows_on_card(cuda, dtype):
 
 
 def test_flash_attention_vd_backward_raises_on_card(cuda):
-    """Training at v's own head_dim waits for item 14b.2b: a CUDA tensor
-    that needs a gradient raises (no fallback); serving runs."""
-    q, k, v = _qkv_vd(cuda, 1, 2, 2, 64, 24, 16, torch.float32)
-    with pytest.raises(ValueError, match="14b.2b"):
+    """A CUDA tensor that needs a gradient at a shape no backward kernel
+    takes ((320, 256): vd > 128) raises (no fallback); serving runs. A
+    dO of another shape than the output raises."""
+    q, k, v = _qkv_vd(cuda, 1, 2, 2, 64, 320, 256, torch.float32)
+    with pytest.raises(ValueError, match="vd <= 128"):
         flash_attention(q.requires_grad_(True), k, v)
     with torch.no_grad():
-        assert flash_attention(q, k, v).shape == (1, 2, 64, 16)
+        assert flash_attention(q, k, v).shape == (1, 2, 64, 256)
+    from repro_torch.kernels.flash_attention import _launch
+    q, k, v = _qkv_vd(cuda, 1, 2, 2, 64, 24, 16, torch.float32)
+    lse = torch.empty((1, 2, 64), device="cuda")
+    out = _launch(q, k, v, 0, 0, lse=lse)
+    with pytest.raises(ValueError, match="must match out"):
+        flash_attention_bwd_vd(q, k, v, out, out[..., :8], lse)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,hd,vd,window,num_meta", [
+    (1, 4, 4, 448, 192, 128, 0, 0),     # DeepSeek-V2's (192, 128)
+    (2, 4, 4, 70, 24, 16, 0, 0),        # reduced deepseek-v2's MLA
+    (1, 2, 2, 200, 160, 64, 96, 16),    # window + meta
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_vd_lse_on_card(cuda, b, hq, hkv, s, hd, vd, window,
+                                        num_meta, dtype):
+    """flash_fwd_kernel_wgmma with the log-sum-exp: each row's
+    logsumexp of its visible scaled scores, as the plain version computes
+    it, and the output bits of the serving launch."""
+    from repro_torch.kernels.flash_attention import _launch
+    q, k, v = _qkv_vd(cuda, b, hq, hkv, s, hd, vd, dtype)
+    lse = torch.empty((b, hq, s), device="cuda")
+    out = _launch(q, k, v, window, num_meta, lse=lse)
+    served = _launch(q, k, v, window, num_meta, lse=None)
+    assert torch.equal(out, served)
+    scores = torch.einsum("bhid,bhjd->bhij", q.float(), k.float()) * hd ** -0.5
+    i = torch.arange(s, device="cuda")
+    vis = (i[None] <= i[:, None]) & ((window <= 0) | (i[:, None] - i[None] < window)
+                                     | (i[None] < num_meta))
+    want = torch.logsumexp(scores.masked_fill(~vis, -float("inf")), dim=-1)
+    torch.testing.assert_close(lse, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,hd,vd,window,num_meta", [
+    (1, 128, 128, 2048, 192, 128, 0, 0),  # DeepSeek-V2's training shape
+    (2, 4, 4, 200, 192, 128, 0, 0),       # ragged S
+    (2, 4, 4, 70, 24, 16, 0, 0),          # reduced deepseek-v2's MLA
+    (1, 2, 2, 300, 192, 128, 96, 16),     # window + meta
+    (2, 4, 1, 150, 64, 32, 48, 5),        # GQA 4/1, window + meta
+    (2, 4, 2, 150, 96, 128, 48, 5),       # vd > hd
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_vd_matches_plain_autograd_on_card(
+        cuda, b, hq, hkv, s, hd, vd, window, num_meta, dtype):
+    """vd != hd: the call goes through flash_attention_bwd_vd (its counter
+    rises, flash_attention_bwd's does not), dq, dk and dv at the
+    forward's tolerances."""
+    q, k, v = _qkv_vd(cuda, b, hq, hkv, s, hd, vd, dtype)
+    dout = torch.randn((b, hq, s, vd), device="cuda", generator=cuda).to(dtype)
+    before = (flash_attention_bwd_vd.launches, flash_attention_bwd.launches)
+    got = _flash_grads(flash_attention, q, k, v, dout, window, num_meta)
+    assert (flash_attention_bwd_vd.launches,
+            flash_attention_bwd.launches) == (before[0] + 1, before[1])
+    want = _flash_grads(ref.flash_attention_ref, q, k, v, dout, window,
+                        num_meta)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol,
+                                   msg=name)
+
+
+# (tensor, (b, head, row, column)) at (192, 128), 448 positions, window
+# 96, 16 meta tokens: a q row whose masked keys lie in tiles the dK pass
+# skips (column 150: the third dK slice), keys the dQ pass skips for later
+# rows (one a meta token, one at column 170), a v entry, and dO rows
+FLASH_BWD_VD_SITES = [("q", (0, 1, 300, 150)), ("k", (0, 2, 100, 9)),
+                      ("k", (0, 1, 5, 170)), ("v", (0, 3, 200, 20)),
+                      ("dO", (0, 0, 40, 100)), ("dO", (0, 2, 400, 7))]
+
+
+@pytest.mark.parametrize("tensor,index", FLASH_BWD_VD_SITES,
+                         ids=[f"{t}_row{i[2]}" for t, i in FLASH_BWD_VD_SITES])
+@pytest.mark.parametrize("val", [float("inf"), -float("inf"), float("nan")],
+                         ids=["inf", "-inf", "nan"])
+def test_flash_attention_bwd_vd_non_finite_on_card(cuda, tensor, index, val):
+    """An inf or NaN in q, k, v or dO at (192, 128): dq, dk and dv hold NaN
+    and inf where the plain version's autograd does, the finite values at
+    the f32 tolerance."""
+    b, hq, hkv, s, window, meta = 1, 4, 4, 448, 96, 16
+    q, k, v = _qkv_vd(cuda, b, hq, hkv, s, 192, 128, torch.float32)
+    dout = torch.randn((b, hq, s, 128), device="cuda", generator=cuda)
+    {"q": q, "k": k, "v": v, "dO": dout}[tensor][index] = val
+    got = _flash_grads(flash_attention, q, k, v, dout, window, meta)
+    want = _flash_grads(ref.flash_attention_ref, q, k, v, dout, window, meta)
+    assert not all(bool(torch.isfinite(w).all()) for w in want)
+    for g, w in zip(got, want):
+        if bool(torch.isfinite(w).all()):
+            torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5)
+        else:
+            _compare_non_finite(g, w, (2e-5, 2e-5))
+
+
+def test_flash_attention_bwd_vd_repeats_bit_for_bit_on_card(cuda):
+    from repro_torch.kernels.flash_attention import _launch
+    for hq, hkv in ((8, 8), (8, 2)):
+        q, k, v = _qkv_vd(cuda, 2, hq, hkv, 640, 192, 128, torch.float32)
+        lse = torch.empty((2, hq, 640), device="cuda")
+        out = _launch(q, k, v, 0, 0, lse=lse)
+        dout = torch.randn_like(out)
+        r1, r2 = [flash_attention_bwd_vd(q, k, v, out, dout, lse)
+                  for _ in range(2)]
+        assert all(torch.equal(a, b) for a, b in zip(r1, r2))
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "dbrx-132b"])
+def test_moe_training_matches_cpu_on_card(cuda, arch, monkeypatch):
+    """Reduced MoE models from the same weights (drawn on the CPU) train
+    on the card as on the CPU: the step-1 loss at rtol 1e-5, every
+    gradient leaf within 1e-4 of its largest |value| (the gathers'
+    index-accumulates and the kernels sum in other orders), the losses of
+    3 AdamW steps at rtol 1e-3 and the step-1 routing equal; the
+    attention's backward kernel ran."""
+    import numpy as np
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import tree_flatten
+    from repro_torch.launch.steps import _loss_and_grad, build_train_step
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    rng = np.random.default_rng(0)
+    batches = [{k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 96)))
+                for k in ("tokens", "labels")} for _ in range(3)]
+    orig, routes = moe.dispatch_indices, []
+
+    def recording(idx, num_experts, capacity):
+        out = orig(idx, num_experts, capacity)
+        routes.append((idx.cpu(), out[2].cpu()))
+        return out
+
+    monkeypatch.setattr(moe, "dispatch_indices", recording)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _tree_to(params, dev)
+        bs = [{k: v.to(dev) for k, v in b.items()} for b in batches]
+        before = (flash_attention_bwd_vd.launches, flash_attention_bwd.launches)
+        routes.clear()
+        loss, _, grads = _loss_and_grad(model, False)(p, bs[0])
+        step1 = list(routes)
+        step, opt = build_train_step(model, TrainConfig(lr=3e-3, remat=False))
+        st, losses = opt.init(p), []
+        for b in bs:
+            p, st, m = step(p, st, b)
+            losses.append(float(m["loss"]))
+        ran = (flash_attention_bwd_vd.launches - before[0]
+               + flash_attention_bwd.launches - before[1])
+        out[dev] = (float(loss), [g.cpu() for g in tree_flatten(grads)[0]],
+                    losses, step1, ran)
+    (lc, gc, sc, rc, _), (lg, gg, sg, rg, ran) = out["cpu"], out["cuda"]
+    assert ran == 4 * cfg.num_layers
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for a, b in zip(gg, gc):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+    np.testing.assert_allclose(sg, sc, rtol=1e-3)
+    assert len(rc) == len(rg) > 0
+    for (ic, kc), (ig, kg) in zip(rc, rg):
+        assert torch.equal(ic, ig) and torch.equal(kc, kg)
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-236b", "dbrx-132b"])

@@ -12,8 +12,9 @@ across with ``lm_params_from_jax``):
   then ``ops.flash_attention``) and its absorbed decode against the latent
   cache, with ``q_lora_rank`` 0 (``reduced()``) and > 0 (DeepSeek-V2's
   own form), at rtol 1e-4: outputs and the latent and rotated-key caches;
-* the wrapper's guards: k and v of one [B, Hkv, T], and a backward that
-  raises for vd != hd, naming item 14b.2b;
+* the wrapper's guards: k and v of one [B, Hkv, T]; at vd != hd the
+  backward is ``flash_attention_bwd_vd`` (``flash_attention_bwd`` refuses
+  it), which runs on CUDA tensors only and raises past hd 256 or vd 128;
 * the output's allocation: q's layout at every vd (``torch.empty_like``'s
   at vd = hd for a dense q).
 """
@@ -35,7 +36,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import lm_params_from_jax  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    _empty_out, flash_attention_bwd,
+    _empty_out, flash_attention_bwd, flash_attention_bwd_vd,
 )
 from repro_torch.models import mla  # noqa: E402
 
@@ -82,8 +83,13 @@ def test_flash_attention_guards_vd():
         ops.flash_attention(q, k, v[..., :0])
     lse = torch.zeros((1, 2, 8))
     out = torch.zeros((1, 2, 8, 16))
-    with pytest.raises(ValueError, match="14b.2b"):
+    with pytest.raises(ValueError, match="flash_attention_bwd_vd takes it"):
         flash_attention_bwd(q, k, v, out, out, lse)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        flash_attention_bwd_vd(q, k, v, out, out, lse)
+    q, k, v = [torch.zeros((1, 2, 8, d)) for d in (320, 320, 256)]
+    with pytest.raises(ValueError, match="vd <= 128"):
+        flash_attention_bwd_vd(q, k, v, out, out, lse)
 
 
 def _layout(t):

@@ -7,16 +7,22 @@
   (value and gradient) against JAX at rtol 1e-5;
 * ``Model.loss_fn`` and every gradient leaf against
   ``jax.value_and_grad(model.loss_fn)`` for reduced hymba-1.5b (GQA kept
-  with num_kv_heads=2), qwen2-1.5b and mamba2-130m on the weights carried
-  by ``lm_params_from_jax``: the loss at rtol 1e-5, each gradient leaf
-  within 1e-4 of its largest |value| (a few layers of f32 products summed
-  in other orders);
+  with num_kv_heads=2), qwen2-1.5b, mamba2-130m and the MoE family,
+  deepseek-v2-236b (MLA at q/k 24, v 16, a leading dense layer, shared
+  experts) and dbrx-132b, on the weights carried by
+  ``lm_params_from_jax``: the loss, its CE and the routers' aux loss at
+  rtol 1e-5, each gradient leaf within 1e-4 of its largest |value| (a few
+  layers of f32 products summed in other orders);
 * 3 steps of ``build_train_step`` against JAX's jitted step: losses at
   rtol 1e-4, and the parameters within a tolerance scaled by the learning
   rate. AdamW's first update is lr · g / (|g| + eps) per entry, so an entry
   whose gradient is near zero (and of either sign under a change of
   summation order) moves by up to 2·lr in one version against the other;
-* remat and 2 microbatches give the plain step's loss and gradients;
+* a train step leaves no tensor to the cyclic collector;
+* remat and 2 microbatches give the plain step's loss and gradients; for
+  the MoE family, remat (whose per-layer checkpoint recomputes the
+  routing) routes every token as the plain step does and gives its loss
+  and gradients;
 * ``run_lm_training`` and the CLI on the CPU: the loss falls, checkpoints
   are written, ``--mode federated`` raises.
 """
@@ -49,6 +55,7 @@ from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.optim import optimizers, schedules  # noqa: E402
 
 ARCHS = ["hymba-1.5b", "qwen2-1.5b", "mamba2-130m"]
+MOE_ARCHS = ["deepseek-v2-236b", "dbrx-132b"]
 B, S = 2, 72           # Hymba: 80 positions with its 8 meta tokens, past the window of 64
 
 
@@ -226,7 +233,7 @@ def _torch_batch(data):
     return {k: torch.from_numpy(v) for k, v in data.items()}
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_loss_fn_and_grads_match_jax(arch):
     jmodel, model, jparams, params, data = _setup(arch)
     (jloss, jmet), jgrads = jax.value_and_grad(jmodel.loss_fn, has_aux=True)(
@@ -236,6 +243,10 @@ def test_loss_fn_and_grads_match_jax(arch):
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
     np.testing.assert_allclose(float(metrics["ce"]), float(jmet["ce"]),
                                rtol=1e-5)
+    np.testing.assert_allclose(float(metrics["aux"]), float(jmet["aux"]),
+                               rtol=1e-5)
+    if arch in MOE_ARCHS:
+        assert float(metrics["aux"]) > 0
     _leaves_close(grads, jgrads, 1e-4, f"{arch} grads")
 
 
@@ -251,7 +262,7 @@ def test_loss_fn_with_a_mask_matches_jax():
     _leaves_close(grads, jgrads, 1e-4, "masked grads")
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "mamba2-130m"] + MOE_ARCHS)
 def test_train_steps_match_jax(arch):
     jcfg, _ = _configs(arch)
     jmodel, model, jparams, params, _ = _setup(arch, seed=2)
@@ -297,6 +308,65 @@ def test_remat_and_microbatches_match_the_plain_step(arch):
                                float(outs[1][2]["grad_norm"]), rtol=1e-4)
     for a, b in zip(tree_flatten(outs[2][0])[0], tree_flatten(outs[1][0])[0]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=2e-3)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_remat_matches_the_plain_step(arch, monkeypatch):
+    """With remat each layer's checkpoint runs the router again in the
+    backward: the recomputed routing (expert ids and kept assignments) is
+    the forward's, and the loss and gradients are the plain step's."""
+    from repro_torch.models import moe
+    _, model, _, params, data = _setup(arch, seed=4)
+    batch = _torch_batch(data)
+    orig, routes = moe.dispatch_indices, []
+
+    def recording(idx, num_experts, capacity):
+        out = orig(idx, num_experts, capacity)
+        routes.append((idx.clone(), out[2].clone()))
+        return out
+
+    monkeypatch.setattr(moe, "dispatch_indices", recording)
+    loss, _, grads = _loss_and_grad(model, False)(params, batch)
+    plain, routes[:] = list(routes), []
+    loss_r, _, grads_r = _loss_and_grad(model, True)(params, batch)
+    # the forward's layers in order, then the backward's recomputation in
+    # reverse layer order
+    n = len(plain)
+    assert n > 0 and len(routes) == 2 * n
+    for (idx, keep), (p_idx, p_keep) in zip(routes, plain + plain[::-1]):
+        assert torch.equal(idx, p_idx) and torch.equal(keep, p_keep)
+    np.testing.assert_allclose(float(loss_r), float(loss), rtol=1e-6)
+    for a, b in zip(tree_flatten(grads_r)[0], tree_flatten(grads)[0]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-6 * float(b.abs().max()))
+
+
+def test_train_step_leaves_no_cyclic_garbage():
+    """Two train steps (the first included) free their gradients, updates
+    and old state by reference counting alone: no tensor is left for
+    Python's cyclic collector, which at full width held param-sized trees
+    past a step."""
+    import gc
+    cfg = get_config("dbrx-132b").reduced()
+    model = build_model(cfg)
+    step, opt = build_train_step(model, TrainConfig(lr=1e-3, remat=False))
+    params = model.init(0, device="cpu")
+    state = opt.init(params)
+    batch = _torch_batch(next(token_stream_batches(cfg.vocab_size, 1, 32,
+                                                   seed=0)))
+    gc.collect()
+    gc.disable()
+    try:
+        for _ in range(2):
+            params, state, _ = step(params, state, batch)
+        gc.set_debug(gc.DEBUG_SAVEALL)
+        gc.collect()
+        leaked = [o for o in gc.garbage if torch.is_tensor(o)]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()
+    assert leaked == []
 
 
 def test_run_lm_training_on_the_cpu(tmp_path):
