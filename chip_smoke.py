@@ -116,6 +116,10 @@ TF32_FLOP_PER_S = 495e12
 # the timing rows report the bound at the CUDA cores' f32 rate beside it
 # (bound_ffma_ms).
 SPLIT_F32_FLOP_PER_S = TF32_FLOP_PER_S / 3
+# A product on bf16 operands: the card's dense bf16 tensor-core rate,
+# whatever the kernel issues (flash_attention_bwd_vd reads bf16 through
+# its TF32 products).
+BF16_FLOP_PER_S = 989e12
 
 # (name, source, TPU kernel it replaces), in the summary line's order
 KERNELS = (
@@ -2134,12 +2138,19 @@ def bound(byts, flops, flop_rate=F32_FLOP_PER_S):
                                        else "operations")
 
 
-def product_bounds(byts, flops):
-    """A matrix-product kernel's bound at the split-f32 tensor-core rate,
-    and at the CUDA cores' f32 rate beside it."""
-    b_ms, b_by = bound(byts, flops, SPLIT_F32_FLOP_PER_S)
-    return {"bound_ms": b_ms, "bound_by": b_by,
-            "bound_rate": "split-f32 (3xTF32, 165 TFLOP/s)",
+def product_rate(bf16=False):
+    """(FLOP/s, its name): the card's peak for a product's operand type."""
+    return ((BF16_FLOP_PER_S, "bf16 tensor cores (989 TFLOP/s)") if bf16
+            else (SPLIT_F32_FLOP_PER_S, "split-f32 (3xTF32, 165 TFLOP/s)"))
+
+
+def product_bounds(byts, flops, bf16=False):
+    """A matrix-product kernel's bound at the tensor cores' rate for its
+    operands (split-f32 for f32, bf16's own for bf16), and at the CUDA
+    cores' f32 rate beside it."""
+    rate, rate_name = product_rate(bf16)
+    b_ms, b_by = bound(byts, flops, rate)
+    return {"bound_ms": b_ms, "bound_by": b_by, "bound_rate": rate_name,
             "bound_ffma_ms": bound(byts, flops)[0]}
 
 
@@ -2442,17 +2453,19 @@ def lm_backward_timing(torch):
     positions): flash on a window layer and a full layer, then at
     qwen2-1.5b's (12/2 heads of 128, full causal, no meta tokens); at v's
     own head_dim (``flash_attention_bwd_vd``) DeepSeek-V2's training shape
-    (B 1, 128 heads, 2048 positions, (192, 128)), and the flash backward at
-    DBRX's (B 1, GQA 48/8 of 128, 2048); the SSD
+    (B 1, 128 heads, 2048 positions, (192, 128)) in f32 and in bf16, and
+    the flash backward at DBRX's (B 1, GQA 48/8 of 128, 2048); the SSD
     on Hymba's SSM heads, then at mamba2-130m's. Kernel times are the device time of
     every launch of one call (``passes_ms`` by launch); plain times the
     device time of the plain version's autograd backward alone
     (``torch.autograd.grad`` on a kept graph). Flash's operations: the
     function's five products per visible pair and query head, 2·hd flops
-    each for S, dK and dQ and 2·vd for dP and dV; the two-pass design at
-    vd = hd computes S and dP twice, the one at vd != hd once per column
-    slice of dK/dV and of dQ (``design_flops``, ``design_bound_ms``). Its
-    bytes: q, k, v, o, dO and lse read, dq, dk, dv written once. The
+    each for S, dK and dQ and 2·vd for dP and dV; both two-pass designs
+    compute S and dP twice, once a pass, the one at vd != hd at its padded
+    widths (``design_flops``, ``design_bound_ms``). Its bytes: q, k, v, o,
+    dO (in the row's dtype) and lse read, dq, dk, dv written once. Its
+    bounds take the tensor cores' peak for the row's operands: split-f32
+    for f32, the bf16 rate for bf16 (``bound_rate``). The
     library yardstick is the backward of ``scaled_dot_product_attention``
     (vd = hd: the boolean mask and ``enable_gqa``; MLA: ``is_causal``),
     TF32 off, and its kernels' names say which backend ran. The SSD's operations, per chunk of q rows: per head
@@ -2475,23 +2488,26 @@ def lm_backward_timing(torch):
     f32 = torch.float32
     b, s = TRAIN_B, LM_S
     rows = []
-    for b, s, hq, hkv, hd, vd, window, meta in (
-            (b, s, LM_HQ, LM_HKV, LM_HD, LM_HD, LM_WINDOW, LM_META),
-            (b, s, LM_HQ, LM_HKV, LM_HD, LM_HD, 0, LM_META),
-            (b, s, 12, 2, 128, 128, 0, 0),               # qwen2-1.5b
-            (MOE_TRAIN_B, MOE_TRAIN_SEQ, MLA_H, MLA_H, MLA_HD, MLA_VD, 0, 0),
-            (MOE_TRAIN_B, MOE_TRAIN_SEQ, 48, 8, 128, 128, 0, 0)):  # DBRX
-        q, k, v = attention_inputs(torch, b, hq, hkv, s, hd, f32, seed=17,
+    mla = (MOE_TRAIN_B, MOE_TRAIN_SEQ, MLA_H, MLA_H, MLA_HD, MLA_VD, 0, 0)
+    for b, s, hq, hkv, hd, vd, window, meta, dt in (
+            (b, s, LM_HQ, LM_HKV, LM_HD, LM_HD, LM_WINDOW, LM_META, f32),
+            (b, s, LM_HQ, LM_HKV, LM_HD, LM_HD, 0, LM_META, f32),
+            (b, s, 12, 2, 128, 128, 0, 0, f32),               # qwen2-1.5b
+            mla + (f32,), mla + (torch.bfloat16,),
+            (MOE_TRAIN_B, MOE_TRAIN_SEQ, 48, 8, 128, 128, 0, 0, f32)):  # DBRX
+        bf16 = dt == torch.bfloat16
+        q, k, v = attention_inputs(torch, b, hq, hkv, s, hd, dt, seed=17,
                                    vd=vd)
         dout = torch.randn((b, hq, s, vd), device="cuda",
                            generator=torch.Generator(
-                               device="cuda").manual_seed(18))
+                               device="cuda").manual_seed(18)).to(dt)
         lse = torch.empty((b, hq, s), device="cuda")
         out = _launch(q, k, v, window, meta, lse=lse)
         mask = flash_mask(torch, s, window, meta)
         pairs = int(mask.sum())
         flops = 2 * (3 * hd + 2 * vd) * pairs * b * hq
-        byts = (4 * s * b * (hq * (2 * hd + 2 * vd) + hkv * (2 * hd + 2 * vd))
+        byts = (dt.itemsize * s * b * (hq * (2 * hd + 2 * vd)
+                                       + hkv * (2 * hd + 2 * vd))
                 + 4 * b * hq * s)
         if vd == hd:
             name, bwd, pass_names = ("flash_attention_bwd", flash_attention_bwd,
@@ -2499,16 +2515,12 @@ def lm_backward_timing(torch):
             design = 14 * hd * pairs * b * hq
         else:
             name, bwd = "flash_attention_bwd_vd", flash_attention_bwd_vd
-            pass_names = ("vd_prep", "vd_dkdv", "vd_dq") + (
+            pass_names = ("vd_prep", "vd_dkdv_wgmma", "vd_dq_wgmma") + (
                 ("vd_reduce",) if hq != hkv else ())
-            # per column slice of dK/dV (64) and of dQ (96 at 192, else 64)
-            # the design recomputes S (2·HD) and dP (2·VD) at its padded
-            # widths
+            # at the padded widths: the dK/dV pass S, dP, dK and dV, the dQ
+            # pass S, dP and dQ (2,304 flops a pair at (192, 128))
             hp, vp = _bwd_vd_widths(hd, vd)
-            nkv, nq = hp // min(64, hp), hp // (96 if hp % 96 == 0
-                                                else min(64, hp))
-            design = (2 * (nkv + nq) * (hp + vp) + 2 * (2 * hp + vp)) \
-                * pairs * b * hq
+            design = (8 * hp + 6 * vp) * pairs * b * hq
         per = device_ms(torch, lambda: bwd(
             q, k, v, out, dout, lse, window=window, num_meta=meta))
         leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
@@ -2523,12 +2535,12 @@ def lm_backward_timing(torch):
         else:
             o_lib = F.scaled_dot_product_attention(*lib, is_causal=True)
             lib_name = ("scaled_dot_product_attention(is_causal=True) "
-                        "backward, v of 128, TF32 off")
+                        f"backward, v of 128, {str(dt)[6:]}, TF32 off")
         per_lib = device_ms(torch, lambda: torch.autograd.grad(
             o_lib, lib, dout, retain_graph=True))
         names = " ".join(per_lib).lower()
         rows.append({
-            "name": name, "B": b, "S": s, "Hq": hq,
+            "name": name, "dtype": str(dt)[6:], "B": b, "S": s, "Hq": hq,
             "Hkv": hkv, "hd": hd, "vd": vd, "window": window,
             "num_meta": meta, "visible_pairs_per_head": pairs,
             "ms": named_ms(per, "flash_bwd_"),
@@ -2538,8 +2550,8 @@ def lm_backward_timing(torch):
                 o_plain, leaves, dout, retain_graph=True), reps=5).values()),
             "bytes": byts, "flops": flops,
             "design_flops": design,
-            **product_bounds(byts, flops),
-            "design_bound_ms": design / SPLIT_F32_FLOP_PER_S * 1e3,
+            **product_bounds(byts, flops, bf16),
+            "design_bound_ms": bound(byts, design, product_rate(bf16)[0])[0],
             "library_ms": sum(per_lib.values()),
             "library": lib_name,
             "library_backend": ("efficient attention (cutlass fmha)"

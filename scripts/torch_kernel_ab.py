@@ -38,6 +38,12 @@ the backward kernels (each call's launches, split by launch):
   heads of 64, 2048 positions, 128 meta tokens), window 1024 and a full
   layer, and at qwen2-1.5b's (B 2, 12/2 heads of 128, 2048 positions,
   causal), from the forward's output and log-sum-exp;
+* ``flash_attention_bwd_vd`` at DeepSeek-V2's training shape (B 1, 128
+  heads, 2048 positions, q/k 192, v 128, causal), f32 and bf16, each
+  beside the backward of ``scaled_dot_product_attention(is_causal=True)``
+  on the same inputs (TF32 off), its launches by name (the tree's own:
+  ``dkdv_wgmma`` and ``dq_wgmma`` since the wgmma design, ``dkdv`` and
+  ``dq`` before it);
 * ``ssd_scan_bwd`` at Hymba's SSM heads (50 x 64, state 16, chunk 128)
   and mamba2-130m's (24 x 64, state 128, chunk 256), B 2 x 2048;
 * the Hymba-1.5B serving prefill above (its kernels are the forward's);
@@ -51,8 +57,8 @@ for each kernel (and out-of-line block) of the tree's
 has it, ``flash_attention_bwd_vd.cu`` (``nvcc -Xptxas -v`` for sm_90a
 with the build's flags; names as mangled, e.g. ``IfLi128E`` is f32 at
 head_dim 128, ``IfLi3EE`` f32 with three 64-column chunks of hd,
-``IfLi192ELi128E`` f32 at (hd, vd) = (192, 128)), with ptxas' warnings;
-it needs no card.
+``IfLi192ELi128E`` f32 at (hd, vd) = (192, 128)), with ptxas' warnings (a wgmma serialized, a spill);
+it needs no card (``IfLi192ELi128E`` is f32 at (hd, vd) = (192, 128)).
 
 Run it once per tree in turns (parent, change, change, parent) inside one
 call to compare two versions; each run prints one JSON line.
@@ -174,7 +180,7 @@ def ptxas_usage(backend):
             if m:
                 name = m.group(1)
                 continue
-            if name is None or not re.search(r"flash|dkdv|dq_block", name):
+            if name is None or not re.search(r"flash|dkdv|dq_", name):
                 continue
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads", line)
@@ -189,18 +195,50 @@ def ptxas_usage(backend):
     return report
 
 
+def mla_backward_rows(torch, cs, launch, bwd_vd):
+    """K2 (``flash_attention_bwd_vd``) and SDPA's backward at DeepSeek-V2's
+    training shape, f32 and bf16: {key: {"ms", "kernels_ms"}}."""
+    import torch.nn.functional as F
+    rows = {}
+    b, h, s = cs.MOE_TRAIN_B, cs.MLA_H, cs.MOE_TRAIN_SEQ
+    for dt in (torch.float32, torch.bfloat16):
+        tag = str(dt)[6:]
+        q, k, v = cs.attention_inputs(torch, b, h, h, s, cs.MLA_HD, dt,
+                                      seed=17, vd=cs.MLA_VD)
+        dout = torch.randn((b, h, s, cs.MLA_VD), device="cuda",
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(18)).to(dt)
+        lse = torch.empty((b, h, s), device="cuda")
+        out = launch(q, k, v, 0, 0, lse=lse)
+        per = cs.device_ms(torch, lambda: bwd_vd(q, k, v, out, dout, lse))
+        rows[f"flash_bwd_vd_mla_{tag}"] = {
+            "ms": sum(per.values()),
+            "kernels_ms": {k_[:60]: v_ for k_, v_ in per.items()}}
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        o_lib = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        per = cs.device_ms(torch, lambda: torch.autograd.grad(
+            o_lib, leaves, dout, retain_graph=True))
+        rows[f"sdpa_bwd_mla_{tag}"] = {
+            "ms": sum(per.values()),
+            "kernels_ms": {k_[:60]: v_ for k_, v_ in per.items()}}
+        del q, k, v, dout, lse, out, leaves, o_lib
+    return rows
+
+
 def backward_rows(torch, cs):
     """The backward kernels' device times and one train step's."""
     import time
 
     from repro_torch.config import TrainConfig
     from repro_torch.kernels import backend
-    from repro_torch.kernels.flash_attention import _launch, flash_attention_bwd
+    from repro_torch.kernels.flash_attention import (
+        _launch, flash_attention_bwd, flash_attention_bwd_vd,
+    )
     from repro_torch.kernels.ssd_scan import _launch as ssd_launch
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd
     from repro_torch.launch import train
     backend.build(("flash_attention", "ssd_scan", "flash_attention_bwd",
-                   "ssd_scan_bwd"))
+                   "flash_attention_bwd_vd", "ssd_scan_bwd"))
     rows = {}
     b, s = cs.TRAIN_B, cs.LM_S
     for key, hq, hkv, hd, window, meta in (
@@ -220,6 +258,7 @@ def backward_rows(torch, cs):
             q, k, v, out, dout, lse, window=window, num_meta=meta))
         rows[key] = {"ms": sum(per.values()),
                      "kernels_ms": {k_[:60]: v_ for k_, v_ in per.items()}}
+    rows.update(mla_backward_rows(torch, cs, _launch, flash_attention_bwd_vd))
     for h, p, n, chunk in ((50, 64, 16, 128), (24, 64, 128, 256)):
         args, _ = cs.ssd_inputs(torch, b, s, h, p, n, 19, False)
         y, _, ws = ssd_launch(*args, chunk, None)

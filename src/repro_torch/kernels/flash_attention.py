@@ -44,8 +44,11 @@ kernel, f32 or bf16, Sq <= T:
   in jnp, its products split-f32 on the tensor cores);
 * vd != hd with vd <= 128 and hd <= 192 (MLA; the forward is then
   ``flash_fwd_kernel_wgmma``): ``flash_attention_bwd_vd``
-  (``csrc/flash_attention_bwd_vd.cu``, the same two passes with the
-  accumulated gradients' columns split over blocks).
+  (``csrc/flash_attention_bwd_vd.cu``, the same two passes on Hopper's
+  warpgroup products: a producer warpgroup splits each operand once into
+  a ring of shared-memory stages; the dK/dV pass keeps a key tile's K and
+  V resident and its dK and dV in two consumer warpgroups' registers, the
+  dQ pass a query tile's Q and dO).
 
 Other shapes raise (hd = vd > 128 waits for ROADMAP item 14b.3's K2 at
 256). Without a gradient the kernel launches as it does for serving: no
@@ -292,9 +295,10 @@ def flash_attention_bwd_vd(q, k, v, out, dout, lse, *, window: int = 0,
     cotangent ``dout`` and the rows' log-sum-exp ``lse`` [B, Hq, Sq] f32,
     all on the card (``flash_attention_bwd_vd.launches`` counts its calls:
     one call is three launches at GQA group 1, four above it: delta with
-    the tiles' masks of non-finite columns, dK and dV by column slice,
-    their sum over the group, dQ by column slice). Non-finite values come
-    out where the plain version's autograd gives them."""
+    the tiles' masks of non-finite columns, dK and dV per query head (the
+    wgmma pass), their sum over the group, dQ (the wgmma pass)).
+    Non-finite values come out where the plain version's autograd gives
+    them."""
     name = "flash_attention_bwd_vd"
     if v.shape[3] == q.shape[3]:
         raise ValueError(f"{name}: vd = hd = {q.shape[3]}: "
@@ -350,4 +354,4 @@ flash_attention_bwd_vd.launches = 0
 def _bwd_vd_widths(hd, vd):
     """(HD, VD): the widths ``csrc/flash_attention_bwd_vd.cu``'s
     ``launch_dims`` runs (hd, vd) at."""
-    return (32, 32) if max(hd, vd) <= 32 else (192, 128)
+    return (64, 64) if max(hd, vd) <= 64 else (192, 128)

@@ -76,8 +76,10 @@ skip themselves elsewhere. Run them on the card with
   ``flash_attention_bwd_vd`` (dq, dk, dv) against the plain version's
   autograd at DeepSeek-V2's training shape (128 heads, 2048 positions,
   (192, 128)), the reduced config's (24, 16), (64, 32) and (96, 128)
-  with GQA, a window and meta tokens and a ragged S, f32 and bf16, with
-  an inf or NaN in each input, and two calls bit for bit; the backward
+  with GQA, a window and meta tokens and a ragged S, f32 and bf16, at the
+  edges of its wgmma passes (tiles cut by S, n_q < n_k, a window's keys
+  across two key tiles, GQA 2 and 4), with an inf or NaN in each input,
+  and two calls bit for bit; the backward
   raises past hd 192 or vd 128 (no fallback); reduced
   deepseek-v2 and dbrx route every MoE layer alike on the card and on
   the CPU, and train on the card as on the CPU (the step-1 loss and
@@ -1163,6 +1165,39 @@ def test_flash_attention_bwd_vd_matches_plain_autograd_on_card(
     got = _flash_grads(flash_attention, q, k, v, dout, window, num_meta)
     assert (flash_attention_bwd_vd.launches,
             flash_attention_bwd.launches) == (before[0] + 1, before[1])
+    want = _flash_grads(ref.flash_attention_ref, q, k, v, dout, window,
+                        num_meta)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,hd,vd,window,num_meta", [
+    (1, 4, 4, 130, 200, 192, 128, 0, 0),  # query and key tiles cut, n_q < n_k
+    (2, 4, 4, 65, 65, 192, 128, 0, 0),    # one row past a tile
+    (1, 2, 2, 333, 333, 192, 128, 70, 3),  # the last query tile's keys
+                                           # straddle two key tiles
+    (1, 8, 4, 260, 260, 192, 128, 0, 0),  # GQA 2: the ordered group sum
+    (1, 8, 2, 260, 260, 192, 128, 48, 5),  # GQA 4, window + meta
+    (2, 4, 2, 100, 130, 64, 32, 0, 0),    # (64, 64) padded, n_q < n_k
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_vd_edges_on_card(cuda, b, hq, hkv, sq, sk, hd,
+                                              vd, window, num_meta, dtype):
+    """flash_attention_bwd_vd at the edges of its wgmma passes: tiles cut
+    by S, fewer query rows than keys, a window whose keys cross key tiles,
+    and the GQA partials summed in head order, at the forward's
+    tolerances."""
+    q = (torch.randn((b, sq, hq, hd), device="cuda", generator=cuda) * 0.5
+         ).to(dtype).transpose(1, 2)
+    k, v = [(torch.randn((b, sk, hkv, d), device="cuda", generator=cuda)
+             * 0.5).to(dtype).transpose(1, 2) for d in (hd, vd)]
+    dout = torch.randn((b, hq, sq, vd), device="cuda", generator=cuda).to(dtype)
+    before = flash_attention_bwd_vd.launches
+    got = _flash_grads(flash_attention, q, k, v, dout, window, num_meta)
+    assert flash_attention_bwd_vd.launches == before + 1
     want = _flash_grads(ref.flash_attention_ref, q, k, v, dout, window,
                         num_meta)
     tol = 2e-5 if dtype == torch.float32 else 3e-2

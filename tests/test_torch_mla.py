@@ -36,7 +36,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import lm_params_from_jax  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    _empty_out, flash_attention_bwd, flash_attention_bwd_vd,
+    _bwd_vd_widths, _empty_out, flash_attention_bwd, flash_attention_bwd_vd,
 )
 from repro_torch.models import mla  # noqa: E402
 
@@ -90,6 +90,21 @@ def test_flash_attention_guards_vd():
     q, k, v = [torch.zeros((1, 2, 8, d)) for d in (320, 320, 256)]
     with pytest.raises(ValueError, match="vd <= 128"):
         flash_attention_bwd_vd(q, k, v, out, out, lse)
+
+
+@pytest.mark.parametrize("hd,vd,widths", [
+    (24, 16, (64, 64)),      # reduced deepseek-v2's MLA
+    (64, 32, (64, 64)),
+    (32, 64, (64, 64)),
+    (96, 128, (192, 128)),   # vd > hd
+    (160, 64, (192, 128)),
+    (192, 128, (192, 128)),  # DeepSeek-V2's MLA
+])
+def test_flash_attention_bwd_vd_widths(hd, vd, widths):
+    """The (HD, VD) instantiation of flash_attention_bwd_vd's wgmma passes
+    that a shape runs at, whose widths size the GQA partials: whole
+    64-column chunks, (64, 64) where hd and vd fit, else (192, 128)."""
+    assert _bwd_vd_widths(hd, vd) == widths
 
 
 def _layout(t):
