@@ -36,7 +36,12 @@ exits non-zero:
             (plain versions) on a small CNN run with the same draws,
             gossip, gossip_async, the int8/topk wire, fedp2p_topo and a
             faulted fedp2p run (its counters equal) included, a checkpoint
-            round trip of the card's final params (bit for bit),
+            round trip of the card's final params (bit for bit), the
+            sampled window (``SampledEngine``: the small CNN with D = 24
+            enrolled over its 12 data clients, K = 8, fedp2p and gossip;
+            every stored row and the losses at rtol 1e-4) and, at D == P
+            == K = 8 with cuDNN pinned, the window against
+            ``DenseEngine``'s round bit for bit,
             reduced Hymba's prefill and greedy decode, reduced Hymba's,
             deepseek-v2-236b's and dbrx-132b's training (the step-1 loss
             and every gradient leaf, then 3 AdamW steps' losses; the MoE
@@ -56,6 +61,19 @@ exits non-zero:
             and ``aggregation.cluster_then_global`` over one fedp2p
             round's client models, and Table-1-style best-accuracy rows of
             fedp2p, fedp2p_topo and fedavg (printed, not gated); then
+            sampled participation at the same width with cuDNN pinned
+            (``sampled_main_path``): fedp2p over D = 10,000 resident
+            clients (9.86 GB of state on the card), K = 100, 3 rounds at
+            pipeline depths 1 and 2 from fresh stores; fedp2p over D =
+            10^6 on the checkpoint tier at depths 1, 2 and 3 and its
+            global model from ``consensus()``; gossip with the topk
+            wire over 10,000 resident clients at depths 1 and 2; fedavg
+            with pareto selection over 10^6 at availability 0.1 (K
+            distinct ids, all available); fedp2p over 1,000 cold clients
+            under a fault plan with read errors and a dead prefetch
+            worker at depths 1 and 2 (rows, drops, rejections and
+            retries equal; the fallback at depth 2) — every depth bit
+            for bit with depth 1; then
             ``serve.generate`` on Hymba-1.5B at full width (seeded
             weights, made once; B = 4, prompts of 384 and 1920 tokens,
             16 greedy tokens); then ``generate``'s body
@@ -86,8 +104,11 @@ exits non-zero:
             Hymba's, DeepSeek-V2's and DBRX's training shapes beside the
             plain autograd and, for flash, SDPA's backward), two rounds'
             split between local
-            training, mixing and the wire, and the Hymba prefill's
-            device time by kernel.
+            training, mixing and the wire, the Hymba prefill's
+            device time by kernel, and a sampled cold-tier round (D =
+            10^6) split into store gather, window and scatter, with the
+            share of the store's time that depths 2 and 3 hide (printed,
+            not gated).
 
 Each phase prints one JSON line. The run ends with the kernel summary
 line, the ``nvidia-smi`` name/power-limit line, and then
@@ -1211,6 +1232,12 @@ def phase_reference(torch, state):
     if not same:
         emit({"phase": "reference", "runs": rows})
         raise AssertionError("checkpoint round trip changed the params")
+    sampled = sampled_reference(torch)
+    rows += sampled
+    if not all(r["ok"] for r in sampled):
+        emit({"phase": "reference", "runs": rows})
+        raise AssertionError(f"the sampled window on the card disagrees: "
+                             f"{[r for r in sampled if not r['ok']]}")
     rows.append(lm_reference(torch))
     rows.append(lm_train_reference(torch))
     rows += [moe_reference(torch, arch) for arch, _, _ in MOE_RUNS]
@@ -1500,6 +1527,462 @@ def cluster_run(torch, sim):
     return drive, check
 
 
+# ---------------------------------------------------------------------------
+# sampled participation (SampledEngine over a ClientStateStore)
+# ---------------------------------------------------------------------------
+
+#: the small CNN's sampled runs: D = 24 enrolled over its 12 data clients,
+#: K = 8 (its 2 clusters of 4)
+SAMPLED_SMALL = dict(num_enrolled=24, participants_per_round=8)
+#: the full-width sampled runs' enrollments
+SAMPLED_MEMORY_D, SAMPLED_COLD_D, SAMPLED_FAULTED_D = 10_000, 1_000_000, 1_000
+
+
+class cudnn_pinned:
+    """cuDNN's deterministic algorithms for a with-block (its defaults
+    vary between runs of the same round), restored after."""
+
+    def __init__(self, torch):
+        self.cudnn = torch.backends.cudnn
+
+    def __enter__(self):
+        self.saved = (self.cudnn.deterministic, self.cudnn.benchmark)
+        self.cudnn.deterministic, self.cudnn.benchmark = True, False
+
+    def __exit__(self, *exc):
+        self.cudnn.deterministic, self.cudnn.benchmark = self.saved
+
+
+def sampled_engine(torch, net, data, fl, algo, device, codec=None, depth=1,
+                   faults=None):
+    from repro_torch.core.simulator import Simulator
+    from repro_torch.protocols import get
+    from repro_torch.protocols.engine import SampledEngine
+    data_dev = Simulator(net, data, fl, device=device).data_dev
+    return SampledEngine(net, data_dev, fl, get(algo), codec=codec,
+                         pipeline_depth=depth, faults=faults, device=device)
+
+
+def close_rows(torch, got, want, rtol=1e-4, atol=1e-5):
+    """(max |got - want|, within rtol/atol of want) for two tensors."""
+    got, want = got.double().cpu(), want.double().cpu()
+    diff = (got - want).abs()
+    ok = bool((diff <= atol + rtol * want.abs()).all()) and bool(
+        torch.isfinite(got).all())
+    return float(diff.max()), ok
+
+
+def sampled_reference(torch):
+    """The sampled window on the card against the CPU, and against the
+    dense round. (1) the small CNN, D = 24 enrolled over 12 data clients,
+    K = 8: the same draws (made on the CPU) through the CPU and the card,
+    fedp2p and gossip, 2 rounds; every stored row and the losses at rtol
+    1e-4. (2) D == P == K = 8 on the card with cuDNN pinned: the sampled
+    window and ``DenseEngine._round_rows`` of one draw set, bit for
+    bit."""
+    import numpy as np
+    from repro_torch.config import FLConfig
+    from repro_torch.models.paper_nets import init_paper_net
+    from repro_torch.protocols.engine import DenseEngine
+    net, data, kw = femnist_setup(full=False)
+    params = init_paper_net(torch.Generator().manual_seed(0), net)
+    fl = FLConfig(**kw, **SAMPLED_SMALL)
+    rows = []
+    for algo in ("fedp2p", "gossip"):
+        eng = {dev: sampled_engine(torch, net, data, fl, algo, dev)
+               for dev in ("cpu", "cuda")}
+        gen = torch.Generator().manual_seed(3)
+        draws = [eng["cpu"].draw_round(gen) for _ in range(2)]
+        out = {}
+        for dev, e in eng.items():
+            e.init_store(tree_to(params, dev))
+            m = e.run_rounds(None, 2, draws=draws)
+            out[dev] = (m["train_loss"],
+                        e.store.gather(np.arange(e.num_enrolled)).cpu())
+        err, ok = close_rows(torch, out["cuda"][1], out["cpu"][1])
+        ok = ok and np.allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                                atol=1e-6)
+        rows.append({"sampled": algo, "enrolled": fl.enrolled,
+                     "window": eng["cuda"].window,
+                     "loss_cpu": out["cpu"][0].tolist(),
+                     "loss_cuda": out["cuda"][0].tolist(),
+                     "rows_max_abs_err": err, "ok": ok})
+    full = FLConfig(**{**kw, "num_clients": 8, "participation": 8,
+                       "num_enrolled": 8, "participants_per_round": 8})
+    for algo in ("fedp2p", "gossip"):
+        with cudnn_pinned(torch):
+            se = sampled_engine(torch, net, data, full, algo, "cuda")
+            dense = DenseEngine(net, se.data_dev, full, se.proto,
+                                device="cuda")
+            d = dense.draw_round(torch.Generator(device="cuda").manual_seed(9))
+            flat, spec = dense._pack_params(tree_to(params, "cuda"))
+            want, losses, _ = dense._round_rows(spec, flat, d)
+            se.init_store(tree_to(params, "cuda"))
+            loss = se.round(draws=d)
+            same = (torch.equal(se.store.flat[d.sel], want)
+                    and torch.equal(loss, losses.mean()))
+        rows.append({"sampled_vs_dense": algo, "enrolled": 8, "window": 8,
+                     "bit_for_bit": same, "ok": same})
+    return rows
+
+
+def store_digest(torch, store, base):
+    """What a bit-for-bit comparison of two runs' stores needs, without
+    keeping a second [D, width] buffer: the staleness vector, the touched
+    clients' rows (and residuals), and whether every untouched row of a
+    resident buffer still holds the enrollment row ``base``."""
+    import numpy as np
+    touched = np.flatnonzero(store.last_round >= 0)
+    out = {"last_round": store.last_round.copy(),
+           "rows": store.gather(touched).cpu()}
+    if store.resident_flat() is None:
+        out["overlay_ids"] = sorted(store._overlay)
+        out["overlay"] = torch.from_numpy(np.stack(
+            [store._overlay[c] for c in out["overlay_ids"]]))
+        if store._residual_overlay:
+            out["res"] = torch.from_numpy(np.stack(
+                [store._residual_overlay[c] for c in out["overlay_ids"]
+                 if c in store._residual_overlay]))
+        return out
+    flat, untouched = store.resident_flat(), store.last_round < 0
+    mask = torch.from_numpy(untouched).to(flat.device)
+    same = True
+    for i in range(0, flat.shape[0], 1000):    # 1000-row chunks
+        chunk = flat[i:i + 1000][mask[i:i + 1000]]
+        same = same and bool((chunk == base).all())
+    out["untouched_is_base"] = same
+    if store._residual is not None:
+        out["res"] = store.gather_residual(touched).cpu()
+    return out
+
+
+def same_digest(torch, a, b):
+    import numpy as np
+    if set(a) != set(b):
+        return False
+    for k in a:
+        x, y = a[k], b[k]
+        if isinstance(x, torch.Tensor):
+            if not torch.equal(x, y):
+                return False
+        elif isinstance(x, np.ndarray):
+            if not np.array_equal(x, y):
+                return False
+        elif x != y:
+            return False
+    return a.get("untouched_is_base", True)
+
+
+def sampled_depth_runs(torch, net, data, fl, algo, tier, depths, rounds,
+                       params, *, codec=None, faults=None, seed=11):
+    """``rounds`` sampled rounds at each pipeline depth, each from a fresh
+    store and a fresh card generator of one seed; returns per depth the
+    metrics, the store digest, the host seconds, the windows' device
+    seconds (CUDA events around each window on its stream, read after the
+    run: no synchronization inside it) and the engine's last store (the
+    previous one freed before the next is made)."""
+    from repro_torch.kernels import ops
+    out = []
+    base = ops.pack_tree({k: v[None] for k, v in params.items()})[0][0]
+    for depth in depths:
+        se = sampled_engine(torch, net, data, fl, algo, "cuda", codec=codec,
+                            depth=depth, faults=faults)
+        se.init_store(params, tier=tier)
+        events, window = [], se._window
+
+        def timed_window(*args, _window=window, _events=events, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            res = _window(*args, **kwargs)
+            end.record()
+            _events.append((start, end))
+            return res
+
+        se._window = timed_window
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = se.run_rounds(gen, rounds)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        window_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+        # the card's idle time between one window and the next: a round's
+        # exposed time once the pipeline is full
+        gaps = [b[1].elapsed_time(a[0]) / 1e3
+                for b, a in zip(events, events[1:])]
+        digest = store_digest(torch, se.store, base)
+        out.append({"depth": depth, "metrics": m, "digest": digest,
+                    "seconds": secs, "window_seconds": window_s,
+                    "gap_seconds": gaps, "engine": se})
+        se.store.close()
+        if depth != depths[-1]:
+            del se
+            out[-1]["engine"] = None
+            torch.cuda.empty_cache()
+    return out
+
+
+def sampled_main_path(torch, counters, totals, state):
+    """The sampled engine at CNN-FEMNIST's full width (246,590 params; the
+    100 data clients serve id % 100), cuDNN pinned so that depths can be
+    compared bit for bit: each run's launch counters set to 0 just before
+    its rounds and read just after.
+      sampled_memory      fedp2p, D = 10,000 resident (9.86 GB), K = 100:
+                          3 rounds at depth 1, then 3 at depth 2 from a
+                          fresh store; rows, losses, staleness equal;
+      sampled_cold        fedp2p, D = 10^6 on the checkpoint tier: 3
+                          rounds at depths 1, 2 and 3, equal; the global
+                          model from ``consensus()``;
+      sampled_gossip_topk gossip with the topk wire, D = 10,000 resident
+                          (its residuals resident too), K = 100: depths 1
+                          and 2, equal;
+      sampled_pareto      fedavg, pareto selection at rate 0.1, D = 10^6
+                          cold, K = 100, 2 rounds: K distinct ids, all
+                          available;
+      sampled_faulted     fedp2p on the checkpoint tier, D = 1,000, under
+                          drops, corrupt uploads, a read error every round
+                          and a dead prefetch worker in round 1: depths 1
+                          and 2 store the same rows and count the same
+                          drops, rejections and retries; the fallback
+                          comes at depth 2 only (depth 1 has no prefetch).
+    """
+    import numpy as np
+    from repro_torch.config import FLConfig
+    from repro_torch.faults import make_plan
+    from repro_torch.kernels import ops
+    net, data, kw = femnist_setup(full=True)
+    from repro_torch.models.paper_nets import init_paper_net
+    params = init_paper_net(torch.Generator().manual_seed(0), net,
+                            device="cuda")
+    plan = make_plan(SAMPLED_FAULTED_D, 3, seed=2, drop_rate=0.05,
+                     corrupt_rate=0.05, read_error_rate=1.0,
+                     kill_prefetch_rounds=(1,))
+    runs = [  # label, FLConfig overrides, algo, tier, codec, depths,
+        #       rounds, faults, expected launches
+        ("sampled_memory", {"num_enrolled": SAMPLED_MEMORY_D}, "fedp2p",
+         "memory", None, (1, 2), 3, None, expected(fed_mix_segment=6)),
+        ("sampled_cold", {"num_enrolled": SAMPLED_COLD_D}, "fedp2p",
+         "checkpoint", None, (1, 2, 3), 3, None,
+         expected(fed_mix_segment=9)),
+        ("sampled_gossip_topk", {"num_enrolled": SAMPLED_MEMORY_D,
+                                 "participation": 100}, "gossip", "memory",
+         "topk", (1, 2), 2, None, expected(fed_mix_matching=4)),
+        ("sampled_faulted", {"num_enrolled": SAMPLED_FAULTED_D}, "fedp2p",
+         "checkpoint", None, (1, 2), 3, plan, expected(fed_mix_segment=6)),
+    ]
+    rows = []
+    with cudnn_pinned(torch):
+        for label, over, algo, tier, codec, depths, rounds, faults, expect \
+                in runs:
+            fl = FLConfig(**{**kw, "participants_per_round": 100, **over})
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            res = sampled_depth_runs(torch, net, data, fl, algo, tier,
+                                     depths, rounds, params, codec=codec,
+                                     faults=faults)
+            got = {k: fn.launches for k, fn in counters.items()}
+            for k in totals:
+                totals[k] += got[k]
+            ref = res[0]
+            losses = [r["metrics"]["train_loss"].tolist() for r in res]
+            same = all(same_digest(torch, r["digest"], ref["digest"])
+                       and r["metrics"]["train_loss"].tolist() == losses[0]
+                       for r in res[1:])
+            finite = all(np.isfinite(v).all() for v in losses)
+            row = {"run": label, "protocol": algo, "tier": tier,
+                   "codec": codec, "enrolled": fl.enrolled,
+                   "window": res[-1]["engine"].window, "rounds": rounds,
+                   "depths": list(depths), "train_loss": losses,
+                   "touched": int((ref["digest"]["last_round"] >= 0).sum()),
+                   "seconds_per_round": {
+                       r["depth"]: r["seconds"] / rounds for r in res},
+                   "window_device_s_per_round": {
+                       r["depth"]: r["window_seconds"] / rounds
+                       for r in res},
+                   # what the host adds to a round beyond its window's
+                   # device time (store, draws, patching, dispatch waits)
+                   "exposed_s_per_round": {
+                       r["depth"]: (r["seconds"] - r["window_seconds"])
+                       / rounds for r in res},
+                   "gap_s_between_windows": {
+                       r["depth"]: r["gap_seconds"] for r in res},
+                   "bit_for_bit": same, "launches": got,
+                   "expected_launches": expect}
+            ok = same and finite and got == expect
+            se = res[-1]["engine"]
+            if label == "sampled_cold":
+                g = se.global_params()
+                flat = ops.pack_tree({k: v[None] for k, v in g.items()})[0]
+                cons = torch.from_numpy(se.store.consensus())
+                row["global_from_consensus"] = bool(
+                    torch.equal(flat[0].cpu(), cons)
+                    and torch.isfinite(flat).all())
+                ok = ok and row["global_from_consensus"]
+                state["sampled_cold"] = {
+                    k: row[k] for k in ("seconds_per_round",
+                                        "window_device_s_per_round",
+                                        "exposed_s_per_round")}
+            if faults is not None:
+                ms = [r["metrics"] for r in res]
+                names = ("dropped", "rejected_rows", "retries",
+                         "prefetch_fallbacks")
+                row["counters"] = {r["depth"]: {n: r["metrics"][n].tolist()
+                                                for n in names} for r in res}
+                ok = (ok and all(np.array_equal(m[n], ms[0][n])
+                                 for m in ms[1:] for n in names[:3])
+                      and ms[0]["prefetch_fallbacks"].sum() == 0
+                      and ms[1]["prefetch_fallbacks"].tolist() == [0, 1, 0]
+                      and ms[0]["retries"].sum() >= 1
+                      and ms[0]["dropped"].sum() >= 1
+                      and ms[0]["rejected_rows"].sum() >= 1
+                      and all(np.isfinite(r).all()
+                              for r in se.store._overlay.values()))
+            row["ok"] = bool(ok)
+            rows.append(row)
+            del res, se
+            torch.cuda.empty_cache()
+            if not ok:
+                return rows
+        rows.append(sampled_pareto_run(torch, net, data, kw, params,
+                                       counters, totals))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sampled_pareto_run(torch, net, data, kw, params, counters, totals):
+    """fedavg with pareto selection over D = 10^6 cold clients at
+    availability 0.1, K = 100, 2 rounds: each round's ids are distinct and
+    every one was available (the availability mask is the first draw of a
+    round; it is drawn again from a copy of the generator's state)."""
+    import numpy as np
+    from repro_torch.config import FLConfig
+    fl = FLConfig(**{**kw, "num_enrolled": SAMPLED_COLD_D,
+                     "participation": 100,
+                     "participation_strategy": "pareto",
+                     "participation_rate": 0.1})
+    se = sampled_engine(torch, net, data, fl, "fedavg", "cuda")
+    se.init_store(params, tier="checkpoint")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    draws, checks = [], []
+    for _ in range(2):
+        copy = torch.Generator(device="cuda")
+        copy.set_state(gen.get_state())
+        avail = torch.rand((fl.enrolled,), generator=copy,
+                           device="cuda") < fl.participation_rate
+        d = se.draw_round(gen)
+        draws.append(d)
+        ids = d.sel.cpu().numpy()
+        checks.append({"distinct": len(set(ids.tolist())) == se.window,
+                       "all_available": bool(avail[d.sel].all()),
+                       "pool": int(avail.sum())})
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    m = se.run_rounds(None, 2, draws=draws)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = {k: fn.launches for k, fn in counters.items()}
+    for k in totals:
+        totals[k] += got[k]
+    expect = expected(fed_mix_segment=2)
+    ok = (all(c["distinct"] and c["all_available"] for c in checks)
+          and np.isfinite(m["train_loss"]).all() and got == expect)
+    se.store.close()
+    return {"run": "sampled_pareto", "protocol": "fedavg",
+            "tier": "checkpoint", "enrolled": fl.enrolled,
+            "window": se.window, "rounds": 2, "selection": checks,
+            "train_loss": m["train_loss"].tolist(),
+            "seconds_per_round": secs / 2, "launches": got,
+            "expected_launches": expect, "ok": bool(ok)}
+
+
+def sampled_split(torch, state):
+    """One sampled fedp2p round on the cold tier at D = 10^6, K = 100,
+    split: the store gather (host seconds to the window on the card,
+    synchronized), the window (device ms by CUDA events, and host
+    seconds), the scatter (host seconds: the pinned copy back and the
+    overlay write); 2 rounds at depth 1 with cuDNN pinned, after a warm
+    round. Then 5 rounds at each of depths 1, 2 and 3 from fresh stores,
+    the host's pinned-buffer cache warm from the runs before: a round's
+    exposed time (wall seconds less its window's device seconds, which
+    vary by several % from run to run; it includes the pipeline's fill
+    and drain), the card's idle gaps between consecutive windows (a
+    round's exposed time once the pipeline is full) and the share of
+    depth 1's mean gap that depth d hides, 1 - gap(d) / gap(1)."""
+    from repro_torch.config import FLConfig
+    from repro_torch.models.paper_nets import init_paper_net
+    net, data, kw = femnist_setup(full=True)
+    fl = FLConfig(**{**kw, "num_enrolled": SAMPLED_COLD_D,
+                     "participants_per_round": 100})
+    params = init_paper_net(torch.Generator().manual_seed(0), net,
+                            device="cuda")
+    parts = {"gather_s": [], "window_ms": [], "window_host_s": [],
+             "scatter_s": []}
+    with cudnn_pinned(torch):
+        se = sampled_engine(torch, net, data, fl, "fedp2p", "cuda")
+        se.init_store(params, tier="checkpoint")
+        gather, window, scatter = se.store.gather, se._window, \
+            se.store.scatter
+
+        def timed_gather(ids):
+            t0 = time.perf_counter()
+            out = gather(ids)
+            torch.cuda.synchronize()
+            parts["gather_s"].append(time.perf_counter() - t0)
+            return out
+
+        def timed_window(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            out = window(*args, **kwargs)
+            end.record()
+            end.synchronize()
+            parts["window_host_s"].append(time.perf_counter() - t0)
+            parts["window_ms"].append(start.elapsed_time(end))
+            return out
+
+        def timed_scatter(ids, rows):
+            t0 = time.perf_counter()
+            scatter(ids, rows)
+            parts["scatter_s"].append(time.perf_counter() - t0)
+
+        se.store.gather, se._window, se.store.scatter = \
+            timed_gather, timed_window, timed_scatter
+        se.run_rounds(torch.Generator(device="cuda").manual_seed(1), 3)
+    mean = {k: sum(v[1:]) / len(v[1:]) for k, v in parts.items()}
+    out = {"enrolled": fl.enrolled, "window": se.window,
+           "rounds_timed": len(parts["gather_s"]) - 1, **mean,
+           "store_s": mean["gather_s"] + mean["scatter_s"],
+           "main_path_by_depth": state.get("sampled_cold")}
+    del se
+    steady = {}
+    with cudnn_pinned(torch):
+        for depth in (1, 2, 3):
+            r = sampled_depth_runs(torch, net, data, fl, "fedp2p",
+                                   "checkpoint", (depth,), 5, params,
+                                   seed=21)[0]
+            steady[depth] = {
+                "s_per_round": r["seconds"] / 5,
+                "window_device_s_per_round": r["window_seconds"] / 5,
+                "exposed_s_per_round": (r["seconds"] - r["window_seconds"])
+                / 5,
+                "gap_s": r["gap_seconds"],
+                "mean_gap_s": sum(r["gap_seconds"]) / len(r["gap_seconds"])}
+            del r
+            torch.cuda.empty_cache()
+    out["steady"] = steady
+    out["hidden_share"] = {
+        d: 1.0 - steady[d]["mean_gap_s"] / steady[1]["mean_gap_s"]
+        for d in (2, 3)}
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_main_path(torch, state):
     from repro_torch.config import FLConfig
     from repro_torch.core.simulator import Simulator
@@ -1619,14 +2102,19 @@ def phase_main_path(torch, state):
             emit({"phase": "main_path", "params_per_client": n_params,
                   "runs": results})
             raise AssertionError(f"main path run {label!r} failed: {row}")
+    sampled = sampled_main_path(torch, counters, totals, state)
+    if not all(r["ok"] for r in sampled):
+        emit({"phase": "main_path", "params_per_client": n_params,
+              "runs": results, "sampled": sampled})
+        raise AssertionError(f"sampled run failed: {sampled[-1]}")
     lm_rows = lm_main_path(torch, counters, totals, state)
     lm_rows += moe_main_path(torch, counters, totals)
     train_rows = lm_train_main_path(torch, counters, totals, state)
     train_rows += moe_train_main_path(torch, counters, totals)
     state["launches"] = totals
     emit({"phase": "main_path", "params_per_client": n_params,
-          "runs": results, "serving": lm_rows, "training": train_rows,
-          "table1": table1_rows(results)})
+          "runs": results, "sampled": sampled, "serving": lm_rows,
+          "training": train_rows, "table1": table1_rows(results)})
     bad = [r for r in lm_rows + train_rows if not r["ok"]]
     if bad:
         raise AssertionError(f"serving or training run failed: {bad}")
@@ -2271,6 +2759,7 @@ def phase_timing(torch, state):
           "round_split": round_split(torch),
           "round_split_int8_dense": round_split_int8_dense(torch),
           "prefill_split": prefill_split(torch),
+          "sampled_split": sampled_split(torch, state),
           "profiler": dict(PROFILER_NOTES),
           "nvidia_smi": state["smi"]})
 

@@ -2,9 +2,9 @@
 ``repro.config.FLConfig``, ``repro.config.ModelConfig`` and
 ``repro.config.TrainConfig``: the same
 fields, defaults and validation, so one configuration means the same run in
-both packages. Options the port has not reached yet (faults, sampled
-participation; the MoE, MLA and audio families) keep their fields; the
-engines and models raise ``NotImplementedError`` when a run asks for them.
+both packages. Options the port has not reached yet (the audio family, the
+mesh) keep their fields; the models raise ``NotImplementedError`` when a
+run asks for them.
 """
 from __future__ import annotations
 
@@ -41,12 +41,12 @@ class FLConfig:
     # kernel; raises for spec-less protocols), "auto" = sparse exactly
     # where a spec exists.
     mix_path: str = "auto"
-    # --- sampled participation (not ported yet) ---
+    # --- sampled participation (protocols.engine.SampledEngine) ---
     num_enrolled: int = 0
     participants_per_round: int = 0
     participation_strategy: str = "uniform"
     participation_rate: float = 1.0
-    # --- fault tolerance / store (not ported yet) ---
+    # --- fault tolerance / store (protocols.store) ---
     store_read_retries: int = 2
     store_read_backoff: float = 0.05
     prefetch_timeout: float = 0.0

@@ -8,8 +8,10 @@ to ``None``: an engine gates every fault step on that one check, so a
 ``faults=None`` engine runs exactly the fault-free program. The
 ``DenseEngine`` wires client dropout (folded into the survive mask) and
 corrupted uploads (NaN / inf / bit-flip rows, rejected by the finite check
-and the fault flag, then by the scatter-back guard); the store-tier hooks
-of ``FaultInjector`` wait for the sampled engine (ROADMAP module item 12).
+and the fault flag, then by the scatter-back guard); the ``SampledEngine``
+wires the same, plus ``FaultInjector``'s store-tier hooks (transient read
+errors, a stalled or dead prefetch worker) and the cold retry of rejected
+clients.
 """
 from repro_torch.faults.inject import (  # noqa: F401
     FaultInjector, InjectedFault, InjectedReadError, InjectedWorkerDeath,

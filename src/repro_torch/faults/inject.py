@@ -1,11 +1,10 @@
 """Fault execution: the runtime side of a ``FaultPlan`` (the counterpart
 of ``repro.faults.inject``).
 
-``FaultInjector`` is the store-facing half: an engine arms it per round
-(``begin_round``) and a store calls its hooks from the read path
-(``on_read``) and the prefetch worker (``on_prefetch``); the store and the
-sampled engine that call them arrive with ROADMAP module item 12. The
-tensor helpers (``corrupt_flat``, ``guard_flat``) are the engine-side
+``FaultInjector`` is the store-facing half: the ``SampledEngine`` arms it
+per round (``begin_round``) and ``protocols.store.CheckpointStore`` calls
+its hooks from the read path (``on_read``) and the prefetch worker
+(``on_prefetch``). The tensor helpers (``corrupt_flat``, ``guard_flat``) are the engine-side
 halves: poison flagged rows inside the round, and the scatter-back guard
 that keeps a poisoned row out of the carry. Both are elementwise selects
 on the packed buffer with no arithmetic on its floats, so their results

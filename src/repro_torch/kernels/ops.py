@@ -165,6 +165,90 @@ def unpack_tree(flat: torch.Tensor, spec: TreeSpec):
     return tree_unflatten(spec.treedef, outs)
 
 
+def _check_state(name: str, flat) -> None:
+    if getattr(flat, "ndim", 0) != 2:
+        raise ValueError(
+            f"{name}: expected a packed [D, sum(sizes)] buffer, got shape "
+            f"{tuple(getattr(flat, 'shape', ()))}; pack the pytree with "
+            "pack_tree first")
+
+
+def host_to_device(a, device: torch.device) -> torch.Tensor:
+    """A host array or tensor on ``device``. To the card it goes through
+    pinned memory with a non-blocking copy: a plain ``.to("cuda")`` of
+    pageable memory waits for all of the stream's earlier work."""
+    t = a if isinstance(a, torch.Tensor) else torch.as_tensor(a)
+    if t.device != device and device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _window_ids(name: str, ids, device: torch.device) -> torch.Tensor:
+    """``ids`` as a 1-D int64 tensor on ``device``."""
+    if not isinstance(ids, torch.Tensor):
+        ids = torch.as_tensor(ids)
+    if ids.dim() != 1:
+        raise ValueError(f"{name}: ids must be a 1-D [K] index vector, got "
+                         f"shape {tuple(ids.shape)}")
+    return host_to_device(ids.to(torch.int64), device)
+
+
+def _check_window(name: str, flat, ids: torch.Tensor, rows) -> None:
+    if getattr(rows, "ndim", 0) != 2:
+        raise ValueError(
+            f"{name}: expected packed 2-D buffers, got state shape "
+            f"{tuple(flat.shape)} and window shape "
+            f"{tuple(getattr(rows, 'shape', ()))}")
+    if flat.shape[-1] != rows.shape[-1]:
+        raise ValueError(
+            f"{name}: window width {rows.shape[-1]} does not match the "
+            f"state's packed width {flat.shape[-1]} — the two buffers were "
+            "packed with different TreeSpecs")
+    if ids.shape[0] != rows.shape[0]:
+        raise ValueError(
+            f"{name}: ids shape {tuple(ids.shape)} does not index the "
+            f"[{rows.shape[0]}, ...] window (need one id per window row)")
+
+
+def gather_rows(flat: torch.Tensor, ids) -> torch.Tensor:
+    """Window a packed [D, sum(sizes)] buffer: rows ``ids`` -> a new [K,
+    sum(sizes)] tensor, one ``index_select`` on the current stream (host
+    ids reach the card without a host wait). The shared windowing seam of
+    the sampled path (``protocols.store`` gathers active rows through
+    it); ``gather_rows(flat, arange(D))`` is the identity window."""
+    _check_state("gather_rows", flat)
+    return flat.index_select(0, _window_ids("gather_rows", ids, flat.device))
+
+
+#: the resident store's gather: the JAX package jits a device form of
+#: ``gather_rows``; a PyTorch gather already runs where its state lives
+gather_rows_dev = gather_rows
+
+
+def scatter_rows(flat: torch.Tensor, ids, rows: torch.Tensor
+                 ) -> torch.Tensor:
+    """Write a [K, sum(sizes)] window into a copy of the packed [D,
+    sum(sizes)] buffer at rows ``ids`` (the inverse seam of
+    ``gather_rows``; ``flat`` is not modified). ``ids`` must be distinct
+    — a sampled active set never repeats a client."""
+    _check_state("scatter_rows", flat)
+    ids = _window_ids("scatter_rows", ids, flat.device)
+    _check_window("scatter_rows", flat, ids, rows)
+    return flat.index_copy(0, ids, rows.to(flat.device, flat.dtype))
+
+
+def scatter_rows_dev(flat: torch.Tensor, ids, rows: torch.Tensor
+                     ) -> torch.Tensor:
+    """``scatter_rows`` IN PLACE (``index_copy_``): the counterpart of the
+    JAX package's donated scatter — the [K, sum(sizes)] window is written
+    into the state buffer and nothing of size [D, sum(sizes)] is copied.
+    Returns ``flat``."""
+    _check_state("scatter_rows_dev", flat)
+    ids = _window_ids("scatter_rows_dev", ids, flat.device)
+    _check_window("scatter_rows_dev", flat, ids, rows)
+    return flat.index_copy_(0, ids, rows.to(flat.device, flat.dtype))
+
+
 def pack_tree_pair(f_new, f_old, caller: str = "fed_mix_tree"):
     """Pack two same-structure [D, ...] trees into flat buffers with ONE
     shared TreeSpec; mismatched structures raise instead of silently mixing

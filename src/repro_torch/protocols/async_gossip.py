@@ -108,9 +108,16 @@ class AsyncGossip(Protocol):
         # pairwise: every participant is its own cluster, pairs vary by round
         return fl.participation
 
-    def num_matchings(self, fl: FLConfig) -> int:
-        """R, the size of the round-robin family a mix draws from."""
-        return int(matching_perm_stack(self.num_participants(fl)).shape[0])
+    def num_matchings(self, fl: FLConfig,
+                      num_clients: Optional[int] = None) -> int:
+        """R, the size of the round-robin family a mix over
+        ``num_clients`` rows (default: P) draws from."""
+        D = num_clients or self.num_participants(fl)
+        return int(matching_perm_stack(D).shape[0])
+
+    def mesh_cluster_ids(self, num_clients_dev: int,
+                         fl: FLConfig) -> np.ndarray:
+        return np.arange(num_clients_dev, dtype=np.int32)
 
     def partition(self, gen: torch.Generator, fl: FLConfig,
                   topology: Optional[Topology] = None):

@@ -11,14 +11,17 @@ method reads one ``RoundContext``. Convention:
 
 where every row of ``M_new + M_old`` sums to 1 (dropped updates fall back
 to old params, never to zeros). Randomness comes from an explicit
-``torch.Generator``; the mesh lowering (``psum_mix``) waits for the mesh
-slice (ROADMAP module item 13).
+``torch.Generator``. ``mesh_cluster_ids`` is the static cluster layout of
+the sampled engine's active window; the mesh lowering (``psum_mix``)
+waits for the mesh slice (ROADMAP module item 13).
 """
 from __future__ import annotations
 
+import functools
 import warnings
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.config import FLConfig
@@ -64,9 +67,18 @@ class Protocol:
         return sel, torch.zeros((self.num_participants(fl),),
                                 dtype=torch.int32, device=gen.device)
 
-    def num_matchings(self, fl: FLConfig) -> int:
+    def mesh_cluster_ids(self, num_clients_dev: int,
+                         fl: FLConfig) -> np.ndarray:
+        """Static [D] int32 cluster assignment of a D-wide client axis (the
+        sampled engine's active window). Contiguous by default; a width
+        the protocol cannot carve raises ``ValueError``."""
+        return np.zeros((num_clients_dev,), np.int32)
+
+    def num_matchings(self, fl: FLConfig,
+                      num_clients: Optional[int] = None) -> int:
         """R > 0 for a protocol that draws one of R matchings per mix
-        (``RoundContext.matching``, drawn by the engine); 0 otherwise."""
+        (``RoundContext.matching``, drawn by the engine) over
+        ``num_clients`` rows (default: P); 0 otherwise."""
         return 0
 
     # -- aggregation semantics --------------------------------------------
@@ -153,13 +165,26 @@ def resolve(name: str, topology_aware: bool = False) -> Protocol:
 
 
 # ---------------------------------------------------------------------------
-# Participation strategies
+# Participation strategies — how the K-sized active set is drawn
 # ---------------------------------------------------------------------------
 
-class UniformParticipation:
-    """The paper's uniform-without-replacement sampling:
-    ``select(gen, D, K, fl)`` returns [K] distinct indices into the
-    D-client population."""
+class ParticipationStrategy:
+    """Client-selection rule: ``select(gen, D, K, fl)`` returns [K]
+    distinct int64 indices into the D-client population, on ``gen``'s
+    device. Strategies are stateless; register one instance per rule
+    (``register_participation``)."""
+
+    #: registry key, e.g. "uniform"
+    name: str = ""
+
+    def select(self, gen: torch.Generator, num_clients: int,
+               num_participants: int, fl: FLConfig) -> torch.Tensor:
+        raise NotImplementedError
+
+
+class UniformParticipation(ParticipationStrategy):
+    """The paper's uniform-without-replacement sampling: the
+    ``core.partition.sample_participants`` draw."""
 
     name = "uniform"
 
@@ -168,15 +193,119 @@ class UniformParticipation:
         return sample_participants(gen, num_clients, num_participants)
 
 
-_PARTICIPATION = {"uniform": UniformParticipation()}
+#: seed of the static per-client resource scores (the JAX package's
+#: enrollment key ``PRNGKey(0x5C0BE5)``; a CPU generator here, so the
+#: scores do not depend on the engine's device)
+PARETO_SCORE_SEED = 0x5C0BE5
 
 
-def get_participation(name: str) -> UniformParticipation:
-    """Look up a participation strategy; unknown names raise (the pareto
-    strategy arrives with the sampled engine, ROADMAP module item 12)."""
+@functools.lru_cache(maxsize=4)
+def _pareto_log_scores(num_clients: int, alpha: float,
+                       device: torch.device) -> torch.Tensor:
+    """[D] f32 log Pareto(alpha) resource scores by the inverse CDF of
+    uniforms on [1e-6, 1), drawn once from a fixed-seed CPU generator."""
+    g = torch.Generator().manual_seed(PARETO_SCORE_SEED)
+    u = torch.rand((num_clients,), generator=g) * (1.0 - 1e-6) + 1e-6
+    return (-(1.0 / alpha) * torch.log(u)).to(device)
+
+
+def pareto_top_k(log_score: torch.Tensor, avail: torch.Tensor,
+                 gumbel: torch.Tensor, k: int) -> torch.Tensor:
+    """The K winners of a Gumbel top-K over ``log_score`` among the
+    ``avail`` clients: unavailable clients are pushed down by 1e9, so they
+    fill only slots the available pool leaves empty. In f32 many such keys
+    tie; a stable descending sort takes tied keys lowest index first, as
+    ``jax.lax.top_k`` does (``torch.topk`` does not). Returns [K] int64."""
+    g = log_score + gumbel
+    g = torch.where(avail, g, g - 1e9)
+    return torch.sort(g, descending=True, stable=True).indices[:k]
+
+
+class ParetoParticipation(ParticipationStrategy):
+    """Participation-rate-capped biased selection (SNIPPETS.md snippet 1):
+    each enrolled client carries a static Pareto(alpha) resource score;
+    each round an independent Bernoulli(``fl.participation_rate``)
+    availability mask is drawn, and the K winners are a weighted sample
+    without replacement (Gumbel top-K over log-scores) among the
+    available clients. The draw always returns K distinct indices."""
+
+    name = "pareto"
+    #: Pareto shape: alpha = 3 keeps a heavy but finite-variance tail
+    alpha: float = 3.0
+
+    def select(self, gen: torch.Generator, num_clients: int,
+               num_participants: int, fl: FLConfig) -> torch.Tensor:
+        dev = gen.device
+        avail = torch.rand((num_clients,), generator=gen,
+                           device=dev) < fl.participation_rate
+        u = torch.rand((num_clients,), generator=gen, device=dev)
+        tiny = torch.finfo(torch.float32).tiny
+        gumbel = -torch.log(-torch.log(torch.clamp_min(u, tiny)))
+        log_score = _pareto_log_scores(num_clients, self.alpha, dev)
+        return pareto_top_k(log_score, avail, gumbel, num_participants)
+
+
+_PARTICIPATION: Dict[str, ParticipationStrategy] = {}
+
+
+def register_participation(strategy: ParticipationStrategy
+                           ) -> ParticipationStrategy:
+    """Register a ParticipationStrategy instance under ``strategy.name``."""
+    if not strategy.name:
+        raise ValueError("participation strategy must define a non-empty "
+                         ".name")
+    if strategy.name in _PARTICIPATION:
+        raise ValueError(f"participation strategy {strategy.name!r} is "
+                         "already registered")
+    _PARTICIPATION[strategy.name] = strategy
+    return strategy
+
+
+def participation_names() -> Tuple[str, ...]:
+    """Registered participation-strategy names, in registration order."""
+    return tuple(_PARTICIPATION)
+
+
+def get_participation(name: str) -> ParticipationStrategy:
+    """Look up a participation strategy; unknown names raise (never a
+    silent uniform fallback)."""
     try:
         return _PARTICIPATION[name]
     except KeyError:
         raise ValueError(
             f"unknown participation strategy {name!r}; registered "
-            f"strategies: {', '.join(_PARTICIPATION)}") from None
+            f"strategies: {', '.join(participation_names())}") from None
+
+
+register_participation(UniformParticipation())
+register_participation(ParetoParticipation())
+
+
+def active_window_size(fl: FLConfig, proto: Protocol) -> int:
+    """K — clients per sampled round: the explicit
+    ``fl.participants_per_round``, else the protocol's own count."""
+    return fl.participants_per_round or proto.num_participants(fl)
+
+
+def validate_participation(fl: FLConfig, proto: Protocol) -> int:
+    """Validate the (enrolled D, active K) pair against ``proto``'s
+    structural needs and return K: K <= D, and the protocol's window
+    layout (``mesh_cluster_ids``) must exist at width K — the fedp2p
+    family carves L equal contiguous clusters, so L | K."""
+    D = fl.enrolled
+    K = active_window_size(fl, proto)
+    if K > D:
+        raise ValueError(
+            f"sampled participation: K={K} active clients per round exceed "
+            f"the D={D} enrolled population (protocol {proto.name!r}); "
+            "need K <= D")
+    try:
+        proto.mesh_cluster_ids(K, fl)
+    except ValueError:
+        L = fl.num_clusters
+        need = "K >= L (and L | K)" if K < L else "L | K"
+        raise ValueError(
+            f"sampled participation: protocol {proto.name!r} carves its "
+            f"active window into L={L} equal contiguous clusters, which a "
+            f"K={K} window cannot realize; need {need}") from None
+    return K

@@ -1,5 +1,6 @@
-"""The dense round engine of the port (the counterpart of ``mix_flat``,
-``make_local_trainer`` and ``DenseEngine`` in ``repro.protocols.engine``).
+"""The round engines of the port (the counterpart of ``mix_flat``,
+``make_local_trainer``, ``DenseEngine`` and ``SampledEngine`` in
+``repro.protocols.engine``).
 
 One round (``DenseEngine._round_rows`` + the consensus collapse):
 
@@ -34,12 +35,20 @@ engine's device; a caller may hand the records in instead, which is how
 the parity tests give this engine and the JAX one the same draws. Metrics
 stay on the device as [T] tensors for the whole ``run_rounds``: nothing in
 the round loop reads a value back to the host.
+
+``SampledEngine`` runs the same round body on a K-row active window of a
+D-client ``ClientStateStore`` (``protocols.store``): the rows start from
+each client's own stored state instead of the broadcast global model, and
+the mixed rows are scattered back. Its ``run_rounds`` can pipeline rounds
+on CUDA streams (see the class).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch import compression
@@ -53,7 +62,10 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.paper_nets import (
     init_paper_net, paper_net_correct, paper_net_loss_batched,
 )
-from repro_torch.protocols.base import Protocol
+from repro_torch.protocols import store as store_mod
+from repro_torch.protocols.base import (
+    Protocol, get_participation, validate_participation,
+)
 from repro_torch.protocols.context import make_context
 from repro_torch.protocols.spec import apply_spec_flat
 
@@ -155,7 +167,8 @@ def make_local_trainer(net: PaperNetConfig, fl: FLConfig):
 
 @dataclass(frozen=True)
 class RoundDraws:
-    """Every random draw of one round: ``sel`` [P] int64 participants,
+    """Every random draw of one round: ``sel`` [P] int64 participants (on
+    the sampled engine: the K active ids over the D enrolled clients),
     ``cluster_ids`` [P] int32, ``survive`` [P] f32 straggler mask,
     ``batch_perm`` [sub_rounds, P, E, n_max] int64 — the sample order of
     every client's every epoch in every sub-round. Mix r (r = 1 ..
@@ -172,21 +185,18 @@ class RoundDraws:
     wire_noise: Optional[torch.Tensor] = None
 
 
+
+
 # ---------------------------------------------------------------------------
-# Dense engine
+# The round body both engines share
 # ---------------------------------------------------------------------------
 
-class DenseEngine:
-    """Drives one protocol's rounds on the paper's own model classes
-    (§4.2) on a PACKED federated state (see the module docstring).
-
-    ``device=None`` means the card (and raises where there is none);
-    ``device="cpu"`` runs the kernels' plain versions. ``codec`` is a
-    ``repro_torch.compression`` name or Codec (``None``/``"none"`` runs
-    the codec-free program). ``topology`` (a ``core.topology.Topology``)
-    reaches the protocol's ``partition`` and every ``RoundContext``.
-    ``faults`` is a ``repro_torch.faults.FaultPlan``; ``None`` or an empty
-    plan runs the fault-free program."""
+class _RoundEngine:
+    """What ``DenseEngine`` and ``SampledEngine`` share: the device, the
+    data on it, the wire, a round's draws after the selection, evaluation
+    and ONE round body (``_round_body``), which starts from [P, sum(sizes)]
+    round-start rows — the broadcast global model on the dense engine, the
+    clients' own stored rows on the sampled one."""
 
     def __init__(self, net: PaperNetConfig, data_dev: Dict, fl: FLConfig,
                  proto: Protocol, topology: Optional[Topology] = None, *,
@@ -208,18 +218,23 @@ class DenseEngine:
             self._n_pad = self.codec.padded(n)
         self._train = make_local_trainer(net, fl)
 
+    def init_params(self, seed: int = 0):
+        """The net's initial params from ``seed``, on the engine's device."""
+        return init_paper_net(torch.Generator().manual_seed(seed), self.net,
+                              device=self.device)
+
     # -- randomness --------------------------------------------------------
-    def draw_round(self, gen: torch.Generator) -> RoundDraws:
-        """One round's draws from ``gen`` (on the engine's device)."""
+    def _draw_rest(self, gen: torch.Generator, sel, cids,
+                   P: int) -> RoundDraws:
+        """The draws after the selection, in this order: the straggler
+        mask, the batch orders, the matchings and the int8 wire's noise."""
         fl = self.fl
-        P = self.proto.num_participants(fl)
-        sel, cids = self.proto.partition(gen, fl, self.topology)
         survive = straggler_mask(gen, P, fl.straggler_rate)
         n_max = self.data_dev["y"].shape[1]
         subs = max(1, fl.sync_period)
         u = torch.rand((subs, P, fl.local_epochs, n_max), generator=gen,
                        device=gen.device)
-        R = self.proto.num_matchings(fl)
+        R = self.proto.num_matchings(fl, P)
         matching = (torch.randint(0, R, (subs,), generator=gen,
                                   device=gen.device) if R else None)
         noise = (torch.rand((subs, P, self._n_pad), generator=gen,
@@ -262,51 +277,40 @@ class DenseEngine:
         return mix_flat(self.proto, flat_new, flat_old, ctx, cstate,
                         mix_path=self.mix_path, codec=self.codec, u=u)
 
-    def _init_codec_state_flat(self, flat):
-        """The zero error-feedback residual of a stateful codec: one f32
-        row per participant slot over the packed width; None otherwise."""
-        if self.codec is None or not self.codec.stateful:
-            return None
-        P = self.proto.num_participants(self.fl)
-        return torch.zeros((P, flat.shape[-1]), dtype=torch.float32,
-                           device=flat.device)
-
     # -- one round -----------------------------------------------------------
-    def _round_rows(self, spec, flat_params, draws: RoundDraws,
-                    round_index: int = 0, codec_state=None, fault=None):
-        """One protocol round on the packed carry, stopping BEFORE the
-        consensus collapse: ``flat_params`` is the flat [sum(sizes)] global
-        model, ``spec`` its TreeSpec. Returns the mixed PER-CLIENT rows
-        ``(flat_mixed [P, sum(sizes)], losses [P], codec_state)``;
-        ``losses`` are the last sub-round's, ``codec_state`` the threaded
-        error-feedback residual (None without a stateful codec).
+    def _round_body(self, spec, flat_old, data_ids, draws: RoundDraws,
+                    round_index: int = 0, codec_state=None, fault=None, *,
+                    num_clusters: int, active_ids=None,
+                    num_enrolled: int = 0):
+        """One protocol round from the [P, sum(sizes)] round-start rows
+        ``flat_old`` (contiguous; ``spec`` its TreeSpec): local training on
+        the clients' data rows ``data_ids`` [P], then the mix. Returns the
+        mixed PER-CLIENT rows ``(flat_mixed [P, sum(sizes)], losses [P],
+        codec_state)``; ``losses`` are the last sub-round's,
+        ``codec_state`` the threaded error-feedback residual (None without
+        a stateful codec). ``active_ids`` / ``num_enrolled`` reach the
+        RoundContext (the sampled window's).
 
         ``fault`` (active plans only) is this round's ``(drop [P], flag
-        [P], mode [P])`` from ``FaultPlan.dense_arrays``, on the engine's
-        device: dropped clients leave the survive mask for every
-        sub-round, flagged clients' FINAL uploads are poisoned
-        (``corrupt_flat``), rows that are non-finite or flagged are taken
-        out of the mix like stragglers and their bytes replaced with the
-        round-start row (a masked NaN row would still poison a dense
-        product through 0 · nan), and the scatter-back guard reverts any
-        rejected row to its round-start value. The return then grows a
-        4th element: ``{'dropped', 'rejected_rows'}`` 0-d int32 counters."""
-        proto, fl, data = self.proto, self.fl, self.data_dev
-        P = proto.num_participants(fl)
-        L = proto.num_clusters(fl)
-        sel, cids, survive, perms = (t.to(self.device) for t in (
-            draws.sel, draws.cluster_ids, draws.survive, draws.batch_perm))
+        [P], mode [P])`` on the engine's device: dropped clients leave the
+        survive mask for every sub-round, flagged clients' FINAL uploads
+        are poisoned (``corrupt_flat``), rows that are non-finite or
+        flagged are taken out of the mix like stragglers and their bytes
+        replaced with the round-start row (a masked NaN row would still
+        poison a dense product through 0 · nan), and the scatter-back
+        guard reverts any rejected row to its round-start value. The
+        return then grows a 4th element: the rejected-row mask [P] bool."""
+        fl, data = self.fl, self.data_dev
+        cids, survive, perms = (t.to(self.device) for t in (
+            draws.cluster_ids, draws.survive, draws.batch_perm))
         drop = flag = mode = None
         if fault is not None:
             drop, flag, mode = fault
             survive = survive * (1.0 - drop)
         # gathered ONCE per round: the selection is fixed across sub-rounds
-        cx, cy, cm = data["x"][sel], data["y"][sel], data["mask"][sel]
-        counts = data["counts"][sel]
-        # the round-start state of every participant (contiguous: the
-        # kernels take dense [P, sum(sizes)] buffers)
-        flat_old = flat_params[None].expand(P, -1).contiguous()
-
+        cx, cy, cm = data["x"][data_ids], data["y"][data_ids], \
+            data["mask"][data_ids]
+        counts = data["counts"][data_ids]
         matching, noise = (None if t is None else t.to(self.device)
                            for t in (draws.matching, draws.wire_noise))
 
@@ -315,9 +319,11 @@ class DenseEngine:
             r-1 of the round's draws."""
             ctx = make_context(
                 round_index=round_index, survive=mask, counts=counts,
-                cluster_ids=cids, num_clusters=L, do_global_sync=sync,
+                cluster_ids=cids, num_clusters=num_clusters,
+                do_global_sync=sync,
                 matching=None if matching is None else matching[r - 1],
-                topology=self.topology, fault_drop=drop)
+                topology=self.topology, fault_drop=drop,
+                active_ids=active_ids, num_enrolled=num_enrolled)
             return self._mix_flat(flat_new, flat_old, ctx, cstate,
                                   u=None if noise is None else noise[r - 1])
 
@@ -345,7 +351,62 @@ class DenseEngine:
         flat_mixed, cstate = mix(flat_cp, subs, True, cstate,
                                  mask=survive * ok.to(survive.dtype))
         guarded, bad = fault_lib.guard_flat(flat_mixed, flat_old, flag)
-        counters = {"dropped": drop.sum().to(torch.int32),
+        return guarded, losses, cstate, bad
+
+
+# ---------------------------------------------------------------------------
+# Dense engine
+# ---------------------------------------------------------------------------
+
+class DenseEngine(_RoundEngine):
+    """Drives one protocol's rounds on the paper's own model classes
+    (§4.2) on a PACKED federated state (see the module docstring).
+
+    ``device=None`` means the card (and raises where there is none);
+    ``device="cpu"`` runs the kernels' plain versions. ``codec`` is a
+    ``repro_torch.compression`` name or Codec (``None``/``"none"`` runs
+    the codec-free program). ``topology`` (a ``core.topology.Topology``)
+    reaches the protocol's ``partition`` and every ``RoundContext``.
+    ``faults`` is a ``repro_torch.faults.FaultPlan``; ``None`` or an empty
+    plan runs the fault-free program."""
+
+    # -- randomness --------------------------------------------------------
+    def draw_round(self, gen: torch.Generator) -> RoundDraws:
+        """One round's draws from ``gen`` (on the engine's device)."""
+        P = self.proto.num_participants(self.fl)
+        sel, cids = self.proto.partition(gen, self.fl, self.topology)
+        return self._draw_rest(gen, sel, cids, P)
+
+    def _init_codec_state_flat(self, flat):
+        """The zero error-feedback residual of a stateful codec: one f32
+        row per participant slot over the packed width; None otherwise."""
+        if self.codec is None or not self.codec.stateful:
+            return None
+        P = self.proto.num_participants(self.fl)
+        return torch.zeros((P, flat.shape[-1]), dtype=torch.float32,
+                           device=flat.device)
+
+    # -- one round -----------------------------------------------------------
+    def _round_rows(self, spec, flat_params, draws: RoundDraws,
+                    round_index: int = 0, codec_state=None, fault=None):
+        """One protocol round on the packed carry, stopping BEFORE the
+        consensus collapse: ``flat_params`` is the flat [sum(sizes)] global
+        model, ``spec`` its TreeSpec; every participant starts from it.
+        Returns ``_round_body``'s ``(flat_mixed [P, sum(sizes)], losses
+        [P], codec_state)``; with ``fault`` (see ``_round_body``) a 4th
+        element, ``{'dropped', 'rejected_rows'}`` 0-d int32 counters."""
+        P = self.proto.num_participants(self.fl)
+        sel = draws.sel.to(self.device)
+        # the round-start state of every participant (contiguous: the
+        # kernels take dense [P, sum(sizes)] buffers)
+        flat_old = flat_params[None].expand(P, -1).contiguous()
+        out = self._round_body(spec, flat_old, sel, draws, round_index,
+                               codec_state, fault,
+                               num_clusters=self.proto.num_clusters(self.fl))
+        if fault is None:
+            return out
+        guarded, losses, cstate, bad = out
+        counters = {"dropped": fault[0].sum().to(torch.int32),
                     "rejected_rows": bad.sum().to(torch.int32)}
         return guarded, losses, cstate, counters
 
@@ -382,12 +443,7 @@ class DenseEngine:
         error-feedback residual is per-run memory: zeros at the start of
         each call, carried from round to round."""
         T, eval_every = int(T), max(1, int(eval_every))
-        if draws is None and gen is None:
-            raise ValueError("run_rounds needs a generator or explicit "
-                             "draws")
-        if draws is not None and len(draws) < T:
-            raise ValueError(f"run_rounds: {len(draws)} RoundDraws for "
-                             f"T={T} rounds")
+        _check_draws(draws, gen, T)
         flat, spec = self._pack_params(params)
         cstate = self._init_codec_state_flat(flat)
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -422,3 +478,533 @@ class DenseEngine:
             metrics.update({k: torch.stack(v) for k, v in counters.items()},
                            retries=zeros, prefetch_fallbacks=zeros.clone())
         return kernel_ops.unpack_tree(flat, spec), metrics
+
+
+def _check_draws(draws, gen, T: int) -> None:
+    if draws is None and gen is None:
+        raise ValueError("run_rounds needs a generator or explicit draws")
+    if draws is not None and len(draws) < T:
+        raise ValueError(f"run_rounds: {len(draws)} RoundDraws for T={T} "
+                         "rounds")
+
+
+# ---------------------------------------------------------------------------
+# Sampled engine — a persistent store and a per-round active window
+# ---------------------------------------------------------------------------
+
+FAULT_COUNTERS = ("dropped", "rejected_rows", "retries", "prefetch_fallbacks")
+
+
+class SampledEngine(_RoundEngine):
+    """Drives protocol rounds over a persistent ``ClientStateStore``
+    (``protocols.store``): D clients are ENROLLED but only K are ACTIVE per
+    round. Each round —
+
+      1. select  — the participation strategy (``fl.participation_strategy``)
+                   draws [K] active ids from the D-client population (the
+                   only O(D) work of a round), with the rest of the round's
+                   draws (``draw_round``);
+      2. gather  — the store yields the active [K, sum(sizes)] rows (and
+                   their codec residuals);
+      3. window  — ``_round_body`` on [K, sum(sizes)] only: local SGD from
+                   each client's OWN stored row (no broadcast, no consensus
+                   collapse), then the mix over the window with the
+                   protocol's static window layout (``mesh_cluster_ids``),
+                   the RoundContext carrying ``active_ids`` and
+                   ``num_enrolled``; nothing in it touches a generator;
+      4. scatter — mixed rows (and residuals) write back; the store's
+                   ``last_round`` staleness counters advance.
+
+    With ``active_ids = arange(D)`` (K == P == D and a fresh store) a
+    window round is bit for bit the ``DenseEngine`` round of the same
+    draws. Client i's data is row ``active_ids[i] % data_clients``
+    (enrollment may exceed the dataset's client count; the map is cyclic).
+
+    ``pipeline_depth`` d >= 2 makes ``run_rounds`` a software pipeline of
+    up to d windows in flight: round t+1's draws and store prefetch (stage
+    A) and round t-1's scatter (stage C) overlap round t's window (stage
+    B). On the card stage A's selection and copies run on a stream of
+    their own, ordered by events, so reading round t+1's ids never waits
+    for round t's window; the cold tier's window copies go through pinned
+    buffers (its fetch thread copies on the store's stream; the mixed rows
+    come back on a copy stream, started as the window is enqueued, and are
+    written back on the fetch thread: on the card the host launches a
+    window's kernels until shortly before it ends, so host work left on
+    this thread would idle the card).
+    Results equal the serial loop's bit for bit at every depth: id
+    overlaps between in-flight rounds are found on the host id vectors
+    and only the conflicting rows are patched from the in-flight outputs
+    (``_acquire_window``).
+
+    ``faults`` (a ``repro_torch.faults.FaultPlan``) routes rounds through
+    the fault wire and the scatter-back guard, arms a ``FaultInjector`` on
+    the store's read and prefetch hooks, and gives rejected clients a cold
+    retry in a later round's tail slots. ``device=None`` means the card.
+    """
+
+    def __init__(self, net: PaperNetConfig, data_dev: Dict, fl: FLConfig,
+                 proto: Protocol, topology: Optional[Topology] = None, *,
+                 codec=None, mix_path: Optional[str] = None,
+                 pipeline_depth: int = 1, faults=None,
+                 prefetch_timeout: Optional[float] = None, device=None):
+        super().__init__(net, data_dev, fl, proto, topology, codec=codec,
+                         mix_path=mix_path, faults=faults, device=device)
+        self._injector = (fault_lib.FaultInjector(self.faults)
+                          if self.faults is not None else None)
+        #: clients whose rows the guard rejected, awaiting their cold
+        #: retry: spliced into the tail slots of the next selection
+        self._retry_queue: list = []
+        #: {round -> counter dict} accumulated by the host driver
+        self._fault_log: Dict[int, Dict[str, int]] = {}
+        #: seconds ``_prefetch_rows`` waits on a prefetch handle before
+        #: falling back to a synchronous gather (None = wait forever,
+        #: though a DEAD worker still raises at once and falls back);
+        #: default ``fl.prefetch_timeout`` (0 = forever)
+        pt = (fl.prefetch_timeout if prefetch_timeout is None
+              else prefetch_timeout)
+        self.prefetch_timeout = float(pt) if pt else None
+        #: D — enrolled population; K — active window per round
+        self.num_enrolled = fl.enrolled
+        self.window = validate_participation(fl, proto)
+        #: the static window cluster layout (the protocol's own at width K)
+        cids = proto.mesh_cluster_ids(self.window, fl)
+        self._num_clusters = int(cids.max()) + 1 if cids.size else 1
+        self._cluster_ids = torch.from_numpy(cids).to(self.device)
+        self._data_clients = int(self.data_dev["counts"].shape[0])
+        self._strategy = get_participation(fl.participation_strategy)
+        self.pipeline_depth = self._check_depth(pipeline_depth)
+        #: stage A's stream and the card->host copy stream (card only)
+        self._streams = None
+        self.store = None
+        self._spec = None
+
+    @staticmethod
+    def _check_depth(depth) -> int:
+        depth = int(depth)
+        if depth < 1:
+            raise ValueError(f"pipeline_depth must be >= 1, got {depth}")
+        return depth
+
+    @property
+    def _codec_stateful(self) -> bool:
+        return self.codec is not None and self.codec.stateful
+
+    # -- randomness --------------------------------------------------------
+    def draw_round(self, gen: torch.Generator) -> RoundDraws:
+        """One round's draws from ``gen``: the K active ids over D, the
+        static window layout, then the same draws as ``DenseEngine``'s in
+        the same order — so at K == P == D with uniform selection one
+        generator state gives both engines the same round."""
+        K = self.window
+        sel = self._strategy.select(gen, self.num_enrolled, K, self.fl)
+        return self._draw_rest(gen, sel, self._cluster_ids, K)
+
+    # -- store lifecycle -----------------------------------------------------
+    def init_store(self, params, *, tier: str = "auto", store=None):
+        """Enroll D clients, every one starting at ``params``: packs the
+        global model once and builds (or adopts) the store, on the
+        engine's device. The TreeSpec captured here is the packed layout
+        of every later window."""
+        row, spec = self._pack_params(params)
+        self._spec = spec
+        if store is not None:
+            if store.width != row.shape[-1]:
+                raise ValueError(
+                    f"store width {store.width} does not match the packed "
+                    f"model width {row.shape[-1]}")
+            self.store = store
+        else:
+            self.store = store_mod.make_store(
+                row.to(self.device), self.num_enrolled, tier=tier,
+                residual=self._codec_stateful,
+                read_retries=self.fl.store_read_retries,
+                read_backoff=self.fl.store_read_backoff)
+        if self._injector is not None:
+            # the store's read/prefetch hooks fire this engine's plan
+            self.store.fault_injector = self._injector
+        return self.store
+
+    # -- the window round ------------------------------------------------------
+    def _window(self, flat_win, draws: RoundDraws, round_index: int = 0,
+                codec_state=None, fault=None):
+        """One round on the [K, sum(sizes)] active window ``flat_win`` (the
+        clients' stored rows: training starts from them and stragglers
+        fall back to them). Returns ``(flat_mixed, mean_loss,
+        codec_state)``; with ``fault`` the rejected-row mask [K] follows,
+        and a rejected row's residual is reverted with the row."""
+        ids = draws.sel.to(self.device)
+        out = self._round_body(
+            self._spec, flat_win, ids % self._data_clients, draws,
+            round_index, codec_state, fault, num_clusters=self._num_clusters,
+            active_ids=ids, num_enrolled=self.num_enrolled)
+        flat_mixed, losses, cstate = out[:3]
+        if not self._codec_stateful:
+            cstate = None
+        if fault is None:
+            return flat_mixed, losses.mean(), cstate
+        bad = out[3]
+        if cstate is not None:
+            cstate = torch.where(bad[:, None], codec_state, cstate)
+        return flat_mixed, losses.mean(), cstate, bad
+
+    # -- fault-mode host bookkeeping -------------------------------------------
+    def _log_fault(self, t: int, **kw) -> None:
+        rec = self._fault_log.setdefault(
+            int(t), {name: 0 for name in FAULT_COUNTERS})
+        for k, v in kw.items():
+            rec[k] += int(v)
+
+    def _splice_retries(self, ids_np: np.ndarray) -> np.ndarray:
+        """Cold retry: clients the guard rejected earlier replace the TAIL
+        slots of this selection (skipping ids already selected — being
+        picked again IS the retry). Returns the patched id vector."""
+        if not self._retry_queue:
+            return ids_np
+        ids_np = np.array(ids_np, copy=True)
+        present = {int(c) for c in ids_np}
+        take, rest = [], []
+        for c in self._retry_queue:
+            if int(c) in present:
+                continue                     # selected organically — retried
+            if len(take) < ids_np.shape[0]:
+                take.append(int(c))
+                present.add(int(c))
+            else:
+                rest.append(int(c))
+        self._retry_queue = rest
+        if take:
+            ids_np[-len(take):] = np.asarray(take, ids_np.dtype)
+        return ids_np
+
+    def _fault_vectors(self, spec, ids_np: np.ndarray):
+        """This round's per-slot ``(drop, flag, mode)`` host vectors: the
+        ``FaultSpec`` names ENROLLED client ids; ids not in this window do
+        not fire."""
+        K = ids_np.shape[0]
+        drop = np.zeros((K,), np.float32)
+        flag = np.zeros((K,), np.float32)
+        mode = np.zeros((K,), np.int32)
+        if spec is not None:
+            pos = {int(c): j for j, c in enumerate(ids_np)}
+            for c in spec.drop:
+                j = pos.get(int(c))
+                if j is not None:
+                    drop[j] = 1.0
+            for c, m in spec.corrupt:
+                j = pos.get(int(c))
+                if j is not None:
+                    flag[j] = 1.0
+                    mode[j] = fault_lib.MODE_CODES[m]
+        return drop, flag, mode
+
+    def _requeue_rejected(self, ids_np: np.ndarray, bad_np: np.ndarray,
+                          drop: np.ndarray, t: int) -> np.ndarray:
+        """Post-guard host bookkeeping of both drivers: requeue rejected
+        clients for their cold retry, log the round's counters, and return
+        the ids whose staleness may advance (accepted and not dropped)."""
+        for c in ids_np[bad_np]:
+            if int(c) not in self._retry_queue:
+                self._retry_queue.append(int(c))
+        self._log_fault(t, dropped=int(drop.sum()),
+                        rejected_rows=int(bad_np.sum()))
+        return ids_np[(~bad_np) & (drop == 0)]
+
+    def _arm_faults(self, draws: RoundDraws, ids_np: np.ndarray, t: int):
+        """Fault mode's per-round set-up, before any store read of round
+        t: arm the injector, splice cold retries into the selection
+        (``ids_np``, the drawn ids on the host). Returns (the draws with
+        the spliced ids, their host vector, the host fault vectors, their
+        device copies)."""
+        self._injector.begin_round(t)
+        ids_np = self._splice_retries(ids_np)
+        draws = dataclasses.replace(
+            draws, sel=kernel_ops.host_to_device(ids_np, self.device))
+        vecs = self._fault_vectors(self.faults.for_round(t), ids_np)
+        dev = tuple(kernel_ops.host_to_device(v, self.device) for v in vecs)
+        return draws, ids_np, vecs, dev
+
+    # -- the serial driver ---------------------------------------------------
+    def round(self, gen: Optional[torch.Generator] = None,
+              round_index: int = 0, *, draws: Optional[RoundDraws] = None):
+        """One sampled round against the store: draw -> gather -> window ->
+        scatter/touch. The round's draws are ``draws`` when given, else
+        drawn from ``gen``. Returns the round's mean train loss (a 0-d
+        tensor on the engine's device)."""
+        if self.store is None:
+            raise ValueError("SampledEngine.round: call init_store(params) "
+                             "first — the engine has no enrolled state")
+        d = draws if draws is not None else self.draw_round(gen)
+        if self.faults is not None:
+            return self._round_faulted(d, round_index)
+        ids_np = _host_ids(d.sel)
+        flat_win = self.store.gather(ids_np)
+        res = (self.store.gather_residual(ids_np) if self._codec_stateful
+               else None)
+        flat_mixed, loss, res = self._window(flat_win, d, round_index, res)
+        if res is not None:
+            self.store.scatter_residual(ids_np, res)
+        self.store.scatter(ids_np, flat_mixed)
+        self.store.touch(ids_np, round_index)
+        return loss
+
+    def _round_faulted(self, d: RoundDraws, t: int):
+        """The serial round under an active plan: arm the injector, splice
+        cold retries into the selection, run the fault-wired window, then
+        scatter the GUARDED rows (a rejected row writes back its pre-round
+        bytes) and touch only the accepted ids. Store read retries are
+        metered per round by the cumulative counter's delta."""
+        d, ids_np, (drop, _, _), fault = self._arm_faults(
+            d, _host_ids(d.sel), t)
+        r0 = self.store.read_retry_count
+        flat_win = self.store.gather(ids_np)
+        res = (self.store.gather_residual(ids_np) if self._codec_stateful
+               else None)
+        flat_out, loss, res, bad = self._window(flat_win, d, t, res, fault)
+        bad_np = bad.cpu().numpy()
+        if res is not None:
+            self.store.scatter_residual(ids_np, res)
+        self.store.scatter(ids_np, flat_out)
+        self.store.touch(self._requeue_rejected(ids_np, bad_np, drop, t), t)
+        self._log_fault(t, retries=self.store.read_retry_count - r0)
+        return loss
+
+    # -- the software pipeline (pipeline_depth >= 2) ---------------------------
+    def _side_streams(self):
+        """(stage A's stream, the card->host copy stream) on the card,
+        (None, None) on the CPU."""
+        if self.device.type != "cuda":
+            return None, None
+        if self._streams is None:
+            self._streams = (torch.cuda.Stream(self.device),
+                             torch.cuda.Stream(self.device))
+        return self._streams
+
+    def _issue_round(self, gen, draws, t: int, writes):
+        """Stage A: draw round t and start the store prefetch (``writes``:
+        the write-backs submitted so far, which the prefetch follows). The
+        draws
+        depend only on the generator — never on store contents — so they
+        can run ahead of the scatters. On the card they run on stage A's
+        stream and the ids come back to the host from there: this waits
+        for the selection only, not for the window running on the main
+        stream, which then waits on stage A's event before it reads any
+        draw (each draw tensor is marked as used on the main stream)."""
+        stream_a, _ = self._side_streams()
+        with store_mod.stream_ctx(stream_a):
+            d = draws[t] if draws is not None else self.draw_round(gen)
+            ids = (store_mod.HostCopy(d.sel)
+                   if stream_a is not None and d.sel.is_cuda else None)
+        ids_np = ids.numpy().copy() if ids is not None else _host_ids(d.sel)
+        if stream_a is not None:
+            main = torch.cuda.current_stream(self.device)
+            main.wait_stream(stream_a)
+            for f in dataclasses.fields(d):
+                x = getattr(d, f.name)
+                if isinstance(x, torch.Tensor) and x.is_cuda:
+                    x.record_stream(main)
+        cur = {"t": t, "draws": d, "ids_np": ids_np}
+        if self.faults is not None:
+            # the injector is armed BEFORE the prefetch goes out: round
+            # t's store reads are the ones its spec targets
+            d, ids_np, vecs, fault = self._arm_faults(d, ids_np, t)
+            cur.update(draws=d, ids_np=ids_np, fault=vecs, fault_dev=fault,
+                       r0=self.store.read_retry_count)
+        # the prefetch goes on the main stream (after every scatter
+        # enqueued so far) or, on the cold tier, to the fetch thread
+        cur["writes_before"] = list(writes)
+        cur["win"] = self.store.prefetch(ids_np)
+        cur["res"] = (self.store.prefetch_residual(ids_np)
+                      if self._codec_stateful else None)
+        return cur
+
+    def _patch_rows(self, win, ids_np, sources, field):
+        """Overwrite rows of ``win`` whose ids collide with in-flight
+        rounds: ``sources`` are older rounds (in round order) whose
+        scatters the prefetch behind ``win`` may not have seen — their
+        outputs are the rows a serial gather WOULD have returned. Oldest
+        first, so the newest writer of an id wins, as in serial scatter
+        order. The cast mirrors the store's scatter-side cast."""
+        for p in sources:
+            src = p[field]
+            if src is None:
+                continue
+            pos = {int(c): j for j, c in enumerate(p["ids_np"])}
+            hit_i = [i for i, c in enumerate(ids_np) if int(c) in pos]
+            if not hit_i:
+                continue
+            hit_j = [pos[int(ids_np[i])] for i in hit_i]
+            win.index_copy_(
+                0, kernel_ops.host_to_device(np.array(hit_i, np.int64),
+                                             win.device),
+                src.index_select(0, kernel_ops.host_to_device(
+                    np.array(hit_j, np.int64), src.device)).to(win.dtype))
+        return win
+
+    def _acquire_window(self, cur, shadow, pending):
+        """Finish stage A for round ``cur``: collect the prefetch, then make
+        the window serially consistent. Two kinds of rounds may own rows
+        the prefetch missed: ``pending`` rounds (enqueued, not yet
+        scattered) and ``shadow`` rounds (scattered AFTER this prefetch
+        was issued — the fetch thread may have read pre-scatter rows).
+        Both patch from their in-flight outputs; patching a row the
+        prefetch DID see post-scatter rewrites it with the same bits."""
+        ids_np = cur["ids_np"]
+        sources = shadow + pending
+        flat_win = self._patch_rows(
+            self._prefetch_rows(cur, "win", self.store.gather), ids_np,
+            sources, "out_flat")
+        res = None
+        if self._codec_stateful:
+            res = self._patch_rows(
+                self._prefetch_rows(cur, "res", self.store.gather_residual),
+                ids_np, sources, "out_res")
+        return flat_win, res
+
+    def _prefetch_rows(self, cur, field, sync_gather):
+        """Collect one prefetch handle with the engine's timeout. A DEAD
+        worker (its exception re-raises here) or a STUCK one (timeout) is
+        not fatal: the round falls back to a synchronous gather, counted
+        in ``prefetch_fallbacks``, once the write-backs submitted before
+        the prefetch have landed (rounds retired later are patched). A
+        permanent store failure (e.g. ``CheckpointCorruptionError``) then
+        raises from the synchronous path, so real errors still surface."""
+        try:
+            return cur[field].result(self.prefetch_timeout)
+        except Exception:   # any worker failure: the synchronous path decides
+            if self.faults is not None:
+                self._log_fault(cur["t"], prefetch_fallbacks=1)
+            for w in cur["writes_before"]:
+                w.result()
+            return sync_gather(cur["ids_np"])
+
+    def _retire_round(self, p, writes):
+        """Stage C: write round p's mixed rows (+ residual) back and
+        advance staleness. On the cold tier the rows' copy to the host was
+        started when the window was enqueued (``host_flat``) and the
+        write-back runs on the store's fetch thread: this thread goes on
+        to launch the next window (on the card the host stays busy
+        launching a window's kernels until shortly before it ends, so host
+        work left on this thread would leave the card idle). Its handle
+        joins ``writes``."""
+        res = p["out_res"]
+        writes.append(self.store.write_back(
+            p["ids_np"], p.get("host_flat", p["out_flat"]),
+            None if res is None else p.get("host_res", res)))
+        # fault mode touches only the accepted ids (the guard already
+        # reverted rejected rows, so the write-back is safe)
+        touch = p.get("touch_ids")
+        self.store.touch(p["ids_np"] if touch is None else touch, p["t"])
+
+    def _run_rounds_pipelined(self, gen, T: int, depth: int, draws):
+        """T rounds with up to ``depth`` windows in flight. Per iteration:
+        acquire round t's prefetched window (patching id conflicts),
+        enqueue its window (stage B), issue round t+1's draws and prefetch
+        (stage A), then retire the oldest rounds (stage C) until at most
+        depth-1 stay in flight. Retires run in round order, so
+        ``last_round`` and the store match serial exactly."""
+        _, copy_stream = self._side_streams()
+        host_copies = (self.store.resident_flat() is None
+                       and copy_stream is not None)
+        pending, shadow, writes, losses = [], [], [], [None] * T
+        nxt = self._issue_round(gen, draws, 0, writes) if T > 0 else None
+        for t in range(T):
+            cur = nxt
+            flat_win, res = self._acquire_window(cur, shadow, pending)
+            # every prefetch issued from here on sees the shadow rounds'
+            # scatters (they were enqueued or done before it) — drop them
+            shadow.clear()
+            out = self._window(flat_win, cur["draws"], t, res,
+                               cur.get("fault_dev"))
+            out_flat, loss, out_res = out[:3]
+            cur.update(out_flat=out_flat, out_res=out_res)
+            if host_copies:
+                # start the card->host copies now, so stage C finds the
+                # bytes waiting
+                cur["host_flat"] = store_mod.HostCopy(out_flat, copy_stream)
+                if out_res is not None:
+                    cur["host_res"] = store_mod.HostCopy(out_res,
+                                                         copy_stream)
+            losses[t] = loss
+            pending.append(cur)
+            if self.faults is not None:
+                # read the guard's verdict BEFORE issuing round t+1, so the
+                # retry splice sees this round's rejections at every depth
+                # — fault mode trades that slice of overlap for
+                # depth-invariant cold-retry semantics
+                bad_np = out[3].cpu().numpy()
+                cur["touch_ids"] = self._requeue_rejected(
+                    cur["ids_np"], bad_np, cur["fault"][0], t)
+                self._log_fault(
+                    t, retries=self.store.read_retry_count - cur["r0"])
+            nxt = (self._issue_round(gen, draws, t + 1, writes)
+                   if t + 1 < T else None)
+            while len(pending) > depth - 1:
+                p = pending.pop(0)
+                self._retire_round(p, writes)
+                shadow.append(p)
+        for p in pending:
+            self._retire_round(p, writes)
+        for w in writes:          # the store is whole when the run returns
+            w.result()
+        return losses
+
+    def run_rounds(self, gen: Optional[torch.Generator], T: int, *,
+                   draws: Optional[Sequence[RoundDraws]] = None,
+                   pipeline_depth: Optional[int] = None):
+        """Run T sampled rounds against the store (a host loop: the store
+        is host-owned state). Round t's draws are ``draws[t]`` when given,
+        else drawn from ``gen`` in round order at every depth.
+        ``pipeline_depth`` (default: the engine's) overlaps draw/prefetch
+        and scatter with the window at depth >= 2, bit for bit the depth-1
+        serial loop. Returns metrics with ``train_loss``, the [T] per-round
+        mean losses (numpy f32); under an active fault plan also the four
+        per-round counters ``dropped``, ``rejected_rows``, ``retries`` and
+        ``prefetch_fallbacks`` ([T] int64)."""
+        if self.store is None:
+            raise ValueError("SampledEngine.run_rounds: call "
+                             "init_store(params) first")
+        depth = self._check_depth(self.pipeline_depth if pipeline_depth
+                                  is None else pipeline_depth)
+        T = int(T)
+        _check_draws(draws, gen, T)
+        if self.faults is not None:
+            # one run_rounds call == one chaos run: counters and the
+            # cold-retry queue start clean
+            self._fault_log = {}
+            self._retry_queue = []
+        if depth == 1:
+            losses = [self.round(gen, t,
+                                 draws=None if draws is None else draws[t])
+                      for t in range(T)]
+        else:
+            losses = self._run_rounds_pipelined(gen, T, depth, draws)
+        metrics = {"train_loss": (torch.stack(losses).cpu().numpy() if T
+                                  else np.zeros((0,), np.float32))}
+        if self.faults is not None:
+            for name in FAULT_COUNTERS:
+                metrics[name] = np.asarray(
+                    [self._fault_log.get(t, {}).get(name, 0)
+                     for t in range(T)], np.int64)
+        return metrics
+
+    def global_params(self):
+        """Consensus readout: the mean over ALL enrolled rows, unpacked to
+        the model's params. On the resident tier this is ``mean_packed``
+        over the live buffer (each leaf in its own dtype, as the dense
+        engine collapses); other tiers go through the store's
+        ``consensus()``."""
+        if self.store is None:
+            raise ValueError("SampledEngine.global_params: no store")
+        flat = self.store.resident_flat()
+        if flat is not None:
+            row = kernel_ops.mean_packed(flat, self._spec)
+        else:
+            row = torch.from_numpy(self.store.consensus()).to(self.device)
+        return kernel_ops.unpack_tree(row, self._spec)
+
+
+def _host_ids(sel) -> np.ndarray:
+    """The active ids as a host int64 vector."""
+    if isinstance(sel, torch.Tensor):
+        return sel.detach().cpu().numpy().astype(np.int64, copy=False)
+    return np.asarray(sel, np.int64)

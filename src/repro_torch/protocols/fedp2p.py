@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -35,6 +36,15 @@ class FedP2P(Protocol):
                   topology: Optional[Topology] = None):
         return random_partition(gen, fl.num_clients, fl.num_clusters,
                                 fl.devices_per_cluster)
+
+    def mesh_cluster_ids(self, num_clients_dev: int,
+                         fl: FLConfig) -> np.ndarray:
+        """L equal contiguous clusters over the D-wide axis; needs L | D."""
+        L = fl.num_clusters
+        if num_clients_dev % L:
+            raise ValueError(f"fedp2p: {num_clients_dev} clients do not "
+                             f"split into L={L} equal clusters")
+        return np.repeat(np.arange(L, dtype=np.int32), num_clients_dev // L)
 
     def mixing_spec(self, ctx: RoundContext) -> SegmentSpec:
         """Cluster-segment structure: within-cluster data-weighted

@@ -113,6 +113,10 @@ class DecentralizedGossip(Protocol):
         return sel, torch.arange(fl.participation, dtype=torch.int32,
                                  device=gen.device)
 
+    def mesh_cluster_ids(self, num_clients_dev: int,
+                         fl: FLConfig) -> np.ndarray:
+        return np.arange(num_clients_dev, dtype=np.int32)
+
     def mixing_spec(self, ctx: RoundContext) -> MatchingSpec:
         """Permutation structure: the round is two sequential pairing
         phases, each an O(D) partner map. ``ctx.counts`` is ignored

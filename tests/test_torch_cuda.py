@@ -83,8 +83,17 @@ skip themselves elsewhere. Run them on the card with
   raises past hd 192 or vd 128 (no fallback); reduced
   deepseek-v2 and dbrx route every MoE layer alike on the card and on
   the CPU, and train on the card as on the CPU (the step-1 loss and
-  every gradient leaf, 3 AdamW steps, the routing).
+  every gradient leaf, 3 AdamW steps, the routing);
+* sampled participation: the resident store's in-place ``index_copy_``
+  scatter against the CPU; ``SampledEngine`` rounds pipelined at depths 2
+  and 3 against the serial loop bit for bit with cuDNN pinned, on both
+  store tiers (fedp2p, and gossip with the topk wire's residuals); a
+  round on the card against the CPU with the same draws, the cold tier's
+  rows (pinned buffers, non-blocking copies) equal to the resident
+  tier's; the cold tier's gather, scatter and fetch-thread prefetch on
+  the card.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -1362,3 +1371,147 @@ def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+# ---- sampled participation on the card ---------------------------------------
+
+
+def _sampled_setup(cuda, tier, depth, *, algo="fedp2p", codec=None,
+                   enrolled=24, device="cuda"):
+    """A small-CNN ``SampledEngine`` (D enrolled over 12 data clients, K =
+    8) on ``device`` with a fresh store of ``tier``; the params are made on
+    the CPU, so every device starts from the same bits."""
+    from repro_torch.config import FLConfig
+    from repro_torch.configs.paper_models import PaperNetConfig
+    from repro_torch.data.federated import pseudo_femnist_federated
+    from repro_torch.protocols import get
+    from repro_torch.protocols.engine import SampledEngine
+    from repro_torch.models.paper_nets import init_paper_net
+    net = PaperNetConfig(name="cnn-small", kind="cnn", image_size=28,
+                         channels=1, hidden=8, num_classes=10)
+    data = pseudo_femnist_federated(12, per_client=20, num_classes=10, seed=1)
+    fl = FLConfig(num_clients=12, num_clusters=2, devices_per_cluster=4,
+                  participation=8, local_epochs=2, lr=0.05,
+                  straggler_rate=0.25, num_enrolled=enrolled,
+                  participants_per_round=8)
+    data_dev = {k: torch.as_tensor(getattr(data, k)) for k in
+                ("x", "y", "mask", "test_x", "test_y", "test_mask")}
+    data_dev["counts"] = torch.as_tensor(data.counts, dtype=torch.float32)
+    se = SampledEngine(net, data_dev, fl, get(algo), codec=codec,
+                       pipeline_depth=depth, device=device)
+    params = init_paper_net(torch.Generator().manual_seed(0), net)
+    se.init_store({k: v.to(device) for k, v in params.items()}, tier=tier)
+    return se
+
+
+def _sampled_state(se):
+    st = se.store
+    out = {"last_round": torch.from_numpy(st.last_round.copy())}
+    if st.resident_flat() is not None:
+        out["flat"] = st.flat.cpu()
+        if st._residual is not None:
+            out["residual"] = st._residual.cpu()
+    else:
+        for c, r in st._overlay.items():
+            out[f"row{c}"] = torch.from_numpy(r.copy())
+        for c, r in st._residual_overlay.items():
+            out[f"res{c}"] = torch.from_numpy(r.copy())
+    return out
+
+
+def _assert_same_state(a, b):
+    assert set(a) == set(b)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_memory_store_scatter_in_place_on_card(cuda):
+    """The resident tier's ``index_copy_`` scatter and ``index_select``
+    gather on the card against the CPU, bit for bit; the state buffer is
+    written in place."""
+    from repro_torch.protocols import MemoryStore
+    flat = torch.randn((1000, 4099), generator=torch.Generator().manual_seed(
+        1))
+    rows = torch.randn((100, 4099), generator=torch.Generator().manual_seed(
+        2))
+    ids = torch.randperm(1000, generator=torch.Generator().manual_seed(3)
+                         )[:100].numpy()
+    cpu, card = MemoryStore(flat.clone()), MemoryStore(flat.cuda())
+    ptr = card.flat.data_ptr()
+    for st, r in ((cpu, rows), (card, rows.cuda())):
+        st.scatter(ids, r)
+    assert card.flat.data_ptr() == ptr
+    assert torch.equal(card.flat.cpu(), cpu.flat)
+    back = ids[::-1].copy()
+    assert torch.equal(card.gather(back).cpu(), cpu.gather(back))
+
+
+@pytest.mark.parametrize("tier", ["memory", "checkpoint"])
+def test_sampled_pipeline_matches_serial_on_card(cuda, tier, monkeypatch):
+    """Pipelined rounds at depths 2 and 3 on the card (stage A on its own
+    stream, the cold tier's pinned copies and fetch stream) equal the
+    serial loop bit for bit, with cuDNN's algorithms pinned: rows,
+    losses, staleness; fedp2p and the topk wire's residuals."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    for algo, codec in (("fedp2p", None), ("gossip", "topk")):
+        ref = None
+        for depth in (1, 2, 3):
+            se = _sampled_setup(cuda, tier, depth, algo=algo, codec=codec)
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            m = se.run_rounds(gen, 5)
+            state = _sampled_state(se)
+            state["loss"] = torch.from_numpy(m["train_loss"])
+            if ref is None:
+                ref = state
+            else:
+                _assert_same_state(state, ref)
+            se.store.close()
+
+
+def test_sampled_round_matches_cpu(cuda, monkeypatch):
+    """One draw set through the card and through the CPU: the stored rows
+    at the FL reference tolerance; with cuDNN pinned, the cold tier's
+    round (pinned buffers, non-blocking copies) equals the memory tier's
+    on the card bit for bit."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    cpu = _sampled_setup(None, "memory", 1, device="cpu")
+    draws = [cpu.draw_round(torch.Generator().manual_seed(4))
+             for _ in range(2)]
+    m_cpu = cpu.run_rounds(None, 2, draws=draws)
+    outs = {}
+    for tier in ("memory", "checkpoint"):
+        se = _sampled_setup(cuda, tier, 1)
+        outs[tier] = (se.run_rounds(None, 2, draws=draws)["train_loss"],
+                      se.store.gather(np.arange(24)).cpu())
+    np.testing.assert_array_equal(outs["memory"][0], outs["checkpoint"][0])
+    assert torch.equal(outs["memory"][1], outs["checkpoint"][1])
+    np.testing.assert_allclose(outs["memory"][0], m_cpu["train_loss"],
+                               rtol=1e-4, atol=1e-6)
+    want = cpu.store.gather(np.arange(24))
+    # the card-vs-CPU rule of the MoE logits above: rtol 1e-4 and an atol
+    # of 1e-4 of the largest |value| (cuDNN and the CPU sum the
+    # convolutions in other orders over 16 SGD steps)
+    torch.testing.assert_close(outs["memory"][1], want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+def test_cold_gather_and_scatter_through_pinned_buffers(cuda):
+    """The cold tier's window goes to the card from a pinned buffer with a
+    non-blocking copy, and back through a pinned buffer whose event the
+    scatter waits on; the fetch thread's copy is on the store's stream and
+    the reader's stream waits on its event."""
+    from repro_torch.protocols import CheckpointStore
+    base = torch.randn((5000,), generator=torch.Generator().manual_seed(0))
+    st = CheckpointStore(base.cuda(), 1000, device="cuda")
+    rows = torch.randn((64, 5000), device="cuda")
+    ids = np.arange(64) * 7
+    st.scatter(ids, rows * 2)            # a card tensor: pinned copy + event
+    got = st.gather(ids)
+    assert got.is_cuda and torch.equal(got, rows * 2)
+    h = st.prefetch(np.concatenate([ids[:8], [1, 2]]))
+    win = h.result()
+    assert torch.equal(win[:8], rows[:8] * 2)
+    assert torch.equal(win[8:].cpu(), base.expand(2, -1))
+    st.close()

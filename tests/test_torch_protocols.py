@@ -168,8 +168,11 @@ def test_registry_and_resolve():
             protocols.make_context(num_clients=4))
     with pytest.raises(ValueError, match="unknown protocol 'nope'"):
         protocols.get("nope")
+    # both participation strategies are ported; unknown names still raise
+    assert protocols.participation_names() == ("uniform", "pareto")
+    assert protocols.get_participation("pareto").name == "pareto"
     with pytest.raises(ValueError, match="participation strategy"):
-        protocols.get_participation("pareto")
+        protocols.get_participation("roundrobin")
 
 
 @pytest.mark.parametrize("name", ["fedp2p", "fedavg", "gossip",
