@@ -26,9 +26,10 @@ exits non-zero:
             mamba2-130m's; the backward
             kernels (flash_attention_bwd, flash_attention_bwd_vd,
             ssd_scan_bwd) against the plain version's autograd at
-            Hymba's, qwen2-1.5b's, DeepSeek-V2's (192, 128) and
-            mamba2-130m's training shapes (flash in f32 and bf16), two
-            backward calls bit for bit, and an inf or NaN in each input
+            Hymba's, qwen2-1.5b's, gemma-2b's (hd 256), DeepSeek-V2's
+            (192, 128) and mamba2-130m's training shapes (flash in f32 and
+            bf16), two backward calls bit for bit, and an inf or NaN in
+            each input (flash at hd 256 too)
             (flash: q, k, v, dO; the SSD: x, dt, B, C, dY) giving the
             plain autograd's inf and NaN; the wgmma forward's row
             log-sum-exp against the plain one;
@@ -45,9 +46,12 @@ exits non-zero:
             reduced Hymba's prefill and greedy decode, reduced Hymba's,
             deepseek-v2-236b's and dbrx-132b's training (the step-1 loss
             and every gradient leaf, then 3 AdamW steps' losses; the MoE
-            routing of step 1 equal), and reduced deepseek-v2-236b and
+            routing of step 1 equal), reduced deepseek-v2-236b and
             dbrx-132b's prefill and 8 greedy decode steps (logits, tokens,
-            and every MoE layer's routing equal on the two devices);
+            and every MoE layer's routing equal on the two devices), and
+            reduced gemma-2b (at head_dim 256), nemotron-4-15b, yi-34b,
+            chameleon-34b and musicgen-medium served the same way, gemma
+            and musicgen trained the same way;
   main_path ``Simulator.run`` on CNN-FEMNIST at the paper's full width
             (246,590 params x 100 clients): fedp2p, fedp2p with
             sync_period=2, fedavg, fedp2p on mix_path="dense", fedp2p
@@ -81,7 +85,12 @@ exits non-zero:
             (the leading dense layer and 2 MoE layers; prompts of 512 and
             2048) and dbrx-132b cut to 2 (a prompt of 2048), every width
             published, B = 4, 16 greedy tokens, one flash_attention launch
-            a layer; then ``run_lm_training`` on Hymba-1.5B at
+            a layer; then the same on gemma-2b and nemotron-4-15b whole,
+            yi-34b cut to 25 layers and chameleon-34b to 20 (a prompt of
+            2048), and musicgen-medium whole through ``Model.prefill`` /
+            ``Model.decode`` (1500 seeded frame embeddings, a [4, 64,
+            1536] context, 15 decode frames); then ``run_lm_training`` on
+            Hymba-1.5B at
             full width (B 2 x 1920 tokens, 4 steps with remat off and 2
             with remat on; every backward kernel launched 32 times a
             step), one step's device-time split, and the CLI's
@@ -89,9 +98,11 @@ exits non-zero:
             subprocess; then the train step of deepseek-v2-236b (2
             layers, 32 of 160 routed experts) and dbrx-132b (1 layer, 6
             of 16) at every published width, B 1 x 2048, 3 steps, with a
-            step's split, and ``run_lm_training`` on both reduced: each
-            run driven with the launch counters set to 0 just before it
-            and read just after;
+            step's split, and ``run_lm_training`` on both reduced; then
+            the train step of gemma-2b cut to 16 layers (B 1 x 2048, the
+            hd-256 backward) and musicgen-medium whole (B 1 x 1500
+            frames), 3 steps each: each run driven with the launch
+            counters set to 0 just before it and read just after;
   timing    each kernel's mean time at the main path's shape beside its
             plain version (the FL rows with the L2 evicted before every
             call), its bound (the product kernels' at the
@@ -101,9 +112,9 @@ exits non-zero:
             launches alone and at gemma-2b's hd 256 and DeepSeek-V2's
             MLA (192, 128) beside SDPA,
             fed_mix_matching at S = 2 and 1; the backward kernels at
-            Hymba's, DeepSeek-V2's and DBRX's training shapes beside the
-            plain autograd and, for flash, SDPA's backward), two rounds'
-            split between local
+            Hymba's, DeepSeek-V2's, DBRX's and gemma-2b's training shapes
+            beside the plain autograd and, for flash, SDPA's backward), two
+            rounds' split between local
             training, mixing and the wire, the Hymba prefill's
             device time by kernel, and a sampled cold-tier round (D =
             10^6) split into store gather, window and scatter, with the
@@ -232,6 +243,22 @@ TRAIN_LOSS0_SLACK = 1.5
 # what fits the card's 80 GB with ~10 GB to spare.
 MOE_TRAIN_RUNS = (("deepseek-v2-236b", 2, 32), ("dbrx-132b", 1, 6))
 MOE_TRAIN_B, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 1, 2048, 3
+# The dense and VLM serving main path: (arch, layers kept) at every
+# published width, f32, B 4, a prompt of 2048, 16 greedy tokens; depth cut
+# where the f32 weights pass ~60 GB (yi-34b: 25 of 60 layers, 59.4 GB;
+# chameleon-34b: 20 of 48, 59.7 GB; whole they are 138 and 137 GB).
+DENSE_RUNS = (("gemma-2b", 18), ("nemotron-4-15b", 32), ("yi-34b", 25),
+              ("chameleon-34b", 20))
+DENSE_PROMPT = 2048
+# musicgen-medium at full depth, through Model.prefill / Model.decode: its
+# stub frontend's seeded frame embeddings (d 1536) and a conditioning
+# context of [B, 64, 1536]; 1500 frames, MusicGen's 30 s at 50 Hz.
+AUDIO_ARCH, AUDIO_FRAMES = "musicgen-medium", 1500
+# Training the dense and audio configs, f32 AdamW (28 B a parameter at
+# the update), B 1, 3 steps, remat off: gemma-2b cut to 16 of 18 layers
+# (2.29 B params, 64 GB at the update) at 2048 tokens, through the hd-256
+# backward; musicgen-medium whole (1.82 B, 51 GB) at 1500 frames.
+DENSE_TRAIN_RUNS = (("gemma-2b", 16, 2048), ("musicgen-medium", 48, 1500))
 
 
 def emit(obj) -> None:
@@ -707,19 +734,33 @@ def main_case(row):
             and not row.get("non_finite"))
 
 
-def serving_flash_cases():
-    """(B, Hq, Hkv, S, hd, window, num_meta, vd) of every flash_attention
-    call that MOE_RUNS' prefills make, read from the configs: MLA expands
-    the latent to every head at q/k's nope + rope and v's own head_dim;
-    GQA keeps its kv heads at head_dim; the leading dense layers run at
-    window 0, the stacked layers at their own."""
+def cut_config(arch, layers):
+    """``arch``'s published config with its depth cut to ``layers``."""
     import dataclasses
 
     from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), num_layers=layers)
+
+
+def serving_configs():
+    """(config, prompt lengths) of the serving runs after Hymba's:
+    MOE_RUNS' and DENSE_RUNS' depth-cut configs and musicgen's (its
+    prompt in frames)."""
+    from repro_torch.configs import get_config
+    return ([(cut_config(a, n), lens) for a, n, lens in MOE_RUNS]
+            + [(cut_config(a, n), (DENSE_PROMPT,)) for a, n in DENSE_RUNS]
+            + [(get_config(AUDIO_ARCH), (AUDIO_FRAMES,))])
+
+
+def serving_flash_cases():
+    """(B, Hq, Hkv, S, hd, window, num_meta, vd) of every flash_attention
+    call that the prefills of ``serving_configs`` make, read from the
+    configs: MLA expands the latent to every head at q/k's nope + rope and
+    v's own head_dim; GQA keeps its kv heads at head_dim; the leading dense
+    layers run at window 0, the stacked layers at their own."""
     from repro_torch.models.transformer import layer_windows
     cases = []
-    for arch, layers, prompt_lens in MOE_RUNS:
-        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    for cfg, prompt_lens in serving_configs():
         if cfg.use_mla:
             hq = hkv = cfg.num_heads
             hd = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
@@ -741,7 +782,8 @@ def lm_kernel_cases(torch):
     """flash_attention at Hymba's prefill shapes (S + M = 512 and 2048,
     window 0 and 1024, 128 meta tokens), the JAX kernel tests' sweep and a
     ragged S, head_dim 160-512, every shape of the MoE/MLA serving main
-    path (``serving_flash_cases``), and v's head_dim apart from q's and k's
+    path after Hymba's (``serving_flash_cases``: the MoE/MLA, dense, VLM
+    and audio configs), and v's head_dim apart from q's and k's
     ((24, 16), (64, 32), (96, 128), (320, 256)); ssd_scan at Hymba's and mamba2-130m's shapes, the JAX sweep
     and a small chunk, with and without an initial state. Each against its
     plain version on the card."""
@@ -764,8 +806,10 @@ def lm_kernel_cases(torch):
                     (2, 6, 2, 256, 192, 64, 5), (1, 2, 1, 333, 512, 0, 0),
                     (1, 4, 2, 200, 512, 64, 4)]
     flash_cases = [c + (c[4],) for c in flash_cases]
-    # every shape the MoE/MLA serving main path gives the kernel (DeepSeek-
-    # V2's (192, 128) at 512 and 2048 tokens, DBRX's GQA 48/8 at 128); v's
+    # every shape the serving main path after Hymba's gives the kernel
+    # (DeepSeek-V2's (192, 128) at 512 and 2048 tokens, DBRX's GQA 48/8 at
+    # 128, gemma-2b's MQA at 256, nemotron's, yi's and chameleon's GQA
+    # 48/8, 56/8 and 64/8 at 128, musicgen's MHA 24/24 at 64); v's
     # head_dim apart from q's and k's at the reduced MLA config's (24, 16),
     # and (64, 32), (96, 128), (320, 256) with GQA 4/1, a window and meta
     # tokens
@@ -877,8 +921,12 @@ def lm_backward_cases(torch):
     """The backward kernels against the plain version's autograd on the
     card: flash at Hymba's training layers (B 2, 25/5 heads of 64, 2048
     positions, window 1024 and a full layer, 128 meta tokens), qwen2-1.5b's
-    head_dim 128 (12/2 heads), an MQA layer, a ragged S and head_dim 32
-    (reduced Hymba's), f32 and bf16; at v's own head_dim
+    head_dim 128 (12/2 heads), an MQA layer, a ragged S, head_dim 32
+    (reduced Hymba's), musicgen-medium's training shape (B 1, 24/24 heads
+    of 64, 1500 frames: 23 full tiles and a 28-row one) and head_dim 256
+    (gemma-2b's MQA training shape, and a ragged one with GQA, a window and
+    meta tokens), f32 and bf16; at v's
+    own head_dim
     (``flash_attention_bwd_vd``) DeepSeek-V2's training shape (B 1, 128
     heads, 2048 positions, (192, 128)), a ragged S, the reduced config's
     (24, 16), (192, 128) with a window and meta tokens and (64, 32) with
@@ -904,7 +952,10 @@ def lm_backward_cases(torch):
     flash_cases += [(TRAIN_B, 12, 2, LM_S, 128, 0, 0),      # qwen2-1.5b
                     (TRAIN_B, 8, 1, 1024, 64, 0, 0),        # MQA
                     (2, 4, 2, 200, 64, 64, 8),              # ragged S
-                    (2, 4, 2, 128, 32, 64, 8)]              # reduced Hymba
+                    (2, 4, 2, 128, 32, 64, 8),              # reduced Hymba
+                    (1, WIDE_HQ, WIDE_HKV, 2048, WIDE_HD, 0, 0),  # gemma-2b
+                    (2, 4, 2, 300, 256, 96, 16),            # hd 256, ragged
+                    (1, 24, 24, AUDIO_FRAMES, 64, 0, 0)]    # musicgen-medium
     flash_cases = [c + (c[4],) for c in flash_cases]
     # v's own head_dim: DeepSeek-V2's training shape, a ragged S, reduced
     # deepseek-v2's (24, 16), a window and meta tokens, GQA
@@ -945,11 +996,13 @@ def lm_backward_cases(torch):
                          "grads": errs, "atol": atol, "rtol": rtol,
                          "ok": ok})
             del q, k, v, dout, got, want, w64
-    # the wgmma forward's log-sum-exp (what K2 reads) against the plain
-    # one: logsumexp of each row's visible scaled scores, in float64
+    # the wgmma forward's log-sum-exp (what K2 reads) and the wide one's
+    # at hd 256 (what the backward at 256 reads) against the plain one:
+    # logsumexp of each row's visible scaled scores, in float64
     for i, (b, hq, s, hd, vd, w, meta) in enumerate((
             (MOE_TRAIN_B, MLA_H, MOE_TRAIN_SEQ, MLA_HD, MLA_VD, 0, 0),
-            (2, 4, 70, 24, 16, 0, 0), (1, 2, 300, 160, 64, 96, 16))):
+            (2, 4, 70, 24, 16, 0, 0), (1, 2, 300, 160, 64, 96, 16),
+            (1, WIDE_HQ, 512, WIDE_HD, WIDE_HD, 0, 0))):   # the wide kernel
         for dt in (f32, bf16):
             q, k, v = attention_inputs(torch, b, hq, hq, s, hd, dt,
                                        seed=870 + i, vd=vd)
@@ -1016,6 +1069,15 @@ def lm_backward_cases(torch):
     same = all(torch.equal(a, b) for a, b in zip(r1, r2))
     rows.append({"kernel": "flash_attention_bwd", "bitwise_repeat": same,
                  "max_abs_err": 0.0, "ok": same})
+    q, k, v = attention_inputs(torch, 1, WIDE_HQ, 2, 512, WIDE_HD, f32,
+                               seed=993)
+    lse = torch.empty((1, WIDE_HQ, 512), device="cuda")
+    out = _launch(q, k, v, 0, 0, lse=lse)
+    dout = torch.randn_like(out)
+    r1, r2 = [flash_attention_bwd(q, k, v, out, dout, lse) for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(r1, r2))
+    rows.append({"kernel": "flash_attention_bwd", "hd": WIDE_HD,
+                 "bitwise_repeat": same, "max_abs_err": 0.0, "ok": same})
     for hq, hkv in ((16, 16), (16, 4)):
         q, k, v = attention_inputs(torch, 2, hq, hkv, 1024, MLA_HD,
                                    f32, seed=992, vd=MLA_VD)
@@ -1059,6 +1121,25 @@ def lm_backward_cases(torch):
             rows.append(non_finite_row(
                 torch, "flash_attention_bwd", f"{val} in {tensor}{index}",
                 ("dq", "dk", "dv"), got[1:], want[1:],
+                lambda w: FLASH_TOL["float32"]))
+    # hd 256 (32-row tiles, 8-word masks), 448 positions, GQA 4/2, window
+    # 96, 16 meta tokens: columns past 128 in tiles the passes skip and
+    # visit
+    wide_sites = (("q", (0, 1, 300, 200)), ("k", (0, 1, 100, 130)),
+                  ("k", (0, 0, 5, 250)), ("v", (0, 1, 200, 140)),
+                  ("dO", (0, 2, 40, 255)), ("dO", (0, 3, 400, 7)))
+    for i, (tensor, index) in enumerate(wide_sites):
+        for val in (math.inf, math.nan):
+            q, k, v = attention_inputs(torch, 1, 4, 2, 448, WIDE_HD, f32,
+                                       seed=1020 + i)
+            dout = torch.randn((1, 4, 448, WIDE_HD), device="cuda")
+            {"q": q, "k": k, "v": v, "dO": dout}[tensor][index] = val
+            got = flash_grads(torch, flash_attention, q, k, v, dout, 96, 16)
+            want = flash_grads(torch, ref.flash_attention_ref, q, k, v, dout,
+                               96, 16)
+            rows.append(non_finite_row(
+                torch, "flash_attention_bwd", f"hd 256: {val} in "
+                f"{tensor}{index}", ("dq", "dk", "dv"), got[1:], want[1:],
                 lambda w: FLASH_TOL["float32"]))
     # K2 at (192, 128), 448 positions, window 96, 16 meta tokens: a q row
     # (column 150: the third dK slice) whose masked keys lie in tiles the
@@ -1238,14 +1319,16 @@ def phase_reference(torch, state):
         emit({"phase": "reference", "runs": rows})
         raise AssertionError(f"the sampled window on the card disagrees: "
                              f"{[r for r in sampled if not r['ok']]}")
-    rows.append(lm_reference(torch))
-    rows.append(lm_train_reference(torch))
-    rows += [moe_reference(torch, arch) for arch, _, _ in MOE_RUNS]
-    rows += [moe_train_reference(torch, "deepseek-v2-236b",
-                                 "flash_attention_bwd_vd"),
-             moe_train_reference(torch, "dbrx-132b", "flash_attention_bwd")]
+    lm_rows = [lm_reference(torch), lm_train_reference(torch)]
+    lm_rows += [moe_reference(torch, arch) for arch, _, _ in MOE_RUNS]
+    lm_rows += [moe_train_reference(torch, "deepseek-v2-236b",
+                                    "flash_attention_bwd_vd"),
+                moe_train_reference(torch, "dbrx-132b",
+                                    "flash_attention_bwd")]
+    lm_rows += dense_reference(torch)
+    rows += lm_rows
     emit({"phase": "reference", "runs": rows})
-    bad = [r for r in rows[-6:] if not r["ok"]]
+    bad = [r for r in lm_rows if not r["ok"]]
     if bad:
         raise AssertionError(f"port on the card disagrees with the CPU "
                              f"reference: {bad}")
@@ -1303,9 +1386,11 @@ def moe_reference(torch, arch):
 def serve_on_both(torch, cfg, buf):
     """``cfg``'s seeded weights drawn on the CPU, then on each of the CPU
     and the card a prefill of the same 70-token prompts (B 2) into a cache
-    of ``buf`` slots and 8 greedy decode steps. Tolerance: logits within
-    rtol 1e-4 and 1e-4 of their scale (the kernels and cuBLAS sum in other
-    orders than the CPU's plain versions); equal tokens."""
+    of ``buf`` slots and 8 greedy decode steps (audio: 70 seeded frame
+    embeddings and a conditioning context, then 8 seeded frames; its
+    tokens each codebook's argmax). Tolerance: logits within rtol 1e-4 and
+    1e-4 of their scale (the kernels and cuBLAS sum in other orders than
+    the CPU's plain versions); equal tokens."""
     import numpy as np
 
     from repro_torch.launch import serve
@@ -1314,17 +1399,32 @@ def serve_on_both(torch, cfg, buf):
     model = build_model(cfg)
     prefill, decode = build_prefill_step(model), build_decode_step(model)
     params = model.init(0, device="cpu")
-    prompts = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (2, 70)))
+    rng = np.random.default_rng(0)
+    audio = cfg.family == "audio"
+    if audio:
+        batch = {"embeds": rng.standard_normal((2, 70, cfg.d_model)),
+                 "cross_context": rng.standard_normal(
+                     (2, cfg.cross_context_len, cfg.cross_context_dim))}
+        frames = rng.standard_normal((8, 2, 1, cfg.d_model))
+        batch = {k: torch.from_numpy(v).float() for k, v in batch.items()}
+        frames = torch.from_numpy(frames).float()
+    else:
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, 70)))}
     out = {}
     for dev in ("cpu", "cuda"):
         p = tree_to(params, dev)
-        cache = model.make_cache(2, buf, device=dev)
-        logits, cache = prefill(p, {"tokens": prompts.to(dev)}, cache)
+        cache = model.make_cache(2, buf, device=dev,
+                                 cross_len=cfg.cross_context_len
+                                 if audio else 0)
+        logits, cache = prefill(p, {k: v.to(dev) for k, v in batch.items()},
+                                cache)
         steps, toks = [logits[:, -1]], []
-        for _ in range(8):
+        for i in range(8):
             toks.append(serve._sample(steps[-1], 0.0, None))
-            logits, cache = decode(p, cache, {"token": toks[-1][:, None]})
+            step_in = ({"embed": frames[i].to(dev)} if audio
+                       else {"token": toks[-1][:, None]})
+            logits, cache = decode(p, cache, step_in)
             steps.append(logits)
         out[dev] = (torch.stack(steps).cpu(), torch.stack(toks).cpu())
     (lc, tc), (lg, tg) = out["cpu"], out["cuda"]
@@ -1334,7 +1434,8 @@ def serve_on_both(torch, cfg, buf):
           and bool(((lg - lc).abs() <= bound + 1e-4 * lc.abs()).all()))
     return {"prompt": 70, "decode_steps": 8, "max_abs_err_logits": err,
             "logits_scale": float(lc.abs().max()),
-            "tokens_cpu": tc.T.tolist(), "tokens_cuda": tg.T.tolist(),
+            "tokens_cpu": tc.transpose(0, 1).tolist(),
+            "tokens_cuda": tg.transpose(0, 1).tolist(),
             "ok": ok}
 
 
@@ -1386,9 +1487,42 @@ def moe_train_reference(torch, arch, backward):
             "routing_equal_step1": same, "ok": row["ok"] and same}
 
 
+def dense_reference(torch):
+    """The dense, VLM and audio configs reduced (two layers, width 256) on
+    the card against the port on the CPU: gemma-2b at its published
+    head_dim 256 (MQA 4/1: the wide forward and the backward's 256
+    instantiation), nemotron-4-15b, yi-34b and chameleon-34b with GQA kept
+    (``num_kv_heads=2``) and musicgen-medium; each served as
+    ``serve_on_both`` holds it (78 cache slots), and gemma-2b and
+    musicgen-medium trained as ``train_on_both`` holds it (96 tokens or
+    frames a row)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    kernels = ("flash_attention", "flash_attention_bwd")
+    rows = []
+    for arch, _ in DENSE_RUNS:
+        keep = ({"head_dim": 256} if arch == "gemma-2b"
+                else {"num_kv_heads": 2})
+        cfg = dataclasses.replace(get_config(arch).reduced(), **keep)
+        rows.append({"model": f"{arch} reduced, {keep}",
+                     **serve_on_both(torch, cfg, 78)})
+        if arch == "gemma-2b":
+            rows.append({"model": f"{arch} reduced, {keep}",
+                         **train_on_both(torch, cfg, 96, kernels)})
+    cfg = get_config(AUDIO_ARCH).reduced()
+    rows.append({"model": f"{AUDIO_ARCH} reduced",
+                 **serve_on_both(torch, cfg, 78)})
+    rows.append({"model": f"{AUDIO_ARCH} reduced",
+                 **train_on_both(torch, cfg, 96, kernels)})
+    return rows
+
+
 def train_on_both(torch, cfg, seq, kernels, routes=None):
     """``cfg`` trained on the CPU and on the card from the same weights
-    (drawn on the CPU), B 2 x ``seq`` tokens of the synthetic stream.
+    (drawn on the CPU), B 2 x ``seq`` tokens of the synthetic stream
+    (audio: seeded frame embeddings, a conditioning context and labels of
+    its 4 codebooks).
     Tolerances: the step-1 loss at rtol 1e-5; every gradient leaf at step 1
     within 1e-4 of the leaf's largest |value| (the kernels, cuBLAS and the
     MoE gathers' index-accumulates sum in other orders than the CPU's
@@ -1402,9 +1536,19 @@ def train_on_both(torch, cfg, seq, kernels, routes=None):
     from repro_torch.models.model import build_model
     model = build_model(cfg)
     params = model.init(0, device="cpu")
-    stream = token_stream_batches(cfg.vocab_size, 2, seq, seed=0)
-    batches = [{k: torch.from_numpy(v) for k, v in next(stream).items()}
-               for _ in range(3)]
+    if cfg.family == "audio":
+        g = torch.Generator().manual_seed(0)
+        batches = [{"embeds": torch.randn((2, seq, cfg.d_model), generator=g),
+                    "cross_context": torch.randn(
+                        (2, cfg.cross_context_len, cfg.cross_context_dim),
+                        generator=g),
+                    "labels": torch.randint(
+                        0, cfg.vocab_size, (2, seq, cfg.num_codebooks),
+                        generator=g)} for _ in range(3)]
+    else:
+        stream = token_stream_batches(cfg.vocab_size, 2, seq, seed=0)
+        batches = [{k: torch.from_numpy(v) for k, v in next(stream).items()}
+                   for _ in range(3)]
     counters = launch_counters()
     out = {}
     for dev in ("cpu", "cuda"):
@@ -2109,8 +2253,11 @@ def phase_main_path(torch, state):
         raise AssertionError(f"sampled run failed: {sampled[-1]}")
     lm_rows = lm_main_path(torch, counters, totals, state)
     lm_rows += moe_main_path(torch, counters, totals)
+    lm_rows += dense_main_path(torch, counters, totals)
+    lm_rows += audio_main_path(torch, counters, totals)
     train_rows = lm_train_main_path(torch, counters, totals, state)
     train_rows += moe_train_main_path(torch, counters, totals)
+    train_rows += dense_train_main_path(torch, counters, totals)
     state["launches"] = totals
     emit({"phase": "main_path", "params_per_client": n_params,
           "runs": results, "sampled": sampled, "serving": lm_rows,
@@ -2184,70 +2331,88 @@ def lm_main_path(torch, counters, totals, state):
     return rows
 
 
+def generate_run(torch, counters, totals, cfg, params, prompt_len, expect):
+    """One ``serve._generate`` run (``generate``'s body, which takes a
+    depth-cut config) of seeded prompts, B = 4, 16 greedy tokens, driven
+    with the launch counters set to 0 just before it and read just after:
+    (its output, the seconds, the launches, ok)."""
+    import numpy as np
+
+    from repro_torch.launch import serve
+    prompts = np.random.default_rng(prompt_len).integers(
+        0, cfg.vocab_size, (LM_B, prompt_len)).astype(np.int32)
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = serve._generate(cfg, prompts, max_new_tokens=LM_NEW,
+                          temperature=0.0, window=0, seed=0, verbose=False,
+                          device=None, params=params, generator=None)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = {k: fn.launches for k, fn in counters.items()}
+    for k in totals:
+        totals[k] += got[k]
+    toks = out["tokens"]
+    ok = (out["logits_finite"] and toks.shape == (LM_B, LM_NEW)
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
+          and got == expect)
+    return out, prompts, secs, got, ok
+
+
+def weight_read_bytes(cfg, params):
+    """The decode's weight-read bound's bytes: every weight read once a
+    token, but the embedding table's gathered rows (an untied table; a
+    tied one is read whole for the logits) and the cross-attention's key
+    and value projections (decode reads the cached keys and values)."""
+    n = sum(v.numel() for v in tree_leaves(params))
+    if "embed" in params and not cfg.tie_embeddings:
+        n -= params["embed"]["table"].numel()
+    if cfg.cross_attend:
+        n -= sum(params["layers"]["cross"][w].numel() for w in ("wk", "wv"))
+    return 4 * n
+
+
 def moe_main_path(torch, counters, totals):
     """The MoE/MLA serving path at every published width, through
-    ``serve._generate`` (``generate``'s body, which takes the depth-cut
-    config): seeded f32 weights drawn on the card once per model (the
-    first freed before the second is drawn), B = 4, 16 greedy tokens,
-    each run driven with the launch counters set to 0 just before it and
-    read just after. Every layer's prefill attention is one
+    ``serve._generate`` (``generate_run``): seeded f32 weights drawn on the
+    card once per model (the first freed before the second is drawn), B =
+    4, 16 greedy tokens. Every layer's prefill attention is one
     flash_attention launch (deepseek-v2's MLA at (192, 128), its leading
     dense layer included; dbrx's GQA 48/8 at 128); decode launches no
     kernel. ``decode_bound_ms``: every weight but the embedding table read
     once a token (the capacity of 8 slots runs every expert at decode);
     ``expert_read_ms`` the experts' share of it."""
-    import dataclasses
-
-    import numpy as np
-
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
     from repro_torch.models.model import build_model
     rows = []
     for arch, layers, prompt_lens in MOE_RUNS:
-        full = get_config(arch)
-        cfg = dataclasses.replace(full, num_layers=layers)
+        cfg = cut_config(arch, layers)
         torch.cuda.reset_peak_memory_stats()
         params = build_model(cfg).init(0, device="cuda")
         n_params = sum(v.numel() for v in tree_leaves(params))
-        read = 4 * (n_params - params["embed"]["table"].numel())
         experts = 4 * sum(params["layers"]["moe"][w].numel()
                           for w in ("w_in", "w_gate", "w_out"))
         expect = expected(flash_attention=layers)
         for prompt_len in prompt_lens:
-            prompts = np.random.default_rng(prompt_len).integers(
-                0, cfg.vocab_size, (LM_B, prompt_len)).astype(np.int32)
-            torch.cuda.synchronize()
-            for fn in counters.values():
-                fn.launches = 0
-            t0 = time.perf_counter()
-            out = serve._generate(cfg, prompts, max_new_tokens=LM_NEW,
-                                  temperature=0.0, window=0, seed=0,
-                                  verbose=False, device=None, params=params,
-                                  generator=None)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            got = {k: fn.launches for k, fn in counters.items()}
-            for k in totals:
-                totals[k] += got[k]
-            toks = out["tokens"]
-            ok = (out["logits_finite"] and toks.shape == (LM_B, LM_NEW)
-                  and int(toks.min()) >= 0
-                  and int(toks.max()) < cfg.vocab_size and got == expect)
+            out, prompts, secs, got, ok = generate_run(
+                torch, counters, totals, cfg, params, prompt_len, expect)
             rows.append({
                 "run": f"serve_{arch}", "params": n_params,
                 "param_bytes": 4 * n_params,
-                "reduced": {"num_layers": [full.num_layers, layers]},
+                "reduced": {"num_layers": [get_config(arch).num_layers,
+                                           layers]},
                 "batch": LM_B, "prompt": prompt_len, "new_tokens": LM_NEW,
                 "prefill_s": out["prefill_s"],
                 "decode_ms_per_token": out["decode_s_per_token"] * 1e3,
-                "decode_bound_ms": read / HBM_BYTES_PER_S * 1e3,
+                "decode_bound_ms": weight_read_bytes(cfg, params)
+                / HBM_BYTES_PER_S * 1e3,
                 "expert_read_ms": experts / HBM_BYTES_PER_S * 1e3,
                 "seconds": round(secs, 3),
                 "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
                 "logits_finite": out["logits_finite"],
-                "tokens_head": toks[:, :6].tolist(), "launches": got,
-                "expected_launches": expect, "ok": ok})
+                "tokens_head": out["tokens"][:, :6].tolist(),
+                "launches": got, "expected_launches": expect, "ok": ok})
         # one prefill at the longest prompt and one decode step under
         # torch.profiler (not counted: the counters were read above)
         rows[-1]["device_split"] = kernel_split(
@@ -2257,6 +2422,146 @@ def moe_main_path(torch, counters, totals):
         del params
         torch.cuda.empty_cache()
     return rows
+
+
+def dense_main_path(torch, counters, totals):
+    """The dense and VLM serving path at every published width
+    (``DENSE_RUNS``: gemma-2b and nemotron-4-15b whole, yi-34b and
+    chameleon-34b cut in depth to ~60 GB of f32 weights), through
+    ``serve._generate`` (``generate_run``): seeded weights drawn on the card,
+    each model freed before the next, B 4, a prompt of 2048, 16 greedy
+    tokens. Each layer's prefill attention is one flash_attention launch
+    (gemma's MQA at head_dim 256 on the wide kernel; the others' GQA at
+    128); decode launches none. chameleon's prompt is mixed text and image
+    token ids of its unified vocabulary (its image tokenizer is a stub in
+    the JAX package too). ``decode_bound_ms``: ``weight_read_bytes`` over
+    the memory rate."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    rows = []
+    for arch, layers in DENSE_RUNS:
+        cfg = cut_config(arch, layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = build_model(cfg).init(0, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(v.numel() for v in tree_leaves(params))
+        expect = expected(flash_attention=layers)
+        out, _, secs, got, ok = generate_run(
+            torch, counters, totals, cfg, params, DENSE_PROMPT, expect)
+        full = get_config(arch).num_layers
+        rows.append({
+            "run": f"serve_{arch}", "params": n_params,
+            "param_bytes": 4 * n_params,
+            "reduced": ({"num_layers": [full, layers]} if layers < full
+                        else {}),
+            "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
+            "batch": LM_B, "prompt": DENSE_PROMPT, "new_tokens": LM_NEW,
+            "init_s": init_s, "prefill_s": out["prefill_s"],
+            "decode_ms_per_token": out["decode_s_per_token"] * 1e3,
+            "decode_bound_ms": weight_read_bytes(cfg, params)
+            / HBM_BYTES_PER_S * 1e3,
+            "seconds": round(secs, 3),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "logits_finite": out["logits_finite"],
+            "tokens_head": out["tokens"][:, :6].tolist(), "launches": got,
+            "expected_launches": expect, "ok": ok})
+        del params
+    torch.cuda.empty_cache()
+    return rows
+
+
+def audio_inputs(torch, cfg, b, frames, seed, labels=False):
+    """musicgen's stub frontend on the card: seeded frame embeddings [b,
+    frames, d] and a conditioning context [b, 64, 1536] (``labels``: the
+    4 codebooks' seeded labels [b, frames, 4])."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    batch = {"embeds": torch.randn((b, frames, cfg.d_model), device="cuda",
+                                   generator=g),
+             "cross_context": torch.randn(
+                 (b, cfg.cross_context_len, cfg.cross_context_dim),
+                 device="cuda", generator=g)}
+    if labels:
+        batch["labels"] = torch.randint(
+            0, cfg.vocab_size, (b, frames, cfg.num_codebooks),
+            device="cuda", generator=g)
+    return batch
+
+
+def audio_main_path(torch, counters, totals):
+    """musicgen-medium at full width and depth through ``Model.prefill`` and
+    ``Model.decode`` (the audio batch schema: ``generate`` takes tokens,
+    and audio serves on embeddings, as in the JAX package): seeded weights
+    drawn on the card, B 4, 1500 frames of seeded embeddings and a
+    [4, 64, 1536] conditioning context, then 15 decode steps each fed the
+    next seeded frame, driven with the launch counters set to 0 just
+    before and read just after. The prefill is one flash_attention launch a
+    layer (MHA 24/24 at 64; the cross-attention over 64 positions is plain,
+    as in JAX), decode none. Logits [4, 1, 4, 2048], then [4, 4, 2048];
+    each codebook's greedy token in range."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    from repro_torch.models.model import build_model
+    cfg = get_config(AUDIO_ARCH)
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(0, device="cuda")
+    n_params = sum(v.numel() for v in tree_leaves(params))
+    prefill, decode = build_prefill_step(model), build_decode_step(model)
+    batch = audio_inputs(torch, cfg, LM_B, AUDIO_FRAMES, seed=0)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    frames = torch.randn((LM_NEW - 1, LM_B, 1, cfg.d_model), device="cuda",
+                         generator=g)
+    cache = model.make_cache(LM_B, AUDIO_FRAMES + LM_NEW, device="cuda",
+                             cross_len=cfg.cross_context_len)
+    expect = expected(flash_attention=cfg.num_layers)
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch, cache)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    shapes_ok = logits.shape == (LM_B, 1, cfg.num_codebooks, cfg.vocab_size)
+    steps = [logits[:, -1]]
+    t1 = time.perf_counter()
+    for frame in frames:
+        logits, cache = decode(params, cache, {"embed": frame})
+        shapes_ok = shapes_ok and logits.shape == (
+            LM_B, cfg.num_codebooks, cfg.vocab_size)
+        steps.append(logits)
+    torch.cuda.synchronize()
+    t_decode = (time.perf_counter() - t1) / (LM_NEW - 1)
+    got = {k: fn.launches for k, fn in counters.items()}
+    for k in totals:
+        totals[k] += got[k]
+    stacked = torch.stack(steps)
+    toks = torch.argmax(stacked, dim=-1)           # [16, B, 4]
+    finite = bool(torch.isfinite(stacked).all())
+    cross_written = bool((cache["cross_k"].abs().amax(dim=(1, 2, 3, 4))
+                          > 0).all())
+    ok = (finite and shapes_ok and cross_written and got == expect
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size)
+    row = {"run": f"serve_{AUDIO_ARCH}", "params": n_params,
+           "param_bytes": 4 * n_params, "reduced": {},
+           "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
+           "batch": LM_B, "frames": AUDIO_FRAMES,
+           "cross_context": [LM_B, cfg.cross_context_len,
+                             cfg.cross_context_dim],
+           "new_frames": LM_NEW, "prefill_s": t_prefill,
+           "decode_ms_per_token": t_decode * 1e3,
+           "decode_bound_ms": weight_read_bytes(cfg, params)
+           / HBM_BYTES_PER_S * 1e3,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "logits_finite": finite, "cross_kv_written": cross_written,
+           "tokens_head": toks[:6, 0].tolist(), "launches": got,
+           "expected_launches": expect, "ok": ok}
+    del params, cache, batch, stacked, steps, logits
+    torch.cuda.empty_cache()
+    return [row]
 
 
 def lm_train_main_path(torch, counters, totals, state):
@@ -2359,12 +2664,9 @@ def moe_train_main_path(torch, counters, totals):
     before it and read just after."""
     import dataclasses
 
-    from repro_torch.config import TrainConfig
     from repro_torch.configs import get_config
     from repro_torch.data.lm import token_stream_batches
     from repro_torch.launch import train
-    from repro_torch.launch.steps import build_train_step
-    from repro_torch.models.model import build_model
     rows = []
     steps, b, seq = MOE_TRAIN_STEPS, MOE_TRAIN_B, MOE_TRAIN_SEQ
     for arch, layers, experts in MOE_TRAIN_RUNS:
@@ -2375,57 +2677,17 @@ def moe_train_main_path(torch, counters, totals):
                else "flash_attention_bwd")
         expect = expected(**{"flash_attention": layers * steps,
                              bwd: layers * steps})
-        model = build_model(cfg)
-        step_fn, opt = build_train_step(model, TrainConfig(
-            lr=3e-3, schedule="warmup_cosine", warmup_steps=10,
-            total_steps=steps, remat=False))
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        live = {"p": model.init(0, device="cuda")}
-        live["s"] = opt.init(live["p"])
-        n_params = sum(v.numel() for v in tree_leaves(live["p"]))
         stream = token_stream_batches(cfg.vocab_size, b, seq, seed=0)
-        torch.cuda.synchronize()
-        for fn in counters.values():
-            fn.launches = 0
-        losses, step_seconds = [], []
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            t_step = time.perf_counter()
-            batch = {k: torch.from_numpy(v).cuda()
-                     for k, v in next(stream).items()}
-            live["p"], live["s"], m = step_fn(live["p"], live["s"], batch)
-            losses.append(float(m["loss"]))
-            step_seconds.append(time.perf_counter() - t_step)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        got = {k: fn.launches for k, fn in counters.items()}
-        for k in totals:
-            totals[k] += got[k]
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        later = step_seconds[1:]
-        s_step = sum(later) / len(later)
-        ok = (all(math.isfinite(v) for v in losses) and got == expect
-              and abs(losses[0] - math.log(cfg.vocab_size))
-              <= TRAIN_LOSS0_SLACK)
-        row = {"run": f"train_{arch}", "params": n_params,
-               "reduced": {"num_layers": [full.num_layers, layers],
-                           "num_experts": [full.num_experts, experts]},
-               "top_k": cfg.num_experts_per_tok, "remat": False,
-               "batch": b, "tokens": seq, "steps": steps, "losses": losses,
-               "ln_vocab": math.log(cfg.vocab_size),
-               "step_seconds": step_seconds, "seconds_per_step": s_step,
-               "tokens_per_second": b * seq / s_step,
-               "peak_memory_gb": peak, "seconds": secs, "launches": got,
-               "expected_launches": expect, "ok": ok}
-        batch = {k: torch.from_numpy(v).cuda()
-                 for k, v in next(stream).items()}
-        row["device_split"] = step_split(
-            torch, step_fn, live, batch,
-            {"flash_fwd_ms": "flash_fwd_kernel", "flash_bwd_ms": "flash_bwd_"})
+        row = train_steps_run(
+            torch, counters, totals, cfg, steps, expect,
+            lambda: {k: torch.from_numpy(v).cuda()
+                     for k, v in next(stream).items()})
+        row.update(run=f"train_{arch}",
+                   reduced={"num_layers": [full.num_layers, layers],
+                            "num_experts": [full.num_experts, experts]},
+                   top_k=cfg.num_experts_per_tok, batch=b, tokens=seq,
+                   tokens_per_second=b * seq / row["seconds_per_step"])
         rows.append(row)
-        del live, batch, m
-        torch.cuda.empty_cache()
     for arch, _, _ in MOE_TRAIN_RUNS:
         layers = 4                       # run_lm_training's reduced depth
         bwd = ("flash_attention_bwd_vd" if get_config(arch).use_mla
@@ -2447,6 +2709,106 @@ def moe_train_main_path(torch, counters, totals):
                      "expected_launches": expect,
                      "ok": all(math.isfinite(v) for v in out["losses"])
                      and got == expect})
+    return rows
+
+
+def train_steps_run(torch, counters, totals, cfg, steps, expect,
+                    next_batch):
+    """The train step that ``run_lm_training`` runs (``build_train_step``
+    with its own TrainConfig: AdamW, lr 3e-3, warmup cosine, remat off) on
+    ``cfg`` (a cut the entry point cannot take), driven as its loop drives
+    it: seeded f32 weights drawn on the card, ``steps`` steps on
+    ``next_batch()``'s batches, with the launch counters set to 0 just
+    before and read just after (``expect``). Then one step under
+    torch.profiler (``step_split``). The weights are freed before it
+    returns. -> the row."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.model import build_model
+    model = build_model(cfg)
+    step_fn, opt = build_train_step(model, TrainConfig(
+        lr=3e-3, schedule="warmup_cosine", warmup_steps=10,
+        total_steps=steps, remat=False))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    live = {"p": model.init(0, device="cuda")}
+    live["s"] = opt.init(live["p"])
+    n_params = sum(v.numel() for v in tree_leaves(live["p"]))
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, step_seconds = [], []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        t_step = time.perf_counter()
+        batch = next_batch()
+        live["p"], live["s"], m = step_fn(live["p"], live["s"], batch)
+        losses.append(float(m["loss"]))
+        step_seconds.append(time.perf_counter() - t_step)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = {k: fn.launches for k, fn in counters.items()}
+    for k in totals:
+        totals[k] += got[k]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    later = step_seconds[1:]
+    s_step = sum(later) / len(later)
+    ok = (all(math.isfinite(v) for v in losses) and got == expect
+          and abs(losses[0] - math.log(cfg.vocab_size)) <= TRAIN_LOSS0_SLACK)
+    row = {"params": n_params, "remat": False, "steps": steps,
+           "losses": losses, "ln_vocab": math.log(cfg.vocab_size),
+           "step_seconds": step_seconds, "seconds_per_step": s_step,
+           "peak_memory_gb": peak, "seconds": secs, "launches": got,
+           "expected_launches": expect, "ok": ok}
+    batch = next_batch()
+    row["device_split"] = step_split(
+        torch, step_fn, live, batch,
+        {"flash_fwd_ms": "flash_fwd_kernel", "flash_bwd_ms": "flash_bwd_"})
+    del live, batch, m
+    torch.cuda.empty_cache()
+    return row
+
+
+def dense_train_main_path(torch, counters, totals):
+    """Training the dense and audio configs at every published width
+    (``DENSE_TRAIN_RUNS``: gemma-2b cut to 16 of 18 layers at 2048 tokens,
+    musicgen-medium whole at 1500 frames; B 1, 3 AdamW steps) through
+    ``train_steps_run``. gemma's batches are the synthetic token stream;
+    musicgen's the audio schema's (seeded frame embeddings, a [1, 64,
+    1536] context, labels [1, 1500, 4]), which ``run_lm_training``'s
+    token stream cannot give. A step launches flash_attention once a layer
+    and flash_attention_bwd once a layer (gemma's MQA at head_dim 256 on
+    its 256 instantiation; musicgen's MHA at 64)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm import token_stream_batches
+    rows = []
+    steps = MOE_TRAIN_STEPS
+    for arch, layers, seq in DENSE_TRAIN_RUNS:
+        cfg = cut_config(arch, layers)
+        expect = expected(flash_attention=layers * steps,
+                          flash_attention_bwd=layers * steps)
+        if cfg.family == "audio":
+            seeds = iter(range(100, 100 + steps + 1))
+
+            def next_batch(cfg=cfg, seq=seq, seeds=seeds):
+                return audio_inputs(torch, cfg, 1, seq, next(seeds),
+                                    labels=True)
+        else:
+            stream = token_stream_batches(cfg.vocab_size, 1, seq, seed=0)
+
+            def next_batch(stream=stream):
+                return {k: torch.from_numpy(v).cuda()
+                        for k, v in next(stream).items()}
+        row = train_steps_run(torch, counters, totals, cfg, steps, expect,
+                              next_batch)
+        full = get_config(arch).num_layers
+        row.update(run=f"train_{arch}",
+                   reduced=({"num_layers": [full, layers]} if layers < full
+                            else {}),
+                   heads=[cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
+                   batch=1, tokens=seq, tokens_per_second=seq
+                   / row["seconds_per_step"])
+        rows.append(row)
     return rows
 
 
@@ -2943,7 +3305,8 @@ def lm_backward_timing(torch):
     qwen2-1.5b's (12/2 heads of 128, full causal, no meta tokens); at v's
     own head_dim (``flash_attention_bwd_vd``) DeepSeek-V2's training shape
     (B 1, 128 heads, 2048 positions, (192, 128)) in f32 and in bf16, and
-    the flash backward at DBRX's (B 1, GQA 48/8 of 128, 2048); the SSD
+    the flash backward at DBRX's (B 1, GQA 48/8 of 128, 2048) and at
+    gemma-2b's (B 1, MQA 8/1 at hd 256, 2048); the SSD
     on Hymba's SSM heads, then at mamba2-130m's. Kernel times are the device time of
     every launch of one call (``passes_ms`` by launch); plain times the
     device time of the plain version's autograd backward alone
@@ -2983,7 +3346,9 @@ def lm_backward_timing(torch):
             (b, s, LM_HQ, LM_HKV, LM_HD, LM_HD, 0, LM_META, f32),
             (b, s, 12, 2, 128, 128, 0, 0, f32),               # qwen2-1.5b
             mla + (f32,), mla + (torch.bfloat16,),
-            (MOE_TRAIN_B, MOE_TRAIN_SEQ, 48, 8, 128, 128, 0, 0, f32)):  # DBRX
+            (MOE_TRAIN_B, MOE_TRAIN_SEQ, 48, 8, 128, 128, 0, 0, f32),  # DBRX
+            # gemma-2b: MQA 8/1 at hd 256 (32-row tiles, split columns)
+            (1, 2048, WIDE_HQ, WIDE_HKV, WIDE_HD, WIDE_HD, 0, 0, f32)):
         bf16 = dt == torch.bfloat16
         q, k, v = attention_inputs(torch, b, hq, hkv, s, hd, dt, seed=17,
                                    vd=vd)
@@ -3001,7 +3366,9 @@ def lm_backward_timing(torch):
         if vd == hd:
             name, bwd, pass_names = ("flash_attention_bwd", flash_attention_bwd,
                                      ("prep", "dkdv", "reduce", "dq"))
-            design = 14 * hd * pairs * b * hq
+            # seven products of 2·hd a pair; at hd 256 the two warps of a
+            # row group each compute S and dP: eleven
+            design = (22 if hd > 128 else 14) * hd * pairs * b * hq
         else:
             name, bwd = "flash_attention_bwd_vd", flash_attention_bwd_vd
             pass_names = ("vd_prep", "vd_dkdv_wgmma", "vd_dq_wgmma") + (

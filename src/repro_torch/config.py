@@ -2,9 +2,8 @@
 ``repro.config.FLConfig``, ``repro.config.ModelConfig`` and
 ``repro.config.TrainConfig``: the same
 fields, defaults and validation, so one configuration means the same run in
-both packages. Options the port has not reached yet (the audio family, the
-mesh) keep their fields; the models raise ``NotImplementedError`` when a
-run asks for them.
+both packages. Options the port has not reached yet (the mesh) keep their
+fields.
 """
 from __future__ import annotations
 

@@ -551,11 +551,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // v's vd) over the full scores (hd; see the head of this file). The same
 // arithmetic as flash_block otherwise; on the fast split a result that
 // holds an inf or a NaN returns true and the block is taken again on the
-// full split.
-template <typename T, bool kSlow>
+// full split. kLse: slice 0's block also stores each row's log-sum-exp
+// (every slice computes the same m and l).
+template <typename T, bool kSlow, bool kLse>
 __device__ __forceinline__ bool flash_block_wide(const T* __restrict__ q,
                                                  const T* __restrict__ k,
                                                  const T* __restrict__ v, T* __restrict__ o,
+                                                 float* __restrict__ lse,
                                                  Strides sq, Strides sk, Strides sv, Strides so,
                                                  int group, int n_q, int n_k, int hd, int vd,
                                                  float scale, int window, int num_meta) {
@@ -749,6 +751,11 @@ __device__ __forceinline__ bool flash_block_wide(const T* __restrict__ q,
     const int qi = q0 + qr + g + 8 * r;
     if (qi >= n_q) continue;
     const float denom = fmaxf(l[r], 1e-30f);
+    if constexpr (kLse) {  // as flash_block stores it
+      if (sl == 0 && t == 0)
+        lse[((long long)b * (gridDim.y / n_sl) + h) * n_q + qi] =
+            l[r] != l[r] ? l[r] : m[r] + logf(denom);
+    }
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const int d = n * 8 + 2 * t;
@@ -760,27 +767,27 @@ __device__ __forceinline__ bool flash_block_wide(const T* __restrict__ q,
   return false;
 }
 
-template <typename T>
+template <typename T, bool kLse>
 __device__ __noinline__ void flash_block_wide_full(const T* q, const T* k, const T* v, T* o,
-                                                   Strides sq, Strides sk, Strides sv,
-                                                   Strides so, int group, int n_q, int n_k,
-                                                   int hd, int vd, float scale, int window,
-                                                   int num_meta) {
-  flash_block_wide<T, true>(q, k, v, o, sq, sk, sv, so, group, n_q, n_k, hd, vd, scale, window,
-                            num_meta);
+                                                   float* lse, Strides sq, Strides sk,
+                                                   Strides sv, Strides so, int group, int n_q,
+                                                   int n_k, int hd, int vd, float scale,
+                                                   int window, int num_meta) {
+  flash_block_wide<T, true, kLse>(q, k, v, o, lse, sq, sk, sv, so, group, n_q, n_k, hd, vd,
+                                  scale, window, num_meta);
 }
 
 // grid (query tiles, hq x slices of vd, batch)
-template <typename T>
+template <typename T, bool kLse>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o, Strides sq, Strides sk,
-                      Strides sv, Strides so, int group, int n_q, int n_k, int hd, int vd,
-                      float scale, int window, int num_meta) {
-  if (flash_block_wide<T, false>(q, k, v, o, sq, sk, sv, so, group, n_q, n_k, hd, vd, scale,
-                                 window, num_meta))
-    flash_block_wide_full<T>(q, k, v, o, sq, sk, sv, so, group, n_q, n_k, hd, vd, scale, window,
-                             num_meta);
+                      const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                      Strides sq, Strides sk, Strides sv, Strides so, int group, int n_q,
+                      int n_k, int hd, int vd, float scale, int window, int num_meta) {
+  if (flash_block_wide<T, false, kLse>(q, k, v, o, lse, sq, sk, sv, so, group, n_q, n_k, hd, vd,
+                                       scale, window, num_meta))
+    flash_block_wide_full<T, kLse>(q, k, v, o, lse, sq, sk, sv, so, group, n_q, n_k, hd, vd,
+                                   scale, window, num_meta);
 }
 
 // Before the attention: vflags[b][kv head][key tile][slice] = the bitmask
@@ -1393,14 +1400,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 // vd > 128 or hd > 256: flash_fwd_kernel_wide between the same two
 // launches, which run over V's vd columns
 template <typename T>
-cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, Strides sq,
-                        Strides sk, Strides sv, Strides so, uint4* vflags, int batch, int hq,
-                        int group, int n_q, int n_k, int hd, int vd, float scale, int window,
-                        int num_meta, cudaStream_t stream) {
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, float* lse,
+                        Strides sq, Strides sk, Strides sv, Strides so, uint4* vflags,
+                        int batch, int hq, int group, int n_q, int n_k, int hd, int vd,
+                        float scale, int window, int num_meta, cudaStream_t stream) {
   const size_t bytes = sizeof(T) * ((size_t)pitch<T, kKC>() * 2 * (kBQ + kBK) +
                                     (size_t)pitch<T, kCW>() * kBK);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel_wide<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const auto kernel = lse != nullptr ? flash_fwd_kernel_wide<T, true>
+                                     : flash_fwd_kernel_wide<T, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return err;
   const int n_qt = (n_q + kBQ - 1) / kBQ;
@@ -1409,8 +1417,8 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, St
                                stream>>>((const T*)v, sv, vflags, n_k, vd);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel_wide<T><<<dim3(n_qt, hq * n_sl, batch), kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, sk, sv, so, group, n_q, n_k, hd, vd,
+  kernel<<<dim3(n_qt, hq * n_sl, batch), kThreads, bytes, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, sq, sk, sv, so, group, n_q, n_k, hd, vd,
       scale, window, num_meta);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1465,8 +1473,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, f
   return cudaGetLastError();
 }
 
-// lse: written when not null at hd = vd <= 128 and on the wgmma kernel (the
-// wide kernel has no backward)
+// lse: written when not null at hd = vd (the wide kernel above 128) and on
+// the wgmma kernel at hd <= 192: the backward kernels' shapes
 template <typename T>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, float* lse,
                       Strides sq, Strides sk, Strides sv, Strides so, uint4* vflags, int batch,
@@ -1477,8 +1485,8 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, floa
       return launch_wgmma<T>(q, k, v, o, lse, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k,
                              hd, vd, scale, window, num_meta, stream);
     if (lse != nullptr) return cudaErrorInvalidValue;  // the wrapper raises before
-    return launch_wide<T>(q, k, v, o, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k, hd,
-                          vd, scale, window, num_meta, stream);
+    return launch_wide<T>(q, k, v, o, nullptr, sq, sk, sv, so, vflags, batch, hq, group, n_q,
+                          n_k, hd, vd, scale, window, num_meta, stream);
   }
   if (hd <= 32)
     return launch<T, 32>(q, k, v, o, lse, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k,
@@ -1489,9 +1497,8 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, floa
   if (hd <= 128)
     return launch<T, 128>(q, k, v, o, lse, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k,
                           hd, scale, window, num_meta, stream);
-  if (lse != nullptr) return cudaErrorInvalidValue;  // the wrapper raises before
-  return launch_wide<T>(q, k, v, o, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k, hd, hd,
-                        scale, window, num_meta, stream);
+  return launch_wide<T>(q, k, v, o, lse, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k, hd,
+                        hd, scale, window, num_meta, stream);
 }
 
 }  // namespace
@@ -1503,7 +1510,7 @@ extern "C" {
 // head, row) element strides, the head_dim stride 1; f32 when is_bf16 ==
 // 0, else bf16; any hd, vd >= 1. vflags: a workspace of batch x hq/group x
 // ceil(n_k / 64) x ceil(vd / 128) entries of 16 bytes, 16-byte aligned.
-// lse: null, or (hd = vd <= 128, or vd != hd with vd <= 128 and hd <= 192)
+// lse: null, or (hd = vd, or vd != hd with vd <= 128 and hd <= 192)
 // [batch, hq, n_q] f32 that receives each row's log-sum-exp of the scaled
 // scores for the backward.
 // Three launches on `stream` (V's flags, the attention, the NaN of skipped

@@ -80,8 +80,17 @@
 //   softmax row) over the query tiles it skips, and
 //   pass 4 those of k (for dQ) over the key tiles it skips, and write NaN
 //   into those columns.
-// Head dims up to 128 (32, 64 or 128 columns, zero-padded); the wrapper
-// raises above 128.
+// Head dims up to 256 (32, 64, 128 or 256 columns, zero-padded); the
+// wrapper raises above 256. At 256 (gemma-2b's training: 8 query heads, one
+// kv head) the tiles above hold 32 rows, not 64: K, V and the two buffers
+// each of Q and dO take 200 KB of shared memory in f32 at pitch 260, one
+// block an SM. A block's four warps then split 2 x 2: two row groups of 16
+// keys (dK/dV) or queries (dQ), and per row group two warps, each owning
+// 128 of the output columns, so that dK and dV take 128 registers a thread
+// where 256 would not fit. Both warps of a row group compute S and dP over
+// the full 256 (the S and dP products run twice, as the forward's wide
+// kernel computes its scores once per 128-column slice of O). The masks of
+// non-finite columns take 8 words a tile at 256, 4 below.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,9 +100,30 @@
 
 namespace {
 
-constexpr int kT = 64;          // rows of a query or key tile
-constexpr int kThreads = 128;   // 4 warps x 16 rows
+constexpr int kThreads = 128;   // 4 warps
 constexpr int kReduceThreads = 256;
+
+// The shape of a block's work at head_dim HD. Up to 128: 64-row tiles, each
+// warp 16 rows of the tile and every output column. At 256 the six staged
+// tiles take 32 rows (200 KB in f32; 64 would need 399 KB), and the four
+// warps split as 2 x 2: a warp owns 16 rows and half of the output columns
+// (dK and dV, or dQ), so that its accumulators are 128 floats. Both warps of
+// a row group compute the same S and dP over the full HD. Masks of
+// non-finite columns take one bit a column: 4 words up to 128, 8 at 256.
+template <int HD>
+struct Shape {
+  static constexpr int kT = HD > 128 ? 32 : 64;  // rows of a query or key tile
+  static constexpr int kRowWarps = kT / 16;
+  static constexpr int kColWarps = 4 / kRowWarps;
+  static constexpr int kDC = HD / kColWarps;     // output columns of a warp
+  static constexpr int kW = HD > 128 ? 8 : 4;    // mask words
+};
+
+// a 64-row (or 32-row) tile's columns holding an inf or NaN, one bit each
+template <int W>
+struct __align__(16) Mask {
+  uint32_t w[W];
+};
 
 // element strides of one [B, H, S, hd] operand (the hd stride is 1)
 struct Strides {
@@ -133,15 +163,16 @@ __device__ __forceinline__ void frag(const __nv_bfloat16* s, int idx, uint32_t& 
   else hi = lo = bits;
 }
 
-// stage rows row0 .. row0 + 63 (of n) of one head, hd columns, zero-padded
-template <typename T, int HD>
+// stage rows row0 .. row0 + KT - 1 (of n) of one head, hd columns,
+// zero-padded
+template <typename T, int HD, int KT = Shape<HD>::kT>
 __device__ __forceinline__ void copy_tile(T* dst, const T* base, long long stride, int row0,
                                           int n, int hd) {
   constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16-byte chunk
   constexpr int CPR = HD / EPC;             // chunks per row
   constexpr int PT = pitch<T, HD>();
 #pragma unroll
-  for (int i = 0; i < kT * CPR / kThreads; ++i) {
+  for (int i = 0; i < KT * CPR / kThreads; ++i) {
     const int e = threadIdx.x + i * kThreads;
     const int r = e / CPR, col = (e % CPR) * EPC;
     const int row = row0 + r;
@@ -167,33 +198,36 @@ __device__ __forceinline__ void load_a(const T* s, int r0, int ks, int g, int t,
 }
 
 // acc[j] (16 rows x 8 columns j) += A·Bᵀ over HD, A the 16 rows from r0 of
-// tile `a`, B the 64 rows of tile `bm` ([row][d], b0 = B[8j + g][d t]):
-// S = Q·Kᵀ, Sᵀ = K·Qᵀ, dP = dO·Vᵀ, dPᵀ = V·dOᵀ
-template <bool kFull, bool kExact, typename T, int HD>
-__device__ __forceinline__ void product_abt(float (&acc)[8][4], const T* a, int r0,
+// tile `a`, B the 8·NJ rows of tile `bm` ([row][d], b0 = B[8j + g][d t]):
+// S = Q·Kᵀ, Sᵀ = K·Qᵀ, dP = dO·Vᵀ, dPᵀ = V·dOᵀ. At hd 256 the k8 steps are
+// unrolled eight at a time (unrolled whole, the 256 instantiations made this
+// file the slowest of the kernels to build).
+template <bool kFull, bool kExact, typename T, int HD, int NJ>
+__device__ __forceinline__ void product_abt(float (&acc)[NJ][4], const T* a, int r0,
                                             const T* bm, int g, int t) {
   constexpr int PT = pitch<T, HD>();
-#pragma unroll
+#pragma unroll(HD > 128 ? 8 : HD / 8)
   for (int ks = 0; ks < HD / 8; ++ks) {
     uint32_t ah[4], al[4];
     load_a<kFull, T, PT>(a, r0, ks, g, t, ah, al);
-    uint32_t bh[8][2], bl[8][2];
+    uint32_t bh[NJ][2], bl[NJ][2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       const int idx = (j * 8 + g) * PT + ks * 8 + t;
       frag<kFull>(bm, idx, bh[j][0], bl[j][0]);
       frag<kFull>(bm, idx + 4, bh[j][1], bl[j][1]);
     }
-    tf32x3::mma_split<8, kExact, kExact>(acc, ah, al, bh, bl);
+    tf32x3::mma_split<NJ, kExact, kExact>(acc, ah, al, bh, bl);
   }
 }
 
-// acc[n] (16 rows x hd) += M·B over the tile's 64 rows, M the 16 x 64
-// matrix whose C fragments the caller holds (m[j]: columns 8j + 2t, + 1 of
-// rows g, g + 8), B a row-major [row][d] tile read as the "col" operand
-// (b0 = B[8kk + 2t][8n + g]): A's columns t and t + 4 stand for rows 2t and
-// 2t + 1, so M's C fragment is its A fragment. dV += Pᵀ·dO, dK += dSᵀ·Q,
-// dQ += dS·K. The n8 tiles go eight at a time, to bound the registers. The
+// acc[n] (16 rows x DC columns from c0) += M·B over the tile's 8·NK rows, M
+// the 16 x 8·NK matrix whose C fragments the caller holds (m[j]: columns
+// 8j + 2t, + 1 of rows g, g + 8), B a row-major [row][d] tile read as the
+// "col" operand (b0 = B[8kk + 2t][c0 + 8n + g]): A's columns t and t + 4
+// stand for rows 2t and 2t + 1, so M's C fragment is its A fragment. dV += Pᵀ·dO, dK += dSᵀ·Q,
+// dQ += dS·K. The n8 tiles go eight at a time (four at hd 256, whose dK and
+// dV take 128 registers), to bound the registers. The
 // tile's products go into zeroed accumulators that are then added to acc:
 // the tensor cores' f32 accumulation truncates instead of rounding to
 // nearest, and summed into one running accumulator over a walk of
@@ -201,20 +235,20 @@ __device__ __forceinline__ void product_abt(float (&acc)[8][4], const T* a, int 
 // key: 2.5e-4). Summed per k8 step instead of per tile, the error stays
 // the same and the dK/dV pass takes 0.5 ms longer at Hymba's shape
 // (scripts/torch_flash_bwd_error.py).
-template <bool kFull, bool kExactB, typename T, int HD>
-__device__ __forceinline__ void product_mb(float (&acc)[HD / 8][4], const float (&m)[8][4],
-                                           const T* bm, int g, int t) {
+template <bool kFull, bool kExactB, typename T, int HD, int DC, int NK>
+__device__ __forceinline__ void product_mb(float (&acc)[DC / 8][4], const float (&m)[NK][4],
+                                           const T* bm, int c0, int g, int t) {
   constexpr int PT = pitch<T, HD>();
-  constexpr int NG = HD / 8 < 8 ? HD / 8 : 8;  // n8 tiles per group
+  constexpr int NG = DC / 8 < 8 ? DC / 8 : HD > 128 ? 4 : 8;  // n8 tiles per group
 #pragma unroll
-  for (int n0 = 0; n0 < HD / 8; n0 += NG) {
+  for (int n0 = 0; n0 < DC / 8; n0 += NG) {
     float part[NG][4];
 #pragma unroll
     for (int n = 0; n < NG; ++n)
 #pragma unroll
       for (int c = 0; c < 4; ++c) part[n][c] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < NK; ++kk) {
       uint32_t ah[4], al[4];
       tf32x3::split_as<kFull>(m[kk][0], ah[0], al[0]);
       tf32x3::split_as<kFull>(m[kk][2], ah[1], al[1]);
@@ -223,7 +257,7 @@ __device__ __forceinline__ void product_mb(float (&acc)[HD / 8][4], const float 
       uint32_t bh[NG][2], bl[NG][2];
 #pragma unroll
       for (int n = 0; n < NG; ++n) {
-        const int idx = (kk * 8 + 2 * t) * PT + (n0 + n) * 8 + g;
+        const int idx = (kk * 8 + 2 * t) * PT + c0 + (n0 + n) * 8 + g;
         frag<kFull>(bm, idx, bh[n][0], bl[n][0]);
         frag<kFull>(bm, idx + PT, bh[n][1], bl[n][1]);
       }
@@ -254,56 +288,74 @@ __device__ __forceinline__ bool all_finite(const float (&a)[N][4]) {
   return ok;
 }
 
-// the column mask as a bit test: column d of the 128 bits
-__device__ __forceinline__ bool flagged(const uint4& m, int d) {
-  const uint32_t w = d < 32 ? m.x : d < 64 ? m.y : d < 96 ? m.z : m.w;
+// the column mask as a bit test: column d of the 32·W bits (a chain of
+// selects, so that the mask stays in registers)
+template <int W>
+__device__ __forceinline__ bool flagged(const Mask<W>& m, int d) {
+  uint32_t w = m.w[0];
+#pragma unroll
+  for (int i = 1; i < W; ++i)
+    if ((d >> 5) == i) w = m.w[i];
   return (w >> (d & 31)) & 1u;
 }
 
-__device__ __forceinline__ void or_into(uint4& a, const uint4& b) {
-  a.x |= b.x;
-  a.y |= b.y;
-  a.z |= b.z;
-  a.w |= b.w;
+template <int W>
+__device__ __forceinline__ void or_into(Mask<W>& a, const Mask<W>& b) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) a.w[i] |= b.w[i];
+}
+
+template <int W>
+__device__ __forceinline__ Mask<W> no_mask() {
+  Mask<W> m;
+#pragma unroll
+  for (int i = 0; i < W; ++i) m.w[i] = 0u;
+  return m;
 }
 
 // ---------------------------------------------------------------------------
 // 1. delta and the tiles' masks of non-finite columns
 // ---------------------------------------------------------------------------
 
-// a 64-row tile's columns (hd <= 128: thread c owns column c) holding an
-// inf or NaN, as one 128-bit mask
-template <typename T>
-__device__ __forceinline__ uint4 tile_mask(const T* base, long long stride, int rows, int hd,
-                                           uint32_t* words) {
-  const int c = threadIdx.x;
-  bool bad = false;
-  if (c < hd)
-    for (int r = 0; r < rows; ++r) bad |= !tf32x3::finite(to_f32(base[r * stride + c]));
-  const uint32_t w = __ballot_sync(0xffffffffu, bad);
+// a tile's columns holding an inf or NaN (thread c owns columns c, c + 128,
+// ...), as a mask of W words
+template <typename T, int W>
+__device__ __forceinline__ Mask<W> tile_mask(const T* base, long long stride, int rows, int hd,
+                                             uint32_t* words) {
   __syncthreads();  // words is free
-  if ((threadIdx.x & 31) == 0) words[threadIdx.x >> 5] = w;
+#pragma unroll
+  for (int part = 0; part < W / 4; ++part) {
+    const int c = threadIdx.x + part * kThreads;
+    bool bad = false;
+    if (c < hd)
+      for (int r = 0; r < rows; ++r) bad |= !tf32x3::finite(to_f32(base[r * stride + c]));
+    const uint32_t w = __ballot_sync(0xffffffffu, bad);
+    if ((threadIdx.x & 31) == 0) words[part * 4 + (threadIdx.x >> 5)] = w;
+  }
   __syncthreads();
-  return make_uint4(words[0], words[1], words[2], words[3]);
+  Mask<W> m;
+#pragma unroll
+  for (int i = 0; i < W; ++i) m.w[i] = words[i];
+  return m;
 }
 
-// blockIdx.y < hq: query head h, rows of tile blockIdx.x: delta, the masks
-// of q and dO. Otherwise kv head blockIdx.y - hq: the mask of k.
-template <typename T>
+// blockIdx.y < hq: query head h, rows of tile blockIdx.x (kT rows): delta,
+// the masks of q and dO. Otherwise kv head blockIdx.y - hq: the mask of k.
+template <typename T, int kT, int W>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ o,
                       const T* __restrict__ dout, const float* __restrict__ lse, Strides sq,
                       Strides sk, Strides so, Strides sdo, float* __restrict__ delta,
-                      uint4* __restrict__ qflags, uint4* __restrict__ dflags,
-                      uint4* __restrict__ kflags, int hq, int n_q, int n_k, int hd) {
-  __shared__ uint32_t words[kThreads / 32];
+                      Mask<W>* __restrict__ qflags, Mask<W>* __restrict__ dflags,
+                      Mask<W>* __restrict__ kflags, int hq, int n_q, int n_k, int hd) {
+  __shared__ uint32_t words[W];
   const int tile = blockIdx.x, b = blockIdx.z;
   const int r0 = tile * kT;
   if (blockIdx.y >= hq) {
     const int hk = blockIdx.y - hq, hkv = gridDim.y - hq, n_kt = (n_k + kT - 1) / kT;
     if (r0 >= n_k) return;
-    const uint4 m = tile_mask(k + b * sk.b + hk * sk.h + (long long)r0 * sk.s, sk.s,
-                              min(kT, n_k - r0), hd, words);
+    const Mask<W> m = tile_mask<T, W>(k + b * sk.b + hk * sk.h + (long long)r0 * sk.s,
+                                      sk.s, min(kT, n_k - r0), hd, words);
     if (threadIdx.x == 0) kflags[((long long)b * hkv + hk) * n_kt + tile] = m;
     return;
   }
@@ -314,13 +366,15 @@ flash_bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   const T* ob = o + b * so.b + h * so.h + (long long)r0 * so.s;
   const T* db = dout + b * sdo.b + h * sdo.h + (long long)r0 * sdo.s;
   const long long tix = ((long long)b * hq + h) * n_qt + tile;
-  const uint4 mq = tile_mask(qb, sq.s, rows, hd, words);
-  uint4 md = tile_mask(db, sdo.s, rows, hd, words);
+  const Mask<W> mq = tile_mask<T, W>(qb, sq.s, rows, hd, words);
+  Mask<W> md = tile_mask<T, W>(db, sdo.s, rows, hd, words);
   // a row whose softmax is NaN (lse NaN) has P = NaN at the keys the dK/dV
   // pass skips too: all of dV's columns, as a non-finite dO row gives
   const float* lr = lse + ((long long)b * hq + h) * n_q + r0;
-  if (__syncthreads_or(threadIdx.x < rows && lr[threadIdx.x] != lr[threadIdx.x]))
-    md = make_uint4(~0u, ~0u, ~0u, ~0u);
+  if (__syncthreads_or(threadIdx.x < rows && lr[threadIdx.x] != lr[threadIdx.x])) {
+#pragma unroll
+    for (int i = 0; i < W; ++i) md.w[i] = ~0u;
+  }
   if (threadIdx.x == 0) {
     qflags[tix] = mq;
     dflags[tix] = md;
@@ -343,11 +397,12 @@ flash_bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 }
 
 // ---------------------------------------------------------------------------
-// 2. dK and dV of one 64-key tile, from one query head
+// 2. dK and dV of one 64-key (32 at hd 256) tile, from one query head
 // ---------------------------------------------------------------------------
 
 template <typename T, int HD>
 constexpr size_t dkdv_smem() {
+  constexpr int kT = Shape<HD>::kT;
   return sizeof(T) * (size_t)pitch<T, HD>() * kT * 6 + sizeof(float) * 4 * kT;
 }
 
@@ -355,10 +410,10 @@ struct Args {
   Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
   const float* lse;
   const float* delta;
-  const uint4* qflags;
-  const uint4* dflags;
-  const uint4* kflags;
-  float* dkp;  // [B, Hq, T, hd] f32 partials
+  const void* qflags;  // Mask<Shape<HD>::kW> per tile
+  const void* dflags;
+  const void* kflags;
+  float* dkp;  // [B, Hq, T, HD] f32 partials
   float* dvp;
   int batch, hq, group, n_q, n_k, hd, window, num_meta;
   float scale;
@@ -373,7 +428,8 @@ __device__ __forceinline__ bool dkdv_block(const T* __restrict__ q, const T* __r
                                            const T* __restrict__ dout, const Args& a) {
   constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int PT = pitch<T, HD>();
-  constexpr int NT = HD / 8;
+  constexpr int kT = Shape<HD>::kT, NJ = kT / 8, DC = Shape<HD>::kDC, NT = DC / 8;
+  constexpr int W = Shape<HD>::kW;
   extern __shared__ __align__(16) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem);  // [kT][PT]
   T* Vs = Ks + kT * PT;                // [kT][PT]
@@ -389,9 +445,12 @@ __device__ __forceinline__ bool dkdv_block(const T* __restrict__ q, const T* __r
   const int kt = idx / a.batch;  // slowest: the heaviest key tiles launch first
   const int hk = h / a.group;
   const int k0 = kt * kT;
-  const int lane = threadIdx.x & 31;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int kr = (threadIdx.x >> 5) * 16;  // the warp's first key in the tile
+  // the warp's first key in the tile and its first dK/dV column (0 when a
+  // warp owns every column: the compiler does not know that warp < 4)
+  const int kr = (Shape<HD>::kColWarps == 1 ? warp : warp % Shape<HD>::kRowWarps) * 16;
+  const int c0 = Shape<HD>::kColWarps == 1 ? 0 : (warp / Shape<HD>::kRowWarps) * DC;
   const int n_qt = (a.n_q + kT - 1) / kT;
 
   const T* qb = q + b * a.sq.b + h * a.sq.h;
@@ -436,8 +495,8 @@ __device__ __forceinline__ bool dkdv_block(const T* __restrict__ q, const T* __r
     const float* dl = del_s + buf * kT;
     const int q0 = qt * kT;
 
-    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: the warp's 16 keys x 64 queries
-    float s[8][4], dp[8][4];
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: the warp's 16 keys x kT queries
+    float s[NJ][4], dp[NJ][4];
     zero(s);
     zero(dp);
     product_abt<kSlow, kBf16, T, HD>(s, Ks, kr, Qt, g, t);
@@ -445,7 +504,7 @@ __device__ __forceinline__ bool dkdv_block(const T* __restrict__ q, const T* __r
     // Pᵀ and dSᵀ in place: keys kr + g (c = 0, 1) and + 8 (c = 2, 3),
     // queries 8j + 2t (+ 1); exactly 0 at masked pairs
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int key = k0 + kr + g + (c >> 1) * 8;
@@ -457,9 +516,9 @@ __device__ __forceinline__ bool dkdv_block(const T* __restrict__ q, const T* __r
         s[j][c] = p;
         dp[j][c] = vis ? p * (dp[j][c] - dl[ql]) : 0.f;
       }
-    // dV += Pᵀ·dO, dK += dSᵀ·Q
-    product_mb<kSlow, kBf16, T, HD>(acc_dv, s, dOt, g, t);
-    product_mb<kSlow, kBf16, T, HD>(acc_dk, dp, Qt, g, t);
+    // dV += Pᵀ·dO, dK += dSᵀ·Q (the warp's columns)
+    product_mb<kSlow, kBf16, T, HD, DC>(acc_dv, s, dOt, c0, g, t);
+    product_mb<kSlow, kBf16, T, HD, DC>(acc_dk, dp, Qt, c0, g, t);
     buf ^= 1;
   }
   cp_async::wait<0>();
@@ -470,12 +529,14 @@ __device__ __forceinline__ bool dkdv_block(const T* __restrict__ q, const T* __r
 
   // the query tiles skipped (every pair masked): 0 · inf where q (for dK)
   // or dO (for dV) holds an inf or NaN
-  uint4 fk = make_uint4(0u, 0u, 0u, 0u), fv = fk;
+  Mask<W> fk = no_mask<W>(), fv = fk;
+  const Mask<W>* qflags = static_cast<const Mask<W>*>(a.qflags);
+  const Mask<W>* dflags = static_cast<const Mask<W>*>(a.dflags);
   const long long ftile = ((long long)b * a.hq + h) * n_qt;
   for (int qt = 0; qt < n_qt; ++qt) {
     if (qt >= qt_first && qt <= qt_last) continue;
-    or_into(fk, a.qflags[ftile + qt]);
-    or_into(fv, a.dflags[ftile + qt]);
+    or_into(fk, qflags[ftile + qt]);
+    or_into(fv, dflags[ftile + qt]);
   }
   float* dkb = a.dkp + ((long long)b * a.hq + h) * a.n_k * HD;
   float* dvb = a.dvp + ((long long)b * a.hq + h) * a.n_k * HD;
@@ -485,7 +546,7 @@ __device__ __forceinline__ bool dkdv_block(const T* __restrict__ q, const T* __r
     if (key >= a.n_k) continue;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      const int d = n * 8 + 2 * t;
+      const int d = c0 + n * 8 + 2 * t;
       float2 vk = make_float2(acc_dk[n][2 * r] * a.scale, acc_dk[n][2 * r + 1] * a.scale);
       float2 vv = make_float2(acc_dv[n][2 * r], acc_dv[n][2 * r + 1]);
       if (flagged(fk, d)) vk.x = nan_f32();
@@ -542,12 +603,12 @@ flash_bwd_reduce_kernel(T* __restrict__ dk, T* __restrict__ dv, const __grid_con
 }
 
 // ---------------------------------------------------------------------------
-// 4. dQ of one 64-row query tile of query head h
+// 4. dQ of one 64-row (32 at hd 256) query tile of query head h
 // ---------------------------------------------------------------------------
 
 template <typename T, int HD>
 constexpr size_t dq_smem() {
-  return sizeof(T) * (size_t)pitch<T, HD>() * kT * 6;
+  return sizeof(T) * (size_t)pitch<T, HD>() * Shape<HD>::kT * 6;
 }
 
 template <typename T, int HD, bool kSlow>
@@ -556,7 +617,8 @@ __device__ __forceinline__ bool dq_block(const T* __restrict__ q, const T* __res
                                          T* __restrict__ dq, const Args& a) {
   constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int PT = pitch<T, HD>();
-  constexpr int NT = HD / 8;
+  constexpr int kT = Shape<HD>::kT, NJ = kT / 8, DC = Shape<HD>::kDC, NT = DC / 8;
+  constexpr int W = Shape<HD>::kW;
   extern __shared__ __align__(16) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);  // [kT][PT]
   T* dOs = Qs + kT * PT;               // [kT][PT]
@@ -571,9 +633,11 @@ __device__ __forceinline__ bool dq_block(const T* __restrict__ q, const T* __res
   const int qt = n_qt - 1 - idx / a.batch;  // most keys first
   const int hk = h / a.group;
   const int q0 = qt * kT;
-  const int lane = threadIdx.x & 31;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int qr = (threadIdx.x >> 5) * 16;  // the warp's first row in the tile
+  // the warp's first row in the tile and its first dQ column
+  const int qr = (Shape<HD>::kColWarps == 1 ? warp : warp % Shape<HD>::kRowWarps) * 16;
+  const int c0 = Shape<HD>::kColWarps == 1 ? 0 : (warp / Shape<HD>::kRowWarps) * DC;
 
   const T* kb = k + b * a.sk.b + hk * a.sk.h;
   const T* vb = v + b * a.sv.b + hk * a.sv.h;
@@ -628,14 +692,14 @@ __device__ __forceinline__ bool dq_block(const T* __restrict__ q, const T* __res
     const T* Vt = Vs + buf * kT * PT;
     const int k0 = kt * kT;
 
-    // S = Q·Kᵀ and dP = dO·Vᵀ: the warp's 16 rows x 64 keys
-    float s[8][4], dp[8][4];
+    // S = Q·Kᵀ and dP = dO·Vᵀ: the warp's 16 rows x kT keys
+    float s[NJ][4], dp[NJ][4];
     zero(s);
     zero(dp);
     product_abt<kSlow, kBf16, T, HD>(s, Qs, qr, Kt, g, t);
     product_abt<kSlow, kBf16, T, HD>(dp, dOs, qr, Vt, g, t);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int i = q0 + qr + g + (c >> 1) * 8;
@@ -644,8 +708,8 @@ __device__ __forceinline__ bool dq_block(const T* __restrict__ q, const T* __res
         const float p = vis ? expf(s[j][c] * a.scale - lse_r[c >> 1]) : 0.f;
         s[j][c] = vis ? p * (dp[j][c] - del_r[c >> 1]) : 0.f;  // dS
       }
-    // dQ += dS·K
-    product_mb<kSlow, kBf16, T, HD>(acc, s, Kt, g, t);
+    // dQ += dS·K (the warp's columns)
+    product_mb<kSlow, kBf16, T, HD, DC>(acc, s, Kt, c0, g, t);
     buf ^= 1;
     kt = nxt;
   }
@@ -657,10 +721,11 @@ __device__ __forceinline__ bool dq_block(const T* __restrict__ q, const T* __res
   // the key tiles skipped (every pair masked): 0 · inf where k holds an inf
   // or NaN
   const int n_kt = (a.n_k + kT - 1) / kT;
-  uint4 fq = make_uint4(0u, 0u, 0u, 0u);
+  Mask<W> fq = no_mask<W>();
+  const Mask<W>* kflags = static_cast<const Mask<W>*>(a.kflags);
   const long long ftile = ((long long)b * (a.hq / a.group) + hk) * n_kt;
   for (int j = 0; j < n_kt; ++j)
-    if (skipped(j)) or_into(fq, a.kflags[ftile + j]);
+    if (skipped(j)) or_into(fq, kflags[ftile + j]);
   T* dqb = dq + b * a.sdq.b + h * a.sdq.h;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -668,7 +733,7 @@ __device__ __forceinline__ bool dq_block(const T* __restrict__ q, const T* __res
     if (i >= a.n_q) continue;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      const int d = n * 8 + 2 * t;
+      const int d = c0 + n * 8 + 2 * t;
       if (d < a.hd)
         store(dqb + (long long)i * a.sdq.s + d,
               flagged(fq, d) ? nan_f32() : acc[n][2 * r] * a.scale);
@@ -696,8 +761,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
-                   const void* dout, void* dq, void* dk, void* dv, Args a, uint4* qflags,
-                   uint4* dflags, uint4* kflags, float* delta, cudaStream_t stream) {
+                   const void* dout, void* dq, void* dk, void* dv, Args a, float* delta,
+                   cudaStream_t stream) {
+  constexpr int kT = Shape<HD>::kT, W = Shape<HD>::kW;
   const size_t b1 = dkdv_smem<T, HD>(), b2 = dq_smem<T, HD>();
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)b1);
@@ -707,10 +773,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   if (err != cudaSuccess) return err;
   const int n_qt = (a.n_q + kT - 1) / kT, n_kt = (a.n_k + kT - 1) / kT;
   const int hkv = a.hq / a.group;
-  flash_bwd_prep_kernel<T><<<dim3(n_qt > n_kt ? n_qt : n_kt, a.hq + hkv, a.batch), kThreads, 0,
-                             stream>>>((const T*)q, (const T*)k, (const T*)o, (const T*)dout,
-                                       a.lse, a.sq, a.sk, a.so, a.sdo, delta, qflags, dflags,
-                                       kflags, a.hq, a.n_q, a.n_k, a.hd);
+  flash_bwd_prep_kernel<T, kT, W>
+      <<<dim3(n_qt > n_kt ? n_qt : n_kt, a.hq + hkv, a.batch), kThreads, 0, stream>>>(
+          (const T*)q, (const T*)k, (const T*)o, (const T*)dout, a.lse, a.sq, a.sk, a.so, a.sdo,
+          delta, (Mask<W>*)a.qflags, (Mask<W>*)a.dflags, (Mask<W>*)a.kflags, a.hq, a.n_q,
+          a.n_k, a.hd);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   flash_bwd_dkdv_kernel<T, HD><<<n_kt * a.hq * a.batch, kThreads, b1, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, a);
@@ -726,17 +793,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
 
 template <typename T>
 cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v, const void* o,
-                      const void* dout, void* dq, void* dk, void* dv, Args a, uint4* qflags,
-                      uint4* dflags, uint4* kflags, float* delta, cudaStream_t stream) {
-  if (hd <= 32)
-    return launch<T, 32>(q, k, v, o, dout, dq, dk, dv, a, qflags, dflags, kflags, delta,
-                         stream);
-  if (hd <= 64)
-    return launch<T, 64>(q, k, v, o, dout, dq, dk, dv, a, qflags, dflags, kflags, delta,
-                         stream);
-  if (hd <= 128)
-    return launch<T, 128>(q, k, v, o, dout, dq, dk, dv, a, qflags, dflags, kflags, delta,
-                          stream);
+                      const void* dout, void* dq, void* dk, void* dv, Args a, float* delta,
+                      cudaStream_t stream) {
+  if (hd <= 32) return launch<T, 32>(q, k, v, o, dout, dq, dk, dv, a, delta, stream);
+  if (hd <= 64) return launch<T, 64>(q, k, v, o, dout, dq, dk, dv, a, delta, stream);
+  if (hd <= 128) return launch<T, 128>(q, k, v, o, dout, dq, dk, dv, a, delta, stream);
+  if (hd <= 256) return launch<T, 256>(q, k, v, o, dout, dq, dk, dv, a, delta, stream);
   return cudaErrorInvalidValue;  // the wrapper raises before
 }
 
@@ -746,12 +808,14 @@ extern "C" {
 
 // q [batch, hq, n_q, hd], k/v [batch, hq/group, n_k, hd], o and dout like q,
 // dq like q, dk/dv like k; each given by its (batch, head, row) element
-// strides, the hd stride 1; f32 when is_bf16 == 0, else bf16; hd <= 128,
+// strides, the hd stride 1; f32 when is_bf16 == 0, else bf16; hd <= 256,
 // n_q <= n_k. lse [batch, hq, n_q] f32 from the forward. Workspaces (the
 // wrapper allocates them): delta, batch x hq x n_q floats; dkp and dvp,
-// batch x hq x n_k x hd_pad floats each (hd_pad: hd rounded up to 32, 64
-// or 128); qflags and dflags, batch x hq x ceil(n_q / 64) entries of 16
-// bytes, and kflags batch x hq/group x ceil(n_k / 64), 16-byte aligned.
+// batch x hq x n_k x hd_pad floats each (hd_pad: hd rounded up to 32, 64,
+// 128 or 256); qflags and dflags, batch x hq x ceil(n_q / rows) entries,
+// and kflags batch x hq/group x ceil(n_k / rows), 16-byte aligned: rows 64
+// and entries of 16 bytes at hd <= 128, rows 32 and entries of 32 bytes
+// above.
 // Four launches on `stream` (delta and the masks, dK and dV per query
 // head, their sum over the group, dQ); returns the first failure of
 // cudaGetLastError().
@@ -776,9 +840,9 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v, cons
   a.sdv = st[7];
   a.lse = lse;
   a.delta = delta;
-  a.qflags = (const uint4*)qflags;
-  a.dflags = (const uint4*)dflags;
-  a.kflags = (const uint4*)kflags;
+  a.qflags = qflags;
+  a.dflags = dflags;
+  a.kflags = kflags;
   a.dkp = dkp;
   a.dvp = dvp;
   a.batch = batch;
@@ -792,10 +856,8 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v, cons
   a.scale = scale;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
-    return (int)launch_hd<__nv_bfloat16>(hd, q, k, v, o, dout, dq, dk, dv, a, (uint4*)qflags,
-                                         (uint4*)dflags, (uint4*)kflags, delta, s);
-  return (int)launch_hd<float>(hd, q, k, v, o, dout, dq, dk, dv, a, (uint4*)qflags,
-                               (uint4*)dflags, (uint4*)kflags, delta, s);
+    return (int)launch_hd<__nv_bfloat16>(hd, q, k, v, o, dout, dq, dk, dv, a, delta, s);
+  return (int)launch_hd<float>(hd, q, k, v, o, dout, dq, dk, dv, a, delta, s);
 }
 
 }  // extern "C"

@@ -39,9 +39,10 @@ Gradients. On CUDA tensors that need one, the call goes through
 also writes each row's log-sum-exp, and the backward is a hand-written
 kernel, f32 or bf16, Sq <= T:
 
-* vd = hd <= 128: ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``,
+* vd = hd <= 256: ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``,
   the FlashAttention-2 backward that the JAX package's custom VJP writes
-  in jnp, its products split-f32 on the tensor cores);
+  in jnp, its products split-f32 on the tensor cores; at hd 256, gemma-2b's,
+  on 32-row tiles with each warp owning half of the output columns);
 * vd != hd with vd <= 128 and hd <= 192 (MLA; the forward is then
   ``flash_fwd_kernel_wgmma``): ``flash_attention_bwd_vd``
   (``csrc/flash_attention_bwd_vd.cu``, the same two passes on Hopper's
@@ -50,8 +51,8 @@ kernel, f32 or bf16, Sq <= T:
   V resident and its dK and dV in two consumer warpgroups' registers, the
   dQ pass a query tile's Q and dO).
 
-Other shapes raise (hd = vd > 128 waits for ROADMAP item 14b.3's K2 at
-256). Without a gradient the kernel launches as it does for serving: no
+Other shapes raise (hd = vd > 256; hd > 192 or vd > 128 at vd != hd).
+Without a gradient the kernel launches as it does for serving: no
 log-sum-exp is written. CPU tensors differentiate through
 ``ref.flash_attention_ref``.
 """
@@ -66,7 +67,7 @@ from repro_torch.kernels import backend, ref
 _DTYPES = (torch.float32, torch.bfloat16)
 #: the backward kernels' largest head_dim at vd = hd, and q's/k's and v's
 #: at vd != hd
-MAX_BWD_HEAD_DIM = 128
+MAX_BWD_HEAD_DIM = 256
 MAX_BWD_VD_DIMS = (192, 128)
 #: columns of V's non-finite mask per 16-byte entry, and the kernel's O
 #: slice at head_dim > 128
@@ -112,7 +113,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Non-finite values come out as the plain version gives them: an inf or
     NaN in V at a key masked for a row makes that row NaN in its column,
     as 0 · inf does in the reference. When a gradient is needed the call
-    is differentiable through ``flash_attention_bwd`` (head_dim <= 128,
+    is differentiable through ``flash_attention_bwd`` (head_dim <= 256,
     vd = hd) or ``flash_attention_bwd_vd`` (vd != hd, vd <= 128, hd <=
     192), Sq <= T; other shapes raise."""
     window, num_meta = int(window), int(num_meta)
@@ -203,8 +204,7 @@ def _check_bwd(q, k, v) -> None:
     if vd == hd and hd > MAX_BWD_HEAD_DIM:
         raise ValueError(
             f"{name}: head_dim {hd} > {MAX_BWD_HEAD_DIM}: the backward "
-            "kernels take head_dim <= 128 at vd = hd (hd = vd = 256 waits "
-            "for ROADMAP item 14b.3)")
+            f"kernel takes head_dim <= {MAX_BWD_HEAD_DIM} at vd = hd")
     if vd != hd and (hd > MAX_BWD_VD_DIMS[0] or vd > MAX_BWD_VD_DIMS[1]):
         raise ValueError(
             f"{name}: q/k head_dim {hd} and v's {vd}: the backward kernel "
@@ -252,16 +252,18 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, window: int = 0,
     f32, dev = torch.float32, q.device
     delta = torch.empty((b, hq, sq), dtype=f32, device=dev)
     # dK and dV of each query head (summed over the GQA group by the
-    # kernel's third launch), at head_dim rounded up to 32, 64 or 128
-    hd_pad = 32 if hd <= 32 else 64 if hd <= 64 else 128
+    # kernel's third launch), at head_dim rounded up to 32, 64, 128 or 256
+    hd_pad = next(w for w in (32, 64, 128, 256) if hd <= w)
     dkp = torch.empty((b, hq, tk, hd_pad), dtype=f32, device=dev)
     dvp = torch.empty_like(dkp)
-    # per 64-row tile: the bitmask of the columns where q, dO (query heads)
-    # and k (kv heads) hold an inf or NaN
-    qflags = torch.empty((b, hq, -(-sq // 64), 4), dtype=torch.int32,
+    # per tile of the kernel's rows (64; 32 at hd > 128): the bitmask of the
+    # columns where q, dO (query heads) and k (kv heads) hold an inf or NaN,
+    # in 4 words (8 at hd > 128)
+    rows, words = (64, 4) if hd <= 128 else (32, 8)
+    qflags = torch.empty((b, hq, -(-sq // rows), words), dtype=torch.int32,
                          device=dev)
     dflags = torch.empty_like(qflags)
-    kflags = torch.empty((b, hkv, -(-tk // 64), 4), dtype=torch.int32,
+    kflags = torch.empty((b, hkv, -(-tk // rows), words), dtype=torch.int32,
                          device=dev)
     lse = lse.contiguous()
     strides = (ctypes.c_longlong * 24)(

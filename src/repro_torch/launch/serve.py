@@ -10,6 +10,9 @@ cut to two layers and width 128, as the JAX package's ``generate`` cuts
 it. Prefill attention (MLA's included, at v's own head_dim) and prefill
 SSD run through the ``flash_attention`` and ``ssd_scan`` kernels; decode
 is plain PyTorch (MLA's absorbed step over the latent cache included).
+Token prompts serve every family but audio (musicgen), whose frame
+embeddings and conditioning context go through ``Model.prefill`` and
+``Model.decode`` (the audio batch schema in ``models/model.py``).
 """
 from __future__ import annotations
 
@@ -61,6 +64,10 @@ def _generate(cfg, prompts: np.ndarray, *, max_new_tokens: int,
               generator: Optional[torch.Generator]) -> Dict:
     """``generate``'s body for a ``ModelConfig`` (a depth-cut one, say: the
     card's checks time the serving path through here)."""
+    if cfg.family == "audio":
+        raise ValueError("audio serving uses embeds input: drive "
+                         "Model.prefill / Model.decode with the audio batch "
+                         "schema (frame embeddings and cross_context)")
     dev = backend.resolve_device(device)
     model = build_model(cfg)
     if params is None:

@@ -41,6 +41,12 @@ def run_lm_training(arch: str, *, steps: int = 100, batch: int = 8,
     the read of its loss (a synchronization on the card). Checkpoints of
     {"params": ...} at every ``steps // 2`` steps when ``ckpt_dir``."""
     cfg = get_config(arch)
+    if cfg.family == "audio":
+        raise ValueError(
+            f"run_lm_training draws a token stream, which {arch!r} (audio) "
+            "cannot take: build its step with launch.steps.build_train_step "
+            "and feed it the embeds batch ({'embeds', 'cross_context', "
+            "'labels' [B, S, K]})")
     if reduced:
         cfg = cfg.reduced(num_layers=4, max_d_model=256)
     dev = backend.resolve_device(device)

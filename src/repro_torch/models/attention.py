@@ -1,6 +1,7 @@
 """Attention (the counterpart of ``repro.models.attention``): GQA/MQA/MHA
 with RoPE, qk-norm, sliding windows, meta-token pinning and full or
-ring-buffer KV caches.
+ring-buffer KV caches; and the audio family's cross-attention over a
+conditioning context.
 
 The port's dispatcher: self-attention over positions 0..S-1 (prefill and
 the cache-free forward) goes to the ``flash_attention`` kernel through
@@ -173,3 +174,45 @@ def attention(p: Dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
 
     y = out.reshape(b, s, hq * hd) @ p["wo"]
     return y, new_bufs
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (musicgen conditioning)
+# ---------------------------------------------------------------------------
+
+def init_cross_attention(gen: torch.Generator, cfg,
+                         dtype=torch.float32) -> Dict:
+    hq, hd, d = cfg.num_heads, cfg.head_dim, cfg.d_model
+    cd = cfg.cross_context_dim or d
+    return {
+        "wq": dense_init(gen, d, (d, hq * hd), dtype),
+        "wk": dense_init(gen, cd, (cd, hq * hd), dtype),
+        "wv": dense_init(gen, cd, (cd, hq * hd), dtype),
+        "wo": dense_init(gen, hq * hd, (hq * hd, d), dtype),
+    }
+
+
+def cross_attention(p: Dict, x: torch.Tensor, cfg, *,
+                    context: Optional[torch.Tensor] = None,
+                    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                    = None,
+                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
+                                                   torch.Tensor]]:
+    """Attention of x's positions over every position of a conditioning
+    context, unmasked. Either ``context`` [B, Tc, cd] (training and
+    prefill: its keys and values are computed and returned, for the cache)
+    or the cached ``cross_kv`` (decode). Plain PyTorch, as the JAX package
+    computes it in jnp: two einsums and a softmax over Tc."""
+    b, s, _ = x.shape
+    hq, hd = cfg.num_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(b, s, hq, hd)
+    if cross_kv is None:
+        tc = context.shape[1]
+        k = (context @ p["wk"]).reshape(b, tc, hq, hd)
+        v = (context @ p["wv"]).reshape(b, tc, hq, hd)
+    else:
+        k, v = cross_kv
+    scores = torch.einsum("bshd,bthd->bhst", q, k).to(torch.float32)
+    probs = torch.softmax(scores * hd ** -0.5, dim=-1).to(v.dtype)
+    out = torch.einsum("bhst,bthd->bshd", probs, v)
+    return out.reshape(b, s, hq * hd) @ p["wo"], (k, v)

@@ -186,8 +186,13 @@ def compute_logits(p: Dict, h: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def _chunk_loss(embed_params: Dict, h_c: torch.Tensor, lab_c: torch.Tensor,
-                cfg) -> torch.Tensor:
-    logits = compute_logits(embed_params, h_c, cfg).to(torch.float32)
+                cfg, heads=None) -> torch.Tensor:
+    if heads is not None:
+        logits = (h_c @ heads).reshape(h_c.shape[0], h_c.shape[1],
+                                       cfg.num_codebooks, cfg.vocab_size)
+    else:
+        logits = compute_logits(embed_params, h_c, cfg)
+    logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, lab_c[..., None].long())[..., 0]
     return torch.sum(lse - gold)
@@ -201,11 +206,9 @@ def chunked_cross_entropy(embed_params: Dict, h: torch.Tensor,
     recomputed in the backward (``torch.utils.checkpoint``). The chunk is
     512, shrunk to a divisor of S; the chunks' sums are added in order and
     divided by ``labels.numel()``. The gold logit is a gather (the JAX
-    package's one-hot select and sum give the same value)."""
-    if heads is not None:
-        raise NotImplementedError(
-            "chunked_cross_entropy: the audio codebook heads are not ported "
-            "to repro_torch yet (ROADMAP item 14b.3)")
+    package's one-hot select and sum give the same value). ``heads``
+    (audio): the [d, K·V] projection to the codebooks' logits, each chunk's
+    [B, cs, K, V]; labels are then [B, S, K]."""
     b, s, _ = h.shape
     cs = chunk
     while s % cs:
@@ -213,7 +216,7 @@ def chunked_cross_entropy(embed_params: Dict, h: torch.Tensor,
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, s, cs):
         total = total + checkpoint(_chunk_loss, embed_params, h[:, c0:c0 + cs],
-                                   labels[:, c0:c0 + cs], cfg,
+                                   labels[:, c0:c0 + cs], cfg, heads,
                                    use_reentrant=False)
     return total / labels.numel()
 

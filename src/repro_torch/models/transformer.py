@@ -1,24 +1,29 @@
 """Decoder backbone (the counterpart of ``repro.models.transformer``) for
-the families the port serves:
+every family of the JAX package's registry:
 
-  dense  : attn -> mlp                           (qwen2)
-  moe    : attn|mla -> moe (+ leading dense layers: deepseek-v2; dbrx)
-  ssm    : ssd mixer only                        (mamba2)
-  hybrid : (attn ∥ ssm, mean-combined) -> mlp    (hymba, + meta tokens)
+  dense / vlm : attn -> mlp                      (qwen2, gemma, nemotron,
+                                                  yi; chameleon)
+  audio       : attn -> cross-attn -> mlp        (musicgen conditioning)
+  moe         : attn|mla -> moe (+ leading dense layers: deepseek-v2; dbrx)
+  ssm         : ssd mixer only                   (mamba2)
+  hybrid      : (attn ∥ ssm, mean-combined) -> mlp (hymba, + meta tokens)
 
 Layer params are stacked ``[L, ...]`` as in the JAX package (deepseek's
 leading dense layers apart, in ``dense_layers``); the layer loop is a
 Python loop over them (in place of ``lax.scan``), each layer's attention
 window a Python int from ``layer_windows`` (the leading dense layers'
-is 0). The MoE layers' load-balance losses are summed into ``aux``. The
-cross-attention branch (audio) raises ``NotImplementedError`` (ROADMAP
-item 14b.3).
+is 0). The MoE layers' load-balance losses are summed into ``aux``.
+Audio takes frame embeddings in place of tokens, attends to a
+conditioning context in every layer, and projects to its codebooks'
+logits through ``heads`` [d, K·V] (it has no embedding table).
 
 Serving caches are stacked ``[L, ...]`` too and are updated IN PLACE: a
 layer writes its keys and values into its slice of the stacked buffers and
 its new SSM state and conv tail are copied into theirs, so a decode step
-moves what changed and no more. ``index`` is a Python int (the JAX package
-keeps a 0-d array); ``slot_pos`` stays a device tensor.
+moves what changed and no more; a prefill writes each layer's
+cross-attention keys and values into ``cross_k`` / ``cross_v``, which
+decode reads. ``index`` is a Python int (the JAX package keeps a 0-d
+array); ``slot_pos`` stays a device tensor.
 """
 from __future__ import annotations
 
@@ -32,18 +37,9 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
-    apply_mlp, apply_norm, compute_logits, embed_init, embed_tokens,
-    init_embed, init_mlp, init_norm, rms_normalize,
+    apply_mlp, apply_norm, compute_logits, dense_init, embed_init,
+    embed_tokens, init_embed, init_mlp, init_norm, rms_normalize,
 )
-
-
-def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a configuration whose branches
-    the port has not reached: cross-attention (audio)."""
-    if cfg.cross_attend or cfg.family == "audio":
-        raise NotImplementedError(
-            "cross-attention (audio) is not ported to repro_torch yet "
-            "(ROADMAP item 14b.3)")
 
 
 # ---------------------------------------------------------------------------
@@ -67,6 +63,9 @@ def _init_layer(gen: torch.Generator, cfg, dtype, *,
                                            device=dev)
         p["ssm_branch_norm"] = torch.ones((cfg.d_model,), dtype=dtype,
                                           device=dev)
+    if cfg.cross_attend:
+        p["ln_cross"] = init_norm(cfg, cfg.d_model, dtype, dev)
+        p["cross"] = attn_mod.init_cross_attention(gen, cfg, dtype)
     p["ln2"] = init_norm(cfg, cfg.d_model, dtype, dev)
     if moe_layer:
         p["moe"] = moe_mod.init_moe(gen, cfg, dtype)
@@ -109,10 +108,16 @@ def init_params(gen: torch.Generator, cfg, dtype=torch.float32) -> Dict:
     """Seeded random weights, drawn from ``gen`` on its device. The same
     tree as the JAX package's ``init_params`` (layers stacked [L, ...],
     the leading dense layers in ``dense_layers``); the numbers differ (no
-    threefry port). The draws run embed, meta, the stacked layers, then
-    the dense layers."""
-    check_supported(cfg)
-    params: Dict = {"embed": init_embed(gen, cfg, dtype)}
+    threefry port). The draws run embed (audio: its codebook ``heads``
+    [d, K·V] in its place), meta, the stacked layers, then the dense
+    layers."""
+    params: Dict = {}
+    if cfg.family == "audio":
+        kv = cfg.num_codebooks * cfg.vocab_size
+        params["heads"] = dense_init(gen, cfg.d_model, (cfg.d_model, kv),
+                                     dtype)
+    else:
+        params["embed"] = init_embed(gen, cfg, dtype)
     if cfg.num_meta_tokens:
         params["meta"] = embed_init(gen, (cfg.num_meta_tokens, cfg.d_model),
                                     dtype)
@@ -143,10 +148,10 @@ def layer_windows(cfg) -> List[int]:
 
 
 def init_cache(cfg, batch: int, buf_len: int, dtype=torch.float32,
-               device=None) -> Dict:
+               device=None, cross_len: int = 0) -> Dict:
     """buf_len: KV buffer slots (callers choose full length or
-    window+meta)."""
-    check_supported(cfg)
+    window+meta); cross_len: the conditioning context's positions (audio's
+    cross-attention keys and values, written by the prefill)."""
     n_layers = cfg.num_layers
     cache: Dict = {
         "index": 0,
@@ -173,10 +178,16 @@ def init_cache(cfg, batch: int, buf_len: int, dtype=torch.float32,
         for key in ("k", "v"):
             cache[key] = torch.zeros((n_layers, batch, buf_len, hk, hd),
                                      dtype=dtype, device=device)
+    if cfg.cross_attend:
+        hq, hd = cfg.num_heads, cfg.head_dim
+        for key in ("cross_k", "cross_v"):
+            cache[key] = torch.zeros((n_layers, batch, cross_len, hq, hd),
+                                     dtype=dtype, device=device)
     return cache
 
 
-_PER_LAYER_KEYS = ("k", "v", "latent", "k_rope", "conv", "state")
+_PER_LAYER_KEYS = ("k", "v", "latent", "k_rope", "conv", "state",
+                   "cross_k", "cross_v")
 
 
 def _split_cache(cache: Optional[Dict], fd: int) -> Tuple[Dict, Dict]:
@@ -195,9 +206,13 @@ def _split_cache(cache: Optional[Dict], fd: int) -> Tuple[Dict, Dict]:
 # ---------------------------------------------------------------------------
 
 def _layer_forward(lp: Dict, x, bufs: Dict, cfg, *, positions, window: int,
-                   kv_pos, write_slot, moe_layer: bool = False
+                   kv_pos, write_slot, cross_context=None,
+                   moe_layer: bool = False
                    ) -> Tuple[torch.Tensor, Dict, Optional[torch.Tensor]]:
-    """Returns (x_out, new_bufs, the MoE layer's aux loss or None)."""
+    """Returns (x_out, new_bufs, the MoE layer's aux loss or None). With
+    cross-attention, ``cross_context`` [B, Tc, cd] gives the keys and
+    values (training, prefill); without it the cached ones serve
+    (decode)."""
     new_bufs: Dict = {}
     h = apply_norm(lp["ln1"], x, cfg)
     ssm_cache = ({"conv": bufs["conv"], "state": bufs["state"]}
@@ -232,6 +247,17 @@ def _layer_forward(lp: Dict, x, bufs: Dict, cfg, *, positions, window: int,
     else:
         y = y_attn
     x = x + y
+
+    if cfg.cross_attend:
+        hc = apply_norm(lp["ln_cross"], x, cfg)
+        cross_kv = ((bufs["cross_k"], bufs["cross_v"])
+                    if "cross_k" in bufs and cross_context is None else None)
+        y_cross, (ck, cv) = attn_mod.cross_attention(
+            lp["cross"], hc, cfg, context=cross_context, cross_kv=cross_kv)
+        x = x + y_cross
+        if "cross_k" in bufs:
+            new_bufs["cross_k"], new_bufs["cross_v"] = ck, cv
+
     h2 = apply_norm(lp["ln2"], x, cfg)
     if moe_layer:
         y2, aux = moe_mod.moe_ffn(lp["moe"], h2, cfg)
@@ -243,7 +269,9 @@ def _layer_forward(lp: Dict, x, bufs: Dict, cfg, *, positions, window: int,
 # Full forward
 # ---------------------------------------------------------------------------
 
-def forward(params: Dict, cfg, *, tokens: torch.Tensor,
+def forward(params: Dict, cfg, *, tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None,
+            cross_context: Optional[torch.Tensor] = None,
             cache: Optional[Dict] = None, last_only: bool = False,
             remat: bool = False, return_hidden: bool = False,
             ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
@@ -254,15 +282,16 @@ def forward(params: Dict, cfg, *, tokens: torch.Tensor,
     independent, so this only skips work). ``remat`` recomputes each layer
     in the backward (one ``torch.utils.checkpoint`` per layer, where the
     JAX package has ``jax.checkpoint`` around its scan body); it applies to
-    the cache-free forward. The embedding inputs of the JAX forward serve
-    audio, which a later slice ports.
+    the cache-free forward. Audio takes ``embeds`` [B, S, d] (frame
+    embeddings) in place of ``tokens``, and ``cross_context`` [B, Tc, cd]
+    in training and prefill.
 
     Train: cache None. Prefill: fresh cache, S>1. Decode: cache, S==1.
-    logits: [B,S,V]; meta-token positions stripped. The cache is updated
-    in place and returned.
+    logits: [B,S,V] ([B,S,K,V] for audio); meta-token positions stripped.
+    The cache is updated in place and returned.
     """
-    check_supported(cfg)
-    x = embed_tokens(params["embed"], tokens, cfg)
+    x = (embed_tokens(params["embed"], tokens, cfg) if embeds is None
+         else embeds)
     b, s_in, _ = x.shape
     dev = x.device
     m = cfg.num_meta_tokens
@@ -304,7 +333,8 @@ def forward(params: Dict, cfg, *, tokens: torch.Tensor,
                 out, _, aux = _layer_forward(
                     _index(params[key], i), xc, {}, cfg,
                     positions=positions, window=window, kv_pos=None,
-                    write_slot=None, moe_layer=moe_layer)
+                    write_slot=None, cross_context=cross_context,
+                    moe_layer=moe_layer)
                 return out if aux is None else (out, aux)
             out = checkpoint(body, x, use_reentrant=False)
             x, aux = out if moe_layer else (out, None)
@@ -313,7 +343,7 @@ def forward(params: Dict, cfg, *, tokens: torch.Tensor,
             x, new_bufs, aux = _layer_forward(
                 _index(params[key], i), x, bufs, cfg, positions=positions,
                 window=window, kv_pos=kv_pos, write_slot=write_slot,
-                moe_layer=moe_layer)
+                cross_context=cross_context, moe_layer=moe_layer)
             for k, new in new_bufs.items():
                 if new is not bufs[k]:
                     bufs[k].copy_(new)
@@ -331,4 +361,9 @@ def forward(params: Dict, cfg, *, tokens: torch.Tensor,
     x = apply_norm(params["ln_f"], x, cfg)
     if return_hidden:
         return x, cache, aux_total
-    return compute_logits(params["embed"], x, cfg), cache, aux_total
+    if cfg.family == "audio":
+        logits = (x @ params["heads"]).reshape(
+            b, x.shape[1], cfg.num_codebooks, cfg.vocab_size)
+    else:
+        logits = compute_logits(params["embed"], x, cfg)
+    return logits, cache, aux_total

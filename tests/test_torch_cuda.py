@@ -54,7 +54,9 @@ skip themselves elsewhere. Run them on the card with
 * the backward kernels against the plain version's autograd on the card:
   ``flash_attention_bwd`` (dq, dk, dv) at Hymba's training layers (window
   and full, meta tokens, GQA), qwen2-1.5b's head_dim 128, MQA, a ragged S
-  and head_dim 32, f32 at the forward's 2e-5 and bf16 at 3e-2;
+  and head_dim 32, and at head_dim 256 (gemma-2b's MQA training shape; a
+  ragged S, GQA, a window and meta tokens; 160 and 200, padded to 256), f32
+  at the forward's 2e-5 and bf16 at 3e-2;
   ``ssd_scan_bwd`` (dx, d(dt), dA, dB, dC and the initial state's) at
   Hymba's and mamba2-130m's shapes and ragged chunks, with and without an
   initial state and the final state's cotangent, at the forward's
@@ -62,11 +64,13 @@ skip themselves elsewhere. Run them on the card with
   NaN in each input (flash: q, k, v, dO at Hymba's window layer; the SSD:
   x, dt, B, C, dY at Hymba's and mamba2-130m's shapes, in tiles the passes
   skip and inside the diagonal tile): inf and NaN where the plain
-  version's autograd has them. A CUDA tensor that
+  version's autograd has them (flash also at head_dim 256, whose masks of
+  non-finite columns take 8 words). A CUDA tensor that
   needs a gradient goes through the backward kernel (its counter rises);
-  two backward calls give the same bits; the serving path (no gradient)
-  writes no log-sum-exp and gives the bits it gave; the backward raises
-  above head_dim 128 and for a bf16 SSD;
+  two backward calls give the same bits (at 256 too); the serving path
+  (no gradient) writes no log-sum-exp and gives the bits it gave, and the
+  wide forward's log-sum-exp at 256 (what the backward reads) is the
+  plain one; the backward raises above head_dim 256 and for a bf16 SSD;
 * ``flash_attention`` with v's head_dim apart from q's and k's (MLA) at
   DeepSeek-V2's prefill (192, 128) of 512 and 2048 tokens, DBRX's GQA
   48/8 prefill at 128, the reduced config's (24, 16), and
@@ -842,6 +846,12 @@ def _flash_grads(fn, q, k, v, dout, window, num_meta):
     (2, 4, 2, 200, 64, 64, 8),          # ragged S
     (2, 4, 2, 128, 32, 64, 8),          # reduced Hymba's head_dim
     (1, 3, 3, 100, 48, 32, 0),          # an odd head_dim, MHA
+    (1, 24, 24, 1500, 64, 0, 0),       # musicgen-medium's training shape
+    (1, 8, 1, 2048, 256, 0, 0),         # gemma-2b's training shape (MQA)
+    (2, 4, 2, 300, 256, 96, 16),        # hd 256: GQA, window + meta, ragged
+    (1, 2, 1, 70, 256, 0, 0),           # hd 256: one row past two tiles
+    (1, 4, 2, 130, 160, 48, 5),         # hd 160, padded to 256
+    (2, 2, 2, 97, 200, 0, 0),           # hd 200, padded to 256
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_bwd_matches_plain_autograd_on_card(
@@ -888,6 +898,37 @@ def test_flash_attention_bwd_non_finite_on_card(cuda, tensor, index, val):
     want = _flash_grads(ref.flash_attention_ref, q, k, v, dout, window, meta)
     assert not all(bool(torch.isfinite(w).all()) for w in want)
     for g, w in zip(got, want):     # dv stays finite for an inf in v
+        if bool(torch.isfinite(w).all()):
+            torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5)
+        else:
+            _compare_non_finite(g, w, (2e-5, 2e-5))
+
+
+# (tensor, (b, head, row, column)) at head_dim 256 (B 1, GQA 4/2, 448
+# positions, window 96, 16 meta tokens): columns past 128 (the upper
+# words of the 8-word masks) in tiles the passes skip and visit
+FLASH_BWD_256_SITES = [("q", (0, 1, 300, 200)), ("k", (0, 1, 100, 130)),
+                       ("k", (0, 0, 5, 250)), ("v", (0, 1, 200, 140)),
+                       ("dO", (0, 2, 40, 255)), ("dO", (0, 3, 400, 7))]
+
+
+@pytest.mark.parametrize("tensor,index", FLASH_BWD_256_SITES,
+                         ids=[f"{t}_row{i[2]}_col{i[3]}"
+                              for t, i in FLASH_BWD_256_SITES])
+@pytest.mark.parametrize("val", [float("inf"), float("nan")],
+                         ids=["inf", "nan"])
+def test_flash_attention_bwd_256_non_finite_on_card(cuda, tensor, index, val):
+    """At head_dim 256 (32-row tiles, 8-word masks): an inf or NaN in q, k,
+    v or dO gives dq, dk and dv the plain autograd's NaN and inf, the finite
+    values at the f32 tolerance."""
+    b, hq, hkv, s, hd, window, meta = 1, 4, 2, 448, 256, 96, 16
+    q, k, v = _qkv_model_layout(cuda, b, hq, hkv, s, hd, torch.float32)
+    dout = torch.randn((b, hq, s, hd), device="cuda", generator=cuda)
+    {"q": q, "k": k, "v": v, "dO": dout}[tensor][index] = val
+    got = _flash_grads(flash_attention, q, k, v, dout, window, meta)
+    want = _flash_grads(ref.flash_attention_ref, q, k, v, dout, window, meta)
+    assert not all(bool(torch.isfinite(w).all()) for w in want)
+    for g, w in zip(got, want):
         if bool(torch.isfinite(w).all()):
             torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5)
         else:
@@ -988,6 +1029,12 @@ def test_backward_kernels_repeat_bit_for_bit_on_card(cuda):
     r1, r2 = [flash_attention_bwd(q, k, v, out, dout, lse, window=512,
                                   num_meta=128) for _ in range(2)]
     assert all(torch.equal(a, b) for a, b in zip(r1, r2))
+    q, k, v = _qkv_model_layout(cuda, 1, 8, 2, 512, 256, torch.float32)
+    lse = torch.empty((1, 8, 512), device="cuda")
+    out = _launch(q, k, v, 0, 0, lse=lse)
+    dout = torch.randn_like(out)
+    r1, r2 = [flash_attention_bwd(q, k, v, out, dout, lse) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(r1, r2))
     x = torch.randn((2, 1024, 24, 64), device="cuda", generator=cuda)
     dt = torch.rand((2, 1024, 24), device="cuda", generator=cuda)
     A = -torch.rand(24, device="cuda", generator=cuda) - 0.5
@@ -1013,10 +1060,10 @@ def test_serving_path_writes_no_lse_and_keeps_its_bits_on_card(cuda):
 
 
 def test_backward_guards_on_card(cuda):
-    q, k, v = _qkv_model_layout(cuda, 1, 2, 1, 64, 160, torch.float32)
-    with pytest.raises(ValueError, match="head_dim 160 > 128"):
+    q, k, v = _qkv_model_layout(cuda, 1, 2, 1, 64, 320, torch.float32)
+    with pytest.raises(ValueError, match="head_dim 320 > 256"):
         flash_attention(q.requires_grad_(True), k, v)
-    with torch.no_grad():                # serving at hd 160 still runs
+    with torch.no_grad():                # serving at hd 320 still runs
         assert flash_attention(q, k, v).shape == q.shape
     x = torch.randn((1, 64, 2, 16), device="cuda").bfloat16()
     dt = torch.rand((1, 64, 2), device="cuda")
@@ -1147,6 +1194,32 @@ def test_flash_attention_vd_lse_on_card(cuda, b, hq, hkv, s, hd, vd, window,
     served = _launch(q, k, v, window, num_meta, lse=None)
     assert torch.equal(out, served)
     scores = torch.einsum("bhid,bhjd->bhij", q.float(), k.float()) * hd ** -0.5
+    i = torch.arange(s, device="cuda")
+    vis = (i[None] <= i[:, None]) & ((window <= 0) | (i[:, None] - i[None] < window)
+                                     | (i[None] < num_meta))
+    want = torch.logsumexp(scores.masked_fill(~vis, -float("inf")), dim=-1)
+    torch.testing.assert_close(lse, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,hd,window,num_meta", [
+    (1, 8, 1, 2048, 256, 0, 0),         # gemma-2b's training shape (MQA)
+    (2, 4, 2, 300, 256, 96, 16),        # GQA, window + meta, ragged S
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_wide_lse_on_card(cuda, b, hq, hkv, s, hd, window,
+                                          num_meta, dtype):
+    """flash_fwd_kernel_wide (hd = vd > 128) with the log-sum-exp that the
+    backward at 256 reads: each row's logsumexp of its visible scaled
+    scores, written once (by the first 128-column slice's block), and the
+    output bits of the serving launch."""
+    from repro_torch.kernels.flash_attention import _launch
+    q, k, v = _qkv_model_layout(cuda, b, hq, hkv, s, hd, dtype)
+    lse = torch.full((b, hq, s), float("nan"), device="cuda")
+    out = _launch(q, k, v, window, num_meta, lse=lse)
+    served = _launch(q, k, v, window, num_meta, lse=None)
+    assert torch.equal(out, served)
+    kk = k.float().repeat_interleave(hq // hkv, dim=1)
+    scores = torch.einsum("bhid,bhjd->bhij", q.float(), kk) * hd ** -0.5
     i = torch.arange(s, device="cuda")
     vis = (i[None] <= i[:, None]) & ((window <= 0) | (i[:, None] - i[None] < window)
                                      | (i[None] < num_meta))

@@ -23,8 +23,9 @@ weights carried across by ``lm_params_from_jax``:
 * the port's counterpart of ``test_decode_matches_prefill``
   (``tests/test_arch_smoke.py``): teacher-forced decode reproduces the
   cache-free forward's logits;
-* the entry points default to the card and the unported parts raise; MoE
-  training runs on the CPU and defaults to the card; ``init_params``
+* the entry points default to the card; MoE training runs on the CPU and
+  defaults to the card; the fused CE's audio heads branch gives ln V on
+  zero heads; ``init_params``
   draws a seed's weights as the stacking of a list of layers did.
 """
 import dataclasses
@@ -44,8 +45,7 @@ from repro.launch.steps import (  # noqa: E402
     build_prefill_step as jbuild_prefill_step,
 )
 from repro.models.model import build_model as jbuild_model  # noqa: E402
-from repro_torch.config import ModelConfig  # noqa: E402
-from repro_torch.configs import NOT_PORTED, get_config  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import (  # noqa: E402
     lm_params_from_jax, lm_params_to_numpy,
 )
@@ -390,21 +390,6 @@ def test_entry_points_default_to_the_card():
         model.make_cache(1, 8)
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_get_config_raises_for_unported_archs(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        get_config(arch)
-
-
-@pytest.mark.parametrize("arch", ["musicgen-medium"])
-def test_unported_families_raise(arch):
-    """Cross-attention configs (copied from the JAX registry) are refused
-    by the model, not run wrongly (item 14b.3)."""
-    cfg = ModelConfig(**dataclasses.asdict(jget_config(arch).reduced()))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        build_model(cfg)
-
-
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_moe_training_runs_on_the_cpu(arch):
     """The MoE and MLA families train through ``run_lm_training`` (reduced:
@@ -428,9 +413,10 @@ def test_moe_training_defaults_to_the_card(arch):
 
 def test_loss_fn_waits_for_the_training_slice():
     """The training slice has landed (``tests/test_torch_train.py`` holds
-    it against JAX): ``loss_fn`` gives a finite loss with its metrics.
-    What still waits is the audio codebook heads of the fused CE (item
-    14b.3)."""
+    it against JAX): ``loss_fn`` gives a finite loss with its metrics. So
+    has the audio codebook heads' branch of the fused CE: with zero heads
+    every codebook's logits are 0, so the loss is ln V exactly
+    (``tests/test_torch_audio.py`` holds it against JAX)."""
     from repro_torch.models.layers import chunked_cross_entropy
     cfg = get_config("qwen2-1.5b").reduced()
     model = build_model(cfg)
@@ -439,6 +425,10 @@ def test_loss_fn_waits_for_the_training_slice():
     loss, metrics = model.loss_fn(params, {"tokens": tokens,
                                            "labels": tokens})
     assert torch.isfinite(loss) and set(metrics) == {"ce", "aux"}
-    with pytest.raises(NotImplementedError, match="14b.3"):
-        chunked_cross_entropy(params["embed"], torch.zeros((1, 8, cfg.d_model)),
-                              tokens, cfg, heads=torch.zeros(cfg.d_model, 4))
+    acfg = get_config("musicgen-medium").reduced()
+    k, v = acfg.num_codebooks, acfg.vocab_size
+    labels = torch.zeros((1, 8, k), dtype=torch.long)
+    ce = chunked_cross_entropy(None, torch.randn((1, 8, acfg.d_model)),
+                               labels, acfg,
+                               heads=torch.zeros(acfg.d_model, k * v))
+    torch.testing.assert_close(ce, torch.tensor(np.log(v), dtype=ce.dtype))

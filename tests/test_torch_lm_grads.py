@@ -4,8 +4,10 @@ differentiate through) against the JAX package's gradients:
 * ``flash_attention``: the plain version's autograd against JAX's custom
   VJP ``blocked_attention`` (the FlashAttention-2 backward in jnp that the
   card's ``flash_attention_bwd`` kernel follows) and against autodiff of
-  ``_direct_attention``, with a window, meta tokens and GQA; rtol 1e-4
-  and 1e-4 of each gradient's largest |value| (f32 sums in other orders);
+  ``_direct_attention``, with a window, meta tokens and GQA, and at
+  gemma-2b's hd = vd = 256 with MQA (what ``flash_attention_bwd``'s 256
+  instantiation computes on the card); rtol 1e-4 and 1e-4 of each
+  gradient's largest |value| (f32 sums in other orders);
 * ``ssd_scan``: the plain version's autograd (``ref.ssd_chunked``, whose
   flushed exp is out of place, so that autograd can go through it) against
   ``jax.grad`` of the JAX package's ``ssd_chunked``, with and without an
@@ -98,6 +100,8 @@ def _port_grads(q, k, v, do, window, num_meta):
     (2, 4, 2, 96, 16, 24, 8),        # window + pinned meta tokens, GQA
     (1, 3, 1, 80, 32, 32, 0),        # MQA with a window
     (2, 2, 2, 64, 8, 16, 4),         # MHA
+    (1, 8, 1, 64, 256, 0, 0),        # gemma-2b's hd = vd = 256, MQA 8/1
+    (2, 4, 1, 48, 256, 16, 4),       # hd 256, MQA with a window and meta
 ])
 def test_flash_plain_grads_match_jax(b, hq, hkv, s, hd, window, num_meta):
     q, k, v, do = _attention_inputs(b, hq, hkv, s, hd, seed=s + hd)
