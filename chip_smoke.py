@@ -24,8 +24,9 @@ exits non-zero:
             MLA prefill (192, 128; with inf and NaN too), (24, 16), (64,
             32), (96, 128) and (320, 256); ssd_scan at Hymba's and
             mamba2-130m's; the backward
-            kernels (flash_attention_bwd, flash_attention_bwd_vd,
-            ssd_scan_bwd) against the plain version's autograd at
+            kernels (flash_attention_bwd, flash_attention_bwd_256,
+            flash_attention_bwd_vd, ssd_scan_bwd) against the plain
+            version's autograd at
             Hymba's, qwen2-1.5b's, gemma-2b's (hd 256), DeepSeek-V2's
             (192, 128) and mamba2-130m's training shapes (flash in f32 and
             bf16), two backward calls bit for bit, and an inf or NaN in
@@ -109,11 +110,14 @@ exits non-zero:
             split-f32 tensor-core rate, with the CUDA cores' f32 rate
             beside it) and its library yardstick (ssd_scan also at
             mamba2-130m's shape; flash_attention's two non-finite
-            launches alone and at gemma-2b's hd 256 and DeepSeek-V2's
-            MLA (192, 128) beside SDPA,
+            launches alone, at every serving and training shape of the
+            main path beside SDPA: gemma-2b's hd 256 at B 4 and B 1,
+            nemotron's, yi's and chameleon's GQA at 128, musicgen's MHA
+            at 64, DeepSeek-V2's MLA (192, 128);
             fed_mix_matching at S = 2 and 1; the backward kernels at
-            Hymba's, DeepSeek-V2's, DBRX's and gemma-2b's training shapes
-            beside the plain autograd and, for flash, SDPA's backward), two
+            Hymba's, DeepSeek-V2's, DBRX's, gemma-2b's and musicgen's
+            training shapes beside the plain autograd and, for flash,
+            SDPA's backward), two
             rounds' split between local
             training, mixing and the wire, the Hymba prefill's
             device time by kernel, and a sampled cold-tier round (D =
@@ -175,6 +179,10 @@ KERNELS = (
     ("flash_attention_bwd",
      "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
      "src/repro/models/attention.py:138"),
+    # at vd = hd in (128, 256] (gemma-2b's 256): the same VJP
+    ("flash_attention_bwd_256",
+     "src/repro_torch/kernels/csrc/flash_attention_bwd_256.cu",
+     "src/repro/models/attention.py:138"),
     # at v's own head_dim (MLA): JAX differentiates its jnp attention_core
     ("flash_attention_bwd_vd",
      "src/repro_torch/kernels/csrc/flash_attention_bwd_vd.cu",
@@ -203,7 +211,8 @@ LM_HQ, LM_HKV, LM_HD, LM_META, LM_WINDOW = 25, 5, 64, 128, 1024
 LM_PROMPTS = (384, 1920)
 LM_S = LM_PROMPTS[1] + LM_META
 # gemma-2b's attention (configs/gemma_2b.py): 8 query heads and one kv head
-# of 256 (MQA), causal, no window; the kernel's 128-column O slices.
+# of 256 (MQA), causal, no window: flash_fwd_kernel_wgmma256 forward,
+# flash_attention_bwd_256 backward.
 WIDE_HQ, WIDE_HKV, WIDE_HD = 8, 1, 256
 # DeepSeek-V2's MLA prefill (configs/deepseek_v2_236b.py): 128 heads, q/k
 # 192 (nope 128 + rope 64), v 128, causal; B 4 at 2048 positions.
@@ -548,7 +557,8 @@ def phase_kernels(torch, state):
     rows += lm_backward_cases(torch)
     failed += [r for r in rows if r["kernel"] in (
         "flash_attention", "ssd_scan", "flash_attention_bwd",
-        "flash_attention_bwd_vd", "ssd_scan_bwd") and not r["ok"]]
+        "flash_attention_bwd_256", "flash_attention_bwd_vd",
+        "ssd_scan_bwd") and not r["ok"]]
     # the summary line's error: the main path's shape, f32
     for name, _, _ in KERNELS:
         state.setdefault("max_abs_err", {})[name] = max(
@@ -636,8 +646,8 @@ def lm_non_finite_cases(torch):
                          "dtype": name, "non_finite": True,
                          "max_abs_err": err, "atol": atol, "rtol": rtol,
                          "ok": ok})
-    # gemma-2b's shape (hd 256: both 128-column slices), causal: V at the
-    # last key in each slice, at key 300 and a visited key 5, K and Q
+    # gemma-2b's shape (hd 256: both warpgroups' 128 columns), causal: V at
+    # the last key in each half, at key 300 and a visited key 5, K and Q
     for i, dt in enumerate((torch.float32, torch.bfloat16)):
         q, k, v = attention_inputs(torch, LM_B, WIDE_HQ, WIDE_HKV, LM_S,
                                    WIDE_HD, dt, seed=740 + i)
@@ -715,6 +725,9 @@ def main_case(row):
     if row["kernel"] == "flash_attention_bwd":
         return (row["B"], row["S"], row["hd"], row["window"],
                 row["dtype"]) == (TRAIN_B, LM_S, LM_HD, LM_WINDOW, "float32")
+    if row["kernel"] == "flash_attention_bwd_256":     # gemma-2b's training
+        return (row["B"], row["Hq"], row["S"], row["hd"], row["dtype"]) == (
+            1, WIDE_HQ, 2048, WIDE_HD, "float32")
     if row["kernel"] == "flash_attention_bwd_vd":
         return (row["B"], row["S"], row["hd"], row["vd"], row["dtype"]) == (
             MOE_TRAIN_B, MOE_TRAIN_SEQ, MLA_HD, MLA_VD, "float32")
@@ -800,7 +813,8 @@ def lm_kernel_cases(torch):
     flash_cases += [(2, 3, 3, 128, 32, w, 0) for w in (0, 96)]
     flash_cases += [(2, 4, 2, 200, 64, 64, 8)]           # ragged S
     # head_dim > 128: gemma-2b's MQA at 2048 positions, GQA with a window
-    # and meta tokens, 32- and 64-column last slices, four slices
+    # and meta tokens, hd 160 and 192 (flash_fwd_kernel_wgmma256, padded to
+    # 256), hd 512 (the wide kernel's four slices)
     flash_cases += [(LM_B, WIDE_HQ, WIDE_HKV, LM_S, WIDE_HD, 0, 0),
                     (2, 4, 2, 300, 256, 96, 16), (2, 4, 1, 200, 160, 0, 0),
                     (2, 6, 2, 256, 192, 64, 5), (1, 2, 1, 333, 512, 0, 0),
@@ -941,7 +955,8 @@ def lm_backward_cases(torch):
     held to the plain autograd's inf and NaN positions."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (
-        _launch, flash_attention, flash_attention_bwd, flash_attention_bwd_vd,
+        _launch, bwd_route, flash_attention, flash_attention_bwd,
+        flash_attention_bwd_vd,
     )
     from repro_torch.kernels.ssd_scan import _launch as ssd_launch
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
@@ -966,7 +981,7 @@ def lm_backward_cases(torch):
                     (1, 2, 2, 300, MLA_HD, 96, 16, MLA_VD),
                     (2, 4, 1, 150, 64, 48, 5, 32)]
     for i, (b, hq, hkv, s, hd, w, meta, vd) in enumerate(flash_cases):
-        kernel = "flash_attention_bwd" if vd == hd else "flash_attention_bwd_vd"
+        kernel = bwd_route(hd, vd)
         for dt in (f32, bf16):
             q, k, v = attention_inputs(torch, b, hq, hkv, s, hd, dt,
                                        seed=800 + i, vd=vd)
@@ -996,13 +1011,13 @@ def lm_backward_cases(torch):
                          "grads": errs, "atol": atol, "rtol": rtol,
                          "ok": ok})
             del q, k, v, dout, got, want, w64
-    # the wgmma forward's log-sum-exp (what K2 reads) and the wide one's
-    # at hd 256 (what the backward at 256 reads) against the plain one:
-    # logsumexp of each row's visible scaled scores, in float64
+    # the wgmma forward's log-sum-exp (what K2 reads) and the one at hd 256
+    # (what the backward at 256 reads) against the plain one: logsumexp of
+    # each row's visible scaled scores, in float64
     for i, (b, hq, s, hd, vd, w, meta) in enumerate((
             (MOE_TRAIN_B, MLA_H, MOE_TRAIN_SEQ, MLA_HD, MLA_VD, 0, 0),
             (2, 4, 70, 24, 16, 0, 0), (1, 2, 300, 160, 64, 96, 16),
-            (1, WIDE_HQ, 512, WIDE_HD, WIDE_HD, 0, 0))):   # the wide kernel
+            (1, WIDE_HQ, 512, WIDE_HD, WIDE_HD, 0, 0))):   # wgmma256
         for dt in (f32, bf16):
             q, k, v = attention_inputs(torch, b, hq, hq, s, hd, dt,
                                        seed=870 + i, vd=vd)
@@ -1076,7 +1091,7 @@ def lm_backward_cases(torch):
     dout = torch.randn_like(out)
     r1, r2 = [flash_attention_bwd(q, k, v, out, dout, lse) for _ in range(2)]
     same = all(torch.equal(a, b) for a, b in zip(r1, r2))
-    rows.append({"kernel": "flash_attention_bwd", "hd": WIDE_HD,
+    rows.append({"kernel": "flash_attention_bwd_256", "hd": WIDE_HD,
                  "bitwise_repeat": same, "max_abs_err": 0.0, "ok": same})
     for hq, hkv in ((16, 16), (16, 4)):
         q, k, v = attention_inputs(torch, 2, hq, hkv, 1024, MLA_HD,
@@ -1122,9 +1137,9 @@ def lm_backward_cases(torch):
                 torch, "flash_attention_bwd", f"{val} in {tensor}{index}",
                 ("dq", "dk", "dv"), got[1:], want[1:],
                 lambda w: FLASH_TOL["float32"]))
-    # hd 256 (32-row tiles, 8-word masks), 448 positions, GQA 4/2, window
-    # 96, 16 meta tokens: columns past 128 in tiles the passes skip and
-    # visit
+    # hd 256 (flash_attention_bwd_256, 8-word masks), 448 positions, GQA
+    # 4/2, window 96, 16 meta tokens: columns past 128 in tiles the passes
+    # skip and visit
     wide_sites = (("q", (0, 1, 300, 200)), ("k", (0, 1, 100, 130)),
                   ("k", (0, 0, 5, 250)), ("v", (0, 1, 200, 140)),
                   ("dO", (0, 2, 40, 255)), ("dO", (0, 3, 400, 7)))
@@ -1138,7 +1153,7 @@ def lm_backward_cases(torch):
             want = flash_grads(torch, ref.flash_attention_ref, q, k, v, dout,
                                96, 16)
             rows.append(non_finite_row(
-                torch, "flash_attention_bwd", f"hd 256: {val} in "
+                torch, "flash_attention_bwd_256", f"hd 256: {val} in "
                 f"{tensor}{index}", ("dq", "dk", "dv"), got[1:], want[1:],
                 lambda w: FLASH_TOL["float32"]))
     # K2 at (192, 128), 448 positions, window 96, 16 meta tokens: a q row
@@ -1490,8 +1505,8 @@ def moe_train_reference(torch, arch, backward):
 def dense_reference(torch):
     """The dense, VLM and audio configs reduced (two layers, width 256) on
     the card against the port on the CPU: gemma-2b at its published
-    head_dim 256 (MQA 4/1: the wide forward and the backward's 256
-    instantiation), nemotron-4-15b, yi-34b and chameleon-34b with GQA kept
+    head_dim 256 (MQA 4/1: flash_fwd_kernel_wgmma256 and
+    flash_attention_bwd_256), nemotron-4-15b, yi-34b and chameleon-34b with GQA kept
     (``num_kv_heads=2``) and musicgen-medium; each served as
     ``serve_on_both`` holds it (78 cache slots), and gemma-2b and
     musicgen-medium trained as ``train_on_both`` holds it (96 tokens or
@@ -1499,7 +1514,6 @@ def dense_reference(torch):
     import dataclasses
 
     from repro_torch.configs import get_config
-    kernels = ("flash_attention", "flash_attention_bwd")
     rows = []
     for arch, _ in DENSE_RUNS:
         keep = ({"head_dim": 256} if arch == "gemma-2b"
@@ -1507,14 +1521,16 @@ def dense_reference(torch):
         cfg = dataclasses.replace(get_config(arch).reduced(), **keep)
         rows.append({"model": f"{arch} reduced, {keep}",
                      **serve_on_both(torch, cfg, 78)})
-        if arch == "gemma-2b":
+        if arch == "gemma-2b":               # the backward at 256
             rows.append({"model": f"{arch} reduced, {keep}",
-                         **train_on_both(torch, cfg, 96, kernels)})
+                         **train_on_both(torch, cfg, 96, (
+                             "flash_attention", "flash_attention_bwd_256"))})
     cfg = get_config(AUDIO_ARCH).reduced()
     rows.append({"model": f"{AUDIO_ARCH} reduced",
                  **serve_on_both(torch, cfg, 78)})
     rows.append({"model": f"{AUDIO_ARCH} reduced",
-                 **train_on_both(torch, cfg, 96, kernels)})
+                 **train_on_both(torch, cfg, 96, ("flash_attention",
+                                                  "flash_attention_bwd"))})
     return rows
 
 
@@ -1590,7 +1606,8 @@ def launch_counters():
         fed_mix_matching, fed_mix_segment,
     )
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd, flash_attention_bwd_vd,
+        flash_attention, flash_attention_bwd, flash_attention_bwd_256,
+        flash_attention_bwd_vd,
     )
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
     return {"fed_mix_segment": fed_mix_segment, "fed_mix": fed_mix,
@@ -1598,6 +1615,7 @@ def launch_counters():
             "fed_aggregate": fed_aggregate,
             "flash_attention": flash_attention, "ssd_scan": ssd_scan,
             "flash_attention_bwd": flash_attention_bwd,
+            "flash_attention_bwd_256": flash_attention_bwd_256,
             "flash_attention_bwd_vd": flash_attention_bwd_vd,
             "ssd_scan_bwd": ssd_scan_bwd}
 
@@ -2431,8 +2449,8 @@ def dense_main_path(torch, counters, totals):
     ``serve._generate`` (``generate_run``): seeded weights drawn on the card,
     each model freed before the next, B 4, a prompt of 2048, 16 greedy
     tokens. Each layer's prefill attention is one flash_attention launch
-    (gemma's MQA at head_dim 256 on the wide kernel; the others' GQA at
-    128); decode launches none. chameleon's prompt is mixed text and image
+    (gemma's MQA at head_dim 256 on flash_fwd_kernel_wgmma256; the others'
+    GQA at 128); decode launches none. chameleon's prompt is mixed text and image
     token ids of its unified vocabulary (its image tokenizer is a stub in
     the JAX package too). ``decode_bound_ms``: ``weight_read_bytes`` over
     the memory rate."""
@@ -2777,16 +2795,18 @@ def dense_train_main_path(torch, counters, totals):
     musicgen's the audio schema's (seeded frame embeddings, a [1, 64,
     1536] context, labels [1, 1500, 4]), which ``run_lm_training``'s
     token stream cannot give. A step launches flash_attention once a layer
-    and flash_attention_bwd once a layer (gemma's MQA at head_dim 256 on
-    its 256 instantiation; musicgen's MHA at 64)."""
+    and a backward kernel once a layer (gemma's MQA at head_dim 256:
+    flash_attention_bwd_256; musicgen's MHA at 64: flash_attention_bwd)."""
     from repro_torch.configs import get_config
     from repro_torch.data.lm import token_stream_batches
+    from repro_torch.kernels.flash_attention import bwd_route
     rows = []
     steps = MOE_TRAIN_STEPS
     for arch, layers, seq in DENSE_TRAIN_RUNS:
         cfg = cut_config(arch, layers)
-        expect = expected(flash_attention=layers * steps,
-                          flash_attention_bwd=layers * steps)
+        expect = expected(**{"flash_attention": layers * steps,
+                             bwd_route(cfg.head_dim, cfg.head_dim):
+                             layers * steps})
         if cfg.family == "audio":
             seeds = iter(range(100, 100 + steps + 1))
 
@@ -3181,36 +3201,18 @@ def lm_timing(torch):
                        "boolean mask), TF32 off",
             "library_max_abs_err": float((library() - call()).abs().max())})
     # gemma-2b's attention at 2048 positions (B 4, 8 query heads and one kv
-    # head of 256, causal): the kernel's 128-column O slices, each block
-    # computing the full scores
-    q, k, v = attention_inputs(torch, LM_B, WIDE_HQ, WIDE_HKV, LM_S,
-                               WIDE_HD, f32, seed=9)
-    mask = flash_mask(torch, LM_S, 0, 0)
-    pairs = int(mask.sum())
-    flops = 4 * WIDE_HD * pairs * LM_B * WIDE_HQ
-    byts = 4 * LM_S * WIDE_HD * LM_B * (2 * WIDE_HQ + 2 * WIDE_HKV)
-    per = device_ms(torch, lambda: flash_attention(q, k, v))
-    rows.append({
-        "name": "flash_attention", "S": LM_S, "hd": WIDE_HD,
-        "heads": [WIDE_HQ, WIDE_HKV], "window": 0, "num_meta": 0,
-        "visible_pairs_per_head": pairs,
-        "ms": named_ms(per, "flash_fwd_kernel"),
-        "wide_kernel_ms": named_ms(per, "flash_fwd_kernel_wide"),
-        "nonfinite_ms": named_ms(per, "flash_fwd_kernel_vflags")
-                      + named_ms(per, "flash_fwd_kernel_nanfix"),
-        "plain_ms": sum(device_ms(
-            torch, lambda: ref.flash_attention_ref(q, k, v), reps=5).values()),
-        "bytes": byts, "flops": flops,
-        # each 128-column slice's block recomputes the full scores: the
-        # design's operations, beside the function's
-        "design_flops": LM_B * WIDE_HQ * pairs * (
-            2 * WIDE_HD * (WIDE_HD // 128) + 2 * WIDE_HD),
-        **product_bounds(byts, flops),
-        "library_ms": sum(device_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, enable_gqa=True)).values()),
-        "library": "scaled_dot_product_attention(enable_gqa=True, "
-                   "boolean mask), TF32 off"})
-    del q, k, v
+    # head of 256, causal: flash_fwd_kernel_wgmma256), then the other
+    # serving and training shapes of the main path: gemma-2b's training
+    # forward (B 1), nemotron-4-15b's, yi-34b's and chameleon-34b's GQA at
+    # 128 (B 4) and musicgen-medium's MHA at 64 (B 4, 1500 frames)
+    for b, hq, hkv, s, hd, model in (
+            (LM_B, WIDE_HQ, WIDE_HKV, LM_S, WIDE_HD, "gemma-2b serving"),
+            (1, WIDE_HQ, WIDE_HKV, LM_S, WIDE_HD, "gemma-2b training"),
+            (LM_B, 48, 8, DENSE_PROMPT, 128, "nemotron-4-15b serving"),
+            (LM_B, 56, 8, DENSE_PROMPT, 128, "yi-34b serving"),
+            (LM_B, 64, 8, DENSE_PROMPT, 128, "chameleon-34b serving"),
+            (LM_B, 24, 24, AUDIO_FRAMES, 64, "musicgen-medium serving")):
+        rows.append(flash_forward_row(torch, b, hq, hkv, s, hd, model))
     rows.append(mla_flash_timing(torch))
     # Hymba's SSM heads, then mamba2-130m's (the summary line takes the
     # first row of a name: Hymba's)
@@ -3261,6 +3263,59 @@ def lm_timing(torch):
     return rows + lm_backward_timing(torch)
 
 
+def flash_forward_row(torch, b, hq, hkv, s, hd, model):
+    """flash_attention at one causal shape with vd = hd (no window, no
+    meta tokens): the call's device time (``ms``: every launch), its
+    attention kernel's alone (``kernel_ms``: the launch that
+    ``forward_route`` names, with K's and Vᵀ's images at 256 in
+    ``images_ms``), the plain version's and SDPA's (boolean mask,
+    ``enable_gqa``, TF32 off). Operations: the visible pairs' Q·Kᵀ and P·V,
+    4·hd flops each; bytes q, k, v read and o written once. At 256 the
+    design computes whole 64 x 64 tiles on the diagonal (``design_flops``,
+    the scores once per tile pair)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, forward_route,
+    )
+    q, k, v = attention_inputs(torch, b, hq, hkv, s, hd, torch.float32,
+                               seed=9)
+    mask = flash_mask(torch, s, 0, 0)
+    pairs = int(mask.sum())
+    flops = 4 * hd * pairs * b * hq
+    byts = 4 * s * hd * b * (2 * hq + 2 * hkv)
+    route = forward_route(hd, hd)
+    kernel = {"mma": "flash_fwd_kernel<", "wgmma256":
+              "flash_fwd_kernel_wgmma256"}[route]
+    n_t = -(-s // 64)
+    tiles = sum(min(qt, (s - 1) // 64) + 1 for qt in range(n_t))
+    per = device_ms(torch, lambda: flash_attention(q, k, v))
+    row = {
+        "name": "flash_attention", "model": model, "B": b, "S": s, "hd": hd,
+        "heads": [hq, hkv], "window": 0, "num_meta": 0, "route": route,
+        "visible_pairs_per_head": pairs,
+        "ms": named_ms(per, "flash_fwd_kernel"),
+        "kernel_ms": named_ms(per, kernel),
+        "nonfinite_ms": named_ms(per, "flash_fwd_kernel_vflags")
+                      + named_ms(per, "flash_fwd_kernel_nanfix"),
+        "plain_ms": sum(device_ms(
+            torch, lambda: ref.flash_attention_ref(q, k, v), reps=5).values()),
+        "bytes": byts, "flops": flops, **product_bounds(byts, flops),
+        "library_ms": sum(device_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True)).values()),
+        "library": "scaled_dot_product_attention(enable_gqa=True, "
+                   "boolean mask), TF32 off"}
+    if route == "wgmma256":
+        design = b * hq * tiles * 64 * 64 * 4 * hd
+        row.update(images_ms=named_ms(per, "flash_fwd_kernel_image256"),
+                   design_flops=design, design_bound_ms=bound(
+                       byts, design, SPLIT_F32_FLOP_PER_S)[0])
+    del q, k, v
+    return row
+
+
 def mla_flash_timing(torch):
     """flash_attention at DeepSeek-V2's MLA prefill: B 4, 128 heads, q/k
     192 and v 128, 2048 positions, causal, f32; the attention is
@@ -3305,8 +3360,9 @@ def lm_backward_timing(torch):
     qwen2-1.5b's (12/2 heads of 128, full causal, no meta tokens); at v's
     own head_dim (``flash_attention_bwd_vd``) DeepSeek-V2's training shape
     (B 1, 128 heads, 2048 positions, (192, 128)) in f32 and in bf16, and
-    the flash backward at DBRX's (B 1, GQA 48/8 of 128, 2048) and at
-    gemma-2b's (B 1, MQA 8/1 at hd 256, 2048); the SSD
+    the flash backward at DBRX's (B 1, GQA 48/8 of 128, 2048), at
+    gemma-2b's (B 1, MQA 8/1 at hd 256, 2048: ``flash_attention_bwd_256``)
+    and at musicgen-medium's (B 1, MHA 24/24 at 64, 1500 frames); the SSD
     on Hymba's SSM heads, then at mamba2-130m's. Kernel times are the device time of
     every launch of one call (``passes_ms`` by launch); plain times the
     device time of the plain version's autograd backward alone
@@ -3333,7 +3389,8 @@ def lm_backward_timing(torch):
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (
-        _bwd_vd_widths, _launch, flash_attention_bwd, flash_attention_bwd_vd,
+        _bwd_vd_widths, _launch, bwd_route, flash_attention_bwd,
+        flash_attention_bwd_vd,
     )
     from repro_torch.kernels.ssd_scan import _launch as ssd_launch
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd
@@ -3347,8 +3404,10 @@ def lm_backward_timing(torch):
             (b, s, 12, 2, 128, 128, 0, 0, f32),               # qwen2-1.5b
             mla + (f32,), mla + (torch.bfloat16,),
             (MOE_TRAIN_B, MOE_TRAIN_SEQ, 48, 8, 128, 128, 0, 0, f32),  # DBRX
-            # gemma-2b: MQA 8/1 at hd 256 (32-row tiles, split columns)
-            (1, 2048, WIDE_HQ, WIDE_HKV, WIDE_HD, WIDE_HD, 0, 0, f32)):
+            # gemma-2b: MQA 8/1 at hd 256 (flash_attention_bwd_256)
+            (1, 2048, WIDE_HQ, WIDE_HKV, WIDE_HD, WIDE_HD, 0, 0, f32),
+            # musicgen-medium: MHA 24/24 at hd 64, 1500 frames
+            (1, AUDIO_FRAMES, 24, 24, 64, 64, 0, 0, f32)):
         bf16 = dt == torch.bfloat16
         q, k, v = attention_inputs(torch, b, hq, hkv, s, hd, dt, seed=17,
                                    vd=vd)
@@ -3364,11 +3423,13 @@ def lm_backward_timing(torch):
                                        + hkv * (2 * hd + 2 * vd))
                 + 4 * b * hq * s)
         if vd == hd:
-            name, bwd, pass_names = ("flash_attention_bwd", flash_attention_bwd,
-                                     ("prep", "dkdv", "reduce", "dq"))
-            # seven products of 2·hd a pair; at hd 256 the two warps of a
-            # row group each compute S and dP: eleven
-            design = (22 if hd > 128 else 14) * hd * pairs * b * hq
+            name, bwd = bwd_route(hd, vd), flash_attention_bwd
+            pass_names = (("prep", "dkdv", "reduce", "dq")
+                          if name == "flash_attention_bwd"
+                          else ("vd_prep", "256_image", "256_dkdv", "256_dq")
+                          + (("vd_reduce",) if hq != hkv else ()))
+            # seven products of 2·hd a pair: S and dP once in each pass
+            design = 14 * hd * pairs * b * hq
         else:
             name, bwd = "flash_attention_bwd_vd", flash_attention_bwd_vd
             pass_names = ("vd_prep", "vd_dkdv_wgmma", "vd_dq_wgmma") + (

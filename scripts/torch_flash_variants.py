@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Where the time of the flash kernels built on wgmma goes, by ablation.
 
-    python3 scripts/torch_flash_variants.py --kernel fwd|bwd_vd [--out FILE]
+    python3 scripts/torch_flash_variants.py --kernel KERNEL [KERNEL ...]
+        [--parent DIR] [--out FILE]
 
 Builds, beside the tree's own source, variants of it that each drop or
-change one part of the kernel (all ``nvcc`` runs started together, into
-``build/flash_variants/<kernel>/``), prints ptxas' registers, spills and
-warnings (a serialized wgmma) for each variant's wgmma instantiations,
-and times each variant, f32 and bf16, beside the library call on the same
-inputs (``chip_smoke.py``'s inputs and ``device_ms``), one JSON line per
-dtype. Needs the card and ``nvcc``.
+change one part of the kernel (every kernel's variants, all ``nvcc`` runs
+started together, into ``build/flash_variants/<kernel>/``), prints
+ptxas' registers, spills and warnings (a serialized wgmma) for each
+variant's ablated kernels, and times each variant, f32 and bf16, beside
+the library call on the same inputs (``chip_smoke.py``'s inputs and
+``device_ms``), one JSON line per kernel and dtype. Needs the card and
+``nvcc``.
 
 ``--kernel fwd``: ``flash_fwd_kernel_wgmma`` (``csrc/flash_attention.cu``)
 at DeepSeek-V2's MLA prefill (B 4, 128 heads, q/k 192, v 128, S 2048,
@@ -20,13 +22,29 @@ causal), beside ``scaled_dot_product_attention(is_causal=True)``.
 128 heads, q/k 192, v 128, S 2048, causal), per pass by launch name,
 beside the backward of ``scaled_dot_product_attention(is_causal=True)``.
 
+``--kernel bwd256``: ``flash_attention_bwd_256`` (dK/dV and dQ passes by
+launch name) at gemma-2b's training shape (B 1, MQA 8/1 of 256, S 2048,
+causal), beside SDPA's backward (boolean mask, ``enable_gqa``).
+``--kernel fwd256``: ``flash_fwd_kernel_wgmma256`` at gemma-2b's prefill
+(B 4, same heads and S), beside SDPA. With ``--parent DIR`` (a tree of the
+design before them, e.g. the parent commit unpacked under
+``build/parent``) each also times that design and its suspects:
+``old_sdp_once`` (S and dP once per row group of warps: half the k8 steps
+each), ``old_rows16`` (16-row tiles, two blocks an SM), ``old_nospill``
+(the dK/dV products two n8 tiles at a time; bit for bit the parent's,
+``old_nospill_bitwise_equal_parent``) and ``old_one_slice`` (the wide
+forward with one block per query tile and head: the scores once, P·V for
+one 128-column slice).
+
 The variants:
 
 * ``noprod``: the producer loads and stores nothing (it still fills and
-  frees the ring's barriers): the consumers' own time;
+  frees the ring's barriers; at 256 the rings' bulk copies are left out):
+  the consumers' own time;
 * ``nomma``: the consumers issue no tensor-core product: the producer's
   time, with the consumers' elementwise work;
-* ``noload``: the producer stores made-up values instead of loading: the
+* ``noload``: the producer stores made-up values instead of loading (at
+  256: every bulk copy reads the image's first stage, an L2 hit): the
   time without the global loads;
 * ``rawhi`` (bwd_vd): the producer stores each f32 as it is for its TF32
   hi part (lo still x minus x truncated to 19 bits): the result equals
@@ -64,7 +82,7 @@ NO_MMA = [("wgmma.cuh", rf"re:(void {f}\(.*?\) \{{\n)", r"\1  return;\n", 1)
 
 
 def no_redo(fname, count):
-    return (fname, r"re:if \(n < 0\) break;\n\s*n0 = \(uint32_t\)n;",
+    return (fname, r"re:if \(n < 0\) break;\n\s*[nm]0 = \(uint32_t\)n;",
             "break;", count)
 
 
@@ -84,13 +102,15 @@ FWD_NO_STORE = [
 ]
 
 BWD = "flash_attention_bwd_vd.cu"
+# the producer's stages and the products over an atom (shared header)
+BWD_H = "wgmma.cuh"
 BWD_NO_LOAD = [
-    (BWD, "      x[i] = ld_raw<T>(base + (long long)(row0 + (p >> 3) + 16 * i) "
+    (BWD_H, "      x[i] = ld_raw<T>(base + (long long)(row0 + (p >> 3) + 16 * i) "
      "* stride + col);", "      x[i] = make_uint4(i, 0u, 0u, 0u);", 1),
-    (BWD, "    for (int m = 0; m < 4; ++m) x[m] = ld_raw<T>(r + 4 * m);",
+    (BWD_H, "    for (int m = 0; m < 4; ++m) x[m] = ld_raw<T>(r + 4 * m);",
      "    for (int m = 0; m < 4; ++m) x[m] = make_uint4(m, 0u, 0u, 0u);", 1),
 ]
-BWD_NO_STORE = [(BWD, rf"re:(void {f}\(.*?\) \{{\n)", r"\1  return;\n", 1)
+BWD_NO_STORE = [(BWD_H, rf"re:(void {f}\(.*?\) \{{\n)", r"\1  return;\n", 1)
                 for f in ("put_rows", "put_cols")]
 RAW_HI = [
     ("wgmma.cuh",
@@ -100,10 +120,10 @@ RAW_HI = [
      "kTrunc));\n    hi = __float_as_uint(x);", 1),
 ]
 DS_REREAD = [
-    (BWD, "template <bool kBf16, int N>\n__device__ __forceinline__ void "
+    (BWD_H, "template <bool kBf16, int N>\n__device__ __forceinline__ void "
      "rs_atom(", "template <bool kBf16, int N, int KS = 4>\n"
      "__device__ __forceinline__ void rs_atom(", 1),
-    (BWD, "uint64_t b_lo) {\n#pragma unroll\n  for (int kk = 0; kk < 4; ++kk) "
+    (BWD_H, "uint64_t b_lo) {\n#pragma unroll\n  for (int kk = 0; kk < 4; ++kk) "
      "{\n    const int j = 4 * (j0 + kk);\n    const uint64_t o = 2 * kk;",
      "uint64_t b_lo, int b0 = 0) {\n#pragma unroll\n"
      "  for (int kk = 0; kk < KS; ++kk) {\n    const int j = 4 * (j0 + kk);\n"
@@ -150,13 +170,69 @@ DS_REREAD = [
 """, 1),
 ]
 
+# The design that ran hd = vd = 256 before flash_attention_bwd_256.cu and
+# flash_fwd_kernel_wgmma256 (``--parent``: a tree whose csrc holds it): one
+# variant a suspect, each timed alone. Their outputs are wrong by design
+# (all but nospill).
+OLD_BWD = "flash_attention_bwd.cu"
+OLD_BWD_NO_REDO = [
+    (OLD_BWD, "  if (dkdv_block<T, HD, false>(q, k, v, dout, a)) "
+     "dkdv_block_full<T, HD>(q, k, v, dout, a);",
+     "  dkdv_block<T, HD, false>(q, k, v, dout, a);", 1),
+    (OLD_BWD, "  if (dq_block<T, HD, false>(q, k, v, dout, dq, a)) "
+     "dq_block_full<T, HD>(q, k, v, dout, dq, a);",
+     "  dq_block<T, HD, false>(q, k, v, dout, dq, a);", 1),
+]
+OLD_BWD_VARIANTS = {
+    # S and dP once per row group: each warp takes half of the k8 steps
+    # (the two warps of a row group computed all 256 each)
+    "old_sdp_once": OLD_BWD_NO_REDO + [
+        (OLD_BWD, "  for (int ks = 0; ks < HD / 8; ++ks) {",
+         "  for (int ks = 0; ks < (HD > 128 ? HD / 16 : HD / 8); ++ks) {",
+         1)],
+    # 16-row tiles: 100 KB of shared memory, two blocks an SM; every warp
+    # owns 64 output columns and computes S and dP over all 256
+    "old_rows16": [(OLD_BWD, "static constexpr int kT = HD > 128 ? 32 : 64;",
+                    "static constexpr int kT = HD > 128 ? 16 : 64;", 1)],
+    # the dK/dV products two n8 tiles at a time (four before): fewer live
+    # partials, the same sums in the same order (bit for bit)
+    "old_nospill": [(OLD_BWD, "DC / 8 < 8 ? DC / 8 : HD > 128 ? 4 : 8;",
+                     "DC / 8 < 8 ? DC / 8 : HD > 128 ? 2 : 8;", 1)],
+}
+# the wide forward: one block per query tile and head instead of one per
+# 128-column slice of O: the scores once, P·V for one slice
+OLD_FWD_VARIANTS = {
+    "old_one_slice": [
+        (FWD, "  kernel<<<dim3(n_qt, hq * n_sl, batch), kThreads, bytes, "
+         "stream>>>(", "  kernel<<<dim3(n_qt, hq, batch), kThreads, bytes, "
+         "stream>>>(", 1)],
+}
+
+# The redesign at hd = vd = 256: its producer lands no stage (it arrives on
+# the full barriers alone: the consumers' own time), or lands every stage
+# from one image stage (an L2 hit each: the time without the images'
+# traffic); "nomma" as above
+BWD256 = "flash_attention_bwd_256.cu"
+# the producer's one copy call, in the rings both redesigns share
+NO_LAND = [
+    ("wgmma.cuh", "    bar_arrive_tx(full(m), b != nullptr ? 2 * part : part);\n"
+     "    bulk_copy(slot(m), a, part, full(m));\n"
+     "    if (b != nullptr) bulk_copy(slot(m) + part, b, part, full(m));",
+     "    bar_arrive(full(m));", 1)]
+BWD256_NO_LOAD = [
+    (BWD256, "  return im.p[which] + ((((long long)b * heads + h) * tiles + tile) "
+     "* kNA + s) * kStage;", "  return im.p[which];", 1)]
+FWD256_NO_LOAD = [
+    (FWD, "  return images + (vt ? per : 0) + ((((long long)b * hkv + hk) * n_kt "
+     "+ kt) * kNA + s) * kStage;", "  return images + (vt ? per : 0);", 1)]
+
 KERNELS = {
     "fwd": {"source": FWD, "lib": "flash_attention",
             "label": r"wgmmaI(\w+?)Li(\d)E",
-            "variants": {"noprod": [no_redo(FWD, 1)] + FWD_NO_LOAD
+            "variants": {"noprod": [no_redo(FWD, 2)] + FWD_NO_LOAD
                          + FWD_NO_STORE,
-                         "nomma": [no_redo(FWD, 1)] + NO_MMA,
-                         "noload": [no_redo(FWD, 1)] + FWD_NO_LOAD}},
+                         "nomma": [no_redo(FWD, 2)] + NO_MMA,
+                         "noload": [no_redo(FWD, 2)] + FWD_NO_LOAD}},
     "bwd_vd": {"source": BWD, "lib": "flash_attention_bwd_vd",
                "label": r"(dkdv|dq)_wgmma_kernelI(\w+?)Li(\d+)ELi(\d+)E",
                "variants": {"noprod": [no_redo(BWD, 3)] + BWD_NO_LOAD
@@ -165,6 +241,21 @@ KERNELS = {
                             "noload": [no_redo(BWD, 3)] + BWD_NO_LOAD,
                             "rawhi": RAW_HI,
                             "dsreread": DS_REREAD}},
+    "bwd256": {"source": OLD_BWD, "lib": "flash_attention_bwd",
+               "new_source": BWD256, "new_lib": "flash_attention_bwd_256",
+               "label": r"flash_bwd_(dkdv|dq)_kernelI(\w+?)Li256E"
+                        r"|flash_bwd_256_(dkdv|dq|image)_kernelI(\w+?)E",
+               "parent_variants": OLD_BWD_VARIANTS,
+               "variants": {"noprod": [no_redo(BWD256, 2)] + NO_LAND,
+                            "nomma": [no_redo(BWD256, 2)] + NO_MMA,
+                            "noload": [no_redo(BWD256, 2)] + BWD256_NO_LOAD}},
+    "fwd256": {"source": FWD, "lib": "flash_attention",
+               "label": r"flash_fwd_kernel_wideI(\w+?)Lb(\d)E"
+                        r"|flash_fwd_kernel_(wgmma256|image256)I(\w+?)E",
+               "parent_variants": OLD_FWD_VARIANTS,
+               "variants": {"noprod": [no_redo(FWD, 2)] + NO_LAND,
+                            "nomma": [no_redo(FWD, 2)] + NO_MMA,
+                            "noload": [no_redo(FWD, 2)] + FWD256_NO_LOAD}},
 }
 
 
@@ -187,51 +278,74 @@ def patched(texts: dict, patches) -> dict:
 
 
 def ptxas_report(out: str, tag: str, label: str) -> None:
-    """The wgmma kernels' registers and spills by instantiation, and
-    ptxas' warnings."""
+    """The ablated kernels' registers and spills by instantiation (the
+    functions whose mangled name matches ``label``), and ptxas'
+    warnings."""
     name = None
     for line in out.splitlines():
         m = re.search(r"(?:entry function '|Function properties for )"
                       r"([\w$.]+)", line)
         if m:
             name = m.group(1)
-        if name and "wgmma" in name and ("Used" in line or "spill" in line):
-            kind = re.search(label, name)
-            print(tag, kind.groups() if kind else name[:60], "|",
-                  line.strip()[:120])
+        kind = re.search(label, name) if name else None
+        if kind and ("Used" in line or "spill" in line):
+            print(tag, kind.groups(), "|", line.strip()[:120])
         if "warning" in line.lower():
             print(tag, "warning:", line.strip()[:200])
 
 
-def build(backend, kernel: str, meanwhile=None) -> Path:
-    """Every variant's library, each under ``build/flash_variants/<kernel>/
-    <variant>/lib.so``; ``meanwhile`` runs while nvcc does."""
+def sources(root: Path) -> dict:
+    """The kernel sources and shared headers of the tree at ``root``."""
+    csrc = root / "src" / "repro_torch" / "kernels" / "csrc"
+    return {f.name: f.read_text() for f in csrc.iterdir()
+            if f.suffix in (".cu", ".cuh")}
+
+
+def variants(kernel: str, parent: Path) -> dict:
+    """{variant: (its sources, the file nvcc builds)}: the tree's source
+    and its ablations; with ``parent_variants``, the parent's source
+    (``parent``) and its own ablations."""
     spec = KERNELS[kernel]
-    texts = {spec["source"]: (backend.CSRC / spec["source"]).read_text()}
-    for header in backend.CSRC.glob("*.cuh"):
-        texts[header.name] = header.read_text()
+    tree = sources(ROOT)
+    out = {}
+    if spec.get("parent_variants") and parent is not None:
+        old = sources(parent)
+        for name, patches in {"parent": [],
+                              **spec["parent_variants"]}.items():
+            out[name] = (patched(old, patches), spec["source"])
+    if kernel in ("fwd", "bwd_vd") or spec["variants"]:
+        src = spec.get("new_source", spec["source"])
+        for name, patches in {"tree": [], **spec["variants"]}.items():
+            out[name] = (patched(tree, patches), src)
+    return out
+
+
+def start_build(backend, kernel: str, parent: Path):
+    """Start every variant's nvcc, each into ``build/flash_variants/
+    <kernel>/<variant>/lib.so``; -> (the directory, the processes)."""
     work = ROOT / "build" / "flash_variants" / kernel
     procs = {}
-    for name, patches in {"tree": [], **spec["variants"]}.items():
+    for name, (texts, source) in variants(kernel, parent).items():
         d = work / name
         d.mkdir(parents=True, exist_ok=True)
-        for fname, text in patched(texts, patches).items():
+        for fname, text in texts.items():
             (d / fname).write_text(text)
         procs[name] = subprocess.Popen(
             [backend.nvcc(), *backend.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-             str(d / "lib.so"), str(d / spec["source"])],
+             str(d / "lib.so"), str(d / source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if meanwhile:
-        meanwhile()
-    t0 = time.perf_counter()
+    return work, procs
+
+
+def finish_build(kernel: str, procs: dict, t0: float) -> None:
+    """Wait for the variants' nvcc and print ptxas' report of each."""
     for name, proc in procs.items():
         out, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc {name} failed:\n{out[-3000:]}")
-        print(f"{name}: built in {time.perf_counter() - t0:.1f} s",
+            raise RuntimeError(f"nvcc {kernel}/{name} failed:\n{out[-3000:]}")
+        print(f"{kernel}/{name}: built in {time.perf_counter() - t0:.1f} s",
               flush=True)
-        ptxas_report(out, name, spec["label"])
-    return work
+        ptxas_report(out, f"{kernel}/{name}", KERNELS[kernel]["label"])
 
 
 def time_fwd(torch, cs, use, row, dt):
@@ -292,9 +406,157 @@ def time_bwd_vd(torch, cs, use, row, dt):
                                            retain_graph=True)).values())
 
 
+def gemma_bwd_inputs(torch, cs, dt):
+    """gemma-2b's training shape (B 1, MQA 8/1 of 256, 2048 positions,
+    causal): q, k, v, the forward's output and lse, and dO."""
+    from repro_torch.kernels.flash_attention import _launch
+    b, s = 1, 2048
+    q, k, v = cs.attention_inputs(torch, b, cs.WIDE_HQ, cs.WIDE_HKV, s,
+                                  cs.WIDE_HD, dt, seed=17)
+    dout = torch.randn((b, cs.WIDE_HQ, s, cs.WIDE_HD), device="cuda",
+                       generator=torch.Generator(
+                           device="cuda").manual_seed(18)).to(dt)
+    lse = torch.empty((b, cs.WIDE_HQ, s), device="cuda")
+    out = _launch(q, k, v, 0, 0, lse=lse)
+    return q, k, v, out, dout, lse
+
+
+def old_bwd(torch, lib, q, k, v, out, dout, lse, rows):
+    """The parent's ``flash_attention_bwd_launch`` from ``lib``, with
+    workspaces for tiles of ``rows`` (32 in the parent, 16 in
+    ``old_rows16``)."""
+    b, hq, sq, hd = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    f32, dev = torch.float32, q.device
+    delta = torch.empty((b, hq, sq), dtype=f32, device=dev)
+    dkp = torch.empty((b, hq, tk, 256), dtype=f32, device=dev)
+    dvp = torch.empty_like(dkp)
+    qflags = torch.empty((b, hq, -(-sq // rows), 8), dtype=torch.int32,
+                         device=dev)
+    dflags = torch.empty_like(qflags)
+    kflags = torch.empty((b, hkv, -(-tk // rows), 8), dtype=torch.int32,
+                         device=dev)
+    strides = (ctypes.c_longlong * 24)(
+        *[s for t in (q, k, v, out, dout, dq, dk, dv) for s in t.stride()[:3]])
+    fn = lib.flash_attention_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(), dkp.data_ptr(), dvp.data_ptr(),
+            qflags.data_ptr(), dflags.data_ptr(), kflags.data_ptr(), strides,
+            b, hq, hq // hkv, sq, tk, hd, hd ** -0.5, 0, 0,
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"flash_attention_bwd_launch: cudaError {rc}")
+    return dq, dk, dv
+
+
+def old_fwd(torch, lib, q, k, v):
+    """The parent's ``flash_attention_launch`` from ``lib`` (no lse)."""
+    from repro_torch.kernels.flash_attention import _empty_out
+    b, hq, sq, hd = q.shape
+    hkv, tk, vd = k.shape[1], k.shape[2], v.shape[3]
+    out = _empty_out(q, vd)
+    strides = (ctypes.c_longlong * 12)(
+        *[s for t in (q, k, v, out) for s in t.stride()[:3]])
+    vflags = torch.empty((b, hkv, -(-tk // 64), 4 * -(-vd // 128)),
+                         dtype=torch.int32, device=q.device)
+    fn = lib.flash_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+            vflags.data_ptr(), None, b, hq, hq // hkv, sq, tk, hd, vd,
+            hd ** -0.5, 0, 0, int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"flash_attention_launch: cudaError {rc}")
+    return out
+
+
+def time_bwd256(torch, cs, libs, row, dt):
+    """The backward at gemma-2b's training shape: the parent's design and
+    its suspects by pass (``old_nospill`` held to the parent's bits), the
+    tree's design and its ablations, and SDPA's backward."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    q, k, v, out, dout, lse = gemma_bwd_inputs(torch, cs, dt)
+    grads = {}
+    for name, path in libs.items():
+        lib = ctypes.CDLL(str(path))
+        if name == "parent" or name.startswith("old_"):
+            rows = 16 if name == "old_rows16" else 32
+
+            def call():
+                return old_bwd(torch, lib, q, k, v, out, dout, lse, rows)
+        else:
+            backend._libs[KERNELS["bwd256"]["new_lib"]] = lib
+
+            def call():
+                return flash_attention_bwd(q, k, v, out, dout, lse)
+        per = cs.device_ms(torch, call)
+        row[f"{name}_ms"] = sum(per.values())
+        row[f"{name}_passes_ms"] = {
+            key: round(t, 4) for key, t in per.items()
+            if "dkdv" in key or "_dq" in key}
+        if name in ("parent", "old_nospill", "tree"):
+            grads[name] = call()
+    if "old_nospill" in grads:
+        row["old_nospill_bitwise_equal_parent"] = all(
+            torch.equal(x, y)
+            for x, y in zip(grads["parent"], grads["old_nospill"]))
+    mask = cs.flash_mask(torch, q.shape[2], 0, 0)
+    lib_in = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    o_lib = F.scaled_dot_product_attention(*lib_in, attn_mask=mask,
+                                           enable_gqa=True)
+    row["sdpa_bwd_ms"] = sum(cs.device_ms(
+        torch, lambda: torch.autograd.grad(o_lib, lib_in, dout,
+                                           retain_graph=True)).values())
+
+
+def time_fwd256(torch, cs, libs, row, dt):
+    """The forward at gemma-2b's prefill (B 4, MQA 8/1 of 256, 2048
+    positions, causal): the parent's wide kernel and its suspect, the
+    tree's design and its ablations, and SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = cs.attention_inputs(torch, cs.LM_B, cs.WIDE_HQ, cs.WIDE_HKV,
+                                  2048, cs.WIDE_HD, dt, seed=9)
+    for name, path in libs.items():
+        lib = ctypes.CDLL(str(path))
+        if name == "parent" or name.startswith("old_"):
+            def call():
+                return old_fwd(torch, lib, q, k, v)
+        else:
+            backend._libs["flash_attention"] = lib
+
+            def call():
+                return flash_attention(q, k, v)
+        per = cs.device_ms(torch, call)
+        row[f"{name}_ms"] = sum(t for key, t in per.items()
+                                if "vflags" not in key and "nanfix" not in key)
+    mask = cs.flash_mask(torch, q.shape[2], 0, 0)
+    row["sdpa_ms"] = sum(cs.device_ms(
+        torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)).values())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", choices=sorted(KERNELS), required=True)
+    ap.add_argument("--kernel", choices=sorted(KERNELS), nargs="+",
+                    required=True, help="one or more; every variant of all "
+                    "of them builds at once, then each is timed in turn")
+    ap.add_argument("--parent", default="",
+                    help="a tree holding the parent design's sources (bwd256 "
+                         "and fwd256: the design before the redesign at 256, "
+                         "and its suspects); without it only the tree's "
+                         "variants")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     import torch
@@ -304,35 +566,51 @@ def main() -> int:
 
     import chip_smoke as cs
     from repro_torch.kernels import backend
-    spec = KERNELS[args.kernel]
-    # the backward needs the forward's lse
-    work = build(backend, args.kernel, meanwhile=(
-        (lambda: backend.build(("flash_attention",)))
-        if args.kernel == "bwd_vd" else None))
+    parent = Path(args.parent) if args.parent else None
+    t0 = time.perf_counter()
+    started = {kernel: start_build(backend, kernel, parent)
+               for kernel in args.kernel}
+    # the backward needs the forward's lse; the tree's libraries beside
+    backend.build(("flash_attention", "flash_attention_bwd"))
+    for kernel, (_, procs) in started.items():
+        finish_build(kernel, procs, t0)
     backend.use_full_f32()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
+    for kernel, (work, _) in started.items():
+        spec = KERNELS[kernel]
+        names = list(variants(kernel, parent))
+        libs = {name: work / name / "lib.so" for name in names}
 
-    def loader(name):
-        def use():
-            backend._libs[spec["lib"]] = ctypes.CDLL(
-                str(work / name / "lib.so"))
-        return use
+        def loader(name):
+            def use():
+                backend._libs[spec["lib"]] = ctypes.CDLL(str(libs[name]))
+            return use
 
-    use = {name: loader(name) for name in ("tree", *spec["variants"])}
-    timer = time_fwd if args.kernel == "fwd" else time_bwd_vd
-    for dt in (torch.float32, torch.bfloat16):
-        row = {"kernel": args.kernel, "dtype": str(dt)[6:], "nvidia_smi": smi}
-        timer(torch, cs, use, row, dt)
-        backend._libs.pop(spec["lib"])
-        line = json.dumps(row)
-        print(line, flush=True)
-        if args.out:
-            with open(args.out, "a") as f:
-                f.write(line + "\n")
-        torch.cuda.empty_cache()
+        for dt in (torch.float32, torch.bfloat16):
+            row = {"kernel": kernel, "dtype": str(dt)[6:], "nvidia_smi": smi}
+            if kernel in ("bwd256", "fwd256"):
+                (time_bwd256 if kernel == "bwd256" else time_fwd256)(
+                    torch, cs, libs, row, dt)
+            else:
+                (time_fwd if kernel == "fwd" else time_bwd_vd)(
+                    torch, cs, {name: loader(name) for name in names}, row,
+                    dt)
+            for lib in ("flash_attention", "flash_attention_bwd",
+                        "flash_attention_bwd_vd", "flash_attention_bwd_256"):
+                backend._libs.pop(lib, None)
+            emit_row(row, args.out)
+            torch.cuda.empty_cache()
     return 0
+
+
+def emit_row(row, out) -> None:
+    line = json.dumps(row)
+    print(line, flush=True)
+    if out:
+        with open(out, "a") as f:
+            f.write(line + "\n")
 
 
 if __name__ == "__main__":

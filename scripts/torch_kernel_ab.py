@@ -12,7 +12,8 @@ warm-up calls), the summed device time of every kernel one call launches:
 * ``flash_attention`` at Hymba-1.5B's 2048-position prefill (B 4, 25/5
   heads of 64, 128 meta tokens), window 1024 and a full layer, at
   gemma-2b's (B 4, 8/1 heads of 256, causal; null where the tree's
-  wrapper refuses head_dim 256) and at DeepSeek-V2's MLA prefill (B 4,
+  wrapper refuses head_dim 256; and at B 1, its training forward) and at
+  DeepSeek-V2's MLA prefill (B 4,
   128 heads, q/k 192, v 128, causal; null where the tree's wrapper
   needs v's head_dim to be q's);
 * ``ssd_scan`` at Hymba's SSM heads (50 x 64, state 16, chunk 128, an
@@ -38,6 +39,10 @@ the backward kernels (each call's launches, split by launch):
   heads of 64, 2048 positions, 128 meta tokens), window 1024 and a full
   layer, and at qwen2-1.5b's (B 2, 12/2 heads of 128, 2048 positions,
   causal), from the forward's output and log-sum-exp;
+* ``flash_attention_bwd`` at gemma-2b's training shape (B 1, 8/1 heads
+  of 256, 2048 positions, causal; ``flash_attention_bwd_256`` where the
+  tree has it), beside the backward of ``scaled_dot_product_attention``
+  (boolean mask, ``enable_gqa``) on the same inputs;
 * ``flash_attention_bwd_vd`` at DeepSeek-V2's training shape (B 1, 128
   heads, 2048 positions, q/k 192, v 128, causal), f32 and bf16, each
   beside the backward of ``scaled_dot_product_attention(is_causal=True)``
@@ -51,10 +56,14 @@ the backward kernels (each call's launches, split by launch):
   remat off): seconds per step on the host clock (mean of steps 2-4 of
   ``run_lm_training``), tokens per second and the peak device memory.
 
+``--kernels-only`` leaves out the model-level rows (the prefills,
+fedp2p's rounds, the train step).
+
 ``--set ptxas`` prints instead ptxas' registers, stack frame and spills
 for each kernel (and out-of-line block) of the tree's
 ``flash_attention.cu``, ``flash_attention_bwd.cu`` and, where the tree
-has it, ``flash_attention_bwd_vd.cu`` (``nvcc -Xptxas -v`` for sm_90a
+has them, ``flash_attention_bwd_vd.cu`` and ``flash_attention_bwd_256.cu``
+(``nvcc -Xptxas -v`` for sm_90a
 with the build's flags; names as mangled, e.g. ``IfLi128E`` is f32 at
 head_dim 128, ``IfLi3EE`` f32 with three 64-column chunks of hd,
 ``IfLi192ELi128E`` f32 at (hd, vd) = (192, 128)), with ptxas' warnings (a wgmma serialized, a spill);
@@ -156,7 +165,7 @@ def ptxas_usage(backend):
     import tempfile
     report = {}
     for src in ("flash_attention", "flash_attention_bwd",
-                "flash_attention_bwd_vd"):
+                "flash_attention_bwd_vd", "flash_attention_bwd_256"):
         if not (backend.CSRC / f"{src}.cu").exists():
             continue
         with tempfile.TemporaryDirectory() as tmp:
@@ -180,7 +189,7 @@ def ptxas_usage(backend):
             if m:
                 name = m.group(1)
                 continue
-            if name is None or not re.search(r"flash|dkdv|dq_", name):
+            if name is None or not re.search(r"flash|dkdv|dq_|image", name):
                 continue
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads", line)
@@ -225,7 +234,36 @@ def mla_backward_rows(torch, cs, launch, bwd_vd):
     return rows
 
 
-def backward_rows(torch, cs):
+def gemma_backward_rows(torch, cs, launch, bwd):
+    """The flash backward and SDPA's at gemma-2b's training shape (B 1,
+    MQA 8/1 of 256, 2048 positions, causal), f32: {key: {"ms",
+    "kernels_ms"}}."""
+    import torch.nn.functional as F
+    rows = {}
+    b, s = 1, 2048
+    q, k, v = cs.attention_inputs(torch, b, cs.WIDE_HQ, cs.WIDE_HKV, s,
+                                  cs.WIDE_HD, torch.float32, seed=17)
+    dout = torch.randn((b, cs.WIDE_HQ, s, cs.WIDE_HD), device="cuda",
+                       generator=torch.Generator(
+                           device="cuda").manual_seed(18))
+    lse = torch.empty((b, cs.WIDE_HQ, s), device="cuda")
+    out = launch(q, k, v, 0, 0, lse=lse)
+    per = cs.device_ms(torch, lambda: bwd(q, k, v, out, dout, lse))
+    rows["flash_bwd_gemma_hd256"] = {
+        "ms": sum(per.values()),
+        "kernels_ms": {k_[:60]: v_ for k_, v_ in per.items()}}
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    o_lib = F.scaled_dot_product_attention(
+        *leaves, attn_mask=cs.flash_mask(torch, s, 0, 0), enable_gqa=True)
+    per = cs.device_ms(torch, lambda: torch.autograd.grad(
+        o_lib, leaves, dout, retain_graph=True))
+    rows["sdpa_bwd_gemma_hd256"] = {
+        "ms": sum(per.values()),
+        "kernels_ms": {k_[:60]: v_ for k_, v_ in per.items()}}
+    return rows
+
+
+def backward_rows(torch, cs, kernels_only=False):
     """The backward kernels' device times and one train step's."""
     import time
 
@@ -237,8 +275,8 @@ def backward_rows(torch, cs):
     from repro_torch.kernels.ssd_scan import _launch as ssd_launch
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd
     from repro_torch.launch import train
-    backend.build(("flash_attention", "ssd_scan", "flash_attention_bwd",
-                   "flash_attention_bwd_vd", "ssd_scan_bwd"))
+    backend.build([name for name in backend.KERNELS
+                   if name.startswith(("flash", "ssd"))])
     rows = {}
     b, s = cs.TRAIN_B, cs.LM_S
     for key, hq, hkv, hd, window, meta in (
@@ -258,6 +296,7 @@ def backward_rows(torch, cs):
             q, k, v, out, dout, lse, window=window, num_meta=meta))
         rows[key] = {"ms": sum(per.values()),
                      "kernels_ms": {k_[:60]: v_ for k_, v_ in per.items()}}
+    rows.update(gemma_backward_rows(torch, cs, _launch, flash_attention_bwd))
     rows.update(mla_backward_rows(torch, cs, _launch, flash_attention_bwd_vd))
     for h, p, n, chunk in ((50, 64, 16, 128), (24, 64, 128, 256)):
         args, _ = cs.ssd_inputs(torch, b, s, h, p, n, 19, False)
@@ -269,6 +308,8 @@ def backward_rows(torch, cs):
             "ms": sum(per.values()),
             "kernels_ms": {k_[:60]: v_ for k_, v_ in per.items()}}
     del q, k, v, dout, lse, out, args, y, ws, dy
+    if kernels_only:
+        return rows
     rows["hymba_prefill"] = hymba_prefill_ms(torch, cs)
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -299,6 +340,8 @@ def main() -> int:
                          "and fedp2p; backward: the backward kernels and a "
                          "train step; ptxas: the flash kernels' registers "
                          "and spills")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="leave out the prefills, fedp2p and the train step")
     args = ap.parse_args()
     if args.set == "ptxas":
         sys.path.insert(0, str(Path(args.src).resolve()))
@@ -317,7 +360,7 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import ssd_scan
     backend.use_full_f32()
     if args.set == "backward":
-        rows = backward_rows(torch, cs)
+        rows = backward_rows(torch, cs, args.kernels_only)
         return emit(args, rows)
     backend.build(("flash_attention", "ssd_scan", "fed_mix_matching",
                    "fed_mix_segment"))
@@ -341,7 +384,11 @@ def main() -> int:
         record("flash_gemma_hd256", lambda: flash_attention(qw, kw_, vw))
     except ValueError as exc:        # a tree whose wrapper caps head_dim
         rows["flash_gemma_hd256"] = {"ms": None, "error": str(exc)}
-    del qw, kw_, vw
+    # gemma-2b's training forward, B 1
+    q1, k1, v1 = qw[:1], kw_[:1], vw[:1]
+    if rows["flash_gemma_hd256"]["ms"] is not None:
+        record("flash_gemma_hd256_b1", lambda: flash_attention(q1, k1, v1))
+    del qw, kw_, vw, q1, k1, v1
     qm, km, vm = cs.attention_inputs(torch, cs.LM_B, cs.MLA_H, cs.MLA_H,
                                      cs.LM_S, cs.MLA_HD, torch.float32,
                                      seed=11, vd=cs.MLA_VD)
@@ -361,8 +408,10 @@ def main() -> int:
         m = cs.matching_inputs(torch, cs.MAIN_D, cs.MAIN_P, stages,
                                torch.float32, seed=3)
         record(f"fed_mix_matching_S{stages}", lambda: fed_mix_matching(*m))
-    rows["hymba_prefill"] = hymba_prefill_ms(torch, cs)
     del args_ssd, init, m
+    if args.kernels_only:
+        return emit(args, rows)
+    rows["hymba_prefill"] = hymba_prefill_ms(torch, cs)
     torch.cuda.empty_cache()
     rows["deepseek_prefill"] = deepseek_prefill_ms(torch, cs)
     torch.cuda.empty_cache()

@@ -32,7 +32,8 @@ import torch
 #: every kernel source under ``csrc/`` (one shared library each)
 KERNELS = ("fed_mix_segment", "fed_mix", "fed_mix_matching", "fed_mix_q",
            "fed_aggregate", "flash_attention", "ssd_scan",
-           "flash_attention_bwd", "flash_attention_bwd_vd", "ssd_scan_bwd")
+           "flash_attention_bwd", "flash_attention_bwd_vd",
+           "flash_attention_bwd_256", "ssd_scan_bwd")
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # The libraries go to <repo>/build/repro_torch/, which .gitignore lists

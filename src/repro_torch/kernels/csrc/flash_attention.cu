@@ -16,10 +16,11 @@
 // _flash_kernel: grid (B, Hq, Sq/bq, Tk/bk), the kv axis sequential, the
 // running (m, l, acc) in VMEM scratch). With num_meta = 0 it is that
 // kernel's contract; num_meta > 0 adds the meta-token term. When a
-// gradient is needed (hd = vd <= 128, or vd != hd on the wgmma kernel
+// gradient is needed (hd = vd <= 256, or vd != hd on the wgmma kernel
 // below at hd <= 192) it also writes each row's log-sum-exp of the scaled
-// scores, m + log l, for flash_attention_bwd.cu (flash_attention_bwd_vd.cu
-// at vd != hd), in an instantiation of its own: serving runs the code it
+// scores, m + log l, for flash_attention_bwd.cu (flash_attention_bwd_256.cu
+// above hd 128, flash_attention_bwd_vd.cu at vd != hd), in an
+// instantiation of its own: serving runs the code it
 // ran before (a run-time test of a null lse in the shared code cost the
 // hd-64 forward 1-2 % in an A/B call on the card).
 //
@@ -87,22 +88,47 @@
 //   the NaN inside the attention kernel made it 3-6 % slower at its
 //   255-register limit.)
 //
-// Head dims above 128 with v's as wide (gemma-2b's 256; the Pallas kernel
-// takes any hd). At hd = 256 in f32 the staging above would need pitch x
-// (kBQ + 4·kBK) = 333 KB of shared memory, past the 227 KB a block can
-// have, and O as hd/8 n8 fragments a warp would not fit the 255 registers.
-// So flash_fwd_kernel_wide splits O's columns into slices of kCW = 128, one
+// Head dims above 128 with v's as wide, up to 256 (gemma-2b's 256; others
+// zero-padded to 256): flash_fwd_kernel_wgmma256, on Hopper's warpgroup
+// products. At gemma-2b's prefill (B 4, MQA 8/1, S 2048, causal) the two
+// products take 6.9e10 flops, 0.42 ms at the split-f32 rate, against 0.05
+// ms for its 151 MB: operations bound it.
+// - Tile: a block per (64-row query tile, head), most keys first, 256
+//   threads: two consumer warpgroups, warpgroup w owning O's columns 128w
+//   .. 128w + 127 (64 f32 a thread, as flash_fwd_kernel_wgmma's one
+//   warpgroup owns vd <= 128) and the k8 steps of S = Q·Kᵀ over q/k's
+//   columns 128w ..: each computes a partial of S, and the two are summed
+//   through 32 KB of shared memory in one order (p0 + p1 in both, the same
+//   bits), so both run the same online softmax and hold the same P. The
+//   scores are computed once per (query tile, key tile).
+// - Operands: Q stays resident for the block's life, hi and lo (128 KB),
+//   each warpgroup loading and splitting its own 128 columns. K and Vᵀ are
+//   split once per call by flash_fwd_kernel_image256 into "images": the
+//   exact bytes of the 16 KB stages the products read (an atom of TF32 hi
+//   parts and one of lo, 128-byte swizzled, K as stored, Vᵀ transposed in
+//   the key order of P's A fragments; full split, tf32x3::split), per kv
+//   head, so MQA's 8 query heads read one copy. Each warpgroup has its own
+//   ring of two slots, which its first thread fills by bulk copies (the
+//   copy engine, cp.async.bulk onto the slot's full mbarrier) as the
+//   warpgroup frees them: no thread loads or splits K or V, and no
+//   producer warp holds registers (256 threads: 255 registers each).
+// - Order per warpgroup: the next tile's S partial, then this tile's P·V
+//   behind it; the exchange and the softmax run under P·V's last group.
+// - The rest is the kernels' arithmetic above: the finite -1e30 mask,
+//   expf, the 1e-30 floor, the window and meta tokens' tile skipping, GQA,
+//   ragged tiles, the full-split pass of a block whose result holds an inf
+//   or a NaN (Q and P split again; the images are the full split either
+//   way), V's flags and the NaN of skipped tiles around it.
+// Beyond 256, and at vd > 128 with vd != hd ((320, 256), hd 512),
+// flash_fwd_kernel_wide splits O's columns into slices of kCW = 128, one
 // block per (query tile, head, slice). Every slice's block computes the
 // full scores Q·Kᵀ over all of hd, in kKC = 64-column chunks staged in a
 // two-slot cp.async ring of (Q chunk, K chunk) pairs, so every slice runs
 // the same score arithmetic and gets the same m and l; then P·V for its
 // own 128 columns of V (staged once a tile, while the chunks are
-// computed). Shared memory: 103 KB in f32, two blocks an SM (128-column
-// chunks took 169 KB, one block an SM); 52 KB in bf16. The scores are
-// recomputed once per slice (hd/128 times), the cost of keeping the
-// hd <= 128 kernel as it is. V's non-finite flags are one 128-column mask
-// per slice. It also takes vd != hd where vd > 128 or hd > 256 ((320, 256),
-// hd 512).
+// computed). Shared memory: 103 KB in f32, two blocks an SM; 52 KB in
+// bf16. The scores are recomputed once per slice (hd/128 times). V's
+// non-finite flags are one 128-column mask per slice.
 //
 // V's head_dim apart from Q's and K's, vd <= 128 and hd <= 256
 // (DeepSeek-V2's MLA prefill: q/k 192 = 128 nope + 64 rope, v 128):
@@ -551,13 +577,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // v's vd) over the full scores (hd; see the head of this file). The same
 // arithmetic as flash_block otherwise; on the fast split a result that
 // holds an inf or a NaN returns true and the block is taken again on the
-// full split. kLse: slice 0's block also stores each row's log-sum-exp
-// (every slice computes the same m and l).
-template <typename T, bool kSlow, bool kLse>
+// full split.
+template <typename T, bool kSlow>
 __device__ __forceinline__ bool flash_block_wide(const T* __restrict__ q,
                                                  const T* __restrict__ k,
                                                  const T* __restrict__ v, T* __restrict__ o,
-                                                 float* __restrict__ lse,
                                                  Strides sq, Strides sk, Strides sv, Strides so,
                                                  int group, int n_q, int n_k, int hd, int vd,
                                                  float scale, int window, int num_meta) {
@@ -751,11 +775,6 @@ __device__ __forceinline__ bool flash_block_wide(const T* __restrict__ q,
     const int qi = q0 + qr + g + 8 * r;
     if (qi >= n_q) continue;
     const float denom = fmaxf(l[r], 1e-30f);
-    if constexpr (kLse) {  // as flash_block stores it
-      if (sl == 0 && t == 0)
-        lse[((long long)b * (gridDim.y / n_sl) + h) * n_q + qi] =
-            l[r] != l[r] ? l[r] : m[r] + logf(denom);
-    }
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const int d = n * 8 + 2 * t;
@@ -767,27 +786,27 @@ __device__ __forceinline__ bool flash_block_wide(const T* __restrict__ q,
   return false;
 }
 
-template <typename T, bool kLse>
+template <typename T>
 __device__ __noinline__ void flash_block_wide_full(const T* q, const T* k, const T* v, T* o,
-                                                   float* lse, Strides sq, Strides sk,
-                                                   Strides sv, Strides so, int group, int n_q,
-                                                   int n_k, int hd, int vd, float scale,
-                                                   int window, int num_meta) {
-  flash_block_wide<T, true, kLse>(q, k, v, o, lse, sq, sk, sv, so, group, n_q, n_k, hd, vd,
-                                  scale, window, num_meta);
+                                                   Strides sq, Strides sk, Strides sv,
+                                                   Strides so, int group, int n_q, int n_k,
+                                                   int hd, int vd, float scale, int window,
+                                                   int num_meta) {
+  flash_block_wide<T, true>(q, k, v, o, sq, sk, sv, so, group, n_q, n_k, hd, vd, scale, window,
+                            num_meta);
 }
 
 // grid (query tiles, hq x slices of vd, batch)
-template <typename T, bool kLse>
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                      Strides sq, Strides sk, Strides sv, Strides so, int group, int n_q,
-                      int n_k, int hd, int vd, float scale, int window, int num_meta) {
-  if (flash_block_wide<T, false, kLse>(q, k, v, o, lse, sq, sk, sv, so, group, n_q, n_k, hd, vd,
-                                       scale, window, num_meta))
-    flash_block_wide_full<T, kLse>(q, k, v, o, lse, sq, sk, sv, so, group, n_q, n_k, hd, vd,
-                                   scale, window, num_meta);
+                      const T* __restrict__ v, T* __restrict__ o, Strides sq, Strides sk,
+                      Strides sv, Strides so, int group, int n_q, int n_k, int hd, int vd,
+                      float scale, int window, int num_meta) {
+  if (flash_block_wide<T, false>(q, k, v, o, sq, sk, sv, so, group, n_q, n_k, hd, vd, scale,
+                                 window, num_meta))
+    flash_block_wide_full<T>(q, k, v, o, sq, sk, sv, so, group, n_q, n_k, hd, vd, scale, window,
+                             num_meta);
 }
 
 // Before the attention: vflags[b][kv head][key tile][slice] = the bitmask
@@ -1371,6 +1390,357 @@ flash_fwd_kernel_wgmma(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// vd = hd in (128, 256] (gemma-2b's 256): flash_fwd_kernel_wgmma256, on
+// Hopper's warpgroup products, the scores once per (query tile, key tile)
+// (see the head of this file)
+// ---------------------------------------------------------------------------
+namespace wg256 {
+
+using namespace ::wgmma;
+
+constexpr int kHD = 256;
+constexpr int kNA = kHD / 32;      // atoms of a 64-row tile
+constexpr int kR = 2;              // ring slots a consumer warpgroup
+constexpr int kWorkers = 256;      // two consumer warpgroups
+constexpr int kRingAt = 2 * kNA * kAtom;            // after Q's hi and lo atoms
+constexpr int kSwapAt = kRingAt + 2 * kR * kStage;  // after the two rings
+constexpr int kSmem = kSwapAt + 2 * 64 * 64 * 4 + 1024;  // + the alignment to 1024 bytes
+// mbarriers: per warpgroup, full[kR] and empty[kR] of its ring
+constexpr int kBars = 4 * kR;
+
+// the images of K (rows) and Vᵀ (transposed) per kv head: [B, Hkv, key
+// tiles, kNA stages of kStage bytes] each, K's first
+__device__ __forceinline__ const unsigned char* stage_of(const unsigned char* images, bool vt,
+                                                         int batch, int hkv, int n_k, int b,
+                                                         int hk, int kt, int s) {
+  const int n_kt = (n_k + kBK - 1) / kBK;
+  const long long per = (long long)batch * hkv * n_kt * kNA * kStage;
+  return images + (vt ? per : 0) + ((((long long)b * hkv + hk) * n_kt + kt) * kNA + s) * kStage;
+}
+
+// grid (key tiles, kNA stages, B x 2 Hkv), 128 threads: stage s of one key
+// tile of K's image (as stored) or Vᵀ's (32-key half s / 4, 64-column
+// chunk s % 4, in the key order of P's A fragments), full split
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel_image256(const T* __restrict__ k, const T* __restrict__ v, Strides sk,
+                           Strides sv, unsigned char* __restrict__ images, int batch, int n_k,
+                           int hd) {
+  const int hkv = gridDim.z / (2 * batch);
+  const int b = blockIdx.z / (2 * hkv), j = blockIdx.z % (2 * hkv);
+  const bool vt = j >= hkv;
+  const int hk = j % hkv, kt = blockIdx.x, s = blockIdx.y;
+  const Strides st = vt ? sv : sk;
+  unsigned char* dst =
+      const_cast<unsigned char*>(stage_of(images, vt, batch, hkv, n_k, b, hk, kt, s));
+  put_image_stage<T>(dst, (vt ? v : k) + b * st.b + hk * st.h, st.s, kt * kBK, n_k, hd, s, vt,
+                     threadIdx.x);
+}
+
+}  // namespace wg256
+
+// The block's work on wgmma at 256: one (64-row query tile, head), two
+// consumer warpgroups, warpgroup w owning O's columns 128w .. 128w + 127
+// and Q's k8 steps over them. Q stays resident, split by its consumers as
+// they load it. Each warpgroup has its own ring of kR 16 KB slots, which
+// its first thread fills by bulk copies from K's and Vᵀ's images as the
+// warpgroup frees them. S = Q·Kᵀ is two partials, one a warpgroup over its
+// 128 columns of hd, summed through shared memory (p0 + p1 in both: the
+// same bits), so both run the same online softmax; O += P·V over the
+// warpgroup's Vᵀ stages. pass 0 runs on the fast split: a result that holds
+// an inf or a NaN is not stored, and it returns the ring's stage count,
+// from which pass 1, on the full split (Q and P), goes on; else -1. m0: the
+// ring's stage count at the start.
+template <typename T, bool kLse>
+__device__ __forceinline__ int flash_block_wgmma256(
+    const T* __restrict__ q, const unsigned char* __restrict__ images, T* __restrict__ o,
+    float* __restrict__ lse, Strides sq, Strides so, int batch, int group, int n_q, int n_k,
+    int hd, float scale, int window, int num_meta, unsigned char* smem,
+    const ::wgmma::WgRing<wg256::kR>& ring, uint32_t pass, uint32_t m0) {
+  using namespace wg256;
+  const bool slow = pass == 1;
+  constexpr bool kBf16 = sizeof(T) == 2;
+  const uint32_t base = smem_u32(smem);
+
+  const int n_qt = (n_q + kBQ - 1) / kBQ;
+  const int qt = n_qt - 1 - (int)blockIdx.x;  // most keys first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hkv = gridDim.y / group;
+  const int hk = h / group;
+  const int q0 = qt * kBQ;
+  const int q_last = min(q0 + kBQ, n_q) - 1;
+  const int kt_last = min((n_k - 1) / kBK, q_last / kBK);
+  auto next_tile = [&](int kt) {
+    for (++kt; kt <= kt_last; ++kt) {
+      const int k0 = kt * kBK;
+      if (!(window > 0 && k0 >= num_meta && q0 - (k0 + kBK - 1) >= window)) return kt;
+    }
+    return -1;
+  };
+  const int wg = threadIdx.x >> 7;
+  const int tid = threadIdx.x & 127;
+  const int w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  // The warpgroup's stages, in the order it takes them: its four K atoms
+  // of the first visited tile, then for each visited tile those of the
+  // next one and its own four Vᵀ stages (64-column chunk c = 2 wg + k / 2
+  // by 32-key half k % 2: image stage 4 (k % 2) + c). The first thread's
+  // cursor: group `kind` (0: K, 1: Vᵀ) of tile `tile`, stage `st` in it;
+  // `pend`: the tile whose Vᵀ follows a next tile's K
+  int visited = 0;
+  for (int kt = next_tile(-1); kt >= 0; kt = next_tile(kt)) ++visited;
+  const uint32_t m_end = m0 + (uint32_t)(8 * visited);
+  int kind = 0, tile = next_tile(-1), pend = -1, st = 0;
+  auto land = [&](uint32_t m) {
+    ring.land(m,
+              kind == 0 ? stage_of(images, false, batch, hkv, n_k, b, hk, tile, 4 * wg + st)
+                        : stage_of(images, true, batch, hkv, n_k, b, hk, tile,
+                                   4 * (st & 1) + 2 * wg + (st >> 1)),
+              nullptr, kStage);
+    if (++st < 4) return;
+    st = 0;
+    if (kind == 0 && pend < 0) {  // the first tile's K: then the next's K, or its Vᵀ
+      const int nxt = next_tile(tile);
+      if (nxt >= 0) pend = tile, tile = nxt;
+      else kind = 1;
+    } else if (kind == 0) {       // a next tile's K: then the pending Vᵀ
+      kind = 1, tile = pend, pend = -1;
+    } else {                      // a Vᵀ: then the next tile's next's K, or its Vᵀ
+      const int nt = next_tile(tile), nn = nt >= 0 ? next_tile(nt) : -1;
+      if (nn >= 0) kind = 0, tile = nn, pend = nt;
+      else tile = nt;
+    }
+  };
+  const WgFeed<kR, decltype(land)> feed{ring, land, m0, m_end, tid == 0};
+  feed.start();
+
+  float* swap = reinterpret_cast<float*>(smem + kSwapAt);  // [2][32 x 128]
+  // Q's atoms 4 wg .. 4 wg + 3 (its columns 128 wg ..), hi at atom i, lo at
+  // kNA + i: loaded and split by this warpgroup
+  {
+    const T* qb = q + b * sq.b + h * sq.h;
+    const bool vq = aligned4(qb, sq.s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint4 x[4];
+      const int a = 4 * wg + i;
+      get_rows<T>(x, qb, sq.s, q0, n_q, 32 * a, hd, vq, tid);
+      if (slow) put_rows<T, true>(smem + a * kAtom, smem + (kNA + a) * kAtom, x, tid);
+      else put_rows<T, false>(smem + a * kAtom, smem + (kNA + a) * kAtom, x, tid);
+    }
+    fence_proxy();
+    named_sync(3 + wg, 128);
+  }
+  float acc[2][32], s[32];
+  uint32_t ph[32], pl[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    acc[0][i] = acc[1][i] = 0.f;
+    ph[i] = pl[i] = 0u;
+  }
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2] = {1.f, 1.f};
+  uint32_t n = m0, rel = m0;  // the next stage to take, to free
+  auto drain = [&]() {
+    mma_wait<0>();
+    keep(acc[0]);
+    keep(acc[1]);
+    keep(s);
+    keep(ph);
+    keep(pl);
+    while (rel < n) feed.release(rel++);
+  };
+  // this warpgroup's partial of S = Q·Kᵀ: its four atoms' k8 steps, each
+  // atom's stage freed one group later
+  auto issue_s = [&]() {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t sa = ring.take(n++);
+      const int a = 4 * wg + i;
+      mma_fence();
+      ss_atom<kBf16>(s, desc(base + a * kAtom), desc(base + (kNA + a) * kAtom), desc(sa),
+                     desc(sa + kAtom));
+      mma_commit();
+      if (i > 0) {
+        mma_wait<1>();
+        feed.release(rel++);
+      }
+    }
+  };
+  // O += P·V over this warpgroup's two 64-column chunks, each by the
+  // tile's two 32-key halves of Vᵀ: each stage's group committed, then the
+  // ones before it waited for and their stages freed (the last S stage's
+  // first), so that one group stays in flight
+  auto issue_pv = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t sa = ring.take(n++);
+      mma_fence();
+      rs_atom<kBf16>(acc[kk >> 1], ph, pl, 4 * (kk & 1), desc(sa), desc(sa + kAtom));
+      mma_commit();
+      mma_wait<1>();
+      while (rel < n - 1) feed.release(rel++);
+    }
+  };
+  // the two partials summed, p0 + p1 in both warpgroups
+  auto exchange = [&]() {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) swap[(wg * 32 + i) * 128 + tid] = s[i];
+    named_sync(1, 256);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] += swap[((1 - wg) * 32 + i) * 128 + tid];
+    named_sync(2, 256);  // both have read: the swap is free
+  };
+  // mask, then the online softmax of rows g (c = 0, 1) and g + 8 (c = 2, 3)
+  // of the warp's 16: s becomes P, corr the factor O is to be rescaled by
+  auto softmax = [&](int k0) {
+    const int r0 = q0 + 16 * w + g;
+    const bool all = k0 + kBK - 1 <= q0 && k0 + kBK <= n_k &&
+                     (window <= 0 || q0 + kBQ - 1 - k0 < window || k0 + kBK <= num_meta);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int qi = r0 + (c >> 1) * 8;
+        const int kj = k0 + j * 8 + 2 * t + (c & 1);
+        const bool vis = all || (kj < n_k && kj <= qi &&
+                                 (window <= 0 || qi - kj < window || kj < num_meta));
+        float& x = s[4 * j + c];
+        x = vis ? x * scale : kNegInf;
+        mx[c >> 1] = fmaxf(mx[c >> 1], x);
+      }
+    float m_new[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      m_new[r] = fmaxf(m[r], mx[r]);
+      corr[r] = expf(m[r] - m_new[r]);
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = expf(s[i] - m_new[(i >> 1) & 1]);
+      sum[(i >> 1) & 1] += s[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      l[r] = l[r] * corr[r] + sum[r];
+      m[r] = m_new[r];
+    }
+  };
+  auto rescale = [&]() {
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[c][4 * j] *= corr[0];
+        acc[c][4 * j + 1] *= corr[0];
+        acc[c][4 * j + 2] *= corr[1];
+        acc[c][4 * j + 3] *= corr[1];
+      }
+  };
+
+  int kt = next_tile(-1);
+  if (kt >= 0) {
+    issue_s();
+    drain();
+    exchange();
+    softmax(kt * kBK);
+    split_frags(s, ph, pl, slow);
+  }
+  // Tile kt's P is in ph/pl and its factor in corr: the next tile's S
+  // partial goes to the tensor cores first, kt's P·V right behind it; the
+  // exchange and the softmax run under P·V's last group. Each branch
+  // issues and waits for its own groups.
+  while (kt >= 0) {
+    const int nxt = next_tile(kt);
+    if (nxt >= 0) {
+      issue_s();
+      rescale();
+      issue_pv();
+      keep(s);
+      exchange();
+      softmax(nxt * kBK);
+      drain();
+      split_frags(s, ph, pl, slow);
+    } else {
+      rescale();
+      issue_pv();
+      drain();
+    }
+    kt = nxt;
+  }
+  if (!slow) {
+    bool bad = !tf32x3::finite(l[0]) || !tf32x3::finite(l[1]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      bad |= !tf32x3::finite(acc[0][i]) || !tf32x3::finite(acc[1][i]);
+    if (__syncthreads_or(bad)) return (int)m_end;
+  }
+
+  T* ob = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + 16 * w + g + 8 * r;
+    if (qi >= n_q) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    if constexpr (kLse) {
+      if (wg == 0 && t == 0)
+        lse[((long long)b * gridDim.y + h) * n_q + qi] = l[r] != l[r] ? l[r] : m[r] + logf(denom);
+    }
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int d = 128 * wg + 64 * c + j * 8 + 2 * t;
+        if (d < hd)
+          store2<T>(ob + qi * so.s + d, acc[c][4 * j + 2 * r] / denom,
+                    acc[c][4 * j + 2 * r + 1] / denom, d + 1 < hd);
+      }
+  }
+  return -1;
+}
+
+// grid (query tiles, hq, batch), 256 threads: vd = hd in (128, 256]; kLse:
+// also the rows' log-sum-exp (a separate instantiation, so that serving
+// runs the code it ran without it)
+template <typename T, bool kLse>
+__global__ void __launch_bounds__(wg256::kWorkers, 1)
+flash_fwd_kernel_wgmma256(const T* __restrict__ q, const unsigned char* __restrict__ images,
+                          T* __restrict__ o, float* __restrict__ lse, Strides sq, Strides so,
+                          int batch, int group, int n_q, int n_k, int hd, float scale,
+                          int window, int num_meta) {
+  using namespace wg256;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bars[kBars];
+  unsigned char* tiles = smem + ((1024u - (smem_u32(smem) & 1023u)) & 1023u);
+  const uint32_t bu = smem_u32(bars);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kBars; ++i) bar_init(bu + 8 * i, i % (2 * kR) < kR ? 1 : kWarps);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+  const WgRing<kR> ring{smem_u32(tiles) + kRingAt + wg * kR * kStage, bu + 16 * kR * wg, kStage};
+  // the fast split's pass, then, for a block whose result holds an inf or
+  // a NaN, the full split's, in one inlined body
+  uint32_t m0 = 0;
+  for (uint32_t pass = 0;; ++pass) {
+    const int n = flash_block_wgmma256<T, kLse>(q, images, o, lse, sq, so, batch, group, n_q,
+                                                n_k, hd, scale, window, num_meta, tiles, ring,
+                                                pass, m0);
+    if (n < 0) break;
+    m0 = (uint32_t)n;
+  }
+}
+
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    Strides sq, Strides sk, Strides sv, Strides so, uint4* vflags, int batch,
@@ -1400,14 +1770,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 // vd > 128 or hd > 256: flash_fwd_kernel_wide between the same two
 // launches, which run over V's vd columns
 template <typename T>
-cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, float* lse,
-                        Strides sq, Strides sk, Strides sv, Strides so, uint4* vflags,
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, Strides sq,
+                        Strides sk, Strides sv, Strides so, uint4* vflags,
                         int batch, int hq, int group, int n_q, int n_k, int hd, int vd,
                         float scale, int window, int num_meta, cudaStream_t stream) {
   const size_t bytes = sizeof(T) * ((size_t)pitch<T, kKC>() * 2 * (kBQ + kBK) +
                                     (size_t)pitch<T, kCW>() * kBK);
-  const auto kernel = lse != nullptr ? flash_fwd_kernel_wide<T, true>
-                                     : flash_fwd_kernel_wide<T, false>;
+  const auto kernel = flash_fwd_kernel_wide<T>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return err;
@@ -1418,7 +1787,7 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, fl
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   kernel<<<dim3(n_qt, hq * n_sl, batch), kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, sq, sk, sv, so, group, n_q, n_k, hd, vd,
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, sk, sv, so, group, n_q, n_k, hd, vd,
       scale, window, num_meta);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1473,19 +1842,50 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, f
   return cudaGetLastError();
 }
 
-// lse: written when not null at hd = vd (the wide kernel above 128) and on
-// the wgmma kernel at hd <= 192: the backward kernels' shapes
+// vd = hd in (128, 256]: flash_fwd_kernel_wgmma256 between the same two
+// launches, after K's and Vᵀ's images
+template <typename T>
+cudaError_t launch_wgmma256(const void* q, const void* k, const void* v, void* o, float* lse,
+                            Strides sq, Strides sk, Strides sv, Strides so, uint4* vflags,
+                            unsigned char* images, int batch, int hq, int group, int n_q,
+                            int n_k, int hd, float scale, int window, int num_meta,
+                            cudaStream_t stream) {
+  const auto kernel = lse != nullptr ? flash_fwd_kernel_wgmma256<T, true>
+                                     : flash_fwd_kernel_wgmma256<T, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         wg256::kSmem);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (n_q + kBQ - 1) / kBQ, n_kt = (n_k + kBK - 1) / kBK;
+  flash_fwd_kernel_vflags<T><<<dim3(n_kt, hq / group, batch), kThreads, 0, stream>>>(
+      (const T*)v, sv, vflags, n_k, hd);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  wg256::flash_fwd_kernel_image256<T><<<dim3(n_kt, wg256::kNA, batch * 2 * (hq / group)),
+                                         kThreads, 0, stream>>>((const T*)k, (const T*)v, sk,
+                                                                sv, images, batch, n_k, hd);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  kernel<<<dim3(n_qt, hq, batch), wg256::kWorkers, wg256::kSmem, stream>>>(
+      (const T*)q, images, (T*)o, lse, sq, so, batch, group, n_q, n_k, hd, scale, window,
+      num_meta);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  flash_fwd_kernel_nanfix<T><<<dim3(n_qt, hq / group, batch), kThreads, 0, stream>>>(
+      vflags, (T*)o, so, group, n_q, n_k, hd, window, num_meta);
+  return cudaGetLastError();
+}
+
+// lse: written when not null at hd = vd and on the wgmma kernel at hd <=
+// 192: the backward kernels' shapes
 template <typename T>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, float* lse,
-                      Strides sq, Strides sk, Strides sv, Strides so, uint4* vflags, int batch,
-                      int hq, int group, int n_q, int n_k, int hd, int vd, float scale,
-                      int window, int num_meta, cudaStream_t stream) {
+                      Strides sq, Strides sk, Strides sv, Strides so, uint4* vflags,
+                      unsigned char* images, int batch, int hq, int group, int n_q, int n_k,
+                      int hd, int vd, float scale, int window, int num_meta,
+                      cudaStream_t stream) {
   if (vd != hd) {
     if (vd <= kCW && hd <= 4 * kKC)
       return launch_wgmma<T>(q, k, v, o, lse, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k,
                              hd, vd, scale, window, num_meta, stream);
     if (lse != nullptr) return cudaErrorInvalidValue;  // the wrapper raises before
-    return launch_wide<T>(q, k, v, o, nullptr, sq, sk, sv, so, vflags, batch, hq, group, n_q,
+    return launch_wide<T>(q, k, v, o, sq, sk, sv, so, vflags, batch, hq, group, n_q,
                           n_k, hd, vd, scale, window, num_meta, stream);
   }
   if (hd <= 32)
@@ -1497,8 +1897,12 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, floa
   if (hd <= 128)
     return launch<T, 128>(q, k, v, o, lse, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k,
                           hd, scale, window, num_meta, stream);
-  return launch_wide<T>(q, k, v, o, lse, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k, hd,
-                        hd, scale, window, num_meta, stream);
+  if (hd <= wg256::kHD)
+    return launch_wgmma256<T>(q, k, v, o, lse, sq, sk, sv, so, vflags, images, batch, hq, group,
+                              n_q, n_k, hd, scale, window, num_meta, stream);
+  if (lse != nullptr) return cudaErrorInvalidValue;  // the wrapper raises before
+  return launch_wide<T>(q, k, v, o, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k,
+                        hd, hd, scale, window, num_meta, stream);
 }
 
 }  // namespace
@@ -1510,27 +1914,31 @@ extern "C" {
 // head, row) element strides, the head_dim stride 1; f32 when is_bf16 ==
 // 0, else bf16; any hd, vd >= 1. vflags: a workspace of batch x hq/group x
 // ceil(n_k / 64) x ceil(vd / 128) entries of 16 bytes, 16-byte aligned.
-// lse: null, or (hd = vd, or vd != hd with vd <= 128 and hd <= 192)
-// [batch, hq, n_q] f32 that receives each row's log-sum-exp of the scaled
-// scores for the backward.
+// images: at vd = hd in (128, 256], a workspace of 2 x batch x hq/group x
+// ceil(n_k / 64) x 128 KB, 16-byte aligned (K's and Vᵀ's images), else
+// unused. lse: null, or (hd = vd <= 256, or vd != hd with vd <= 128 and hd
+// <= 192) [batch, hq, n_q] f32 that receives each row's log-sum-exp of the
+// scaled scores for the backward.
 // Three launches on `stream` (V's flags, the attention, the NaN of skipped
-// tiles); returns the first failure of cudaGetLastError().
+// tiles; four at vd = hd in (128, 256], the images before the attention);
+// returns the first failure of cudaGetLastError().
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                            const long long* strides,  // 12: q, k, v, o x (b, h, s)
-                           void* vflags, float* lse, int batch, int hq, int group, int n_q,
-                           int n_k, int hd, int vd, float scale, int window, int num_meta,
-                           int is_bf16, void* stream) {
+                           void* vflags, void* images, float* lse, int batch, int hq,
+                           int group, int n_q, int n_k, int hd, int vd, float scale, int window,
+                           int num_meta, int is_bf16, void* stream) {
   const Strides sq{strides[0], strides[1], strides[2]};
   const Strides sk{strides[3], strides[4], strides[5]};
   const Strides sv{strides[6], strides[7], strides[8]};
   const Strides so{strides[9], strides[10], strides[11]};
   cudaStream_t s = (cudaStream_t)stream;
   uint4* vf = (uint4*)vflags;
+  unsigned char* im = (unsigned char*)images;
   if (is_bf16)
-    return (int)launch_hd<__nv_bfloat16>(q, k, v, o, lse, sq, sk, sv, so, vf, batch, hq, group,
-                                         n_q, n_k, hd, vd, scale, window, num_meta, s);
-  return (int)launch_hd<float>(q, k, v, o, lse, sq, sk, sv, so, vf, batch, hq, group, n_q, n_k,
-                               hd, vd, scale, window, num_meta, s);
+    return (int)launch_hd<__nv_bfloat16>(q, k, v, o, lse, sq, sk, sv, so, vf, im, batch, hq,
+                                         group, n_q, n_k, hd, vd, scale, window, num_meta, s);
+  return (int)launch_hd<float>(q, k, v, o, lse, sq, sk, sv, so, vf, im, batch, hq, group, n_q,
+                               n_k, hd, vd, scale, window, num_meta, s);
 }
 
 }  // extern "C"

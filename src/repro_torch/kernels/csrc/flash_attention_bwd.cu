@@ -80,17 +80,9 @@
 //   softmax row) over the query tiles it skips, and
 //   pass 4 those of k (for dQ) over the key tiles it skips, and write NaN
 //   into those columns.
-// Head dims up to 256 (32, 64, 128 or 256 columns, zero-padded); the
-// wrapper raises above 256. At 256 (gemma-2b's training: 8 query heads, one
-// kv head) the tiles above hold 32 rows, not 64: K, V and the two buffers
-// each of Q and dO take 200 KB of shared memory in f32 at pitch 260, one
-// block an SM. A block's four warps then split 2 x 2: two row groups of 16
-// keys (dK/dV) or queries (dQ), and per row group two warps, each owning
-// 128 of the output columns, so that dK and dV take 128 registers a thread
-// where 256 would not fit. Both warps of a row group compute S and dP over
-// the full 256 (the S and dP products run twice, as the forward's wide
-// kernel computes its scores once per 128-column slice of O). The masks of
-// non-finite columns take 8 words a tile at 256, 4 below.
+// Head dims up to 128 (32, 64 or 128 columns, zero-padded); hd in (128,
+// 256] is flash_attention_bwd_256.cu's. The masks of non-finite columns
+// take 4 words a tile.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -100,26 +92,12 @@
 
 namespace {
 
-constexpr int kThreads = 128;   // 4 warps
+constexpr int kThreads = 128;   // 4 warps, each 16 rows of a tile
 constexpr int kReduceThreads = 256;
+constexpr int kT = 64;          // rows of a query or key tile
+constexpr int kW = 4;           // mask words a tile: 128 columns
 
-// The shape of a block's work at head_dim HD. Up to 128: 64-row tiles, each
-// warp 16 rows of the tile and every output column. At 256 the six staged
-// tiles take 32 rows (200 KB in f32; 64 would need 399 KB), and the four
-// warps split as 2 x 2: a warp owns 16 rows and half of the output columns
-// (dK and dV, or dQ), so that its accumulators are 128 floats. Both warps of
-// a row group compute the same S and dP over the full HD. Masks of
-// non-finite columns take one bit a column: 4 words up to 128, 8 at 256.
-template <int HD>
-struct Shape {
-  static constexpr int kT = HD > 128 ? 32 : 64;  // rows of a query or key tile
-  static constexpr int kRowWarps = kT / 16;
-  static constexpr int kColWarps = 4 / kRowWarps;
-  static constexpr int kDC = HD / kColWarps;     // output columns of a warp
-  static constexpr int kW = HD > 128 ? 8 : 4;    // mask words
-};
-
-// a 64-row (or 32-row) tile's columns holding an inf or NaN, one bit each
+// a 64-row tile's columns holding an inf or NaN, one bit each
 template <int W>
 struct __align__(16) Mask {
   uint32_t w[W];
@@ -165,7 +143,7 @@ __device__ __forceinline__ void frag(const __nv_bfloat16* s, int idx, uint32_t& 
 
 // stage rows row0 .. row0 + KT - 1 (of n) of one head, hd columns,
 // zero-padded
-template <typename T, int HD, int KT = Shape<HD>::kT>
+template <typename T, int HD, int KT = kT>
 __device__ __forceinline__ void copy_tile(T* dst, const T* base, long long stride, int row0,
                                           int n, int hd) {
   constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16-byte chunk
@@ -199,14 +177,12 @@ __device__ __forceinline__ void load_a(const T* s, int r0, int ks, int g, int t,
 
 // acc[j] (16 rows x 8 columns j) += A·Bᵀ over HD, A the 16 rows from r0 of
 // tile `a`, B the 8·NJ rows of tile `bm` ([row][d], b0 = B[8j + g][d t]):
-// S = Q·Kᵀ, Sᵀ = K·Qᵀ, dP = dO·Vᵀ, dPᵀ = V·dOᵀ. At hd 256 the k8 steps are
-// unrolled eight at a time (unrolled whole, the 256 instantiations made this
-// file the slowest of the kernels to build).
+// S = Q·Kᵀ, Sᵀ = K·Qᵀ, dP = dO·Vᵀ, dPᵀ = V·dOᵀ.
 template <bool kFull, bool kExact, typename T, int HD, int NJ>
 __device__ __forceinline__ void product_abt(float (&acc)[NJ][4], const T* a, int r0,
                                             const T* bm, int g, int t) {
   constexpr int PT = pitch<T, HD>();
-#pragma unroll(HD > 128 ? 8 : HD / 8)
+#pragma unroll
   for (int ks = 0; ks < HD / 8; ++ks) {
     uint32_t ah[4], al[4];
     load_a<kFull, T, PT>(a, r0, ks, g, t, ah, al);
@@ -226,8 +202,7 @@ __device__ __forceinline__ void product_abt(float (&acc)[NJ][4], const T* a, int
 // 8j + 2t, + 1 of rows g, g + 8), B a row-major [row][d] tile read as the
 // "col" operand (b0 = B[8kk + 2t][c0 + 8n + g]): A's columns t and t + 4
 // stand for rows 2t and 2t + 1, so M's C fragment is its A fragment. dV += Pᵀ·dO, dK += dSᵀ·Q,
-// dQ += dS·K. The n8 tiles go eight at a time (four at hd 256, whose dK and
-// dV take 128 registers), to bound the registers. The
+// dQ += dS·K. The n8 tiles go eight at a time, to bound the registers. The
 // tile's products go into zeroed accumulators that are then added to acc:
 // the tensor cores' f32 accumulation truncates instead of rounding to
 // nearest, and summed into one running accumulator over a walk of
@@ -239,7 +214,7 @@ template <bool kFull, bool kExactB, typename T, int HD, int DC, int NK>
 __device__ __forceinline__ void product_mb(float (&acc)[DC / 8][4], const float (&m)[NK][4],
                                            const T* bm, int c0, int g, int t) {
   constexpr int PT = pitch<T, HD>();
-  constexpr int NG = DC / 8 < 8 ? DC / 8 : HD > 128 ? 4 : 8;  // n8 tiles per group
+  constexpr int NG = DC / 8 < 8 ? DC / 8 : 8;  // n8 tiles per group
 #pragma unroll
   for (int n0 = 0; n0 < DC / 8; n0 += NG) {
     float part[NG][4];
@@ -397,12 +372,11 @@ flash_bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 }
 
 // ---------------------------------------------------------------------------
-// 2. dK and dV of one 64-key (32 at hd 256) tile, from one query head
+// 2. dK and dV of one 64-key tile, from one query head
 // ---------------------------------------------------------------------------
 
 template <typename T, int HD>
 constexpr size_t dkdv_smem() {
-  constexpr int kT = Shape<HD>::kT;
   return sizeof(T) * (size_t)pitch<T, HD>() * kT * 6 + sizeof(float) * 4 * kT;
 }
 
@@ -410,7 +384,7 @@ struct Args {
   Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
   const float* lse;
   const float* delta;
-  const void* qflags;  // Mask<Shape<HD>::kW> per tile
+  const void* qflags;  // Mask<kW> per tile
   const void* dflags;
   const void* kflags;
   float* dkp;  // [B, Hq, T, HD] f32 partials
@@ -428,8 +402,8 @@ __device__ __forceinline__ bool dkdv_block(const T* __restrict__ q, const T* __r
                                            const T* __restrict__ dout, const Args& a) {
   constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int PT = pitch<T, HD>();
-  constexpr int kT = Shape<HD>::kT, NJ = kT / 8, DC = Shape<HD>::kDC, NT = DC / 8;
-  constexpr int W = Shape<HD>::kW;
+  constexpr int NJ = kT / 8, DC = HD, NT = DC / 8;
+  constexpr int W = kW;
   extern __shared__ __align__(16) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem);  // [kT][PT]
   T* Vs = Ks + kT * PT;                // [kT][PT]
@@ -447,10 +421,8 @@ __device__ __forceinline__ bool dkdv_block(const T* __restrict__ q, const T* __r
   const int k0 = kt * kT;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  // the warp's first key in the tile and its first dK/dV column (0 when a
-  // warp owns every column: the compiler does not know that warp < 4)
-  const int kr = (Shape<HD>::kColWarps == 1 ? warp : warp % Shape<HD>::kRowWarps) * 16;
-  const int c0 = Shape<HD>::kColWarps == 1 ? 0 : (warp / Shape<HD>::kRowWarps) * DC;
+  const int kr = warp * 16;  // the warp's first key in the tile
+  const int c0 = 0;          // its first dK/dV column: it owns every one
   const int n_qt = (a.n_q + kT - 1) / kT;
 
   const T* qb = q + b * a.sq.b + h * a.sq.h;
@@ -603,12 +575,12 @@ flash_bwd_reduce_kernel(T* __restrict__ dk, T* __restrict__ dv, const __grid_con
 }
 
 // ---------------------------------------------------------------------------
-// 4. dQ of one 64-row (32 at hd 256) query tile of query head h
+// 4. dQ of one 64-row query tile of query head h
 // ---------------------------------------------------------------------------
 
 template <typename T, int HD>
 constexpr size_t dq_smem() {
-  return sizeof(T) * (size_t)pitch<T, HD>() * Shape<HD>::kT * 6;
+  return sizeof(T) * (size_t)pitch<T, HD>() * kT * 6;
 }
 
 template <typename T, int HD, bool kSlow>
@@ -617,8 +589,8 @@ __device__ __forceinline__ bool dq_block(const T* __restrict__ q, const T* __res
                                          T* __restrict__ dq, const Args& a) {
   constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int PT = pitch<T, HD>();
-  constexpr int kT = Shape<HD>::kT, NJ = kT / 8, DC = Shape<HD>::kDC, NT = DC / 8;
-  constexpr int W = Shape<HD>::kW;
+  constexpr int NJ = kT / 8, DC = HD, NT = DC / 8;
+  constexpr int W = kW;
   extern __shared__ __align__(16) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);  // [kT][PT]
   T* dOs = Qs + kT * PT;               // [kT][PT]
@@ -635,9 +607,8 @@ __device__ __forceinline__ bool dq_block(const T* __restrict__ q, const T* __res
   const int q0 = qt * kT;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  // the warp's first row in the tile and its first dQ column
-  const int qr = (Shape<HD>::kColWarps == 1 ? warp : warp % Shape<HD>::kRowWarps) * 16;
-  const int c0 = Shape<HD>::kColWarps == 1 ? 0 : (warp / Shape<HD>::kRowWarps) * DC;
+  const int qr = warp * 16;  // the warp's first row in the tile
+  const int c0 = 0;          // its first dQ column: it owns every one
 
   const T* kb = k + b * a.sk.b + hk * a.sk.h;
   const T* vb = v + b * a.sv.b + hk * a.sv.h;
@@ -763,7 +734,7 @@ template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, void* dq, void* dk, void* dv, Args a, float* delta,
                    cudaStream_t stream) {
-  constexpr int kT = Shape<HD>::kT, W = Shape<HD>::kW;
+  constexpr int W = kW;
   const size_t b1 = dkdv_smem<T, HD>(), b2 = dq_smem<T, HD>();
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)b1);
@@ -798,7 +769,6 @@ cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v, const
   if (hd <= 32) return launch<T, 32>(q, k, v, o, dout, dq, dk, dv, a, delta, stream);
   if (hd <= 64) return launch<T, 64>(q, k, v, o, dout, dq, dk, dv, a, delta, stream);
   if (hd <= 128) return launch<T, 128>(q, k, v, o, dout, dq, dk, dv, a, delta, stream);
-  if (hd <= 256) return launch<T, 256>(q, k, v, o, dout, dq, dk, dv, a, delta, stream);
   return cudaErrorInvalidValue;  // the wrapper raises before
 }
 
@@ -808,14 +778,12 @@ extern "C" {
 
 // q [batch, hq, n_q, hd], k/v [batch, hq/group, n_k, hd], o and dout like q,
 // dq like q, dk/dv like k; each given by its (batch, head, row) element
-// strides, the hd stride 1; f32 when is_bf16 == 0, else bf16; hd <= 256,
+// strides, the hd stride 1; f32 when is_bf16 == 0, else bf16; hd <= 128,
 // n_q <= n_k. lse [batch, hq, n_q] f32 from the forward. Workspaces (the
 // wrapper allocates them): delta, batch x hq x n_q floats; dkp and dvp,
-// batch x hq x n_k x hd_pad floats each (hd_pad: hd rounded up to 32, 64,
-// 128 or 256); qflags and dflags, batch x hq x ceil(n_q / rows) entries,
-// and kflags batch x hq/group x ceil(n_k / rows), 16-byte aligned: rows 64
-// and entries of 16 bytes at hd <= 128, rows 32 and entries of 32 bytes
-// above.
+// batch x hq x n_k x hd_pad floats each (hd_pad: hd rounded up to 32, 64
+// or 128); qflags and dflags, batch x hq x ceil(n_q / 64) entries of 16
+// bytes, and kflags batch x hq/group x ceil(n_k / 64), 16-byte aligned.
 // Four launches on `stream` (delta and the masks, dK and dV per query
 // head, their sum over the group, dQ); returns the first failure of
 // cudaGetLastError().

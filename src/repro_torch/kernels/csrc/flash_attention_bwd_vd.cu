@@ -106,6 +106,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_bwd_wgmma.cuh"
 #include "tf32x3.cuh"
 #include "wgmma.cuh"
 
@@ -113,296 +114,10 @@ namespace {
 
 using namespace wgmma;
 
-constexpr int kT = 64;          // rows of a query or key tile
-constexpr int kThreads = 128;   // the prep kernel: 4 warps
-constexpr int kReduceThreads = 256;
-constexpr int kW = 8;           // mask words a tile: 256 columns
-constexpr int kStage = 2 * kAtom;  // a ring stage: one atom of hi parts, one of lo
 constexpr int kKVStages = 3;    // the dK/dV pass's ring (224 KB with K, V and the swap)
 constexpr int kQStages = 4;     // the dQ pass's ring (224 KB with Q and dO)
 // Pᵀ, then dSᵀ, as f32 between the dK/dV pass's consumers
 constexpr int kSwap = 64 * 64 * 4;
-
-// element strides of one [B, H, S, d] operand (the d stride is 1)
-struct Strides {
-  long long b, h, s;
-};
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-__device__ __forceinline__ float nan_f32() { return __int_as_float(0x7fc00000); }
-
-__device__ __forceinline__ bool visible(int i, int j, int n_q, int n_k, int window,
-                                        int num_meta) {
-  return i < n_q && j < n_k && j <= i && (window <= 0 || i - j < window || j < num_meta);
-}
-
-// whether every pair of query tile q0 and key tile k0 is visible
-__device__ __forceinline__ bool all_visible(int q0, int k0, int n_q, int n_k, int window,
-                                            int num_meta) {
-  return k0 + kT - 1 <= q0 && q0 + kT <= n_q && k0 + kT <= n_k &&
-         (window <= 0 || q0 + kT - 1 - k0 < window || k0 + kT <= num_meta);
-}
-
-// column d of a mask of kW words in shared memory
-__device__ __forceinline__ bool flagged(const uint32_t* m, int d) {
-  return (m[d >> 5] >> (d & 31)) & 1u;
-}
-
-struct Args {
-  Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
-  const float* lse;
-  const float* delta;
-  const uint32_t* qflags;  // [B, Hq, n_qt, kW]
-  const uint32_t* dflags;  // [B, Hq, n_qt, kW]
-  const uint32_t* kflags;  // [B, Hkv, n_kt, kW]
-  float* dkp;              // G > 1: [B, Hq, T, HD] f32 partials
-  float* dvp;              // G > 1: [B, Hq, T, VD]
-  int batch, hq, group, n_q, n_k, hd, vd, window, num_meta;
-  float scale;
-};
-
-// ---------------------------------------------------------------------------
-// 1. delta and the tiles' masks of non-finite columns
-// ---------------------------------------------------------------------------
-
-// the columns (< cols <= 256) of a tile's rows that hold an inf or NaN,
-// kW words into dst; words: kW words of shared scratch
-template <typename T>
-__device__ __forceinline__ void tile_mask(uint32_t* dst, const T* base, long long stride,
-                                          int rows, int cols, uint32_t* words) {
-  __syncthreads();  // words is free
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int c0 = 0; c0 < 32 * kW; c0 += kThreads) {
-    const int c = c0 + threadIdx.x;
-    bool bad = false;
-    if (c < cols)
-      for (int r = 0; r < rows; ++r) bad |= !tf32x3::finite(to_f32(base[r * stride + c]));
-    const uint32_t w = __ballot_sync(0xffffffffu, bad);
-    if (lane == 0) words[(c0 >> 5) + warp] = w;
-  }
-  __syncthreads();
-  if (threadIdx.x < kW) dst[threadIdx.x] = words[threadIdx.x];
-}
-
-// blockIdx.y < hq: query head h, rows of tile blockIdx.x: delta, the masks
-// of q and dO. Otherwise kv head blockIdx.y - hq: the mask of k.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_vd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ o, const T* __restrict__ dout,
-                         const __grid_constant__ Args a, float* __restrict__ delta,
-                         uint32_t* __restrict__ qflags, uint32_t* __restrict__ dflags,
-                         uint32_t* __restrict__ kflags) {
-  __shared__ uint32_t words[kW];
-  const int tile = blockIdx.x, b = blockIdx.z;
-  const int r0 = tile * kT;
-  if (blockIdx.y >= a.hq) {
-    const int hk = blockIdx.y - a.hq, hkv = gridDim.y - a.hq, n_kt = (a.n_k + kT - 1) / kT;
-    if (r0 >= a.n_k) return;
-    tile_mask(kflags + (((long long)b * hkv + hk) * n_kt + tile) * kW,
-              k + b * a.sk.b + hk * a.sk.h + (long long)r0 * a.sk.s, a.sk.s,
-              min(kT, a.n_k - r0), a.hd, words);
-    return;
-  }
-  const int h = blockIdx.y, n_qt = (a.n_q + kT - 1) / kT;
-  if (r0 >= a.n_q) return;
-  const int rows = min(kT, a.n_q - r0);
-  const T* qb = q + b * a.sq.b + h * a.sq.h + (long long)r0 * a.sq.s;
-  const T* ob = o + b * a.so.b + h * a.so.h + (long long)r0 * a.so.s;
-  const T* db = dout + b * a.sdo.b + h * a.sdo.h + (long long)r0 * a.sdo.s;
-  const long long tix = (((long long)b * a.hq + h) * n_qt + tile) * kW;
-  tile_mask(qflags + tix, qb, a.sq.s, rows, a.hd, words);
-  tile_mask(dflags + tix, db, a.sdo.s, rows, a.vd, words);
-  // a row whose softmax is NaN (lse NaN) has P = NaN at the keys the dK/dV
-  // pass skips too: all of dV's columns, as a non-finite dO row gives
-  const float* lr = a.lse + ((long long)b * a.hq + h) * a.n_q + r0;
-  if (__syncthreads_or(threadIdx.x < rows && lr[threadIdx.x] != lr[threadIdx.x]) &&
-      threadIdx.x < kW)
-    dflags[tix + threadIdx.x] = ~0u;
-  // delta: a warp per row over vd; NaN where the row of dO holds an inf or
-  // NaN
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < rows; r += kThreads / 32) {
-    float s = 0.f;
-    bool bad = false;
-    for (int d = lane; d < a.vd; d += 32) {
-      const float dv = to_f32(db[r * a.sdo.s + d]);
-      bad |= !tf32x3::finite(dv);
-      s += to_f32(ob[r * a.so.s + d]) * dv;
-    }
-#pragma unroll
-    for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    bad = __any_sync(0xffffffffu, bad);
-    if (lane == 0) delta[((long long)b * a.hq + h) * a.n_q + r0 + r] = bad ? nan_f32() : s;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The producer's stages and the consumers' products
-// ---------------------------------------------------------------------------
-
-// A stage "as stored": rows row0 .. row0 + 63 of a [n x width] operand,
-// columns col0 .. col0 + 31, one atom of hi parts and one of lo. Thread p
-// loads the 4-column group p % 8 of rows p / 8 + 16i (i < 4): 128
-// contiguous bytes (f32) a row.
-template <typename T>
-__device__ __forceinline__ void get_rows(uint4 (&x)[4], const T* base, long long stride,
-                                         int row0, int n, int col0, int width, bool vec, int p) {
-  const int col = col0 + 4 * (p & 7);
-  if (vec && row0 + kT <= n && col0 + 32 <= width) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      x[i] = ld_raw<T>(base + (long long)(row0 + (p >> 3) + 16 * i) * stride + col);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + (p >> 3) + 16 * i;
-      x[i] = ld_raw_masked<T>(row < n ? base + (long long)row * stride : nullptr, col, width);
-    }
-  }
-}
-
-// get_rows' values split into the stage's hi and lo atoms. A bf16 operand
-// stored as it is meets only other bf16 operands (S, dP: one product) and
-// takes no lo part.
-template <typename T, bool kSlow>
-__device__ __forceinline__ void put_rows(unsigned char* hi, unsigned char* lo,
-                                         const uint4 (&x)[4], int p) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int off = sw128((p >> 3) + 16 * i, 4 * (p & 7));
-    const float4 f = widen<T>(x[i]);
-    uint4 h, l;
-    split_in<T, kSlow>(f.x, h.x, l.x);
-    split_in<T, kSlow>(f.y, h.y, l.y);
-    split_in<T, kSlow>(f.z, h.z, l.z);
-    split_in<T, kSlow>(f.w, h.w, l.w);
-    *reinterpret_cast<uint4*>(hi + off) = h;
-    if constexpr (sizeof(T) == 4) *reinterpret_cast<uint4*>(lo + off) = l;
-  }
-}
-
-// A stage transposed: rows row0 .. row0 + 31 of a [n x width] operand,
-// columns col0 .. col0 + 63, stored as [64 columns][32 rows] (K-major over
-// the rows). Thread p loads row row0 + p % 32 at columns col0 + 16(p / 32)
-// + 4m (m < 4).
-template <typename T>
-__device__ __forceinline__ void get_cols(uint4 (&x)[4], const T* base, long long stride,
-                                         int row0, int n, int col0, int width, bool vec, int p) {
-  const int row = row0 + (p & 31), col = col0 + 16 * (p >> 5);
-  if (vec && row0 + 32 <= n && col0 + 64 <= width) {
-    const T* r = base + (long long)row * stride + col;
-#pragma unroll
-    for (int m = 0; m < 4; ++m) x[m] = ld_raw<T>(r + 4 * m);
-  } else {
-    const T* r = row < n ? base + (long long)row * stride : nullptr;
-#pragma unroll
-    for (int m = 0; m < 4; ++m) x[m] = ld_raw_masked<T>(r, col + 4 * m, width);
-  }
-}
-
-// get_cols' values transposed into the stage's hi and lo atoms. Inside each
-// group of 8 rows, position t holds row 2t and position t + 4 row 2t + 1:
-// the order in which an m64n64 accumulator hands its columns over as an A
-// fragment (split_frags), and in which the dV warpgroup stores dSᵀ. For a
-// fixed (m, e) a warp's 32 stores fill one 128-byte row: no bank conflict.
-template <typename T, bool kSlow>
-__device__ __forceinline__ void put_cols(unsigned char* hi, unsigned char* lo,
-                                         const uint4 (&x)[4], int p) {
-  const int l = p & 31, w = p >> 5;
-  const int pos = (l & ~7) | ((l & 1) ? 4 + ((l & 7) >> 1) : (l & 7) >> 1);
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const float4 f = widen<T>(x[m]);
-    const float v[4] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int off = sw128(16 * w + 4 * m + e, pos);
-      uint32_t h, lw;
-      split_in<T, kSlow>(v[e], h, lw);
-      *reinterpret_cast<uint32_t*>(hi + off) = h;
-      *reinterpret_cast<uint32_t*>(lo + off) = lw;
-    }
-  }
-}
-
-// an m64n64 accumulator (P or dS), or its half v[4j + c] for 4 of its k8
-// steps j, as the hi/lo A fragments of a product over its columns: element
-// (row, column 8j + 2t + e) goes to A column t + 4e of k8 step j
-template <int N>
-__device__ __forceinline__ void split_frags(const float (&v)[N], uint32_t (&hi)[N],
-                                            uint32_t (&lo)[N], bool slow) {
-  if (slow) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int a = (i & ~3) | (((i & 1) << 1) | ((i >> 1) & 1));
-      tf32x3::split(v[i], hi[a], lo[a]);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int a = (i & ~3) | (((i & 1) << 1) | ((i >> 1) & 1));
-      hi[a] = __float_as_uint(v[i]) & kTrunc;
-      lo[a] = __float_as_uint(v[i] - __uint_as_float(hi[a]));
-    }
-  }
-}
-
-// d += A·Bᵀ over one atom's 4 k8 steps, both from shared memory: per step
-// lo·hi, hi·lo, hi·hi (bf16: hi·hi alone, both operands exact in TF32)
-template <bool kBf16>
-__device__ __forceinline__ void ss_atom(float (&d)[32], uint64_t a_hi, uint64_t a_lo,
-                                        uint64_t b_hi, uint64_t b_lo) {
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    const uint64_t o = 2 * ks;  // 32 bytes
-    if constexpr (!kBf16) {
-      mma_ss(d, a_lo + o, b_hi + o);
-      mma_ss(d, a_hi + o, b_lo + o);
-    }
-    mma_ss(d, a_hi + o, b_hi + o);
-  }
-}
-
-// d += A·Bᵀ over one atom's 4 k8 steps, A's fragments j0 .. j0 + 3 from
-// registers: per step lo·hi, hi·lo, hi·hi (bf16 B: A's lo with B's lo
-// slot, then hi·hi)
-template <bool kBf16, int N>
-__device__ __forceinline__ void rs_atom(float (&d)[32], const uint32_t (&ah)[N],
-                                        const uint32_t (&al)[N], int j0, uint64_t b_hi,
-                                        uint64_t b_lo) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int j = 4 * (j0 + kk);
-    const uint64_t o = 2 * kk;
-    if constexpr (!kBf16) {
-      mma_rs64(d, al[j], al[j + 1], al[j + 2], al[j + 3], b_hi + o);
-      mma_rs64(d, ah[j], ah[j + 1], ah[j + 2], ah[j + 3], b_lo + o);
-    } else {
-      mma_rs64(d, al[j], al[j + 1], al[j + 2], al[j + 3], b_lo + o);
-    }
-    mma_rs64(d, ah[j], ah[j + 1], ah[j + 2], ah[j + 3], b_hi + o);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&a)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) a[i] = 0.f;
-}
-
-template <int N>
-__device__ __forceinline__ bool all_finite(const float (&a)[N]) {
-  bool ok = true;
-#pragma unroll
-  for (int i = 0; i < N; ++i) ok &= tf32x3::finite(a[i]);
-  return ok;
-}
 
 // ---------------------------------------------------------------------------
 // 2. dK and dV of one 64-key tile, from one query head
@@ -436,28 +151,6 @@ struct KV {
   // two query tiles' lse and delta, 64 rows each
   static constexpr int kVecAt = kSwapAt + kSwap;
   static constexpr int kSmem = kVecAt + 2 * 128 * 4 + 1024;  // + the alignment to 1024 bytes
-};
-
-// The block's key tile and query head, and the query tiles that see a key
-// of the tile: from the diagonal on; with a window and no meta token in the
-// tile, those within window - 1 rows of its last key
-struct KVTile {
-  int h, b, hk, k0, n_qt, qt_first, qt_last, ntiles;
-  __device__ __forceinline__ explicit KVTile(const Args& a) {
-    int idx = blockIdx.x;
-    h = idx % a.hq;
-    idx /= a.hq;
-    b = idx % a.batch;
-    const int kt = idx / a.batch;  // slowest: the heaviest key tiles launch first
-    hk = h / a.group;
-    k0 = kt * kT;
-    n_qt = (a.n_q + kT - 1) / kT;
-    qt_first = kt;
-    qt_last = n_qt - 1;
-    if (a.window > 0 && k0 >= a.num_meta)
-      qt_last = min(qt_last, (k0 + kT - 1 + a.window - 1) / kT);
-    ntiles = max(0, qt_last - qt_first + 1);
-  }
 };
 
 // The block's work, one (64-key tile, query head, b) as 384 threads (see
@@ -875,35 +568,6 @@ flash_bwd_vd_dkdv_wgmma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       n0 = (uint32_t)n;
     }
   }
-}
-
-// ---------------------------------------------------------------------------
-// 3. G > 1: dK, dV as the sum of the G partials of each kv head, in head
-//    order
-// ---------------------------------------------------------------------------
-
-template <typename T, int HD, int VD>
-__global__ void __launch_bounds__(kReduceThreads)
-flash_bwd_vd_reduce_kernel(T* __restrict__ dk, T* __restrict__ dv,
-                           const __grid_constant__ Args a) {
-  const long long idx = (long long)blockIdx.x * kReduceThreads + threadIdx.x;
-  const int hkv = a.hq / a.group;
-  const long long total = (long long)a.batch * hkv * a.n_k * HD;
-  if (idx >= total) return;
-  const int d = (int)(idx % HD);
-  long long rest = idx / HD;
-  const int j = (int)(rest % a.n_k);
-  rest /= a.n_k;
-  const int hk = (int)(rest % hkv);
-  const int b = (int)(rest / hkv);
-  float sk = 0.f, sv = 0.f;
-  for (int hh = 0; hh < a.group; ++hh) {
-    const long long row = ((long long)b * a.hq + hk * a.group + hh) * a.n_k + j;
-    sk += a.dkp[row * HD + d];
-    if (d < VD) sv += a.dvp[row * VD + d];
-  }
-  if (d < a.hd) store(dk + b * a.sdk.b + hk * a.sdk.h + (long long)j * a.sdk.s + d, sk);
-  if (d < a.vd) store(dv + b * a.sdv.b + hk * a.sdv.h + (long long)j * a.sdv.s + d, sv);
 }
 
 // ---------------------------------------------------------------------------

@@ -2,9 +2,11 @@
 // split-f32 attention kernels share: the 128-byte-swizzled K-major tiles
 // tf32 wgmma reads from shared memory and their descriptors, the mbarrier
 // ring between a producer warpgroup and its consumers, the tf32 products
-// (m64n64k8 and m64n128k8, A from shared memory or from registers), and
-// the producer's loads of raw operand bits and their split into TF32 hi
-// and lo parts (tf32x3.cuh) as they are stored.
+// (m64n64k8 and m64n128k8, A from shared memory or from registers), the
+// producer's loads of raw operand bits and their split into TF32 hi and lo
+// parts (tf32x3.cuh) as they are stored, a copy engine's bulk copy onto an
+// mbarrier, and the 16 KB stages (an atom of hi parts and one of lo) of
+// 64-row tiles as stored or transposed, with their products over an atom.
 //
 // Layout: a tile whose rows are 128 bytes (32 f32 of the reduction
 // dimension K) is an "atom": 64 rows x 128 bytes = 8 KB, row r's 16-byte
@@ -74,6 +76,77 @@ __device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
     if (tries == (1u << 26)) __trap();
   }
 }
+// one arrival on `bar` that also expects `bytes` of transactions: the
+// phase completes once the arrivals are in and the copies below have
+// landed that many bytes
+__device__ __forceinline__ void bar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// a copy engine's bulk copy (TMA, no tensor map) of `bytes` (a multiple
+// of 16) from global memory at `src` (16-byte aligned) to shared memory at
+// `dst`, counted on the mbarrier `bar` as it lands
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// A warpgroup's own ring of R shared-memory slots of `bytes` each from
+// `base`, which its first thread fills with bulk copies: slot s's full
+// mbarrier (one arrival with the copies' bytes) at bars + 8 s, its empty
+// one (one arrival a warp) at bars + 8 (R + s). Stage m of the
+// warpgroup's sequence lives in slot m % R; m runs on across a block's
+// passes, so the barriers' parities follow from it.
+template <int R>
+struct WgRing {
+  uint32_t base, bars, bytes;
+  __device__ __forceinline__ uint32_t slot(uint32_t m) const { return base + (m % R) * bytes; }
+  __device__ __forceinline__ uint32_t full(uint32_t m) const { return bars + 8 * (m % R); }
+  __device__ __forceinline__ uint32_t empty(uint32_t m) const { return bars + 8 * (R + m % R); }
+  // stage m, once it has landed
+  __device__ __forceinline__ uint32_t take(uint32_t m) const {
+    bar_wait(full(m), (m / R) & 1);
+    return slot(m);
+  }
+  // the first thread: land stage m from one global stage of `part` bytes,
+  // or two (the second at the slot's second part), once every warp has
+  // freed stage m - R
+  __device__ __forceinline__ void land(uint32_t m, const void* a, const void* b,
+                                       uint32_t part) const {
+    if (m >= (uint32_t)R) bar_wait(empty(m), (m / R - 1) & 1);
+    bar_arrive_tx(full(m), b != nullptr ? 2 * part : part);
+    bulk_copy(slot(m), a, part, full(m));
+    if (b != nullptr) bulk_copy(slot(m) + part, b, part, full(m));
+  }
+};
+
+// A warpgroup's feed of its ring: `land(m)` (its first thread's) lands
+// stage m of the warpgroup's sequence, m0 .. end - 1 in this pass; the
+// first R stages at the start, stage m + R as every warp frees stage m
+template <int R, class Land>
+struct WgFeed {
+  const WgRing<R>& r;
+  Land& land;
+  uint32_t m0, end;
+  bool first;  // the warpgroup's first thread
+  __device__ __forceinline__ void start() const {
+    if (first)
+      for (uint32_t m = m0; m < m0 + R && m < end; ++m) land(m);
+    __syncwarp();
+  }
+  // every warp frees stage m; the first thread then lands stage m + R
+  // (once the other warps have freed m too), and its warp reconverges
+  // before the next warpgroup instruction
+  __device__ __forceinline__ void release(uint32_t m) const {
+    warp_arrive(r.empty(m));
+    if (first && m + R < end) land(m + R);
+    __syncwarp();
+  }
+};
+
 // the producer's shared-memory stores, made visible to the tensor cores'
 // (async proxy) reads before its arrival
 __device__ __forceinline__ void fence_proxy() {
@@ -266,6 +339,178 @@ __device__ __forceinline__ void split_in(float x, uint32_t& hi, uint32_t& lo) {
   } else {
     hi = __float_as_uint(x) & kTrunc;
     lo = __float_as_uint(x - __uint_as_float(hi));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 16 KB stages of 64-row tiles (the flash backward kernels, and the forward
+// at hd = vd = 256): an atom of TF32 hi parts and one of lo parts, of the
+// rows of an operand as stored or of 32 of them transposed
+// ---------------------------------------------------------------------------
+
+constexpr int kStage = 2 * kAtom;
+
+// A stage "as stored": rows row0 .. row0 + 63 of a [n x width] operand,
+// columns col0 .. col0 + 31, one atom of hi parts and one of lo. Thread p
+// loads the 4-column group p % 8 of rows p / 8 + 16i (i < 4): 128
+// contiguous bytes (f32) a row.
+template <typename T>
+__device__ __forceinline__ void get_rows(uint4 (&x)[4], const T* base, long long stride,
+                                         int row0, int n, int col0, int width, bool vec, int p) {
+  const int col = col0 + 4 * (p & 7);
+  if (vec && row0 + 64 <= n && col0 + 32 <= width) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      x[i] = ld_raw<T>(base + (long long)(row0 + (p >> 3) + 16 * i) * stride + col);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + (p >> 3) + 16 * i;
+      x[i] = ld_raw_masked<T>(row < n ? base + (long long)row * stride : nullptr, col, width);
+    }
+  }
+}
+
+// get_rows' values split into the stage's hi and lo atoms. A bf16 operand
+// stored as it is meets only other bf16 operands (S, dP: one product) and
+// takes no lo part.
+template <typename T, bool kSlow>
+__device__ __forceinline__ void put_rows(unsigned char* hi, unsigned char* lo,
+                                         const uint4 (&x)[4], int p) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int off = sw128((p >> 3) + 16 * i, 4 * (p & 7));
+    const float4 f = widen<T>(x[i]);
+    uint4 h, l;
+    split_in<T, kSlow>(f.x, h.x, l.x);
+    split_in<T, kSlow>(f.y, h.y, l.y);
+    split_in<T, kSlow>(f.z, h.z, l.z);
+    split_in<T, kSlow>(f.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + off) = h;
+    if constexpr (sizeof(T) == 4) *reinterpret_cast<uint4*>(lo + off) = l;
+  }
+}
+
+// A stage transposed: rows row0 .. row0 + 31 of a [n x width] operand,
+// columns col0 .. col0 + 63, stored as [64 columns][32 rows] (K-major over
+// the rows). Thread p loads row row0 + p % 32 at columns col0 + 16(p / 32)
+// + 4m (m < 4).
+template <typename T>
+__device__ __forceinline__ void get_cols(uint4 (&x)[4], const T* base, long long stride,
+                                         int row0, int n, int col0, int width, bool vec, int p) {
+  const int row = row0 + (p & 31), col = col0 + 16 * (p >> 5);
+  if (vec && row0 + 32 <= n && col0 + 64 <= width) {
+    const T* r = base + (long long)row * stride + col;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) x[m] = ld_raw<T>(r + 4 * m);
+  } else {
+    const T* r = row < n ? base + (long long)row * stride : nullptr;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) x[m] = ld_raw_masked<T>(r, col + 4 * m, width);
+  }
+}
+
+// get_cols' values transposed into the stage's hi and lo atoms. Inside each
+// group of 8 rows, position t holds row 2t and position t + 4 row 2t + 1:
+// the order in which an m64n64 accumulator hands its columns over as an A
+// fragment (split_frags), and in which the dV warpgroup stores dSᵀ. For a
+// fixed (m, e) a warp's 32 stores fill one 128-byte row: no bank conflict.
+template <typename T, bool kSlow>
+__device__ __forceinline__ void put_cols(unsigned char* hi, unsigned char* lo,
+                                         const uint4 (&x)[4], int p) {
+  const int l = p & 31, w = p >> 5;
+  const int pos = (l & ~7) | ((l & 1) ? 4 + ((l & 7) >> 1) : (l & 7) >> 1);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const float4 f = widen<T>(x[m]);
+    const float v[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int off = sw128(16 * w + 4 * m + e, pos);
+      uint32_t h, lw;
+      split_in<T, kSlow>(v[e], h, lw);
+      *reinterpret_cast<uint32_t*>(hi + off) = h;
+      *reinterpret_cast<uint32_t*>(lo + off) = lw;
+    }
+  }
+}
+
+// an m64n64 accumulator (P or dS), or its half v[4j + c] for 4 of its k8
+// steps j, as the hi/lo A fragments of a product over its columns: element
+// (row, column 8j + 2t + e) goes to A column t + 4e of k8 step j
+template <int N>
+__device__ __forceinline__ void split_frags(const float (&v)[N], uint32_t (&hi)[N],
+                                            uint32_t (&lo)[N], bool slow) {
+  if (slow) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int a = (i & ~3) | (((i & 1) << 1) | ((i >> 1) & 1));
+      tf32x3::split(v[i], hi[a], lo[a]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int a = (i & ~3) | (((i & 1) << 1) | ((i >> 1) & 1));
+      hi[a] = __float_as_uint(v[i]) & kTrunc;
+      lo[a] = __float_as_uint(v[i] - __uint_as_float(hi[a]));
+    }
+  }
+}
+
+// d += A·Bᵀ over one atom's 4 k8 steps, both from shared memory: per step
+// lo·hi, hi·lo, hi·hi (bf16: hi·hi alone, both operands exact in TF32)
+template <bool kBf16>
+__device__ __forceinline__ void ss_atom(float (&d)[32], uint64_t a_hi, uint64_t a_lo,
+                                        uint64_t b_hi, uint64_t b_lo) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    const uint64_t o = 2 * ks;  // 32 bytes
+    if constexpr (!kBf16) {
+      mma_ss(d, a_lo + o, b_hi + o);
+      mma_ss(d, a_hi + o, b_lo + o);
+    }
+    mma_ss(d, a_hi + o, b_hi + o);
+  }
+}
+
+// d += A·Bᵀ over one atom's 4 k8 steps, A's fragments j0 .. j0 + 3 from
+// registers: per step lo·hi, hi·lo, hi·hi (bf16 B: A's lo with B's lo
+// slot, then hi·hi)
+template <bool kBf16, int N>
+__device__ __forceinline__ void rs_atom(float (&d)[32], const uint32_t (&ah)[N],
+                                        const uint32_t (&al)[N], int j0, uint64_t b_hi,
+                                        uint64_t b_lo) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int j = 4 * (j0 + kk);
+    const uint64_t o = 2 * kk;
+    if constexpr (!kBf16) {
+      mma_rs64(d, al[j], al[j + 1], al[j + 2], al[j + 3], b_hi + o);
+      mma_rs64(d, ah[j], ah[j + 1], ah[j + 2], ah[j + 3], b_lo + o);
+    } else {
+      mma_rs64(d, al[j], al[j + 1], al[j + 2], al[j + 3], b_lo + o);
+    }
+    mma_rs64(d, ah[j], ah[j + 1], ah[j + 2], ah[j + 3], b_hi + o);
+  }
+}
+
+
+// Stage s of a 64-row tile's "image" (the bytes of the 16 KB stages that a
+// bulk copy lands as they are; 128 threads, thread p), full split: as
+// stored, the tile's columns 32s .. 32s + 31; transposed, 32-row half s / 4
+// of its 64-column chunk s % 4. Rows past n and columns past width zero.
+template <typename T>
+__device__ __forceinline__ void put_image_stage(unsigned char* dst, const T* base,
+                                                long long stride, int row0, int n, int width,
+                                                int s, bool transposed, int p) {
+  uint4 x[4];
+  const bool vec = aligned4(base, stride);
+  if (transposed) {
+    get_cols<T>(x, base, stride, row0 + 32 * (s / 4), n, 64 * (s % 4), width, vec, p);
+    put_cols<T, true>(dst, dst + kAtom, x, p);
+  } else {
+    get_rows<T>(x, base, stride, row0, n, 32 * s, width, vec, p);
+    put_rows<T, true>(dst, dst + kAtom, x, p);
   }
 }
 

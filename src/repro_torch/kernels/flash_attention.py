@@ -25,8 +25,17 @@ split-f32 on the TF32 tensor cores. The attention by shape:
   order of P's register fragments; one mbarrier wait a stage. What bounds
   it: operations (6.9e11 flops at DeepSeek's prefill, 4.2 ms at the
   split-f32 rate);
-* vd > 128 or hd > 256 (gemma-2b's 256): one block per 128-column slice
-  of O (over vd), each over the full scores (over hd), on ``mma.sync``.
+* vd = hd in (128, 256] (gemma-2b's 256; others zero-padded to 256):
+  ``flash_fwd_kernel_wgmma256``, a 64-row query tile per block on
+  ``wgmma``, the scores once per (query tile, key tile): two consumer
+  warpgroups, each owning 128 of O's columns and the k8 steps of S over
+  them (the two partials summed through shared memory, so both run the
+  same softmax), Q resident and split by its consumers, K and Vᵀ landed
+  by each warpgroup's first thread with bulk copies from "images" that a
+  fourth launch splits once into TF32 hi and lo stages
+  (``forward_route``);
+* vd > 128 at vd != hd, or hd > 256: one block per 128-column slice of O
+  (over vd), each over the full scores (over hd), on ``mma.sync``.
 
 CPU tensors take ``ref.flash_attention_ref``. The model calls it through ``ops`` for
 self-attention over positions 0..S-1 (prefill and the cache-free
@@ -39,10 +48,17 @@ Gradients. On CUDA tensors that need one, the call goes through
 also writes each row's log-sum-exp, and the backward is a hand-written
 kernel, f32 or bf16, Sq <= T:
 
-* vd = hd <= 256: ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``,
+* vd = hd <= 128: ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``,
   the FlashAttention-2 backward that the JAX package's custom VJP writes
-  in jnp, its products split-f32 on the tensor cores; at hd 256, gemma-2b's,
-  on 32-row tiles with each warp owning half of the output columns);
+  in jnp, its products split-f32 on the tensor cores);
+* vd = hd in (128, 256] (gemma-2b's 256): ``flash_attention_bwd_256``
+  (``csrc/flash_attention_bwd_256.cu``), the same two passes on
+  ``wgmma``, S and dP once in each: a prep launch splits every operand
+  once into images of the passes' shared-memory stages, which each
+  consumer warpgroup's first thread lands by bulk copies; the dK/dV pass
+  keeps a key tile's dK and dV in the two warpgroups' registers, the dQ
+  pass splits dQ's columns between them (``flash_attention_bwd`` hands
+  these shapes over, ``bwd_route``);
 * vd != hd with vd <= 128 and hd <= 192 (MLA; the forward is then
   ``flash_fwd_kernel_wgmma``): ``flash_attention_bwd_vd``
   (``csrc/flash_attention_bwd_vd.cu``, the same two passes on Hopper's
@@ -69,9 +85,12 @@ _DTYPES = (torch.float32, torch.bfloat16)
 #: at vd != hd
 MAX_BWD_HEAD_DIM = 256
 MAX_BWD_VD_DIMS = (192, 128)
-#: columns of V's non-finite mask per 16-byte entry, and the kernel's O
-#: slice at head_dim > 128
+#: columns of V's non-finite mask per 16-byte entry, and the wide kernel's
+#: O slice
 _SLICE = 128
+#: bytes of one 64-row tile's image (``flash_fwd_kernel_wgmma256``,
+#: ``flash_attention_bwd_256``): eight 16 KB stages of TF32 hi and lo atoms
+_IMAGE_TILE = 8 * 16384
 
 
 def _check(q, k, v, window, num_meta) -> str:
@@ -108,14 +127,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     CPU tensors: the plain version. CUDA tensors: the hand-written kernel
     (``flash_attention.launches`` counts its calls: one call is three
     launches: V's non-finite flags, the attention, and the NaN the
-    skipped tiles add); on the card the
+    skipped tiles add; four at vd = hd in (128, 256], K's and Vᵀ's images
+    before the attention); on the card the
     head_dim stride must be 1, other strides are free; any head_dim.
     Non-finite values come out as the plain version gives them: an inf or
     NaN in V at a key masked for a row makes that row NaN in its column,
     as 0 · inf does in the reference. When a gradient is needed the call
-    is differentiable through ``flash_attention_bwd`` (head_dim <= 256,
-    vd = hd) or ``flash_attention_bwd_vd`` (vd != hd, vd <= 128, hd <=
-    192), Sq <= T; other shapes raise."""
+    is differentiable through ``flash_attention_bwd`` (vd = hd <= 128),
+    ``flash_attention_bwd_256`` (vd = hd in (128, 256]) or
+    ``flash_attention_bwd_vd`` (vd != hd, vd <= 128, hd <= 192), Sq <= T;
+    other shapes raise."""
     window, num_meta = int(window), int(num_meta)
     if _check(q, k, v, window, num_meta) == "cpu":
         return ref.flash_attention_ref(q, k, v, window=window,
@@ -144,13 +165,20 @@ def _launch(q, k, v, window, num_meta, *, lse):
     # that hold an inf or NaN
     vflags = torch.empty((b, hkv, -(-tk // 64), 4 * -(-vd // _SLICE)),
                          dtype=torch.int32, device=q.device)
+    # flash_fwd_kernel_wgmma256's images of K and Vᵀ: per 64-key tile
+    # eight 16 KB stages of TF32 hi and lo atoms each
+    images = None
+    if forward_route(hd, vd) == "wgmma256":
+        images = torch.empty(2 * b * hkv * -(-tk // 64) * _IMAGE_TILE,
+                             dtype=torch.uint8, device=q.device)
     launch = backend.c_function(
         "flash_attention", "flash_attention_launch",
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
            ctypes.c_void_p])
     rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 strides, vflags.data_ptr(),
+                None if images is None else images.data_ptr(),
                 None if lse is None else lse.data_ptr(), b, hq, hq // hkv, sq,
                 tk, hd, vd, hd ** -0.5, window, num_meta,
                 int(q.dtype == torch.bfloat16), backend.stream_ptr(q.device))
@@ -161,6 +189,16 @@ def _launch(q, k, v, window, num_meta, *, lse):
 
 #: kernel launches since the last reset (CPU calls do not count)
 flash_attention.launches = 0
+
+
+def forward_route(hd: int, vd: int) -> str:
+    """The attention kernel of ``csrc/flash_attention.cu`` (its
+    ``launch_hd``) that takes q/k's head_dim ``hd`` and v's ``vd``: "mma"
+    (``flash_fwd_kernel``, vd = hd <= 128), "wgmma" (vd != hd, vd <= 128,
+    hd <= 256), "wgmma256" (vd = hd in (128, 256]) or "wide" (the rest)."""
+    if vd == hd:
+        return "mma" if hd <= 128 else "wgmma256" if hd <= 256 else "wide"
+    return "wgmma" if vd <= _SLICE and hd <= 256 else "wide"
 
 
 def _empty_out(q, vd):
@@ -231,18 +269,23 @@ def _check_bwd_args(name, q, k, v, out, dout, lse):
 
 def flash_attention_bwd(q, k, v, out, dout, lse, *, window: int = 0,
                         num_meta: int = 0):
-    """The backward kernel: (dq like q, dk like k, dv like v) from the
-    forward's inputs, its output ``out``, the output's cotangent ``dout``
-    and the rows' log-sum-exp ``lse`` [B, Hq, Sq] f32, all on the card
+    """The backward kernel at vd = hd: (dq like q, dk like k, dv like v)
+    from the forward's inputs, its output ``out``, the output's cotangent
+    ``dout`` and the rows' log-sum-exp ``lse`` [B, Hq, Sq] f32, all on the
+    card. hd <= 128: ``csrc/flash_attention_bwd.cu``
     (``flash_attention_bwd.launches`` counts its calls: one call is four
     launches: delta = rowsum(dO ∘ O) with the tiles' masks of non-finite
-    columns, dK and dV per query head, their sum over the GQA group, dQ).
-    Non-finite values come out where the plain version's autograd gives
-    them."""
+    columns, dK and dV per query head, their sum over the GQA group, dQ);
+    128 < hd <= 256: ``flash_attention_bwd_256``. Non-finite values come
+    out where the plain version's autograd gives them."""
     name = "flash_attention_bwd"
     if v.shape[3] != q.shape[3]:
         raise ValueError(f"{name}: v's head_dim {v.shape[3]} != q's "
                          f"{q.shape[3]}: flash_attention_bwd_vd takes it")
+    _check_bwd(q, k, v)
+    if bwd_route(q.shape[3], v.shape[3]) == "flash_attention_bwd_256":
+        return flash_attention_bwd_256(q, k, v, out, dout, lse, window=window,
+                                       num_meta=num_meta)
     dout = _check_bwd_args(name, q, k, v, out, dout, lse)
     b, hq, sq, hd = q.shape
     hkv, tk = k.shape[1], k.shape[2]
@@ -252,18 +295,16 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, window: int = 0,
     f32, dev = torch.float32, q.device
     delta = torch.empty((b, hq, sq), dtype=f32, device=dev)
     # dK and dV of each query head (summed over the GQA group by the
-    # kernel's third launch), at head_dim rounded up to 32, 64, 128 or 256
-    hd_pad = next(w for w in (32, 64, 128, 256) if hd <= w)
+    # kernel's third launch), at head_dim rounded up to 32, 64 or 128
+    hd_pad = next(w for w in (32, 64, 128) if hd <= w)
     dkp = torch.empty((b, hq, tk, hd_pad), dtype=f32, device=dev)
     dvp = torch.empty_like(dkp)
-    # per tile of the kernel's rows (64; 32 at hd > 128): the bitmask of the
-    # columns where q, dO (query heads) and k (kv heads) hold an inf or NaN,
-    # in 4 words (8 at hd > 128)
-    rows, words = (64, 4) if hd <= 128 else (32, 8)
-    qflags = torch.empty((b, hq, -(-sq // rows), words), dtype=torch.int32,
+    # per 64-row tile: the bitmask of the columns where q, dO (query heads)
+    # and k (kv heads) hold an inf or NaN, in 4 words
+    qflags = torch.empty((b, hq, -(-sq // 64), 4), dtype=torch.int32,
                          device=dev)
     dflags = torch.empty_like(qflags)
-    kflags = torch.empty((b, hkv, -(-tk // rows), words), dtype=torch.int32,
+    kflags = torch.empty((b, hkv, -(-tk // 64), 4), dtype=torch.int32,
                          device=dev)
     lse = lse.contiguous()
     strides = (ctypes.c_longlong * 24)(
@@ -287,6 +328,85 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, window: int = 0,
 
 #: backward kernel launches since the last reset
 flash_attention_bwd.launches = 0
+
+
+def bwd_route(hd: int, vd: int) -> str:
+    """The backward kernel (its wrapper's name) that takes q/k's head_dim
+    ``hd`` and v's ``vd``; raises for shapes none takes."""
+    if vd == hd and hd <= 128:
+        return "flash_attention_bwd"
+    if vd == hd and hd <= MAX_BWD_HEAD_DIM:
+        return "flash_attention_bwd_256"
+    if vd != hd and hd <= MAX_BWD_VD_DIMS[0] and vd <= MAX_BWD_VD_DIMS[1]:
+        return "flash_attention_bwd_vd"
+    raise ValueError(f"flash_attention_bwd: no backward kernel takes hd {hd}"
+                     f" with vd {vd}")
+
+
+def flash_attention_bwd_256(q, k, v, out, dout, lse, *, window: int = 0,
+                            num_meta: int = 0):
+    """The backward kernel at vd = hd in (128, 256] (gemma-2b's 256; others
+    zero-padded to 256), ``csrc/flash_attention_bwd_256.cu``: (dq like q,
+    dk like k, dv like v) as ``flash_attention_bwd`` gives them, all on the
+    card (``flash_attention_bwd_256.launches`` counts its calls: one call
+    is four launches at GQA group 1, five above it: delta with the tiles'
+    masks of non-finite columns, the operands' images (each split once
+    into the TF32 hi and lo stages the passes land by bulk copy), dK and
+    dV per query head on wgmma, their sum over the group, dQ on wgmma).
+    Non-finite values come out where the plain version's autograd gives
+    them."""
+    name = "flash_attention_bwd_256"
+    if bwd_route(q.shape[3], v.shape[3]) != name:
+        raise ValueError(f"{name}: takes vd = hd in (128, 256], got hd "
+                         f"{q.shape[3]} and vd {v.shape[3]}")
+    dout = _check_bwd_args(name, q, k, v, out, dout, lse)
+    b, hq, sq, hd = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or tk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    f32, dev = torch.float32, q.device
+    n_qt, n_kt = -(-sq // 64), -(-tk // 64)
+    delta = torch.empty((b, hq, sq), dtype=f32, device=dev)
+    qflags = torch.empty((b, hq, n_qt, 8), dtype=torch.int32, device=dev)
+    dflags = torch.empty_like(qflags)
+    kflags = torch.empty((b, hkv, n_kt, 8), dtype=torch.int32, device=dev)
+    # above GQA group 1, dK and dV of each query head at 256 columns
+    dkp = dvp = None
+    if hq != hkv:
+        dkp = torch.empty((b, hq, tk, 256), dtype=f32, device=dev)
+        dvp = torch.empty_like(dkp)
+    # the images of Q, dO, Qᵀ, dOᵀ (per query head) and K, V, Kᵀ (per kv
+    # head), in one buffer
+    q_img, k_img = b * hq * n_qt * _IMAGE_TILE, b * hkv * n_kt * _IMAGE_TILE
+    images = torch.empty(4 * q_img + 3 * k_img, dtype=torch.uint8, device=dev)
+    base = images.data_ptr()
+    ptrs = (ctypes.c_void_p * 7)(*[base + i * q_img for i in range(4)],
+                                 *[base + 4 * q_img + i * k_img
+                                   for i in range(3)])
+    lse = lse.contiguous()
+    strides = (ctypes.c_longlong * 24)(
+        *[s for t in (q, k, v, out, dout, dq, dk, dv) for s in t.stride()[:3]])
+    launch = backend.c_function(
+        name, "flash_attention_bwd_256_launch",
+        [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+           ctypes.c_void_p])
+    rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), delta.data_ptr(),
+                None if dkp is None else dkp.data_ptr(),
+                None if dvp is None else dvp.data_ptr(), qflags.data_ptr(),
+                dflags.data_ptr(), kflags.data_ptr(), ptrs, strides, b, hq,
+                hq // hkv, sq, tk, hd, hd ** -0.5, int(window), int(num_meta),
+                int(q.dtype == torch.bfloat16), backend.stream_ptr(dev))
+    backend.raise_on_error(name, rc)
+    flash_attention_bwd_256.launches += 1
+    return dq, dk, dv
+
+
+#: backward kernel launches at vd = hd in (128, 256] since the last reset
+flash_attention_bwd_256.launches = 0
 
 
 def flash_attention_bwd_vd(q, k, v, out, dout, lse, *, window: int = 0,

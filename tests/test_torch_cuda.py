@@ -47,7 +47,14 @@ skip themselves elsewhere. Run them on the card with
   0-63, and at row 30): inf and NaN where the plain version has them, the
   finite outputs at the usual tolerance. ``flash_attention`` at head_dim
   160, 192, 256 (gemma-2b's MQA shape included) and 512, and its
-  non-finite cases at 256;
+  non-finite cases at 256; at hd = vd in (128, 256] the forward
+  ``flash_fwd_kernel_wgmma256`` and the backward ``flash_attention_bwd_256``
+  at their 64-row tiles' edges (S one below and above a multiple of 64,
+  GQA 6/2, MQA 8/1, a window with meta tokens, hd 129 and 192, f32 and
+  bf16), with an inf or NaN in q, k, v and dO in tiles they skip and
+  visit, two calls bit for bit, and the routes by the launched kernels'
+  names (hd 129, 192, 256 on the wgmma kernel; 257, 512 and (320, 256) on
+  the wide one);
 * the FL paths of the topology-aware protocol, fault plans and the
   paper's ``Aggregate(·)`` launch their kernels (``fed_mix_segment`` /
   ``fed_mix``, ``fed_aggregate``) and agree with the CPU;
@@ -55,8 +62,9 @@ skip themselves elsewhere. Run them on the card with
   ``flash_attention_bwd`` (dq, dk, dv) at Hymba's training layers (window
   and full, meta tokens, GQA), qwen2-1.5b's head_dim 128, MQA, a ragged S
   and head_dim 32, and at head_dim 256 (gemma-2b's MQA training shape; a
-  ragged S, GQA, a window and meta tokens; 160 and 200, padded to 256), f32
-  at the forward's 2e-5 and bf16 at 3e-2;
+  ragged S, GQA, a window and meta tokens; 160 and 200, padded to 256:
+  ``flash_attention_bwd_256``), f32 at the forward's 2e-5 and bf16 at
+  3e-2;
   ``ssd_scan_bwd`` (dx, d(dt), dA, dB, dC and the initial state's) at
   Hymba's and mamba2-130m's shapes and ragged chunks, with and without an
   initial state and the final state's cotangent, at the forward's
@@ -69,8 +77,8 @@ skip themselves elsewhere. Run them on the card with
   needs a gradient goes through the backward kernel (its counter rises);
   two backward calls give the same bits (at 256 too); the serving path
   (no gradient) writes no log-sum-exp and gives the bits it gave, and the
-  wide forward's log-sum-exp at 256 (what the backward reads) is the
-  plain one; the backward raises above head_dim 256 and for a bf16 SSD;
+  forward's log-sum-exp at 256 (what the backward reads) is the plain
+  one; the backward raises above head_dim 256 and for a bf16 SSD;
 * ``flash_attention`` with v's head_dim apart from q's and k's (MLA) at
   DeepSeek-V2's prefill (192, 128) of 512 and 2048 tokens, DBRX's GQA
   48/8 prefill at 128, the reduced config's (24, 16), and
@@ -110,7 +118,8 @@ from repro_torch.kernels.fed_mix_sparse import (
     check_cluster_ids, fed_mix_matching, fed_mix_segment,
 )
 from repro_torch.kernels.flash_attention import (
-    flash_attention, flash_attention_bwd, flash_attention_bwd_vd,
+    bwd_route, flash_attention, flash_attention_bwd, flash_attention_bwd_256,
+    flash_attention_bwd_vd, forward_route,
 )
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
 from repro_torch.protocols.async_gossip import matching_perm_stack
@@ -858,9 +867,13 @@ def test_flash_attention_bwd_matches_plain_autograd_on_card(
         cuda, b, hq, hkv, s, hd, window, num_meta, dtype):
     q, k, v = _qkv_model_layout(cuda, b, hq, hkv, s, hd, dtype)
     dout = torch.randn((b, hq, s, hd), device="cuda", generator=cuda).to(dtype)
-    before = flash_attention_bwd.launches
+    # hd <= 128: flash_attention_bwd's own kernel; above: the one at 256
+    kernel = {"flash_attention_bwd": flash_attention_bwd,
+              "flash_attention_bwd_256": flash_attention_bwd_256}[
+        bwd_route(hd, hd)]
+    before = kernel.launches
     got = _flash_grads(flash_attention, q, k, v, dout, window, num_meta)
-    assert flash_attention_bwd.launches == before + 1
+    assert kernel.launches == before + 1
     want = _flash_grads(ref.flash_attention_ref, q, k, v, dout, window,
                         num_meta)
     tol = 2e-5 if dtype == torch.float32 else 3e-2
@@ -918,9 +931,9 @@ FLASH_BWD_256_SITES = [("q", (0, 1, 300, 200)), ("k", (0, 1, 100, 130)),
 @pytest.mark.parametrize("val", [float("inf"), float("nan")],
                          ids=["inf", "nan"])
 def test_flash_attention_bwd_256_non_finite_on_card(cuda, tensor, index, val):
-    """At head_dim 256 (32-row tiles, 8-word masks): an inf or NaN in q, k,
-    v or dO gives dq, dk and dv the plain autograd's NaN and inf, the finite
-    values at the f32 tolerance."""
+    """At head_dim 256 (flash_attention_bwd_256, 8-word masks): an inf or
+    NaN in q, k, v or dO gives dq, dk and dv the plain autograd's NaN and
+    inf, the finite values at the f32 tolerance."""
     b, hq, hkv, s, hd, window, meta = 1, 4, 2, 448, 256, 96, 16
     q, k, v = _qkv_model_layout(cuda, b, hq, hkv, s, hd, torch.float32)
     dout = torch.randn((b, hq, s, hd), device="cuda", generator=cuda)
@@ -933,6 +946,117 @@ def test_flash_attention_bwd_256_non_finite_on_card(cuda, tensor, index, val):
             torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5)
         else:
             _compare_non_finite(g, w, (2e-5, 2e-5))
+
+
+# hd = vd = 256 on flash_fwd_kernel_wgmma256 and flash_attention_bwd_256
+# (64-row tiles): S one below and one above a multiple of 64, a tile and a
+# row, GQA 6/2 and MQA 8/1, a window with meta tokens, hd 129 and 192
+# (zero-padded to 256)
+EDGES_256 = [
+    (1, 2, 1, 63, 256, 0, 0), (1, 2, 1, 65, 256, 0, 0),
+    (2, 6, 2, 127, 256, 0, 0), (2, 6, 2, 129, 256, 0, 0),
+    (1, 8, 1, 191, 256, 0, 0), (1, 8, 1, 193, 256, 0, 0),
+    (1, 6, 2, 320, 256, 70, 9), (2, 8, 1, 257, 256, 64, 64),
+    (1, 4, 2, 150, 129, 0, 0), (1, 4, 1, 200, 192, 48, 5),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,hd,window,num_meta", EDGES_256)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_256_edges_on_card(cuda, b, hq, hkv, s, hd, window,
+                                           num_meta, dtype):
+    """The forward and its backward at the redesigned kernels' tile edges:
+    o, dq, dk and dv against the plain version and its autograd at the
+    forward's tolerances; each call goes through the wgmma kernels."""
+    q, k, v = _qkv_model_layout(cuda, b, hq, hkv, s, hd, dtype)
+    dout = torch.randn((b, hq, s, hd), device="cuda", generator=cuda).to(dtype)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    got = flash_attention(q, k, v, window=window, num_meta=num_meta)
+    want = ref.flash_attention_ref(q, k, v, window=window, num_meta=num_meta)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    before = flash_attention_bwd_256.launches
+    got = _flash_grads(flash_attention, q, k, v, dout, window, num_meta)
+    assert flash_attention_bwd_256.launches == before + 1
+    want = _flash_grads(ref.flash_attention_ref, q, k, v, dout, window,
+                        num_meta)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol,
+                                   msg=name)
+
+
+# (tensor, (b, head, row, column)) at head_dim 256, B 1, GQA 6/2, 320
+# positions, window 70, 9 meta tokens: in tiles the forward and both
+# backward passes skip for some rows (a key past the window, a query row
+# whose early keys lie outside it, dO rows) and inside visited ones
+NON_FINITE_256 = [("q", (0, 5, 300, 250)), ("k", (0, 1, 90, 131)),
+                  ("k", (0, 0, 3, 7)), ("v", (0, 1, 100, 255)),
+                  ("v", (0, 0, 319, 64)), ("dO", (0, 4, 10, 128)),
+                  ("dO", (0, 2, 250, 3))]
+
+
+@pytest.mark.parametrize("tensor,index", NON_FINITE_256,
+                         ids=[f"{t}_row{i[2]}_col{i[3]}"
+                              for t, i in NON_FINITE_256])
+@pytest.mark.parametrize("val", [float("inf"), -float("inf"), float("nan")],
+                         ids=["inf", "-inf", "nan"])
+def test_flash_attention_256_non_finite_on_card(cuda, tensor, index, val):
+    """An inf or NaN in q, k, v or dO at head_dim 256: o and the
+    gradients hold the plain version's NaN and inf, the finite values at
+    the f32 tolerance."""
+    b, hq, hkv, s, hd, window, meta = 1, 6, 2, 320, 256, 70, 9
+    q, k, v = _qkv_model_layout(cuda, b, hq, hkv, s, hd, torch.float32)
+    dout = torch.randn((b, hq, s, hd), device="cuda", generator=cuda)
+    {"q": q, "k": k, "v": v, "dO": dout}[tensor][index] = val
+    outs = [flash_attention(q, k, v, window=window, num_meta=meta)]
+    wants = [ref.flash_attention_ref(q, k, v, window=window, num_meta=meta)]
+    outs += _flash_grads(flash_attention, q, k, v, dout, window, meta)
+    wants += _flash_grads(ref.flash_attention_ref, q, k, v, dout, window,
+                          meta)
+    assert not all(bool(torch.isfinite(w).all()) for w in wants)
+    for g, w in zip(outs, wants):
+        if bool(torch.isfinite(w).all()):
+            torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5)
+        else:
+            _compare_non_finite(g, w, (2e-5, 2e-5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_256_repeats_bit_for_bit_on_card(cuda, dtype):
+    """Two calls of the forward and of the backward at 256 give the same
+    bits (no float atomics; the GQA sum in head order)."""
+    from repro_torch.kernels.flash_attention import _launch
+    q, k, v = _qkv_model_layout(cuda, 2, 6, 2, 333, 256, dtype)
+    lse = torch.empty((2, 6, 333), device="cuda")
+    out = _launch(q, k, v, 0, 0, lse=lse)
+    assert torch.equal(out, _launch(q, k, v, 0, 0, lse=lse))
+    dout = torch.randn_like(out)
+    r1, r2 = [flash_attention_bwd_256(q, k, v, out, dout, lse)
+              for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(r1, r2))
+
+
+@pytest.mark.parametrize("hd,vd", [(129, 129), (192, 192), (256, 256),
+                                   (257, 257), (512, 512), (320, 256)])
+def test_flash_attention_forward_routes_on_card(cuda, hd, vd):
+    """vd = hd in (128, 256] runs flash_fwd_kernel_wgmma256 (the scores
+    once per tile pair); hd 257 and 512, and (320, 256), stay on the wide
+    kernel's 128-column slices: the launched kernels' names, as
+    ``forward_route`` says, and the output against the plain version."""
+    from torch.profiler import ProfilerActivity, profile
+    g = cuda
+    q = torch.randn((1, 2, 130, hd), device="cuda", generator=g) * 0.5
+    k = torch.randn((1, 1, 130, hd), device="cuda", generator=g) * 0.5
+    v = torch.randn((1, 1, 130, vd), device="cuda", generator=g) * 0.5
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+    names = " ".join(e.key for e in prof.key_averages())
+    route = forward_route(hd, vd)
+    assert route == ("wgmma256" if vd == hd <= 256 else "wide")
+    assert ("flash_fwd_kernel_wgmma256" in names) == (route == "wgmma256")
+    assert ("flash_fwd_kernel_wide" in names) == (route == "wide")
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v),
+                               rtol=2e-5, atol=2e-5)
 
 
 def _ssd_grads(fn, x, dt, A, B, C, init, dy, dfinal, chunk):
@@ -1208,10 +1332,11 @@ def test_flash_attention_vd_lse_on_card(cuda, b, hq, hkv, s, hd, vd, window,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_wide_lse_on_card(cuda, b, hq, hkv, s, hd, window,
                                           num_meta, dtype):
-    """flash_fwd_kernel_wide (hd = vd > 128) with the log-sum-exp that the
-    backward at 256 reads: each row's logsumexp of its visible scaled
-    scores, written once (by the first 128-column slice's block), and the
-    output bits of the serving launch."""
+    """The forward at hd = vd = 256 (flash_fwd_kernel_wgmma256; the wide
+    kernel's slices before it) with the log-sum-exp that the backward at
+    256 reads: each row's logsumexp of its visible scaled scores, written
+    once (by the first consumer warpgroup), and the output bits of the
+    serving launch."""
     from repro_torch.kernels.flash_attention import _launch
     q, k, v = _qkv_model_layout(cuda, b, hq, hkv, s, hd, dtype)
     lse = torch.full((b, hq, s), float("nan"), device="cuda")
