@@ -24,13 +24,14 @@ exits non-zero:
             MLA prefill (192, 128; with inf and NaN too), (24, 16), (64,
             32), (96, 128) and (320, 256); ssd_scan at Hymba's and
             mamba2-130m's; the backward
-            kernels (flash_attention_bwd, flash_attention_bwd_256,
-            flash_attention_bwd_vd, ssd_scan_bwd) against the plain
-            version's autograd at
-            Hymba's, qwen2-1.5b's, gemma-2b's (hd 256), DeepSeek-V2's
-            (192, 128) and mamba2-130m's training shapes (flash in f32 and
-            bf16), two backward calls bit for bit, and an inf or NaN in
-            each input (flash at hd 256 too)
+            kernels (flash_attention_bwd, flash_attention_bwd_128,
+            flash_attention_bwd_256, flash_attention_bwd_vd, ssd_scan_bwd)
+            against the plain version's autograd at
+            Hymba's, qwen2-1.5b's and DBRX's (hd 128), gemma-2b's (hd
+            256), DeepSeek-V2's (192, 128) and mamba2-130m's training
+            shapes (flash in f32 and bf16), two backward calls bit for
+            bit, and an inf or NaN in each input (flash at hd 128 and 256
+            too)
             (flash: q, k, v, dO; the SSD: x, dt, B, C, dY) giving the
             plain autograd's inf and NaN; the wgmma forward's row
             log-sum-exp against the plain one;
@@ -51,8 +52,8 @@ exits non-zero:
             dbrx-132b's prefill and 8 greedy decode steps (logits, tokens,
             and every MoE layer's routing equal on the two devices), and
             reduced gemma-2b (at head_dim 256), nemotron-4-15b, yi-34b,
-            chameleon-34b and musicgen-medium served the same way, gemma
-            and musicgen trained the same way;
+            chameleon-34b (at head_dim 128) and musicgen-medium served the
+            same way, gemma, nemotron and musicgen trained the same way;
   main_path ``Simulator.run`` on CNN-FEMNIST at the paper's full width
             (246,590 params x 100 clients): fedp2p, fedp2p with
             sync_period=2, fedavg, fedp2p on mix_path="dense", fedp2p
@@ -98,8 +99,9 @@ exits non-zero:
             ``--mode lm --arch mamba2-130m --full --steps 20`` as a
             subprocess; then the train step of deepseek-v2-236b (2
             layers, 32 of 160 routed experts) and dbrx-132b (1 layer, 6
-            of 16) at every published width, B 1 x 2048, 3 steps, with a
-            step's split, and ``run_lm_training`` on both reduced; then
+            of 16; its backward at hd 128) at every published width, B 1 x
+            2048, 3 steps, with a step's split, and ``run_lm_training``
+            on both reduced; then
             the train step of gemma-2b cut to 16 layers (B 1 x 2048, the
             hd-256 backward) and musicgen-medium whole (B 1 x 1500
             frames), 3 steps each: each run driven with the launch
@@ -179,7 +181,11 @@ KERNELS = (
     ("flash_attention_bwd",
      "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
      "src/repro/models/attention.py:138"),
-    # at vd = hd in (128, 256] (gemma-2b's 256): the same VJP
+    # at vd = hd in (64, 128] (DBRX's and qwen2's 128) and (128, 256]
+    # (gemma-2b's 256): the same VJP, one source at two head widths
+    ("flash_attention_bwd_128",
+     "src/repro_torch/kernels/csrc/flash_attention_bwd_256.cu",
+     "src/repro/models/attention.py:138"),
     ("flash_attention_bwd_256",
      "src/repro_torch/kernels/csrc/flash_attention_bwd_256.cu",
      "src/repro/models/attention.py:138"),
@@ -557,8 +563,8 @@ def phase_kernels(torch, state):
     rows += lm_backward_cases(torch)
     failed += [r for r in rows if r["kernel"] in (
         "flash_attention", "ssd_scan", "flash_attention_bwd",
-        "flash_attention_bwd_256", "flash_attention_bwd_vd",
-        "ssd_scan_bwd") and not r["ok"]]
+        "flash_attention_bwd_128", "flash_attention_bwd_256",
+        "flash_attention_bwd_vd", "ssd_scan_bwd") and not r["ok"]]
     # the summary line's error: the main path's shape, f32
     for name, _, _ in KERNELS:
         state.setdefault("max_abs_err", {})[name] = max(
@@ -725,6 +731,9 @@ def main_case(row):
     if row["kernel"] == "flash_attention_bwd":
         return (row["B"], row["S"], row["hd"], row["window"],
                 row["dtype"]) == (TRAIN_B, LM_S, LM_HD, LM_WINDOW, "float32")
+    if row["kernel"] == "flash_attention_bwd_128":     # DBRX's training
+        return (row["B"], row["Hq"], row["S"], row["hd"], row["dtype"]) == (
+            MOE_TRAIN_B, 48, MOE_TRAIN_SEQ, 128, "float32")
     if row["kernel"] == "flash_attention_bwd_256":     # gemma-2b's training
         return (row["B"], row["Hq"], row["S"], row["hd"], row["dtype"]) == (
             1, WIDE_HQ, 2048, WIDE_HD, "float32")
@@ -935,11 +944,13 @@ def lm_backward_cases(torch):
     """The backward kernels against the plain version's autograd on the
     card: flash at Hymba's training layers (B 2, 25/5 heads of 64, 2048
     positions, window 1024 and a full layer, 128 meta tokens), qwen2-1.5b's
-    head_dim 128 (12/2 heads), an MQA layer, a ragged S, head_dim 32
+    head_dim 128 (12/2 heads), DBRX's (B 1, 48/8 of 128, 2048 positions:
+    ``flash_attention_bwd_128``), an MQA layer, a ragged S, head_dim 32
     (reduced Hymba's), musicgen-medium's training shape (B 1, 24/24 heads
     of 64, 1500 frames: 23 full tiles and a 28-row one) and head_dim 256
     (gemma-2b's MQA training shape, and a ragged one with GQA, a window and
-    meta tokens), f32 and bf16; at v's
+    meta tokens), f32 and bf16, each with the training forward's output
+    (its log-sum-exp instantiation) held to the plain one as well; at v's
     own head_dim
     (``flash_attention_bwd_vd``) DeepSeek-V2's training shape (B 1, 128
     heads, 2048 positions, (192, 128)), a ragged S, the reduced config's
@@ -965,6 +976,7 @@ def lm_backward_cases(torch):
     flash_cases = [(TRAIN_B, LM_HQ, LM_HKV, LM_S, LM_HD, w, LM_META)
                    for w in (LM_WINDOW, 0)]
     flash_cases += [(TRAIN_B, 12, 2, LM_S, 128, 0, 0),      # qwen2-1.5b
+                    (MOE_TRAIN_B, 48, 8, MOE_TRAIN_SEQ, 128, 0, 0),  # DBRX
                     (TRAIN_B, 8, 1, 1024, 64, 0, 0),        # MQA
                     (2, 4, 2, 200, 64, 64, 8),              # ragged S
                     (2, 4, 2, 128, 32, 64, 8),              # reduced Hymba
@@ -994,7 +1006,11 @@ def lm_backward_cases(torch):
             w64 = flash_grads(torch, ref.flash_attention_ref,
                               *[t.double() for t in (q, k, v, dout)], w, meta)
             name = str(dt)[6:]
-            errs, ok = {}, True
+            # the training forward's output (its log-sum-exp
+            # instantiation) too
+            err_o, _, _, ok = compare(torch, got[0], want[0],
+                                      FLASH_TOL[name])
+            errs = {}
             for j, gname in enumerate(("dq", "dk", "dv"), start=1):
                 err, atol, rtol, ok_g = compare(torch, got[j], want[j],
                                                 FLASH_TOL[name])
@@ -1008,16 +1024,17 @@ def lm_backward_cases(torch):
                          "num_meta": meta, "dtype": name,
                          "max_abs_err": max(e["max_abs_err"]
                                             for e in errs.values()),
-                         "grads": errs, "atol": atol, "rtol": rtol,
-                         "ok": ok})
+                         "grads": errs, "forward_max_abs_err": err_o,
+                         "atol": atol, "rtol": rtol, "ok": ok})
             del q, k, v, dout, got, want, w64
-    # the wgmma forward's log-sum-exp (what K2 reads) and the one at hd 256
-    # (what the backward at 256 reads) against the plain one: logsumexp of
-    # each row's visible scaled scores, in float64
+    # the wgmma forward's log-sum-exp (what K2 reads) and the ones at hd 256
+    # and 128 (what the backward at 256 and 128 reads) against the plain
+    # one: logsumexp of each row's visible scaled scores, in float64
     for i, (b, hq, s, hd, vd, w, meta) in enumerate((
             (MOE_TRAIN_B, MLA_H, MOE_TRAIN_SEQ, MLA_HD, MLA_VD, 0, 0),
             (2, 4, 70, 24, 16, 0, 0), (1, 2, 300, 160, 64, 96, 16),
-            (1, WIDE_HQ, 512, WIDE_HD, WIDE_HD, 0, 0))):   # wgmma256
+            (1, WIDE_HQ, 512, WIDE_HD, WIDE_HD, 0, 0),     # wgmma256
+            (1, 6, 333, 128, 128, 64, 8))):                # wgmma128
         for dt in (f32, bf16):
             q, k, v = attention_inputs(torch, b, hq, hq, s, hd, dt,
                                        seed=870 + i, vd=vd)
@@ -1093,6 +1110,14 @@ def lm_backward_cases(torch):
     same = all(torch.equal(a, b) for a, b in zip(r1, r2))
     rows.append({"kernel": "flash_attention_bwd_256", "hd": WIDE_HD,
                  "bitwise_repeat": same, "max_abs_err": 0.0, "ok": same})
+    q, k, v = attention_inputs(torch, 1, 48, 8, 512, 128, f32, seed=994)
+    lse = torch.empty((1, 48, 512), device="cuda")
+    out = _launch(q, k, v, 0, 0, lse=lse)
+    dout = torch.randn_like(out)
+    r1, r2 = [flash_attention_bwd(q, k, v, out, dout, lse) for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(r1, r2))
+    rows.append({"kernel": "flash_attention_bwd_128", "hd": 128,
+                 "bitwise_repeat": same, "max_abs_err": 0.0, "ok": same})
     for hq, hkv in ((16, 16), (16, 4)):
         q, k, v = attention_inputs(torch, 2, hq, hkv, 1024, MLA_HD,
                                    f32, seed=992, vd=MLA_VD)
@@ -1155,6 +1180,24 @@ def lm_backward_cases(torch):
             rows.append(non_finite_row(
                 torch, "flash_attention_bwd_256", f"hd 256: {val} in "
                 f"{tensor}{index}", ("dq", "dk", "dv"), got[1:], want[1:],
+                lambda w: FLASH_TOL["float32"]))
+    # hd 128 (flash_attention_bwd_128), 320 positions, GQA 14/2 (group 7),
+    # window 70, 9 meta tokens: in tiles the passes skip and visit
+    sites_128 = (("q", (0, 13, 300, 120)), ("k", (0, 1, 90, 65)),
+                 ("v", (0, 1, 100, 127)), ("dO", (0, 4, 10, 100)))
+    for i, (tensor, index) in enumerate(sites_128):
+        for val in (math.inf, math.nan):
+            q, k, v = attention_inputs(torch, 1, 14, 2, 320, 128, f32,
+                                       seed=1040 + i)
+            dout = torch.randn((1, 14, 320, 128), device="cuda")
+            {"q": q, "k": k, "v": v, "dO": dout}[tensor][index] = val
+            got = flash_grads(torch, flash_attention, q, k, v, dout, 70, 9)
+            want = flash_grads(torch, ref.flash_attention_ref, q, k, v, dout,
+                               70, 9)
+            rows.append(non_finite_row(
+                torch, "flash_attention_bwd_128", f"hd 128: {val} in "
+                f"{tensor}{index}", ("dq", "dk", "dv", "o"),
+                got[1:] + got[:1], want[1:] + want[:1],
                 lambda w: FLASH_TOL["float32"]))
     # K2 at (192, 128), 448 positions, window 96, 16 meta tokens: a q row
     # (column 150: the third dK slice) whose masked keys lie in tiles the
@@ -1506,25 +1549,28 @@ def dense_reference(torch):
     """The dense, VLM and audio configs reduced (two layers, width 256) on
     the card against the port on the CPU: gemma-2b at its published
     head_dim 256 (MQA 4/1: flash_fwd_kernel_wgmma256 and
-    flash_attention_bwd_256), nemotron-4-15b, yi-34b and chameleon-34b with GQA kept
-    (``num_kv_heads=2``) and musicgen-medium; each served as
-    ``serve_on_both`` holds it (78 cache slots), and gemma-2b and
-    musicgen-medium trained as ``train_on_both`` holds it (96 tokens or
-    frames a row)."""
+    flash_attention_bwd_256), nemotron-4-15b, yi-34b and chameleon-34b at
+    their published head_dim 128 with GQA kept (``num_kv_heads=2``:
+    flash_fwd_kernel_wgmma128 and flash_attention_bwd_128) and
+    musicgen-medium; each served as ``serve_on_both`` holds it (78 cache
+    slots), and gemma-2b, nemotron-4-15b and musicgen-medium trained as
+    ``train_on_both`` holds it (96 tokens or frames a row)."""
     import dataclasses
 
     from repro_torch.configs import get_config
     rows = []
     for arch, _ in DENSE_RUNS:
         keep = ({"head_dim": 256} if arch == "gemma-2b"
-                else {"num_kv_heads": 2})
+                else {"head_dim": 128, "num_kv_heads": 2})
         cfg = dataclasses.replace(get_config(arch).reduced(), **keep)
         rows.append({"model": f"{arch} reduced, {keep}",
                      **serve_on_both(torch, cfg, 78)})
-        if arch == "gemma-2b":               # the backward at 256
+        if arch in ("gemma-2b", "nemotron-4-15b"):   # the backward at 256, 128
+            bwd = ("flash_attention_bwd_256" if arch == "gemma-2b"
+                   else "flash_attention_bwd_128")
             rows.append({"model": f"{arch} reduced, {keep}",
-                         **train_on_both(torch, cfg, 96, (
-                             "flash_attention", "flash_attention_bwd_256"))})
+                         **train_on_both(torch, cfg, 96,
+                                         ("flash_attention", bwd))})
     cfg = get_config(AUDIO_ARCH).reduced()
     rows.append({"model": f"{AUDIO_ARCH} reduced",
                  **serve_on_both(torch, cfg, 78)})
@@ -1606,8 +1652,8 @@ def launch_counters():
         fed_mix_matching, fed_mix_segment,
     )
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd, flash_attention_bwd_256,
-        flash_attention_bwd_vd,
+        flash_attention, flash_attention_bwd, flash_attention_bwd_128,
+        flash_attention_bwd_256, flash_attention_bwd_vd,
     )
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
     return {"fed_mix_segment": fed_mix_segment, "fed_mix": fed_mix,
@@ -1615,6 +1661,7 @@ def launch_counters():
             "fed_aggregate": fed_aggregate,
             "flash_attention": flash_attention, "ssd_scan": ssd_scan,
             "flash_attention_bwd": flash_attention_bwd,
+            "flash_attention_bwd_128": flash_attention_bwd_128,
             "flash_attention_bwd_256": flash_attention_bwd_256,
             "flash_attention_bwd_vd": flash_attention_bwd_vd,
             "ssd_scan_bwd": ssd_scan_bwd}
@@ -2450,10 +2497,10 @@ def dense_main_path(torch, counters, totals):
     each model freed before the next, B 4, a prompt of 2048, 16 greedy
     tokens. Each layer's prefill attention is one flash_attention launch
     (gemma's MQA at head_dim 256 on flash_fwd_kernel_wgmma256; the others'
-    GQA at 128); decode launches none. chameleon's prompt is mixed text and image
-    token ids of its unified vocabulary (its image tokenizer is a stub in
-    the JAX package too). ``decode_bound_ms``: ``weight_read_bytes`` over
-    the memory rate."""
+    GQA at 128 on flash_fwd_kernel_wgmma128); decode launches none.
+    chameleon's prompt is mixed text and image token ids of its unified
+    vocabulary (its image tokenizer is a stub in the JAX package too).
+    ``decode_bound_ms``: ``weight_read_bytes`` over the memory rate."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     rows = []
@@ -2675,7 +2722,7 @@ def moe_train_main_path(torch, counters, totals):
     B 1 x 2048 tokens of the synthetic stream, 3 steps, each model freed
     before the next. A step launches flash_attention once a layer and its
     backward (deepseek-v2's MLA: flash_attention_bwd_vd at (192, 128);
-    dbrx's GQA 48/8 at 128: flash_attention_bwd) once a layer. Then one
+    dbrx's GQA 48/8 at 128: flash_attention_bwd_128) once a layer. Then one
     step under torch.profiler (``step_split``), and ``run_lm_training`` on
     each arch's reduced config through the entry point (4 layers, width
     256; 2 steps of B 2 x 64), every run with the counters set to 0 just
@@ -2684,6 +2731,7 @@ def moe_train_main_path(torch, counters, totals):
 
     from repro_torch.configs import get_config
     from repro_torch.data.lm import token_stream_batches
+    from repro_torch.kernels.flash_attention import bwd_route
     from repro_torch.launch import train
     rows = []
     steps, b, seq = MOE_TRAIN_STEPS, MOE_TRAIN_B, MOE_TRAIN_SEQ
@@ -2692,7 +2740,7 @@ def moe_train_main_path(torch, counters, totals):
         cfg = dataclasses.replace(full, num_layers=layers,
                                   num_experts=experts)
         bwd = ("flash_attention_bwd_vd" if cfg.use_mla
-               else "flash_attention_bwd")
+               else bwd_route(cfg.head_dim, cfg.head_dim))
         expect = expected(**{"flash_attention": layers * steps,
                              bwd: layers * steps})
         stream = token_stream_batches(cfg.vocab_size, b, seq, seed=0)
@@ -3203,14 +3251,17 @@ def lm_timing(torch):
     # gemma-2b's attention at 2048 positions (B 4, 8 query heads and one kv
     # head of 256, causal: flash_fwd_kernel_wgmma256), then the other
     # serving and training shapes of the main path: gemma-2b's training
-    # forward (B 1), nemotron-4-15b's, yi-34b's and chameleon-34b's GQA at
-    # 128 (B 4) and musicgen-medium's MHA at 64 (B 4, 1500 frames)
+    # forward (B 1), nemotron-4-15b's (and dbrx-132b's), yi-34b's and
+    # chameleon-34b's GQA at 128 (B 4; flash_fwd_kernel_wgmma128), dbrx's
+    # training forward (B 1) and musicgen-medium's MHA at 64 (B 4, 1500
+    # frames)
     for b, hq, hkv, s, hd, model in (
             (LM_B, WIDE_HQ, WIDE_HKV, LM_S, WIDE_HD, "gemma-2b serving"),
             (1, WIDE_HQ, WIDE_HKV, LM_S, WIDE_HD, "gemma-2b training"),
             (LM_B, 48, 8, DENSE_PROMPT, 128, "nemotron-4-15b serving"),
             (LM_B, 56, 8, DENSE_PROMPT, 128, "yi-34b serving"),
             (LM_B, 64, 8, DENSE_PROMPT, 128, "chameleon-34b serving"),
+            (MOE_TRAIN_B, 48, 8, MOE_TRAIN_SEQ, 128, "dbrx-132b training"),
             (LM_B, 24, 24, AUDIO_FRAMES, 64, "musicgen-medium serving")):
         rows.append(flash_forward_row(torch, b, hq, hkv, s, hd, model))
     rows.append(mla_flash_timing(torch))
@@ -3270,9 +3321,10 @@ def flash_forward_row(torch, b, hq, hkv, s, hd, model):
     ``forward_route`` names, with K's and Vᵀ's images at 256 in
     ``images_ms``), the plain version's and SDPA's (boolean mask,
     ``enable_gqa``, TF32 off). Operations: the visible pairs' Q·Kᵀ and P·V,
-    4·hd flops each; bytes q, k, v read and o written once. At 256 the
-    design computes whole 64 x 64 tiles on the diagonal (``design_flops``,
-    the scores once per tile pair)."""
+    4·hd flops each; bytes q, k, v read and o written once. On the wgmma
+    routes the design computes whole tiles on the diagonal
+    (``design_flops``, the scores once per tile pair: 64 x 64 at 256, 128
+    query rows x 64 keys at 128)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -3286,10 +3338,14 @@ def flash_forward_row(torch, b, hq, hkv, s, hd, model):
     flops = 4 * hd * pairs * b * hq
     byts = 4 * s * hd * b * (2 * hq + 2 * hkv)
     route = forward_route(hd, hd)
-    kernel = {"mma": "flash_fwd_kernel<", "wgmma256":
-              "flash_fwd_kernel_wgmma256"}[route]
-    n_t = -(-s // 64)
-    tiles = sum(min(qt, (s - 1) // 64) + 1 for qt in range(n_t))
+    kernel = {"mma": "flash_fwd_kernel<",
+              "wgmma128": "flash_fwd_kernel_wgmma128",
+              "wgmma256": "flash_fwd_kernel_wgmma256"}[route]
+    # the key tiles of 64 that each query tile visits (128 rows a tile on
+    # the hd-128 route, 64 on the others)
+    rows_t = 128 if route == "wgmma128" else 64
+    tiles = sum(min((qt * rows_t + rows_t - 1) // 64, (s - 1) // 64) + 1
+                for qt in range(-(-s // rows_t)))
     per = device_ms(torch, lambda: flash_attention(q, k, v))
     row = {
         "name": "flash_attention", "model": model, "B": b, "S": s, "hd": hd,
@@ -3307,9 +3363,9 @@ def flash_forward_row(torch, b, hq, hkv, s, hd, model):
                 q, k, v, attn_mask=mask, enable_gqa=True)).values()),
         "library": "scaled_dot_product_attention(enable_gqa=True, "
                    "boolean mask), TF32 off"}
-    if route == "wgmma256":
-        design = b * hq * tiles * 64 * 64 * 4 * hd
-        row.update(images_ms=named_ms(per, "flash_fwd_kernel_image256"),
+    if route in ("wgmma128", "wgmma256"):
+        design = b * hq * tiles * rows_t * 64 * 4 * hd
+        row.update(images_ms=named_ms(per, f"flash_fwd_kernel_image{hd}"),
                    design_flops=design, design_bound_ms=bound(
                        byts, design, SPLIT_F32_FLOP_PER_S)[0])
     del q, k, v
@@ -3360,7 +3416,9 @@ def lm_backward_timing(torch):
     qwen2-1.5b's (12/2 heads of 128, full causal, no meta tokens); at v's
     own head_dim (``flash_attention_bwd_vd``) DeepSeek-V2's training shape
     (B 1, 128 heads, 2048 positions, (192, 128)) in f32 and in bf16, and
-    the flash backward at DBRX's (B 1, GQA 48/8 of 128, 2048), at
+    the flash backward at DBRX's (B 1, GQA 48/8 of 128, 2048:
+    ``flash_attention_bwd_128``, timed before qwen2's so that the summary
+    line's row of that name is DBRX's, the main path's shape), at
     gemma-2b's (B 1, MQA 8/1 at hd 256, 2048: ``flash_attention_bwd_256``)
     and at musicgen-medium's (B 1, MHA 24/24 at 64, 1500 frames); the SSD
     on Hymba's SSM heads, then at mamba2-130m's. Kernel times are the device time of
@@ -3401,9 +3459,9 @@ def lm_backward_timing(torch):
     for b, s, hq, hkv, hd, vd, window, meta, dt in (
             (b, s, LM_HQ, LM_HKV, LM_HD, LM_HD, LM_WINDOW, LM_META, f32),
             (b, s, LM_HQ, LM_HKV, LM_HD, LM_HD, 0, LM_META, f32),
+            (MOE_TRAIN_B, MOE_TRAIN_SEQ, 48, 8, 128, 128, 0, 0, f32),  # DBRX
             (b, s, 12, 2, 128, 128, 0, 0, f32),               # qwen2-1.5b
             mla + (f32,), mla + (torch.bfloat16,),
-            (MOE_TRAIN_B, MOE_TRAIN_SEQ, 48, 8, 128, 128, 0, 0, f32),  # DBRX
             # gemma-2b: MQA 8/1 at hd 256 (flash_attention_bwd_256)
             (1, 2048, WIDE_HQ, WIDE_HKV, WIDE_HD, WIDE_HD, 0, 0, f32),
             # musicgen-medium: MHA 24/24 at hd 64, 1500 frames
@@ -3424,9 +3482,11 @@ def lm_backward_timing(torch):
                 + 4 * b * hq * s)
         if vd == hd:
             name, bwd = bwd_route(hd, vd), flash_attention_bwd
+            width = name.rsplit("_", 1)[1]     # 128 or 256: the wgmma routes
             pass_names = (("prep", "dkdv", "reduce", "dq")
                           if name == "flash_attention_bwd"
-                          else ("vd_prep", "256_image", "256_dkdv", "256_dq")
+                          else ("vd_prep", f"{width}_image", f"{width}_dkdv",
+                                f"{width}_dq")
                           + (("vd_reduce",) if hq != hkv else ()))
             # seven products of 2·hd a pair: S and dP once in each pass
             design = 14 * hd * pairs * b * hq

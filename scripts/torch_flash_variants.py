@@ -36,6 +36,21 @@ each), ``old_rows16`` (16-row tiles, two blocks an SM), ``old_nospill``
 forward with one block per query tile and head: the scores once, P·V for
 one 128-column slice).
 
+``--kernel bwd128``: the backward at vd = hd = 128 with GQA at DBRX's
+training shape (B 1, 48/8 of 128, S 2048, causal) by pass, beside SDPA's
+backward; ``--kernel fwd128``: the forward at nemotron-4-15b's prefill
+(B 4, 48/8 of 128, S 2048, causal), beside SDPA. With ``--parent DIR`` (the
+tree before their redesign) each also times that design (``mma.sync``,
+4 warps) and its suspects: ``old_unroll1`` (the backward's tile copies not
+unrolled, K2's cure for hoisted addresses), ``old_ng4`` (its dK/dV and dQ
+products four n8 tiles at a time: fewer live partials, bit for bit the
+parent's, ``old_ng4_bitwise_equal_parent``), ``old_qreg`` (the forward's Q
+fragments split once into registers, as at hd <= 64; bit for bit,
+``old_qreg_bitwise_equal_parent``) and ``old_kv1`` (one K/V buffer instead
+of two: 101 KB of shared memory, two blocks an SM; the next tile's copies
+land over the one being read, so its output is wrong by design).
+``--only-parent`` times the parent and its suspects alone.
+
 The variants:
 
 * ``noprod``: the producer loads and stores nothing (it still fills and
@@ -208,6 +223,33 @@ OLD_FWD_VARIANTS = {
          "stream>>>(", 1)],
 }
 
+# The designs that ran vd = hd = 128 before their redesign (``--parent``)
+OLD_FWD_NO_REDO = [
+    (FWD, "    flash_block_full<T, HD, kLse>(q, k, v, o, lse, sq, sk, sv, so, group, "
+     "n_q, n_k, hd, scale,", "    if (false) flash_block_full<T, HD, kLse>(q, k, "
+     "v, o, lse, sq, sk, sv, so, group, n_q, n_k, hd, scale,", 1)]
+OLD128_BWD_VARIANTS = {
+    "old_unroll1": [(OLD_BWD, "#pragma unroll\n  for (int i = 0; i < KT * CPR / "
+                     "kThreads; ++i) {", "#pragma unroll 1\n  for (int i = 0; "
+                     "i < KT * CPR / kThreads; ++i) {", 1)],
+    "old_ng4": [(OLD_BWD, "DC / 8 < 8 ? DC / 8 : 8;", "DC / 8 < 8 ? DC / 8 : 4;",
+                 1)],
+}
+OLD128_FWD_VARIANTS = {
+    "old_qreg": [(FWD, "constexpr bool kQReg = HD <= 64;",
+                  "constexpr bool kQReg = HD <= 128;", 1)],
+    "old_kv1": OLD_FWD_NO_REDO + [
+        (FWD, "(kBQ + 4 * kBK);  // Q, K x 2, V x 2", "(kBQ + 2 * kBK);", 1),
+        (FWD, "T* Vs = Ks + 2 * kBK * PT;              // [2][kBK][PT]",
+         "T* Vs = Ks + kBK * PT;", 1),
+        (FWD, "copy_tile<T, HD>(Ks + (buf ^ 1) * kBK * PT, kb,",
+         "copy_tile<T, HD>(Ks, kb,", 1),
+        (FWD, "copy_tile<T, HD>(Vs + (buf ^ 1) * kBK * PT, vb,",
+         "copy_tile<T, HD>(Vs, vb,", 1),
+        (FWD, "const T* Kt = Ks + buf * kBK * PT;", "const T* Kt = Ks;", 1),
+        (FWD, "const T* Vt = Vs + buf * kBK * PT;", "const T* Vt = Vs;", 1)],
+}
+
 # The redesign at hd = vd = 256: its producer lands no stage (it arrives on
 # the full barriers alone: the consumers' own time), or lands every stage
 # from one image stage (an L2 hit each: the time without the images'
@@ -221,10 +263,18 @@ NO_LAND = [
      "    bar_arrive(full(m));", 1)]
 BWD256_NO_LOAD = [
     (BWD256, "  return im.p[which] + ((((long long)b * heads + h) * tiles + tile) "
-     "* kNA + s) * kStage;", "  return im.p[which];", 1)]
+     "* (HD / 32) + s) * kStage;", "  return im.p[which];", 1)]
 FWD256_NO_LOAD = [
     (FWD, "  return images + (vt ? per : 0) + ((((long long)b * hkv + hk) * n_kt "
      "+ kt) * kNA + s) * kStage;", "  return images + (vt ? per : 0);", 1)]
+
+# the wgmma designs at vd = hd (128 and 256 share their source)
+BWD_WG_VARIANTS = {"noprod": [no_redo(BWD256, 2)] + NO_LAND,
+                   "nomma": [no_redo(BWD256, 2)] + NO_MMA,
+                   "noload": [no_redo(BWD256, 2)] + BWD256_NO_LOAD}
+FWD_WG_VARIANTS = {"noprod": [no_redo(FWD, 2)] + NO_LAND,
+                   "nomma": [no_redo(FWD, 2)] + NO_MMA,
+                   "noload": [no_redo(FWD, 2)] + FWD256_NO_LOAD}
 
 KERNELS = {
     "fwd": {"source": FWD, "lib": "flash_attention",
@@ -246,16 +296,24 @@ KERNELS = {
                "label": r"flash_bwd_(dkdv|dq)_kernelI(\w+?)Li256E"
                         r"|flash_bwd_256_(dkdv|dq|image)_kernelI(\w+?)E",
                "parent_variants": OLD_BWD_VARIANTS,
-               "variants": {"noprod": [no_redo(BWD256, 2)] + NO_LAND,
-                            "nomma": [no_redo(BWD256, 2)] + NO_MMA,
-                            "noload": [no_redo(BWD256, 2)] + BWD256_NO_LOAD}},
+               "variants": BWD_WG_VARIANTS},
     "fwd256": {"source": FWD, "lib": "flash_attention",
                "label": r"flash_fwd_kernel_wideI(\w+?)Lb(\d)E"
                         r"|flash_fwd_kernel_(wgmma256|image256)I(\w+?)E",
                "parent_variants": OLD_FWD_VARIANTS,
-               "variants": {"noprod": [no_redo(FWD, 2)] + NO_LAND,
-                            "nomma": [no_redo(FWD, 2)] + NO_MMA,
-                            "noload": [no_redo(FWD, 2)] + FWD256_NO_LOAD}},
+               "variants": FWD_WG_VARIANTS},
+    # the same source at head width 128, and the mma.sync kernels it replaced
+    "bwd128": {"source": OLD_BWD, "lib": "flash_attention_bwd",
+               "new_source": BWD256, "new_lib": "flash_attention_bwd_256",
+               "label": r"flash_bwd_(dkdv|dq)_kernelI(\w+?)Li128E"
+                        r"|flash_bwd_128_(dkdv|dq|image)_kernelI(\w+?)E",
+               "parent_variants": OLD128_BWD_VARIANTS,
+               "variants": BWD_WG_VARIANTS},
+    "fwd128": {"source": FWD, "lib": "flash_attention",
+               "label": r"flash_fwd_kernelI(\w+?)Li128ELb(\d)E"
+                        r"|flash_fwd_kernel_(wgmma128|image128)I(\w+?)E",
+               "parent_variants": OLD128_FWD_VARIANTS,
+               "variants": FWD_WG_VARIANTS},
 }
 
 
@@ -301,10 +359,11 @@ def sources(root: Path) -> dict:
             if f.suffix in (".cu", ".cuh")}
 
 
-def variants(kernel: str, parent: Path) -> dict:
+def variants(kernel: str, parent: Path, only_parent=False) -> dict:
     """{variant: (its sources, the file nvcc builds)}: the tree's source
-    and its ablations; with ``parent_variants``, the parent's source
-    (``parent``) and its own ablations."""
+    and its ablations (not with ``only_parent``); with
+    ``parent_variants``, the parent's source (``parent``) and its own
+    ablations."""
     spec = KERNELS[kernel]
     tree = sources(ROOT)
     out = {}
@@ -313,21 +372,28 @@ def variants(kernel: str, parent: Path) -> dict:
         for name, patches in {"parent": [],
                               **spec["parent_variants"]}.items():
             out[name] = (patched(old, patches), spec["source"])
-    if kernel in ("fwd", "bwd_vd") or spec["variants"]:
+    if not only_parent:
         src = spec.get("new_source", spec["source"])
         for name, patches in {"tree": [], **spec["variants"]}.items():
             out[name] = (patched(tree, patches), src)
     return out
 
 
-def start_build(backend, kernel: str, parent: Path):
+def start_build(backend, kernel: str, parent: Path, only_parent=False):
     """Start every variant's nvcc, each into ``build/flash_variants/
     <kernel>/<variant>/lib.so``; -> (the directory, the processes)."""
     work = ROOT / "build" / "flash_variants" / kernel
     procs = {}
-    for name, (texts, source) in variants(kernel, parent).items():
+    for name, (texts, source) in variants(kernel, parent,
+                                          only_parent).items():
         d = work / name
         d.mkdir(parents=True, exist_ok=True)
+        if (d / "lib.so").exists() and all(
+                (d / f).exists() and (d / f).read_text() == t
+                for f, t in texts.items()):
+            print(f"{kernel}/{name}: built before, same sources", flush=True)
+            continue
+        (d / "lib.so").unlink(missing_ok=True)
         for fname, text in texts.items():
             (d / fname).write_text(text)
         procs[name] = subprocess.Popen(
@@ -337,18 +403,24 @@ def start_build(backend, kernel: str, parent: Path):
     return work, procs
 
 
-def finish_build(kernel: str, procs: dict, t0: float) -> None:
-    """Wait for the variants' nvcc and print ptxas' report of each."""
+def finish_build(kernel: str, procs: dict, t0: float) -> set:
+    """Wait for the variants' nvcc and print ptxas' report of each; -> the
+    variants that failed to build (their nvcc output printed; the others
+    are timed)."""
+    failed = set()
     for name, proc in procs.items():
         out, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc {kernel}/{name} failed:\n{out[-3000:]}")
+            print(f"nvcc {kernel}/{name} FAILED:\n{out[-3000:]}", flush=True)
+            failed.add(name)
+            continue
         print(f"{kernel}/{name}: built in {time.perf_counter() - t0:.1f} s",
               flush=True)
         ptxas_report(out, f"{kernel}/{name}", KERNELS[kernel]["label"])
+    return failed
 
 
-def time_fwd(torch, cs, use, row, dt):
+def time_fwd_vd(torch, cs, use, row, dt):
     """The forward at the MLA prefill, each variant and SDPA."""
     import torch.nn.functional as F
 
@@ -406,18 +478,31 @@ def time_bwd_vd(torch, cs, use, row, dt):
                                            retain_graph=True)).values())
 
 
-def gemma_bwd_inputs(torch, cs, dt):
-    """gemma-2b's training shape (B 1, MQA 8/1 of 256, 2048 positions,
-    causal): q, k, v, the forward's output and lse, and dO."""
-    from repro_torch.kernels.flash_attention import _launch
-    b, s = 1, 2048
-    q, k, v = cs.attention_inputs(torch, b, cs.WIDE_HQ, cs.WIDE_HKV, s,
-                                  cs.WIDE_HD, dt, seed=17)
-    dout = torch.randn((b, cs.WIDE_HQ, s, cs.WIDE_HD), device="cuda",
+# (B, Hq, Hkv, hd) a kernel is timed at, 2048 positions, causal: gemma-2b's
+# training backward and prefill at 256; DBRX's training backward and
+# nemotron-4-15b's prefill at 128
+SHAPES = {"bwd256": (1, 8, 1, 256), "fwd256": (4, 8, 1, 256),
+          "bwd128": (1, 48, 8, 128), "fwd128": (4, 48, 8, 128)}
+# variants that compute the parent's function in its order: held to its bits
+BITWISE = ("old_nospill", "old_ng4", "old_qreg")
+
+
+def bwd_inputs(torch, cs, dt, b, hq, hkv, hd):
+    """A training shape (2048 positions, causal): q, k, v, the forward's
+    output and the rows' log-sum-exp (the plain version's, so that no
+    forward kernel of any variant is needed), and dO."""
+    from repro_torch.kernels import ref
+    s = 2048
+    q, k, v = cs.attention_inputs(torch, b, hq, hkv, s, hd, dt, seed=17)
+    dout = torch.randn((b, hq, s, hd), device="cuda",
                        generator=torch.Generator(
                            device="cuda").manual_seed(18)).to(dt)
-    lse = torch.empty((b, cs.WIDE_HQ, s), device="cuda")
-    out = _launch(q, k, v, 0, 0, lse=lse)
+    kk = k.repeat_interleave(hq // hkv, dim=1).float()
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * hd ** -0.5
+    mask = cs.flash_mask(torch, s, 0, 0)
+    lse = torch.logsumexp(scores.masked_fill(~mask, -1e30), dim=-1)
+    del kk, scores
+    out = ref.flash_attention_ref(q, k, v)
     return q, k, v, out, dout, lse
 
 
@@ -455,7 +540,8 @@ def old_bwd(torch, lib, q, k, v, out, dout, lse, rows):
 
 
 def old_fwd(torch, lib, q, k, v):
-    """The parent's ``flash_attention_launch`` from ``lib`` (no lse)."""
+    """The parent's ``flash_attention_launch`` from ``lib`` (no lse; the
+    entry point with the images' and the log-sum-exp's pointers)."""
     from repro_torch.kernels.flash_attention import _empty_out
     b, hq, sq, hd = q.shape
     hkv, tk, vd = k.shape[1], k.shape[2], v.shape[3]
@@ -465,10 +551,10 @@ def old_fwd(torch, lib, q, k, v):
     vflags = torch.empty((b, hkv, -(-tk // 64), 4 * -(-vd // 128)),
                          dtype=torch.int32, device=q.device)
     fn = lib.flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                    + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-            vflags.data_ptr(), None, b, hq, hq // hkv, sq, tk, hd, vd,
+            vflags.data_ptr(), None, None, b, hq, hq // hkv, sq, tk, hd, vd,
             hd ** -0.5, 0, 0, int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     if rc:
@@ -476,25 +562,26 @@ def old_fwd(torch, lib, q, k, v):
     return out
 
 
-def time_bwd256(torch, cs, libs, row, dt):
-    """The backward at gemma-2b's training shape: the parent's design and
-    its suspects by pass (``old_nospill`` held to the parent's bits), the
-    tree's design and its ablations, and SDPA's backward."""
+def time_bwd(torch, cs, libs, row, dt, kernel):
+    """The backward at ``SHAPES[kernel]``: the parent's design and its
+    suspects by pass (``BITWISE`` held to the parent's bits), the tree's
+    design and its ablations, and SDPA's backward."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import backend
     from repro_torch.kernels.flash_attention import flash_attention_bwd
-    q, k, v, out, dout, lse = gemma_bwd_inputs(torch, cs, dt)
+    q, k, v, out, dout, lse = bwd_inputs(torch, cs, dt, *SHAPES[kernel])
     grads = {}
     for name, path in libs.items():
         lib = ctypes.CDLL(str(path))
         if name == "parent" or name.startswith("old_"):
-            rows = 16 if name == "old_rows16" else 32
+            rows = (16 if name == "old_rows16"
+                    else 32 if kernel == "bwd256" else 64)
 
             def call():
                 return old_bwd(torch, lib, q, k, v, out, dout, lse, rows)
         else:
-            backend._libs[KERNELS["bwd256"]["new_lib"]] = lib
+            backend._libs[KERNELS[kernel]["new_lib"]] = lib
 
             def call():
                 return flash_attention_bwd(q, k, v, out, dout, lse)
@@ -503,12 +590,13 @@ def time_bwd256(torch, cs, libs, row, dt):
         row[f"{name}_passes_ms"] = {
             key: round(t, 4) for key, t in per.items()
             if "dkdv" in key or "_dq" in key}
-        if name in ("parent", "old_nospill", "tree"):
+        if name in ("parent", "tree") + BITWISE:
             grads[name] = call()
-    if "old_nospill" in grads:
-        row["old_nospill_bitwise_equal_parent"] = all(
-            torch.equal(x, y)
-            for x, y in zip(grads["parent"], grads["old_nospill"]))
+    for name in BITWISE:
+        if name in grads:
+            row[f"{name}_bitwise_equal_parent"] = all(
+                torch.equal(x, y) for x, y in zip(grads["parent"],
+                                                  grads[name]))
     mask = cs.flash_mask(torch, q.shape[2], 0, 0)
     lib_in = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
     o_lib = F.scaled_dot_product_attention(*lib_in, attn_mask=mask,
@@ -518,16 +606,18 @@ def time_bwd256(torch, cs, libs, row, dt):
                                            retain_graph=True)).values())
 
 
-def time_fwd256(torch, cs, libs, row, dt):
-    """The forward at gemma-2b's prefill (B 4, MQA 8/1 of 256, 2048
-    positions, causal): the parent's wide kernel and its suspect, the
-    tree's design and its ablations, and SDPA."""
+def time_fwd(torch, cs, libs, row, dt, kernel):
+    """The forward at ``SHAPES[kernel]`` (a prefill: gemma-2b's at 256,
+    nemotron-4-15b's at 128): the parent's kernel and its suspects
+    (``BITWISE`` held to the parent's bits), the tree's design and its
+    ablations, and SDPA."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import backend
     from repro_torch.kernels.flash_attention import flash_attention
-    q, k, v = cs.attention_inputs(torch, cs.LM_B, cs.WIDE_HQ, cs.WIDE_HKV,
-                                  2048, cs.WIDE_HD, dt, seed=9)
+    b, hq, hkv, hd = SHAPES[kernel]
+    q, k, v = cs.attention_inputs(torch, b, hq, hkv, 2048, hd, dt, seed=9)
+    outs = {}
     for name, path in libs.items():
         lib = ctypes.CDLL(str(path))
         if name == "parent" or name.startswith("old_"):
@@ -541,6 +631,12 @@ def time_fwd256(torch, cs, libs, row, dt):
         per = cs.device_ms(torch, call)
         row[f"{name}_ms"] = sum(t for key, t in per.items()
                                 if "vflags" not in key and "nanfix" not in key)
+        if name in ("parent",) + BITWISE:
+            outs[name] = call()
+    for name in BITWISE:
+        if name in outs:
+            row[f"{name}_bitwise_equal_parent"] = torch.equal(
+                outs["parent"], outs[name])
     mask = cs.flash_mask(torch, q.shape[2], 0, 0)
     row["sdpa_ms"] = sum(cs.device_ms(
         torch, lambda: F.scaled_dot_product_attention(
@@ -554,13 +650,18 @@ def main() -> int:
                     "of them builds at once, then each is timed in turn")
     ap.add_argument("--parent", default="",
                     help="a tree holding the parent design's sources (bwd256 "
-                         "and fwd256: the design before the redesign at 256, "
-                         "and its suspects); without it only the tree's "
-                         "variants")
+                         "and fwd256, bwd128 and fwd128: the design before "
+                         "the redesign at that head_dim, and its suspects); "
+                         "without it only the tree's variants")
+    ap.add_argument("--only-parent", action="store_true",
+                    help="with --parent: the parent and its suspects alone")
+    ap.add_argument("--build-only", action="store_true",
+                    help="build the variants and print ptxas' report, time "
+                         "nothing (a later run reuses the builds)")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     import torch
-    if not torch.cuda.is_available():
+    if not torch.cuda.is_available() and not args.build_only:
         print("needs a CUDA card", file=sys.stderr)
         return 1
 
@@ -568,19 +669,24 @@ def main() -> int:
     from repro_torch.kernels import backend
     parent = Path(args.parent) if args.parent else None
     t0 = time.perf_counter()
-    started = {kernel: start_build(backend, kernel, parent)
+    started = {kernel: start_build(backend, kernel, parent,
+                                   args.only_parent)
                for kernel in args.kernel}
-    # the backward needs the forward's lse; the tree's libraries beside
-    backend.build(("flash_attention", "flash_attention_bwd"))
-    for kernel, (_, procs) in started.items():
-        finish_build(kernel, procs, t0)
+    # fwd and bwd_vd use the tree's libraries beside their variants
+    if set(args.kernel) - set(SHAPES):
+        backend.build(("flash_attention", "flash_attention_bwd"))
+    failed = {kernel: finish_build(kernel, procs, t0)
+              for kernel, (_, procs) in started.items()}
+    if args.build_only:
+        return 0
     backend.use_full_f32()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     for kernel, (work, _) in started.items():
         spec = KERNELS[kernel]
-        names = list(variants(kernel, parent))
+        names = [name for name in variants(kernel, parent, args.only_parent)
+                 if name not in failed[kernel]]
         libs = {name: work / name / "lib.so" for name in names}
 
         def loader(name):
@@ -590,11 +696,11 @@ def main() -> int:
 
         for dt in (torch.float32, torch.bfloat16):
             row = {"kernel": kernel, "dtype": str(dt)[6:], "nvidia_smi": smi}
-            if kernel in ("bwd256", "fwd256"):
-                (time_bwd256 if kernel == "bwd256" else time_fwd256)(
-                    torch, cs, libs, row, dt)
+            if kernel in SHAPES:
+                (time_bwd if kernel.startswith("bwd") else time_fwd)(
+                    torch, cs, libs, row, dt, kernel)
             else:
-                (time_fwd if kernel == "fwd" else time_bwd_vd)(
+                (time_fwd_vd if kernel == "fwd" else time_bwd_vd)(
                     torch, cs, {name: loader(name) for name in names}, row,
                     dt)
             for lib in ("flash_attention", "flash_attention_bwd",

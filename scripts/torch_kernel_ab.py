@@ -12,8 +12,11 @@ warm-up calls), the summed device time of every kernel one call launches:
 * ``flash_attention`` at Hymba-1.5B's 2048-position prefill (B 4, 25/5
   heads of 64, 128 meta tokens), window 1024 and a full layer, at
   gemma-2b's (B 4, 8/1 heads of 256, causal; null where the tree's
-  wrapper refuses head_dim 256; and at B 1, its training forward) and at
-  DeepSeek-V2's MLA prefill (B 4,
+  wrapper refuses head_dim 256; and at B 1, its training forward), at
+  the dense models' GQA at 128 (B 4, 2048 positions, causal:
+  nemotron-4-15b's 48/8, which is also dbrx-132b's, yi-34b's 56/8 and
+  chameleon-34b's 64/8), each beside ``scaled_dot_product_attention``
+  (boolean mask, ``enable_gqa``), and at DeepSeek-V2's MLA prefill (B 4,
   128 heads, q/k 192, v 128, causal; null where the tree's wrapper
   needs v's head_dim to be q's);
 * ``ssd_scan`` at Hymba's SSM heads (50 x 64, state 16, chunk 128, an
@@ -37,12 +40,13 @@ the backward kernels (each call's launches, split by launch):
 
 * ``flash_attention_bwd`` at Hymba-1.5B's training layers (B 2, 25/5
   heads of 64, 2048 positions, 128 meta tokens), window 1024 and a full
-  layer, and at qwen2-1.5b's (B 2, 12/2 heads of 128, 2048 positions,
-  causal), from the forward's output and log-sum-exp;
-* ``flash_attention_bwd`` at gemma-2b's training shape (B 1, 8/1 heads
-  of 256, 2048 positions, causal; ``flash_attention_bwd_256`` where the
-  tree has it), beside the backward of ``scaled_dot_product_attention``
-  (boolean mask, ``enable_gqa``) on the same inputs;
+  layer, from the forward's output and log-sum-exp;
+* ``flash_attention_bwd`` at qwen2-1.5b's (B 2, 12/2 heads of 128, 2048
+  positions, causal), DBRX's (B 1, 48/8 of 128) and gemma-2b's (B 1, 8/1
+  of 256) training shapes (``flash_attention_bwd_128`` and ``_256``
+  where the tree has them), each beside the backward of
+  ``scaled_dot_product_attention`` (boolean mask, ``enable_gqa``) on the
+  same inputs;
 * ``flash_attention_bwd_vd`` at DeepSeek-V2's training shape (B 1, 128
   heads, 2048 positions, q/k 192, v 128, causal), f32 and bf16, each
   beside the backward of ``scaled_dot_product_attention(is_causal=True)``
@@ -234,22 +238,22 @@ def mla_backward_rows(torch, cs, launch, bwd_vd):
     return rows
 
 
-def gemma_backward_rows(torch, cs, launch, bwd):
-    """The flash backward and SDPA's at gemma-2b's training shape (B 1,
-    MQA 8/1 of 256, 2048 positions, causal), f32: {key: {"ms",
+def causal_backward_rows(torch, cs, launch, bwd, tag, b, hq, hkv, hd):
+    """The flash backward and SDPA's at one causal training shape (2048
+    positions), f32: {"flash_bwd_<tag>", "sdpa_bwd_<tag>": {"ms",
     "kernels_ms"}}."""
     import torch.nn.functional as F
     rows = {}
-    b, s = 1, 2048
-    q, k, v = cs.attention_inputs(torch, b, cs.WIDE_HQ, cs.WIDE_HKV, s,
-                                  cs.WIDE_HD, torch.float32, seed=17)
-    dout = torch.randn((b, cs.WIDE_HQ, s, cs.WIDE_HD), device="cuda",
+    s = 2048
+    q, k, v = cs.attention_inputs(torch, b, hq, hkv, s, hd, torch.float32,
+                                  seed=17)
+    dout = torch.randn((b, hq, s, hd), device="cuda",
                        generator=torch.Generator(
                            device="cuda").manual_seed(18))
-    lse = torch.empty((b, cs.WIDE_HQ, s), device="cuda")
+    lse = torch.empty((b, hq, s), device="cuda")
     out = launch(q, k, v, 0, 0, lse=lse)
     per = cs.device_ms(torch, lambda: bwd(q, k, v, out, dout, lse))
-    rows["flash_bwd_gemma_hd256"] = {
+    rows[f"flash_bwd_{tag}"] = {
         "ms": sum(per.values()),
         "kernels_ms": {k_[:60]: v_ for k_, v_ in per.items()}}
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
@@ -257,7 +261,7 @@ def gemma_backward_rows(torch, cs, launch, bwd):
         *leaves, attn_mask=cs.flash_mask(torch, s, 0, 0), enable_gqa=True)
     per = cs.device_ms(torch, lambda: torch.autograd.grad(
         o_lib, leaves, dout, retain_graph=True))
-    rows["sdpa_bwd_gemma_hd256"] = {
+    rows[f"sdpa_bwd_{tag}"] = {
         "ms": sum(per.values()),
         "kernels_ms": {k_[:60]: v_ for k_, v_ in per.items()}}
     return rows
@@ -283,8 +287,7 @@ def backward_rows(torch, cs, kernels_only=False):
             (f"flash_bwd_window{cs.LM_WINDOW}", cs.LM_HQ, cs.LM_HKV, cs.LM_HD,
              cs.LM_WINDOW, cs.LM_META),
             ("flash_bwd_window0", cs.LM_HQ, cs.LM_HKV, cs.LM_HD, 0,
-             cs.LM_META),
-            ("flash_bwd_qwen2_hd128", 12, 2, 128, 0, 0)):
+             cs.LM_META)):
         q, k, v = cs.attention_inputs(torch, b, hq, hkv, s, hd,
                                       torch.float32, seed=17)
         dout = torch.randn((b, hq, s, hd), device="cuda",
@@ -296,7 +299,13 @@ def backward_rows(torch, cs, kernels_only=False):
             q, k, v, out, dout, lse, window=window, num_meta=meta))
         rows[key] = {"ms": sum(per.values()),
                      "kernels_ms": {k_[:60]: v_ for k_, v_ in per.items()}}
-    rows.update(gemma_backward_rows(torch, cs, _launch, flash_attention_bwd))
+    for tag, bb, hq, hkv, hd in (("qwen2_hd128", b, 12, 2, 128),
+                                 ("dbrx_hd128", cs.MOE_TRAIN_B, 48, 8, 128),
+                                 ("gemma_hd256", 1, cs.WIDE_HQ, cs.WIDE_HKV,
+                                  cs.WIDE_HD)):
+        rows.update(causal_backward_rows(torch, cs, _launch,
+                                         flash_attention_bwd, tag, bb, hq,
+                                         hkv, hd))
     rows.update(mla_backward_rows(torch, cs, _launch, flash_attention_bwd_vd))
     for h, p, n, chunk in ((50, 64, 16, 128), (24, 64, 128, 256)):
         args, _ = cs.ssd_inputs(torch, b, s, h, p, n, 19, False)
@@ -389,6 +398,17 @@ def main() -> int:
     if rows["flash_gemma_hd256"]["ms"] is not None:
         record("flash_gemma_hd256_b1", lambda: flash_attention(q1, k1, v1))
     del qw, kw_, vw, q1, k1, v1
+    import torch.nn.functional as F
+    # the dense models' GQA at 128 beside SDPA (nemotron's 48/8 is dbrx's)
+    mask = cs.flash_mask(torch, cs.DENSE_PROMPT, 0, 0)
+    for model, hq in (("nemotron", 48), ("yi", 56), ("chameleon", 64)):
+        qd, kd, vd = cs.attention_inputs(torch, cs.LM_B, hq, 8,
+                                         cs.DENSE_PROMPT, 128, torch.float32,
+                                         seed=9)
+        record(f"flash_{model}_hd128", lambda: flash_attention(qd, kd, vd))
+        record(f"sdpa_{model}_hd128", lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask, enable_gqa=True))
+        del qd, kd, vd
     qm, km, vm = cs.attention_inputs(torch, cs.LM_B, cs.MLA_H, cs.MLA_H,
                                      cs.LM_S, cs.MLA_HD, torch.float32,
                                      seed=11, vd=cs.MLA_VD)
@@ -396,7 +416,6 @@ def main() -> int:
         record("flash_mla_192_128", lambda: flash_attention(qm, km, vm))
     except ValueError as exc:        # a tree whose wrapper needs vd = hd
         rows["flash_mla_192_128"] = {"ms": None, "error": str(exc)}
-    import torch.nn.functional as F
     record("sdpa_mla_192_128", lambda: F.scaled_dot_product_attention(
         qm, km, vm, is_causal=True))
     del qm, km, vm

@@ -31,12 +31,13 @@
 // cores as split-f32 (tf32x3.cuh): three TF32 products per f32 product,
 // 3 x 43.4 GFLOP at 495 TFLOP/s = 0.263 ms, against 0.038 ms for the bytes.
 //
-// What the design does about it (FlashAttention-2 on mma.sync):
+// What the design does about it (FlashAttention-2 on mma.sync; vd = hd <=
+// 64, Hymba's and musicgen's 64; the wider heads have the wgmma kernels
+// below):
 // - One block of 4 warps per (b, h, 64-row query tile), the tiles with
 //   the most keys launched first; each warp owns 16 query rows.
-// - Q is staged once; at hd <= 64 each warp keeps its Q A-fragments in
-//   registers, split into TF32 hi/lo (64 registers at hd = 64); at
-//   hd = 128 it reads them from shared memory again for every K tile.
+// - Q is staged once; each warp keeps its Q A-fragments in registers,
+//   split into TF32 hi/lo (64 registers at hd = 64).
 // - K and V tiles (64 keys) are double-buffered with cp.async: the next
 //   visited tile's copies are in flight while this one is computed, one
 //   barrier a tile. Each 16-byte chunk takes the widest copy its source
@@ -87,6 +88,37 @@
 //   masks) and no store; no skipped tile is visited. (Taking the OR and
 //   the NaN inside the attention kernel made it 3-6 % slower at its
 //   255-register limit.)
+//
+// Head dims in (64, 128] with v's as wide (the dense models' 128: DBRX,
+// nemotron, yi, chameleon, qwen2; others zero-padded to 128):
+// flash_fwd_kernel_wgmma128, on Hopper's warpgroup products. At
+// nemotron-4-15b's prefill (B 4, GQA 48/8, S 2048, causal) the two products
+// take 2.1e11 flops, 1.25 ms at the split-f32 rate, against 0.14 ms for its
+// 470 MB: operations bound it. (On the mma.sync design above it ran at
+// 10 % of that: 169 KB of Q and two K/V buffers left one block of 4 warps
+// an SM, and Q's fragments were read again from shared memory for every K
+// tile.) It is the 256 design below at half the width, with the
+// rows split instead of the columns:
+// - Tile: a block per (128-row query tile, head), most keys first, 256
+//   threads: two consumer warpgroups, warpgroup w owning rows 64w ..
+//   64w + 63 and all of O's 128 columns (64 f32 a thread) and all of S's
+//   k8 steps: no exchange of scores, and each K and Vᵀ stage serves 128
+//   query rows, which halves the traffic from the L2 per row against
+//   64-row tiles.
+// - Operands: each warpgroup's Q (64 KB hi and lo) stays resident; K and
+//   Vᵀ come from their images (flash_fwd_kernel_image128: four 16 KB
+//   stages a 64-key tile each) through one ring of six 16 KB slots that
+//   both warpgroups read in the same order (PairFeed, wgmma.cuh): a slot's
+//   empty mbarrier counts both warpgroups' 8 warps, and warpgroup 0's
+//   first thread lands each stage as soon as both have freed its slot,
+//   testing the barrier at every free of its own and waiting only before
+//   it takes a stage that has not landed. 128 + 96 KB + the alignment:
+//   one block an SM.
+// - Order, arithmetic and the non-finite rules as at 256 below. A
+//   warpgroup whose 64 rows see no key of a visited tile (warpgroup 0 on
+//   the diagonal's second tile) computes it all the same: its masked
+//   scores give p = 0, and 0 · inf the NaN that the JAX kernel's visit of
+//   every tile gives.
 //
 // Head dims above 128 with v's as wide, up to 256 (gemma-2b's 256; others
 // zero-padded to 256): flash_fwd_kernel_wgmma256, on Hopper's warpgroup
@@ -210,6 +242,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
 
 #include "cp_async.cuh"
 #include "tf32x3.cuh"
@@ -323,7 +356,7 @@ __device__ __forceinline__ bool flash_block(const T* __restrict__ q, const T* __
   constexpr int PT = pitch<T, HD>();
   constexpr int KS = HD / 8;              // k8 steps of S = Q·Kᵀ
   constexpr int NT = HD / 8;              // n8 tiles of O
-  constexpr bool kQReg = HD <= 64;        // Q fragments held in registers
+  static_assert(HD <= 64, "hd in (64, 256] runs on the wgmma kernels below");
   extern __shared__ __align__(16) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);     // [kBQ][PT]
   T* Ks = Qs + kBQ * PT;                  // [2][kBK][PT]
@@ -375,11 +408,10 @@ __device__ __forceinline__ bool flash_block(const T* __restrict__ q, const T* __
     frag<kSlow>(Qs, base + 4, hi[2], lo[2]);
     frag<kSlow>(Qs, base + 8 * PT + 4, hi[3], lo[3]);
   };
-  uint32_t qh[kQReg ? KS : 1][4], ql[kQReg ? KS : 1][4];
-  if constexpr (kQReg) {
+  // the warp's Q fragments, held in registers for the block's life
+  uint32_t qh[KS][4], ql[KS][4];
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) load_q(ks, qh[ks], ql[ks]);
-  }
+  for (int ks = 0; ks < KS; ++ks) load_q(ks, qh[ks], ql[ks]);
 
   float acc[NT][4];
 #pragma unroll
@@ -422,14 +454,10 @@ __device__ __forceinline__ bool flash_block(const T* __restrict__ q, const T* __
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
         uint32_t ah[4], al[4];
-        if constexpr (kQReg) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            ah[i] = qh[ks][i];
-            al[i] = ql[ks][i];
-          }
-        } else {
-          load_q(ks, ah, al);
+        for (int i = 0; i < 4; ++i) {
+          ah[i] = qh[ks][i];
+          al[i] = ql[ks][i];
         }
         uint32_t bh[8][2], bl[8][2];
 #pragma unroll
@@ -1391,91 +1419,127 @@ flash_fwd_kernel_wgmma(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// vd = hd in (128, 256] (gemma-2b's 256): flash_fwd_kernel_wgmma256, on
-// Hopper's warpgroup products, the scores once per (query tile, key tile)
-// (see the head of this file)
+// vd = hd in (64, 256] on Hopper's warpgroup products, the scores once per
+// (query tile, key tile): flash_fwd_kernel_wgmma128 at 128 (two warpgroups
+// on two 64-row halves of a 128-row query tile) and flash_fwd_kernel_wgmma256
+// at 256 (two warpgroups on O's two 128-column halves of a 64-row tile; see
+// the head of this file)
 // ---------------------------------------------------------------------------
-namespace wg256 {
+namespace wgh {
 
 using namespace ::wgmma;
 
-constexpr int kHD = 256;
-constexpr int kNA = kHD / 32;      // atoms of a 64-row tile
-constexpr int kR = 2;              // ring slots a consumer warpgroup
-constexpr int kWorkers = 256;      // two consumer warpgroups
-constexpr int kRingAt = 2 * kNA * kAtom;            // after Q's hi and lo atoms
-constexpr int kSwapAt = kRingAt + 2 * kR * kStage;  // after the two rings
-constexpr int kSmem = kSwapAt + 2 * 64 * 64 * 4 + 1024;  // + the alignment to 1024 bytes
-// mbarriers: per warpgroup, full[kR] and empty[kR] of its ring
-constexpr int kBars = 4 * kR;
+constexpr int kWorkers = 256;  // two consumer warpgroups
+
+// The design at head width HD (128 or 256)
+template <int HD>
+struct Dims {
+  // 128: warpgroup w owns rows 64w .. 64w + 63 of a 128-row query tile and
+  // all of O's columns, and both read one ring; 256: warpgroup w owns O's
+  // columns 128w .. 128w + 127 of a 64-row tile, each with its own ring
+  static constexpr bool kRows = HD == 128;
+  static constexpr int kNA = HD / 32;                  // atoms of a 64-row tile
+  static constexpr int kBlockRows = kRows ? 128 : 64;  // query rows a block
+  static constexpr int kQAtoms = kRows ? 2 * kNA : kNA;  // Q's hi atoms (as many lo)
+  static constexpr int kR = kRows ? 6 : 2;             // ring slots: the shared ring's, or each one's
+  static constexpr int kRingAt = 2 * kQAtoms * kAtom;  // after Q's hi and lo atoms
+  static constexpr int kSwapAt = kRingAt + (kRows ? 1 : 2) * kR * kStage;  // after the ring(s)
+  static constexpr int kSmem = kSwapAt + (kRows ? 0 : 2 * 64 * 64 * 4) + 1024;  // + the alignment
+  // mbarriers: full[kR] and empty[kR] of each ring
+  static constexpr int kBars = (kRows ? 2 : 4) * kR;
+};
 
 // the images of K (rows) and Vᵀ (transposed) per kv head: [B, Hkv, key
-// tiles, kNA stages of kStage bytes] each, K's first
+// tiles, HD / 32 stages of kStage bytes] each, K's first
+template <int HD>
 __device__ __forceinline__ const unsigned char* stage_of(const unsigned char* images, bool vt,
                                                          int batch, int hkv, int n_k, int b,
                                                          int hk, int kt, int s) {
+  constexpr int kNA = HD / 32;
   const int n_kt = (n_k + kBK - 1) / kBK;
   const long long per = (long long)batch * hkv * n_kt * kNA * kStage;
   return images + (vt ? per : 0) + ((((long long)b * hkv + hk) * n_kt + kt) * kNA + s) * kStage;
 }
 
-// grid (key tiles, kNA stages, B x 2 Hkv), 128 threads: stage s of one key
-// tile of K's image (as stored) or Vᵀ's (32-key half s / 4, 64-column
-// chunk s % 4, in the key order of P's A fragments), full split
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel_image256(const T* __restrict__ k, const T* __restrict__ v, Strides sk,
-                           Strides sv, unsigned char* __restrict__ images, int batch, int n_k,
-                           int hd) {
+// grid (key tiles, HD / 32 stages, B x 2 Hkv), 128 threads: stage s of one
+// key tile of K's image (as stored) or Vᵀ's (32-key half s / (HD / 64),
+// 64-column chunk s % (HD / 64), in the key order of P's A fragments), full
+// split
+template <typename T, int HD>
+__device__ __forceinline__ void image_stage(const T* __restrict__ k, const T* __restrict__ v,
+                                            Strides sk, Strides sv,
+                                            unsigned char* __restrict__ images, int batch,
+                                            int n_k, int hd) {
   const int hkv = gridDim.z / (2 * batch);
   const int b = blockIdx.z / (2 * hkv), j = blockIdx.z % (2 * hkv);
   const bool vt = j >= hkv;
   const int hk = j % hkv, kt = blockIdx.x, s = blockIdx.y;
   const Strides st = vt ? sv : sk;
   unsigned char* dst =
-      const_cast<unsigned char*>(stage_of(images, vt, batch, hkv, n_k, b, hk, kt, s));
-  put_image_stage<T>(dst, (vt ? v : k) + b * st.b + hk * st.h, st.s, kt * kBK, n_k, hd, s, vt,
-                     threadIdx.x);
+      const_cast<unsigned char*>(stage_of<HD>(images, vt, batch, hkv, n_k, b, hk, kt, s));
+  put_image_stage<T, HD>(dst, (vt ? v : k) + b * st.b + hk * st.h, st.s, kt * kBK, n_k, hd, s,
+                         vt, threadIdx.x);
+}
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel_image256(const T* __restrict__ k, const T* __restrict__ v, Strides sk,
+                          Strides sv, unsigned char* __restrict__ images, int batch, int n_k,
+                          int hd) {
+  image_stage<T, 256>(k, v, sk, sv, images, batch, n_k, hd);
+}
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel_image128(const T* __restrict__ k, const T* __restrict__ v, Strides sk,
+                          Strides sv, unsigned char* __restrict__ images, int batch, int n_k,
+                          int hd) {
+  image_stage<T, 128>(k, v, sk, sv, images, batch, n_k, hd);
 }
 
-}  // namespace wg256
+}  // namespace wgh
 
-// The block's work on wgmma at 256: one (64-row query tile, head), two
-// consumer warpgroups, warpgroup w owning O's columns 128w .. 128w + 127
-// and Q's k8 steps over them. Q stays resident, split by its consumers as
-// they load it. Each warpgroup has its own ring of kR 16 KB slots, which
-// its first thread fills by bulk copies from K's and Vᵀ's images as the
-// warpgroup frees them. S = Q·Kᵀ is two partials, one a warpgroup over its
-// 128 columns of hd, summed through shared memory (p0 + p1 in both: the
-// same bits), so both run the same online softmax; O += P·V over the
+// The block's work on wgmma at head width HD, two consumer warpgroups:
+// - 128: a 128-row query tile, warpgroup w owning its rows 64w ..
+//   64w + 63, all of O's columns and all of S's k8 steps; one ring of kR
+//   16 KB slots that both read in the same order, its stages landed by
+//   warpgroup 0's first thread (PairFeed);
+// - 256: a 64-row query tile, warpgroup w owning O's columns 128w ..
+//   128w + 127 and Q's k8 steps over them, each warpgroup with its own
+//   ring filled by its first thread (WgFeed); S = Q·Kᵀ is two partials
+//   summed through shared memory (p0 + p1 in both: the same bits), so both
+//   run the same online softmax.
+// Q stays resident, split by its consumers as they load it. The rings'
+// stages come by bulk copies from K's and Vᵀ's images. O += P·V over the
 // warpgroup's Vᵀ stages. pass 0 runs on the fast split: a result that holds
 // an inf or a NaN is not stored, and it returns the ring's stage count,
 // from which pass 1, on the full split (Q and P), goes on; else -1. m0: the
 // ring's stage count at the start.
-template <typename T, bool kLse>
-__device__ __forceinline__ int flash_block_wgmma256(
+template <typename T, int HD, bool kLse, class Ring>
+__device__ __forceinline__ int flash_block_wgmma_hd(
     const T* __restrict__ q, const unsigned char* __restrict__ images, T* __restrict__ o,
     float* __restrict__ lse, Strides sq, Strides so, int batch, int group, int n_q, int n_k,
-    int hd, float scale, int window, int num_meta, unsigned char* smem,
-    const ::wgmma::WgRing<wg256::kR>& ring, uint32_t pass, uint32_t m0) {
-  using namespace wg256;
+    int hd, float scale, int window, int num_meta, unsigned char* smem, const Ring& ring,
+    uint32_t pass, uint32_t m0) {
+  using namespace wgh;
+  using D = Dims<HD>;
+  constexpr bool kRows = D::kRows;
+  constexpr int kNA = D::kNA;
   const bool slow = pass == 1;
   constexpr bool kBf16 = sizeof(T) == 2;
   const uint32_t base = smem_u32(smem);
 
-  const int n_qt = (n_q + kBQ - 1) / kBQ;
+  const int n_qt = (n_q + D::kBlockRows - 1) / D::kBlockRows;
   const int qt = n_qt - 1 - (int)blockIdx.x;  // most keys first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hkv = gridDim.y / group;
   const int hk = h / group;
-  const int q0 = qt * kBQ;
-  const int q_last = min(q0 + kBQ, n_q) - 1;
+  const int qb0 = qt * D::kBlockRows;  // the block's first row
+  const int q_last = min(qb0 + D::kBlockRows, n_q) - 1;
   const int kt_last = min((n_k - 1) / kBK, q_last / kBK);
   auto next_tile = [&](int kt) {
     for (++kt; kt <= kt_last; ++kt) {
       const int k0 = kt * kBK;
-      if (!(window > 0 && k0 >= num_meta && q0 - (k0 + kBK - 1) >= window)) return kt;
+      if (!(window > 0 && k0 >= num_meta && qb0 - (k0 + kBK - 1) >= window)) return kt;
     }
     return -1;
   };
@@ -1483,22 +1547,30 @@ __device__ __forceinline__ int flash_block_wgmma256(
   const int tid = threadIdx.x & 127;
   const int w = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  const int q0 = qb0 + (kRows ? 64 * wg : 0);  // the warpgroup's first row
+  // the warpgroup's Q atoms: hi atom i (i < 4) at qa + i, lo at qa + kNA + i
+  // (its own 64 rows at 128; its 128 columns at 256)
+  const int qa = kRows ? 2 * kNA * wg : 4 * wg;
+  const int col0 = kRows ? 0 : 128 * wg;  // its first column of O
 
-  // The warpgroup's stages, in the order it takes them: its four K atoms
-  // of the first visited tile, then for each visited tile those of the
-  // next one and its own four Vᵀ stages (64-column chunk c = 2 wg + k / 2
-  // by 32-key half k % 2: image stage 4 (k % 2) + c). The first thread's
-  // cursor: group `kind` (0: K, 1: Vᵀ) of tile `tile`, stage `st` in it;
-  // `pend`: the tile whose Vᵀ follows a next tile's K
+  // The warpgroup's stages, in the order it takes them: the 4 K stages of
+  // the first visited tile that it reads, then for each visited tile those
+  // of the next one and its own 4 Vᵀ stages (64-column chunk c by 32-key
+  // half k % 2: image stage (HD / 64)(k % 2) + c, c = k / 2 at 128 and
+  // 2 wg + k / 2 at 256). The lander's cursor: group `kind` (0: K, 1: Vᵀ)
+  // of tile `tile`, stage `st` in it; `pend`: the tile whose Vᵀ follows a
+  // next tile's K
   int visited = 0;
   for (int kt = next_tile(-1); kt >= 0; kt = next_tile(kt)) ++visited;
   const uint32_t m_end = m0 + (uint32_t)(8 * visited);
   int kind = 0, tile = next_tile(-1), pend = -1, st = 0;
   auto land = [&](uint32_t m) {
     ring.land(m,
-              kind == 0 ? stage_of(images, false, batch, hkv, n_k, b, hk, tile, 4 * wg + st)
-                        : stage_of(images, true, batch, hkv, n_k, b, hk, tile,
-                                   4 * (st & 1) + 2 * wg + (st >> 1)),
+              kind == 0 ? wgh::stage_of<HD>(images, false, batch, hkv, n_k, b, hk, tile,
+                                            (kRows ? 0 : 4 * wg) + st)
+                        : wgh::stage_of<HD>(images, true, batch, hkv, n_k, b, hk, tile,
+                                            (HD / 64) * (st & 1) + (kRows ? 0 : 2 * wg) +
+                                                (st >> 1)),
               nullptr, kStage);
     if (++st < 4) return;
     st = 0;
@@ -1514,22 +1586,27 @@ __device__ __forceinline__ int flash_block_wgmma256(
       else tile = nt;
     }
   };
-  const WgFeed<kR, decltype(land)> feed{ring, land, m0, m_end, tid == 0};
+  // 128: warpgroup 0's first thread lands the shared ring's stages; 256:
+  // each warpgroup's first thread its own ring's
+  using Feed = std::conditional_t<kRows, PairFeed<D::kR, decltype(land)>,
+                                  WgFeed<D::kR, decltype(land)>>;
+  Feed feed{ring, land, m0, m_end, kRows ? threadIdx.x == 0 : tid == 0};
   feed.start();
 
-  float* swap = reinterpret_cast<float*>(smem + kSwapAt);  // [2][32 x 128]
-  // Q's atoms 4 wg .. 4 wg + 3 (its columns 128 wg ..), hi at atom i, lo at
-  // kNA + i: loaded and split by this warpgroup
+  float* swap = reinterpret_cast<float*>(smem + D::kSwapAt);  // 256: [2][32 x 128]
+  // the warpgroup's Q atoms: loaded and split by the warpgroup itself
   {
     const T* qb = q + b * sq.b + h * sq.h;
     const bool vq = aligned4(qb, sq.s);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       uint4 x[4];
-      const int a = 4 * wg + i;
-      get_rows<T>(x, qb, sq.s, q0, n_q, 32 * a, hd, vq, tid);
-      if (slow) put_rows<T, true>(smem + a * kAtom, smem + (kNA + a) * kAtom, x, tid);
-      else put_rows<T, false>(smem + a * kAtom, smem + (kNA + a) * kAtom, x, tid);
+      const int c = kRows ? i : 4 * wg + i;  // its 32-column atom of Q
+      unsigned char* hi = smem + (qa + i) * kAtom;
+      unsigned char* lo = smem + (qa + kNA + i) * kAtom;
+      get_rows<T>(x, qb, sq.s, q0, n_q, 32 * c, hd, vq, tid);
+      if (slow) put_rows<T, true>(hi, lo, x, tid);
+      else put_rows<T, false>(hi, lo, x, tid);
     }
     fence_proxy();
     named_sync(3 + wg, 128);
@@ -1552,18 +1629,17 @@ __device__ __forceinline__ int flash_block_wgmma256(
     keep(pl);
     while (rel < n) feed.release(rel++);
   };
-  // this warpgroup's partial of S = Q·Kᵀ: its four atoms' k8 steps, each
-  // atom's stage freed one group later
+  // S = Q·Kᵀ (at 256 this warpgroup's partial): its four Q atoms' k8
+  // steps, each atom's stage freed one group later
   auto issue_s = [&]() {
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const uint32_t sa = ring.take(n++);
-      const int a = 4 * wg + i;
+      const uint32_t sa = feed.take(n++);
       mma_fence();
-      ss_atom<kBf16>(s, desc(base + a * kAtom), desc(base + (kNA + a) * kAtom), desc(sa),
-                     desc(sa + kAtom));
+      ss_atom<kBf16>(s, desc(base + (qa + i) * kAtom), desc(base + (qa + kNA + i) * kAtom),
+                     desc(sa), desc(sa + kAtom));
       mma_commit();
       if (i > 0) {
         mma_wait<1>();
@@ -1578,7 +1654,7 @@ __device__ __forceinline__ int flash_block_wgmma256(
   auto issue_pv = [&]() {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t sa = ring.take(n++);
+      const uint32_t sa = feed.take(n++);
       mma_fence();
       rs_atom<kBf16>(acc[kk >> 1], ph, pl, 4 * (kk & 1), desc(sa), desc(sa + kAtom));
       mma_commit();
@@ -1586,21 +1662,23 @@ __device__ __forceinline__ int flash_block_wgmma256(
       while (rel < n - 1) feed.release(rel++);
     }
   };
-  // the two partials summed, p0 + p1 in both warpgroups
+  // 256: the two partials summed, p0 + p1 in both warpgroups
   auto exchange = [&]() {
+    if constexpr (!kRows) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) swap[(wg * 32 + i) * 128 + tid] = s[i];
-    named_sync(1, 256);
+      for (int i = 0; i < 32; ++i) swap[(wg * 32 + i) * 128 + tid] = s[i];
+      named_sync(1, 256);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] += swap[((1 - wg) * 32 + i) * 128 + tid];
-    named_sync(2, 256);  // both have read: the swap is free
+      for (int i = 0; i < 32; ++i) s[i] += swap[((1 - wg) * 32 + i) * 128 + tid];
+      named_sync(2, 256);  // both have read: the swap is free
+    }
   };
   // mask, then the online softmax of rows g (c = 0, 1) and g + 8 (c = 2, 3)
   // of the warp's 16: s becomes P, corr the factor O is to be rescaled by
   auto softmax = [&](int k0) {
     const int r0 = q0 + 16 * w + g;
     const bool all = k0 + kBK - 1 <= q0 && k0 + kBK <= n_k &&
-                     (window <= 0 || q0 + kBQ - 1 - k0 < window || k0 + kBK <= num_meta);
+                     (window <= 0 || q0 + 63 - k0 < window || k0 + kBK <= num_meta);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -1656,7 +1734,7 @@ __device__ __forceinline__ int flash_block_wgmma256(
     split_frags(s, ph, pl, slow);
   }
   // Tile kt's P is in ph/pl and its factor in corr: the next tile's S
-  // partial goes to the tensor cores first, kt's P·V right behind it; the
+  // goes to the tensor cores first, kt's P·V right behind it; the
   // exchange and the softmax run under P·V's last group. Each branch
   // issues and waits for its own groups.
   while (kt >= 0) {
@@ -1692,14 +1770,14 @@ __device__ __forceinline__ int flash_block_wgmma256(
     if (qi >= n_q) continue;
     const float denom = fmaxf(l[r], 1e-30f);
     if constexpr (kLse) {
-      if (wg == 0 && t == 0)
+      if ((kRows || wg == 0) && t == 0)
         lse[((long long)b * gridDim.y + h) * n_q + qi] = l[r] != l[r] ? l[r] : m[r] + logf(denom);
     }
 #pragma unroll
     for (int c = 0; c < 2; ++c)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int d = 128 * wg + 64 * c + j * 8 + 2 * t;
+        const int d = col0 + 64 * c + j * 8 + 2 * t;
         if (d < hd)
           store2<T>(ob + qi * so.s + d, acc[c][4 * j + 2 * r] / denom,
                     acc[c][4 * j + 2 * r + 1] / denom, d + 1 < hd);
@@ -1708,37 +1786,66 @@ __device__ __forceinline__ int flash_block_wgmma256(
   return -1;
 }
 
-// grid (query tiles, hq, batch), 256 threads: vd = hd in (128, 256]; kLse:
-// also the rows' log-sum-exp (a separate instantiation, so that serving
-// runs the code it ran without it)
-template <typename T, bool kLse>
-__global__ void __launch_bounds__(wg256::kWorkers, 1)
-flash_fwd_kernel_wgmma256(const T* __restrict__ q, const unsigned char* __restrict__ images,
-                          T* __restrict__ o, float* __restrict__ lse, Strides sq, Strides so,
-                          int batch, int group, int n_q, int n_k, int hd, float scale,
-                          int window, int num_meta) {
-  using namespace wg256;
+// The kernel's body at head width HD: the rings' mbarriers, then the fast
+// split's pass and, for a block whose result holds an inf or a NaN, the
+// full split's, in one inlined body (a call out of line would make ptxas
+// serialize every wgmma of the kernel)
+template <typename T, int HD, bool kLse>
+__device__ __forceinline__ void fwd_wgmma_hd(const T* __restrict__ q,
+                                             const unsigned char* __restrict__ images,
+                                             T* __restrict__ o, float* __restrict__ lse,
+                                             Strides sq, Strides so, int batch, int group,
+                                             int n_q, int n_k, int hd, float scale, int window,
+                                             int num_meta) {
+  using namespace wgh;
+  using D = Dims<HD>;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ __align__(8) uint64_t bars[kBars];
+  __shared__ __align__(8) uint64_t bars[D::kBars];
   unsigned char* tiles = smem + ((1024u - (smem_u32(smem) & 1023u)) & 1023u);
   const uint32_t bu = smem_u32(bars);
+  // full barriers: one arrival (the lander's, with the copies' bytes);
+  // empty ones: one a warp of the warpgroups that read the ring
   if (threadIdx.x == 0) {
-    for (int i = 0; i < kBars; ++i) bar_init(bu + 8 * i, i % (2 * kR) < kR ? 1 : kWarps);
+    for (int i = 0; i < D::kBars; ++i)
+      bar_init(bu + 8 * i, i % (2 * D::kR) < D::kR ? 1 : (D::kRows ? 2 : 1) * kWarps);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   const int wg = threadIdx.x >> 7;
-  const WgRing<kR> ring{smem_u32(tiles) + kRingAt + wg * kR * kStage, bu + 16 * kR * wg, kStage};
-  // the fast split's pass, then, for a block whose result holds an inf or
-  // a NaN, the full split's, in one inlined body
+  const int ring_of = D::kRows ? 0 : wg;  // 128: one ring for both
+  const WgRing<D::kR> ring{smem_u32(tiles) + D::kRingAt + ring_of * D::kR * kStage,
+                           bu + 16 * D::kR * ring_of, kStage};
   uint32_t m0 = 0;
   for (uint32_t pass = 0;; ++pass) {
-    const int n = flash_block_wgmma256<T, kLse>(q, images, o, lse, sq, so, batch, group, n_q,
-                                                n_k, hd, scale, window, num_meta, tiles, ring,
-                                                pass, m0);
+    const int n = flash_block_wgmma_hd<T, HD, kLse>(q, images, o, lse, sq, so, batch, group, n_q,
+                                                    n_k, hd, scale, window, num_meta, tiles,
+                                                    ring, pass, m0);
     if (n < 0) break;
     m0 = (uint32_t)n;
   }
+}
+
+// grid (query tiles, hq, batch), 256 threads; kLse: also the rows'
+// log-sum-exp (a separate instantiation, so that serving runs the code it
+// ran without it). vd = hd in (128, 256]: 64-row query tiles
+template <typename T, bool kLse>
+__global__ void __launch_bounds__(wgh::kWorkers, 1)
+flash_fwd_kernel_wgmma256(const T* __restrict__ q, const unsigned char* __restrict__ images,
+                          T* __restrict__ o, float* __restrict__ lse, Strides sq, Strides so,
+                          int batch, int group, int n_q, int n_k, int hd, float scale,
+                          int window, int num_meta) {
+  fwd_wgmma_hd<T, 256, kLse>(q, images, o, lse, sq, so, batch, group, n_q, n_k, hd, scale, window,
+                             num_meta);
+}
+// vd = hd in (64, 128]: 128-row query tiles
+template <typename T, bool kLse>
+__global__ void __launch_bounds__(wgh::kWorkers, 1)
+flash_fwd_kernel_wgmma128(const T* __restrict__ q, const unsigned char* __restrict__ images,
+                          T* __restrict__ o, float* __restrict__ lse, Strides sq, Strides so,
+                          int batch, int group, int n_q, int n_k, int hd, float scale,
+                          int window, int num_meta) {
+  fwd_wgmma_hd<T, 128, kLse>(q, images, o, lse, sq, so, batch, group, n_q, n_k, hd, scale, window,
+                             num_meta);
 }
 
 template <typename T, int HD>
@@ -1842,33 +1949,40 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, f
   return cudaGetLastError();
 }
 
-// vd = hd in (128, 256]: flash_fwd_kernel_wgmma256 between the same two
-// launches, after K's and Vᵀ's images
-template <typename T>
-cudaError_t launch_wgmma256(const void* q, const void* k, const void* v, void* o, float* lse,
+// vd = hd in (64, 256]: flash_fwd_kernel_wgmma128 (HD 128) or
+// flash_fwd_kernel_wgmma256 (HD 256) between the same two launches, after
+// K's and Vᵀ's images (flash_fwd_kernel_image128 or _image256)
+template <typename T, int HD>
+cudaError_t launch_wgmma_hd(const void* q, const void* k, const void* v, void* o, float* lse,
                             Strides sq, Strides sk, Strides sv, Strides so, uint4* vflags,
                             unsigned char* images, int batch, int hq, int group, int n_q,
                             int n_k, int hd, float scale, int window, int num_meta,
                             cudaStream_t stream) {
-  const auto kernel = lse != nullptr ? flash_fwd_kernel_wgmma256<T, true>
-                                     : flash_fwd_kernel_wgmma256<T, false>;
+  using D = wgh::Dims<HD>;
+  const auto kernel =
+      HD == 128 ? (lse != nullptr ? flash_fwd_kernel_wgmma128<T, true>
+                                  : flash_fwd_kernel_wgmma128<T, false>)
+                : (lse != nullptr ? flash_fwd_kernel_wgmma256<T, true>
+                                  : flash_fwd_kernel_wgmma256<T, false>);
+  const auto image = HD == 128 ? wgh::flash_fwd_kernel_image128<T>
+                               : wgh::flash_fwd_kernel_image256<T>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         wg256::kSmem);
+                                         D::kSmem);
   if (err != cudaSuccess) return err;
-  const int n_qt = (n_q + kBQ - 1) / kBQ, n_kt = (n_k + kBK - 1) / kBK;
+  const int n_kt = (n_k + kBK - 1) / kBK;
   flash_fwd_kernel_vflags<T><<<dim3(n_kt, hq / group, batch), kThreads, 0, stream>>>(
       (const T*)v, sv, vflags, n_k, hd);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  wg256::flash_fwd_kernel_image256<T><<<dim3(n_kt, wg256::kNA, batch * 2 * (hq / group)),
-                                         kThreads, 0, stream>>>((const T*)k, (const T*)v, sk,
-                                                                sv, images, batch, n_k, hd);
+  image<<<dim3(n_kt, D::kNA, batch * 2 * (hq / group)), kThreads, 0, stream>>>(
+      (const T*)k, (const T*)v, sk, sv, images, batch, n_k, hd);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  kernel<<<dim3(n_qt, hq, batch), wg256::kWorkers, wg256::kSmem, stream>>>(
-      (const T*)q, images, (T*)o, lse, sq, so, batch, group, n_q, n_k, hd, scale, window,
-      num_meta);
+  kernel<<<dim3((n_q + D::kBlockRows - 1) / D::kBlockRows, hq, batch), wgh::kWorkers, D::kSmem,
+           stream>>>((const T*)q, images, (T*)o, lse, sq, so, batch, group, n_q, n_k, hd, scale,
+                     window, num_meta);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  flash_fwd_kernel_nanfix<T><<<dim3(n_qt, hq / group, batch), kThreads, 0, stream>>>(
-      vflags, (T*)o, so, group, n_q, n_k, hd, window, num_meta);
+  flash_fwd_kernel_nanfix<T><<<dim3((n_q + kBQ - 1) / kBQ, hq / group, batch), kThreads, 0,
+                               stream>>>(vflags, (T*)o, so, group, n_q, n_k, hd, window,
+                                         num_meta);
   return cudaGetLastError();
 }
 
@@ -1895,11 +2009,11 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, floa
     return launch<T, 64>(q, k, v, o, lse, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k,
                          hd, scale, window, num_meta, stream);
   if (hd <= 128)
-    return launch<T, 128>(q, k, v, o, lse, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k,
-                          hd, scale, window, num_meta, stream);
-  if (hd <= wg256::kHD)
-    return launch_wgmma256<T>(q, k, v, o, lse, sq, sk, sv, so, vflags, images, batch, hq, group,
-                              n_q, n_k, hd, scale, window, num_meta, stream);
+    return launch_wgmma_hd<T, 128>(q, k, v, o, lse, sq, sk, sv, so, vflags, images, batch, hq,
+                                   group, n_q, n_k, hd, scale, window, num_meta, stream);
+  if (hd <= 256)
+    return launch_wgmma_hd<T, 256>(q, k, v, o, lse, sq, sk, sv, so, vflags, images, batch, hq,
+                                   group, n_q, n_k, hd, scale, window, num_meta, stream);
   if (lse != nullptr) return cudaErrorInvalidValue;  // the wrapper raises before
   return launch_wide<T>(q, k, v, o, sq, sk, sv, so, vflags, batch, hq, group, n_q, n_k,
                         hd, hd, scale, window, num_meta, stream);
@@ -1914,13 +2028,14 @@ extern "C" {
 // head, row) element strides, the head_dim stride 1; f32 when is_bf16 ==
 // 0, else bf16; any hd, vd >= 1. vflags: a workspace of batch x hq/group x
 // ceil(n_k / 64) x ceil(vd / 128) entries of 16 bytes, 16-byte aligned.
-// images: at vd = hd in (128, 256], a workspace of 2 x batch x hq/group x
-// ceil(n_k / 64) x 128 KB, 16-byte aligned (K's and Vᵀ's images), else
-// unused. lse: null, or (hd = vd <= 256, or vd != hd with vd <= 128 and hd
-// <= 192) [batch, hq, n_q] f32 that receives each row's log-sum-exp of the
-// scaled scores for the backward.
+// images: at vd = hd in (64, 256], a workspace of 2 x batch x hq/group x
+// ceil(n_k / 64) x W / 32 stages of 16 KB (W = 128 up to hd 128, else 256),
+// 16-byte aligned (K's and Vᵀ's images), else unused. lse: null, or (hd =
+// vd <= 256, or vd != hd with vd <= 128 and hd <= 192) [batch, hq, n_q]
+// f32 that receives each row's log-sum-exp of the scaled scores for the
+// backward.
 // Three launches on `stream` (V's flags, the attention, the NaN of skipped
-// tiles; four at vd = hd in (128, 256], the images before the attention);
+// tiles; four at vd = hd in (64, 256], the images before the attention);
 // returns the first failure of cudaGetLastError().
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                            const long long* strides,  // 12: q, k, v, o x (b, h, s)

@@ -80,9 +80,10 @@
 //   softmax row) over the query tiles it skips, and
 //   pass 4 those of k (for dQ) over the key tiles it skips, and write NaN
 //   into those columns.
-// Head dims up to 128 (32, 64 or 128 columns, zero-padded); hd in (128,
-// 256] is flash_attention_bwd_256.cu's. The masks of non-finite columns
-// take 4 words a tile.
+// Head dims up to 64 (32 or 64 columns, zero-padded): Hymba's and
+// musicgen's 64, the width this design was made for; hd in (64, 256] is
+// flash_attention_bwd_256.cu's (at head width 128 or 256). The masks of
+// non-finite columns take 4 words a tile.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -768,7 +769,6 @@ cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v, const
                       cudaStream_t stream) {
   if (hd <= 32) return launch<T, 32>(q, k, v, o, dout, dq, dk, dv, a, delta, stream);
   if (hd <= 64) return launch<T, 64>(q, k, v, o, dout, dq, dk, dv, a, delta, stream);
-  if (hd <= 128) return launch<T, 128>(q, k, v, o, dout, dq, dk, dv, a, delta, stream);
   return cudaErrorInvalidValue;  // the wrapper raises before
 }
 
@@ -778,11 +778,11 @@ extern "C" {
 
 // q [batch, hq, n_q, hd], k/v [batch, hq/group, n_k, hd], o and dout like q,
 // dq like q, dk/dv like k; each given by its (batch, head, row) element
-// strides, the hd stride 1; f32 when is_bf16 == 0, else bf16; hd <= 128,
+// strides, the hd stride 1; f32 when is_bf16 == 0, else bf16; hd <= 64,
 // n_q <= n_k. lse [batch, hq, n_q] f32 from the forward. Workspaces (the
 // wrapper allocates them): delta, batch x hq x n_q floats; dkp and dvp,
-// batch x hq x n_k x hd_pad floats each (hd_pad: hd rounded up to 32, 64
-// or 128); qflags and dflags, batch x hq x ceil(n_q / 64) entries of 16
+// batch x hq x n_k x hd_pad floats each (hd_pad: hd rounded up to 32 or
+// 64); qflags and dflags, batch x hq x ceil(n_q / 64) entries of 16
 // bytes, and kflags batch x hq/group x ceil(n_k / 64), 16-byte aligned.
 // Four launches on `stream` (delta and the masks, dK and dV per query
 // head, their sum over the group, dQ); returns the first failure of

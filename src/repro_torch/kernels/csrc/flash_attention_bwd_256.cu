@@ -1,6 +1,9 @@
 // flash_attention_bwd_256 — the backward of flash_attention.cu at hd = vd
-// = 256 (gemma-2b's head_dim; hd 129-256 zero-padded to 256), hand-written
-// for Hopper (sm_90a) on its warpgroup products (wgmma).
+// in (64, 256], at two head widths HD: 128 (DBRX's, qwen2's and the dense
+// models' head_dim; hd 65-128 zero-padded to 128) and 256 (gemma-2b's; hd
+// 129-256 zero-padded to 256), hand-written for Hopper (sm_90a) on its
+// warpgroup products (wgmma). One source, templated on HD; each width has
+// kernels of its own name (flash_bwd_128_* and flash_bwd_256_*).
 //
 // Given the forward's q [B, Hq, Sq, hd], k/v [B, Hkv, T, hd], its output o,
 // the row log-sum-exp lse [B, Hq, Sq] (f32, in units of the scaled scores)
@@ -18,16 +21,21 @@
 // Replaces: no Pallas kernel. The JAX package computes this gradient in jnp
 // (the custom VJP _flash_vjp_bwd, src/repro/models/attention.py:138, at
 // >= 4096 query rows; autodiff of _direct_attention, :50, below); the port's
-// flash_attention_bwd.cu takes hd <= 128 and this file hd in (128, 256].
+// flash_attention_bwd.cu takes hd <= 64 and this file hd in (64, 256].
 //
 // What bounds it on the card: operations. Five products of 2·hd flops per
 // visible (query, key) pair and query head; the two passes below take seven
 // (S and dP once in each): at gemma-2b's training shape (B 1, MQA 8/1, S
 // 2048, causal) 6.0e10 flops, 0.364 ms at the split-f32 rate (165 TFLOP/s;
 // the function's five products 0.260) against 0.02 ms for its 76 MB of
-// operands.
+// operands; at DBRX's (B 1, GQA 48/8 at 128, S 2048, causal) 1.8e11 flops,
+// 1.09 ms (the five products 0.78) against 0.07 ms for 235 MB.
 //
-// What the design does about it. At 256 columns a 64-row f32 tile is 64 KB,
+// What the design does about it (described at HD = 256; at 128 every tile
+// has half the atoms and stages, a warpgroup's dK or dV is 64 floats a
+// thread and each dQ warpgroup owns 64 columns: the same walk, rings and
+// swaps, with the flash_attention_bwd.cu design's 255 registers and 900
+// bytes of spill at 128 gone). At 256 columns a 64-row f32 tile is 64 KB,
 // 128 KB as TF32 hi and lo: a pass cannot keep both of its block's fixed
 // operands split in shared memory (256 KB, past the 227 KB a block has), as
 // flash_attention_bwd_vd.cu does at (192, 128), and splitting every streamed
@@ -96,8 +104,6 @@ namespace {
 
 using namespace wgmma;
 
-constexpr int kHD = 256;
-constexpr int kNA = kHD / 32;     // atoms (stages) of a 64-row tile
 constexpr int kSlot = 2 * kStage;  // a ring slot: two operands' stages
 constexpr int kR = 3;             // ring slots a consumer warpgroup
 constexpr int kWorkers = 256;     // two consumer warpgroups
@@ -107,33 +113,33 @@ constexpr int kSmem = 2 * kR * kSlot + 2 * kSwap + 1024;  // + the alignment to 
 constexpr int kBars = 4 * kR;
 
 // The images: Q, dO, Qᵀ, dOᵀ per query head, K, V, Kᵀ per kv head; each
-// [B, H, tiles, kNA stages of kStage bytes]
+// [B, H, tiles, HD / 32 stages of kStage bytes]
 enum Image { kQ, kDO, kQT, kDOT, kK, kV, kKT, kImages };
 
 struct Images {
   unsigned char* p[kImages];
 };
 
+template <int HD>
 __device__ __forceinline__ const unsigned char* stage_of(const Images& im, int which,
                                                          const Args& a, int b, int h, int tile,
                                                          int s) {
   const bool kv = which >= kK;
   const int heads = kv ? a.hq / a.group : a.hq;
   const int tiles = ((kv ? a.n_k : a.n_q) + kT - 1) / kT;
-  return im.p[which] + ((((long long)b * heads + h) * tiles + tile) * kNA + s) * kStage;
+  return im.p[which] + ((((long long)b * heads + h) * tiles + tile) * (HD / 32) + s) * kStage;
 }
 
 // ---------------------------------------------------------------------------
 // 2. the images
 // ---------------------------------------------------------------------------
 
-// grid (tiles, kNA stages, B x (4 Hq + 3 Hkv)), 128 threads: stage s of one
-// tile of one image, split with tf32x3::split (bf16: exact)
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_256_image_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, const T* __restrict__ dout,
-                           const __grid_constant__ Args a, const __grid_constant__ Images im) {
+// grid (tiles, HD / 32 stages, B x (4 Hq + 3 Hkv)), 128 threads: stage s of
+// one tile of one image, split with tf32x3::split (bf16: exact)
+template <typename T, int HD>
+__device__ __forceinline__ void image_stage(const T* __restrict__ q, const T* __restrict__ k,
+                                            const T* __restrict__ v, const T* __restrict__ dout,
+                                            const Args& a, const Images& im) {
   const int hkv = a.hq / a.group, per_b = 4 * a.hq + 3 * hkv;
   const int b = blockIdx.z / per_b, j = blockIdx.z % per_b;
   const int which = j < 4 * a.hq ? j / a.hq : kK + (j - 4 * a.hq) / hkv;
@@ -150,9 +156,25 @@ flash_bwd_256_image_kernel(const T* __restrict__ q, const T* __restrict__ k,
     case kK: case kKT: base = k; st = a.sk; break;
     default: base = v; st = a.sv; break;
   }
-  unsigned char* dst = const_cast<unsigned char*>(stage_of(im, which, a, b, h, tile, s));
-  put_image_stage<T>(dst, base + b * st.b + h * st.h, st.s, tile * kT, n, a.hd, s,
-                     which == kQT || which == kDOT || which == kKT, threadIdx.x);
+  unsigned char* dst = const_cast<unsigned char*>(stage_of<HD>(im, which, a, b, h, tile, s));
+  put_image_stage<T, HD>(dst, base + b * st.b + h * st.h, st.s, tile * kT, n, a.hd, s,
+                         which == kQT || which == kDOT || which == kKT, threadIdx.x);
+}
+
+// the kernels by head width (the profiler's names tell the two apart)
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_256_image_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const T* __restrict__ dout,
+                           const __grid_constant__ Args a, const __grid_constant__ Images im) {
+  image_stage<T, 256>(q, k, v, dout, a, im);
+}
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_128_image_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const T* __restrict__ dout,
+                           const __grid_constant__ Args a, const __grid_constant__ Images im) {
+  image_stage<T, 128>(q, k, v, dout, a, im);
 }
 
 // ---------------------------------------------------------------------------
@@ -162,13 +184,13 @@ flash_bwd_256_image_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 using Ring = WgRing<kR>;
 
-// d = A·Bᵀ over the kNA atoms of two operands' (64 x 256) stages m0 ..
-// m0 + kNA - 1: each atom's stage freed one group later
-template <bool kBf16, class F>
+// d = A·Bᵀ over the NA atoms of two operands' (64 x 32 NA) stages m0 ..
+// m0 + NA - 1: each atom's stage freed one group later
+template <bool kBf16, int NA, class F>
 __device__ __forceinline__ void ss_tile(float (&d)[32], const F& f, uint32_t m0) {
   zero(d);
 #pragma unroll
-  for (int c = 0; c < kNA; ++c) {
+  for (int c = 0; c < NA; ++c) {
     const uint32_t st = f.r.take(m0 + c);
     mma_fence();
     ss_atom<kBf16>(d, desc(st), desc(st + kAtom), desc(st + kStage), desc(st + kStage + kAtom));
@@ -180,7 +202,7 @@ __device__ __forceinline__ void ss_tile(float (&d)[32], const F& f, uint32_t m0)
   }
   mma_wait<0>();
   keep(d);
-  f.release(m0 + kNA - 1);
+  f.release(m0 + NA - 1);
 }
 
 // part += A·B over one 32-row stage m, A's fragments j0 .. j0 + 3 from
@@ -203,16 +225,14 @@ __device__ __forceinline__ void rs_stage(float (&part)[32], uint32_t (&fh)[N], u
 // 3. dK and dV of one 64-key tile, from one query head
 // ---------------------------------------------------------------------------
 
-// A warpgroup's stages of a query tile: kNA of (K or V atom c, Q or dO atom
-// c), then kNA of Qᵀ or dOᵀ (32-query half hh, 64-column chunk c: image
-// stage 4 hh + c)
-constexpr int kKVSPT = 2 * kNA;
-
-template <typename T>
+// A warpgroup's stages of a query tile: NA = HD / 32 of (K or V atom c, Q
+// or dO atom c), then NA of Qᵀ or dOᵀ (32-query half hh, 64-column chunk c:
+// image stage NC hh + c, NC = HD / 64)
+template <typename T, int HD>
 __device__ __forceinline__ int dkdv_block(T* __restrict__ dk, T* __restrict__ dv, const Args& a,
                                           const Images& im, unsigned char* smem, const Ring& r,
                                           uint32_t* masks, uint32_t pass, uint32_t m0) {
-  constexpr int NC = kHD / 64;
+  constexpr int NC = HD / 64, NA = HD / 32, kKVSPT = 2 * NA;
   constexpr bool kBf16 = sizeof(T) == 2;
   const bool slow = pass == 1;
   const KVTile tl(a);
@@ -226,11 +246,11 @@ __device__ __forceinline__ int dkdv_block(T* __restrict__ dk, T* __restrict__ dv
   const uint32_t m_end = m0 + (uint32_t)(ntiles * kKVSPT);
   auto land = [&](uint32_t m) {
     const int j = (int)(m - m0), qt = qt_first + j / kKVSPT, i = j % kKVSPT;
-    if (i < kNA)
-      r.land(m, stage_of(im, wg ? kV : kK, a, b, hk, kt, i),
-             stage_of(im, wg ? kDO : kQ, a, b, h, qt, i), kStage);
+    if (i < NA)
+      r.land(m, stage_of<HD>(im, wg ? kV : kK, a, b, hk, kt, i),
+             stage_of<HD>(im, wg ? kDO : kQ, a, b, h, qt, i), kStage);
     else
-      r.land(m, stage_of(im, wg ? kDOT : kQT, a, b, h, qt, i - kNA), nullptr, kStage);
+      r.land(m, stage_of<HD>(im, wg ? kDOT : kQT, a, b, h, qt, i - NA), nullptr, kStage);
   };
   const WgFeed<kR, decltype(land)> f{r, land, m0, m_end, tid == 0};
   f.start();
@@ -260,7 +280,7 @@ __device__ __forceinline__ int dkdv_block(T* __restrict__ dk, T* __restrict__ dv
       }
     // Sᵀ = K·Qᵀ (dK's), dPᵀ = V·dOᵀ (dV's): keys key0 (c < 2) and key0 + 8,
     // queries q0 + 8j + 2t + c % 2
-    ss_tile<kBf16>(sacc, f, mt);
+    ss_tile<kBf16, NA>(sacc, f, mt);
     const bool all = all_visible(q0, k0, a.n_q, a.n_k, a.window, a.num_meta);
     if (wg == 0) {
       if (tile > 0) named_sync(3, 256);  // the dV warpgroup is done with Pᵀ
@@ -307,7 +327,7 @@ __device__ __forceinline__ int dkdv_block(T* __restrict__ dk, T* __restrict__ dv
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         zero(part);
-        rs_stage<kBf16>(part, fh, fl, 0, f, mt + kNA + 4 * hh + c);
+        rs_stage<kBf16>(part, fh, fl, 0, f, mt + NA + NC * hh + c);
 #pragma unroll
         for (int rr = 0; rr < 32; ++rr) acc[c][rr] += part[rr];
       }
@@ -341,7 +361,7 @@ __device__ __forceinline__ int dkdv_block(T* __restrict__ dk, T* __restrict__ dv
     const int key = key0 + 8 * rr;
     if (key >= a.n_k) continue;
     T* row = out + b * so.b + hk * so.h + (long long)key * so.s;
-    float* prow = partial + (((long long)b * a.hq + h) * a.n_k + key) * kHD;
+    float* prow = partial + (((long long)b * a.hq + h) * a.n_k + key) * HD;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
 #pragma unroll
@@ -379,10 +399,9 @@ __device__ __forceinline__ Ring init_rings(unsigned char* tiles, uint64_t* bars)
 }
 
 // 256 threads: the dK warpgroup and the dV warpgroup
-template <typename T>
-__global__ void __launch_bounds__(kWorkers, 1)
-flash_bwd_256_dkdv_kernel(T* __restrict__ dk, T* __restrict__ dv, const __grid_constant__ Args a,
-                          const __grid_constant__ Images im) {
+template <typename T, int HD>
+__device__ __forceinline__ void dkdv_kernel(T* __restrict__ dk, T* __restrict__ dv,
+                                            const Args& a, const Images& im) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ __align__(8) uint64_t bars[kBars];
   __shared__ uint32_t masks[2 * kW];
@@ -390,21 +409,32 @@ flash_bwd_256_dkdv_kernel(T* __restrict__ dk, T* __restrict__ dv, const __grid_c
   const Ring r = init_rings(tiles, bars);
   uint32_t m0 = 0;
   for (uint32_t pass = 0;; ++pass) {
-    const int n = dkdv_block<T>(dk, dv, a, im, tiles, r, masks, pass, m0);
+    const int n = dkdv_block<T, HD>(dk, dv, a, im, tiles, r, masks, pass, m0);
     if (n < 0) break;
     m0 = (uint32_t)n;
   }
+}
+template <typename T>
+__global__ void __launch_bounds__(kWorkers, 1)
+flash_bwd_256_dkdv_kernel(T* __restrict__ dk, T* __restrict__ dv, const __grid_constant__ Args a,
+                          const __grid_constant__ Images im) {
+  dkdv_kernel<T, 256>(dk, dv, a, im);
+}
+template <typename T>
+__global__ void __launch_bounds__(kWorkers, 1)
+flash_bwd_128_dkdv_kernel(T* __restrict__ dk, T* __restrict__ dv, const __grid_constant__ Args a,
+                          const __grid_constant__ Images im) {
+  dkdv_kernel<T, 128>(dk, dv, a, im);
 }
 
 // ---------------------------------------------------------------------------
 // 5. dQ of one 64-row query tile of query head h
 // ---------------------------------------------------------------------------
 
-// A warpgroup's stages of a key tile: kNA of (Q or dO atom c, K or V atom
-// c), then four of Kᵀ: its own two 64-column chunks (c = 2 wg + cc) by
-// 32-key half hh, stage k being cc = k / 2, hh = k % 2 (image stage 4 hh +
-// c)
-constexpr int kQSPT = kNA + 4;
+// A warpgroup's stages of a key tile: NA = HD / 32 of (Q or dO atom c, K
+// or V atom c), then NC = HD / 64 of Kᵀ: its own NC / 2 64-column chunks
+// (c = (NC / 2) wg + cc) by 32-key half hh, stage k being cc = k / 2, hh =
+// k % 2 (image stage NC hh + c)
 
 // the block's query tile and its walk over the key tiles
 struct QTile {
@@ -438,10 +468,11 @@ struct QTile {
   }
 };
 
-template <typename T>
+template <typename T, int HD>
 __device__ __forceinline__ int dq_block(T* __restrict__ dq, const Args& a, const Images& im,
                                         unsigned char* smem, const Ring& r, uint32_t* masks,
                                         uint32_t pass, uint32_t m0) {
+  constexpr int NA = HD / 32, NC = HD / 64, kQSPT = NA + NC;
   constexpr bool kBf16 = sizeof(T) == 2;
   const bool slow = pass == 1;
   const QTile qt(a);
@@ -456,13 +487,13 @@ __device__ __forceinline__ int dq_block(T* __restrict__ dq, const Args& a, const
   // tile lkt
   int lkt = qt.next(-1), li = 0;
   auto land = [&](uint32_t m) {
-    if (li < kNA) {
-      r.land(m, stage_of(im, wg ? kDO : kQ, a, b, h, tq, li),
-             stage_of(im, wg ? kV : kK, a, b, hk, lkt, li), kStage);
+    if (li < NA) {
+      r.land(m, stage_of<HD>(im, wg ? kDO : kQ, a, b, h, tq, li),
+             stage_of<HD>(im, wg ? kV : kK, a, b, hk, lkt, li), kStage);
     } else {
-      const int k = li - kNA;
-      r.land(m, stage_of(im, kKT, a, b, hk, lkt, 4 * (k & 1) + 2 * wg + (k >> 1)), nullptr,
-             kStage);
+      const int k = li - NA;
+      r.land(m, stage_of<HD>(im, kKT, a, b, hk, lkt, NC * (k & 1) + (NC / 2) * wg + (k >> 1)),
+             nullptr, kStage);
     }
     if (++li == kQSPT) {
       li = 0;
@@ -481,16 +512,16 @@ __device__ __forceinline__ int dq_block(T* __restrict__ dq, const Args& a, const
     const int i = row0 + 8 * rr;
     rv[rr] = i < a.n_q ? (wg == 0 ? a.lse : a.delta)[row_base + i] : 0.f;
   }
-  float acc[2][32], s[32], part[32];
+  float acc[NC / 2][32], s[32], part[32];
   uint32_t fh[32], fl[32];
-  zero(acc[0]);
-  zero(acc[1]);
+#pragma unroll
+  for (int cc = 0; cc < NC / 2; ++cc) zero(acc[cc]);
   uint32_t mt = m0;
   for (int kt = qt.next(-1); kt >= 0; kt = qt.next(kt), mt += kQSPT) {
     const int k0 = kt * kT;
     // S = Q·Kᵀ or dP = dO·Vᵀ: rows row0 (c < 2) and row0 + 8, keys k0 + 8j +
     // 2t + c % 2
-    ss_tile<kBf16>(s, f, mt);
+    ss_tile<kBf16, NA>(s, f, mt);
     const bool all = all_visible(q0, k0, a.n_q, a.n_k, a.window, a.num_meta);
     if (wg == 0) {
       // P, then dS from the dP warpgroup
@@ -523,20 +554,22 @@ __device__ __forceinline__ int dq_block(T* __restrict__ dq, const Args& a, const
       named_arrive(2, 256);
     }
     split_frags(s, fh, fl, slow);
-    // dQ += dS·K over this warpgroup's two 64-column chunks, each from the
-    // two 32-key halves of Kᵀ's stages into one zeroed partial
+    // dQ += dS·K over this warpgroup's NC / 2 64-column chunks, each from
+    // the two 32-key halves of Kᵀ's stages into one zeroed partial
 #pragma unroll
-    for (int cc = 0; cc < 2; ++cc) {
+    for (int cc = 0; cc < NC / 2; ++cc) {
       zero(part);
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh)
-        rs_stage<kBf16>(part, fh, fl, 4 * hh, f, mt + kNA + 2 * cc + hh);
+        rs_stage<kBf16>(part, fh, fl, 4 * hh, f, mt + NA + 2 * cc + hh);
 #pragma unroll
       for (int rr = 0; rr < 32; ++rr) acc[cc][rr] += part[rr];
     }
   }
   if (!slow) {
-    const bool bad = !all_finite(acc[0]) || !all_finite(acc[1]);
+    bool bad = false;
+#pragma unroll
+    for (int cc = 0; cc < NC / 2; ++cc) bad |= !all_finite(acc[cc]);
     if (__syncthreads_or(bad)) return (int)m_end;
   }
   // the key tiles skipped (every pair masked): 0 · inf where k holds an inf
@@ -557,10 +590,10 @@ __device__ __forceinline__ int dq_block(T* __restrict__ dq, const Args& a, const
     const int i = row0 + 8 * rr;
     if (i >= a.n_q) continue;
 #pragma unroll
-    for (int cc = 0; cc < 2; ++cc)
+    for (int cc = 0; cc < NC / 2; ++cc)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int d = 64 * (2 * wg + cc) + 8 * j + 2 * t;
+        const int d = 64 * ((NC / 2) * wg + cc) + 8 * j + 2 * t;
         if (d < a.hd)
           store(dqb + (long long)i * a.sdq.s + d,
                 flagged(m, d) ? nan_f32() : acc[cc][4 * j + 2 * rr] * a.scale);
@@ -573,10 +606,8 @@ __device__ __forceinline__ int dq_block(T* __restrict__ dq, const Args& a, const
 }
 
 // 256 threads: the S warpgroup and the dP warpgroup
-template <typename T>
-__global__ void __launch_bounds__(kWorkers, 1)
-flash_bwd_256_dq_kernel(T* __restrict__ dq, const __grid_constant__ Args a,
-                        const __grid_constant__ Images im) {
+template <typename T, int HD>
+__device__ __forceinline__ void dq_kernel(T* __restrict__ dq, const Args& a, const Images& im) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ __align__(8) uint64_t bars[kBars];
   __shared__ uint32_t masks[2 * kW];
@@ -584,22 +615,37 @@ flash_bwd_256_dq_kernel(T* __restrict__ dq, const __grid_constant__ Args a,
   const Ring r = init_rings(tiles, bars);
   uint32_t m0 = 0;
   for (uint32_t pass = 0;; ++pass) {
-    const int n = dq_block<T>(dq, a, im, tiles, r, masks, pass, m0);
+    const int n = dq_block<T, HD>(dq, a, im, tiles, r, masks, pass, m0);
     if (n < 0) break;
     m0 = (uint32_t)n;
   }
 }
-
 template <typename T>
+__global__ void __launch_bounds__(kWorkers, 1)
+flash_bwd_256_dq_kernel(T* __restrict__ dq, const __grid_constant__ Args a,
+                        const __grid_constant__ Images im) {
+  dq_kernel<T, 256>(dq, a, im);
+}
+template <typename T>
+__global__ void __launch_bounds__(kWorkers, 1)
+flash_bwd_128_dq_kernel(T* __restrict__ dq, const __grid_constant__ Args a,
+                        const __grid_constant__ Images im) {
+  dq_kernel<T, 128>(dq, a, im);
+}
+
+template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, void* dq, void* dk, void* dv, Args a, uint32_t* qflags,
                    uint32_t* dflags, uint32_t* kflags, float* delta, const Images& im,
                    cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_256_dkdv_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  // the head width's three kernels
+  const auto image = HD == 128 ? flash_bwd_128_image_kernel<T> : flash_bwd_256_image_kernel<T>;
+  const auto dkdv = HD == 128 ? flash_bwd_128_dkdv_kernel<T> : flash_bwd_256_dkdv_kernel<T>;
+  const auto dq_k = HD == 128 ? flash_bwd_128_dq_kernel<T> : flash_bwd_256_dq_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kSmem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_256_dq_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  err = cudaFuncSetAttribute(dq_k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
   const int n_qt = (a.n_q + kT - 1) / kT, n_kt = (a.n_k + kT - 1) / kT;
   const int hkv = a.hq / a.group;
@@ -607,21 +653,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                                 0, stream>>>((const T*)q, (const T*)k, (const T*)o,
                                              (const T*)dout, a, delta, qflags, dflags, kflags);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  flash_bwd_256_image_kernel<T>
-      <<<dim3(n_qt > n_kt ? n_qt : n_kt, kNA, a.batch * (4 * a.hq + 3 * hkv)), kThreads, 0,
-         stream>>>((const T*)q, (const T*)k, (const T*)v, (const T*)dout, a, im);
+  image<<<dim3(n_qt > n_kt ? n_qt : n_kt, HD / 32, a.batch * (4 * a.hq + 3 * hkv)), kThreads, 0,
+          stream>>>((const T*)q, (const T*)k, (const T*)v, (const T*)dout, a, im);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  flash_bwd_256_dkdv_kernel<T><<<n_kt * a.hq * a.batch, kWorkers, kSmem, stream>>>((T*)dk, (T*)dv,
-                                                                                  a, im);
+  dkdv<<<n_kt * a.hq * a.batch, kWorkers, kSmem, stream>>>((T*)dk, (T*)dv, a, im);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (a.group > 1) {
-    const long long total = (long long)a.batch * hkv * a.n_k * kHD;
-    flash_bwd_vd_reduce_kernel<T, kHD, kHD>
+    const long long total = (long long)a.batch * hkv * a.n_k * HD;
+    flash_bwd_vd_reduce_kernel<T, HD, HD>
         <<<(unsigned)((total + kReduceThreads - 1) / kReduceThreads), kReduceThreads, 0,
            stream>>>((T*)dk, (T*)dv, a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  flash_bwd_256_dq_kernel<T><<<n_qt * a.hq * a.batch, kWorkers, kSmem, stream>>>((T*)dq, a, im);
+  dq_k<<<n_qt * a.hq * a.batch, kWorkers, kSmem, stream>>>((T*)dq, a, im);
   return cudaGetLastError();
 }
 
@@ -631,14 +675,15 @@ extern "C" {
 
 // q [batch, hq, n_q, hd], k/v [batch, hq/group, n_k, hd], o and dout like
 // q, dq like q, dk/dv like k; each given by its (batch, head, row) element
-// strides, the head_dim stride 1; f32 when is_bf16 == 0, else bf16; 128 <
-// hd <= 256 (zero-padded to 256), n_q <= n_k. lse [batch, hq, n_q] f32 from
-// the forward. Workspaces (the wrapper allocates them): delta, batch x hq x
-// n_q floats; at group > 1 dkp and dvp, batch x hq x n_k x 256 floats each,
-// else unused; qflags and dflags, batch x hq x ceil(n_q / 64) x 8 words,
-// kflags batch x hq/group x ceil(n_k / 64) x 8; images, 16-byte aligned:
-// four of batch x hq x ceil(n_q / 64) x 128 KB (Q, dO, Qᵀ, dOᵀ) and three
-// of batch x hq/group x ceil(n_k / 64) x 128 KB (K, V, Kᵀ), in that order
+// strides, the head_dim stride 1; f32 when is_bf16 == 0, else bf16; 64 <
+// hd <= 256 (zero-padded to the head width W: 128 up to hd 128, else 256),
+// n_q <= n_k. lse [batch, hq, n_q] f32 from the forward. Workspaces (the
+// wrapper allocates them): delta, batch x hq x n_q floats; at group > 1 dkp
+// and dvp, batch x hq x n_k x W floats each, else unused; qflags and
+// dflags, batch x hq x ceil(n_q / 64) x 8 words, kflags batch x hq/group x
+// ceil(n_k / 64) x 8; images, 16-byte aligned, W / 32 16 KB stages a
+// 64-row tile: four of batch x hq x ceil(n_q / 64) tiles (Q, dO, Qᵀ, dOᵀ)
+// and three of batch x hq/group x ceil(n_k / 64) (K, V, Kᵀ), in that order
 // in `images`. Four or five launches on `stream` (delta and the masks, the
 // images, dK and dV, their sum over the group when group > 1, dQ); returns
 // the first failure of cudaGetLastError().
@@ -650,7 +695,7 @@ int flash_attention_bwd_256_launch(const void* q, const void* k, const void* v, 
                                    int batch, int hq, int group, int n_q, int n_k, int hd,
                                    float scale, int window, int num_meta, int is_bf16,
                                    void* stream) {
-  if (hd <= 128 || hd > kHD) return (int)cudaErrorInvalidValue;  // the wrapper raises before
+  if (hd <= 64 || hd > 256) return (int)cudaErrorInvalidValue;  // the wrapper raises before
   Strides st[8];
   for (int i = 0; i < 8; ++i) st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   Args a;
@@ -682,11 +727,16 @@ int flash_attention_bwd_256_launch(const void* q, const void* k, const void* v, 
   Images im;
   for (int i = 0; i < kImages; ++i) im.p[i] = (unsigned char*)images[i];
   cudaStream_t s = (cudaStream_t)stream;
+  uint32_t *qf = (uint32_t*)qflags, *df = (uint32_t*)dflags, *kf = (uint32_t*)kflags;
   if (is_bf16)
-    return (int)launch<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, a, (uint32_t*)qflags,
-                                      (uint32_t*)dflags, (uint32_t*)kflags, delta, im, s);
-  return (int)launch<float>(q, k, v, o, dout, dq, dk, dv, a, (uint32_t*)qflags,
-                            (uint32_t*)dflags, (uint32_t*)kflags, delta, im, s);
+    return (int)(hd <= 128 ? launch<__nv_bfloat16, 128>(q, k, v, o, dout, dq, dk, dv, a, qf, df,
+                                                        kf, delta, im, s)
+                           : launch<__nv_bfloat16, 256>(q, k, v, o, dout, dq, dk, dv, a, qf, df,
+                                                        kf, delta, im, s));
+  return (int)(hd <= 128 ? launch<float, 128>(q, k, v, o, dout, dq, dk, dv, a, qf, df, kf, delta,
+                                              im, s)
+                         : launch<float, 256>(q, k, v, o, dout, dq, dk, dv, a, qf, df, kf, delta,
+                                              im, s));
 }
 
 }  // extern "C"

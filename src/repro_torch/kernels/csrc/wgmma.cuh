@@ -5,8 +5,10 @@
 // (m64n64k8 and m64n128k8, A from shared memory or from registers), the
 // producer's loads of raw operand bits and their split into TF32 hi and lo
 // parts (tf32x3.cuh) as they are stored, a copy engine's bulk copy onto an
-// mbarrier, and the 16 KB stages (an atom of hi parts and one of lo) of
-// 64-row tiles as stored or transposed, with their products over an atom.
+// mbarrier, the rings a warpgroup's first thread fills by such copies
+// (its own, WgFeed, or one that two warpgroups read, PairFeed), and the 16
+// KB stages (an atom of hi parts and one of lo) of 64-row tiles as stored
+// or transposed, with their products over an atom.
 //
 // Layout: a tile whose rows are 128 bytes (32 f32 of the reduction
 // dimension K) is an "atom": 64 rows x 128 bytes = 8 KB, row r's 16-byte
@@ -137,12 +139,66 @@ struct WgFeed {
       for (uint32_t m = m0; m < m0 + R && m < end; ++m) land(m);
     __syncwarp();
   }
+  // stage m, once it has landed
+  __device__ __forceinline__ uint32_t take(uint32_t m) const { return r.take(m); }
   // every warp frees stage m; the first thread then lands stage m + R
   // (once the other warps have freed m too), and its warp reconverges
   // before the next warpgroup instruction
   __device__ __forceinline__ void release(uint32_t m) const {
     warp_arrive(r.empty(m));
     if (first && m + R < end) land(m + R);
+    __syncwarp();
+  }
+};
+
+// whether the barrier's phase of parity `parity` has completed (no wait)
+__device__ __forceinline__ bool bar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// The feed of one ring that two warpgroups read in the same order, each
+// freeing every stage (its empty mbarrier counts 2 kWarps arrivals): the
+// first thread of warpgroup 0 lands stage m .. end - 1 of the pass, from
+// m0, in order and lazily, so that neither warpgroup waits for the other
+// but where it must: at each free of its own it lands every stage whose
+// slot both have freed (a test, no wait), and before it takes stage m it
+// lands every stage up to m, waiting for the frees these need. The other
+// warpgroup only takes and frees. `next` is the lander's next stage.
+template <int R, class Land>
+struct PairFeed {
+  const WgRing<R>& r;
+  Land& land;
+  uint32_t next, end;
+  bool lander;
+  // whether stage next's slot is free: both have freed the stage R before
+  __device__ __forceinline__ bool slot_free() const {
+    return next < (uint32_t)R || bar_test(r.empty(next), (next / R - 1) & 1);
+  }
+  __device__ __forceinline__ void start() {
+    if (lander)
+      while (next < end && slot_free()) land(next++);
+    __syncwarp();
+  }
+  __device__ __forceinline__ uint32_t take(uint32_t m) {
+    if (lander)
+      while (next <= m && next < end) land(next++);  // WgRing::land waits for the slot
+    __syncwarp();
+    return r.take(m);
+  }
+  __device__ __forceinline__ void release(uint32_t m) {
+    warp_arrive(r.empty(m));
+    if (lander)
+      while (next < end && slot_free()) land(next++);
     __syncwarp();
   }
 };
@@ -495,18 +551,21 @@ __device__ __forceinline__ void rs_atom(float (&d)[32], const uint32_t (&ah)[N],
 }
 
 
-// Stage s of a 64-row tile's "image" (the bytes of the 16 KB stages that a
-// bulk copy lands as they are; 128 threads, thread p), full split: as
-// stored, the tile's columns 32s .. 32s + 31; transposed, 32-row half s / 4
-// of its 64-column chunk s % 4. Rows past n and columns past width zero.
-template <typename T>
+// Stage s of a 64-row tile's "image" at head width HD (128 or 256; the
+// bytes of the HD / 32 16 KB stages that a bulk copy lands as they are;
+// 128 threads, thread p), full split: as stored, the tile's columns 32s ..
+// 32s + 31; transposed, 32-row half s / (HD / 64) of its 64-column chunk
+// s % (HD / 64). Rows past n and columns past width zero.
+template <typename T, int HD>
 __device__ __forceinline__ void put_image_stage(unsigned char* dst, const T* base,
                                                 long long stride, int row0, int n, int width,
                                                 int s, bool transposed, int p) {
+  constexpr int kChunks = HD / 64;
   uint4 x[4];
   const bool vec = aligned4(base, stride);
   if (transposed) {
-    get_cols<T>(x, base, stride, row0 + 32 * (s / 4), n, 64 * (s % 4), width, vec, p);
+    get_cols<T>(x, base, stride, row0 + 32 * (s / kChunks), n, 64 * (s % kChunks), width, vec,
+                p);
     put_cols<T, true>(dst, dst + kAtom, x, p);
   } else {
     get_rows<T>(x, base, stride, row0, n, 32 * s, width, vec, p);

@@ -13,8 +13,15 @@ non-finite flags, the attention, and the NaN that a skipped key tile's
 inf or NaN in V gives the rows that do not see it. Both products are
 split-f32 on the TF32 tensor cores. The attention by shape:
 
-* vd = hd <= 128 (Hymba, DBRX): an online-softmax pass of 4 warps over
+* vd = hd <= 64 (Hymba, musicgen): an online-softmax pass of 4 warps over
   cp.async double-buffered 64-row K/V tiles on ``mma.sync``;
+* vd = hd in (64, 128] (DBRX, nemotron, yi, chameleon, qwen2; zero-padded
+  to 128): ``flash_fwd_kernel_wgmma128``, a 128-row query tile per block
+  on Hopper's warpgroup products (``wgmma``): two consumer warpgroups, each
+  owning 64 of its rows and all of O's 128 columns (no exchange of
+  scores), both reading one ring of K and Vᵀ stages landed by bulk copies
+  from "images" that a fourth launch splits once into TF32 hi and lo
+  stages, so that each K/V stage serves 128 query rows;
 * vd != hd with vd <= 128 and hd <= 256 (DeepSeek-V2's MLA at (192,
   128)): ``flash_fwd_kernel_wgmma``, a 64-row query tile per block on
   Hopper's warpgroup products (``wgmma``), a producer warpgroup feeding a
@@ -26,14 +33,12 @@ split-f32 on the TF32 tensor cores. The attention by shape:
   it: operations (6.9e11 flops at DeepSeek's prefill, 4.2 ms at the
   split-f32 rate);
 * vd = hd in (128, 256] (gemma-2b's 256; others zero-padded to 256):
-  ``flash_fwd_kernel_wgmma256``, a 64-row query tile per block on
-  ``wgmma``, the scores once per (query tile, key tile): two consumer
-  warpgroups, each owning 128 of O's columns and the k8 steps of S over
+  ``flash_fwd_kernel_wgmma256``, the same source at 256 on 64-row query
+  tiles: the scores once per (query tile, key tile), two consumer
+  warpgroups each owning 128 of O's columns and the k8 steps of S over
   them (the two partials summed through shared memory, so both run the
   same softmax), Q resident and split by its consumers, K and Vᵀ landed
-  by each warpgroup's first thread with bulk copies from "images" that a
-  fourth launch splits once into TF32 hi and lo stages
-  (``forward_route``);
+  by each warpgroup's first thread into its own ring (``forward_route``);
 * vd > 128 at vd != hd, or hd > 256: one block per 128-column slice of O
   (over vd), each over the full scores (over hd), on ``mma.sync``.
 
@@ -48,17 +53,19 @@ Gradients. On CUDA tensors that need one, the call goes through
 also writes each row's log-sum-exp, and the backward is a hand-written
 kernel, f32 or bf16, Sq <= T:
 
-* vd = hd <= 128: ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``,
+* vd = hd <= 64: ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``,
   the FlashAttention-2 backward that the JAX package's custom VJP writes
   in jnp, its products split-f32 on the tensor cores);
-* vd = hd in (128, 256] (gemma-2b's 256): ``flash_attention_bwd_256``
-  (``csrc/flash_attention_bwd_256.cu``), the same two passes on
-  ``wgmma``, S and dP once in each: a prep launch splits every operand
-  once into images of the passes' shared-memory stages, which each
-  consumer warpgroup's first thread lands by bulk copies; the dK/dV pass
-  keeps a key tile's dK and dV in the two warpgroups' registers, the dQ
-  pass splits dQ's columns between them (``flash_attention_bwd`` hands
-  these shapes over, ``bwd_route``);
+* vd = hd in (64, 128] and (128, 256] (DBRX's and qwen2's 128, gemma-2b's
+  256; zero-padded to 128 or 256): ``flash_attention_bwd_128`` and
+  ``flash_attention_bwd_256`` (``csrc/flash_attention_bwd_256.cu`` at
+  either head width), the same two passes on ``wgmma``, S and dP once in
+  each: a prep launch splits every operand once into images of the
+  passes' shared-memory stages, which each consumer warpgroup's first
+  thread lands by bulk copies; the dK/dV pass keeps a key tile's dK and
+  dV in the two warpgroups' registers, the dQ pass splits dQ's columns
+  between them (``flash_attention_bwd`` hands these shapes over,
+  ``bwd_route``);
 * vd != hd with vd <= 128 and hd <= 192 (MLA; the forward is then
   ``flash_fwd_kernel_wgmma``): ``flash_attention_bwd_vd``
   (``csrc/flash_attention_bwd_vd.cu``, the same two passes on Hopper's
@@ -88,9 +95,15 @@ MAX_BWD_VD_DIMS = (192, 128)
 #: columns of V's non-finite mask per 16-byte entry, and the wide kernel's
 #: O slice
 _SLICE = 128
-#: bytes of one 64-row tile's image (``flash_fwd_kernel_wgmma256``,
-#: ``flash_attention_bwd_256``): eight 16 KB stages of TF32 hi and lo atoms
-_IMAGE_TILE = 8 * 16384
+
+
+def _image_tile(hd: int) -> int:
+    """Bytes of one 64-row tile's image at head_dim ``hd`` (the wgmma
+    kernels at vd = hd in (64, 256]: ``flash_fwd_kernel_wgmma128`` and
+    ``_wgmma256``, ``flash_attention_bwd_128`` and ``_256``): a 16 KB stage
+    of TF32 hi and lo atoms per 32 columns of the padded width, 128 or
+    256."""
+    return (128 if hd <= 128 else 256) // 32 * 16384
 
 
 def _check(q, k, v, window, num_meta) -> str:
@@ -127,13 +140,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     CPU tensors: the plain version. CUDA tensors: the hand-written kernel
     (``flash_attention.launches`` counts its calls: one call is three
     launches: V's non-finite flags, the attention, and the NaN the
-    skipped tiles add; four at vd = hd in (128, 256], K's and Vᵀ's images
+    skipped tiles add; four at vd = hd in (64, 256], K's and Vᵀ's images
     before the attention); on the card the
     head_dim stride must be 1, other strides are free; any head_dim.
     Non-finite values come out as the plain version gives them: an inf or
     NaN in V at a key masked for a row makes that row NaN in its column,
     as 0 · inf does in the reference. When a gradient is needed the call
-    is differentiable through ``flash_attention_bwd`` (vd = hd <= 128),
+    is differentiable through ``flash_attention_bwd`` (vd = hd <= 64),
+    ``flash_attention_bwd_128`` (vd = hd in (64, 128]),
     ``flash_attention_bwd_256`` (vd = hd in (128, 256]) or
     ``flash_attention_bwd_vd`` (vd != hd, vd <= 128, hd <= 192), Sq <= T;
     other shapes raise."""
@@ -165,11 +179,11 @@ def _launch(q, k, v, window, num_meta, *, lse):
     # that hold an inf or NaN
     vflags = torch.empty((b, hkv, -(-tk // 64), 4 * -(-vd // _SLICE)),
                          dtype=torch.int32, device=q.device)
-    # flash_fwd_kernel_wgmma256's images of K and Vᵀ: per 64-key tile
-    # eight 16 KB stages of TF32 hi and lo atoms each
+    # flash_fwd_kernel_wgmma128's and _wgmma256's images of K and Vᵀ: per
+    # 64-key tile four or eight 16 KB stages of TF32 hi and lo atoms each
     images = None
-    if forward_route(hd, vd) == "wgmma256":
-        images = torch.empty(2 * b * hkv * -(-tk // 64) * _IMAGE_TILE,
+    if forward_route(hd, vd) in ("wgmma128", "wgmma256"):
+        images = torch.empty(2 * b * hkv * -(-tk // 64) * _image_tile(hd),
                              dtype=torch.uint8, device=q.device)
     launch = backend.c_function(
         "flash_attention", "flash_attention_launch",
@@ -194,10 +208,12 @@ flash_attention.launches = 0
 def forward_route(hd: int, vd: int) -> str:
     """The attention kernel of ``csrc/flash_attention.cu`` (its
     ``launch_hd``) that takes q/k's head_dim ``hd`` and v's ``vd``: "mma"
-    (``flash_fwd_kernel``, vd = hd <= 128), "wgmma" (vd != hd, vd <= 128,
-    hd <= 256), "wgmma256" (vd = hd in (128, 256]) or "wide" (the rest)."""
+    (``flash_fwd_kernel``, vd = hd <= 64), "wgmma128" (vd = hd in (64,
+    128]), "wgmma256" (vd = hd in (128, 256]), "wgmma" (vd != hd, vd <=
+    128, hd <= 256) or "wide" (the rest)."""
     if vd == hd:
-        return "mma" if hd <= 128 else "wgmma256" if hd <= 256 else "wide"
+        return ("mma" if hd <= 64 else "wgmma128" if hd <= 128
+                else "wgmma256" if hd <= 256 else "wide")
     return "wgmma" if vd <= _SLICE and hd <= 256 else "wide"
 
 
@@ -272,20 +288,24 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, window: int = 0,
     """The backward kernel at vd = hd: (dq like q, dk like k, dv like v)
     from the forward's inputs, its output ``out``, the output's cotangent
     ``dout`` and the rows' log-sum-exp ``lse`` [B, Hq, Sq] f32, all on the
-    card. hd <= 128: ``csrc/flash_attention_bwd.cu``
+    card. hd <= 64: ``csrc/flash_attention_bwd.cu``
     (``flash_attention_bwd.launches`` counts its calls: one call is four
     launches: delta = rowsum(dO ∘ O) with the tiles' masks of non-finite
     columns, dK and dV per query head, their sum over the GQA group, dQ);
-    128 < hd <= 256: ``flash_attention_bwd_256``. Non-finite values come
-    out where the plain version's autograd gives them."""
+    64 < hd <= 128: ``flash_attention_bwd_128``; 128 < hd <= 256:
+    ``flash_attention_bwd_256``. Non-finite values come out where the
+    plain version's autograd gives them."""
     name = "flash_attention_bwd"
     if v.shape[3] != q.shape[3]:
         raise ValueError(f"{name}: v's head_dim {v.shape[3]} != q's "
                          f"{q.shape[3]}: flash_attention_bwd_vd takes it")
     _check_bwd(q, k, v)
-    if bwd_route(q.shape[3], v.shape[3]) == "flash_attention_bwd_256":
-        return flash_attention_bwd_256(q, k, v, out, dout, lse, window=window,
-                                       num_meta=num_meta)
+    route = bwd_route(q.shape[3], v.shape[3])
+    if route != name:
+        wide = {"flash_attention_bwd_128": flash_attention_bwd_128,
+                "flash_attention_bwd_256": flash_attention_bwd_256}[route]
+        return wide(q, k, v, out, dout, lse, window=window,
+                    num_meta=num_meta)
     dout = _check_bwd_args(name, q, k, v, out, dout, lse)
     b, hq, sq, hd = q.shape
     hkv, tk = k.shape[1], k.shape[2]
@@ -295,8 +315,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, window: int = 0,
     f32, dev = torch.float32, q.device
     delta = torch.empty((b, hq, sq), dtype=f32, device=dev)
     # dK and dV of each query head (summed over the GQA group by the
-    # kernel's third launch), at head_dim rounded up to 32, 64 or 128
-    hd_pad = next(w for w in (32, 64, 128) if hd <= w)
+    # kernel's third launch), at head_dim rounded up to 32 or 64
+    hd_pad = 32 if hd <= 32 else 64
     dkp = torch.empty((b, hq, tk, hd_pad), dtype=f32, device=dev)
     dvp = torch.empty_like(dkp)
     # per 64-row tile: the bitmask of the columns where q, dO (query heads)
@@ -333,14 +353,33 @@ flash_attention_bwd.launches = 0
 def bwd_route(hd: int, vd: int) -> str:
     """The backward kernel (its wrapper's name) that takes q/k's head_dim
     ``hd`` and v's ``vd``; raises for shapes none takes."""
-    if vd == hd and hd <= 128:
+    if vd == hd and hd <= 64:
         return "flash_attention_bwd"
+    if vd == hd and hd <= 128:
+        return "flash_attention_bwd_128"
     if vd == hd and hd <= MAX_BWD_HEAD_DIM:
         return "flash_attention_bwd_256"
     if vd != hd and hd <= MAX_BWD_VD_DIMS[0] and vd <= MAX_BWD_VD_DIMS[1]:
         return "flash_attention_bwd_vd"
     raise ValueError(f"flash_attention_bwd: no backward kernel takes hd {hd}"
                      f" with vd {vd}")
+
+
+def flash_attention_bwd_128(q, k, v, out, dout, lse, *, window: int = 0,
+                            num_meta: int = 0):
+    """The backward kernel at vd = hd in (64, 128] (DBRX's and qwen2's 128;
+    others zero-padded to 128), ``csrc/flash_attention_bwd_256.cu`` at head
+    width 128: (dq like q, dk like k, dv like v) as ``flash_attention_bwd``
+    gives them, all on the card (``flash_attention_bwd_128.launches``
+    counts its calls: one call is four launches at GQA group 1, five above
+    it, as ``flash_attention_bwd_256``'s). Non-finite values come out where
+    the plain version's autograd gives them."""
+    return _bwd_wgmma(flash_attention_bwd_128, 128, q, k, v, out, dout, lse,
+                      window, num_meta)
+
+
+#: backward kernel launches at vd = hd in (64, 128] since the last reset
+flash_attention_bwd_128.launches = 0
 
 
 def flash_attention_bwd_256(q, k, v, out, dout, lse, *, window: int = 0,
@@ -355,10 +394,22 @@ def flash_attention_bwd_256(q, k, v, out, dout, lse, *, window: int = 0,
     dV per query head on wgmma, their sum over the group, dQ on wgmma).
     Non-finite values come out where the plain version's autograd gives
     them."""
-    name = "flash_attention_bwd_256"
+    return _bwd_wgmma(flash_attention_bwd_256, 256, q, k, v, out, dout, lse,
+                      window, num_meta)
+
+
+#: backward kernel launches at vd = hd in (128, 256] since the last reset
+flash_attention_bwd_256.launches = 0
+
+
+def _bwd_wgmma(wrapper, width, q, k, v, out, dout, lse, window, num_meta):
+    """``flash_attention_bwd_256.cu`` at head width ``width`` (128 or 256),
+    the route of ``wrapper`` (whose launches it counts): its workspaces and
+    its launch."""
+    name = wrapper.__name__
     if bwd_route(q.shape[3], v.shape[3]) != name:
-        raise ValueError(f"{name}: takes vd = hd in (128, 256], got hd "
-                         f"{q.shape[3]} and vd {v.shape[3]}")
+        raise ValueError(f"{name}: takes vd = hd in ({width // 2}, {width}],"
+                         f" got hd {q.shape[3]} and vd {v.shape[3]}")
     dout = _check_bwd_args(name, q, k, v, out, dout, lse)
     b, hq, sq, hd = q.shape
     hkv, tk = k.shape[1], k.shape[2]
@@ -371,14 +422,15 @@ def flash_attention_bwd_256(q, k, v, out, dout, lse, *, window: int = 0,
     qflags = torch.empty((b, hq, n_qt, 8), dtype=torch.int32, device=dev)
     dflags = torch.empty_like(qflags)
     kflags = torch.empty((b, hkv, n_kt, 8), dtype=torch.int32, device=dev)
-    # above GQA group 1, dK and dV of each query head at 256 columns
+    # above GQA group 1, dK and dV of each query head at the padded width
     dkp = dvp = None
     if hq != hkv:
-        dkp = torch.empty((b, hq, tk, 256), dtype=f32, device=dev)
+        dkp = torch.empty((b, hq, tk, width), dtype=f32, device=dev)
         dvp = torch.empty_like(dkp)
     # the images of Q, dO, Qᵀ, dOᵀ (per query head) and K, V, Kᵀ (per kv
     # head), in one buffer
-    q_img, k_img = b * hq * n_qt * _IMAGE_TILE, b * hkv * n_kt * _IMAGE_TILE
+    tile = _image_tile(hd)
+    q_img, k_img = b * hq * n_qt * tile, b * hkv * n_kt * tile
     images = torch.empty(4 * q_img + 3 * k_img, dtype=torch.uint8, device=dev)
     base = images.data_ptr()
     ptrs = (ctypes.c_void_p * 7)(*[base + i * q_img for i in range(4)],
@@ -388,7 +440,7 @@ def flash_attention_bwd_256(q, k, v, out, dout, lse, *, window: int = 0,
     strides = (ctypes.c_longlong * 24)(
         *[s for t in (q, k, v, out, dout, dq, dk, dv) for s in t.stride()[:3]])
     launch = backend.c_function(
-        name, "flash_attention_bwd_256_launch",
+        "flash_attention_bwd_256", "flash_attention_bwd_256_launch",
         [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
            ctypes.c_void_p])
@@ -401,12 +453,8 @@ def flash_attention_bwd_256(q, k, v, out, dout, lse, *, window: int = 0,
                 hq // hkv, sq, tk, hd, hd ** -0.5, int(window), int(num_meta),
                 int(q.dtype == torch.bfloat16), backend.stream_ptr(dev))
     backend.raise_on_error(name, rc)
-    flash_attention_bwd_256.launches += 1
+    wrapper.launches += 1
     return dq, dk, dv
-
-
-#: backward kernel launches at vd = hd in (128, 256] since the last reset
-flash_attention_bwd_256.launches = 0
 
 
 def flash_attention_bwd_vd(q, k, v, out, dout, lse, *, window: int = 0,

@@ -392,6 +392,10 @@ class CheckpointStore(ClientStateStore):
         #: a fetch-worker exception nobody collected via ``result()``,
         #: re-raised at the store's next use instead of being lost
         self._worker_error: Optional[BaseException] = None
+        #: one that ``result()`` collected before the future's done-callback
+        #: ran on the worker (the future wakes its waiters first): the
+        #: callback drops it instead of keeping it for a rethrow
+        self._collected_error: Optional[BaseException] = None
         self._error_lock = threading.Lock()
 
     def _fetch_pool(self) -> ThreadPoolExecutor:
@@ -417,13 +421,17 @@ class CheckpointStore(ClientStateStore):
         exc = future.exception()
         if exc is not None:
             with self._error_lock:
-                if self._worker_error is None:
+                if exc is self._collected_error:
+                    self._collected_error = None
+                elif self._worker_error is None:
                     self._worker_error = exc
 
     def _consume_worker_error(self, exc: BaseException) -> None:
         with self._error_lock:
             if self._worker_error is exc:
                 self._worker_error = None
+            else:           # its done-callback has not run yet
+                self._collected_error = exc
 
     def _raise_pending_worker_error(self) -> None:
         with self._error_lock:

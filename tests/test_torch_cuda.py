@@ -54,7 +54,12 @@ skip themselves elsewhere. Run them on the card with
   bf16), with an inf or NaN in q, k, v and dO in tiles they skip and
   visit, two calls bit for bit, and the routes by the launched kernels'
   names (hd 129, 192, 256 on the wgmma kernel; 257, 512 and (320, 256) on
-  the wide one);
+  the wide one); the same at hd = vd in (64, 128] for
+  ``flash_fwd_kernel_wgmma128`` (128-row query tiles) and
+  ``flash_attention_bwd_128`` (S one below and above multiples of 64 and
+  128, GQA groups 1, 6, 7 and 8, windows with meta tokens, hd 65, 100 and
+  127, odd row strides), the routes naming no hd-128 instantiation of the
+  ``mma.sync`` kernels;
 * the FL paths of the topology-aware protocol, fault plans and the
   paper's ``Aggregate(·)`` launch their kernels (``fed_mix_segment`` /
   ``fed_mix``, ``fed_aggregate``) and agree with the CPU;
@@ -118,8 +123,8 @@ from repro_torch.kernels.fed_mix_sparse import (
     check_cluster_ids, fed_mix_matching, fed_mix_segment,
 )
 from repro_torch.kernels.flash_attention import (
-    bwd_route, flash_attention, flash_attention_bwd, flash_attention_bwd_256,
-    flash_attention_bwd_vd, forward_route,
+    bwd_route, flash_attention, flash_attention_bwd, flash_attention_bwd_128,
+    flash_attention_bwd_256, flash_attention_bwd_vd, forward_route,
 )
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
 from repro_torch.protocols.async_gossip import matching_perm_stack
@@ -867,8 +872,10 @@ def test_flash_attention_bwd_matches_plain_autograd_on_card(
         cuda, b, hq, hkv, s, hd, window, num_meta, dtype):
     q, k, v = _qkv_model_layout(cuda, b, hq, hkv, s, hd, dtype)
     dout = torch.randn((b, hq, s, hd), device="cuda", generator=cuda).to(dtype)
-    # hd <= 128: flash_attention_bwd's own kernel; above: the one at 256
+    # hd <= 64: flash_attention_bwd's own kernel; above: the wgmma ones at
+    # 128 and 256
     kernel = {"flash_attention_bwd": flash_attention_bwd,
+              "flash_attention_bwd_128": flash_attention_bwd_128,
               "flash_attention_bwd_256": flash_attention_bwd_256}[
         bwd_route(hd, hd)]
     before = kernel.launches
@@ -1057,6 +1064,149 @@ def test_flash_attention_forward_routes_on_card(cuda, hd, vd):
     assert ("flash_fwd_kernel_wide" in names) == (route == "wide")
     torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v),
                                rtol=2e-5, atol=2e-5)
+
+
+# hd = vd in (64, 128] on flash_fwd_kernel_wgmma128 (128-row query tiles,
+# two warpgroups on their 64-row halves) and flash_attention_bwd_128
+# (64-row tiles): S one below and above multiples of 64 and 128, GQA
+# groups 1, 6, 7 and 8, windows with meta tokens, hd 65, 100 and 127
+# (zero-padded to 128)
+EDGES_128 = [
+    (1, 2, 2, 63, 128, 0, 0), (1, 2, 2, 65, 128, 0, 0),
+    (2, 6, 1, 127, 128, 0, 0), (2, 6, 1, 129, 128, 0, 0),
+    (1, 7, 1, 191, 128, 0, 0), (1, 8, 1, 193, 128, 0, 0),
+    (1, 16, 2, 257, 128, 70, 9), (2, 12, 2, 320, 128, 64, 64),
+    (1, 14, 2, 200, 128, 100, 5), (1, 4, 2, 150, 65, 0, 0),
+    (1, 6, 1, 200, 100, 48, 5), (1, 8, 1, 130, 127, 0, 0),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,hd,window,num_meta", EDGES_128)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_128_edges_on_card(cuda, b, hq, hkv, s, hd, window,
+                                           num_meta, dtype):
+    """The forward and its backward at the hd-128 kernels' tile edges: o,
+    dq, dk and dv against the plain version and its autograd at the
+    forward's tolerances; each call goes through the wgmma kernels."""
+    q, k, v = _qkv_model_layout(cuda, b, hq, hkv, s, hd, dtype)
+    dout = torch.randn((b, hq, s, hd), device="cuda", generator=cuda).to(dtype)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    got = flash_attention(q, k, v, window=window, num_meta=num_meta)
+    want = ref.flash_attention_ref(q, k, v, window=window, num_meta=num_meta)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    before = flash_attention_bwd_128.launches
+    got = _flash_grads(flash_attention, q, k, v, dout, window, num_meta)
+    assert flash_attention_bwd_128.launches == before + 1
+    want = _flash_grads(ref.flash_attention_ref, q, k, v, dout, window,
+                        num_meta)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("hd", [96, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_128_unaligned_rows_on_card(cuda, hd, dtype):
+    """q, k, v and dO as [b, s, h, hd] slices of [b, s, h, hd + 1]
+    tensors (odd row strides: the images' loads element by element), GQA
+    7/1, a window with meta tokens: o, dq, dk and dv against the plain
+    version."""
+    kw = dict(device="cuda", generator=cuda)
+    q, k, v, dout = [(torch.randn((1, 150, h, hd + 1), **kw) * 0.5).to(dtype)
+                     [..., :hd].transpose(1, 2) for h in (7, 1, 1, 7)]
+    assert q.stride(2) % 2 == 1 and dout.stride(2) % 2 == 1
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    got = flash_attention(q, k, v, window=64, num_meta=4)
+    want = ref.flash_attention_ref(q, k, v, window=64, num_meta=4)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    got = _flash_grads(flash_attention, q, k, v, dout, 64, 4)
+    want = _flash_grads(ref.flash_attention_ref, q, k, v, dout, 64, 4)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol,
+                                   msg=name)
+
+
+# (tensor, (b, head, row, column)) at head_dim 128, B 1, GQA 14/2 (group
+# 7), 320 positions, window 70, 9 meta tokens: in tiles the forward and
+# both backward passes skip for some rows (a key past the window, the last
+# key, a query row whose early keys lie outside the window, dO rows) and
+# inside visited ones
+NON_FINITE_128 = [("q", (0, 13, 300, 120)), ("k", (0, 1, 90, 65)),
+                  ("k", (0, 0, 3, 7)), ("v", (0, 1, 100, 127)),
+                  ("v", (0, 0, 319, 64)), ("dO", (0, 4, 10, 100)),
+                  ("dO", (0, 9, 250, 3))]
+
+
+@pytest.mark.parametrize("tensor,index", NON_FINITE_128,
+                         ids=[f"{t}_row{i[2]}_col{i[3]}"
+                              for t, i in NON_FINITE_128])
+@pytest.mark.parametrize("val", [float("inf"), -float("inf"), float("nan")],
+                         ids=["inf", "-inf", "nan"])
+def test_flash_attention_128_non_finite_on_card(cuda, tensor, index, val):
+    """An inf or NaN in q, k, v or dO at head_dim 128: o and the
+    gradients hold the plain version's NaN and inf, the finite values at
+    the f32 tolerance."""
+    b, hq, hkv, s, hd, window, meta = 1, 14, 2, 320, 128, 70, 9
+    q, k, v = _qkv_model_layout(cuda, b, hq, hkv, s, hd, torch.float32)
+    dout = torch.randn((b, hq, s, hd), device="cuda", generator=cuda)
+    {"q": q, "k": k, "v": v, "dO": dout}[tensor][index] = val
+    outs = [flash_attention(q, k, v, window=window, num_meta=meta)]
+    wants = [ref.flash_attention_ref(q, k, v, window=window, num_meta=meta)]
+    outs += _flash_grads(flash_attention, q, k, v, dout, window, meta)
+    wants += _flash_grads(ref.flash_attention_ref, q, k, v, dout, window,
+                          meta)
+    assert not all(bool(torch.isfinite(w).all()) for w in wants)
+    for g, w in zip(outs, wants):
+        if bool(torch.isfinite(w).all()):
+            torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5)
+        else:
+            _compare_non_finite(g, w, (2e-5, 2e-5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_128_repeats_bit_for_bit_on_card(cuda, dtype):
+    """Two calls of the forward and of the backward at 128 give the same
+    bits (no float atomics; the GQA sum in head order)."""
+    from repro_torch.kernels.flash_attention import _launch
+    q, k, v = _qkv_model_layout(cuda, 2, 8, 1, 333, 128, dtype)
+    lse = torch.empty((2, 8, 333), device="cuda")
+    out = _launch(q, k, v, 0, 0, lse=lse)
+    assert torch.equal(out, _launch(q, k, v, 0, 0, lse=lse))
+    dout = torch.randn_like(out)
+    r1, r2 = [flash_attention_bwd_128(q, k, v, out, dout, lse)
+              for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(r1, r2))
+
+
+@pytest.mark.parametrize("hd", [32, 64, 65, 100, 128])
+def test_flash_attention_128_routes_on_card(cuda, hd):
+    """vd = hd in (64, 128] runs flash_fwd_kernel_wgmma128 forward (with
+    its images, flash_fwd_kernel_image128) and flash_attention_bwd_128's
+    kernels backward, and no hd-128 instantiation of the mma.sync kernels
+    (flash_fwd_kernel, flash_bwd_dkdv_kernel, flash_bwd_dq_kernel) runs;
+    hd <= 64 stays on those: the launched kernels' names, as
+    ``forward_route`` and ``bwd_route`` say, and the output against the
+    plain version."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v = _qkv_model_layout(cuda, 1, 6, 1, 200, hd, torch.float32)
+    dout = torch.randn((1, 6, 200, hd), device="cuda", generator=cuda)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = _flash_grads(flash_attention, q, k, v, dout, 0, 0)
+    names = " ".join(e.key for e in prof.key_averages())
+    wide = hd > 64
+    assert forward_route(hd, hd) == ("wgmma128" if wide else "mma")
+    assert bwd_route(hd, hd) == ("flash_attention_bwd_128" if wide
+                                 else "flash_attention_bwd")
+    for kernel in ("flash_fwd_kernel_wgmma128", "flash_fwd_kernel_image128",
+                   "flash_bwd_128_dkdv_kernel", "flash_bwd_128_dq_kernel",
+                   "flash_bwd_128_image_kernel"):
+        assert (kernel in names) == wide, kernel
+    for kernel in ("flash_fwd_kernel<", "flash_bwd_dkdv_kernel<",
+                   "flash_bwd_dq_kernel<"):
+        assert (kernel in names) == (not wide), kernel
+    want = _flash_grads(ref.flash_attention_ref, q, k, v, dout, 0, 0)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5, msg=name)
 
 
 def _ssd_grads(fn, x, dt, A, B, C, init, dy, dfinal, chunk):

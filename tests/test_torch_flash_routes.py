@@ -2,28 +2,34 @@
 host (no card, no JAX).
 
 * ``forward_route`` mirrors ``csrc/flash_attention.cu``'s ``launch_hd``:
-  vd = hd <= 128 on ``mma.sync`` ("mma"); vd != hd with vd <= 128 and hd
-  <= 256 on ``flash_fwd_kernel_wgmma`` ("wgmma"); vd = hd in (128, 256]
-  (gemma-2b's 256) on ``flash_fwd_kernel_wgmma256`` ("wgmma256", the
-  scores once per tile pair); the rest (hd = vd > 256, vd > 128 at
-  vd != hd) on the 128-column slices of ``flash_fwd_kernel_wide``;
+  vd = hd <= 64 on ``mma.sync`` ("mma"); vd = hd in (64, 128] (the dense
+  models' 128) on ``flash_fwd_kernel_wgmma128`` ("wgmma128", 128-row
+  query tiles); vd != hd with vd <= 128 and hd <= 256 on
+  ``flash_fwd_kernel_wgmma`` ("wgmma"); vd = hd in (128, 256] (gemma-2b's
+  256) on ``flash_fwd_kernel_wgmma256`` ("wgmma256", the scores once per
+  tile pair); the rest (hd = vd > 256, vd > 128 at vd != hd) on the
+  128-column slices of ``flash_fwd_kernel_wide``;
 * ``bwd_route`` picks the backward: ``flash_attention_bwd`` (vd = hd <=
-  128), ``flash_attention_bwd_256`` (vd = hd in (128, 256]) or
+  64), ``flash_attention_bwd_128`` (vd = hd in (64, 128]),
+  ``flash_attention_bwd_256`` (vd = hd in (128, 256]) or
   ``flash_attention_bwd_vd`` (vd != hd, hd <= 192, vd <= 128), and raises
   for the rest;
 * the wrappers' guards: the backward kernels run on CUDA tensors only,
-  and ``flash_attention_bwd_256`` refuses the other routes' shapes.
+  and ``flash_attention_bwd_128`` and ``_256`` refuse the other routes'
+  shapes.
 """
 import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import (
-    bwd_route, flash_attention_bwd, flash_attention_bwd_256, forward_route,
+    _image_tile, bwd_route, flash_attention_bwd, flash_attention_bwd_128,
+    flash_attention_bwd_256, forward_route,
 )
 
 
 @pytest.mark.parametrize("hd,vd,route", [
-    (32, 32, "mma"), (64, 64, "mma"), (128, 128, "mma"),
+    (32, 32, "mma"), (64, 64, "mma"), (65, 65, "wgmma128"),
+    (96, 96, "wgmma128"), (100, 100, "wgmma128"), (128, 128, "wgmma128"),
     (129, 129, "wgmma256"), (160, 160, "wgmma256"), (192, 192, "wgmma256"),
     (200, 200, "wgmma256"), (256, 256, "wgmma256"),
     (257, 257, "wide"), (320, 320, "wide"), (512, 512, "wide"),
@@ -38,7 +44,8 @@ def test_forward_route(hd, vd, route):
 
 @pytest.mark.parametrize("hd,route", [
     (32, "flash_attention_bwd"), (64, "flash_attention_bwd"),
-    (128, "flash_attention_bwd"), (129, "flash_attention_bwd_256"),
+    (65, "flash_attention_bwd_128"), (100, "flash_attention_bwd_128"),
+    (128, "flash_attention_bwd_128"), (129, "flash_attention_bwd_256"),
     (160, "flash_attention_bwd_256"), (192, "flash_attention_bwd_256"),
     (256, "flash_attention_bwd_256"),
 ])
@@ -73,3 +80,27 @@ def test_flash_attention_bwd_256_guards():
     with pytest.raises(ValueError, match="head_dim 512 > 256"):
         big = torch.zeros((1, 2, 8, 512))
         flash_attention_bwd(big, big, big, big, big, lse)
+
+
+def test_flash_attention_bwd_128_guards():
+    q = k = v = out = torch.zeros((1, 6, 8, 128))
+    lse = torch.zeros((1, 6, 8))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        flash_attention_bwd_128(q, k, v, out, out, lse)
+    # the vd = hd entry point hands 128 over, and keeps the device rule
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        flash_attention_bwd(q, k, v, out, out, lse)
+    for hd in (64, 129):     # the other wgmma route's and the mma route's
+        t = torch.zeros((1, 6, 8, hd))
+        with pytest.raises(ValueError, match=r"vd = hd in \(64, 128\]"):
+            flash_attention_bwd_128(t, t, t, t, t, lse)
+    with pytest.raises(ValueError, match=r"vd = hd in \(128, 256\]"):
+        flash_attention_bwd_256(q, k, v, out, out, lse)
+
+
+@pytest.mark.parametrize("hd,stages", [(65, 4), (100, 4), (128, 4),
+                                       (129, 8), (256, 8)])
+def test_image_tile_bytes(hd, stages):
+    """A 64-row tile's image: one 16 KB stage of TF32 hi and lo atoms per
+    32 columns of the padded width (128 or 256)."""
+    assert _image_tile(hd) == stages * 16384

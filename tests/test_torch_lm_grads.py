@@ -102,6 +102,11 @@ def _port_grads(q, k, v, do, window, num_meta):
     (2, 2, 2, 64, 8, 16, 4),         # MHA
     (1, 8, 1, 64, 256, 0, 0),        # gemma-2b's hd = vd = 256, MQA 8/1
     (2, 4, 1, 48, 256, 16, 4),       # hd 256, MQA with a window and meta
+    # hd 128 at GQA groups 6, 7 and 8, with and without a window and meta
+    (1, 6, 1, 64, 128, 0, 0),
+    (1, 7, 1, 72, 128, 24, 8),
+    (1, 16, 2, 64, 128, 16, 4),
+    (1, 6, 1, 50, 100, 0, 0),        # hd 100 (the kernel pads it to 128)
 ])
 def test_flash_plain_grads_match_jax(b, hq, hkv, s, hd, window, num_meta):
     q, k, v, do = _attention_inputs(b, hq, hkv, s, hd, seed=s + hd)

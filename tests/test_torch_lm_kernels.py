@@ -59,6 +59,10 @@ def _ssd_inputs(b, s, h, p, n, seed=42):
     (2, 4, 2, 256, 64, 128, 128),
     (1, 2, 1, 512, 128, 256, 128),     # MQA
     (2, 3, 3, 128, 32, 64, 64),        # MHA odd heads
+    # hd 128 at GQA groups 6, 7 and 8 (the dense models' 48/8, 56/8, 64/8)
+    (1, 6, 1, 128, 128, 64, 64),
+    (1, 7, 1, 192, 128, 64, 64),
+    (1, 16, 2, 128, 128, 64, 64),
 ])
 @pytest.mark.parametrize("window", [0, 96])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -106,6 +110,32 @@ def test_flash_plain_meta_matches_direct_attention(s, window, num_meta):
     got = ops.flash_attention(_t(q), _t(k), _t(v), window=window,
                               num_meta=num_meta)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("hk,g,s,window,num_meta", [
+    (1, 6, 130, 64, 8), (1, 7, 90, 0, 8), (2, 8, 150, 48, 16),
+])
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_flash_plain_meta_gqa128_matches_direct_attention(hk, g, s, window,
+                                                          num_meta, dtype):
+    """The meta-token term at head_dim 128 and GQA groups 6, 7 and 8, with
+    and without a window, f32 and bf16 (the model's direct attention on
+    the same bf16 values in f32)."""
+    b, hd = 1, 128
+    jdt = jnp.dtype(dtype)
+    q, k, v = _qkv(b, hk * g, hk, s, hd, jdt, seed=3)
+    pos = jnp.arange(s)
+    f32 = [jnp.asarray(a).astype(jnp.float32) for a in (q, k, v)]
+    jq = f32[0].transpose(0, 2, 1, 3).reshape(b, s, hk, g, hd)
+    want = _direct_attention(jq, f32[1].transpose(0, 2, 1, 3),
+                             f32[2].transpose(0, 2, 1, 3), pos, pos,
+                             window, num_meta)
+    want = np.asarray(want).reshape(b, s, hk * g, hd).transpose(0, 2, 1, 3)
+    got = ops.flash_attention(_t(q), _t(k), _t(v), window=window,
+                              num_meta=num_meta)
+    assert got.dtype == _t(q).dtype
+    tol = (1e-5, 1e-6) if jdt == jnp.float32 else (3e-2, 3e-2)
+    np.testing.assert_allclose(_np(got), want, rtol=tol[0], atol=tol[1])
 
 
 @pytest.mark.parametrize("b,s,h,p,n,chunk", [

@@ -9,6 +9,7 @@ float64 in both (cold tier) or in f32 in other orders (memory tier, rtol
 1e-6).
 """
 import time
+from concurrent.futures import Future
 
 import numpy as np
 import pytest
@@ -322,6 +323,20 @@ def test_worker_error_collected_via_result_is_not_rethrown():
         h.result()
     del st.gather
     _eq(st.prefetch(np.array([2])).result(), np.zeros((1, W), np.float32))
+    st.close()
+
+
+def test_worker_error_collected_before_its_callback_is_not_rethrown():
+    """``result()`` can return before the worker thread runs the future's
+    done-callback (the future wakes its waiters first): the error it
+    raised to the caller is not kept for a rethrow at the next use."""
+    st = CheckpointStore(np.zeros((W,), np.float32), D)
+    err = ValueError("collected first")
+    st._consume_worker_error(err)          # result() saw it first
+    fut = Future()
+    fut.set_exception(err)
+    st._on_fetch_done(fut)                 # then the callback ran
+    assert st.prefetch(np.array([2])).result().shape == (1, W)
     st.close()
 
 
