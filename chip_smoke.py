@@ -34,7 +34,12 @@ exits non-zero:
             too)
             (flash: q, k, v, dO; the SSD: x, dt, B, C, dY) giving the
             plain autograd's inf and NaN; the wgmma forward's row
-            log-sum-exp against the plain one;
+            log-sum-exp against the plain one; first of all, while the
+            card holds nothing else, the four mix kernels at the
+            federated LM rows' shapes (mamba2-130m's P at D 8,
+            qwen2-1.5b's at FED_QWEN_LAYERS layers and D 4, D x P past
+            2^31), column block by column block, and flash and the SSD
+            pair at those rows' client shapes too;
   reference the port on the card (kernels) against the port on the CPU
             (plain versions) on a small CNN run with the same draws,
             gossip, gossip_async, the int8/topk wire, fedp2p_topo and a
@@ -54,6 +59,8 @@ exits non-zero:
             reduced gemma-2b (at head_dim 256), nemotron-4-15b, yi-34b,
             chameleon-34b (at head_dim 128) and musicgen-medium served the
             same way, gemma, nemotron and musicgen trained the same way;
+            federated LM rounds (``MeshEngine``) of reduced mamba2-130m
+            (five protocols), 3 rounds on the same draws and weights;
   main_path ``Simulator.run`` on CNN-FEMNIST at the paper's full width
             (246,590 params x 100 clients): fedp2p, fedp2p with
             sync_period=2, fedavg, fedp2p on mix_path="dense", fedp2p
@@ -104,8 +111,13 @@ exits non-zero:
             on both reduced; then
             the train step of gemma-2b cut to 16 layers (B 1 x 2048, the
             hd-256 backward) and musicgen-medium whole (B 1 x 1500
-            frames), 3 steps each: each run driven with the launch
-            counters set to 0 just before it and read just after;
+            frames), 3 steps each; then federated LM training through
+            ``MeshEngine`` (``fed_main_path``): mamba2-130m whole at D 8
+            (fedp2p with stragglers and sync_period 2, fedavg, gossip,
+            gossip_async, dense, int8 on dense, topk's residual threaded
+            over two calls) and qwen2-1.5b cut to FED_QWEN_LAYERS layers
+            at D 4: each run driven with the launch counters set to 0
+            just before it and read just after;
   timing    each kernel's mean time at the main path's shape beside its
             plain version (the FL rows with the L2 evicted before every
             call), its bound (the product kernels' at the
@@ -121,11 +133,18 @@ exits non-zero:
             training shapes beside the plain autograd and, for flash,
             SDPA's backward), two
             rounds' split between local
-            training, mixing and the wire, the Hymba prefill's
+            training, mixing and the wire (at SPLIT_EPOCHS local epochs), the Hymba prefill's
             device time by kernel, and a sampled cold-tier round (D =
             10^6) split into store gather, window and scatter, with the
             share of the store's time that depths 2 and 3 hide (printed,
-            not gated).
+            not gated); the mix kernels at the federated LM's P beside
+            their bytes bound, and a federated mamba2-130m round's split
+            between local training and the mix;
+  mesh      ``psum_mix`` of every protocol on MESH_RANKS spawned ranks on
+            the one card (gloo, CUDA tensors, a mamba2-130m client each),
+            the int8 wire too, against the one-card mix; one round on an
+            nccl world of one rank (a spawned process) against the
+            one-card round.
 
 Each phase prints one JSON line. The run ends with the kernel summary
 line, the ``nvidia-smi`` name/power-limit line, and then
@@ -274,10 +293,35 @@ AUDIO_ARCH, AUDIO_FRAMES = "musicgen-medium", 1500
 # (2.29 B params, 64 GB at the update) at 2048 tokens, through the hd-256
 # backward; musicgen-medium whole (1.82 B, 51 GB) at 1500 frames.
 DENSE_TRAIN_RUNS = (("gemma-2b", 16, 2048), ("musicgen-medium", 48, 1500))
+# Federated LM training through MeshEngine (f32 SGD, remat on as in the
+# JAX package's MeshEngine): (arch, D clients, L clusters). mamba2-130m
+# whole (0.52 GB a client); qwen2-1.5b at every published width, its
+# depth cut to FED_QWEN_LAYERS of 28 layers (1.26 B parameters, 5.1 GB a
+# client): one round holds the state, the trained rows and the mixed rows
+# of D 4 clients, 3 x 4 x 5.1 = 60.6 GB, where the whole model's 74 GB
+# would leave the card no room for training. B 4 x 512 tokens, 2 local
+# steps a client a round; the counts |D_i| drawn from FED_COUNTS_SEED.
+FED_MAMBA = ("mamba2-130m", 8, 4)
+FED_QWEN = ("qwen2-1.5b", 4, 2)
+FED_QWEN_LAYERS = 22
+FED_B, FED_SEQ, FED_STEPS = 4, 512, 2
+FED_COUNTS_SEED = 17
+# the mesh phase: ranks on the one card, one mamba2-130m client each
+MESH_RANKS = 4
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def timed(label, fn, *args):
+    """``fn(*args)``, its wall seconds printed to stderr under ``label``
+    (a phase's parts: where the run's time limit goes)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"chip_smoke: {label} took {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr, flush=True)
+    return out
 
 
 def nvidia_smi() -> str:
@@ -458,7 +502,9 @@ def phase_kernels(torch, state):
     )
 
     f32, bf16 = torch.float32, torch.bfloat16
-    rows, failed = [], []
+    # the federated LM shapes first, while the card holds nothing else
+    rows = fed_kernel_cases(torch)
+    failed = [r for r in rows if not r["ok"]]
     seg_cases = [(MAIN_D, MAIN_P, 1, f32), (MAIN_D, MAIN_P, 10, f32),
                  (MAIN_D, MAIN_P, 1, bf16), (MAIN_D, MAIN_P, 10, bf16),
                  (37, 1000, 37, f32), (37, 1000, 37, bf16),
@@ -821,6 +867,7 @@ def lm_kernel_cases(torch):
     flash_cases += [(1, 2, 1, 512, 128, w, 0) for w in (0, 96)]
     flash_cases += [(2, 3, 3, 128, 32, w, 0) for w in (0, 96)]
     flash_cases += [(2, 4, 2, 200, 64, 64, 8)]           # ragged S
+    flash_cases += [(FED_B, 12, 2, FED_SEQ, 128, 0, 0)]   # federated qwen2
     # head_dim > 128: gemma-2b's MQA at 2048 positions, GQA with a window
     # and meta tokens, hd 160 and 192 (flash_fwd_kernel_wgmma256, padded to
     # 256), hd 512 (the wide kernel's four slices)
@@ -861,6 +908,7 @@ def lm_kernel_cases(torch):
     ssd_cases = [(LM_B, LM_S, 50, 64, 16, 128),             # Hymba
                  (LM_B, LM_PROMPTS[0] + LM_META, 50, 64, 16, 128),
                  (LM_B, LM_S, 24, 64, 128, 256),            # mamba2-130m
+                 (FED_B, FED_SEQ, 24, 64, 128, 256),        # its clients
                  (2, 128, 3, 16, 32, 32), (1, 256, 2, 64, 128, 64),
                  (2, 64, 1, 8, 16, 16),                     # the JAX sweep
                  (2, 100, 4, 16, 16, 20),                   # a small chunk
@@ -976,6 +1024,7 @@ def lm_backward_cases(torch):
     flash_cases = [(TRAIN_B, LM_HQ, LM_HKV, LM_S, LM_HD, w, LM_META)
                    for w in (LM_WINDOW, 0)]
     flash_cases += [(TRAIN_B, 12, 2, LM_S, 128, 0, 0),      # qwen2-1.5b
+                    (FED_B, 12, 2, FED_SEQ, 128, 0, 0),     # its clients
                     (MOE_TRAIN_B, 48, 8, MOE_TRAIN_SEQ, 128, 0, 0),  # DBRX
                     (TRAIN_B, 8, 1, 1024, 64, 0, 0),        # MQA
                     (2, 4, 2, 200, 64, 64, 8),              # ragged S
@@ -1055,6 +1104,7 @@ def lm_backward_cases(torch):
             del q, k, v, scores, want
     ssd_cases = [(TRAIN_B, LM_S, 50, 64, 16, 128),         # Hymba
                  (TRAIN_B, LM_S, 24, 64, 128, 256),        # mamba2-130m
+                 (FED_B, FED_SEQ, 24, 64, 128, 256),       # its clients
                  (8, 128, 24, 64, 128, 128),               # its CLI's batch
                  (2, 100, 4, 16, 16, 20),                  # a small chunk
                  (1, 300, 5, 48, 24, 100)]                 # ragged tiles
@@ -1384,6 +1434,7 @@ def phase_reference(torch, state):
                 moe_train_reference(torch, "dbrx-132b",
                                     "flash_attention_bwd")]
     lm_rows += dense_reference(torch)
+    lm_rows += fed_reference(torch)
     rows += lm_rows
     emit({"phase": "reference", "runs": rows})
     bad = [r for r in lm_rows if not r["ok"]]
@@ -2249,6 +2300,7 @@ def phase_main_path(torch, state):
     totals = expected()
     results = []
     n_params = None
+    t_fl = time.perf_counter()
     for label, over, run_kw, expect in runs:
         over = dict(over)
         faults = over.pop("faults", None)
@@ -2311,25 +2363,40 @@ def phase_main_path(torch, state):
             emit({"phase": "main_path", "params_per_client": n_params,
                   "runs": results})
             raise AssertionError(f"main path run {label!r} failed: {row}")
-    sampled = sampled_main_path(torch, counters, totals, state)
+    print(f"chip_smoke: main_path/fl took {time.perf_counter() - t_fl:.1f} "
+          "s", file=sys.stderr, flush=True)
+    sampled = timed("main_path/sampled", sampled_main_path, torch,
+                    counters, totals, state)
     if not all(r["ok"] for r in sampled):
         emit({"phase": "main_path", "params_per_client": n_params,
               "runs": results, "sampled": sampled})
         raise AssertionError(f"sampled run failed: {sampled[-1]}")
-    lm_rows = lm_main_path(torch, counters, totals, state)
-    lm_rows += moe_main_path(torch, counters, totals)
-    lm_rows += dense_main_path(torch, counters, totals)
-    lm_rows += audio_main_path(torch, counters, totals)
-    train_rows = lm_train_main_path(torch, counters, totals, state)
-    train_rows += moe_train_main_path(torch, counters, totals)
-    train_rows += dense_train_main_path(torch, counters, totals)
+    lm_rows = timed("main_path/serve_hymba", lm_main_path, torch, counters,
+                    totals, state)
+    lm_rows += timed("main_path/serve_moe", moe_main_path, torch, counters,
+                     totals)
+    lm_rows += timed("main_path/serve_dense", dense_main_path, torch,
+                     counters, totals)
+    lm_rows += timed("main_path/serve_audio", audio_main_path, torch,
+                     counters, totals)
+    train_rows = timed("main_path/train_hymba", lm_train_main_path, torch,
+                       counters, totals, state)
+    train_rows += timed("main_path/train_moe", moe_train_main_path, torch,
+                        counters, totals)
+    train_rows += timed("main_path/train_dense", dense_train_main_path,
+                        torch, counters, totals)
+    fed_rows = timed("main_path/federated", fed_main_path, torch, counters,
+                     totals)
+    state["federated"] = fed_rows
     state["launches"] = totals
     emit({"phase": "main_path", "params_per_client": n_params,
           "runs": results, "sampled": sampled, "serving": lm_rows,
-          "training": train_rows, "table1": table1_rows(results)})
-    bad = [r for r in lm_rows + train_rows if not r["ok"]]
+          "training": train_rows, "federated": fed_rows,
+          "table1": table1_rows(results)})
+    bad = [r for r in lm_rows + train_rows + fed_rows if not r["ok"]]
     if bad:
-        raise AssertionError(f"serving or training run failed: {bad}")
+        raise AssertionError(f"serving, training or federated run failed: "
+                             f"{bad}")
 
 
 def table1_rows(results):
@@ -2941,6 +3008,672 @@ def tree_leaves(tree):
     return [tree]
 
 
+# ---------------------------------------------------------------------------
+# federated LM training (MeshEngine): its kernels, reference, main path,
+# mesh and timing
+# ---------------------------------------------------------------------------
+
+def fed_params(torch, arch, layers, dev="cuda"):
+    """Parameters a client of ``arch`` at ``layers`` layers holds (every
+    width published): the stacked layers are alike, so two small inits
+    give the count at any depth."""
+    from repro_torch.models.model import build_model
+    sizes = []
+    for n in (1, 2):
+        p = build_model(cut_config(arch, n)).init(0, device=dev)
+        sizes.append(sum(v.numel() for v in tree_leaves(p)))
+        del p
+    return sizes[0] + (layers - 1) * (sizes[1] - sizes[0])
+
+
+def fed_counts(d):
+    """The non-uniform per-client weights |D_i| of the federated runs."""
+    import numpy as np
+    return np.random.default_rng(FED_COUNTS_SEED).integers(
+        1, 9, d).astype(np.float32)
+
+
+def fed_batches(torch, vocab, rounds, d, steps, b, s, dev="cuda"):
+    """[rounds, D, steps, B, S] token and label batches, client c on its
+    own synthetic stream (seed 100 + c), as ``run_federated_training``
+    stages them."""
+    import numpy as np
+
+    from repro_torch.data.lm import token_stream_batches
+    streams = [token_stream_batches(vocab, b, s, seed=100 + c)
+               for c in range(d)]
+    staged = [[[next(streams[c]) for _ in range(steps)] for c in range(d)]
+              for _ in range(rounds)]
+    return {k: torch.from_numpy(np.stack([[np.stack([x[k] for x in client])
+                                           for client in rnd]
+                                          for rnd in staged])).to(dev)
+            for k in ("tokens", "labels")}
+
+
+# columns a plain mix takes at a time where the whole buffer's plain
+# version would not fit beside the kernel's (``chunked_compare``)
+COMPARE_COLUMNS = 1 << 26
+
+
+def chunked_compare(torch, got, plain, p, align=1, tol=None, bitwise=False):
+    """``got`` [D, p] against ``plain(c0, c1)``, the plain version on the
+    columns [c0, c1) (the mixes are column-wise), COMPARE_COLUMNS at a
+    time (``align`` divides each boundary): the plain version of a
+    [D, 10^9] buffer needs room the card has not. -> (max abs err, atol,
+    rtol, ok)."""
+    step = COMPARE_COLUMNS // align * align
+    err, ok, atol, rtol = 0.0, True, 0.0, 0.0
+    for c0 in range(0, p, step):
+        c1 = min(p, c0 + step)
+        want = plain(c0, c1)
+        part = got[:, c0:c1]
+        if bitwise:
+            ok = ok and torch.equal(part, want)
+            e = float((part.float() - want.float()).abs().max())
+        else:
+            e, atol, rtol, o = compare(torch, part, want, tol)
+            ok = ok and o
+        err = max(err, e)
+        del want
+    return err, atol, rtol, ok
+
+
+def fed_kernel_cases(torch):
+    """The four mix kernels at the federated LM rows' shapes: mamba2-130m's
+    P (D 8: fedp2p's L = 1 and 4, gossip's S = 2 and gossip_async's S = 1,
+    the dense and the int8 products) and qwen2-1.5b's at FED_QWEN_LAYERS
+    layers (D 4: D x P past 2^31), f32, each against its plain version on
+    the card, column block by column block (``chunked_compare``);
+    fed_mix_matching bit for bit. The int8 record is drawn directly
+    (values in [-127, 127], positive scales): encoding a [4, 10^9] delta
+    would need four times its size."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fed_mix import fed_mix
+    from repro_torch.kernels.fed_mix_q import fed_mix_q
+    from repro_torch.kernels.fed_mix_sparse import (
+        fed_mix_matching, fed_mix_segment,
+    )
+    from repro_torch.configs import get_config
+    f32 = torch.float32
+    rows = []
+    for (arch, d, nclu), layers in ((FED_MAMBA, None),
+                                    (FED_QWEN, FED_QWEN_LAYERS)):
+        layers = layers or get_config(arch).num_layers
+        p = fed_params(torch, arch, layers)
+        torch.cuda.empty_cache()
+        base = {"arch": arch, "layers": layers, "D": d, "P": p,
+                "dtype": "float32"}
+        for nseg in (1, nclu):
+            ids, wn, wo, xn, xo = segment_inputs(torch, d, p, nseg, f32,
+                                                 seed=1400 + nseg)
+            got = fed_mix_segment(ids, wn, wo, xn, xo, num_segments=nseg)
+            torch.cuda.synchronize()
+            err, atol, rtol, ok = chunked_compare(
+                torch, got, lambda a, b: ref.fed_mix_segment_ref(
+                    ids, wn, wo, xn[:, a:b].contiguous(),
+                    xo[:, a:b].contiguous(), num_segments=nseg), p)
+            rows.append({"kernel": "fed_mix_segment", **base, "L": nseg,
+                         "max_abs_err": err, "atol": atol, "rtol": rtol,
+                         "ok": ok and got.shape == (d, p)})
+            del ids, wn, wo, xn, xo, got
+        for stages in (2, 1):
+            perms, sv, xn, xo = matching_inputs(torch, d, p, stages, f32,
+                                                seed=1410 + stages)
+            got = fed_mix_matching(perms, sv, xn, xo)
+            torch.cuda.synchronize()
+            err, _, _, ok = chunked_compare(
+                torch, got, lambda a, b: ref.fed_mix_matching_ref(
+                    perms, sv, xn[:, a:b].contiguous(),
+                    xo[:, a:b].contiguous()), p, bitwise=True)
+            rows.append({"kernel": "fed_mix_matching", **base, "S": stages,
+                         "max_abs_err": err, "atol": 0.0, "rtol": 0.0,
+                         "bitwise": ok, "ok": ok and got.shape == (d, p)})
+            del perms, sv, xn, xo, got
+        mn, mo, xn, xo = dense_inputs(torch, d, p, f32, seed=1420)
+        got = fed_mix(mn, mo, xn, xo)
+        torch.cuda.synchronize()
+        err, atol, rtol, ok = chunked_compare(
+            torch, got, lambda a, b: ref.fed_mix_ref(
+                mn, mo, xn[:, a:b].contiguous(), xo[:, a:b].contiguous()), p)
+        rows.append({"kernel": "fed_mix", **base, "max_abs_err": err,
+                     "atol": atol, "rtol": rtol,
+                     "ok": ok and got.shape == (d, p)})
+        del xn, got
+        g = torch.Generator(device="cuda").manual_seed(1430)
+        pq = p + (-p) % CHUNK
+        q = torch.randint(-127, 128, (d, pq), device="cuda", generator=g,
+                          dtype=torch.int8)
+        sc = 1e-4 * (torch.rand((d, pq // CHUNK), device="cuda",
+                                generator=g) + 0.5)
+        got = fed_mix_q(mn, mo, q, sc, xo, chunk=CHUNK)
+        torch.cuda.synchronize()
+        err, atol, rtol, ok = chunked_compare(
+            torch, got, lambda a, b: ref.fed_mix_q_ref(
+                mn, mo, q[:, a:b if b < p else pq].contiguous(),
+                sc[:, a // CHUNK:-(-b // CHUNK)].contiguous(),
+                xo[:, a:b].contiguous(), chunk=CHUNK), p, align=CHUNK)
+        rows.append({"kernel": "fed_mix_q", **base, "Pq": pq,
+                     "chunk": CHUNK, "max_abs_err": err, "atol": atol,
+                     "rtol": rtol, "ok": ok and got.shape == (d, p)})
+        del mn, mo, q, sc, xo, got
+        torch.cuda.empty_cache()
+    return rows
+
+
+def fed_reference(torch):
+    """Federated LM rounds on the card against the CPU, through
+    ``MeshEngine.run_rounds``: the JAX package's reduced cut (2 layers,
+    width 128) of mamba2-130m for fedp2p (sync_period 2), fedp2p_topo,
+    fedavg, gossip and gossip_async; D 4 in 2 clusters, non-uniform counts, 2 local steps of B 2 x 64 tokens, a
+    quarter of the clients straggling, 3 rounds with the same draws
+    (drawn on the CPU, gossip_async's matchings included) and the same
+    weights (drawn on the CPU). Tolerances as the training rows': the
+    losses at rtol 1e-3, every parameter leaf within 1e-4 of its largest
+    |value|; the card's run launches its kernels."""
+    from repro_torch.config import FLConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.fedp2p import broadcast_to_clients
+    from repro_torch.kernels.ops import tree_flatten
+    from repro_torch.models.model import build_model
+    from repro_torch.protocols.engine import MeshEngine
+    d, nclu, steps, rounds = 4, 2, 2, 3
+    counters = launch_counters()
+    rows = []
+    for arch, algo, sp in (("mamba2-130m", "fedp2p", 2),
+                           ("mamba2-130m", "fedp2p_topo", 1),
+                           ("mamba2-130m", "fedavg", 1),
+                           ("mamba2-130m", "gossip", 1),
+                           ("mamba2-130m", "gossip_async", 1)):
+        cfg = get_config(arch).reduced(num_layers=2, max_d_model=128)
+        model = build_model(cfg)
+        params = model.init(0, device="cpu")
+        fl = FLConfig(num_clusters=nclu, lr=5e-3, sync_period=sp,
+                      straggler_rate=0.25)
+        bt = fed_batches(torch, cfg.vocab_size, rounds, d, steps, 2, 64,
+                         dev="cpu")
+        engines = {dev: MeshEngine(model, fl, d, steps, algorithm=algo,
+                                   counts=fed_counts(d), device=dev)
+                   for dev in ("cpu", "cuda")}
+        gen = torch.Generator(device="cpu").manual_seed(3)
+        fp = broadcast_to_clients(params, d)
+        draws = [engines["cpu"].draw_round(gen, fp) for _ in range(rounds)]
+        out = {}
+        for dev, eng in engines.items():
+            for fn in counters.values():
+                fn.launches = 0
+            f, losses = eng.run_rounds(broadcast_to_clients(
+                tree_to(params, dev), d), None, rounds,
+                {k: v.to(dev) for k, v in bt.items()}, draws=draws)
+            out[dev] = ([x.cpu() for x in tree_flatten(f)[0]],
+                        losses.cpu().tolist(),
+                        {k: c.launches for k, c in counters.items()
+                         if c.launches})
+        (fc, lc, _), (fg, lg, launches) = out["cpu"], out["cuda"]
+        leaf_err = [float((a - b).abs().max()
+                          / max(1e-30, float(b.abs().max())))
+                    for a, b in zip(fg, fc)]
+        ok = (all(math.isfinite(v) for v in lg)
+              and all(abs(a - b) <= 1e-3 * abs(b) for a, b in zip(lg, lc))
+              and max(leaf_err) <= 1e-4 and bool(launches))
+        rows.append({"federated": f"{arch} reduced (2 layers, width 128)",
+                     "algorithm": algo, "sync_period": sp, "clients": d,
+                     "rounds": rounds, "losses_cpu": lc, "losses_cuda": lg,
+                     "param_leaf_max_rel_err": max(leaf_err),
+                     "launches_cuda": launches, "ok": ok})
+    return rows
+
+
+def fed_run(torch, counters, totals, engine, live, bt, rounds, expect,
+            label, vocab, mode="run_rounds"):
+    """One federated run on the card from ``live["params"]`` broadcast to
+    the engine's clients, with the launch counters set to 0 just before
+    and read just after (``expect``). ``mode``: "run_rounds", one
+    ``MeshEngine.run_rounds`` call; "threaded", two, the stateful codec's
+    residual carried from the first to the second; "round_fn", the rounds
+    one ``round_fn`` call each (as ``core.fedp2p.make_federated_round``
+    gives it), ``live["params"]`` dropped once broadcast: a round then
+    holds three [D, sum(sizes)] buffers, where ``run_rounds``' caller
+    keeps the first state alive through the call (a fourth). The first
+    round's loss is held near ln ``vocab`` (random weights). -> the
+    row."""
+    from repro_torch.core.fedp2p import broadcast_to_clients
+    from repro_torch.kernels.ops import tree_flatten
+    d = engine.num_clients_dev
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fp = broadcast_to_clients(live["params"], d)
+    if mode == "round_fn":
+        del live["params"]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    if mode == "threaded":
+        half = {k: v[:rounds // 2] for k, v in bt.items()}
+        rest = {k: v[rounds // 2:] for k, v in bt.items()}
+        fp, l1, cstate = engine.run_rounds(fp, gen, rounds // 2, half)
+        residual = float(cstate.abs().max())
+        fp, l2, cstate = engine.run_rounds(fp, gen, rounds - rounds // 2,
+                                           rest, codec_state=cstate)
+        losses = torch.cat([l1, l2])
+    elif mode == "round_fn":
+        sp, losses = max(1, engine.fl.sync_period), []
+        for t in range(rounds):
+            fp, loss = engine.round_fn(
+                fp, {k: v[t] for k, v in bt.items()},
+                engine.draw_round(gen, fp),
+                do_global_sync=(t + 1) % sp == 0, round_index=t)
+            losses.append(loss)
+        losses = torch.stack(losses)
+    else:
+        out = engine.run_rounds(fp, gen, rounds, bt)
+        fp, losses = out[:2]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = {k: fn.launches for k, fn in counters.items()}
+    for k in totals:
+        totals[k] += got[k]
+    losses = losses.cpu().tolist()
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in tree_flatten(fp)[0])
+    ok = (finite and all(math.isfinite(v) for v in losses)
+          and abs(losses[0] - math.log(vocab)) <= TRAIN_LOSS0_SLACK
+          and got == expect)
+    row = {"run": label, "algorithm": engine.proto.name,
+           "mix_path": engine.mix_path,
+           "codec": engine.codec.name if engine.codec else "none",
+           "sync_period": engine.fl.sync_period,
+           "straggler_rate": engine.fl.straggler_rate, "clients": d,
+           "rounds": rounds, "driven_by": mode, "losses": losses,
+           "ln_vocab": math.log(vocab),
+           "seconds": secs, "seconds_per_round": secs / rounds,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "params_finite": finite, "launches": got,
+           "expected_launches": expect}
+    if mode == "threaded":
+        row["residual_after_first_call"] = residual
+        ok = ok and residual > 0
+    row["ok"] = ok
+    del fp
+    return row
+
+
+def fed_main_path(torch, counters, totals):
+    """Federated LM training on the card through ``MeshEngine`` (remat on,
+    f32 SGD at lr 5e-3, non-uniform counts ``fed_counts``, B 4 x 512
+    tokens, 2 local steps a client a round): mamba2-130m whole (24 layers,
+    d_model 768; D 8 clients in L 4 clusters) with fedp2p at sync_period 2
+    and a quarter of the clients straggling (4 rounds), fedavg, gossip,
+    gossip_async, fedp2p on mix_path="dense" (``fed_mix``) and with the
+    int8 wire on it (``fed_mix_q``), 2 rounds each, and topk's error
+    feedback over two ``run_rounds`` calls of one round, the residual
+    carried; then qwen2-1.5b at every published width cut to
+    FED_QWEN_LAYERS of 28 layers (D 4 in L 2, fedp2p at sync_period 2, 2
+    rounds of ``round_fn``: see ``fed_run``). A client step launches the
+    SSD (or flash) forward twice a layer (remat recomputes it) and its
+    backward once; a round, its protocol's mix kernel once."""
+    import dataclasses
+
+    from repro_torch.config import FLConfig
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import bwd_route
+    from repro_torch.models.model import build_model
+    from repro_torch.protocols.engine import MeshEngine
+    rows = []
+    arch, d, nclu = FED_MAMBA
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    live = {"params": model.init(0, device="cuda")}
+    n_params = sum(v.numel() for v in tree_leaves(live["params"]))
+    per_round = cfg.num_layers * d * FED_STEPS
+    runs = [  # (label, algorithm, FLConfig overrides, mix_path, codec,
+              #  rounds, the mix kernel)
+        ("fedp2p_sync2_stragglers", "fedp2p",
+         dict(sync_period=2, straggler_rate=0.25), "auto", "none", 4,
+         "fed_mix_segment"),
+        ("fedavg", "fedavg", {}, "auto", "none", 2, "fed_mix_segment"),
+        ("gossip", "gossip", {}, "auto", "none", 2, "fed_mix_matching"),
+        ("gossip_async", "gossip_async", {}, "auto", "none", 2,
+         "fed_mix_matching"),
+        ("fedp2p_dense", "fedp2p", {}, "dense", "none", 2, "fed_mix"),
+        ("fedp2p_int8_dense", "fedp2p", {}, "dense", "int8", 2,
+         "fed_mix_q"),
+        ("fedp2p_topk_threaded", "fedp2p", {}, "auto", "topk", 2,
+         "fed_mix_segment")]
+    bt = fed_batches(torch, cfg.vocab_size, 4, d, FED_STEPS, FED_B, FED_SEQ)
+    for label, algo, over, mix_path, codec, rounds, mix in runs:
+        fl = FLConfig(num_clusters=nclu, lr=5e-3, **over)
+        eng = MeshEngine(model, fl, d, FED_STEPS, algorithm=algo,
+                         counts=fed_counts(d), codec=codec,
+                         mix_path=mix_path, device="cuda")
+        expect = expected(**{"ssd_scan": 2 * per_round * rounds,
+                             "ssd_scan_bwd": per_round * rounds,
+                             mix: rounds})
+        row = fed_run(torch, counters, totals, eng, live,
+                      {k: v[:rounds] for k, v in bt.items()}, rounds,
+                      expect, f"federated_{arch}_{label}", cfg.vocab_size,
+                      "threaded" if label.endswith("threaded")
+                      else "run_rounds")
+        row.update(arch=arch, params_per_client=n_params, batch=FED_B,
+                   tokens=FED_SEQ, local_steps=FED_STEPS)
+        rows.append(row)
+    del live, bt
+    torch.cuda.empty_cache()
+    arch, d, nclu = FED_QWEN
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=FED_QWEN_LAYERS)
+    model = build_model(cfg)
+    live = {"params": model.init(0, device="cuda")}
+    n_params = sum(v.numel() for v in tree_leaves(live["params"]))
+    rounds = 2
+    per_round = cfg.num_layers * d * FED_STEPS
+    eng = MeshEngine(model, FLConfig(num_clusters=nclu, lr=5e-3,
+                                     sync_period=2), d, FED_STEPS,
+                     algorithm="fedp2p", counts=fed_counts(d),
+                     device="cuda")
+    expect = expected(**{"flash_attention": 2 * per_round * rounds,
+                         bwd_route(cfg.head_dim, cfg.head_dim):
+                             per_round * rounds,
+                         "fed_mix_segment": rounds})
+    bt = fed_batches(torch, cfg.vocab_size, rounds, d, FED_STEPS, FED_B,
+                     FED_SEQ)
+    row = fed_run(torch, counters, totals, eng, live, bt, rounds, expect,
+                  f"federated_{arch}_fedp2p_sync2", cfg.vocab_size,
+                  "round_fn")
+    row.update(arch=arch, params_per_client=n_params,
+               reduced={"num_layers": [full.num_layers, FED_QWEN_LAYERS]},
+               batch=FED_B, tokens=FED_SEQ, local_steps=FED_STEPS)
+    rows.append(row)
+    del live, bt, eng
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mesh_rank(rank, world, cases, seed):
+    """One rank of the mesh phase (spawned by ``run_ranks``, gloo, every
+    rank on card 0): f_new and f_old of ``world`` mamba2-130m clients drawn
+    from ``seed`` on the card, the same on every rank; for each case this
+    rank's rows mixed by ``psum_mix`` (``MeshEngine.mix`` on the mesh)
+    against its rows of the one-card ``MeshEngine`` mix of all of them (on
+    the same post-wire f_new for int8: the mesh's wire is per leaf). ->
+    [(max abs err, ok)] a case."""
+    import torch
+    torch.cuda.set_device(0)
+    from repro_torch import compression
+    from repro_torch.config import FLConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.fedp2p import broadcast_to_clients
+    from repro_torch.kernels import backend
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.protocols.engine import MeshDraws, MeshEngine
+    from repro_torch.sharding.rules import make_mesh_info
+    backend.use_full_f32()
+    info = make_mesh_info(None, make_debug_mesh(data=world))
+    params = build_model(get_config(FED_MAMBA[0])).init(0, device="cuda")
+    flat, spec = kernel_ops.packed_view(broadcast_to_clients(params, world))
+    del params
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    old = flat + 0.01 * torch.randn(flat.shape, device="cuda", generator=g)
+    new = old + 0.01 * torch.randn(old.shape, device="cuda", generator=g)
+    del flat
+    rows = list(info.clients)
+    int8 = compression.get("int8")
+    fl = FLConfig(num_clusters=2, lr=5e-3)
+    counts = torch.from_numpy(fed_counts(world))
+    out = []
+    for algo, survive, sync, codec, matching in cases:
+        draws = MeshDraws(survive=torch.tensor(survive),
+                          matching=None if matching is None
+                          else torch.tensor(matching))
+        want_new = new
+        if codec == "int8":
+            u = [torch.rand((world, int8.padded(n)), device="cuda",
+                            generator=g) for n in spec.sizes]
+            draws = MeshDraws(survive=draws.survive, matching=draws.matching,
+                              wire_noise=tuple(u))
+            want_new = kernel_ops.pack_tree(compression.wire_tree(
+                int8, kernel_ops.unpack_tree(new, spec),
+                kernel_ops.unpack_tree(old, spec), u=u))[0]
+        one = MeshEngine(None, fl, world, 1, algorithm=algo, counts=counts,
+                         device="cuda")
+        want = kernel_ops.packed_view(one.mix(
+            want_new, old, spec, MeshDraws(survive=draws.survive,
+                                           matching=draws.matching),
+            do_global_sync=sync)[0])[0][rows]
+        del want_new
+        eng = MeshEngine(None, fl, world, 1, algorithm=algo, counts=counts,
+                         codec=codec, mesh_info=info, device="cuda")
+        got = kernel_ops.packed_view(eng.mix(
+            new[rows].contiguous(), old[rows].contiguous(), spec, draws,
+            do_global_sync=sync)[0])[0]
+        err, atol, rtol, ok = compare(torch, got, want, (1e-6, 1e-5))
+        out.append((err, ok))
+        del want, got, draws
+        torch.cuda.empty_cache()
+    return out
+
+
+def nccl_round_rank(rank, world):
+    """A fedp2p round of mamba2-130m whole at D 1 (2 local steps of B 4 x
+    512) on an nccl world of one rank (spawned by ``run_ranks``):
+    ``psum_mix`` over the process group against the one-card round from
+    the same weights. -> the row."""
+    import torch
+    torch.cuda.set_device(0)
+    from repro_torch.config import FLConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.fedp2p import broadcast_to_clients
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.ops import tree_flatten
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.protocols.engine import MeshDraws, MeshEngine
+    from repro_torch.sharding.rules import make_mesh_info
+    backend.use_full_f32()
+    info = make_mesh_info(None, make_debug_mesh(data=1))
+    cfg = get_config(FED_MAMBA[0])
+    model = build_model(cfg)
+    params = model.init(0, device="cuda")
+    bt = fed_batches(torch, cfg.vocab_size, 1, 1, FED_STEPS, FED_B, FED_SEQ)
+    bt = {k: v[0] for k, v in bt.items()}
+    fl = FLConfig(num_clusters=1, lr=5e-3)
+    outs = []
+    for mesh_info in (info, None):
+        eng = MeshEngine(model, fl, 1, FED_STEPS, algorithm="fedp2p",
+                         mesh_info=mesh_info, device="cuda")
+        f, loss = eng.round_fn(broadcast_to_clients(params, 1), bt,
+                               MeshDraws(survive=torch.ones(1)))
+        outs.append(([x.float() for x in tree_flatten(f)[0]], float(loss)))
+    (fm, lm), (f1, l1) = outs
+    leaf_err = max(float((a - b).abs().max()
+                         / max(1e-30, float(b.abs().max())))
+                   for a, b in zip(fm, f1))
+    return {"run": "nccl world of 1: fedp2p round, mamba2-130m",
+            "loss_mesh": lm, "loss_one_card": l1,
+            "param_leaf_max_rel_err": leaf_err,
+            "ok": leaf_err <= 1e-4 and abs(lm - l1) <= 1e-4 * abs(l1)
+            and math.isfinite(lm)}
+
+
+def phase_mesh(torch, state):
+    """The protocols' ``psum_mix`` on a mesh of MESH_RANKS ranks on the one
+    card (``launch.mesh.run_ranks``: spawned processes, ``gloo`` with CUDA
+    tensors — NCCL refuses two ranks on one device), one mamba2-130m
+    client each, against the one-card ``MeshEngine`` mix on the same
+    f_new and f_old at the JAX package's single-device tolerance (rtol
+    1e-5, atol 1e-6): fedp2p, fedp2p_topo, fedavg, gossip and gossip_async
+    with every client surviving and the global sync, and with stragglers
+    and without it; the int8 wire (per leaf, on the card) on fedp2p and
+    gossip_async. A rank that fails fails the phase. Then one round on an
+    ``nccl`` world of one rank (``nccl_round_rank``, a spawned process:
+    this one never joins a process group), against the one-card round
+    (every parameter leaf within 1e-4 of its scale: cuDNN's convolution
+    algorithms vary from run to run). The phase runs last: the timing
+    phase's profiler windows come before any rank is started."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.protocols.async_gossip import matching_perm_stack
+    world = MESH_RANKS
+    ones = [1.0] * world
+    strag = [0.0, 1.0, 1.0, 0.0][:world]
+    r = matching_perm_stack(world).shape[0] - 1
+    cases = []
+    for algo in ("fedp2p", "fedp2p_topo", "fedavg", "gossip",
+                 "gossip_async"):
+        m = r if algo == "gossip_async" else None
+        cases += [(algo, ones, True, "none", m),
+                  (algo, strag, False, "none", m)]
+    cases += [("fedp2p", strag, True, "int8", None),
+              ("gossip_async", strag, True, "int8", 0)]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    per_rank = run_ranks(mesh_rank, world, (cases, 5), backend="gloo",
+                         timeout=600)
+    secs = time.perf_counter() - t0
+    rows = []
+    for i, (algo, survive, sync, codec, m) in enumerate(cases):
+        errs = [res[i][0] for res in per_rank]
+        rows.append({"algorithm": algo, "survive": survive, "sync": sync,
+                     "codec": codec, "matching": m, "max_abs_err": max(errs),
+                     "atol": 1e-6, "rtol": 1e-5,
+                     "ok": all(res[i][1] for res in per_rank)})
+    # one round over NCCL, world size 1, in a process of its own
+    nccl_row = run_ranks(nccl_round_rank, 1, backend="nccl",
+                         timeout=600)[0]
+    torch.cuda.empty_cache()
+    emit({"phase": "mesh", "ranks": world, "backend": "gloo",
+          "spawn_and_cases_seconds": secs, "cases": rows, "nccl": nccl_row})
+    bad = [r for r in rows if not r["ok"]] + (
+        [] if nccl_row["ok"] else [nccl_row])
+    if bad:
+        raise AssertionError(f"psum_mix on the mesh disagrees: {bad}")
+
+
+def fed_timing(torch):
+    """The mix kernels at mamba2-130m's P (D 8; fed_mix_segment at L = 1,
+    fed_mix_matching at S = 2 as on the FL rows; fed_mix_segment also at
+    qwen2-1.5b's FED_QWEN_LAYERS-layer P, D 4), each call after an L2
+    flush and between CUDA events (``call_ms``: a profiler window once
+    held fed_mix's redo pass but not its kernel here), beside their bytes
+    bound (their plain versions are timed at the FL rows' shape); then
+    one federated
+    mamba2-130m round (fedp2p, D 8, 2 local steps of B 4 x 512) under
+    torch.profiler, split into local training and the mix, with its host
+    seconds."""
+    from repro_torch.config import FLConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.fedp2p import broadcast_to_clients
+    from repro_torch.kernels.fed_mix import fed_mix
+    from repro_torch.kernels.fed_mix_q import fed_mix_q
+    from repro_torch.kernels.fed_mix_sparse import (
+        fed_mix_matching, fed_mix_segment,
+    )
+    from repro_torch.models.model import build_model
+    from repro_torch.protocols.engine import MeshEngine
+    f32 = torch.float32
+    rows = []
+    arch, d, nclu = FED_MAMBA
+    p = fed_params(torch, arch, get_config(arch).num_layers)
+    for nseg in (1,):
+        ids, wn, wo, xn, xo = segment_inputs(torch, d, p, nseg, f32, seed=7)
+        byts = 3 * d * p * 4 + 3 * d * 4
+        b_ms, b_by = bound(byts, 4 * d * p)
+        rows.append({
+            "name": "fed_mix_segment", "arch": arch, "D": d, "P": p,
+            "L": nseg,
+            "ms": call_ms(torch, lambda: fed_mix_segment(
+                ids, wn, wo, xn, xo, num_segments=nseg)),
+            "bytes": byts, "bound_ms": b_ms, "bound_by": b_by})
+        del ids, wn, wo, xn, xo
+    for stages in (2,):
+        perms, sv, xn, xo = matching_inputs(torch, d, p, stages, f32, seed=8)
+        byts = 3 * d * p * 4 + (stages + 1) * d * 4
+        b_ms, b_by = bound(byts, (3 + 2 * stages) * d * p)
+        rows.append({
+            "name": "fed_mix_matching", "arch": arch, "D": d, "P": p,
+            "S": stages,
+            "ms": call_ms(torch, lambda: fed_mix_matching(perms, sv, xn,
+                                                          xo)),
+            "bytes": byts, "bound_ms": b_ms, "bound_by": b_by})
+        del perms, sv, xn, xo
+    mn, mo, xn, xo = dense_inputs(torch, d, p, f32, seed=9)
+    byts = 3 * d * p * 4 + 2 * d * d * 4
+    flops = 4 * d * d * p
+    rows.append({
+        "name": "fed_mix", "arch": arch, "D": d, "P": p,
+        "ms": call_ms(torch, lambda: fed_mix(mn, mo, xn, xo)),
+        "bytes": byts, **product_bounds(byts, flops)})
+    del xn
+    g = torch.Generator(device="cuda").manual_seed(10)
+    pq = p + (-p) % CHUNK
+    q = torch.randint(-127, 128, (d, pq), device="cuda", generator=g,
+                      dtype=torch.int8)
+    sc = 1e-4 * (torch.rand((d, pq // CHUNK), device="cuda", generator=g)
+                 + 0.5)
+    byts = q.numel() + sc.numel() * 4 + 2 * d * p * 4 + 2 * d * d * 4
+    flops = 4 * d * d * p + q.numel()
+    rows.append({
+        "name": "fed_mix_q", "arch": arch, "D": d, "P": p, "Pq": pq,
+        "ms": call_ms(torch, lambda: fed_mix_q(mn, mo, q, sc, xo,
+                                               chunk=CHUNK)),
+        "bytes": byts, **product_bounds(byts, flops)})
+    del mn, mo, q, sc, xo
+    torch.cuda.empty_cache()
+    arch_q, d_q, _ = FED_QWEN
+    p_q = fed_params(torch, arch_q, FED_QWEN_LAYERS)
+    ids, wn, wo, xn, xo = segment_inputs(torch, d_q, p_q, 1, f32, seed=11)
+    byts = 3 * d_q * p_q * 4 + 3 * d_q * 4
+    b_ms, b_by = bound(byts, 4 * d_q * p_q)
+    rows.append({
+        "name": "fed_mix_segment", "arch": arch_q, "layers": FED_QWEN_LAYERS,
+        "D": d_q, "P": p_q, "L": 1,
+        "ms": call_ms(torch, lambda: fed_mix_segment(
+            ids, wn, wo, xn, xo, num_segments=1), reps=3, warmup=1),
+        "bytes": byts, "bound_ms": b_ms, "bound_by": b_by})
+    del ids, wn, wo, xn, xo
+    torch.cuda.empty_cache()
+    for r in rows:
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    # one round's split
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    eng = MeshEngine(model, FLConfig(num_clusters=nclu, lr=5e-3), d,
+                     FED_STEPS, algorithm="fedp2p", counts=fed_counts(d),
+                     device="cuda")
+    fp = broadcast_to_clients(model.init(0, device="cuda"), d)
+    bt = fed_batches(torch, cfg.vocab_size, 1, d, FED_STEPS, FED_B, FED_SEQ)
+    bt = {k: v[0] for k, v in bt.items()}
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def one_round():
+        return eng.round_fn(fp, bt, eng.draw_round(gen, fp))
+
+    one_round()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_round()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    per, _ = profiled(torch, one_round, None)
+    total = sum(per.values())
+    mix = sum(v for k, v in per.items() if "segment_mix_kernel" in k)
+    ssd = sum(v for k, v in per.items()
+              if "ssd_scan_kernel" in k or "ssd_bwd_kernel" in k)
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+    split = {"arch": arch, "clients": d, "local_steps": FED_STEPS,
+             "batch": FED_B, "tokens": FED_SEQ, "host_seconds": host_s,
+             "device_ms": total, "mix_ms": mix,
+             "local_training_ms": total - mix, "ssd_kernels_ms": ssd,
+             "mix_share_of_device": mix / total,
+             "device_busy_share_of_host": total / 1e3 / host_s,
+             "top_kernels_ms": [[k[:90], v] for k, v in top]}
+    del fp, eng, bt
+    torch.cuda.empty_cache()
+    return rows, split
+
+
 # torch.profiler on the card has handed back, once in a run of dozens of
 # windows, a window with no device kernel in it; such a window is profiled
 # again, up to PROFILE_TRIES times, and each empty one is counted here and
@@ -3039,6 +3772,25 @@ def device_ms(torch, fn, reps=20, warmup=3, flush=False):
     return {k: v / reps for k, v in per.items()}
 
 
+def call_ms(torch, fn, reps=5, warmup=2):
+    """The device ms of one call of ``fn`` between CUDA events, each call
+    after an L2 flush, averaged over ``reps``: for calls of one kernel (and
+    at most a few microseconds of its redo pass) at sizes where a
+    profiler window has been seen to drop the kernel's events."""
+    for _ in range(warmup):
+        fn()
+    total = 0.0
+    for _ in range(reps):
+        l2_flush(torch)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
 def named_ms(per, name):
     """Device ms of the kernels in ``per`` whose name contains ``name``."""
     hits = [v for k, v in per.items() if name in k]
@@ -3089,6 +3841,7 @@ def phase_timing(torch, state):
     from repro_torch.kernels.fed_mix_sparse import (
         fed_mix_matching, fed_mix_segment,
     )
+    t_start = time.perf_counter()
     d, p = MAIN_D, MAIN_P
     rows = []
     for nseg in (1, 10):
@@ -3183,13 +3936,21 @@ def phase_timing(torch, state):
         "library_ms": sum(device_ms(torch, lambda: w @ x,
                                     flush=True).values()),
         "library": "w @ x ([N] @ [N, D], one cuBLAS GEMV), TF32 off"})
-    rows += lm_timing(torch)
+    print(f"chip_smoke: timing/fl_kernels took "
+          f"{time.perf_counter() - t_start:.1f} s", file=sys.stderr,
+          flush=True)
+    rows += timed("timing/lm_timing", lm_timing, torch)
     state["timing"] = rows
+    fed_rows, fed_split = timed("timing/fed_timing", fed_timing, torch)
     emit({"phase": "timing", "kernels": rows,
-          "round_split": round_split(torch),
-          "round_split_int8_dense": round_split_int8_dense(torch),
-          "prefill_split": prefill_split(torch),
-          "sampled_split": sampled_split(torch, state),
+          "federated_kernels": fed_rows, "federated_round_split": fed_split,
+          "round_split": timed("timing/round_split", round_split, torch),
+          "round_split_int8_dense": timed("timing/round_split_int8_dense",
+                                          round_split_int8_dense, torch),
+          "prefill_split": timed("timing/prefill_split", prefill_split,
+                                 torch),
+          "sampled_split": timed("timing/sampled_split", sampled_split,
+                                 torch, state),
           "profiler": dict(PROFILER_NOTES),
           "nvidia_smi": state["smi"]})
 
@@ -3634,14 +4395,22 @@ def kernel_split(torch, model, params, tokens, buf, decode=False):
     return out
 
 
+# local epochs of the profiled rounds of ``round_split`` and
+# ``round_split_int8_dense`` (the main path's rounds take FLConfig's 20):
+# a profiled round's events, digested again for each window that comes
+# back empty, took 90 s a split at 20
+SPLIT_EPOCHS = 5
+
+
 def round_split(torch):
-    """One full-width fedp2p round under torch.profiler: the summed device
-    time of its kernels, split into the mix kernel, the convolution
-    kernels (local training's bulk) and the rest."""
+    """One full-width fedp2p round (at SPLIT_EPOCHS local epochs) under
+    torch.profiler: the summed device time of its kernels, split into the
+    mix kernel, the convolution kernels (local training's bulk) and the
+    rest."""
     from repro_torch.config import FLConfig
     from repro_torch.core.simulator import Simulator
     net, data, kw = femnist_setup(full=True)
-    sim = Simulator(net, data, FLConfig(**kw))
+    sim = Simulator(net, data, FLConfig(local_epochs=SPLIT_EPOCHS, **kw))
     eng = sim.engine("fedp2p")
     gen = torch.Generator(device="cuda").manual_seed(1)
     params = sim.init_params(0)
@@ -3661,8 +4430,8 @@ def round_split(torch):
 
 
 def round_split_int8_dense(torch):
-    """One full-width fedp2p round with the int8 wire on mix_path="dense"
-    under torch.profiler: the summed device time of its kernels, split
+    """One full-width fedp2p round (at SPLIT_EPOCHS local epochs) with the
+    int8 wire on mix_path="dense" under torch.profiler: the summed device time of its kernels, split
     into the fed_mix_q kernel, the codec's own elementwise kernels (every
     kernel launched inside ``ops.wire_flat``: the delta, the absmax
     scales, the stochastic rounding, the residual split), the convolution
@@ -3673,7 +4442,8 @@ def round_split_int8_dense(torch):
     from repro_torch.core.simulator import Simulator
     from repro_torch.kernels import ops
     net, data, kw = femnist_setup(full=True)
-    sim = Simulator(net, data, FLConfig(mix_path="dense", **kw))
+    sim = Simulator(net, data, FLConfig(mix_path="dense",
+                                        local_epochs=SPLIT_EPOCHS, **kw))
     eng = sim.engine("fedp2p", codec="int8")
     gen = torch.Generator(device="cuda").manual_seed(1)
     params = sim.init_params(0)
@@ -3747,7 +4517,8 @@ def main() -> int:
                         (phase_kernels, (torch, state)),
                         (phase_reference, (torch, state)),
                         (phase_main_path, (torch, state)),
-                        (phase_timing, (torch, state))):
+                        (phase_timing, (torch, state)),
+                        (phase_mesh, (torch, state))):
         t0 = time.perf_counter()
         phase(*args)
         print(f"chip_smoke: {phase.__name__} took "

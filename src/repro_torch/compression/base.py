@@ -14,11 +14,17 @@ What crosses the wire is always a round DELTA ``f_new - f_old`` against the
 round-start state the receivers hold, never raw parameters (``transmit``).
 Stateful codecs (error feedback) set ``stateful = True`` and the engine
 carries their residual across rounds; the codec itself stays a pure value.
+
+Where the codec sits: the one-card paths quantize the packed ``[D,
+sum(sizes)]`` round-delta buffer (``kernels.ops.wire_flat``); the mesh
+path wraps each ``[D, ...]`` leaf in a round trip before the collectives
+(``wire_tree`` / ``feedback_wire_tree``). Rows are clients on both, so
+chunk scales and top-k selections are per client.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -138,3 +144,74 @@ def transmit(codec: Codec, delta: torch.Tensor, residual=None, *,
     stateless codecs)."""
     enc, shape, new_residual = feedback_encode(codec, delta, residual, u=u)
     return codec.decode(enc, shape), new_residual
+
+
+# ---------------------------------------------------------------------------
+# The per-leaf wire of the mesh path
+# ---------------------------------------------------------------------------
+
+def _leaf_u(u: Optional[Sequence[torch.Tensor]], i: int):
+    """Leaf i's rounding noise: the JAX package's ``fold_in(key, i)``
+    becomes one noise buffer a leaf."""
+    return None if u is None else u[i]
+
+
+def _leaf2d(leaf: torch.Tensor) -> torch.Tensor:
+    return leaf.reshape(leaf.shape[0], -1).to(torch.float32)
+
+
+def _leaves(tree):
+    # kernels.ops imports this package: imported at call time
+    from repro_torch.kernels.ops import tree_flatten
+    return tree_flatten(tree)
+
+
+def wire_tree(codec: Codec, f_new, f_old, *,
+              u: Optional[Sequence[torch.Tensor]] = None):
+    """Stateless per-leaf wire: every f_new leaf becomes ``f_old +
+    roundtrip(f_new - f_old)``, what the receivers hold after the senders
+    upload their compressed round deltas. Leaves are flattened to [N,
+    size] (chunks never cross leaves) and cast back to their own dtypes.
+    ``u``: one noise buffer a leaf ([N, padded size] for int8), in leaf
+    order; None rounds to nearest."""
+    from repro_torch.kernels.ops import tree_unflatten
+    new_leaves, treedef = _leaves(f_new)
+    old_leaves = _leaves(f_old)[0]
+    out = []
+    for i, (new, old) in enumerate(zip(new_leaves, old_leaves)):
+        base = _leaf2d(old)
+        d_hat, _ = transmit(codec, _leaf2d(new) - base, u=_leaf_u(u, i))
+        out.append((base + d_hat).reshape(new.shape).to(new.dtype))
+    return tree_unflatten(treedef, out)
+
+
+def feedback_wire_tree(codec: Codec, f_new, f_old, state, *,
+                       u: Optional[Sequence[torch.Tensor]] = None):
+    """Per-leaf error-feedback wire for stateful codecs: returns
+    ``(tree_tx, new_state)``, the post-wire leaves (their own dtypes) and
+    the f32 residual tree (the same structure, leaves [N, size])."""
+    from repro_torch.kernels.ops import tree_unflatten
+    new_leaves, treedef = _leaves(f_new)
+    old_leaves = _leaves(f_old)[0]
+    res_leaves = _leaves(state)[0]
+    tx, new_res = [], []
+    for i, (new, old, res) in enumerate(zip(new_leaves, old_leaves,
+                                            res_leaves)):
+        base = _leaf2d(old)
+        d_hat, r = transmit(codec, _leaf2d(new) - base, res,
+                            u=_leaf_u(u, i))
+        tx.append((base + d_hat).reshape(new.shape).to(new.dtype))
+        new_res.append(r)
+    return tree_unflatten(treedef, tx), tree_unflatten(treedef, new_res)
+
+
+def init_feedback_state(codec: Optional[Codec], tree):
+    """Zero error-feedback residuals for a stacked tree (leaves [N, ...]):
+    leaves [N, size] f32; ``None`` when the codec carries no state."""
+    if codec is None or not codec.stateful:
+        return None
+    from repro_torch.kernels.ops import tree_unflatten
+    leaves, treedef = _leaves(tree)
+    return tree_unflatten(treedef, [
+        torch.zeros((leaf.shape[0], leaf[0].numel()), dtype=torch.float32,
+                    device=leaf.device) for leaf in leaves])

@@ -1,14 +1,15 @@
-"""``FLConfig``, ``ModelConfig`` and ``TrainConfig`` — the port's copies of
-``repro.config.FLConfig``, ``repro.config.ModelConfig`` and
-``repro.config.TrainConfig``: the same
-fields, defaults and validation, so one configuration means the same run in
-both packages. Options the port has not reached yet (the mesh) keep their
-fields.
+"""``FLConfig``, ``ModelConfig``, ``TrainConfig`` and ``MeshConfig`` — the
+port's copies of the same records in ``repro.config``: the same fields,
+defaults and validation, so one configuration means the same run in both
+packages. ``MeshConfig``'s ``model`` axis keeps its field, but the port's
+mesh (``launch/mesh.py``) takes only ``model=1``: the client axes over
+ranks, no tensor parallelism.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Tuple
 
 
 @dataclass(frozen=True)
@@ -89,6 +90,29 @@ class FLConfig:
         """D — the client population a state store holds: ``num_enrolled``
         when sampled participation is on, else ``num_clients``."""
         return self.num_enrolled or self.num_clients
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The mesh's axis sizes: ``pod`` x ``data`` client axes (one client a
+    rank) and the ``model`` axis."""
+    data: int = 16
+    model: int = 16
+    pod: int = 1                     # >1 => multi-pod
+
+    @property
+    def num_devices(self) -> int:
+        return self.pod * self.data * self.model
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return (("pod", "data", "model") if self.pod > 1
+                else ("data", "model"))
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return ((self.pod, self.data, self.model) if self.pod > 1
+                else (self.data, self.model))
 
 
 @dataclass(frozen=True)

@@ -252,9 +252,10 @@ def scatter_rows_dev(flat: torch.Tensor, ids, rows: torch.Tensor
 def pack_tree_pair(f_new, f_old, caller: str = "fed_mix_tree"):
     """Pack two same-structure [D, ...] trees into flat buffers with ONE
     shared TreeSpec; mismatched structures raise instead of silently mixing
-    misaligned columns."""
-    flat_new, spec = pack_tree(f_new)
-    flat_old, spec_old = pack_tree(f_old)
+    misaligned columns. A tree that already is a ``packed_view`` gives its
+    buffer itself."""
+    flat_new, spec = packed_view(f_new) or pack_tree(f_new)
+    flat_old, spec_old = packed_view(f_old) or pack_tree(f_old)
     if spec_old.treedef != spec.treedef or spec_old.shapes != spec.shapes:
         raise ValueError(
             f"{caller}: f_new/f_old tree structures differ "
@@ -329,3 +330,51 @@ def fed_mix_flat(m_new, m_old, flat_new, flat_old, *, codec=None,
         x_hat = (base + codec.decode(enc, d_shape)).to(flat_new.dtype)
         out = fed_mix(m_new, m_old, x_hat, flat_old)
     return out, new_state
+
+
+def fed_mix_tree(m_new, m_old, f_new, f_old, *, codec=None,
+                 codec_state=None, u=None):
+    """The dense mixing matrices over [D, ...] trees through ONE flat pass:
+    pack both trees (none is copied that already is a ``packed_view``),
+    ``fed_mix_flat``, unpack (views of the result). See ``fed_mix_flat``
+    for the codec; with a codec the call returns ``(tree,
+    new_codec_state)``."""
+    flat_new, flat_old, spec = pack_tree_pair(f_new, f_old)
+    if codec is None:
+        return unpack_tree(fed_mix_flat(m_new, m_old, flat_new, flat_old),
+                           spec)
+    out, new_state = fed_mix_flat(m_new, m_old, flat_new, flat_old,
+                                  codec=codec, codec_state=codec_state, u=u)
+    return unpack_tree(out, spec), new_state
+
+
+def packed_view(tree):
+    """``(flat, spec)`` when ``tree`` is ``unpack_tree(flat, spec)`` of a
+    contiguous [N, sum(sizes)] buffer: every leaf a view of ``flat``'s
+    columns in leaf order, in ``flat``'s dtype. Else None. The engines keep
+    the federated state so, and pack it again without a copy."""
+    leaves, treedef = tree_flatten(tree)
+    if not leaves or not all(isinstance(x, torch.Tensor) and x.dim() >= 1
+                             for x in leaves):
+        return None
+    base = leaves[0]._base
+    if (base is None or base.dim() != 2 or not base.is_contiguous()
+            or base.shape[0] != leaves[0].shape[0]):
+        return None
+    n, width = base.shape
+    item, off = base.element_size(), 0
+    for leaf in leaves:
+        size = leaf[0].numel() if n else 0
+        if (leaf._base is not base or leaf.dtype != base.dtype
+                or leaf.shape[0] != n
+                or leaf.data_ptr() != base.data_ptr() + off * item
+                or (n > 1 and leaf.stride(0) != width)
+                or not leaf[0].is_contiguous()):
+            return None
+        off += size
+    if off != width:
+        return None
+    spec = TreeSpec(treedef, tuple(tuple(x.shape[1:]) for x in leaves),
+                    tuple(x.dtype for x in leaves),
+                    tuple(int(x[0].numel()) for x in leaves))
+    return base, spec

@@ -2,8 +2,9 @@
 mesh: the train step (forward and backward through ``torch.autograd``,
 gradient accumulation over microbatches, global-norm clipping and the
 optimizer update) and the serving steps (the model's prefill and decode
-under ``torch.inference_mode``). The mesh and its shardings wait for ROADMAP
-items 13 and 15."""
+under ``torch.inference_mode``). The model axis's shardings wait for
+ROADMAP items 13b and 15; federated training over clients is
+``protocols.engine.MeshEngine``."""
 from __future__ import annotations
 
 import torch

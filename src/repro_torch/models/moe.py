@@ -11,8 +11,9 @@ DeepSeek-V2 (2 shared + 160 routed experts, top-6).
 The capacity ``C`` is the JAX package's: at decode (T = B tokens) it is 8,
 so every decode step runs every expert over its 8 slots and reads all the
 expert weights; that is the design being ported. The JAX package's
-expert-parallel ``moe_ffn_ep`` (shard_map over a mesh) waits for the
-port's mesh (ROADMAP item 13): ``moe_ffn`` is the single-program path.
+expert-parallel ``moe_ffn_ep`` (shard_map over the mesh's model axis)
+waits for the port's model axis (ROADMAP item 13b): ``moe_ffn`` is the
+single-program path.
 """
 from __future__ import annotations
 

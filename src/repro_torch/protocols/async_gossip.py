@@ -13,7 +13,9 @@ perfect matchings that jointly cover every pair exactly once. The draw is
 (``RoundDraws.matching``); the structured spec indexes the [R, D]
 partner-map stack with it and the dense oracle the [R, D, D] matrix stack,
 on the device, so the two lowerings stay identical and the round loop
-never reads the draw back.
+never reads the draw back. On a mesh of ranks (``psum_mix``) the draw picks
+the matching whose 2-rank process groups the round all-reduces in (the
+JAX package's ``lax.switch`` over R branches): it is read on the host.
 """
 from __future__ import annotations
 
@@ -28,7 +30,9 @@ from repro_torch.core.comm_model import CommParams, allreduce_time
 from repro_torch.core.topology import Topology
 from repro_torch.protocols.base import Protocol
 from repro_torch.protocols.context import RoundContext
-from repro_torch.protocols.gossip import on_device, straggler_split
+from repro_torch.protocols.gossip import (
+    on_device, pairwise_mix, straggler_split,
+)
 from repro_torch.protocols.spec import MatchingSpec
 
 
@@ -154,6 +158,18 @@ class AsyncGossip(Protocol):
         Ws = on_device(matching_matrix_stack, D, ctx.survive.device)
         return straggler_split(Ws.index_select(0, self._draw(ctx))[0],
                                ctx.survive)
+
+    def mesh_partitions(self, num_clients: int, cluster_ids) -> tuple:
+        return tuple([list(g) for g in m]
+                     for m in round_robin_matchings(num_clients))
+
+    def psum_mix(self, f_new, f_old, ctx: RoundContext):
+        """One exchange within the pairs of the drawn matching."""
+        D = self.static_num_clients(ctx)
+        matching = round_robin_matchings(D)[int(self._draw(ctx)[0])]
+        return self._shard_mix(
+            pairwise_mix(ctx.mesh_info, [[list(g) for g in matching]]),
+            f_new, f_old, ctx)
 
     def comm_time(self, p: CommParams, P: int, *, L: Optional[float] = None,
                   ctx: Optional[RoundContext] = None) -> float:

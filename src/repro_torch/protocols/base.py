@@ -12,8 +12,10 @@ method reads one ``RoundContext``. Convention:
 where every row of ``M_new + M_old`` sums to 1 (dropped updates fall back
 to old params, never to zeros). Randomness comes from an explicit
 ``torch.Generator``. ``mesh_cluster_ids`` is the static cluster layout of
-the sampled engine's active window; the mesh lowering (``psum_mix``)
-waits for the mesh slice (ROADMAP module item 13).
+a D-wide client axis (the sampled engine's active window, the mesh
+engine's clients); ``psum_mix`` is the mixing operator lowered onto a mesh
+of ranks, one client a rank, as ``all_reduce``s over the process groups of
+``mesh_partitions``.
 """
 from __future__ import annotations
 
@@ -96,6 +98,24 @@ class Protocol:
         exactly."""
         return None
 
+    # -- the mesh lowering ------------------------------------------------
+    def psum_mix(self, f_new, f_old, ctx: RoundContext):
+        """``mixing_matrix`` on a mesh of ranks (``ctx.mesh_info``), one
+        client a rank: ``f_new`` / ``f_old`` are this rank's rows ([1,
+        ...] leaves) and the result is its mixed rows, through
+        ``all_reduce``s over the groups of ``mesh_partitions`` and no
+        [D, D] operator. ``ctx.survive`` and ``ctx.counts`` are the whole
+        [D] vectors, the same on every rank; ``ctx.cluster_ids`` must be
+        host data (the groups are static). Must agree with the dense form,
+        under non-uniform ``ctx.counts`` too."""
+        raise NotImplementedError
+
+    def mesh_partitions(self, num_clients: int, cluster_ids) -> tuple:
+        """The partitions of the D ranks into groups that ``psum_mix``
+        reduces over (each a list of groups), for the engines to make
+        their process groups up front; () when it uses none."""
+        return ()
+
     # -- §3.2 analytic communication model --------------------------------
     def comm_time(self, p: CommParams, P: int, *, L: Optional[float] = None,
                   ctx: Optional[RoundContext] = None) -> float:
@@ -109,6 +129,81 @@ class Protocol:
         ``(group_size, num_groups, model_copies)`` ring-allreduce terms,
         or ``None``."""
         return None
+
+    # -- shared helpers ----------------------------------------------------
+    @staticmethod
+    def apply_mixing(M_new, M_old, f_new, f_old, *, spec=None, codec=None,
+                     codec_state=None, u=None):
+        """One round of mixing over [D, ...] trees as ONE flat pass: both
+        trees packed, the flat operator, the result unpacked. The operator
+        is the dense ``M_new @ X_new + M_old @ X_old`` (``fed_mix``), or
+        with ``spec`` (from ``mixing_spec(ctx)``) the structured kernels
+        (``M_new`` / ``M_old`` may be None then). ``codec`` puts the round
+        DELTA through the lossy wire (``u``: int8's rounding noise over
+        the packed width); with a codec the call returns ``(tree,
+        new_codec_state)``."""
+        if spec is not None:
+            from repro_torch.protocols.spec import apply_spec_tree
+            return apply_spec_tree(spec, f_new, f_old, codec=codec,
+                                   codec_state=codec_state, u=u)
+        from repro_torch.kernels import ops as kernel_ops
+        return kernel_ops.fed_mix_tree(M_new, M_old, f_new, f_old,
+                                       codec=codec, codec_state=codec_state,
+                                       u=u)
+
+    @staticmethod
+    def _shard_mix(local_fn, f_new, f_old, ctx: RoundContext, *extras):
+        """Run ``local_fn(x_new, x_old, s, c, *extras) -> x_out`` on this
+        rank's rows: ``x_new`` / ``x_old`` its [n, sum(sizes)] rows packed
+        in f32 (one collective a phase for the whole model, where the JAX
+        package runs one a leaf), ``s`` / ``c`` its survive and count
+        entries; the result goes back to the leaves' shapes and dtypes.
+
+        With ``ctx.codec`` every f_new leaf is first replaced by what the
+        receivers reconstruct after the wire, ``f_old + roundtrip(f_new -
+        f_old)`` per leaf (``compression.wire_tree``, noise
+        ``ctx.wire_noise``): the wire in front of the collectives. f_old
+        stays exact, so stragglers fall back to unquantized old params."""
+        from repro_torch import compression
+        from repro_torch.kernels import ops as kernel_ops
+        if ctx.codec is not None:
+            f_new = compression.wire_tree(ctx.codec, f_new, f_old,
+                                          u=ctx.wire_noise)
+        flat_new, flat_old, spec = kernel_ops.pack_tree_pair(
+            f_new, f_old, caller="psum_mix")
+        rows = list(ctx.mesh_info.clients)
+        out = local_fn(flat_new.to(torch.float32),
+                       flat_old.to(torch.float32), ctx.survive[rows],
+                       ctx.counts[rows], *extras)
+        return kernel_ops.unpack_tree(out.to(flat_new.dtype), spec)
+
+    @staticmethod
+    def _groups_from_ids(cluster_ids):
+        """The groups (one a cluster, lists of client ranks) of a static
+        [D] assignment, host data: a CUDA tensor raises (reading it would
+        wait for the card inside the round)."""
+        ids = concrete_cluster_ids(cluster_ids)
+        L = int(ids.max()) + 1 if ids.size else 1
+        return [np.nonzero(ids == c)[0].tolist() for c in range(L)]
+
+    @staticmethod
+    def static_num_clients(ctx: RoundContext) -> int:
+        """D, from the static cluster assignment."""
+        return int(concrete_cluster_ids(ctx.cluster_ids).shape[0])
+
+
+def concrete_cluster_ids(cluster_ids) -> np.ndarray:
+    """A static [D] cluster assignment as numpy: numpy or a CPU tensor;
+    the mesh path builds its process groups from it."""
+    if isinstance(cluster_ids, torch.Tensor):
+        if cluster_ids.device.type != "cpu":
+            raise ValueError(
+                "psum_mix needs the cluster assignment as host data (numpy "
+                "or a CPU tensor); got a tensor on "
+                f"{cluster_ids.device}: mesh engines keep the static "
+                "assignment on the host")
+        return cluster_ids.numpy()
+    return np.asarray(cluster_ids)
 
 
 # ---------------------------------------------------------------------------

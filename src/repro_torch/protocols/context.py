@@ -25,17 +25,26 @@
       drawn from (0 on the resident engine, where the window is the
       population).
 
+  mesh fields (``protocols.engine.MeshEngine`` on a mesh)
+    * ``mesh_info``  — the ``sharding.rules.MeshInfo`` that ``psum_mix``
+      reads (None off the mesh),
+    * ``codec``      — the lossy wire that ``psum_mix`` puts in front of
+      its collectives (``Protocol._shard_mix``), or None,
+    * ``wire_noise`` — that wire's rounding noise for this rank's rows,
+      one buffer a leaf (int8), or None (round to nearest).
+
 The JAX record's ``key`` has no counterpart: the port's round randomness is
-drawn up front into an explicit record (``protocols.engine.RoundDraws``),
-and the one stochastic protocol draw, ``gossip_async``'s matching, arrives
-already drawn as ``matching`` — a device tensor, so the round loop never
-reads it back. Its mesh and codec fields arrive with the mesh slice
-(ROADMAP module item 13).
+drawn up front into an explicit record (``protocols.engine.RoundDraws``,
+``MeshDraws``), and the one stochastic protocol draw, ``gossip_async``'s
+matching, arrives already drawn as ``matching`` — a device tensor, so the
+one-card round loop never reads it back (the mesh path reads it to pick
+the matching's process groups).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -55,6 +64,12 @@ class RoundContext:
     do_global_sync: bool = True
     topology: Optional[Topology] = None
     num_enrolled: int = 0
+    mesh_info: Optional[object] = None   # sharding.rules.MeshInfo
+    codec: Optional[object] = None       # compression.Codec (active form)
+    wire_noise: Optional[Sequence[torch.Tensor]] = None
+
+    def replace(self, **changes) -> "RoundContext":
+        return dataclasses.replace(self, **changes)
 
 
 def make_context(*, round_index=0, survive=None, counts=None,
@@ -63,7 +78,8 @@ def make_context(*, round_index=0, survive=None, counts=None,
                  do_global_sync: bool = True,
                  topology: Optional[Topology] = None, fault_drop=None,
                  num_clients: Optional[int] = None, active_ids=None,
-                 num_enrolled: int = 0) -> RoundContext:
+                 num_enrolled: int = 0, mesh_info=None, codec=None,
+                 wire_noise=None) -> RoundContext:
     """Build a RoundContext, defaulting every unspecified field.
 
     D is inferred from (in order) ``survive``, ``counts``, ``cluster_ids``,
@@ -91,4 +107,6 @@ def make_context(*, round_index=0, survive=None, counts=None,
                         round_index=int(round_index),
                         num_clusters=int(num_clusters),
                         do_global_sync=bool(do_global_sync),
-                        topology=topology, num_enrolled=int(num_enrolled))
+                        topology=topology, num_enrolled=int(num_enrolled),
+                        mesh_info=mesh_info, codec=codec,
+                        wire_noise=wire_noise)

@@ -41,6 +41,10 @@ D-client ``ClientStateStore`` (``protocols.store``): the rows start from
 each client's own stored state instead of the broadcast global model, and
 the mixed rows are scattered back. Its ``run_rounds`` can pipeline rounds
 on CUDA streams (see the class).
+
+``MeshEngine`` trains the LM families' clients (``Model.loss_fn``) with
+the federated state's client axis on one card, or over a mesh of ranks
+through the protocols' ``psum_mix`` (see the class).
 """
 from __future__ import annotations
 
@@ -1001,6 +1005,271 @@ class SampledEngine(_RoundEngine):
         else:
             row = torch.from_numpy(self.store.consensus()).to(self.device)
         return kernel_ops.unpack_tree(row, self._spec)
+
+
+# ---------------------------------------------------------------------------
+# Mesh engine — federated LM training, one card or a mesh of ranks
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MeshDraws:
+    """Every random draw of one ``MeshEngine`` round, the same on every
+    rank: ``survive`` [D] f32 straggler mask, ``matching`` the 0-d int64
+    matching index of a protocol that draws one (gossip_async) or None,
+    and ``wire_noise`` the int8 codec's rounding noise — on the one-card
+    path one [D, n_pad] buffer over the packed width (n_pad: sum(sizes)
+    rounded up to the codec's chunk), on the mesh path a tuple of [D,
+    n_pad_leaf] buffers, one a leaf (the JAX package's per-leaf
+    ``fold_in``); None rounds to nearest. The engine moves them to its
+    device and takes its own rows of the noise."""
+    survive: torch.Tensor
+    matching: Optional[torch.Tensor] = None
+    wire_noise: object = None
+
+
+class MeshEngine:
+    """Drives one protocol's rounds of federated LM training (the
+    counterpart of ``repro.protocols.engine.MeshEngine``): every parameter
+    leaf carries a leading client axis [D, ...]; local training is E =
+    ``local_steps`` SGD steps a client, ``(w - lr * g.f32).to(w.dtype)``,
+    a loop over the clients (the JAX package's client-diagonal ``vmap``:
+    the kernels' autograd Functions have no vmap rule); mixing is:
+
+    * with ``mesh_info`` (a ``sharding.rules.MeshInfo``), the protocol's
+      ``psum_mix`` — one client a rank, ``f_params`` and ``batches`` this
+      rank's rows ([1, ...]; ``core.fedp2p.federated_rows``), the
+      collectives over process groups made here, at construction, in the
+      same order on every rank;
+    * without, all D clients on this device: the protocol's
+      ``mixing_spec`` kernels, or on ``mix_path="dense"`` (or a spec-less
+      protocol) the dense ``fed_mix``; int8 on the dense path is
+      ``fed_mix_q``.
+
+    The state is kept as ONE packed [D, sum(sizes)] buffer whose leaves
+    are views (``kernels.ops.packed_view``; ``core.fedp2p
+    .broadcast_to_clients`` makes it so): a round packs nothing, trains
+    into a second buffer and mixes into a third.
+
+    ``counts`` are the non-uniform per-client weights |D_i| (default
+    uniform). ``codec`` (default ``fl.codec``) is the lossy wire: on the
+    mesh it rides ``RoundContext.codec`` into ``psum_mix``, per leaf; one
+    card quantizes the packed buffer. A stateful codec's residual is
+    returned as a third element and threaded by ``run_rounds``.
+
+    ``round_fn(f_params, batches, draws, do_global_sync=True,
+    round_index=0, codec_state=None) -> (f_params', mean_loss)``: batch
+    leaves [D, local_steps, ...], ``draws`` a ``MeshDraws``.
+    ``run_rounds(f_params, gen, T, batches)`` runs T rounds (batch leaves
+    [T, D, local_steps, ...]); the global sync fires when (t+1) %
+    sync_period == 0, as in the paper, and never in the T % sync_period
+    tail rounds. ``device=None`` means the card."""
+
+    def __init__(self, model, fl: FLConfig, num_clients_dev: int,
+                 local_steps: int, *, algorithm: str = "", counts=None,
+                 remat: bool = True, mesh_info=None, codec=None,
+                 mix_path: Optional[str] = None, device=None):
+        from repro_torch.launch.steps import _loss_and_grad
+        from repro_torch.protocols.base import get
+        self.proto = get(algorithm or fl.algorithm)
+        self.fl = fl
+        self.num_clients_dev = D = int(num_clients_dev)
+        self.local_steps = int(local_steps)
+        self.mesh_info = mesh_info
+        self.device = backend.resolve_device(device)
+        self.mix_path = _check_mix_path(mix_path or fl.mix_path)
+        self.codec = compression.active(codec if codec is not None
+                                        else fl.codec)
+        ids = self.proto.mesh_cluster_ids(D, fl)
+        self._cluster_ids = ids
+        self._num_clusters = int(ids.max()) + 1
+        self._ids_dev = torch.from_numpy(ids).to(self.device)
+        self._counts = (torch.ones((D,), dtype=torch.float32,
+                                   device=self.device) if counts is None
+                        else torch.as_tensor(counts, dtype=torch.float32)
+                        .to(self.device))
+        if mesh_info is not None:
+            if mesh_info.world_size != D:
+                raise ValueError(
+                    f"MeshEngine: the mesh holds one client a rank; got "
+                    f"{D} clients on {mesh_info.world_size} ranks")
+            mesh_info.build_groups(self.proto.mesh_partitions(D, ids))
+        self._loss_and_grad = _loss_and_grad(model, remat)
+        #: (f_params, batches, draws[, do_global_sync, round_index,
+        #: codec_state]) -> (f_params', mean_loss[, codec_state])
+        self.round_fn = self._round
+
+    @property
+    def _codec_stateful(self) -> bool:
+        return self.codec is not None and self.codec.stateful
+
+    # -- randomness --------------------------------------------------------
+    def draw_round(self, gen: torch.Generator, f_params) -> MeshDraws:
+        """One round's draws from ``gen``, in this order: the straggler
+        mask, the matching index, the int8 wire's noise (its widths from
+        ``f_params``' leaves). Every rank that draws from a generator of
+        the same seed and device gets the same record."""
+        D, fl = self.num_clients_dev, self.fl
+        survive = straggler_mask(gen, D, fl.straggler_rate)
+        R = self.proto.num_matchings(fl, D)
+        matching = (torch.randint(0, R, (), generator=gen, device=gen.device)
+                    if R else None)
+        noise = None
+        if isinstance(self.codec, compression.Int8Codec):
+            sizes = [leaf[0].numel()
+                     for leaf in kernel_ops.tree_flatten(f_params)[0]]
+            widths = ([self.codec.padded(n) for n in sizes]
+                      if self.mesh_info is not None
+                      else [self.codec.padded(sum(sizes))])
+            noise = tuple(torch.rand((D, w), generator=gen,
+                                     device=gen.device) for w in widths)
+            if self.mesh_info is None:
+                noise = noise[0]
+        return MeshDraws(survive=survive, matching=matching,
+                         wire_noise=noise)
+
+    # -- local training ------------------------------------------------------
+    def _local_train(self, flat_params, spec, batches):
+        """E SGD steps for every client row of ``flat_params`` [n,
+        sum(sizes)] (its leaves read as views, not modified), written into
+        a new [n, sum(sizes)] buffer. -> (flat_new, losses [n]): each
+        client's loss averaged over its steps."""
+        lr = self.fl.lr
+        flat_new = torch.empty_like(flat_params)
+        losses = []
+        for i in range(flat_params.shape[0]):
+            leaves, treedef = kernel_ops.tree_flatten(
+                kernel_ops.unpack_tree(flat_params[i], spec))
+            step_losses = []
+            for st in range(self.local_steps):
+                batch = {k: v[i, st].to(self.device, non_blocking=True)
+                         for k, v in batches.items()}
+                loss, _, grads = self._loss_and_grad(
+                    kernel_ops.tree_unflatten(treedef, leaves), batch)
+                grads = kernel_ops.tree_flatten(grads)[0]
+                leaves = [(w - lr * g.to(torch.float32)).to(w.dtype)
+                          for w, g in zip(leaves, grads)]
+                del grads
+                step_losses.append(loss)
+            off = 0
+            for leaf, size in zip(leaves, spec.sizes):
+                flat_new[i, off:off + size].copy_(leaf.reshape(-1))
+                off += size
+            losses.append(torch.stack(step_losses).mean())
+        return flat_new, torch.stack(losses)
+
+    # -- one round -----------------------------------------------------------
+    def _ctx(self, draws: MeshDraws, round_index: int, sync: bool):
+        noise = draws.wire_noise
+        if noise is not None and self.mesh_info is not None:
+            rows = list(self.mesh_info.clients)    # this rank's rows
+            noise = [u[rows].to(self.device) for u in noise]
+        return make_context(
+            round_index=round_index,
+            survive=draws.survive.to(self.device, torch.float32),
+            counts=self._counts,
+            cluster_ids=(self._ids_dev if self.mesh_info is None
+                         else torch.from_numpy(self._cluster_ids)),
+            num_clusters=self._num_clusters, do_global_sync=sync,
+            matching=draws.matching, mesh_info=self.mesh_info,
+            codec=self.codec, wire_noise=noise)
+
+    def _round(self, f_params, batches, draws: MeshDraws,
+               do_global_sync: bool = True, round_index: int = 0,
+               codec_state=None):
+        flat_old, spec = (kernel_ops.packed_view(f_params)
+                          or kernel_ops.pack_tree(f_params))
+        flat_new, losses = self._local_train(flat_old, spec, batches)
+        out = self.mix(flat_new, flat_old, spec, draws, do_global_sync,
+                       round_index, codec_state)
+        if self.mesh_info is None:
+            loss = losses.mean()
+        else:
+            loss = self.mesh_info.psum(losses.sum().reshape(1))[0] / \
+                self.num_clients_dev
+        return (out[0], loss) + out[1:]
+
+    def mix(self, flat_new, flat_old, spec, draws: MeshDraws,
+            do_global_sync: bool = True, round_index: int = 0,
+            codec_state=None):
+        """The round's mixing alone, on the packed rows this engine holds
+        (``flat_new`` / ``flat_old`` [n, sum(sizes)], ``spec`` their
+        TreeSpec) -> ``(f_out,)`` (views of one new packed buffer), or
+        ``(f_out, codec_state)`` with a stateful codec."""
+        ctx = self._ctx(draws, round_index, bool(do_global_sync))
+        stateful = self._codec_stateful
+        if self.mesh_info is not None:
+            f_new = kernel_ops.unpack_tree(flat_new, spec)
+            f_old = kernel_ops.unpack_tree(flat_old, spec)
+            if stateful:
+                if codec_state is None:
+                    codec_state = compression.init_feedback_state(
+                        self.codec, f_new)
+                f_new, codec_state = compression.feedback_wire_tree(
+                    self.codec, f_new, f_old, codec_state, u=ctx.wire_noise)
+                ctx = ctx.replace(codec=None)
+            f_out = self.proto.psum_mix(f_new, f_old, ctx)
+            return (f_out, codec_state) if stateful else (f_out,)
+        noise = (None if draws.wire_noise is None
+                 else draws.wire_noise.to(self.device))
+        flat_out, codec_state = mix_flat(
+            self.proto, flat_new, flat_old, ctx, codec_state,
+            mix_path=self.mix_path, codec=self.codec, u=noise)
+        f_out = kernel_ops.unpack_tree(flat_out, spec)
+        return (f_out, codec_state) if stateful else (f_out,)
+
+    # -- the training loop ---------------------------------------------------
+    def init_codec_state(self, f_params):
+        """The zero error-feedback residual of a stateful codec (None
+        otherwise): per leaf [n, size] f32 on the mesh, one packed [D,
+        sum(sizes)] buffer on one card."""
+        if not self._codec_stateful:
+            return None
+        if self.mesh_info is not None:
+            return compression.init_feedback_state(self.codec, f_params)
+        leaves = kernel_ops.tree_flatten(f_params)[0]
+        total = sum(leaf[0].numel() for leaf in leaves)
+        return torch.zeros((leaves[0].shape[0], total), dtype=torch.float32,
+                           device=leaves[0].device)
+
+    def run_rounds(self, f_params, gen: Optional[torch.Generator], T: int,
+                   batches, codec_state=None, *,
+                   draws: Optional[Sequence[MeshDraws]] = None):
+        """Run T rounds. ``batches`` leaves are [T, n, local_steps, ...];
+        round t's draws are ``draws[t]`` when given, else drawn from
+        ``gen``. Returns ``(f_params, losses [T])``, the losses on the
+        device (nothing read back), and with a stateful codec the final
+        residual as a third element; ``codec_state`` seeds it (zeros when
+        None). Callers that stage T in chunks (several calls) must thread
+        it through, or each chunk boundary drops the feedback mass.
+
+        The caller's ``f_params`` stays alive through the call, so from
+        the second round on four [D, sum(sizes)] buffers are held (it, the
+        current state, the trained rows, the mixed rows); where only three
+        fit, drive ``round_fn`` round by round and keep no other
+        reference to the state."""
+        T = int(T)
+        got = kernel_ops.tree_flatten(batches)[0][0].shape[0]
+        if got != T:
+            raise ValueError(f"batches carry {got} rounds, expected T={T}")
+        _check_draws(draws, gen, T)
+        stateful = self._codec_stateful
+        cstate = codec_state
+        if stateful and cstate is None:
+            cstate = self.init_codec_state(f_params)
+        sp = max(1, self.fl.sync_period)
+        losses = []
+        for t in range(T):
+            d = draws[t] if draws is not None else self.draw_round(
+                gen, f_params)
+            # the T % sp tail rounds never reach (t+1) % sp == 0: no sync
+            out = self._round(f_params, {k: v[t] for k, v in batches.items()},
+                              d, (t + 1) % sp == 0, t, cstate)
+            f_params, loss = out[:2]
+            if stateful:
+                cstate = out[2]
+            losses.append(loss)
+        losses = torch.stack(losses)
+        return (f_params, losses, cstate) if stateful else (f_params, losses)
 
 
 def _host_ids(sel) -> np.ndarray:

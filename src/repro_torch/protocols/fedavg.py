@@ -2,7 +2,8 @@
 
 One logical cluster = everyone; the server gathers every surviving update
 and broadcasts the data-weighted average. ``ctx.do_global_sync`` is
-ignored — FedAvg has no cluster-local stage.
+ignored — FedAvg has no cluster-local stage. ``ctx.counts`` weights the
+average on every lowering (an |D_i|-weighted all-reduce on the mesh).
 """
 from __future__ import annotations
 
@@ -44,6 +45,25 @@ class FedAvg(Protocol):
     def mixing_matrix(self, ctx: RoundContext):
         # the dense form IS the spec, densified (exact — see to_dense)
         return self.mixing_spec(ctx).to_dense()
+
+    def psum_mix(self, f_new, f_old, ctx: RoundContext):
+        """A global |D_i|-weighted all-reduce of the surviving updates,
+        plus the all-reduced mean of the old params that an all-straggled
+        round keeps (both always run: the wire prices two copies)."""
+        f32 = torch.float32
+        D = self.static_num_clients(ctx)
+        info = ctx.mesh_info
+        total = torch.sum(ctx.survive.to(f32) * ctx.counts.to(f32))
+        dead = (total == 0).to(f32)
+
+        def local_fn(x_new, x_old, s, c):
+            w = s.to(f32) * c.to(f32)
+            coef = torch.where(total > 0, w / torch.clamp_min(total, 1e-12),
+                               torch.zeros((), dtype=f32, device=w.device))
+            g = info.psum(coef[:, None] * x_new)
+            return g + dead * info.psum(x_old / D)
+
+        return self._shard_mix(local_fn, f_new, f_old, ctx)
 
     def comm_time(self, p: CommParams, P: int, *, L: Optional[float] = None,
                   ctx: Optional[RoundContext] = None) -> float:

@@ -4,7 +4,10 @@ Phase 1 partitions the round's L*Q participants into L local P2P networks;
 phase 2 is a data-weighted Allreduce within each network; phase 3 (when
 ``ctx.do_global_sync``) is the thin server step: an unweighted mean over
 the per-cluster models. Dead clusters (all members straggled) fall back to
-the mean of their members' old params, never to zeros.
+the mean of their members' old params, never to zeros. ``ctx.counts``
+weights the within-cluster stage on every lowering; on a mesh of ranks
+(``psum_mix``) the stages are all-reduces within each cluster's process
+group, then over every rank.
 """
 from __future__ import annotations
 
@@ -87,6 +90,46 @@ class FedP2P(Protocol):
         """The dense form is the cluster-segment spec, densified (exact —
         see SegmentSpec.to_dense)."""
         return self.mixing_spec(ctx).to_dense()
+
+    def mesh_partitions(self, num_clients: int, cluster_ids) -> tuple:
+        return (self._groups_from_ids(cluster_ids),)
+
+    def psum_mix(self, f_new, f_old, ctx: RoundContext):
+        """The grouped hierarchy: a data-weighted all-reduce within each
+        cluster (with the dead cluster's all-reduced old-params mean),
+        then on sync rounds a global all-reduce of the cluster models for
+        the server step (with the everyone-dead fallback) — the literal
+        traffic pattern of the paper. The per-cluster weights come from
+        the [D] vectors every rank holds, without a collective."""
+        f32 = torch.float32
+        info = ctx.mesh_info
+        groups = self._groups_from_ids(ctx.cluster_ids)
+        D = self.static_num_clients(ctx)
+        mine = next(g for g in groups if info.rank in g)
+        q = len(mine)
+        s_all = ctx.survive.to(f32)
+        w_all = s_all * ctx.counts.to(f32)
+        denom = w_all[mine].sum()
+        alive = (s_all[mine].sum() > 0).to(f32)
+        n_alive = torch.stack([s_all[g].sum() > 0 for g in groups]
+                              ).to(f32).sum()
+        keep_old = (n_alive == 0).to(f32)
+        sync = ctx.do_global_sync
+
+        def local_fn(x_new, x_old, s, c):
+            w = s.to(f32) * c.to(f32)
+            gamma = alive * torch.where(
+                denom > 0, w / torch.clamp_min(denom, 1e-12),
+                torch.zeros((), dtype=f32, device=w.device))
+            cl = info.psum(gamma[:, None] * x_new, groups)
+            cl_old = info.psum(x_old / q, groups)
+            cl = torch.where(alive > 0, cl, cl_old)
+            if not sync:
+                return cl
+            g = info.psum(cl * (alive / q)) / torch.clamp_min(n_alive, 1.0)
+            return g + keep_old * info.psum(x_old / D)
+
+        return self._shard_mix(local_fn, f_new, f_old, ctx)
 
     def comm_time(self, p: CommParams, P: int, *, L: Optional[float] = None,
                   ctx: Optional[RoundContext] = None) -> float:

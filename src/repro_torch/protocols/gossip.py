@@ -6,9 +6,9 @@ its ring neighbours through two pairwise exchange phases (even pairs, then
 odd pairs). The composed mixing operator W = W2 @ W1 is symmetric doubly
 stochastic, so repeated rounds contract toward consensus without any
 coordinator traffic. Stragglers contribute their OLD model to their
-partners (their update "never arrived"), keeping every row convex. The
-mesh lowering (``psum_mix``) waits for the mesh slice (ROADMAP module item
-13).
+partners (their update "never arrived"), keeping every row convex. On a
+mesh of ranks (``psum_mix``) each phase is an all-reduce within each
+2-rank process group: device-to-device traffic only, no server.
 """
 from __future__ import annotations
 
@@ -97,6 +97,22 @@ def straggler_split(W: torch.Tensor, survive: torch.Tensor):
     return W * s[None, :], W * (1.0 - s)[None, :]
 
 
+def pairwise_mix(info, phases):
+    """``psum_mix``'s local function of the gossip family: the effective
+    model (a straggler's old params), then, for each partition of
+    ``phases`` in turn, the mean over this rank's group of it."""
+
+    def local_fn(x_new, x_old, s, c):
+        s = s.to(torch.float32)[:, None]
+        eff = s * x_new + (1.0 - s) * x_old
+        for groups in phases:
+            q = len(next(g for g in groups if info.rank in g))
+            eff = info.psum(eff / q, groups)
+        return eff
+
+    return local_fn
+
+
 class DecentralizedGossip(Protocol):
     name = "gossip"
 
@@ -132,6 +148,18 @@ class DecentralizedGossip(Protocol):
         D = int(ctx.survive.shape[0])
         return straggler_split(on_device(ring_matrix, D, ctx.survive.device),
                                ctx.survive)
+
+    def mesh_partitions(self, num_clients: int, cluster_ids) -> tuple:
+        return _phase_groups(num_clients)
+
+    def psum_mix(self, f_new, f_old, ctx: RoundContext):
+        """The two ring phases as all-reduces within the phase's pairs (a
+        bye's singleton moves nothing); a straggler's effective model is
+        its old params."""
+        D = self.static_num_clients(ctx)
+        return self._shard_mix(pairwise_mix(ctx.mesh_info,
+                                            _phase_groups(D)),
+                               f_new, f_old, ctx)
 
     def comm_time(self, p: CommParams, P: int, *, L: Optional[float] = None,
                   ctx: Optional[RoundContext] = None) -> float:

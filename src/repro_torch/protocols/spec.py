@@ -21,7 +21,9 @@ contraction; ``to_dense()`` rebuilds ``(M_new, M_old)`` exactly.
 ``apply_spec_flat`` drives the kernels on packed [D, sum(sizes)] buffers,
 with the same quantized-exchange ``codec`` seam as the dense path
 (``kernels.ops.fed_mix_flat``): the round DELTA goes through the lossy
-wire, and the decoded reconstruction is mixed.
+wire, and the decoded reconstruction is mixed. ``apply_spec_tree`` does
+the same over [D, ...] trees (the spec-path twin of
+``kernels.ops.fed_mix_tree``).
 """
 from __future__ import annotations
 
@@ -103,3 +105,19 @@ def apply_spec_flat(spec, flat_new, flat_old, *, codec=None,
         codec, flat_new, flat_old, codec_state, u=u)
     x_hat = (base + codec.decode(enc, d_shape)).to(flat_new.dtype)
     return mix_flat_spec(spec, x_hat, flat_old), new_state
+
+
+def apply_spec_tree(spec, f_new, f_old, *, codec=None, codec_state=None,
+                    u=None):
+    """Structured mixing over [D, ...] trees through the shared packing
+    seam (``kernels.ops.pack_tree_pair``; a tree that is a packed view is
+    not copied). With ``codec`` the call returns ``(tree,
+    new_codec_state)``."""
+    flat_new, flat_old, tspec = kernel_ops.pack_tree_pair(
+        f_new, f_old, caller="apply_spec_tree")
+    if codec is None:
+        return kernel_ops.unpack_tree(
+            apply_spec_flat(spec, flat_new, flat_old), tspec)
+    out, new_state = apply_spec_flat(spec, flat_new, flat_old, codec=codec,
+                                     codec_state=codec_state, u=u)
+    return kernel_ops.unpack_tree(out, tspec), new_state

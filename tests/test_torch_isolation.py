@@ -1,5 +1,6 @@
-"""The port stands alone: no file under ``src/repro_torch/`` and not
-``chip_smoke.py`` imports ``jax`` or anything of ``repro`` (an AST scan of
+"""The port stands alone: no file under ``src/repro_torch/``, not
+``chip_smoke.py`` and no ``scripts/torch_*.py`` imports ``jax`` or
+anything of ``repro`` (an AST scan of
 every import, including ones inside functions); the package imports in a
 process where ``jax`` and ``repro`` cannot be imported; and its entry
 points refuse to run on the CPU unless asked to."""
@@ -21,7 +22,7 @@ from repro_torch.protocols.engine import DenseEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
