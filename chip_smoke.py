@@ -144,7 +144,18 @@ exits non-zero:
             the one card (gloo, CUDA tensors, a mamba2-130m client each),
             the int8 wire too, against the one-card mix; one round on an
             nccl world of one rank (a spawned process) against the
-            one-card round.
+            one-card round;
+  model_axis serving on the mesh's model axis (MODEL_AXIS_RUNS) in one
+            gloo world of MODEL_AXIS_RANKS ranks on the card, each rank's
+            blocks drawn as slices of the one-card init: nemotron-4-15b
+            at 16 layers, tensor-parallel on (1, 4), and at 12 with FSDP
+            on (2, 2); dbrx-132b at 2 layers, expert-parallel on (1, 4);
+            hymba-1.5b whole, ZeRO-3 on (2, 2). Each row's prefill logits
+            and greedy tokens against the one-card run of the same
+            weights (dbrx's in the per-slice semantics of its
+            expert-parallel prefill, its routing equal), with the prefill
+            seconds, decode ms a token, each rank's peak memory beside its
+            blocks' bytes, its seconds in collectives and its launches.
 
 Each phase prints one JSON line. The run ends with the kernel summary
 line, the ``nvidia-smi`` name/power-limit line, and then
@@ -154,8 +165,10 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -308,6 +321,24 @@ FED_B, FED_SEQ, FED_STEPS = 4, 512, 2
 FED_COUNTS_SEED = 17
 # the mesh phase: ranks on the one card, one mamba2-130m client each
 MESH_RANKS = 4
+# The model_axis phase (serving on the mesh's model axis, one gloo world
+# of MODEL_AXIS_RANKS ranks on the one card): (row, arch, layers kept,
+# mesh (data, model), prompt), B 4 (LM_B), MODEL_AXIS_NEW greedy tokens,
+# every width published. tp: nemotron-4-15b cut to 16 of 32 layers (37.6
+# GB of f32 weights, ~9.4 GB a rank), its 48/8 heads 12/2 a rank at model
+# 4; at model 2 with FSDP over data 2 (24/4 heads a rank) cut to 12: its
+# decode layout holds half of every layer on each rank (15.6 GB a rank at
+# 16 layers, 12.5 at 12), and four such ranks beside this process's own
+# memory after the earlier phases passed the card's 80 GB; ep: dbrx-132b
+# cut to 2 of 40 layers (31 GB), 4 of its 16 experts a rank; dp:
+# hymba-1.5b whole, ZeRO-3 over the 4 ranks, B 2 a data shard.
+MODEL_AXIS_RUNS = (("tp", "nemotron-4-15b", 16, (1, 4), 2048),
+                   ("tp", "nemotron-4-15b", 12, (2, 2), 2048),
+                   ("ep", "dbrx-132b", 2, (1, 4), 2048),
+                   ("dp", "hymba-1.5b", 32, (2, 2), 1920))
+MODEL_AXIS_RANKS, MODEL_AXIS_NEW = 4, 8
+# logits against the one-card run: the reference phase's tolerance for LMs
+MODEL_AXIS_RTOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -846,6 +877,29 @@ def serving_flash_cases():
     return cases
 
 
+def model_axis_flash_cases():
+    """(B, Hq, Hkv, S, hd, window, num_meta, vd) of every flash_attention
+    call of the model_axis phase's prefills: each rank's block of heads
+    (``tp``) or every head (``dp``) on its rows of the batch."""
+    from repro_torch.models.transformer import layer_windows
+    from repro_torch.sharding.rules import abstract_mesh_info, batch_dims
+    cases = []
+    for _, arch, layers, mesh, prompt in MODEL_AXIS_RUNS:
+        cfg = cut_config(arch, layers)
+        info = abstract_mesh_info(cfg, mesh, ("data", "model"))
+        m = info.tp_size if info.strategy == "tp" else 1
+        hkv = (cfg.num_kv_heads // m if cfg.num_kv_heads % m == 0
+               else cfg.num_kv_heads)
+        b = LM_B // info.size(batch_dims(info, LM_B, "prefill"))
+        s = prompt + cfg.num_meta_tokens
+        for w in sorted(set(layer_windows(cfg))):
+            case = (b, cfg.num_heads // m, hkv, s, cfg.head_dim, w,
+                    cfg.num_meta_tokens, cfg.head_dim)
+            if case not in cases:
+                cases.append(case)
+    return cases
+
+
 def lm_kernel_cases(torch):
     """flash_attention at Hymba's prefill shapes (S + M = 512 and 2048,
     window 0 and 1024, 128 meta tokens), the JAX kernel tests' sweep and a
@@ -884,6 +938,8 @@ def lm_kernel_cases(torch):
     # and (64, 32), (96, 128), (320, 256) with GQA 4/1, a window and meta
     # tokens
     flash_cases += serving_flash_cases()
+    flash_cases += [c for c in model_axis_flash_cases()
+                    if c not in flash_cases]
     flash_cases += [(2, 4, 4, 70, 24, 0, 0, 16)]
     flash_cases += [(2, 4, 1, 300, hd, 96, 16, vd)
                     for hd, vd in ((64, 32), (96, 128), (320, 256))]
@@ -907,6 +963,7 @@ def lm_kernel_cases(torch):
             del q, k, v, got, want
     ssd_cases = [(LM_B, LM_S, 50, 64, 16, 128),             # Hymba
                  (LM_B, LM_PROMPTS[0] + LM_META, 50, 64, 16, 128),
+                 (LM_B // 2, LM_S, 50, 64, 16, 128),        # its (2, 2)
                  (LM_B, LM_S, 24, 64, 128, 256),            # mamba2-130m
                  (FED_B, FED_SEQ, 24, 64, 128, 256),        # its clients
                  (2, 128, 3, 16, 32, 32), (1, 256, 2, 64, 128, 64),
@@ -3304,9 +3361,10 @@ def fed_main_path(torch, counters, totals):
     f32 SGD at lr 5e-3, non-uniform counts ``fed_counts``, B 4 x 512
     tokens, 2 local steps a client a round): mamba2-130m whole (24 layers,
     d_model 768; D 8 clients in L 4 clusters) with fedp2p at sync_period 2
-    and a quarter of the clients straggling (4 rounds), fedavg, gossip,
-    gossip_async, fedp2p on mix_path="dense" (``fed_mix``) and with the
-    int8 wire on it (``fed_mix_q``), 2 rounds each, and topk's error
+    and a quarter of the clients straggling (2 rounds: one synced, one
+    not), fedavg, gossip, gossip_async, fedp2p on mix_path="dense"
+    (``fed_mix``) and with the int8 wire on it (``fed_mix_q``), a round
+    each, and topk's error
     feedback over two ``run_rounds`` calls of one round, the residual
     carried; then qwen2-1.5b at every published width cut to
     FED_QWEN_LAYERS of 28 layers (D 4 in L 2, fedp2p at sync_period 2, 2
@@ -3330,14 +3388,14 @@ def fed_main_path(torch, counters, totals):
     runs = [  # (label, algorithm, FLConfig overrides, mix_path, codec,
               #  rounds, the mix kernel)
         ("fedp2p_sync2_stragglers", "fedp2p",
-         dict(sync_period=2, straggler_rate=0.25), "auto", "none", 4,
+         dict(sync_period=2, straggler_rate=0.25), "auto", "none", 2,
          "fed_mix_segment"),
-        ("fedavg", "fedavg", {}, "auto", "none", 2, "fed_mix_segment"),
-        ("gossip", "gossip", {}, "auto", "none", 2, "fed_mix_matching"),
-        ("gossip_async", "gossip_async", {}, "auto", "none", 2,
+        ("fedavg", "fedavg", {}, "auto", "none", 1, "fed_mix_segment"),
+        ("gossip", "gossip", {}, "auto", "none", 1, "fed_mix_matching"),
+        ("gossip_async", "gossip_async", {}, "auto", "none", 1,
          "fed_mix_matching"),
-        ("fedp2p_dense", "fedp2p", {}, "dense", "none", 2, "fed_mix"),
-        ("fedp2p_int8_dense", "fedp2p", {}, "dense", "int8", 2,
+        ("fedp2p_dense", "fedp2p", {}, "dense", "none", 1, "fed_mix"),
+        ("fedp2p_int8_dense", "fedp2p", {}, "dense", "int8", 1,
          "fed_mix_q"),
         ("fedp2p_topk_threaded", "fedp2p", {}, "auto", "topk", 2,
          "fed_mix_segment")]
@@ -3511,8 +3569,9 @@ def phase_mesh(torch, state):
     ``nccl`` world of one rank (``nccl_round_rank``, a spawned process:
     this one never joins a process group), against the one-card round
     (every parameter leaf within 1e-4 of its scale: cuDNN's convolution
-    algorithms vary from run to run). The phase runs last: the timing
-    phase's profiler windows come before any rank is started."""
+    algorithms vary from run to run). The phase runs after the timing
+    phase (its profiler windows come before any rank is started), and
+    before the model_axis phase."""
     from repro_torch.launch.mesh import run_ranks
     from repro_torch.protocols.async_gossip import matching_perm_stack
     world = MESH_RANKS
@@ -3549,6 +3608,301 @@ def phase_mesh(torch, state):
         [] if nccl_row["ok"] else [nccl_row])
     if bad:
         raise AssertionError(f"psum_mix on the mesh disagrees: {bad}")
+
+
+def model_axis_prompts(cfg, prompt_len):
+    import numpy as np
+    return np.random.default_rng(prompt_len + 29).integers(
+        0, cfg.vocab_size, (LM_B, prompt_len)).astype(np.int32)
+
+
+def dispatch_recorder(moe, log):
+    """Wrap ``moe.dispatch_indices`` so every call appends (expert ids,
+    keep mask) on the host to ``log``; -> the original, to restore."""
+    orig = moe.dispatch_indices
+
+    def recorder(idx, e, c):
+        out = orig(idx, e, c)
+        log.append((idx.cpu().numpy(), out[2].cpu().numpy()))
+        return out
+
+    moe.dispatch_indices = recorder
+    return orig
+
+
+def one_card_serving(torch, cfg, prompts, slices=0):
+    """The one-card run a model_axis row is held to: the same seeded
+    weights (``Model.init(0)``), the prefill's last logits (host) and
+    MODEL_AXIS_NEW greedy tokens with each step's top-2 gap; with
+    ``slices`` > 1, the MoE layers' prefill in the expert-parallel path's
+    semantics on one card (each of ``slices`` slices of the tokens routed
+    and slotted alone, at its own capacity), every MoE call's routing
+    recorded. Everything on the card is freed before it returns."""
+    import numpy as np
+
+    from repro_torch.launch.serve import _sample, cache_len
+    from repro_torch.launch.steps import (
+        build_decode_step, build_prefill_step,
+    )
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+    model = build_model(cfg)
+    routing, orig_ffn = [], moe.moe_ffn
+    orig_dispatch = dispatch_recorder(moe, routing)
+
+    def per_slice(p, x, c):
+        b, s, d = x.shape
+        t = b * s
+        if slices < 2 or t % slices or t // slices < 8:
+            return moe._moe_ffn_gather(p, x, c)
+        outs = [moe._moe_ffn_gather(p, xs[None], c)
+                for xs in x.reshape(slices, t // slices, d)]
+        return (torch.cat([y[0] for y, _ in outs]).reshape(b, s, d),
+                torch.stack([a for _, a in outs]).mean())
+
+    moe.moe_ffn = per_slice
+    try:
+        params = model.init(0, device="cuda")
+        cache = model.make_cache(LM_B, cache_len(cfg, prompts.shape[1],
+                                                 MODEL_AXIS_NEW),
+                                 device="cuda")
+        prefill, decode = build_prefill_step(model), build_decode_step(model)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": torch.from_numpy(
+            prompts).long().cuda()}, cache)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        n_prefill = len(routing)
+        logits = logits[:, -1]
+        first = logits.float().cpu().numpy()
+        toks, gaps = [], []
+        for step in range(MODEL_AXIS_NEW):
+            if step:
+                logits, cache = decode(params, cache,
+                                       {"token": toks[-1][:, None]})
+            top = torch.topk(logits.float(), 2, dim=-1).values
+            gaps.append((top[:, 0] - top[:, 1]).cpu().numpy())
+            toks.append(_sample(logits, 0.0, None))
+        torch.cuda.synchronize()
+        out = {"logits": first,
+               "tokens": torch.stack(toks, 1).cpu().numpy(),
+               "gaps": np.stack(gaps, 1), "prefill_s": prefill_s,
+               "routing": routing[:n_prefill]}
+    finally:
+        moe.moe_ffn, moe.dispatch_indices = orig_ffn, orig_dispatch
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def host_rss_gb():
+    """This process's resident host memory, GB (``/proc/self/status``)."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) / 1e6
+    return float("nan")
+
+
+def model_axis_rank(rank, world, runs):
+    """One rank of the model_axis phase (``run_ranks``: gloo, every rank on
+    card 0). For each run: this rank's blocks of ``Model.init(0)`` drawn
+    by ``init_local_params`` (the ranks in turn), then
+    ``serve.generate_on_mesh`` (prefill on the train layout, the decode
+    layout made from it, the train blocks released as it is), driven with
+    the launch counters set to 0 just before it and read just after. ->
+    a dict a run: this rank's rows, their prefill logits (host) and
+    tokens, the times, the collectives' seconds, the peak memory beside
+    the blocks' bytes, the launches, and the MoE prefill's routing."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    from repro_torch.kernels import backend
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.serve import generate_on_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.place import init_local_params
+    from repro_torch.sharding.rules import make_mesh_info
+    backend.use_full_f32()
+    counters = launch_counters()
+    meshes, results = {}, []
+    for kind, arch, layers, shape, prompt in runs:
+        if shape not in meshes:
+            meshes[shape] = make_debug_mesh(*shape)
+        cfg = cut_config(arch, layers)
+        model = build_model(cfg)
+        info = make_mesh_info(cfg, meshes[shape])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_local_params(model, info, 0, device="cuda")
+        init_s = time.perf_counter() - t0
+        routing = []
+        orig = dispatch_recorder(moe, routing)
+        dist.barrier()
+        for fn in counters.values():
+            fn.launches = 0
+        info.comm.reset()
+        try:
+            out = generate_on_mesh(model, params, model_axis_prompts(
+                cfg, prompt), info, max_new_tokens=MODEL_AXIS_NEW,
+                release=True, device="cuda")
+        finally:
+            moe.dispatch_indices = orig
+        launches = {k: fn.launches for k, fn in counters.items()}
+        del params
+        out.update(host_rss_gb=host_rss_gb())
+        # gloo stages CUDA tensors in pinned host buffers kept by size
+        # class: released between runs
+        getattr(torch._C, "_host_emptyCache", lambda: None)()
+        out.update(init_s=init_s, launches=launches,
+                   routing=routing[:cfg.num_layers if cfg.num_experts
+                                   else 0],
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   collective_calls=info.comm.calls, strategy=info.strategy)
+        results.append(out)
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return results
+
+
+def model_axis_row(torch, run, ref, per_rank, cfg):
+    """A model_axis row from the ranks' results and the one-card run."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    kind, arch, layers, mesh, prompt = run
+    full = get_config(arch).num_layers
+    errs, tokens_equal, gaps = [], True, []
+    for out in per_rank:
+        want = ref["logits"][out["rows"]]
+        got = out["prefill_logits"]
+        atol = MODEL_AXIS_RTOL * float(np.abs(want).max())
+        err = np.abs(got - want)
+        errs.append((float(err.max()), bool(
+            (err <= atol + MODEL_AXIS_RTOL * np.abs(want)).all())))
+        same = out["tokens"] == ref["tokens"][out["rows"]]
+        if not same.all():
+            tokens_equal = False
+            r, t = np.argwhere(~same)[0]
+            gaps.append({"row": int(out["rows"][r]), "step": int(t),
+                         "top2_gap": float(ref["gaps"][out["rows"][r], t])})
+    kernel = ("ssd_scan", "flash_attention") if cfg.ssm_state else (
+        "flash_attention",)
+    launched = all(out["launches"][k] > 0 for out in per_rank
+                   for k in kernel)
+    row = {"row": kind, "arch": arch, "mesh": {"data": mesh[0],
+                                               "model": mesh[1]},
+           "strategy": per_rank[0]["strategy"],
+           "reduced": ({"num_layers": [full, layers]} if layers < full
+                       else {}),
+           "batch": LM_B, "prompt": prompt, "new_tokens": MODEL_AXIS_NEW,
+           "one_card_prefill_s": ref["prefill_s"],
+           "prefill_s": max(o["prefill_s"] for o in per_rank),
+           "decode_ms_per_token": max(o["decode_s_per_token"]
+                                      for o in per_rank) * 1e3,
+           "init_s": [round(o["init_s"], 3) for o in per_rank],
+           "collective_s": [o["collective_s"] for o in per_rank],
+           "collective_calls": [o["collective_calls"] for o in per_rank],
+           "peak_gb": [round(o["peak_gb"], 3) for o in per_rank],
+           "host_rss_gb": [round(o["host_rss_gb"], 3) for o in per_rank],
+           "param_gb": [{k: v / 1e9 for k, v in o["param_bytes"].items()}
+                        for o in per_rank],
+           "launches": [{k: v for k, v in o["launches"].items() if v}
+                        for o in per_rank],
+           "max_abs_err": max(e for e, _ in errs), "rtol": MODEL_AXIS_RTOL,
+           "tokens_equal": tokens_equal, "token_gaps": gaps,
+           "logits_finite": all(o["logits_finite"] for o in per_rank)}
+    ok = (all(o for _, o in errs) and tokens_equal and launched
+          and row["logits_finite"])
+    if kind == "ep":
+        m = mesh[1]
+        mine = [out["routing"] for out in per_rank]
+        same = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                   for r, got in enumerate(mine)
+                   for a, b in zip(got, ref["routing"][r::m]))
+        ep_drops = sum(int((~k).sum()) for got in mine for _, k in got)
+        gather_drops = 0
+        for layer in range(layers):
+            idx = np.concatenate([ref["routing"][layer * m + j][0]
+                                  for j in range(m)])
+            keep = moe.dispatch_indices(torch.from_numpy(idx),
+                                        cfg.num_experts,
+                                        moe.moe_capacity(cfg, len(idx)))[2]
+            gather_drops += int((~keep).sum())
+        row.update(routing_equal=same, ep_dropped=ep_drops,
+                   gather_path_would_drop=gather_drops)
+        ok = ok and same and all(len(g) == layers for g in mine)
+    row["ok"] = ok
+    return row
+
+
+def phase_model_axis(torch, state):
+    """Serving on the mesh's model axis (MODEL_AXIS_RUNS), one gloo world
+    of MODEL_AXIS_RANKS ranks on the one card (NCCL refuses two ranks on
+    one device; gloo moves CUDA tensors through the host, so the phase
+    measures no multi-card mesh). Each row's prefill logits (rtol
+    MODEL_AXIS_RTOL) and greedy tokens (equal; the top-2 gap printed where
+    one differs) against the one-card run of the same weights, made first
+    in this process and freed before the ranks start (dbrx's in the
+    expert-parallel path's per-slice semantics, its routing held equal);
+    the kernels launched in every rank's run. A rank that fails fails the
+    phase."""
+    from repro_torch.launch.mesh import run_ranks
+    refs = {}
+    for kind, arch, layers, mesh, prompt in MODEL_AXIS_RUNS:
+        key = (arch, layers, prompt, kind == "ep")
+        if key not in refs:
+            cfg = cut_config(arch, layers)
+            refs[key] = timed(f"model_axis/one_card_{arch}",
+                              one_card_serving, torch, cfg,
+                              model_axis_prompts(cfg, prompt),
+                              mesh[1] if kind == "ep" else 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    live = sorted((t.numel() * t.element_size() for t in gc.get_objects()
+                   if isinstance(t, torch.Tensor) and t.is_cuda),
+                  reverse=True)
+    parent = {"allocated_gb": torch.cuda.memory_allocated() / 1e9,
+              "reserved_gb": torch.cuda.memory_reserved() / 1e9,
+              "card_free_gb": free / 1e9, "card_gb": total / 1e9,
+              "live_tensors": len(live),
+              "largest_live_gb": [b / 1e9 for b in live[:5]]}
+    print(f"chip_smoke: model_axis: this process before the ranks: "
+          f"{parent}", file=sys.stderr, flush=True)
+    # the ranks' allocators (not this process's): four ranks share the
+    # card, and their gathers' transients vary in size from layer to layer
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    try:
+        per_rank = run_ranks(model_axis_rank, MODEL_AXIS_RANKS,
+                             (MODEL_AXIS_RUNS,), backend="gloo",
+                             timeout=900)
+    finally:
+        del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+    secs = time.perf_counter() - t0
+    rows = []
+    for i, run in enumerate(MODEL_AXIS_RUNS):
+        kind, arch, layers, mesh, prompt = run
+        cfg = cut_config(arch, layers)
+        rows.append(model_axis_row(
+            torch, run, refs[(arch, layers, prompt, kind == "ep")],
+            [res[i] for res in per_rank], cfg))
+    for name in ("flash_attention", "ssd_scan"):
+        state["launches"][name] += sum(
+            res[i]["launches"][name] for res in per_rank
+            for i in range(len(MODEL_AXIS_RUNS)))
+    emit({"phase": "model_axis", "ranks": MODEL_AXIS_RANKS,
+          "backend": "gloo", "ranks_seconds": secs,
+          "parent_before_ranks": parent, "rows": rows,
+          "note": "gloo through the host on one card: no multi-card mesh "
+                  "is measured"})
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"the model axis disagrees: {bad}")
 
 
 def fed_timing(torch):
@@ -4518,7 +4872,8 @@ def main() -> int:
                         (phase_reference, (torch, state)),
                         (phase_main_path, (torch, state)),
                         (phase_timing, (torch, state)),
-                        (phase_mesh, (torch, state))):
+                        (phase_mesh, (torch, state)),
+                        (phase_model_axis, (torch, state))):
         t0 = time.perf_counter()
         phase(*args)
         print(f"chip_smoke: {phase.__name__} took "

@@ -93,9 +93,21 @@ class FLConfig:
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    """An input shape: ``seq_len`` positions (for the decode shapes, the KV
+    cache's length, one new token a step) of ``global_batch`` rows, run in
+    ``mode`` train | prefill | decode."""
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str
+
+
+@dataclass(frozen=True)
 class MeshConfig:
-    """The mesh's axis sizes: ``pod`` x ``data`` client axes (one client a
-    rank) and the ``model`` axis."""
+    """The mesh's axis sizes: the ``pod`` x ``data`` axes (clients, or the
+    batch's rows) and the ``model`` axis (heads, experts, the vocabulary,
+    the KV cache's slots)."""
     data: int = 16
     model: int = 16
     pod: int = 1                     # >1 => multi-pod

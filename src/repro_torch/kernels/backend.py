@@ -12,7 +12,9 @@ on first use with ``nvcc`` for ``sm_90a`` into a shared library that
 the shared headers it may include (``csrc/*.cuh``) and the flags, so an
 edited source or header is never served by a stale library.
 ``build()`` starts one ``nvcc`` per source, all at once, and waits for
-them.
+them; a source of ``PARTS`` builds as that many translation units
+(``-DKERNEL_PART=i``, each instantiating its share of the source's
+templates), all started with the others and linked into its library.
 """
 from __future__ import annotations
 
@@ -42,6 +44,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+#: sources built as several translation units (their dtypes' halves): the
+#: two longest nvcc runs of the build, which set its wall time
+PARTS = {"flash_attention": 2, "fed_mix_q": 2}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -121,34 +126,56 @@ def library_path(name: str) -> Path:
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(f"parts={PARTS.get(name, 1)}".encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     """Compile every named kernel whose library is missing, one ``nvcc``
-    per source, all started together. Returns the seconds each build took
-    (0.0 for a library already built); raises with nvcc's output on
-    failure."""
+    per source (per part of a source of ``PARTS``, then one link), all
+    started together. Returns the seconds each build took (0.0 for a
+    library already built); raises with nvcc's output on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs, seconds = {}, {}
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    jobs, seconds = {}, {}
     for name in names:
         lib = library_path(name)
         if lib.exists():
             seconds[name] = 0.0
             continue
+        src = str(CSRC / f"{name}.cu")
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, lib, time.perf_counter())
+        if name not in PARTS:
+            cmds = [([nvcc(), *NVCC_FLAGS, "-o", tmp, src], None)]
+        else:
+            cmds = []
+            for i in range(PARTS[name]):
+                fd, obj = tempfile.mkstemp(suffix=".o", dir=BUILD_DIR)
+                os.close(fd)
+                cmds.append(([nvcc(), *compile_flags, "-c",
+                              f"-DKERNEL_PART={i}", "-o", obj, src], obj))
+        jobs[name] = (tmp, lib, time.perf_counter(),
+                      [(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True),
+                        obj) for cmd, obj in cmds])
     failed = []
-    for name, (proc, tmp, lib, t0) in procs.items():
-        out, _ = proc.communicate()
+    for name, (tmp, lib, t0, procs) in jobs.items():
+        outs = [(proc.communicate()[0], proc.returncode, obj)
+                for proc, obj in procs]
+        objs = [obj for _, _, obj in outs if obj is not None]
+        bad = [(out, rc) for out, rc, _ in outs if rc != 0]
+        if not bad and objs:
+            link = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, *objs],
+                                  capture_output=True, text=True)
+            if link.returncode != 0:
+                bad.append((link.stdout + link.stderr, link.returncode))
+        for obj in objs:
+            Path(obj).unlink(missing_ok=True)
         seconds[name] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n"
-                          f"{out}")
+        if bad:
+            failed += [f"--- {name} (nvcc exit {rc}) ---\n{out}"
+                       for out, rc in bad]
             Path(tmp).unlink(missing_ok=True)
         else:
             os.replace(tmp, lib)            # atomic: readers never see half

@@ -567,8 +567,30 @@ cudaError_t launch(Args a, cudaStream_t stream) {
 
 }  // namespace
 
+// One translation unit by default; built as two (KERNEL_PART 0: the f32
+// x_old kernels and the entry points, 1: the bf16 x_old kernels),
+// compiled at once and linked into one library, each half instantiating
+// its dtype's templates only.
+#ifndef KERNEL_PART
+#define KERNEL_PART -1
+#endif
+
 extern "C" {
 
+#if KERNEL_PART != 1
+int fed_mix_q_launch_f32(const void* a, void* stream) {  // a: Args
+  return (int)launch<float>(*(const Args*)a, (cudaStream_t)stream);
+}
+#endif
+#if KERNEL_PART != 0
+int fed_mix_q_launch_bf16(const void* a, void* stream) {  // a: Args
+  return (int)launch<__nv_bfloat16>(*(const Args*)a, (cudaStream_t)stream);
+}
+#else
+int fed_mix_q_launch_bf16(const void* a, void* stream);
+#endif
+
+#if KERNEL_PART != 1
 // Bytes of the redo flags fed_mix_q_launch needs at (D, P): one per warp
 // of every (row block, column tile).
 long long fed_mix_q_redo_bytes(int d, long long p) {
@@ -589,9 +611,8 @@ int fed_mix_q_launch(const void* m_new, const void* m_old, const void* q,
   Args a{(const float*)m_new, (const float*)m_old, (const int8_t*)q, (const float*)scales,
          x_old, out, (unsigned char*)redo, p, pq, pq / chunk, d, chunk, 0, 0, 0, 0, 0, 0, 0,
          out_bf16};
-  cudaStream_t s = (cudaStream_t)stream;
-  if (x_bf16) return (int)launch<__nv_bfloat16>(a, s);
-  return (int)launch<float>(a, s);
+  return x_bf16 ? fed_mix_q_launch_bf16(&a, stream) : fed_mix_q_launch_f32(&a, stream);
 }
+#endif
 
 }  // extern "C"

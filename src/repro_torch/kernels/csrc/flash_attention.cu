@@ -2021,8 +2021,38 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, floa
 
 }  // namespace
 
+// One translation unit by default; built as two (KERNEL_PART 0: the f32
+// kernels and the entry point, 1: the bf16 kernels), compiled at once and
+// linked into one library, each half instantiates its dtype's templates
+// only: the longest nvcc of the kernels' build, halved.
+#ifndef KERNEL_PART
+#define KERNEL_PART -1
+#endif
+
+#define FLASH_ARGS                                                                       \
+  const void *q, const void *k, const void *v, void *o, const long long *strides,        \
+      void *vflags, void *images, float *lse, int batch, int hq, int group, int n_q,     \
+      int n_k, int hd, int vd, float scale, int window, int num_meta, void *stream
+#define FLASH_CALL(T)                                                                    \
+  launch_hd<T>(q, k, v, o, lse, Strides{strides[0], strides[1], strides[2]},             \
+               Strides{strides[3], strides[4], strides[5]},                              \
+               Strides{strides[6], strides[7], strides[8]},                              \
+               Strides{strides[9], strides[10], strides[11]}, (uint4*)vflags,            \
+               (unsigned char*)images, batch, hq, group, n_q, n_k, hd, vd, scale, window, \
+               num_meta, (cudaStream_t)stream)
+
 extern "C" {
 
+#if KERNEL_PART != 1
+int flash_attention_launch_f32(FLASH_ARGS) { return (int)FLASH_CALL(float); }
+#endif
+#if KERNEL_PART != 0
+int flash_attention_launch_bf16(FLASH_ARGS) { return (int)FLASH_CALL(__nv_bfloat16); }
+#else
+int flash_attention_launch_bf16(FLASH_ARGS);
+#endif
+
+#if KERNEL_PART != 1
 // q [batch, hq, n_q, hd], k [batch, hq/group, n_k, hd], v [batch,
 // hq/group, n_k, vd], o [batch, hq, n_q, vd]; each given by its (batch,
 // head, row) element strides, the head_dim stride 1; f32 when is_bf16 ==
@@ -2042,18 +2072,10 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                            void* vflags, void* images, float* lse, int batch, int hq,
                            int group, int n_q, int n_k, int hd, int vd, float scale, int window,
                            int num_meta, int is_bf16, void* stream) {
-  const Strides sq{strides[0], strides[1], strides[2]};
-  const Strides sk{strides[3], strides[4], strides[5]};
-  const Strides sv{strides[6], strides[7], strides[8]};
-  const Strides so{strides[9], strides[10], strides[11]};
-  cudaStream_t s = (cudaStream_t)stream;
-  uint4* vf = (uint4*)vflags;
-  unsigned char* im = (unsigned char*)images;
-  if (is_bf16)
-    return (int)launch_hd<__nv_bfloat16>(q, k, v, o, lse, sq, sk, sv, so, vf, im, batch, hq,
-                                         group, n_q, n_k, hd, vd, scale, window, num_meta, s);
-  return (int)launch_hd<float>(q, k, v, o, lse, sq, sk, sv, so, vf, im, batch, hq, group, n_q,
-                               n_k, hd, vd, scale, window, num_meta, s);
+  return (is_bf16 ? flash_attention_launch_bf16 : flash_attention_launch_f32)(
+      q, k, v, o, strides, vflags, images, lse, batch, hq, group, n_q, n_k, hd, vd, scale,
+      window, num_meta, stream);
 }
+#endif
 
 }  // extern "C"

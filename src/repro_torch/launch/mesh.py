@@ -2,9 +2,15 @@
 ``repro.launch.mesh``), and the launch of its ranks.
 
 A ``Mesh`` names the axes of a process group's ranks: ``(data, model)``
-or ``(pod, data, model)``, as ``MeshConfig`` lays them out. The port's
-mesh has client axes only (``model`` is 1): rank i holds client i's rows.
-``make_mesh`` needs an initialized process group of the mesh's size.
+or ``(pod, data, model)``, as ``MeshConfig`` lays them out, rank r at its
+row-major index (``model`` fastest). ``make_mesh`` needs an initialized
+process group of the mesh's size; it makes, on every rank and in the same
+order, one process group for each line of each set of axes (the ranks
+that differ only along those axes: a ``model`` line holds the ranks of
+one data shard, a ``(data, model)`` line of a three-axis mesh one pod),
+and keeps this rank's in ``Mesh.lines``, which the model axis's
+collectives (``sharding.rules.MeshInfo``) run on. A federated mesh of
+clients is ``(data=D, model=1)``, one client a rank.
 
 ``run_ranks`` starts a world of ranks as spawned processes, one
 ``init_process_group`` each, and gathers what each returns. The caller
@@ -15,14 +21,16 @@ nothing swaps it for another.
 """
 from __future__ import annotations
 
+import itertools
+import math
 import multiprocessing as mp
 import queue
 import socket
 import time
 import traceback
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from datetime import timedelta
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -33,15 +41,53 @@ from repro_torch.config import MeshConfig
 @dataclass(frozen=True)
 class Mesh:
     """Axis sizes and names over the ranks of ``group`` (None: the
-    default group)."""
+    default group); ``lines`` this rank's process group for each set of
+    axes (a tuple of axis names in the mesh's order; None for a line of
+    one rank, ``group`` for the whole mesh). A mesh without lines gives
+    specs only, or the client axes' psum."""
     shape: Tuple[int, ...]
     axis_names: Tuple[str, ...]
     group: Optional[object] = None
+    lines: Dict[Tuple[str, ...], object] = field(
+        default_factory=dict, compare=False, repr=False)
+
+
+def _make_lines(shape: Tuple[int, ...], names: Tuple[str, ...], group
+                ) -> Dict[Tuple[str, ...], object]:
+    """Every line's process group, made on every rank in one order: for
+    each set of axes (in order of size, then of the mesh's axes), its
+    lines in order of their first rank. Returns this rank's."""
+    rank = dist.get_rank(group)
+    world = math.prod(shape)
+    coords = list(itertools.product(*[range(s) for s in shape]))
+    lines: Dict[Tuple[str, ...], object] = {}
+    for k in range(1, len(names) + 1):
+        for axes in itertools.combinations(range(len(names)), k):
+            key = tuple(names[a] for a in axes)
+            n = math.prod(shape[a] for a in axes)
+            if n == 1:
+                lines[key] = None
+                continue
+            if n == world:
+                lines[key] = group
+                continue
+            by_rest: Dict[tuple, List[int]] = {}
+            for r, c in enumerate(coords):
+                rest = tuple(v for a, v in enumerate(c) if a not in axes)
+                by_rest.setdefault(rest, []).append(r)
+            for members in by_rest.values():
+                ranks = (members if group is None else
+                         [dist.get_global_rank(group, r) for r in members])
+                g = dist.new_group(ranks)
+                if rank in members:
+                    lines[key] = g
+    return lines
 
 
 def make_mesh(cfg: MeshConfig, group=None) -> Mesh:
     """The mesh of ``cfg`` over ``group``'s ranks; their count must be
-    ``cfg.num_devices``."""
+    ``cfg.num_devices``. Every rank of ``group`` must call it, in the same
+    order as its other ``new_group`` calls."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialized process group "
                            "(torch.distributed.init_process_group)")
@@ -50,12 +96,14 @@ def make_mesh(cfg: MeshConfig, group=None) -> Mesh:
         raise ValueError(f"mesh {dict(zip(cfg.axis_names, cfg.shape))} "
                          f"needs {cfg.num_devices} ranks; the process group "
                          f"has {world}")
-    return Mesh(shape=cfg.shape, axis_names=cfg.axis_names, group=group)
+    return Mesh(shape=cfg.shape, axis_names=cfg.axis_names, group=group,
+                lines=_make_lines(cfg.shape, cfg.axis_names, group))
 
 
 def make_debug_mesh(data: int = 2, model: int = 1, *, pod: int = 1,
                     group=None) -> Mesh:
-    """A small mesh for tests (rank count permitting)."""
+    """A small mesh for tests (rank count permitting); ``model`` 1 by
+    default: a federated mesh of ``data`` clients."""
     return make_mesh(MeshConfig(data=data, model=model, pod=pod), group)
 
 

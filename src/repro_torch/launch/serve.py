@@ -13,6 +13,11 @@ is plain PyTorch (MLA's absorbed step over the latent cache included).
 Token prompts serve every family but audio (musicgen), whose frame
 embeddings and conditioning context go through ``Model.prefill`` and
 ``Model.decode`` (the audio batch schema in ``models/model.py``).
+
+``generate_on_mesh`` is the same greedy loop on a mesh's model axis: each
+rank serves its rows of the batch from its blocks of the weights (the
+train layout for the prefill, the decode layout after it) and of the
+cache; the vocab-sharded logits are all-gathered before each argmax.
 """
 from __future__ import annotations
 
@@ -25,7 +30,10 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import backend
-from repro_torch.launch.steps import build_decode_step, build_prefill_step
+from repro_torch.launch.steps import (
+    build_decode_step, build_prefill_step, decode_params,
+)
+from repro_torch.models.layers import gather_vocab
 from repro_torch.models.model import build_model
 
 
@@ -73,14 +81,8 @@ def _generate(cfg, prompts: np.ndarray, *, max_new_tokens: int,
     if params is None:
         params = model.init(seed, device=dev)
     b, s = prompts.shape
-    m = cfg.num_meta_tokens
-    buf = (window or cfg.sliding_window or (s + max_new_tokens)) + m
-    buf = max(buf, m + 1)
-    if cfg.family == "ssm":
-        buf = 8
-    cache = model.make_cache(
-        b, max(buf, s + m + (0 if cfg.sliding_window else max_new_tokens)),
-        device=dev)
+    cache = model.make_cache(b, cache_len(cfg, s, max_new_tokens, window),
+                             device=dev)
     if temperature > 0.0 and generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed + 1)
 
@@ -109,6 +111,93 @@ def _generate(cfg, prompts: np.ndarray, *, max_new_tokens: int,
               f"decode {per_token * 1e3:.1f} ms/token")
     return {"tokens": torch.stack(out, dim=1).cpu().numpy(),
             "prefill_s": t_prefill, "decode_s_per_token": per_token,
+            "logits_finite": bool(finite)}
+
+
+def cache_len(cfg, prompt_len: int, max_new_tokens: int, window: int = 0
+              ) -> int:
+    """The KV cache's slots for a prompt and its new tokens: the window
+    and the meta tokens for a windowed model, every position otherwise,
+    and never fewer than the prompt's positions."""
+    m = cfg.num_meta_tokens
+    buf = (window or cfg.sliding_window or (prompt_len + max_new_tokens)) + m
+    buf = max(buf, m + 1)
+    if cfg.family == "ssm":
+        buf = 8
+    return max(buf, prompt_len + m
+               + (0 if cfg.sliding_window else max_new_tokens))
+
+
+def generate_on_mesh(model, params: Dict, prompts: np.ndarray, info, *,
+                     max_new_tokens: int = 16, window: int = 0,
+                     release: bool = False, device=None) -> Dict:
+    """Greedy decoding on a mesh: ``prompts`` [B, S] is the global batch,
+    ``params`` this rank's blocks in the train layout
+    (``sharding.place.init_local_params``; with ``release`` they are
+    dropped from the dict as the decode layout is made). Returns this
+    rank's rows' tokens [B', max_new] (numpy int32), their prefill logits
+    at the last position over the whole vocabulary (numpy f32), the rows'
+    global indices, the prefill seconds and the decode seconds a token
+    (host clock around synchronized work), the seconds this rank spent in
+    the model axis's collectives in each (``collective_s``), its
+    parameter bytes in the two layouts and whether every logit was
+    finite."""
+    from repro_torch.sharding.place import shard_bytes
+    from repro_torch.sharding.place import init_local_cache, local_rows
+    from repro_torch.sharding.rules import cache_batch_axes
+    cfg = model.cfg
+    if cfg.family == "audio":
+        raise ValueError("audio serving uses embeds input: drive the "
+                         "serving steps with the audio batch schema")
+    dev = backend.resolve_device(device)
+    b, s = prompts.shape
+    cache = init_local_cache(model, info, b,
+                             cache_len(cfg, s, max_new_tokens, window),
+                             device=dev)
+    axes = cache_batch_axes(info, b)
+    rows = np.arange(b)
+    if axes:
+        n = b // info.size(axes)
+        rows = rows[info.index(axes) * n:(info.index(axes) + 1) * n]
+    tokens = local_rows(torch.as_tensor(np.asarray(prompts),
+                                        dtype=torch.int64, device=dev),
+                        info, axes)
+    prefill = build_prefill_step(model, info, b)
+    train_bytes = shard_bytes(params)
+    _sync(dev)
+    comm0 = info.comm.seconds
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": tokens}, cache)
+    logits = gather_vocab(logits[:, -1], cfg.vocab_size, info)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+    comm_prefill = info.comm.seconds - comm0
+    finite = torch.isfinite(logits).all()
+    first = logits.float().cpu().numpy()
+    out = [_sample(logits, 0.0, None)]
+    if dev.type == "cuda":
+        # ranks may share a card: the prefill's cached blocks go back to
+        # it before the decode layout is made
+        torch.cuda.empty_cache()
+    params = decode_params(model, params, info, release)
+    decode = build_decode_step(model, info, b)
+    _sync(dev)
+    comm0 = info.comm.seconds
+    t0 = time.perf_counter()
+    for _ in range(max_new_tokens - 1):
+        logits, cache = decode(params, cache, {"token": out[-1][:, None]})
+        logits = gather_vocab(logits, cfg.vocab_size, info)
+        finite &= torch.isfinite(logits).all()
+        out.append(_sample(logits, 0.0, None))
+    _sync(dev)
+    per_token = (time.perf_counter() - t0) / max(max_new_tokens - 1, 1)
+    return {"tokens": torch.stack(out, dim=1).cpu().numpy(),
+            "prefill_logits": first, "rows": rows, "prefill_s": t_prefill,
+            "decode_s_per_token": per_token,
+            "collective_s": {"prefill": comm_prefill,
+                             "decode": info.comm.seconds - comm0},
+            "param_bytes": {"train": train_bytes,
+                            "decode": shard_bytes(params)},
             "logits_finite": bool(finite)}
 
 

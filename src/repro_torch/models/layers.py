@@ -3,7 +3,15 @@ initializers, norms, MLP variants, RoPE, embedding, logits and the
 cross-entropy losses.
 
 Params are plain nested dicts of tensors; dense weights keep the JAX
-``[in, out]`` layout and are applied as ``x @ w``. Initializers draw from
+``[in, out]`` layout and are applied as ``x @ w``.
+
+On a mesh's model axis (``sharding.context.current_mesh_info``) the layers
+run on their local blocks: the embedding's lookup is vocab-parallel (a
+masked local lookup, then an all-reduce over ``model``) wherever the table
+holds a block of the vocabulary, the logits come out vocab-sharded, and
+under the ``tp`` strategy the MLP is column-parallel into ``w_in`` /
+``w_gate`` and row-parallel out of ``w_out``, with one all-reduce over
+``model`` (``b_out`` added once, after it). Initializers draw from
 an explicit ``torch.Generator`` and create their tensors on its device, so
 a seed gives the same weights wherever the generator lives (a CPU
 generator gives the same weights on every device).
@@ -16,6 +24,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.sharding.context import current_mesh_info
 
 # ---------------------------------------------------------------------------
 # Initializers
@@ -100,7 +110,20 @@ def init_mlp(gen: torch.Generator, cfg, d_model: int, d_ff: int,
     return p
 
 
+def tp_info():
+    """The ``MeshInfo`` when the layers split their heads, hidden units
+    and experts over a model axis (the ``tp`` strategy, model > 1); else
+    None."""
+    info = current_mesh_info()
+    if info is None or info.strategy != "tp" or info.tp_size == 1:
+        return None
+    return info
+
+
 def apply_mlp(p: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The MLP; under ``tp`` on this rank's hidden units, the partial
+    outputs summed over the model axis."""
+    info = tp_info()
     h = x @ p["w_in"]
     if "b_in" in p:
         h = h + p["b_in"]
@@ -116,6 +139,8 @@ def apply_mlp(p: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
     else:
         raise ValueError(f"unknown mlp variant {v}")
     out = h @ p["w_out"]
+    if info is not None:
+        out = info.all_reduce(out, (info.tp_axis,))
     if "b_out" in p:
         out = out + p["b_out"]
     return out
@@ -168,21 +193,52 @@ def init_embed(gen: torch.Generator, cfg, dtype=torch.float32) -> Dict:
 
 
 def embed_tokens(p: Dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    x = p["table"][tokens]
+    """The table's rows of ``tokens``. With the table's vocabulary split
+    over the model axis: each rank looks up the ids of its block (zeros
+    for the others) and the ranks' rows are summed: exact, one non-zero
+    term a row. A decode step's FSDP block (``place.StationaryTable``)
+    looks up every row's tokens instead of gathering the table."""
+    table, info = p["table"], current_mesh_info()
+    if hasattr(table, "lookup"):
+        x = table.lookup(tokens)
+    elif info is None or table.shape[0] == cfg.vocab_size:
+        x = table[tokens]
+    else:
+        n = table.shape[0]
+        ids = tokens.long() - info.tp_index * n
+        mine = (ids >= 0) & (ids < n)
+        x = table[ids.clamp(0, n - 1)] * mine[..., None].to(table.dtype)
+        x = info.all_reduce(x, (info.tp_axis,))
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
 
 
 def compute_logits(p: Dict, h: torch.Tensor, cfg) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        logits = h @ p["table"].T
+    """[..., V] logits, or this rank's block of the vocabulary where the
+    table / unembedding holds one (``gather_vocab`` assembles them)."""
+    w = p["table"] if cfg.tie_embeddings else p["unembed"]
+    if hasattr(w, "project"):                # a decode step's FSDP block
+        logits = w.project(h)
+    elif cfg.tie_embeddings:
+        logits = h @ w.T
     else:
-        logits = h @ p["unembed"]
+        logits = h @ w
     if cfg.logit_softcap > 0:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
     return logits
+
+
+def gather_vocab(logits: torch.Tensor, vocab: int, info=None
+                 ) -> torch.Tensor:
+    """Vocab-sharded logits [..., V / model] -> [..., V] on every rank of
+    the model axis of ``info`` (None: the installed one); the identity
+    when they are whole."""
+    info = info or current_mesh_info()
+    if info is None or logits.shape[-1] == vocab:
+        return logits
+    return info.all_gather(logits, logits.dim() - 1, (info.tp_axis,))
 
 
 def _chunk_loss(embed_params: Dict, h_c: torch.Tensor, lab_c: torch.Tensor,

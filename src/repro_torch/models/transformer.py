@@ -17,6 +17,14 @@ Audio takes frame embeddings in place of tokens, attends to a
 conditioning context in every layer, and projects to its codebooks'
 logits through ``heads`` [d, K·V] (it has no embedding table).
 
+On a mesh (``sharding.context``: the launcher's ``use_rules`` installs
+the ``MeshInfo``, the activation rules and the parameters' specs) the
+params are this rank's blocks: each layer's are gathered into the form the
+layers compute with as the loop reaches it (``sharding.place.for_use``:
+FSDP / ZeRO-3 over the data axes, and the model axis wherever a layer
+does not split that dim itself), and ``shard`` checks the activations'
+local shapes where the JAX package constrains them.
+
 Serving caches are stacked ``[L, ...]`` too and are updated IN PLACE: a
 layer writes its keys and values into its slice of the stacked buffers and
 its new SSM state and conv tail are copied into theirs, so a decode step
@@ -39,6 +47,9 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, compute_logits, dense_init, embed_init,
     embed_tokens, init_embed, init_mlp, init_norm, rms_normalize,
+)
+from repro_torch.sharding.context import (
+    current_mesh_info, current_param_specs, shard,
 )
 
 
@@ -76,22 +87,35 @@ def _init_layer(gen: torch.Generator, cfg, dtype, *,
     return p
 
 
-def _init_stacked(n: int, draw: Callable[[], Dict]) -> Dict:
+def _init_stacked(n: int, draw: Callable[[], Dict], keep: Callable,
+                  prefix: str) -> Dict:
     """``n`` layers drawn one after another by ``draw``, stacked [n, ...]:
     each layer is copied into leaves allocated once (from layer 0's shapes)
     and then freed, so the peak is the stack plus one layer, not two
     stacks (the draws are those of stacking a list of n draws). ``n`` 0
-    draws nothing and gives an empty tree."""
+    draws nothing and gives an empty tree. ``keep(path, leaf)`` picks the
+    part of each drawn leaf that is stacked (a rank's slice:
+    ``sharding/place.py``); ``path`` is the stacked leaf's
+    (``prefix/...``)."""
     if n == 0:
         return {}
-    layer = draw()
+
+    def drawn():
+        return _keep_tree(keep, draw(), prefix)
+
+    layer = drawn()
     stacked = _map(lambda t: t.new_empty((n,) + t.shape), layer)
     for i in range(n):
         if i:
             del layer                  # freed before the next draw
-            layer = draw()
+            layer = drawn()
         _map(lambda dst, src: dst[i].copy_(src), stacked, layer)
     return stacked
+
+
+def _keep_tree(keep: Callable, tree: Dict, prefix: str) -> Dict:
+    return {k: (_keep_tree(keep, v, f"{prefix}/{k}") if isinstance(v, dict)
+                else keep(f"{prefix}/{k}", v)) for k, v in tree.items()}
 
 
 def _map(fn: Callable, tree: Dict, *rest: Dict) -> Dict:
@@ -104,32 +128,43 @@ def _index(tree: Dict, i: int) -> Dict:
     return _map(lambda t: t[i], tree)
 
 
-def init_params(gen: torch.Generator, cfg, dtype=torch.float32) -> Dict:
+def init_params(gen: torch.Generator, cfg, dtype=torch.float32,
+                keep: Optional[Callable] = None) -> Dict:
     """Seeded random weights, drawn from ``gen`` on its device. The same
     tree as the JAX package's ``init_params`` (layers stacked [L, ...],
     the leading dense layers in ``dense_layers``); the numbers differ (no
     threefry port). The draws run embed (audio: its codebook ``heads``
     [d, K·V] in its place), meta, the stacked layers, then the dense
-    layers."""
+    layers. ``keep(path, leaf)`` keeps a part of each leaf as it is drawn
+    (a rank's slice, ``sharding/place.py``): the draws are the same, so
+    the parts are slices of the whole init bit for bit, and no more than
+    one layer (or the embeddings) is ever whole."""
+    if keep is None:
+        def keep(path, t):
+            return t
     params: Dict = {}
     if cfg.family == "audio":
         kv = cfg.num_codebooks * cfg.vocab_size
-        params["heads"] = dense_init(gen, cfg.d_model, (cfg.d_model, kv),
-                                     dtype)
+        params["heads"] = keep("heads", dense_init(
+            gen, cfg.d_model, (cfg.d_model, kv), dtype))
     else:
-        params["embed"] = init_embed(gen, cfg, dtype)
+        params["embed"] = _keep_tree(keep, init_embed(gen, cfg, dtype),
+                                     "embed")
     if cfg.num_meta_tokens:
-        params["meta"] = embed_init(gen, (cfg.num_meta_tokens, cfg.d_model),
-                                    dtype)
+        params["meta"] = keep("meta", embed_init(
+            gen, (cfg.num_meta_tokens, cfg.d_model), dtype))
     fd = cfg.first_dense_layers
     moe_layer = cfg.family == "moe"
     params["layers"] = _init_stacked(
         cfg.num_layers - fd,
-        lambda: _init_layer(gen, cfg, dtype, moe_layer=moe_layer))
+        lambda: _init_layer(gen, cfg, dtype, moe_layer=moe_layer),
+        keep, "layers")
     if fd:
         params["dense_layers"] = _init_stacked(
-            fd, lambda: _init_layer(gen, cfg, dtype, moe_layer=False))
-    params["ln_f"] = init_norm(cfg, cfg.d_model, dtype, gen.device)
+            fd, lambda: _init_layer(gen, cfg, dtype, moe_layer=False),
+            keep, "dense_layers")
+    params["ln_f"] = _keep_tree(
+        keep, init_norm(cfg, cfg.d_model, dtype, gen.device), "ln_f")
     return params
 
 
@@ -214,7 +249,8 @@ def _layer_forward(lp: Dict, x, bufs: Dict, cfg, *, positions, window: int,
     values (training, prefill); without it the cached ones serve
     (decode)."""
     new_bufs: Dict = {}
-    h = apply_norm(lp["ln1"], x, cfg)
+    h = shard(apply_norm(lp["ln1"], x, cfg), "act_btd",
+              (None,) + tuple(x.shape[1:]))
     ssm_cache = ({"conv": bufs["conv"], "state": bufs["state"]}
                  if "conv" in bufs else None)
 
@@ -258,7 +294,8 @@ def _layer_forward(lp: Dict, x, bufs: Dict, cfg, *, positions, window: int,
         if "cross_k" in bufs:
             new_bufs["cross_k"], new_bufs["cross_v"] = ck, cv
 
-    h2 = apply_norm(lp["ln2"], x, cfg)
+    h2 = shard(apply_norm(lp["ln2"], x, cfg), "act_btd",
+               (None,) + tuple(x.shape[1:]))
     if moe_layer:
         y2, aux = moe_mod.moe_ffn(lp["moe"], h2, cfg)
         return x + y2, new_bufs, aux
@@ -290,17 +327,37 @@ def forward(params: Dict, cfg, *, tokens: Optional[torch.Tensor] = None,
     logits: [B,S,V] ([B,S,K,V] for audio); meta-token positions stripped.
     The cache is updated in place and returned.
     """
-    x = (embed_tokens(params["embed"], tokens, cfg) if embeds is None
+    info, specs = current_mesh_info(), current_param_specs()
+
+    def use(tree, tree_specs, prefix):
+        """Blocks at ``prefix`` (one layer's under a stacked key) in the
+        form the layers compute with (a decode step's weights stationary
+        where they can be)."""
+        if specs is None:
+            return tree
+        from repro_torch.sharding.place import for_use
+        return for_use(tree, tree_specs, info, prefix,
+                       stationary=decode)
+
+    s_in = (tokens if embeds is None else embeds).shape[1]
+    decode = cache is not None and s_in == 1   # one-token step with history
+    def top(key):
+        """``params[key]`` (a top-level subtree) as the layers use it,
+        gathered where it is used and dropped after."""
+        return use({key: params[key]}, specs and {key: specs[key]},
+                   "")[key]
+
+    x = (embed_tokens(top("embed"), tokens, cfg) if embeds is None
          else embeds)
-    b, s_in, _ = x.shape
+    b = x.shape[0]
     dev = x.device
     m = cfg.num_meta_tokens
-    decode = cache is not None and s_in == 1   # one-token step with history
 
     if m and not decode:
-        meta = params["meta"][None].expand(b, m, cfg.d_model).to(x.dtype)
+        meta = top("meta")[None].expand(b, m, cfg.d_model).to(x.dtype)
         x = torch.cat([meta, x], dim=1)
     s = x.shape[1]
+    x = shard(x, "act_btd", (None, s, x.shape[2]))
 
     write_slot = None
     kv_pos = None
@@ -341,7 +398,9 @@ def forward(params: Dict, cfg, *, tokens: Optional[torch.Tensor] = None,
         else:
             bufs = {k: v[i] for k, v in bufs_all.items()}
             x, new_bufs, aux = _layer_forward(
-                _index(params[key], i), x, bufs, cfg, positions=positions,
+                use(_index(params[key], i), specs and specs[key], key), x,
+                bufs, cfg,
+                positions=positions,
                 window=window, kv_pos=kv_pos, write_slot=write_slot,
                 cross_context=cross_context, moe_layer=moe_layer)
             for k, new in new_bufs.items():
@@ -358,12 +417,20 @@ def forward(params: Dict, cfg, *, tokens: Optional[torch.Tensor] = None,
         x = x[:, m:]
     if last_only and not return_hidden:
         x = x[:, -1:]
-    x = apply_norm(params["ln_f"], x, cfg)
+    x = apply_norm(top("ln_f"), x, cfg)
     if return_hidden:
         return x, cache, aux_total
     if cfg.family == "audio":
-        logits = (x @ params["heads"]).reshape(
-            b, x.shape[1], cfg.num_codebooks, cfg.vocab_size)
+        heads = top("heads")
+        logits = heads.project(x) if hasattr(heads, "project") else (
+            x @ heads)
+        kv = cfg.num_codebooks * cfg.vocab_size
+        if logits.shape[-1] < kv and cfg.num_codebooks % info.tp_size:
+            # the heads' columns split inside a codebook: whole logits
+            logits = info.all_gather(logits, 2, (info.tp_axis,))
+        logits = logits.reshape(b, x.shape[1], -1, cfg.vocab_size)
+        full = (None, x.shape[1], cfg.num_codebooks, cfg.vocab_size)
     else:
-        logits = compute_logits(params["embed"], x, cfg)
-    return logits, cache, aux_total
+        logits = compute_logits(top("embed"), x, cfg)
+        full = (None, x.shape[1], cfg.vocab_size)
+    return shard(logits, "act_btv", full), cache, aux_total

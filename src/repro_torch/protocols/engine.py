@@ -1088,6 +1088,12 @@ class MeshEngine:
                         else torch.as_tensor(counts, dtype=torch.float32)
                         .to(self.device))
         if mesh_info is not None:
+            if mesh_info.axis_sizes and mesh_info.tp_size > 1:
+                raise NotImplementedError(
+                    "MeshEngine: a client on a model axis of "
+                    f"{mesh_info.tp_size} ranks (and more than one client a "
+                    "rank) is ROADMAP item 13b.2; the federated mesh is "
+                    "(data=D, model=1)")
             if mesh_info.world_size != D:
                 raise ValueError(
                     f"MeshEngine: the mesh holds one client a rank; got "

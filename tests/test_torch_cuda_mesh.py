@@ -11,7 +11,14 @@ JAX). Run it on the card with
 * a ``MeshEngine`` round on 2 ranks spawned on the card (gloo with CUDA
   tensors), fedp2p with a straggler and gossip_async, against the
   one-card round on the same draws (rtol 1e-5, atol 1e-6). The int8 wire
-  on the mesh is held in ``chip_smoke.py``'s mesh phase.
+  on the mesh is held in ``chip_smoke.py``'s mesh phase;
+* serving on the model axis: 2 ranks on the card (gloo), a reduced-width
+  dense GQA config at head_dim 128 drawn by ``init_local_params``, its
+  prefill logits and greedy tokens (``generate_on_mesh``) against the
+  one-card run of the same seed (rtol 1e-4; tokens equal), each rank's
+  flash_attention launched once a layer; and ``moe_ffn_ep`` on 2 ranks on
+  the card against the one-card gather path where nothing drops, and
+  against the one-card routing of each slice where tokens drop.
 """
 import dataclasses
 
@@ -155,3 +162,68 @@ def test_two_rank_mesh_round_on_the_card(cuda, tmp_path):
             np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
         np.testing.assert_allclose(outs[0]["rounds"][i][1], float(loss),
                                    rtol=1e-6)
+
+
+def test_two_rank_model_axis_serving_on_the_card(cuda, tmp_path):
+    from repro_torch.launch.serve import _generate
+    from test_torch_model_axis_ranks import card_config, card_serving_worker
+    cfg = card_config()
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 127)).astype(np.int32)
+    outs = run_ranks(card_serving_worker, 2, ({"prompts": prompts,
+                                              "new": 5},), backend="gloo",
+                     init_method=f"file://{tmp_path}/rdzv", timeout=600)
+    model = build_model(cfg)
+    params = model.init(0, device="cuda")
+    cache = model.make_cache(2, 132, device="cuda")
+    from repro_torch.launch.steps import build_prefill_step
+    logits, _ = build_prefill_step(model)(
+        params, {"tokens": torch.from_numpy(prompts).long().cuda()}, cache)
+    want = _generate(cfg, prompts, max_new_tokens=5, temperature=0.0,
+                     window=0, seed=0, verbose=False, device="cuda",
+                     params=params, generator=None)
+    scale = float(logits.abs().max())
+    for out in outs:
+        np.testing.assert_allclose(
+            out["prefill_logits"],
+            logits[:, -1].float().cpu().numpy(), rtol=1e-4,
+            atol=1e-4 * scale)
+        assert np.array_equal(out["tokens"], want["tokens"])
+        assert out["flash_launches"] == cfg.num_layers
+
+
+def test_moe_ffn_ep_on_the_card(cuda, tmp_path):
+    """EP on 2 ranks of the card against the one-card gather path run on
+    each rank's slice of the tokens (the per-slice semantics: its own
+    routing and capacity), at capacity factor 0.5 (tokens drop) and 8."""
+    from repro_torch.convert import params_to_numpy
+    from repro_torch.models import moe
+    from test_torch_model_axis_ranks import card_moe_worker, moe_config
+    cfg = moe_config(0.5)
+    gen = torch.Generator().manual_seed(5)
+    p = params_to_numpy(moe.init_moe(gen, cfg))
+    x = np.random.default_rng(6).standard_normal(
+        (4, 64, cfg.d_model)).astype(np.float32)
+    outs = run_ranks(card_moe_worker, 2, ({"p": p, "x": x,
+                                          "cfs": (0.5, 8.0)},),
+                     backend="gloo", init_method=f"file://{tmp_path}/rdzv",
+                     timeout=600)
+    pc = {k: (torch.from_numpy(v).cuda() if not isinstance(v, dict) else
+              {a: torch.from_numpy(b).cuda() for a, b in v.items()})
+          for k, v in p.items()}
+    xs = torch.from_numpy(x).cuda().reshape(2, 128, cfg.d_model)
+    for cf in (0.5, 8.0):
+        c = moe_config(cf)
+        dropped = False
+        for rank, out in enumerate(outs):
+            y, kept, _ = out[cf]
+            want, _ = moe._moe_ffn_gather(pc, xs[rank][None], c)
+            _, idx, _ = moe.route(pc["router"], xs[rank], c)
+            keep = moe.dispatch_indices(idx, c.num_experts,
+                                        moe.moe_capacity(c, 128))[2]
+            assert np.array_equal(kept[0], keep.cpu().numpy())
+            dropped |= not kept[0].all()
+            np.testing.assert_allclose(
+                y.reshape(-1, c.d_model)[rank * 128:(rank + 1) * 128],
+                want[0].cpu().numpy(), rtol=3e-4, atol=3e-5)
+        assert dropped == (cf < 1.0)

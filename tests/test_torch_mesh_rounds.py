@@ -8,8 +8,9 @@ spawned ranks import no JAX):
 * a chunked ``run_rounds`` threads topk's residual: two threaded T/2
   chunks give the T-round run exactly, a dropped residual does not; a
   wrong T raises;
-* ``make_mesh`` / ``make_mesh_info`` on a gloo world of one rank: a model
-  axis raises, a wrong rank count raises; a ``MeshEngine`` round on that
+* ``make_mesh`` / ``make_mesh_info`` on a gloo world of one rank: a
+  mesh of more ranks than the world raises, and a ``MeshEngine`` on a
+  model axis raises (ROADMAP item 13b.2); a ``MeshEngine`` round on that
   world (``psum_mix`` over one rank) against the one-device round at D 1;
 * ``run_ranks``: a rank that raises fails the call with its traceback, a
   world that hangs fails at its timeout;
@@ -18,6 +19,7 @@ spawned ranks import no JAX):
 Each rendezvous is a ``file://`` store under the test's ``tmp_path``, so
 parallel test workers never share one.
 """
+import dataclasses
 import time
 
 import numpy as np
@@ -229,10 +231,14 @@ def world_of_one(tmp_path):
 def test_mesh_of_one_rank(world_of_one):
     with pytest.raises(ValueError, match="needs 2 ranks"):
         make_mesh(MeshConfig(data=2, model=1))
-    with pytest.raises(NotImplementedError, match="model=2"):
+    with pytest.raises(ValueError, match="holds 2 ranks"):
         make_mesh_info(None, Mesh(shape=(1, 2), axis_names=("data",
                                                              "model")))
     info = make_mesh_info(None, make_debug_mesh(data=1))
+    with pytest.raises(NotImplementedError, match="13b.2"):
+        MeshEngine(tiny_model(), FLConfig(num_clusters=1), 1, STEPS,
+                   mesh_info=dataclasses.replace(info, axis_sizes=(1, 2)),
+                   device="cpu")
     assert (info.rank, info.world_size, info.dp_axes, info.clients) == (
         0, 1, ("data",), (0,))
     model = tiny_model()
